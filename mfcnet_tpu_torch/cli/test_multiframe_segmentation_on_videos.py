@@ -6,8 +6,15 @@ scripts/test_multiframe_segmentation_on_videos_v3.py). Writes
 
 Same flags as the JAX CLI. ``--load_wts_model`` takes a reference
 ``.pth`` (a ``{model, optimizer, epoch}`` dict or a bare state_dict,
-DataParallel ``module.`` prefixes allowed). Flags of later slices are
-accepted and raise an error that names their ROADMAP item.
+DataParallel ``module.`` prefixes allowed). ``--add_optflow_inputs True``
+adds the frozen RAFT flow provider; ``--load_wts_flow_model`` takes a
+torchvision ``raft_large`` ``.pth`` (its key names load directly), and
+without it the provider keeps its seeded random weights.
+``--add_depth_inputs True`` reads one depth video per RGB video from
+``--depth_videos_dir``. The tracker runs on the card; ``--device cpu``
+asks for the CPU, and without a card the default is an error. Flags of
+later slices are accepted and raise an error that names their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -40,10 +47,6 @@ _MODELS = [
 
 #: flag -> (value that means "not used", ROADMAP item that ports it)
 _LATER_FLAGS = {
-    "add_optflow_inputs": (False, "Queue 1 item 5 (main-path flow and depth)"),
-    "add_depth_inputs": (False, "Queue 1 item 5 (main-path flow and depth)"),
-    "depth_videos_dir": (None, "Queue 1 item 5 (main-path flow and depth)"),
-    "load_wts_flow_model": (None, "Queue 1 item 5 (main-path flow and depth)"),
     "artifact": (None, "Queue 1 item 11 (serving and scale)"),
     "parallel_videos": (1, "Queue 1 item 11 (serving and scale)"),
     "spatial_shards": (1, "Queue 1 item 11 (serving and scale)"),
@@ -77,7 +80,8 @@ def build_parser():
     p.add_argument("--dist_threshold", type=int, default=40)
     p.add_argument("--add_optflow_inputs", type=_bool, default=False)
     p.add_argument("--add_depth_inputs", type=_bool, default=False)
-    p.add_argument("--load_wts_flow_model", type=str, default=None)
+    p.add_argument("--load_wts_flow_model", type=str, default=None,
+                   help="torchvision raft_large .pth (state_dict)")
     p.add_argument("--tracker_mode", type=str, default="incremental",
                    choices=["incremental", "full"])
     p.add_argument("--decode", type=str, default="host",
@@ -90,6 +94,8 @@ def build_parser():
     p.add_argument("--model_scale", type=float, default=1.0)
     p.add_argument("--spatial_shards", type=int, default=1)
     p.add_argument("--parallel_videos", type=int, default=1)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
     return p
 
 
@@ -123,6 +129,8 @@ def main(argv=None):
             raise SystemExit(f"--{flag} is not ported yet: ROADMAP.md {item}")
     if args.model_type is None or args.load_wts_model is None:
         raise SystemExit("--model_type and --load_wts_model are required")
+    if args.add_depth_inputs and args.depth_videos_dir is None:
+        raise SystemExit("--add_depth_inputs needs --depth_videos_dir")
     out_dir = Path(args.expt_savedir) / args.expt_name / (
         "video_tracking_results"
     )
@@ -138,7 +146,8 @@ def main(argv=None):
     try:
         model = get_multiframe_segmentation_model(
             args.model_type, num_classes=num_classes, num_input_frames=T,
-            scale=args.model_scale,
+            add_optflow_inputs=args.add_optflow_inputs,
+            add_depth_inputs=args.add_depth_inputs, scale=args.model_scale,
         )
     except NotImplementedError as e:
         raise SystemExit(str(e))
@@ -152,6 +161,8 @@ def main(argv=None):
         area_threshold=args.area_threshold,
         dist_threshold=args.dist_threshold, mode=args.tracker_mode,
         decode=args.decode, dtype=args.compute_dtype,
+        add_depth_inputs=args.add_depth_inputs,
+        add_optflow_inputs=args.add_optflow_inputs,
         fetch_batch=args.fetch_batch,
     )
     if args.decode == "device":
@@ -161,17 +172,43 @@ def main(argv=None):
             "the exact host decode for that side. Use --decode host for "
             "bit-exact reference parity."
         )
-    # the default device, as the JAX CLI runs on jax's default backend
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    engine = InferenceEngine(model, cfg, device=device)
+    if args.device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {args.device}: no CUDA device is available; pass "
+            "--device cpu to run on the CPU")
+    flow_model = None
+    if args.add_optflow_inputs:
+        # frozen RAFT provider (the reference loads torchvision raft_large);
+        # the engine runs a bfloat16 provider through the fused update step
+        from mfcnet_tpu_torch.models.raft import RAFT
+
+        torch.manual_seed(1)
+        flow_model = RAFT(iters=12, input_hw=(H // 2, W // 2))
+        if args.load_wts_flow_model:
+            flow_model.load_state_dict(
+                load_reference_state_dict(args.load_wts_flow_model))
+            logger.info(
+                f"Loaded flow model weights from {args.load_wts_flow_model}")
+    engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                             device=args.device)
     videos = list_video_files(args.videos_dir)
     if args.num_videos > 0:
         videos = videos[: args.num_videos]
     logger.info(f"Processing {len(videos)} video files from {args.videos_dir}")
+    if args.add_depth_inputs:
+        depth_videos = list_video_files(args.depth_videos_dir)
+        if args.num_videos > 0:
+            depth_videos = depth_videos[: args.num_videos]
+        if len(depth_videos) != len(videos):
+            raise SystemExit(
+                f"{len(videos)} videos but {len(depth_videos)} depth videos")
+    else:
+        depth_videos = [None] * len(videos)
     fps_all = []
-    for video in videos:
+    for video, depth_video in zip(videos, depth_videos):
         logger.info(f"Processing video: {video}")
-        _, fps = track_on_video(video, None, cfg, out_dir, logger=logger,
+        _, fps = track_on_video(video, None, cfg, out_dir,
+                                depth_video_path=depth_video, logger=logger,
                                 engine=engine)
         fps_all.append(fps)
     if fps_all:

@@ -16,6 +16,10 @@ exact layout change:
 A flax ``.msgpack`` checkpoint is read with the JAX package (flax's
 ``serialization``); convert its variables here and save the result with
 ``torch.save`` to get a ``.pth`` the port loads.
+
+:func:`raft_state_dict_from_jax` does the same for the flow provider: the
+inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
+key names.
 """
 
 from __future__ import annotations
@@ -43,11 +47,21 @@ def _deconv(sd, key, p):
         sd[f"{key}.bias"] = _t(p["bias"])
 
 
+def _bn(sd, key, p, st):
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+    sd[f"{key}.running_mean"] = _t(st["mean"])
+    sd[f"{key}.running_var"] = _t(st["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
 def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
     """JAX ``{'params', 'batch_stats'}`` of a TernausNetMulti-Basic
     MultiFrameSegmenter -> a complete ``state_dict`` for ``model`` (the
     port's module of the same widths; it fixes the encoder's layer
-    indices and the ``conv1``..``conv5`` aliases)."""
+    indices and the ``conv1``..``conv5`` aliases). The head's first conv
+    takes as many input channels as the JAX kernel has (T more with
+    depth inputs)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     base = params["base"]
@@ -77,12 +91,8 @@ def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
     for i, tidx in enumerate((0, 3, 6, 9)):
         _conv(sd, f"{pre}.{tidx}", head[f"Conv_{i}"])
     for i, tidx in enumerate((1, 4, 7)):
-        bn, st = head[f"BatchNorm_{i}"], head_stats[f"BatchNorm_{i}"]
-        sd[f"{pre}.{tidx}.weight"] = _t(bn["scale"])
-        sd[f"{pre}.{tidx}.bias"] = _t(bn["bias"])
-        sd[f"{pre}.{tidx}.running_mean"] = _t(st["mean"])
-        sd[f"{pre}.{tidx}.running_var"] = _t(st["var"])
-        sd[f"{pre}.{tidx}.num_batches_tracked"] = torch.tensor(0)
+        _bn(sd, f"{pre}.{tidx}", head[f"BatchNorm_{i}"],
+            head_stats[f"BatchNorm_{i}"])
 
     # the conv1..conv5 stage views share the encoder's modules: fill
     # their keys from the canonical ones
@@ -100,3 +110,51 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict):
     """Load JAX variables into ``model`` (strict); returns the model."""
     model.load_state_dict(state_dict_from_jax(variables, model), strict=True)
     return model
+
+
+def _raft_encoder(sd, prefix, params, stats):
+    """flax RAFTEncoder subtree -> torchvision FeatureEncoder keys (conv
+    at Sequential index 0, batch norm at index 1)."""
+    _conv(sd, f"{prefix}.convnormrelu.0", params["Conv_0"])
+    if "BatchNorm_0" in params:
+        _bn(sd, f"{prefix}.convnormrelu.1", params["BatchNorm_0"],
+            stats["BatchNorm_0"])
+    for rb in range(6):
+        tp = f"{prefix}.layer{rb // 2 + 1}.{rb % 2}"
+        bp = params[f"ResidualBlock_{rb}"]
+        bs = stats.get(f"ResidualBlock_{rb}", {})
+        for j, name in enumerate(("convnormrelu1", "convnormrelu2",
+                                  "downsample")):
+            if f"Conv_{j}" not in bp:
+                continue
+            _conv(sd, f"{tp}.{name}.0", bp[f"Conv_{j}"])
+            if f"BatchNorm_{j}" in bp:
+                _bn(sd, f"{tp}.{name}.1", bp[f"BatchNorm_{j}"],
+                    bs[f"BatchNorm_{j}"])
+    _conv(sd, f"{prefix}.conv", params["Conv_1"])
+
+
+def raft_state_dict_from_jax(variables: Dict):
+    """JAX ``{'params', 'batch_stats'}`` of ``mfcnet_tpu.models.raft.RAFT``
+    -> a ``state_dict`` for :class:`mfcnet_tpu_torch.models.raft.RAFT`
+    (torchvision ``raft_large`` key names), the context encoder's
+    batch-norm statistics included."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {}
+    _raft_encoder(sd, "feature_encoder", params["fnet"], {})
+    _raft_encoder(sd, "context_encoder", params["cnet"], stats["cnet"])
+    ub = params["update_block"]
+    me, rb = "update_block.motion_encoder", "update_block.recurrent_block"
+    for jname, tname in (("convc1", "convcorr1"), ("convc2", "convcorr2"),
+                         ("convf1", "convflow1"), ("convf2", "convflow2"),
+                         ("conv", "conv")):
+        _conv(sd, f"{me}.{tname}.0", ub["encoder"][jname])
+    for d, gru in (("h", "convgru1"), ("v", "convgru2")):
+        for g in "zrq":
+            _conv(sd, f"{rb}.{gru}.conv{g}", ub["gru"][f"conv{g}_{d}"])
+    _conv(sd, "update_block.flow_head.conv1", ub["flow1"])
+    _conv(sd, "update_block.flow_head.conv2", ub["flow2"])
+    _conv(sd, "mask_predictor.convrelu.0", ub["mask1"])
+    _conv(sd, "mask_predictor.conv", ub["mask2"])
+    return sd

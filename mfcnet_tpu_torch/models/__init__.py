@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``mfcnet_tpu/models/__init__.py``).
 
-This slice builds ``TernausNetMulti-Basic``; every other model type the
-JAX package knows raises an error that names its ROADMAP item.
+Builds ``TernausNetMulti-Basic`` (with or without flow and depth inputs);
+every other model type the JAX package knows raises an error that names
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,14 +43,11 @@ def get_multiframe_segmentation_model(
 ) -> MultiFrameSegmenter:
     """Build a multi-frame model by the reference's model-type string.
 
-    ``scale`` < 1 shrinks the channel widths as in the JAX registry;
+    ``add_optflow_inputs`` changes no parameter of the Basic variant
+    (the flow only warps); ``add_depth_inputs`` widens the head's first
+    conv by T channels. ``scale`` < 1 shrinks the channel widths as in the JAX registry;
     ``generator`` seeds the random initialization (PyTorch's default
     init schemes, drawn from this generator)."""
-    if add_optflow_inputs or add_depth_inputs:
-        raise NotImplementedError(
-            "flow/depth inputs: ROADMAP.md Queue 1 item 5 (main-path flow "
-            "and depth)"
-        )
     if model_type != "TernausNetMulti-Basic":
         family = model_type.rsplit("-", 1)[0]
         if model_type in _LATER:
@@ -62,7 +60,8 @@ def get_multiframe_segmentation_model(
         num_filters=max(4, int(64 * scale)),
         stage_convs=_scaled_vgg(VGG16_STAGES, scale),
     )
-    model = MultiFrameSegmenter(base, num_classes, num_input_frames)
+    model = MultiFrameSegmenter(base, num_classes, num_input_frames,
+                                add_depth_inputs=add_depth_inputs)
     if generator is not None:
         init_weights(model, generator)
     return model.eval()

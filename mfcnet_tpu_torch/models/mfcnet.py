@@ -1,14 +1,17 @@
 """MFCNet — the multi-frame fusion head and its wrappers (counterpart of
 ``mfcnet_tpu/models/mfcnet.py``; reference models/multiframe_model.py).
 
-This slice ports the Basic variant without flow or depth inputs: the
-per-frame class maps of T frames (newest first) are stacked on the channel
-axis and fused by a 4-conv head. Module names follow the reference
-(``base_model``, ``multiframe_net.multiframe_net.{0..9}``).
+The Basic variant: the per-frame class maps of T frames (newest first)
+are stacked on the channel axis and fused by a 4-conv head. With optical
+flow the earlier frames' maps (and depth maps) are first warped into the
+newest frame (``ops/warp.py::flow_warp``, on the reference's cropped
+576x720 grid); the flow channels themselves do not reach the head. With
+depth inputs the T depth maps follow the class maps. Module names follow
+the reference (``base_model``, ``multiframe_net.multiframe_net.{0..9}``).
 
 Public methods take and return the JAX package's NHWC layout;
 ``base_nchw``/``fuse_nchw`` are the NCHW forms the tracker's engine
-keeps its ring buffer in.
+keeps its ring buffers in.
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import torch
 from torch import nn
 
 from mfcnet_tpu_torch.models.common import nchw_to_nhwc, nhwc_to_nchw
+from mfcnet_tpu_torch.ops.warp import flow_warp
 
-_LATER = "ROADMAP.md Queue 1 item 5 (main-path flow and depth)"
+# The reference builds its warp mesh grid at a fixed 576x720 and crops it
+# (models/multiframe_model.py:172-185); kept for checkpoint parity.
+REFERENCE_GRID_HW = (576, 720)
 
 
 class MultiFrameHead(nn.Sequential):
@@ -43,11 +49,13 @@ class MultiFrameHead(nn.Sequential):
 
 
 class MultiFrameNet(nn.Module):
-    """Fusion module, variant 'basic' without flow or depth: the T
-    frames' maps concatenated (channel order (t, c)) into the head."""
+    """Fusion module, variant 'basic': optional flow-warp alignment of the
+    earlier frames' maps, then the head over class (and depth) channels.
+    ``parity_grid`` reproduces the reference's 576x720 crop grid."""
 
     def __init__(self, num_classes: int, num_frames: int,
-                 variant: str = "basic"):
+                 variant: str = "basic", add_depth_inputs: bool = False,
+                 parity_grid: bool = True):
         super().__init__()
         if variant != "basic":
             raise NotImplementedError(
@@ -56,13 +64,36 @@ class MultiFrameNet(nn.Module):
             )
         self.num_classes = num_classes
         self.num_frames = num_frames
-        self.multiframe_net = MultiFrameHead(
-            num_frames * num_classes, num_classes, num_frames
-        )
+        self.parity_grid = parity_grid
+        in_ch = num_frames * (num_classes + int(add_depth_inputs))
+        self.multiframe_net = MultiFrameHead(in_ch, num_classes, num_frames)
 
-    def forward(self, x):
-        """x: (B, T*C, H, W) stacked maps, newest frame first ->
-        (B, C, H, W) fused logits."""
+    def forward(self, seg, optflow=None, depth=None):
+        """seg: (B, T*C, H, W) stacked maps, newest frame first; optflow:
+        optional (B, T-1, 2, H, W) flow of frames 1..T-1 in pixels (x, y);
+        depth: optional (B, T, H, W) -> (B, C, H, W) fused logits."""
+        B, _, H, W = seg.shape
+        T, C = self.num_frames, self.num_classes
+        parts = [seg]
+        if depth is not None:
+            parts.append(depth.to(seg.dtype))
+        if optflow is not None:
+            # all T-1 warps in one call over B*(T-1) maps of C (+1) channels
+            maps = seg[:, C:].reshape(B, T - 1, C, H, W)
+            if depth is not None:
+                maps = torch.cat([maps, depth[:, 1:, None].to(seg.dtype)],
+                                 dim=2)
+            Cw = maps.shape[2]
+            warped = flow_warp(
+                maps.reshape(B * (T - 1), Cw, H, W),
+                optflow.reshape(B * (T - 1), 2, H, W),
+                grid_hw=REFERENCE_GRID_HW if self.parity_grid else None,
+            ).reshape(B, T - 1, Cw, H, W)
+            parts = [seg[:, :C],
+                     warped[:, :, :C].reshape(B, (T - 1) * C, H, W)]
+            if depth is not None:
+                parts += [depth[:, :1].to(seg.dtype), warped[:, :, C]]
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         return self.multiframe_net(x)
 
 
@@ -72,7 +103,8 @@ class MultiFrameSegmenter(nn.Module):
     base's log-probabilities into probabilities (TernausNet)."""
 
     def __init__(self, base: nn.Module, num_classes: int, num_frames: int,
-                 variant: str = "basic", base_output: str = "exp"):
+                 variant: str = "basic", base_output: str = "exp",
+                 add_depth_inputs: bool = False, parity_grid: bool = True):
         super().__init__()
         if base_output != "exp":
             raise NotImplementedError(
@@ -80,7 +112,9 @@ class MultiFrameSegmenter(nn.Module):
                 "ported (ROADMAP.md Queue 1 item 10)"
             )
         self.base_model = base
-        self.multiframe_net = MultiFrameNet(num_classes, num_frames, variant)
+        self.multiframe_net = MultiFrameNet(
+            num_classes, num_frames, variant,
+            add_depth_inputs=add_depth_inputs, parity_grid=parity_grid)
         self.num_classes = num_classes
         self.num_frames = num_frames
 
@@ -88,18 +122,28 @@ class MultiFrameSegmenter(nn.Module):
         """(N, 3, H, W) normalized frames -> (N, C, H, W) probabilities."""
         return torch.exp(self.base_model(x))
 
-    def fuse_nchw(self, seg):
-        """(B, T*C, H, W) per-frame maps, newest first -> (B, C, H, W)."""
-        return self.multiframe_net(seg)
+    def fuse_nchw(self, seg, optflow=None, depth=None):
+        """(B, T*C, H, W) per-frame maps, newest first (and optional
+        (B, T-1, 2, H, W) flow, (B, T, H, W) depth) -> (B, C, H, W)."""
+        return self.multiframe_net(seg, optflow=optflow, depth=depth)
+
+    @staticmethod
+    def _flow_depth_nchw(optflow, depth):
+        if optflow is not None:
+            optflow = optflow.permute(0, 1, 4, 2, 3)
+        if depth is not None:
+            depth = depth[..., 0]
+        return optflow, depth
 
     def forward(self, frames, optflow=None, depth=None):
-        """frames: (B, T, H, W, 3) normalized RGB, newest first ->
+        """frames: (B, T, H, W, 3) normalized RGB, newest first; optflow:
+        optional (B, T-1, H, W, 2); depth: optional (B, T, H, W, 1) ->
         (B, H, W, C) fused logits."""
-        if optflow is not None or depth is not None:
-            raise NotImplementedError(f"flow and depth inputs: {_LATER}")
         B, T, H, W, _ = frames.shape
         y = self.base_nchw(nhwc_to_nchw(frames.reshape(B * T, H, W, 3)))
-        return nchw_to_nhwc(self.fuse_nchw(y.reshape(B, T * y.shape[1], H, W)))
+        optflow, depth = self._flow_depth_nchw(optflow, depth)
+        return nchw_to_nhwc(self.fuse_nchw(
+            y.reshape(B, T * y.shape[1], H, W), optflow, depth))
 
     def base_forward(self, frames):
         """(B, H, W, 3) -> (B, H, W, C) per-frame probabilities."""
@@ -109,8 +153,7 @@ class MultiFrameSegmenter(nn.Module):
         """Fusion head only, on precomputed per-frame maps
         (B, T, H, W, C) -> (B, H, W, C) logits (the incremental
         tracker's path: one base forward per new frame)."""
-        if optflow is not None or depth is not None:
-            raise NotImplementedError(f"flow and depth inputs: {_LATER}")
         B, T, H, W, C = seg.shape
         x = seg.permute(0, 1, 4, 2, 3).reshape(B, T * C, H, W)
-        return nchw_to_nhwc(self.fuse_nchw(x))
+        optflow, depth = self._flow_depth_nchw(optflow, depth)
+        return nchw_to_nhwc(self.fuse_nchw(x, optflow, depth))

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a
-plain C interface and bound with :mod:`ctypes` — no PyTorch headers, so a
-build takes seconds. The library goes to ``build/`` at the repository
-root, keyed by a hash of the sources, and is built at first use: nothing
-is compiled or loaded when a module is imported, so the CPU-only test
-runs never touch ``nvcc``.
+Each source is compiled with ``nvcc`` into a shared library of its own
+with a plain C interface and bound with :mod:`ctypes` -- no PyTorch
+headers, so a build takes seconds, and the sources compile in parallel
+(one ``nvcc`` process each, all started together). The libraries go to
+``build/`` at the repository root, keyed by a hash of the sources, and are
+built at first use: nothing is compiled or loaded when a module is
+imported, so the CPU-only test runs never touch ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -29,24 +31,44 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of csrc/cc.cu: (argtypes, restype)
+# C entry points by source file: (argtypes, restype)
 _SIGNATURES = {
-    "mfc_work_ints": ((_I, _I), _I),
-    "mfc_cc_labels": ((_P, _P, _I, _I, _I, _I, _P), _I),
-    "mfc_flood_cc_cid": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
-    "mfc_union_flood_cc_cid": (
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
-    ),
-    "mfc_onehot_stats": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "cc.cu": {
+        "mfc_work_ints": ((_I, _I), _I),
+        "mfc_cc_labels": ((_P, _P, _I, _I, _I, _I, _P), _I),
+        "mfc_flood_cc_cid": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+        "mfc_union_flood_cc_cid": (
+            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+        ),
+        "mfc_onehot_stats": (
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+        ),
+    },
+    "warp.cu": {
+        "mfc_flow_warp": (
+            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+        "mfc_warp_abs": (
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+    },
+    "raft_update.cu": {
+        # inputs[5], weights[18], scratch[6], net_out, delta, B, H8, W8,
+        # dtype, stream
+        "mfc_raft_update": (
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+        ),
+    },
 }
 
 
 class KernelLibrary:
-    """The compiled library plus what its build reported."""
+    """The compiled libraries plus what their build reported. ``lib``
+    holds every C entry point as an attribute."""
 
-    def __init__(self, lib, path: Path, seconds: float, log: str):
+    def __init__(self, lib, paths, seconds: float, log: str):
         self.lib = lib
-        self.path = path
+        self.paths = paths
         self.build_seconds = seconds
         self.build_log = log
 
@@ -71,36 +93,70 @@ def _nvcc() -> str:
 
 
 def load() -> KernelLibrary:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel libraries; cached per
+    process."""
     global _loaded
     with _lock:
         if _loaded is not None:
             return _loaded
-        sources = sorted(CSRC.glob("*.cu"))
-        digest = hashlib.sha256()
-        for src in sources + sorted(CSRC.glob("*.cuh")):
-            digest.update(src.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"libmfc_kernels_{digest.hexdigest()[:16]}.so"
-        seconds, log = 0.0, "(cached build)"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sources)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        jobs, paths = [], {}
+        t0 = time.perf_counter()
+        for src in sorted(CSRC.glob("*.cu")):
+            digest = hashlib.sha256(src.read_bytes() + headers
+                                    + " ".join(NVCC_FLAGS).encode())
+            out = BUILD_DIR / f"libmfc_{src.stem}_{digest.hexdigest()[:16]}.so"
+            paths[src.name] = out
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                jobs.append((cmd, tmp, out, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        logs = []
+        for cmd, tmp, out, proc in jobs:  # all started; now wait for each
+            log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode != 0:
+                for other in jobs:
+                    other[3].kill()
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
                 )
             os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _loaded = KernelLibrary(lib, out, seconds, log)
+        seconds = time.perf_counter() - t0 if jobs else 0.0
+        lib = types.SimpleNamespace()
+        for name, path in paths.items():
+            dll = ctypes.CDLL(str(path))
+            for fname, (argtypes, restype) in _SIGNATURES[name].items():
+                fn = getattr(dll, fname)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                setattr(lib, fname, fn)
+        _loaded = KernelLibrary(lib, paths, seconds,
+                                "".join(logs) or "(cached build)")
         return _loaded
+
+
+def kernel_lib():
+    """The C entry points (builds at first use)."""
+    return load().lib
+
+
+def route(*tensors) -> str:
+    """'cpu' or 'cuda' for a wrapper's inputs; raises on anything else."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type
+
+
+def stream_of(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as the C side takes it."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

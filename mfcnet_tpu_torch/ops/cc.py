@@ -33,6 +33,12 @@ from __future__ import annotations
 
 import torch
 
+from mfcnet_tpu_torch.ops._build import (
+    kernel_lib as _lib,
+    route as _route,
+    stream_of as _stream,
+)
+
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES = {
     "connected_components": 0,
@@ -326,17 +332,6 @@ def onehot_stats_plain(cid, he, cide=None, K: int = 256):
 # ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
-def _route(*tensors):
-    """'cpu' or 'cuda' for the inputs; raises on anything else."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type
-
-
 def _check(t, name, dtype, ndim=3):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -346,20 +341,10 @@ def _check(t, name, dtype, ndim=3):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _lib():
-    from mfcnet_tpu_torch.ops._build import load
-
-    return load().lib
-
-
 def _launch(name, rc):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
     LAUNCHES[name] += 1
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def connected_components(mask, connectivity: int = 8):

@@ -1,0 +1,297 @@
+"""Fused RAFT update iteration (counterpart of
+``mfcnet_tpu/ops/raft_update_pallas.py``).
+
+:func:`raft_update` is one RAFT update iteration after convc1/convf1 and
+without the mask head: convc2, convf2, the 3x3 over their concatenation,
+the SepConvGRU (1x5 then 5x1, gates z/r/q) and the flow head, over
+token-major (B, N = H8*W8, C) tensors. On CUDA tensors it launches the
+hand-written kernel of ``csrc/raft_update.cu``; on CPU tensors it runs
+:func:`raft_update_plain`, the same function with the same rounding
+points in plain PyTorch. There is no fallback between the two. Each
+launch adds one to :data:`LAUNCHES`.
+
+Every convolution is a sum over its taps of ``shifted(x, dy, dx) @
+w[tap]`` with a 2-D bounds mask and float32 accumulation; the operands
+(weights, ``c1``, ``f1``, ``inp``, and the intermediates ``c2``, ``f2``,
+``y``, the cast of ``net``, ``r*net``, the flow head's hidden layer and
+the flow) are rounded to the compute dtype, and the GRU state math is
+float32 throughout. The compute dtype is float32 or bfloat16.
+
+The GRU weights' 384 input rows keep torchvision's order:
+``[net 0:128 | inp 128:256 | y 256:382 | flow 382:384]``. Channels are
+padded only where the kernel's 16-wide fragments need it (y 126 -> 128
+output columns, the flow head's 2 -> 16); the TPU kernel's 128-lane
+padding and its VMEM-driven batch chunking are not carried over.
+Forward only: the provider is frozen.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+
+#: kernel launches since the last :func:`reset_launches` (one per call of
+#: :func:`raft_update` on CUDA tensors)
+LAUNCHES = {"raft_update": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_T3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+_T1x5 = tuple((0, dx) for dx in range(-2, 3))
+_T5x1 = tuple((dy, 0) for dy in range(-2, 3))
+#: order of the packed tensors handed to the kernel
+_WEIGHT_NAMES = (
+    "w_c2", "b_c2", "w_f2", "b_f2", "w_cv", "b_cv",
+    "w_zr_h", "b_zr_h", "w_q_h", "b_q_h",
+    "w_zr_v", "b_zr_v", "w_q_v", "b_q_v",
+    "w_fl1", "b_fl1", "w_fl2", "b_fl2",
+)
+#: the kernel indexes its widest buffer (384 columns) with 32 bits
+MAX_TOKENS = (2 ** 31 - 1) // 384
+_TRAINING = ("the update step has no backward kernel (the flow provider is "
+             "frozen); training-scale work: ROADMAP.md Queue 1 item 8 "
+             "(training)")
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _taps(conv):
+    """Conv2d weight (O, I, kh, kw) -> (kh*kw, I, O) per-tap matrices."""
+    w = conv.weight.detach()
+    o, i, kh, kw = w.shape
+    return w.permute(2, 3, 1, 0).reshape(kh * kw, i, o)
+
+
+def _pad_cols(w, n):
+    return F.pad(w, (0, n - w.shape[-1])) if w.shape[-1] < n else w
+
+
+def pack_update_weights(update_block, compute_dtype=torch.bfloat16):
+    """``models.raft.UpdateBlock`` -> dict of product-ready tensors:
+    weights (taps, rows, columns) in ``compute_dtype``, biases float32.
+    convcorr1/convflow1 run outside the kernel (:func:`fused_update_step`)
+    and are not packed. z and r of each GRU direction share one weight
+    (columns ``[z | r]``) because they share every shifted input tap."""
+    if compute_dtype not in _DTYPES:
+        raise TypeError(f"compute dtype must be float32 or bfloat16, "
+                        f"got {compute_dtype}")
+    enc, gru = update_block.motion_encoder, update_block.recurrent_block
+    head = update_block.flow_head
+
+    def w(t, n=None):
+        t = _pad_cols(t, n) if n else t
+        return t.to(compute_dtype).contiguous()
+
+    def b(conv, n=None):
+        t = conv.bias.detach().float()
+        return (_pad_cols(t, n) if n else t).contiguous()
+
+    out = {
+        "w_c2": w(_taps(enc.convcorr2[0])), "b_c2": b(enc.convcorr2[0]),
+        "w_f2": w(_taps(enc.convflow2[0])), "b_f2": b(enc.convflow2[0]),
+        # rows 0:192 act on c2, 192:256 on f2; 126 real columns
+        "w_cv": w(_taps(enc.conv[0]), 128), "b_cv": b(enc.conv[0], 128),
+        "w_fl1": w(_taps(head.conv1)), "b_fl1": b(head.conv1),
+        "w_fl2": w(_taps(head.conv2), 16), "b_fl2": b(head.conv2, 16),
+    }
+    for d, g in (("h", gru.convgru1), ("v", gru.convgru2)):
+        out[f"w_zr_{d}"] = w(torch.cat([_taps(g.convz), _taps(g.convr)], -1))
+        out[f"b_zr_{d}"] = torch.cat([b(g.convz), b(g.convr)]).contiguous()
+        out[f"w_q_{d}"] = w(_taps(g.convq))
+        out[f"b_q_{d}"] = b(g.convq)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+def _tap_conv(x, w, bias, taps, H8, W8):
+    """Sum over taps of shifted(x) @ w[tap] + bias, float32. x: (B, N, K)
+    already rounded to the compute dtype; w: (taps, K, O)."""
+    B, N, K = x.shape
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in taps)
+    img = F.pad(x.float().view(B, H8, W8, K), (0, 0, pad, pad, pad, pad))
+    acc = bias.view(1, 1, -1).expand(B, N, -1)
+    for t, (dy, dx) in enumerate(taps):
+        xt = img[:, pad + dy:pad + dy + H8, pad + dx:pad + dx + W8]
+        acc = acc + xt.reshape(B, N, K) @ w[t].float()
+    return acc
+
+
+def raft_update_plain(c1, f1, inp, net, flow, packed, H8: int, W8: int):
+    """Plain version of :func:`raft_update` (same contract, any device)."""
+    cdt = packed["w_c2"].dtype
+    c1, f1, inp = c1.to(cdt), f1.to(cdt), inp.to(cdt)
+    net = net.float()
+    fl = flow.to(cdt)
+
+    def conv(x, name, taps):
+        return _tap_conv(x, packed[f"w_{name}"], packed[f"b_{name}"], taps,
+                         H8, W8)
+
+    c2 = torch.relu(conv(c1, "c2", _T3)).to(cdt)
+    f2 = torch.relu(conv(f1, "f2", _T3)).to(cdt)
+    y = torch.relu(conv(torch.cat([c2, f2], -1), "cv", _T3))[..., :126]
+    y = y.to(cdt)
+    for d, taps in (("h", _T1x5), ("v", _T5x1)):
+        hx = torch.cat([net.to(cdt), inp, y, fl], -1)      # (B, N, 384)
+        zr = conv(hx, f"zr_{d}", taps)
+        z = torch.sigmoid(zr[..., :128])
+        r = torch.sigmoid(zr[..., 128:])
+        rhx = torch.cat([(r * net).to(cdt), inp, y, fl], -1)
+        q = torch.tanh(conv(rhx, f"q_{d}", taps))
+        net = (1.0 - z) * net + z * q
+    fh = torch.relu(conv(net.to(cdt), "fl1", _T3)).to(cdt)
+    delta = conv(fh, "fl2", _T3)[..., :2]
+    return net, delta
+
+
+# ---------------------------------------------------------------------------
+# wrapper
+# ---------------------------------------------------------------------------
+def _check(t, name, shape, dtype):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int):
+    """One fused RAFT update iteration.
+
+    c1 (B, N, 256) = relu(convcorr1(correlation lookup)), f1 (B, N, 128) =
+    relu(convflow1(flow)) and inp (B, N, 128) in the compute dtype of
+    ``packed`` (:func:`pack_update_weights`); net (B, N, 128) and flow
+    (B, N, 2) float32; N = H8*W8 tokens in raster order. Returns
+    (net', delta flow), float32, shaped like (net, flow)."""
+    cdt = packed["w_c2"].dtype
+    B, N = c1.shape[:2]
+    if N != H8 * W8:
+        raise ValueError(f"{N} tokens for an {H8}x{W8} grid")
+    _check(c1, "c1", (B, N, 256), cdt)
+    _check(f1, "f1", (B, N, 128), cdt)
+    _check(inp, "inp", (B, N, 128), cdt)
+    _check(net, "net", (B, N, 128), torch.float32)
+    _check(flow, "flow", (B, N, 2), torch.float32)
+    tensors = (c1, f1, inp, net, flow)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"an input requires a gradient, but {_TRAINING}")
+    weights = [packed[k] for k in _WEIGHT_NAMES]
+    if route(*tensors, *weights) == "cpu":
+        return raft_update_plain(c1, f1, inp, net, flow, packed, H8, W8)
+    M = B * N
+    if M > MAX_TOKENS:
+        raise ValueError(
+            f"raft_update: {M} tokens exceed the kernel's 32-bit index "
+            f"limit of {MAX_TOKENS} tokens per call; split the batch")
+    dev = c1.device
+
+    def buf(cols, dtype=cdt):
+        return torch.empty(M, cols, dtype=dtype, device=dev)
+
+    # c2, f2, hx = [net | inp | y | flow], r*net, flow-head hidden, z
+    scratch = [buf(192), buf(64), buf(384), buf(128), buf(256),
+               buf(128, torch.float32)]
+    net_out = torch.empty_like(net)
+    delta = torch.empty_like(flow)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    rc = kernel_lib().mfc_raft_update(
+        ptrs(tensors), ptrs(weights), ptrs(scratch), net_out.data_ptr(),
+        delta.data_ptr(), B, H8, W8, _DTYPES[cdt], stream_of(c1))
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel raft_update failed: cudaError {rc}")
+    LAUNCHES["raft_update"] += 1
+    return net_out, delta
+
+
+# ---------------------------------------------------------------------------
+# the update step and the recurrent solve around the kernel
+# ---------------------------------------------------------------------------
+def fused_update_step(update_block, packed, corr, inp, net, flow, H8: int,
+                      W8: int):
+    """One full update step == ``UpdateBlock`` without the mask head, on
+    token-major tensors: convcorr1 (a 1x1 product on the lookup) and
+    convflow1 (a 7x7 conv on the 2-channel flow) in PyTorch, then
+    :func:`raft_update` for everything else.
+
+    corr (B, N, L*81) float32, inp (B, N, 128) in the compute dtype, net
+    (B, N, 128) and flow (B, N, 2) float32 -> (net', delta flow)."""
+    cdt = packed["w_c2"].dtype
+    enc = update_block.motion_encoder
+    B, N, _ = corr.shape
+    wc1 = enc.convcorr1[0]
+    c1 = torch.relu(F.linear(corr.to(cdt), wc1.weight.flatten(1).to(cdt),
+                             wc1.bias.to(cdt)))
+    wf1 = enc.convflow1[0]
+    fl_img = flow.to(cdt).view(B, H8, W8, 2).permute(0, 3, 1, 2)
+    f1 = torch.relu(F.conv2d(fl_img, wf1.weight.to(cdt), wf1.bias.to(cdt),
+                             padding=3))
+    f1 = f1.permute(0, 2, 3, 1).reshape(B, N, 128)
+    return raft_update(c1.contiguous(), f1.contiguous(), inp, net, flow,
+                       packed, H8, W8)
+
+
+def _packed_for(model, compute_dtype):
+    """Packed weights of ``model.update_block``, kept on the model until
+    its parameters move or change."""
+    params = list(model.update_block.parameters())
+    key = (compute_dtype, params[0].device, params[0].dtype,
+           tuple((p.data_ptr(), p._version) for p in params))
+    cached = getattr(model, "_packed_update", None)
+    if cached is None or cached[0] != key:
+        cached = (key, pack_update_weights(model.update_block, compute_dtype))
+        model._packed_update = cached
+    return cached[1]
+
+
+def fused_flow_from_features(model, f1, f2, net, inp, iters: int = 12,
+                             corr_levels: int = 4, corr_radius: int = 4,
+                             compute_dtype=torch.bfloat16):
+    """``RAFT.flow_from_features`` with the fused update step: the same
+    pyramid and lookup, ``iters`` x (lookup, :func:`fused_update_step`),
+    then the mask head and the convex upsampling once.
+
+    f1, f2 (B, H8, W8, 256), net, inp (B, H8, W8, 128), NHWC, from
+    ``model``'s encoders -> (B, 8*H8, 8*W8, 2) float32 flow in pixels."""
+    from mfcnet_tpu_torch.models.raft import (
+        PackedPyramid,
+        build_corr_pyramid,
+        convex_upsample,
+        coords_grid,
+    )
+
+    pyramid = PackedPyramid(build_corr_pyramid(f1, f2, corr_levels),
+                            corr_radius)
+    B, H8, W8, _ = f1.shape
+    N = H8 * W8
+    coords0 = coords_grid(B, H8, W8, f1.device)
+    packed = _packed_for(model, compute_dtype)
+    net = net.float().reshape(B, N, 128).contiguous()
+    inp = inp.to(compute_dtype).reshape(B, N, 128).contiguous()
+    flow = torch.zeros(B, N, 2, dtype=torch.float32, device=f1.device)
+    for _ in range(iters):
+        corr = pyramid.lookup(coords0 + flow.view(B, H8, W8, 2))
+        net, delta = fused_update_step(
+            model.update_block, packed, corr.view(B, N, -1), inp, net, flow,
+            H8, W8)
+        flow = flow + delta
+    # the mask head runs once, in float32 on the float32 state
+    mp = model.mask_predictor
+    x = net.view(B, H8, W8, 128).permute(0, 3, 1, 2)
+    m = torch.relu(F.conv2d(x, mp.convrelu[0].weight.float(),
+                            mp.convrelu[0].bias.float(), padding=1))
+    mask = 0.25 * F.conv2d(m, mp.conv.weight.float(), mp.conv.bias.float())
+    return convex_upsample(flow.view(B, H8, W8, 2),
+                           mask.permute(0, 2, 3, 1))

@@ -1,0 +1,44 @@
+"""Image resize (counterpart of ``mfcnet_tpu/ops/resize.py``), with
+``torch.nn.functional.interpolate`` semantics.
+
+The spatial axes are the last two (PyTorch's layout, which the tracker's
+engine keeps); the JAX functions resize axes (-3, -2) of NHWC arrays.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Source index per output position: src = floor(dst * in/out), in
+    float64 as the JAX package computes it."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.floor(dst * (in_size / out_size)).astype(np.int64)
+    return np.clip(src, 0, in_size - 1)
+
+
+def resize_nearest(img, out_h: int, out_w: int):
+    """Nearest-neighbour resize of (..., H, W)."""
+    in_h, in_w = img.shape[-2:]
+    if (in_h, in_w) == (out_h, out_w):
+        return img
+    rows = torch.from_numpy(_nearest_index(in_h, out_h)).to(img.device)
+    cols = torch.from_numpy(_nearest_index(in_w, out_w)).to(img.device)
+    return img.index_select(-2, rows).index_select(-1, cols)
+
+
+def resize_bilinear(img, out_h: int, out_w: int, align_corners: bool = False):
+    """Bilinear resize of (N, C, H, W), antialias off; interpolates in
+    float32 and returns the input's dtype."""
+    in_h, in_w = img.shape[-2:]
+    if (in_h, in_w) == (out_h, out_w):
+        return img
+    out = F.interpolate(img.float(), size=(out_h, out_w), mode="bilinear",
+                        align_corners=align_corners)
+    return out.to(img.dtype)

@@ -1,9 +1,16 @@
-"""Per-frame output block (counterpart of
-``mfcnet_tpu/track/outputs.py::outputs_from_probs``).
+"""Per-frame output block and the window's flow channels (counterpart of
+``mfcnet_tpu/track/outputs.py``).
 
-Reference semantics: per-class score threshold with higher classes
-overwriting (test_multiframe_segmentation_on_videos_v3.py:282-289),
-argmax otherwise.
+Output semantics of the reference: per-class score threshold with higher
+classes overwriting (test_multiframe_segmentation_on_videos_v3.py:282-289),
+argmax otherwise. Flow semantics (:264-271): the provider runs on 0.5x
+nearest-resized frames, pairing the newest frame with each earlier one;
+the flow is divided by the 0.5 resize factor and rescaled x2 (bilinear,
+``align_corners=True``).
+
+Frames and flows are NCHW here, the layout of the engine's ring buffers:
+frames (B, T, 3, H, W), flow (B, T-1, 2, H, W). The provider's own
+methods take and return NHWC.
 """
 
 from __future__ import annotations
@@ -40,3 +47,69 @@ def outputs_from_probs(probs, cfg):
         )
         return mask, kps, heats
     return mask, heats
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def flow_for_window(frames_norm, flow_model):
+    """(B, T, 3, H, W) normalized frames, newest first -> (B, T-1, 2, H, W)
+    float32 flow. All B*(T-1) pairs run as one batched solve, and the
+    newest frame's encoders run once per window, not once per pair."""
+    from mfcnet_tpu_torch.ops.resize import resize_nearest
+
+    B, T, _, H, W = frames_norm.shape
+    H2, W2 = H // 2, W // 2
+    half = resize_nearest(frames_norm, H2, W2)
+    newest = _nhwc(half[:, 0])
+    f1 = flow_model.features(newest)
+    net, inp = flow_model.context(newest)
+    f2 = flow_model.features(_nhwc(half[:, 1:].reshape(B * (T - 1), 3,
+                                                       H2, W2)))
+    return _flow_from_feature_pairs(f1, f2, net, inp, T, (H, W), flow_model)
+
+
+def flow_ingest(frame_norm, flow_model):
+    """One frame's cacheable provider state: (B, 3, H, W) normalized
+    frame -> ``(features, net, inp)``, the 0.5x-resolution feature
+    encoder output (B, h, w, 256) and the context encoder's GRU initial
+    state and feed (B, h, w, 128) each. The flows pair the newest frame
+    with each earlier one and cannot be kept, but the per-image encoders
+    can: the incremental engine calls this once per new frame."""
+    from mfcnet_tpu_torch.ops.resize import resize_nearest
+
+    H, W = frame_norm.shape[-2:]
+    half = _nhwc(resize_nearest(frame_norm, H // 2, W // 2))
+    net, inp = flow_model.context(half)
+    return flow_model.features(half), net, inp
+
+
+def flow_from_feature_ring(feat_buf, net, inp, out_hw, flow_model):
+    """The window's flow from kept features: feat_buf (B, T, h, w, 256)
+    newest-first ring of :func:`flow_ingest` features, (net, inp) the
+    newest frame's context state, out_hw the full-resolution (H, W).
+    Returns (B, T-1, 2, H, W), the quantity :func:`flow_for_window`
+    computes (the same operations on the same inputs)."""
+    B, T = feat_buf.shape[:2]
+    f2 = feat_buf[:, 1:].reshape((B * (T - 1),) + feat_buf.shape[2:])
+    return _flow_from_feature_pairs(feat_buf[:, 0], f2, net, inp, T, out_hw,
+                                    flow_model)
+
+
+def _flow_from_feature_pairs(f1, f2, net, inp, T, out_hw, flow_model):
+    """Shared tail: one batched recurrent solve over the T-1 (newest,
+    earlier) feature pairs, then the 0.5x rescale. f1, net, inp: (B, ...)
+    of the newest frame; f2: (B*(T-1), h, w, C) in pair order."""
+    from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
+    from mfcnet_tpu_torch.ops.resize import resize_bilinear
+
+    B = f1.shape[0]
+    H, W = out_hw
+    fl = flow_model.flow_from_features(
+        repeat_for_pairs(f1, T - 1), f2,
+        repeat_for_pairs(net, T - 1), repeat_for_pairs(inp, T - 1),
+    )
+    fl = resize_bilinear(fl.permute(0, 3, 1, 2) / 0.5, H, W,
+                         align_corners=True)
+    return fl.reshape(B, T - 1, 2, H, W)

@@ -7,7 +7,11 @@ the optional overlay MP4.
 Incremental mode (default) runs one base forward per new frame and keeps
 the previous frames' class maps in a ring buffer on the device; full mode
 recomputes all T base forwards per frame (the reference's pattern). Both
-give the same rows.
+give the same rows. With ``add_optflow_inputs`` a frozen flow provider
+(RAFT) gives the flow from the newest frame to each earlier one, by which
+the fusion head warps the earlier maps; incremental mode keeps a ring of
+the provider's per-frame features. With ``add_depth_inputs`` a depth map
+per frame joins the head's input.
 
 No module-level ``cv2``: OpenCV is imported only to read video, to draw
 the overlay and for the exact host decode (``decode='host'`` or a
@@ -31,8 +35,6 @@ import numpy as np
 import torch
 
 _ROADMAP = {
-    "add_optflow_inputs": "ROADMAP.md Queue 1 item 5 (main-path flow and depth)",
-    "add_depth_inputs": "ROADMAP.md Queue 1 item 5 (main-path flow and depth)",
     "spatial_shards": "ROADMAP.md Queue 1 item 11 (not ported: one card)",
     "fused_dispatch": "ROADMAP.md Queue 1 item 11 (CUDA graphs for the step)",
 }
@@ -104,9 +106,9 @@ def decode_side_keypoints(side, mask_array, tip_heatmap, state, cfg, row,
                           disp_image=None):
     """Exact host decode of one instrument's base + up to 2 tips into
     ``row`` (reference compute_centroids_and_store,
-    test_multiframe_segmentation_on_videos_v3.py:95-194), on the JAX
-    package's OpenCV decode. Returns the updated side state."""
-    from mfcnet_tpu.track.decode import (
+    test_multiframe_segmentation_on_videos_v3.py:95-194), on the OpenCV
+    decode of ``track/decode.py``. Returns the updated side state."""
+    from mfcnet_tpu_torch.track.decode import (
         calc_base_centroid,
         create_circular_mask,
         determine_local_maxima_and_estimate_centroids,
@@ -258,7 +260,7 @@ class KeypointTracker:
                                           row, disp_image)
                     continue
                 if m is not None:
-                    from mfcnet_tpu.track.decode import calc_base_centroid
+                    from mfcnet_tpu_torch.track.decode import calc_base_centroid
 
                     hx, hy = calc_base_centroid(
                         255 * (m == info["base_cls"]).astype(np.uint8),
@@ -323,7 +325,7 @@ class KeypointTracker:
 
 def render_overlay(frame_rgb, mask_array):
     """4-class mask overlay (reference :292-296)."""
-    from mfcnet_tpu.utils.vis import mask_overlay
+    from mfcnet_tpu_torch.utils.vis import mask_overlay
 
     disp = frame_rgb
     disp = mask_overlay(disp, (mask_array == 1).astype(np.uint8), (255, 1, 0))
@@ -341,19 +343,42 @@ class InferenceEngine:
     fusion head runs on the buffer. 'full': all T base forwards per frame.
     Both ingest from the first frame, so they agree during warmup too.
 
-    The engine runs a copy of ``model`` cast to ``cfg.dtype`` on
-    ``device`` (default: the model's device)."""
+    ``flow_model``: the frozen flow provider (``models.raft.RAFT``) used
+    with ``cfg.add_optflow_inputs``. Incremental mode keeps a newest-first
+    ring of its per-frame features and the newest frame's context state,
+    so the encoders run once per new frame; full mode recomputes them per
+    window (``track/outputs.py``). With ``cfg.add_depth_inputs`` a ring
+    (or queue) of depth maps, uint8 scaled to [0, 1], feeds the head.
 
-    def __init__(self, model, cfg: TrackerConfig, device=None):
+    The engine runs copies of ``model`` and ``flow_model`` cast to
+    ``cfg.dtype`` on ``device``: the card by default, wherever the caller
+    built the models, and the CPU only when asked (``device="cpu"``);
+    without a card the default raises. A bfloat16 engine runs the
+    provider's update iterations through the fused update step, a float32
+    engine through its plain convolutions."""
+
+    def __init__(self, model, cfg: TrackerConfig, flow_model=None,
+                 device="cuda"):
         cfg.check_ported()
         self.cfg = cfg
-        self.device = torch.device(
-            device if device is not None
-            else next(model.parameters()).device
-        )
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"InferenceEngine(device={device!r}): no CUDA device is "
+                'available; pass device="cpu" to run on the CPU')
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
         self.model = copy.deepcopy(model).to(self.device, self.dtype).eval()
+        self.flow_model = None
+        if cfg.add_optflow_inputs:
+            if flow_model is None:
+                raise ValueError(
+                    "cfg.add_optflow_inputs needs a flow_model (a "
+                    "mfcnet_tpu_torch.models.raft.RAFT)")
+            self.flow_model = copy.deepcopy(flow_model).to(
+                self.device, self.dtype).eval()
+            self.flow_model.fused_update = self.dtype == torch.bfloat16
+            self.flow_model.fused_dtype = "bfloat16"
         self._mean = torch.tensor([0.485, 0.456, 0.406], dtype=self.dtype,
                                   device=self.device).view(1, 3, 1, 1)
         self._std = torch.tensor([0.229, 0.224, 0.225], dtype=self.dtype,
@@ -361,20 +386,33 @@ class InferenceEngine:
         self.reset()
 
     def reset(self):
-        """Zero the ring buffer and the warmup queue (start of a video)."""
+        """Zero the ring buffers and the warmup queues (start of a video)."""
         cfg = self.cfg
         T, C = cfg.num_input_frames, cfg.num_classes
-        self.seg_buf = torch.zeros(
-            1, T * C, cfg.input_height, cfg.input_width,
-            dtype=self.dtype, device=self.device,
+        H, W = cfg.input_height, cfg.input_width
+        self.seg_buf = torch.zeros(1, T * C, H, W, dtype=self.dtype,
+                                   device=self.device)
+        self.depth_buf = (
+            torch.zeros(1, T, H, W, dtype=self.dtype, device=self.device)
+            if cfg.add_depth_inputs else None
         )
+        # (feat_buf (1, T, h, w, 256), net, inp): filled by the first T
+        # ingests, before the first fuse reads it
+        self.flow_state = None
         self._frame_q = []
+        self._depth_q = []
 
     def _normalize(self, frames_u8):
         """(N, H, W, 3) uint8 -> (N, 3, H, W) normalized, engine dtype."""
         x = torch.as_tensor(frames_u8).to(self.device)
         x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0
         return (x - self._mean) / self._std
+
+    def _depth(self, depth_u8, like_hw):
+        """(..., H, W) uint8 depth (None: zeros) -> engine dtype in [0, 1]."""
+        if depth_u8 is None:
+            return torch.zeros(like_hw, dtype=self.dtype, device=self.device)
+        return torch.as_tensor(depth_u8).to(self.device).to(self.dtype) / 255.0
 
     def _outputs(self, logits):
         from mfcnet_tpu_torch.track.outputs import outputs_from_probs
@@ -383,37 +421,71 @@ class InferenceEngine:
         return outputs_from_probs(probs.permute(0, 2, 3, 1)[0], self.cfg)
 
     @torch.no_grad()
-    def step_async(self, frame_u8):
-        """Dispatch one (H, W, 3) uint8 frame; returns device tensors
+    def step_async(self, frame_u8, depth_u8=None):
+        """Dispatch one (H, W, 3) uint8 frame (and its (H, W) uint8 depth
+        map with ``cfg.add_depth_inputs``); returns device tensors
         (mask, aux...) or None during warmup."""
-        T, C = self.cfg.num_input_frames, self.cfg.num_classes
-        if self.cfg.mode == "incremental":
+        from mfcnet_tpu_torch.track import outputs as out
+
+        cfg = self.cfg
+        T, C = cfg.num_input_frames, cfg.num_classes
+        H, W = cfg.input_height, cfg.input_width
+        if cfg.mode == "incremental":
             x = self._normalize(torch.as_tensor(frame_u8)[None])
             seg_new = self.model.base_nchw(x)
             self.seg_buf = torch.cat(
                 [seg_new, self.seg_buf[:, : (T - 1) * C]], dim=1
             )
+            if cfg.add_depth_inputs:
+                d = self._depth(depth_u8, (H, W))
+                self.depth_buf = torch.cat(
+                    [d[None, None], self.depth_buf[:, : T - 1]], dim=1
+                )
+            if cfg.add_optflow_inputs:
+                f_new, net, inp = out.flow_ingest(x, self.flow_model)
+                if self.flow_state is None:
+                    feat_buf = f_new[:, None].repeat(1, T, 1, 1, 1)
+                else:
+                    feat_buf = torch.cat(
+                        [f_new[:, None], self.flow_state[0][:, : T - 1]],
+                        dim=1)
+                self.flow_state = (feat_buf, net, inp)
             self._frame_q.append(True)
             if len(self._frame_q) < T:
                 return None
-            return self._outputs(self.model.fuse_nchw(self.seg_buf))
+            optflow = (
+                out.flow_from_feature_ring(*self.flow_state, (H, W),
+                                           self.flow_model)
+                if cfg.add_optflow_inputs else None
+            )
+            return self._outputs(self.model.fuse_nchw(
+                self.seg_buf, optflow=optflow, depth=self.depth_buf))
         # full mode: newest-first window of raw frames (reference :251)
         self._frame_q.append(frame_u8)
+        self._depth_q.append(depth_u8)
         if len(self._frame_q) > T:
             self._frame_q.pop(0)
+            self._depth_q.pop(0)
         if len(self._frame_q) < T:
             return None
         x = self._normalize(torch.stack(
             [torch.as_tensor(f) for f in self._frame_q[::-1]]
         ))
         y = self.model.base_nchw(x)
+        depth = (
+            torch.stack([self._depth(d, (H, W))
+                         for d in self._depth_q[::-1]])[None]
+            if cfg.add_depth_inputs else None
+        )
+        optflow = (out.flow_for_window(x[None], self.flow_model)
+                   if cfg.add_optflow_inputs else None)
         return self._outputs(self.model.fuse_nchw(
-            y.reshape(1, T * C, *y.shape[-2:])
+            y.reshape(1, T * C, *y.shape[-2:]), optflow=optflow, depth=depth
         ))
 
-    def step(self, frame_u8):
+    def step(self, frame_u8, depth_u8=None):
         """Synchronous step: numpy outputs, or None in warmup."""
-        out = self.step_async(frame_u8)
+        out = self.step_async(frame_u8, depth_u8)
         if out is None:
             return None
         return tuple(v.cpu().numpy() for v in out)
@@ -476,8 +548,8 @@ def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
 def _track_stream(frame_iter, num_frames_total: int, name: str,
                   engine: InferenceEngine, cfg: TrackerConfig, output_dir,
                   logger=None):
-    """Frames -> engine -> keypoint decode -> tracker -> CSV (+ MP4).
-    Returns (rows, frames/s)."""
+    """(frame, depth or None) pairs -> engine -> keypoint decode ->
+    tracker -> CSV (+ MP4). Returns (rows, frames/s)."""
     H, W = cfg.input_height, cfg.input_width
     engine.reset()
     output_dir = Path(output_dir)
@@ -518,8 +590,8 @@ def _track_stream(frame_iter, num_frames_total: int, name: str,
         frames_done += 1
 
     def dispatch():
-        for frame in frame_iter:
-            yield frame, engine.step_async(frame)
+        for frame, dframe in frame_iter:
+            yield frame, engine.step_async(frame, dframe)
 
     try:
         _staged_fetch_loop(dispatch(), on_skip=lambda f: tracker.skip(),
@@ -541,41 +613,73 @@ def _track_stream(frame_iter, num_frames_total: int, name: str,
 
 
 def track_on_frames(frames, model, cfg: TrackerConfig, output_dir,
-                    name: str = "frames", logger=None,
-                    engine: Optional[InferenceEngine] = None, device=None):
+                    name: str = "frames", depth_frames=None, logger=None,
+                    flow_model=None,
+                    engine: Optional[InferenceEngine] = None, device="cuda"):
     """Track a sequence of decoded (H, W, 3) uint8 RGB frames (numpy
     arrays or tensors, host or device) at (cfg.input_height,
-    cfg.input_width); writes ``{name}_tracked.csv``. ``engine``: reuse a
-    built engine (``model``/``device`` are then ignored)."""
+    cfg.input_width); writes ``{name}_tracked.csv``. ``depth_frames``:
+    (H, W) uint8 depth maps, one per frame, with ``cfg.add_depth_inputs``.
+    ``device``: where the engine is built, the card unless the caller
+    passes ``"cpu"``. ``engine``: reuse a built engine
+    (``model``/``flow_model``/``device`` are then ignored)."""
     if engine is None:
-        engine = InferenceEngine(model, cfg, device=device)
-    return _track_stream(iter(frames), len(frames), name, engine, cfg,
+        engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                                 device=device)
+
+    def stream():
+        for i, frame in enumerate(frames):
+            yield frame, (depth_frames[i] if depth_frames is not None
+                          else None)
+
+    return _track_stream(stream(), len(frames), name, engine, cfg,
                          output_dir, logger)
 
 
 def track_on_video(video_path, model, cfg: TrackerConfig, output_dir,
-                   logger=None, engine: Optional[InferenceEngine] = None,
-                   device=None):
+                   depth_video_path=None, logger=None, flow_model=None,
+                   engine: Optional[InferenceEngine] = None, device="cuda"):
     """Track one video file end to end; writes ``{name}_tracked.csv``
-    (and the overlay MP4 with ``cfg.overlay``)."""
+    (and the overlay MP4 with ``cfg.overlay``). ``depth_video_path``: the
+    depth video read frame by frame beside it with
+    ``cfg.add_depth_inputs``. ``device`` and ``engine`` as in
+    :func:`track_on_frames`."""
     import cv2
 
     H, W = cfg.input_height, cfg.input_width
     if engine is None:
-        engine = InferenceEngine(model, cfg, device=device)
+        engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                                 device=device)
     vid = cv2.VideoCapture(str(video_path))
+    depth_vid = None
     try:
         n = int(vid.get(cv2.CAP_PROP_FRAME_COUNT))
+        if cfg.add_depth_inputs:
+            depth_vid = cv2.VideoCapture(str(depth_video_path))
+            nd = int(depth_vid.get(cv2.CAP_PROP_FRAME_COUNT))
+            if n != nd:
+                raise ValueError(
+                    f"RGB({n}) vs depth({nd}) frame-count mismatch")
 
         def frames():
             while True:
                 ret, frame = vid.read()
                 if not ret:
                     return
-                yield cv2.resize(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB),
-                                 (W, H))
+                frame = cv2.resize(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB),
+                                   (W, H))
+                dframe = None
+                if depth_vid is not None:
+                    retd, d = depth_vid.read()
+                    if not retd:
+                        return
+                    dframe = cv2.resize(
+                        cv2.cvtColor(d, cv2.COLOR_BGR2GRAY), (W, H))
+                yield frame, dframe
 
         return _track_stream(frames(), n, Path(video_path).stem, engine,
                              cfg, output_dir, logger)
     finally:
         vid.release()
+        if depth_vid is not None:
+            depth_vid.release()

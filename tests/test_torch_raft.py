@@ -1,0 +1,403 @@
+"""The port's RAFT flow provider and its fused update step against the
+JAX package's, with the JAX weights carried across by
+``compat.from_jax.raft_state_dict_from_jax`` and the same numpy inputs, at
+float32 on the CPU (where the update step's wrapper runs its plain
+version). JAX Pallas kernels run in interpret mode, as the JAX package's
+own tests run them.
+
+Tolerances: float32 convolutions and products summed in another order
+(1e-5 .. 5e-5 per module; 2e-5 / 1e-4 for the update step, the JAX test's
+own; 1e-3 on the whole model's flow, the COMPONENTS.md gate)."""
+
+import numpy as np
+import pytest
+import torch
+
+# jax is imported inside the tests that compare with it: the CUDA-marked
+# test runs on a machine that has none
+
+H = W = 64
+
+
+def _np(tree):
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _randomize_bn(tree, rng):
+    for k, x in tree.items():
+        if isinstance(x, dict):
+            _randomize_bn(x, rng)
+        elif k == "mean":
+            tree[k] = rng.normal(0, 0.1, x.shape).astype(np.float32)
+        elif k == "var":
+            tree[k] = rng.uniform(0.5, 2.0, x.shape).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX RAFT, its variables with non-trivial BN statistics, port RAFT
+    with the same weights), iters=4."""
+    import jax
+
+    from mfcnet_tpu.models.raft import RAFT as JRAFT
+    from mfcnet_tpu.utils.jitinit import jit_init
+    from mfcnet_tpu_torch.compat.from_jax import raft_state_dict_from_jax
+    from mfcnet_tpu_torch.models.raft import RAFT
+
+    jm = JRAFT(iters=4)
+    d = np.zeros((1, H, W, 3), np.float32)
+    v = _np(jit_init(jm, jax.random.PRNGKey(7), d, d))
+    _randomize_bn(v["batch_stats"], np.random.default_rng(0))
+    pm = RAFT(iters=4).eval()
+    pm.load_state_dict(raft_state_dict_from_jax(v), strict=True)
+    return jm, v, pm
+
+
+@pytest.fixture(scope="module")
+def images():
+    rng = np.random.default_rng(5)
+    return (rng.random((1, H, W, 3), np.float32) * 2 - 1,
+            rng.random((1, H, W, 3), np.float32) * 2 - 1)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_state_dict_has_torchvision_raft_large_names(pair):
+    """The port's keys are torchvision raft_large's: every key of the
+    torch oracle (tests/torch_raft_ref.py, torchvision's module tree) is a
+    key of the port with the same shape; the port has, beyond them, only
+    the encoder convs' biases, which torchvision's own encoders carry."""
+    from tests.torch_raft_ref import RAFTTorch
+
+    ref = RAFTTorch().state_dict()
+    port = pair[2].state_dict()
+    assert set(ref) <= set(port)
+    for k, t in ref.items():
+        assert port[k].shape == t.shape, k
+    extra = set(port) - set(ref)
+    assert extra and all(
+        k.endswith(".0.bias") and k.split(".")[0] in
+        ("feature_encoder", "context_encoder") for k in extra)
+
+
+def test_port_matches_torch_oracle_on_its_weights():
+    """A state_dict in torchvision's naming loads by name and gives the
+    oracle's flow (the oracle's encoder convs have no bias: zeros). At
+    128x128: the oracle's grid_sample divides by zero on a 1x1 level."""
+    from tests.torch_raft_ref import RAFTTorch
+
+    from mfcnet_tpu_torch.models.raft import RAFT
+
+    torch.manual_seed(0)
+    ref = RAFTTorch().eval()
+    port = RAFT(iters=3).eval()
+    missing = port.load_state_dict(ref.state_dict(), strict=False)
+    assert not missing.unexpected_keys
+    with torch.no_grad():
+        for k in missing.missing_keys:
+            port.state_dict()[k].zero_()
+        rng = np.random.default_rng(9)
+        a, b = (_t(rng.random((1, 128, 128, 3), np.float32) * 2 - 1)
+                for _ in range(2))
+        want = ref(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2),
+                   num_flow_updates=3)[-1].permute(0, 2, 3, 1)
+        got = port(a, b)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("method", ["features", "context"])
+def test_encoders_match_jax(pair, images, method):
+    jm, v, pm = pair
+    want = jm.apply(v, images[0], method=method)
+    with torch.no_grad():
+        got = getattr(pm, method)(_t(images[0]))
+    if method == "features":
+        want, got = [want], [got]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=5e-5)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (15, 20), (4, 4)])
+def test_corr_pyramid_matches_jax(hw):
+    """Levels, the dropped odd row/column and the stop before a
+    zero-sized level."""
+    from mfcnet_tpu.models.raft import build_corr_pyramid as jbuild
+    from mfcnet_tpu_torch.models.raft import (
+        build_corr_pyramid,
+        num_corr_levels,
+    )
+
+    rng = np.random.default_rng(1)
+    f1 = rng.standard_normal((2, *hw, 32)).astype(np.float32)
+    f2 = rng.standard_normal((2, *hw, 32)).astype(np.float32)
+    want = jbuild(f1, f2, 4)
+    got = build_corr_pyramid(_t(f1), _t(f2), 4)
+    assert len(got) == len(want) == num_corr_levels(*hw, 4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("spread", [0.7, 6.0])
+def test_lookup_corr_matches_jax(spread):
+    """Window samples, channel order x slow / y fast, zeros outside the
+    map (spread 6 sends many windows over the border)."""
+    import jax.numpy as jnp
+
+    from mfcnet_tpu.models.raft import build_corr_pyramid as jbuild
+    from mfcnet_tpu.models.raft import lookup_corr as jlookup
+    from mfcnet_tpu_torch.models.raft import lookup_corr
+
+    rng = np.random.default_rng(2)
+    B, H8, W8 = 2, 9, 13
+    f1 = rng.standard_normal((B, H8, W8, 16)).astype(np.float32)
+    f2 = rng.standard_normal((B, H8, W8, 16)).astype(np.float32)
+    pyr = jbuild(f1, f2, 4)
+    xs, ys = np.meshgrid(np.arange(W8), np.arange(H8))
+    coords = (np.stack([xs, ys], -1)[None]
+              + rng.normal(0, spread, (B, H8, W8, 2))).astype(np.float32)
+    want = np.asarray(jlookup(pyr, jnp.asarray(coords), 4))
+    got = lookup_corr([_t(p) for p in pyr], _t(coords), 4)
+    assert got.shape == want.shape == (B, H8, W8, len(pyr) * 81)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def _update_inputs(B=2, H8=9, W8=13, L=4, seed=0):
+    rng = np.random.default_rng(seed)
+    corr = rng.standard_normal((B, H8, W8, L * 81)).astype(np.float32)
+    inp = np.maximum(rng.standard_normal((B, H8, W8, 128)), 0).astype(
+        np.float32)
+    net = np.tanh(rng.standard_normal((B, H8, W8, 128))).astype(np.float32)
+    flow = rng.standard_normal((B, H8, W8, 2)).astype(np.float32)
+    return corr, inp, net, flow
+
+
+def _nchw(a):
+    return _t(a).permute(0, 3, 1, 2)
+
+
+def test_update_block_matches_jax(pair):
+    from mfcnet_tpu.models.raft import UpdateBlock as JUpdate
+
+    _, v, pm = pair
+    corr, inp, net, flow = _update_inputs()
+    wn, wd, wm = JUpdate().apply(
+        {"params": v["params"]["update_block"]}, net, inp, corr, flow)
+    with torch.no_grad():
+        gn, gd = pm.update_block(_nchw(net), _nchw(inp), _nchw(corr),
+                                 _nchw(flow))
+        gm = pm.mask_predictor(gn)
+    for g, w in ((gn, wn), (gd, wd), (gm, wm)):
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
+                                   np.asarray(w), rtol=1e-4, atol=2e-5)
+
+
+def test_convex_upsample_matches_jax():
+    from mfcnet_tpu.models.raft import convex_upsample as jup
+    from mfcnet_tpu_torch.models.raft import convex_upsample
+
+    rng = np.random.default_rng(3)
+    flow = rng.standard_normal((2, 5, 7, 2)).astype(np.float32)
+    mask = rng.standard_normal((2, 5, 7, 576)).astype(np.float32)
+    got = convex_upsample(_t(flow), _t(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jup(flow, mask)),
+                               rtol=0, atol=1e-5)
+
+
+def test_raft_matches_jax(pair, images):
+    jm, v, pm = pair
+    want = np.asarray(jm.apply(v, *images))
+    with torch.no_grad():
+        got = pm(_t(images[0]), _t(images[1])).numpy()
+    assert got.shape == want.shape == (1, H, W, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------------- fused update step
+def _tok(a):
+    return _t(a).reshape(a.shape[0], -1, a.shape[-1]).contiguous()
+
+
+def test_pack_update_weights_layout(pair):
+    from mfcnet_tpu_torch.ops.raft_update import (
+        _WEIGHT_NAMES,
+        pack_update_weights,
+    )
+
+    packed = pack_update_weights(pair[2].update_block, torch.bfloat16)
+    assert set(packed) == set(_WEIGHT_NAMES)
+    shapes = {k: tuple(t.shape) for k, t in packed.items()}
+    assert shapes["w_c2"] == (9, 256, 192) and shapes["w_f2"] == (9, 128, 64)
+    assert shapes["w_cv"] == (9, 256, 128) and shapes["w_fl2"] == (9, 256, 16)
+    assert shapes["w_zr_h"] == (5, 384, 256) == shapes["w_zr_v"]
+    assert shapes["w_q_h"] == (5, 384, 128) and shapes["w_fl1"] == (9, 128, 256)
+    for k, t in packed.items():
+        assert t.dtype == (torch.bfloat16 if k[0] == "w" else torch.float32)
+        assert t.is_contiguous() and not t.requires_grad
+    # the padding columns are zero: y's 126..127, the flow head's 2..15
+    assert not packed["w_cv"][..., 126:].any()
+    assert not packed["w_fl2"][..., 2:].any()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pack_update_weights(pair[2].update_block, torch.float16)
+
+
+def test_fused_update_step_matches_jax_kernel_and_update_block(pair):
+    """raft_update (plain version on the CPU) == the JAX fused step with
+    its Pallas kernel in interpret mode == the JAX UpdateBlock, float32,
+    on an uneven 2x9x13 token grid."""
+    import jax.numpy as jnp
+
+    from mfcnet_tpu.models.raft import UpdateBlock as JUpdate
+    from mfcnet_tpu.ops.raft_update_pallas import fused_update_step as jstep
+    from mfcnet_tpu.ops.raft_update_pallas import pack_update_weights as jpack
+    from mfcnet_tpu_torch.ops.raft_update import (
+        fused_update_step,
+        pack_update_weights,
+    )
+
+    _, v, pm = pair
+    ub = v["params"]["update_block"]
+    corr, inp, net, flow = _update_inputs()
+    B, H8, W8, _ = corr.shape
+    wn, wd, _ = JUpdate().apply({"params": ub}, net, inp, corr, flow)
+    kn, kd = jstep(ub, jpack(ub, compute_dtype=jnp.float32), corr, inp, net,
+                   flow, compute_dtype=jnp.float32, interpret=True)
+    packed = pack_update_weights(pm.update_block, torch.float32)
+    with torch.no_grad():
+        gn, gd = fused_update_step(pm.update_block, packed, _tok(corr),
+                                   _tok(inp), _tok(net), _tok(flow), H8, W8)
+    gn = gn.reshape(B, H8, W8, 128).numpy()
+    gd = gd.reshape(B, H8, W8, 2).numpy()
+    for want_n, want_d in ((wn, wd), (kn, kd)):
+        np.testing.assert_allclose(gn, np.asarray(want_n), rtol=1e-4,
+                                   atol=2e-5)
+        np.testing.assert_allclose(gd, np.asarray(want_d), rtol=1e-4,
+                                   atol=2e-5)
+
+
+def test_raft_update_bf16_rounding_points_match_jax_kernel(pair):
+    """bfloat16 operands: the same c1/f1 go through the JAX Pallas kernel
+    (interpret mode, compute_dtype=bfloat16) and the port's plain version.
+    Both round c2, f2, y, net, r*net and the flow head's hidden layer to
+    bf16 and accumulate in float32; float32 sums in another order can
+    flip a bf16 rounding, one ulp of an O(1) operand (2^-8), which the
+    next product carries on. Envelope: 2e-3 on net' (|net| <= 1) and
+    on the flow delta."""
+    import jax.numpy as jnp
+
+    from mfcnet_tpu.ops.raft_update_pallas import pack_update_weights as jpack
+    from mfcnet_tpu.ops.raft_update_pallas import raft_update_pallas
+    from mfcnet_tpu_torch.ops.raft_update import (
+        pack_update_weights,
+        raft_update,
+    )
+
+    _, v, pm = pair
+    ub = v["params"]["update_block"]
+    rng = np.random.default_rng(4)
+    B, H8, W8 = 2, 9, 13
+    c1 = np.maximum(rng.standard_normal((B, H8, W8, 256)), 0).astype(
+        np.float32)
+    f1 = np.maximum(rng.standard_normal((B, H8, W8, 128)), 0).astype(
+        np.float32)
+    _, inp, net, flow = _update_inputs(seed=6)
+    kn, kd = raft_update_pallas(
+        jnp.asarray(c1), jnp.asarray(f1), jnp.asarray(inp), jnp.asarray(net),
+        jnp.asarray(flow), jpack(ub, compute_dtype=jnp.bfloat16), H8, W8,
+        compute_dtype=jnp.bfloat16, interpret=True)
+    packed = pack_update_weights(pm.update_block, torch.bfloat16)
+    gn, gd = raft_update(_tok(c1).bfloat16(), _tok(f1).bfloat16(),
+                         _tok(inp).bfloat16(), _tok(net), _tok(flow), packed,
+                         H8, W8)
+    assert gn.dtype == gd.dtype == torch.float32
+    dn = np.abs(gn.reshape(B, H8, W8, 128).numpy() - np.asarray(kn)).max()
+    dd = np.abs(gd.reshape(B, H8, W8, 2).numpy() - np.asarray(kd)).max()
+    assert dn <= 2e-3 and dd <= 2e-3, (dn, dd)
+
+
+def test_fused_flow_from_features_matches_jax(pair, images):
+    import jax.numpy as jnp
+
+    from mfcnet_tpu.ops.raft_update_pallas import (
+        fused_flow_from_features as jfused,
+    )
+    from mfcnet_tpu_torch.ops.raft_update import fused_flow_from_features
+
+    jm, v, pm = pair
+    f1 = jm.apply(v, images[0], method="features")
+    f2 = jm.apply(v, images[1], method="features")
+    net, inp = jm.apply(v, images[0], method="context")
+    want = np.asarray(jfused(v, f1, f2, net, inp, iters=4,
+                             compute_dtype=jnp.float32, interpret=True))
+    with torch.no_grad():
+        got = fused_flow_from_features(
+            pm, _t(f1), _t(f2), _t(net), _t(inp), iters=4,
+            compute_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-4)
+    # the model's own switch takes the same path
+    pm.fused_update, pm.fused_dtype = True, "float32"
+    try:
+        with torch.no_grad():
+            again = pm.flow_from_features(_t(f1), _t(f2), _t(net), _t(inp))
+    finally:
+        pm.fused_update = False
+    np.testing.assert_array_equal(again.numpy(), got)
+
+
+def test_raft_update_rejects_gradients_and_bad_inputs(pair):
+    from mfcnet_tpu_torch.ops.raft_update import (
+        pack_update_weights,
+        raft_update,
+    )
+
+    packed = pack_update_weights(pair[2].update_block, torch.float32)
+    B, H8, W8 = 1, 3, 4
+    N = H8 * W8
+    c1, f1, inp = (torch.zeros(B, N, c) for c in (256, 128, 128))
+    net, flow = torch.zeros(B, N, 128), torch.zeros(B, N, 2)
+    raft_update(c1, f1, inp, net, flow, packed, H8, W8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        raft_update(c1, f1, inp, net.clone().requires_grad_(), flow, packed,
+                    H8, W8)
+    with pytest.raises(ValueError, match="tokens"):
+        raft_update(c1, f1, inp, net, flow, packed, H8, W8 + 1)
+    with pytest.raises(TypeError, match="c1"):
+        raft_update(c1.bfloat16(), f1, inp, net, flow, packed, H8, W8)
+    with pytest.raises(ValueError, match="contiguous"):
+        raft_update(c1, f1, inp, torch.zeros(B, N, 256)[..., :128], flow,
+                    packed, H8, W8)
+
+
+@pytest.mark.cuda
+def test_cuda_raft_update_kernel_matches_plain_version():
+    """The CUDA kernel against its plain version (run with
+    ``python -m pytest tests/test_torch_raft.py -m cuda --noconftest`` on
+    a GPU): the float32 instance to the JAX test's tolerance, the
+    bfloat16 instance to the rounding-flip envelope."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from mfcnet_tpu_torch.models.raft import UpdateBlock
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    torch.manual_seed(0)
+    ub = UpdateBlock().cuda().eval()
+    for dt, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-3)):
+        packed = ru.pack_update_weights(ub, dt)
+        _, inp, net, flow = _update_inputs(seed=8)
+        c1 = torch.relu(torch.randn(2, 117, 256)).cuda().to(dt)
+        f1 = torch.relu(torch.randn(2, 117, 128)).cuda().to(dt)
+        args = (c1, f1, _tok(inp).cuda().to(dt), _tok(net).cuda(),
+                _tok(flow).cuda(), packed, 9, 13)
+        ru.reset_launches()
+        got = ru.raft_update(*args)
+        assert ru.LAUNCHES["raft_update"] == 1
+        want = ru.raft_update_plain(*args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)
+    torch.cuda.synchronize()

@@ -1,7 +1,7 @@
 """The port's tracker end to end on the CPU: the golden CSVs of the JAX
 package from its seeded weights, incremental == full, the CLI on a tiny
-video, and the import boundary (no jax/flax, and no cv2 on the
-device-decode path)."""
+video, and the import boundary (nothing of jax, flax or the JAX package
+on any path, and no cv2 on the device-decode path)."""
 
 import subprocess
 import sys
@@ -65,7 +65,8 @@ def test_port_reproduces_golden_csv(tmp_path, golden_model, golden_frames,
     from mfcnet_tpu_torch.track.tracker import track_on_frames
 
     track_on_frames(golden_frames, golden_model,
-                    _cfg(mode=mode, decode=decode), tmp_path, name="golden")
+                    _cfg(mode=mode, decode=decode), tmp_path, name="golden",
+                    device="cpu")
     got = (tmp_path / "golden_tracked.csv").read_bytes()
     want = (GOLDEN_DIR / f"tracked_{mode}_{decode}.csv").read_bytes()
     assert got == want, f"{mode}/{decode} CSV differs from the golden file"
@@ -83,14 +84,15 @@ def test_incremental_equals_full_and_warmup(tmp_path, golden_model):
         mode: track_on_frames(frames, golden_model,
                               _cfg(mode=mode, decode="device",
                                    overlay=False, fetch_batch=3),
-                              tmp_path / mode)[0]
+                              tmp_path / mode, device="cpu")[0]
         for mode in ("incremental", "full")
     }
     np.testing.assert_array_equal(rows["incremental"], rows["full"])
     assert rows["full"].shape == (12, 12)
     assert np.isnan(rows["full"][:T - 1]).all()
 
-    eng = InferenceEngine(golden_model, _cfg(decode="device", overlay=False))
+    eng = InferenceEngine(golden_model, _cfg(decode="device", overlay=False),
+                          device="cpu")
     outs = [eng.step(f) for f in frames[:T]]
     assert outs[0] is None and outs[1] is None
     mask, kps, heats = outs[2]
@@ -101,10 +103,37 @@ def test_incremental_equals_full_and_warmup(tmp_path, golden_model):
 def test_tracker_rejects_unported_options(golden_model):
     from mfcnet_tpu_torch.track.tracker import InferenceEngine
 
-    for kw in ({"add_optflow_inputs": True}, {"spatial_shards": 2},
-               {"fused_dispatch": True}):
+    for kw in ({"spatial_shards": 2}, {"fused_dispatch": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(golden_model, _cfg(**kw))
+            InferenceEngine(golden_model, _cfg(**kw), device="cpu")
+    # the flow path is ported: it asks for its provider
+    with pytest.raises(ValueError, match="flow_model"):
+        InferenceEngine(golden_model, _cfg(add_optflow_inputs=True),
+                        device="cpu")
+
+
+def test_entry_points_default_to_the_card(tmp_path, golden_model,
+                                          golden_frames):
+    """The engine and the track_on_* entry points run on the card unless
+    the caller passes device="cpu": with no card the default raises and
+    names the way to the CPU, and nothing runs on the CPU unasked."""
+    import inspect
+
+    from mfcnet_tpu_torch.track import tracker
+
+    for fn in (tracker.InferenceEngine.__init__, tracker.track_on_frames,
+               tracker.track_on_video):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        eng = tracker.InferenceEngine(golden_model, _cfg())
+        assert eng.device.type == "cuda"
+        assert next(eng.model.parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tracker.InferenceEngine(golden_model, _cfg())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tracker.track_on_frames(golden_frames, golden_model, _cfg(),
+                                tmp_path)
 
 
 def test_cli_tracks_a_tiny_video(tmp_path):
@@ -129,51 +158,82 @@ def test_cli_tracks_a_tiny_video(tmp_path):
         "--input_width", "32", "--model_scale", "0.1",
         "--compute_dtype", "float32", "--decode", "device",
     ]
+    if not torch.cuda.is_available():
+        # the CLI runs on the card unless asked: no silent CPU fallback
+        with pytest.raises(SystemExit, match="--device cpu"):
+            main(args)
+    args += ["--device", "cpu"]
     fps = main(args)
     assert len(fps) == 1
     out = tmp_path / "vt" / "video_tracking_results"
     rows = np.loadtxt(out / "a_tracked.csv", delimiter=",")
     assert rows.shape == (6, 12)
     assert (out / "a_tracked.mp4").exists()
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
-        main(args + ["--add_optflow_inputs", "true"])
+    with pytest.raises(SystemExit, match="Queue 1 item 11"):
+        main(args + ["--parallel_videos", "2"])
+    with pytest.raises(SystemExit, match="depth_videos_dir"):
+        main(args + ["--add_depth_inputs", "true"])
     msgpack = list(args)
     msgpack[msgpack.index("--load_wts_model") + 1] = str(tmp_path / "w.msgpack")
     with pytest.raises(SystemExit, match="from_jax"):
         main(msgpack)
 
 
-def test_port_imports_no_jax_flax_or_cv2():
-    """A fresh interpreter: importing every module of the port and
-    tracking with decode='device' and no overlay loads neither jax nor
-    flax nor cv2."""
-    code = textwrap.dedent("""
-        import importlib, pkgutil, sys, tempfile
-        import numpy as np, torch
-        import mfcnet_tpu_torch
-        for m in pkgutil.walk_packages(mfcnet_tpu_torch.__path__,
-                                       "mfcnet_tpu_torch."):
-            importlib.import_module(m.name)
-        from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
-        from mfcnet_tpu_torch.track.tracker import (TrackerConfig,
-                                                    track_on_frames)
-        model = get_multiframe_segmentation_model(
-            "TernausNetMulti-Basic", 5, 3, scale=0.0625,
-            generator=torch.Generator().manual_seed(0))
-        frames = np.random.default_rng(0).integers(
-            0, 255, (5, 32, 32, 3), dtype=np.uint8)
-        cfg = TrackerConfig(input_height=32, input_width=32,
-                            decode="device", overlay=False,
-                            dtype="float32")
-        with tempfile.TemporaryDirectory() as d:
-            rows, _ = track_on_frames(frames, model, cfg, d)
-        assert rows.shape == (5, 12)
-        bad = [m for m in ("jax", "flax", "cv2") if m in sys.modules]
-        print("LOADED", bad)
-        sys.exit(1 if bad else 0)
-    """)
+_FORBIDDEN = ("mfcnet_tpu", "jax", "jaxlib", "flax")
+
+_IMPORT_CHECK = """
+    import importlib, pkgutil, sys, tempfile
+    import numpy as np, torch
+    import mfcnet_tpu_torch
+    for m in pkgutil.walk_packages(mfcnet_tpu_torch.__path__,
+                                   "mfcnet_tpu_torch."):
+        importlib.import_module(m.name)
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.track.tracker import (TrackerConfig,
+                                                track_on_frames)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", 5, 3, scale=0.0625,
+        generator=torch.Generator().manual_seed(0))
+    frames = np.random.default_rng(0).integers(
+        0, 255, (5, 32, 32, 3), dtype=np.uint8)
+    cfg = TrackerConfig(input_height=32, input_width=32, dtype="float32",
+                        **CFG)
+    flow_model = (RAFT(iters=1, input_hw=(16, 16))
+                  if cfg.add_optflow_inputs else None)
+    with tempfile.TemporaryDirectory() as d:
+        rows, _ = track_on_frames(frames, model, cfg, d,
+                                  flow_model=flow_model, device="cpu")
+    assert rows.shape == (5, 12)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in FORBIDDEN]
+    print("LOADED", bad)
+    sys.exit(1 if bad else 0)
+"""
+
+
+def _run_import_check(cfg_kwargs, forbidden):
+    code = (f"CFG = {cfg_kwargs!r}\nFORBIDDEN = {forbidden!r}\n"
+            + textwrap.dedent(_IMPORT_CHECK))
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         cwd=Path(__file__).resolve().parents[1], timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_imports_no_jax_flax_or_cv2():
+    """A fresh interpreter: importing every module of the port and
+    tracking with decode='device', no overlay and the flow provider loads
+    nothing of jax, jaxlib, flax or the JAX package, and no cv2."""
+    _run_import_check(
+        dict(decode="device", overlay=False, add_optflow_inputs=True),
+        _FORBIDDEN + ("cv2",))
+
+
+def test_host_decode_and_overlay_import_nothing_of_the_jax_package():
+    """The host decode (which the tie fallback shares) and the overlay
+    use the port's own OpenCV helpers: no key of sys.modules is or starts
+    with mfcnet_tpu., jax, jaxlib or flax after a host-decode run with
+    the overlay on."""
+    _run_import_check(dict(decode="host", overlay=True), _FORBIDDEN)

@@ -1,0 +1,202 @@
+"""The port's resize, pair batching and flow warp against the JAX
+package's, on the same numpy inputs, at float32 on the CPU (where the
+warp's wrapper runs its plain version). The port's spatial layout is NCHW,
+the JAX functions' NHWC: the tests transpose.
+
+Tolerances: 1e-6 for resize of values in [0, 1) (the same float32
+weights, two products in JAX against four taps in PyTorch), 2e-6 for the warp
+(the same coordinates op for op; the four-tap blend is summed in another
+order than the TPU tiers' one-hot products)."""
+
+import numpy as np
+import pytest
+import torch
+
+ATOL_WARP = 2e-6
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
+
+
+def _nhwc(t):
+    return np.moveaxis(t.numpy(), 1, -1)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((64, 48), (32, 24)), ((30, 40), (60, 80)), ((17, 23), (9, 31)),
+    ((480, 640), (240, 320)),
+])
+def test_resize_nearest_matches_jax(in_hw, out_hw):
+    from mfcnet_tpu.ops.resize import resize_nearest as jresize
+    from mfcnet_tpu_torch.ops.resize import resize_nearest
+
+    x = np.random.default_rng(0).standard_normal(
+        (2, *in_hw, 3)).astype(np.float32)
+    want = np.asarray(jresize(x, *out_hw))
+    got = _nhwc(resize_nearest(_nchw(x), *out_hw))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((32, 32), (64, 64)), ((30, 40), (60, 80)), ((17, 23), (40, 31)),
+])
+def test_resize_bilinear_matches_jax(in_hw, out_hw, align_corners):
+    from mfcnet_tpu.ops.resize import resize_bilinear as jresize
+    from mfcnet_tpu_torch.ops.resize import resize_bilinear
+
+    x = np.random.default_rng(1).random((2, *in_hw, 2), np.float32)
+    want = np.asarray(jresize(x, *out_hw, align_corners=align_corners))
+    got = _nhwc(resize_bilinear(_nchw(x), *out_hw,
+                                align_corners=align_corners))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_repeat_for_pairs_matches_jax():
+    from mfcnet_tpu.ops.pairs import repeat_for_pairs as jrep
+    from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
+
+    x = np.random.default_rng(2).standard_normal((3, 4, 5)).astype(np.float32)
+    np.testing.assert_array_equal(
+        repeat_for_pairs(torch.from_numpy(x), 2).numpy(),
+        np.asarray(jrep(x, 2)))
+
+
+@pytest.fixture(scope="module")
+def warp_case():
+    """The inputs of the JAX package's own banded-warp test."""
+    rng = np.random.default_rng(17)
+    B, H, W, C = 2, 64, 48, 5
+    img = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    dx = rng.uniform(-9, 9, (B, H, W)).astype(np.float32)
+    dy = rng.uniform(-5.5, 5.5, (B, H, W)).astype(np.float32)
+    return img, dx, dy
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_grid_sample_bilinear_matches_jax(warp_case, align_corners,
+                                          padding_mode):
+    from mfcnet_tpu.ops.warp import grid_sample_bilinear as jgs
+    from mfcnet_tpu_torch.ops.warp import grid_sample_bilinear
+
+    img, _, _ = warp_case
+    rng = np.random.default_rng(3)
+    gx = rng.uniform(-1.3, 1.3, (2, 40, 56)).astype(np.float32)
+    gy = rng.uniform(-1.3, 1.3, (2, 40, 56)).astype(np.float32)
+    want = np.asarray(jgs(img, gx, gy, align_corners=align_corners,
+                          padding_mode=padding_mode))
+    got = _nhwc(grid_sample_bilinear(
+        _nchw(img), torch.from_numpy(gx), torch.from_numpy(gy),
+        align_corners=align_corners, padding_mode=padding_mode))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL_WARP)
+
+
+def _flows(warp_case):
+    img, dx, dy = warp_case
+    cases = {"bounded": np.stack([dx, dy], -1)}
+    # most rows sample far below the image: zeros
+    cases["out_of_image"] = np.stack([dx, dy + 3.0 * (64 - 1) / 2.0], -1)
+    big = dy.copy()
+    big[0, 30, 20] = 30.0  # beyond the TPU tier's +-24-row band
+    big[1, 5, 7] = -40.0
+    cases["beyond_band"] = np.stack([dx, big], -1)
+    cases["zero"] = np.zeros_like(cases["bounded"])
+    return cases
+
+
+@pytest.mark.parametrize("grid_hw", [None, (576, 720)])
+@pytest.mark.parametrize("case", ["bounded", "out_of_image", "beyond_band",
+                                  "zero"])
+def test_flow_warp_matches_jax_gather_and_pallas_tiers(warp_case, case,
+                                                       grid_hw):
+    """flow_warp (plain version on the CPU) == the JAX gather tier and ==
+    the JAX banded tier, whose Pallas kernel runs in interpret mode (and
+    whose guard hands 'beyond_band' to the gather tier)."""
+    from mfcnet_tpu.ops.warp import flow_warp as jwarp
+    from mfcnet_tpu_torch.ops.warp import flow_warp
+
+    img = warp_case[0]
+    flow = _flows(warp_case)[case].astype(np.float32)
+    got = _nhwc(flow_warp(_nchw(img), _nchw(flow), grid_hw=grid_hw))
+    gather = np.asarray(jwarp(img, flow, grid_hw=grid_hw, banded=False))
+    banded = np.asarray(jwarp(img, flow, grid_hw=grid_hw, banded=True))
+    np.testing.assert_allclose(got, gather, rtol=0, atol=ATOL_WARP)
+    np.testing.assert_allclose(got, banded, rtol=0, atol=ATOL_WARP)
+    if case == "zero" and grid_hw is not None:
+        # the cropped 576x720 grid makes zero flow a non-identity sample
+        assert np.abs(got - img).max() > 0.1
+    if case == "zero" and grid_hw is None:
+        # identity up to the float32 round trip j -> 2j/(W-1)-1 -> pixel
+        np.testing.assert_allclose(got, img, rtol=0, atol=1e-4)
+
+
+def test_flow_warp_bf16_envelope(warp_case):
+    """bf16 maps: the port blends with float32 weights and rounds once
+    (as the JAX gather tier does); the TPU kernel rounds its hat weights
+    to bf16 first. Envelope: one bf16 ulp of the largest map value
+    (2^-8 * 4.7 ~ 0.02) against the gather tier, three against the
+    banded tier."""
+    import jax.numpy as jnp
+
+    from mfcnet_tpu.ops.warp import flow_warp as jwarp
+    from mfcnet_tpu_torch.ops.warp import flow_warp
+
+    img = warp_case[0]
+    flow = _flows(warp_case)["bounded"].astype(np.float32)
+    got = flow_warp(_nchw(img).bfloat16(), _nchw(flow), grid_hw=(576, 720))
+    assert got.dtype == torch.bfloat16
+    got = _nhwc(got.float())
+    jimg = jnp.asarray(img, jnp.bfloat16)
+    gather = np.asarray(jwarp(jimg, flow, grid_hw=(576, 720),
+                              banded=False).astype(jnp.float32))
+    banded = np.asarray(jwarp(jimg, flow, grid_hw=(576, 720),
+                              banded=True).astype(jnp.float32))
+    ulp = 2.0 ** -8 * np.abs(img).max()
+    assert np.abs(got - gather).max() <= ulp
+    assert np.abs(got - banded).max() <= 3 * ulp
+
+
+def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
+    from mfcnet_tpu_torch.ops.warp import flow_warp, grid_sample_bilinear
+
+    maps = torch.rand(1, 5, 8, 8)
+    flow = torch.zeros(1, 2, 8, 8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        flow_warp(maps.clone().requires_grad_(), flow)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        grid_sample_bilinear(maps, flow[:, 0].clone().requires_grad_(),
+                             flow[:, 1])
+    with torch.no_grad():  # inference over parameters that require grad
+        flow_warp(maps.clone().requires_grad_(), flow)
+    with pytest.raises(ValueError, match="flow"):
+        flow_warp(maps, torch.zeros(1, 8, 8, 2))
+    with pytest.raises(ValueError, match="grid_hw"):
+        flow_warp(maps, flow, grid_hw=(4, 4))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flow_warp(maps.half(), flow)
+
+
+@pytest.mark.cuda
+def test_cuda_warp_kernel_matches_plain_version():
+    """The CUDA kernel against its plain version (run with
+    ``python -m pytest tests/test_torch_warp.py -m cuda --noconftest`` on
+    a GPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from mfcnet_tpu_torch.ops import warp
+
+    g = torch.Generator().manual_seed(0)
+    for dt in (torch.float32, torch.bfloat16):
+        maps = torch.rand(2, 6, 120, 160, generator=g).cuda().to(dt)
+        for scale, shift in ((4.0, 0.0), (50.0, 0.0), (4.0, 400.0)):
+            flow = (torch.randn(2, 2, 120, 160, generator=g) * scale
+                    + shift).cuda()
+            warp.reset_launches()
+            got = warp.flow_warp(maps, flow, (576, 720))
+            assert warp.LAUNCHES["flow_warp"] == 1
+            want = warp.flow_warp_plain(maps, flow, (576, 720))
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=ATOL_WARP)
+    torch.cuda.synchronize()
