@@ -3,28 +3,33 @@
     python3 chip_smoke.py
 
 Drives the port's main paths -- the video tracker with TernausNetMulti-Basic
-at full width (T=3, 5 classes, 480x640, bf16) and ``decode="device"``,
+at full width (T=3, 5 classes, bf16) and ``decode="device"``: at 480x640
 without flow and with the frozen RAFT flow provider (raft_large widths,
-12 iterations, fused update step) -- through its six hand-written CUDA
-kernels (``mfcnet_tpu_torch/csrc``), in four phases; a failing phase
-raises and the script exits non-zero:
+12 iterations, fused update step), at 512x640 with the frozen UnFlow
+provider (its only widths), and the offline flow CLI's batched forward --
+through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in four
+phases; a failing phase raises and the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
    parallel);
 2. kernels against their plain PyTorch versions: the connected-component
    kernels on crafted 480x640 class maps (integer outputs and the sums
-   exactly equal), the flow warp at 2x480x640 and the RAFT update step at
-   2x30x40 tokens within the tolerances stated beside them;
+   exactly equal), the flow warp at 2x480x640, the RAFT update step at
+   2x30x40 tokens, the correlation at UnFlow's two shapes and the two
+   experimental convolutions at the first VGG stage's shapes within the
+   tolerances stated beside them;
 3. the slices: seeded random weights, synthetic frames, ``track_on_frames``
-   in incremental and full mode, without and with flow (and once with
-   depth); every kernel's launch count, set to 0 just before a main-path
-   run and read just after, must have risen; f32 parity mode checks
+   in incremental and full mode, without flow, with RAFT (and once with
+   depth) and with UnFlow; every kernel's launch count, set to 0 just
+   before a main-path run and read just after, must have risen on the
+   paths that run it; f32 parity mode checks
    incremental against full and the path through the kernels against the
    path through the plain versions;
-4. timings: tracker frames/s on both paths, decode ms/frame, RAFT's share
-   of the frame, each kernel against its plain version, its bound and,
-   where one PyTorch call computes the same function, that call.
+4. timings: tracker frames/s on the three paths, decode ms/frame, each
+   provider's share of the frame, each kernel against its plain version,
+   its bound and, where one PyTorch call computes the same function, that
+   call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -55,13 +60,29 @@ KERNELS = (
     ("flow_warp", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:37"),
     ("raft_update", CSRC + "raft_update.cu",
      "mfcnet_tpu/ops/raft_update_pallas.py:151"),
+    ("warp_abs", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:218"),
+    ("correlation", CSRC + "correlation.cu",
+     "mfcnet_tpu/ops/correlation_pallas.py:29"),
+    ("vgg_stage1", CSRC + "stage1.cu",
+     "mfcnet_tpu/experimental/stage1_pallas.py:47"),
+    ("conv3x3", CSRC + "conv3x3.cu",
+     "mfcnet_tpu/experimental/conv3x3_pallas.py:54"),
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
+#: the kernels each main path must launch (the two experimental convolutions
+#: are on no path, in this package as in the JAX one)
+PATH_KERNELS = {
+    "no_flow": CC_KERNELS,
+    "raft": CC_KERNELS + ("flow_warp", "raft_update"),
+    "unflow": CC_KERNELS + ("flow_warp", "warp_abs", "correlation"),
+}
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and plain
 # float32 operations/s (the bounds are stated against these peaks whatever
 # the card's power limit, which is printed beside them)
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 FLOW_FRAMES, FLOW_ITERS = 24, 12
+# the UnFlow path: frames whose half is a multiple of 64
+UH, UW, UNFLOW_FRAMES = 512, 640, 18
 # kernel-vs-plain tolerances. flow_warp: the kernel forms its coordinates
 # with the same float32 operations in the same order and blends without
 # fused multiply-adds, so float32 outputs agree to 2e-6 (found: exactly) and
@@ -71,12 +92,29 @@ FLOW_FRAMES, FLOW_ITERS = 24, 12
 # r*net and the flow head's hidden layer to bf16, and a float32 sum taken in
 # another order can flip such a rounding (one bf16 step, 2^-8 of an O(1)
 # operand), which the following products carry on.
+# correlation: the JAX package's own limit for its kernel (float32 sums over C
+# in another order). conv3x3 / vgg_stage1: float32 to the JAX tests' limits;
+# bfloat16 results are rounded once from a float32 sum taken in another
+# order, which can flip that rounding: one bf16 step, 2^-8 of a value's
+# binade (rtol 2^-7), and in the fused stage a flipped intermediate is carried
+# on by the second convolution (twice the atol).
 WARP_ATOL = {"float32": 2e-6, "bfloat16": 2.0 ** -8}
+CORR_TOL = (1e-5, 1e-5)
+CONV_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2.0 ** -8, 2.0 ** -7)}
 RAFT_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-3, 1e-2)}
 #: bf16 engine through the kernels against through the plain versions: the
 #: most a class probability may move, one step of the float16 heats the
 #: tracker keeps at a probability near 1/C = 0.2
 FLOW_PROB_TOL = 2.0 ** -13
+#: the same for the UnFlow path, whose random provider gives flows of ~6 px
+#: (RAFT's: ~17 px), so that a lost flow moves the probabilities less: half
+#: the limit. Its flow may differ by more: three stacked bf16 networks of
+#: ~25 layers each carry a flipped rounding of the cost volume further than
+#: RAFT's update steps do (found: 0.06 px, 1 % of the largest flow).
+UNFLOW_PROB_TOL, UNFLOW_FLOW_TOL = 2.0 ** -14, 0.25
+#: the bf16 UnFlow provider against the float32 one: mean |difference| over
+#: mean |flow|, and max |difference| over max |flow|
+UNFLOW_BF16_MEAN, UNFLOW_BF16_MAX = 0.03, 0.05
 
 
 def log(*a):
@@ -162,13 +200,14 @@ def _segment_dist(yy, xx, y0, x0, y1, x1):
     return np.hypot(yy - (y0 + t * dy), xx - (x0 + t * dx))
 
 
-def synthetic_frames(n: int, seed: int = SEED):
-    """(n, H, W, 3) uint8 frames of two moving instruments (a shaft and
+def synthetic_frames(n: int, seed: int = SEED, hw=(H, W)):
+    """(n, h, w, 3) uint8 frames of two moving instruments (a shaft and
     two tips each) on a noisy background, drawn with numpy. Every fourth
     frame is plain noise and frames 40..47 are blank (a cut to black), so
     a random-weight model's class maps range from fragmented (noise) to
     clean (blank windows) and the decode takes each of its tiers."""
     rng = np.random.default_rng(seed)
+    H, W = hw
     yy, xx = np.mgrid[:H, :W].astype(np.float32)
     frames = np.empty((n, H, W, 3), np.uint8)
     tools = [[0.3 * W, 0.5 * H, 0.5], [0.7 * W, 0.5 * H, 3.5]]
@@ -279,8 +318,10 @@ def phase_kernels():
     torch.cuda.synchronize()
     # every comparison above demanded bit equality
     errs = {k: 0.0 for k in CC_KERNELS}
-    errs["flow_warp"] = _check_warp_kernel()
+    errs["flow_warp"], errs["warp_abs"] = _check_warp_kernel()
     errs["raft_update"] = _check_raft_update_kernel()
+    errs["correlation"] = _check_correlation_kernel()
+    errs.update(_check_conv_kernels())
     return errs
 
 
@@ -336,6 +377,7 @@ def _check_warp_kernel():
     img = torch.randn(2, 3, 50, 70, generator=gen).cuda()
     gx = (torch.rand(2, 100, 120, generator=gen) * 2.4 - 1.2).cuda()
     gy = (torch.rand(2, 100, 120, generator=gen) * 2.4 - 1.2).cuda()
+    worst_abs = 0.0
     for ac in (True, False):
         for pm in ("zeros", "border"):
             got = warp.grid_sample_bilinear(img, gx, gy, ac, pm)
@@ -343,12 +385,28 @@ def _check_warp_kernel():
             err = (got - want).abs().max().item()
             if err > WARP_ATOL["float32"]:
                 raise AssertionError(f"warp_abs[{ac}, {pm}]: {err}")
-            worst = max(worst, err)
+            worst_abs = max(worst_abs, err)
+    # ... and as UnFlow calls it: 3-channel frames at half resolution, a
+    # border-padded backward warp by a flow of a few pixels, both types
+    from mfcnet_tpu_torch.models.unflow import backward_warp
+
+    for dt in (torch.float32, torch.bfloat16):
+        frame = torch.randn(2, 3, UH // 2, UW // 2, generator=gen).cuda().to(dt)
+        fl = (torch.randn(2, 2, UH // 2, UW // 2, generator=gen) * 8.0).cuda()
+        got = backward_warp(frame, fl)
+        with _plain_unflow_kernels():
+            want = backward_warp(frame, fl)
+        err = (got.float() - want.float()).abs().max().item()
+        if err > WARP_ATOL[str(dt).split(".")[1]] * 8:
+            raise AssertionError(f"warp_abs[backward_warp, {dt}]: {err}")
+        worst_abs = max(worst_abs, err)
     log(f"flow_warp kernel vs plain: 2x{{{C},{C + 1}}}x{H}x{W}, f32 (atol "
         f"{WARP_ATOL['float32']}) and bf16 (atol {WARP_ATOL['bfloat16']}), "
         f"bounded / beyond the band / out of the image / zero flow on the "
-        f"576x720 grid; warp_abs 4 modes: max |diff| {worst}")
-    return worst
+        f"576x720 grid: max |diff| {worst}; warp_abs 4 modes and UnFlow's "
+        f"backward_warp at 2x3x{UH // 2}x{UW // 2} (f32, bf16 within one "
+        f"rounding of values up to 4): max |diff| {worst_abs}")
+    return worst, worst_abs
 
 
 def _raft_update_inputs(ub, dt, B, H8, W8, gen):
@@ -401,6 +459,153 @@ def _check_raft_update_kernel():
     return worst
 
 
+def _check_correlation_kernel():
+    """The cost volume at the UnFlow path's two shapes (tracker: 2 pairs at
+    256x320 -> 32x40 features; offline CLI: 4 pairs at 512x640 -> 64x80) and
+    one odd small case, float32 and bfloat16 inputs."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import correlation as co
+
+    gen = torch.Generator().manual_seed(SEED)
+    atol, rtol = CORR_TOL
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, md, s in (((2, UH // 16, UW // 16, 256), 20, 2),
+                             ((4, UH // 8, UW // 8, 256), 20, 2),
+                             ((1, 9, 45, 7), 5, 3)):
+            f1 = torch.randn(shape, generator=gen).cuda().to(dt)
+            f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+            got = co.correlation_cost_volume(f1, f2, md, s)
+            torch.cuda.synchronize()
+            want = co.correlation_plain(f1, f2, md, s)
+            err = (got - want).abs().max().item()
+            if not (got.shape == want.shape and got.dtype == torch.float32
+                    and torch.allclose(got, want, rtol=rtol, atol=atol)):
+                raise AssertionError(
+                    f"correlation[{dt}, {shape}, md={md}, s={s}]: kernel != "
+                    f"plain (max |diff| {err}; atol {atol} rtol {rtol})")
+            worst = max(worst, err)
+    log(f"correlation kernel vs plain: 2x{UH // 16}x{UW // 16}x256 and "
+        f"4x{UH // 8}x{UW // 8}x256 (md=20, s=2, 441 channels) and 1x9x45x7 "
+        f"(md=5, s=3), f32 and bf16 inputs: max |diff| {worst:.3g} (atol "
+        f"{atol}, rtol {rtol})")
+    return worst
+
+
+def _first_stage_weights(dt):
+    """The first two VGG convolutions of the tracker's own model (seeded
+    as in the slices): (stage module, k1, b1, k2, b2), the kernels HWIO."""
+    import copy
+
+    import torch
+
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T,
+        generator=torch.Generator().manual_seed(SEED))
+    enc = model.base_model.encoder
+    stage = copy.deepcopy(torch.nn.Sequential(enc[0], enc[1], enc[2], enc[3])
+                          ).cuda().to(dt).to(memory_format=torch.channels_last)
+    hwio = lambda conv: conv.weight.detach().permute(2, 3, 1, 0).contiguous()  # noqa: E731
+    return (stage, hwio(stage[0]), stage[0].bias.detach().float(),
+            hwio(stage[2]), stage[2].bias.detach().float())
+
+
+def _check_conv_kernels():
+    """conv3x3 at the first VGG stage's second convolution (1x480x640x64 ->
+    64) and the second stage's first (1x240x320x64 -> 128), bias + ReLU, and
+    one odd case; vgg_stage1 at 1x480x640x3, C1 = 64, with the model's own
+    weights, also against what the model's first stage gives."""
+    import torch
+
+    from mfcnet_tpu_torch.experimental import conv3x3 as c3
+    from mfcnet_tpu_torch.experimental import stage1 as s1
+
+    gen = torch.Generator().manual_seed(SEED)
+    worst = {"conv3x3": 0.0, "vgg_stage1": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        atol, rtol = CONV_TOL[name]
+        stage, k1, b1, k2, b2 = _first_stage_weights(dt)
+        for B, Hc, Wc, cin, cout in ((1, H, W, 64, 64),
+                                     (1, H // 2, W // 2, 64, 128),
+                                     (2, 17, 23, 5, 70)):
+            x = torch.randn(B, Hc, Wc, cin, generator=gen).cuda().to(dt)
+            w = k2 if (cin, cout) == (64, 64) else (
+                torch.randn(3, 3, cin, cout, generator=gen)
+                * (2.0 / (9 * cin)) ** 0.5).cuda().to(dt)
+            b = torch.randn(cout, generator=gen).cuda() * 0.1
+            for bias, relu in ((b, True), (None, False)):
+                got = c3.conv3x3(x, w, bias, relu)
+                torch.cuda.synchronize()
+                want = c3.conv3x3_plain(x, w, bias, relu)
+                err = (got.float() - want.float()).abs().max().item()
+                if not (got.dtype == dt and torch.allclose(
+                        got.float(), want.float(), rtol=rtol, atol=atol)):
+                    raise AssertionError(
+                        f"conv3x3[{name}, {B}x{Hc}x{Wc}x{cin}->{cout}, "
+                        f"relu={relu}]: kernel != plain (max |diff| {err}; "
+                        f"atol {atol} rtol {rtol})")
+                if name == "bfloat16":
+                    worst["conv3x3"] = max(worst["conv3x3"], err)
+        for shape in ((1, H, W, 3), (2, 19, 23, 3)):
+            x = torch.randn(shape, generator=gen).cuda().to(dt)
+            got = s1.vgg_stage1(x, k1, b1, k2, b2)
+            torch.cuda.synchronize()
+            want = s1.vgg_stage1_plain(x, k1, b1, k2, b2)
+            err = (got.float() - want.float()).abs().max().item()
+            if not (got.dtype == dt and torch.allclose(
+                    got.float(), want.float(), rtol=rtol, atol=2 * atol)):
+                raise AssertionError(
+                    f"vgg_stage1[{name}, {shape}]: kernel != plain (max "
+                    f"|diff| {err}; atol {2 * atol} rtol {rtol})")
+            if name == "bfloat16":
+                worst["vgg_stage1"] = max(worst["vgg_stage1"], err)
+            # the model's own first stage (cuDNN, the same type; float32
+            # without TF32): another rounding of the bias and another order
+            # of the sums, so bf16 steps apart at most
+            with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+                ref = stage(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            merr = (got.float() - ref.float()).abs().max().item()
+            lim = 1e-4 if name == "float32" else 2.0 ** -5
+            if merr > lim * max(1.0, ref.float().abs().max().item()):
+                raise AssertionError(
+                    f"vgg_stage1[{name}, {shape}] vs the model's first stage: "
+                    f"max |diff| {merr}")
+            log(f"vgg_stage1 [{name}, {shape}]: max |diff| {err:.3g} vs plain, "
+                f"{merr:.3g} vs the model's first stage (max value "
+                f"{ref.float().abs().max().item():.3g})")
+    log(f"conv3x3 kernel vs plain: 1x{H}x{W}x64->64, 1x{H // 2}x{W // 2}x64->"
+        f"128, 2x17x23x5->70, with bias + ReLU and without, f32 (atol "
+        f"{CONV_TOL['float32'][0]}, rtol {CONV_TOL['float32'][1]}) and bf16 "
+        f"(atol {CONV_TOL['bfloat16'][0]}, rtol {CONV_TOL['bfloat16'][1]}): "
+        f"max |diff| in bf16 {worst['conv3x3']:.3g}")
+    return worst
+
+
+def _plain_unflow_kernels():
+    """Context in which the UnFlow path runs the plain versions of the
+    correlation, of the backward warp and of the head's flow warp (on the
+    same CUDA tensors)."""
+    import contextlib
+    from unittest import mock
+
+    from mfcnet_tpu_torch.models import mfcnet, unflow
+    from mfcnet_tpu_torch.ops import correlation as co
+    from mfcnet_tpu_torch.ops import warp
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(unflow, "correlation_cost_volume",
+                                          co.correlation_plain))
+    stack.enter_context(mock.patch.object(unflow, "grid_sample_bilinear",
+                                          warp.grid_sample_bilinear_plain))
+    stack.enter_context(mock.patch.object(mfcnet, "flow_warp",
+                                          warp.flow_warp_plain))
+    return stack
+
+
 def _plain_kernels():
     """Context in which the decode runs every kernel's plain version (on
     the same CUDA tensors), for the kernel-vs-plain decode check."""
@@ -433,7 +638,8 @@ def _window_probs(engine, frames, i):
     return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)[0]
 
 
-def _check_rows(rows, n):
+def _check_rows(rows, n, hw=(H, W)):
+    H, W = hw
     if rows.shape != (n, 12):
         raise AssertionError(f"CSV shape {rows.shape} != {(n, 12)}")
     if not np.isnan(rows[:T - 1]).all():
@@ -456,7 +662,6 @@ def phase_slice(frames):
     import torch
 
     from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
-    from mfcnet_tpu_torch.ops import cc
     from mfcnet_tpu_torch.track import decode_device as dd
     from mfcnet_tpu_torch.track.tracker import (
         InferenceEngine,
@@ -475,11 +680,11 @@ def phase_slice(frames):
                         decode_tie_fallback=False)
     engine = InferenceEngine(model, cfg)
     with tempfile.TemporaryDirectory() as d:
-        cc.reset_launches()
+        _reset_all_launches()
         dd.reset_tier_counts()
         rows, fps = track_on_frames(frames, None, cfg, d, name="smoke",
                                     engine=engine)
-        launches = dict(cc.LAUNCHES)
+        launches = _all_launches()
         tiers = dict(dd.TIER_COUNTS)
         csv = np.loadtxt(Path(d) / "smoke_tracked.csv", delimiter=",")
     _check_rows(csv, len(frames))
@@ -488,10 +693,7 @@ def phase_slice(frames):
         f"(first run, includes warm-up: {fps:.2f} frames/s)")
     log(f"kernel launches on the main path: {json.dumps(launches)}")
     log(f"frames per decode tier: {json.dumps(tiers)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    _require_launches("no_flow", launches)
 
     full_cfg = dataclasses.replace(cfg, mode="full")
     with tempfile.TemporaryDirectory() as d:
@@ -569,18 +771,105 @@ def _keep_probs(engine):
     engine._outputs = outputs
 
 
-def _reset_all_launches():
-    from mfcnet_tpu_torch.ops import cc, raft_update, warp
+def _launch_modules():
+    from mfcnet_tpu_torch.experimental import conv3x3, stage1
+    from mfcnet_tpu_torch.ops import cc, correlation, raft_update, warp
 
-    for mod in (cc, raft_update, warp):
+    return (cc, raft_update, warp, correlation, conv3x3, stage1)
+
+
+def _reset_all_launches():
+    for mod in _launch_modules():
         mod.reset_launches()
 
 
 def _all_launches():
-    from mfcnet_tpu_torch.ops import cc, raft_update, warp
+    """Launch count of every kernel in ``KERNELS``, by name."""
+    counts = {}
+    for mod in _launch_modules():
+        counts.update(mod.LAUNCHES)
+    return {name: counts[name] for name, _, _ in KERNELS}
 
-    return {**cc.LAUNCHES, "flow_warp": warp.LAUNCHES["flow_warp"],
-            "raft_update": raft_update.LAUNCHES["raft_update"]}
+
+def _require_launches(path, launches):
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the {path} path: {missing}")
+
+
+def _compare_with_plain_kernels(what, engine, plain_engine, frames,
+                                plain_kernels, window_flow, windows=6,
+                                prob_tol=FLOW_PROB_TOL, flow_tol=0.1):
+    """A bf16 engine through the kernels against an engine of the same
+    weights through the plain versions (``plain_kernels()``: the context
+    that swaps them in), window by window over the first frames, on the
+    probabilities the engines themselves decoded. ``window_flow(engine)``
+    gives the flow of an engine's newest window."""
+    import torch
+
+    engine.reset()
+    _keep_probs(engine)
+    _keep_probs(plain_engine)
+    worst_heat, worst_prob, worst_flow, max_flow = 0.0, 0.0, 0.0, 0.0
+    flipped, unexplained, clear_share, compared = 0.0, 0, 1.0, 0
+    fault = float("inf")
+    for i in range(windows):
+        got = engine.step_async(frames[i])
+        with plain_kernels():
+            want = plain_engine.step_async(frames[i])
+        if got is None:
+            continue
+        with torch.no_grad():
+            f_got = window_flow(engine)
+            with plain_kernels():
+                f_want = window_flow(plain_engine)
+        worst_flow = max(worst_flow, (f_got - f_want).abs().max().item())
+        max_flow = max(max_flow, f_want.abs().max().item())
+        worst_heat = max(worst_heat, (got[2].float() - want[2].float()
+                                      ).abs().max().item())
+        p_got, p_want = engine.kept_probs, plain_engine.kept_probs
+        worst_prob = max(worst_prob, (p_got - p_want).abs().max().item())
+        # what a faulty warp would do to the same window: the plain head on
+        # the plain engine's maps with the flow taken away
+        with torch.no_grad(), plain_kernels():
+            p_zero = torch.softmax(plain_engine.model.fuse_nchw(
+                plain_engine.seg_buf, optflow=torch.zeros_like(f_want),
+                depth=None).float(), dim=1).permute(0, 2, 3, 1)[0]
+        fault = min(fault, (p_zero - p_want).abs().max().item())
+        top2 = p_got.topk(2, dim=-1).values
+        differ = got[0] != want[0]
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * prob_tol
+        flipped = max(flipped, differ.float().mean().item())
+        unexplained += int((differ & clear).sum().item())
+        clear_share = min(clear_share, clear.float().mean().item())
+        compared += 1
+    log(f"{what} engine through the kernels vs through the plain versions, "
+        f"bf16, {compared} windows: max |flow| {max_flow:.4g} px, max |flow "
+        f"diff| {worst_flow:.4g} px (limit {flow_tol:.4g}), max "
+        f"|probability diff| {worst_prob:.4g} (limit {prob_tol:.4g}; "
+        f"a zeroed flow moves them by {fault:.4g} at least), "
+        f"max |heat diff| {worst_heat:.4g}; class-mask pixels that differ: "
+        f"{flipped:.4%} at most per window, of which {unexplained} where the "
+        f"top-2 margin exceeds {2 * prob_tol:.4g} (must be 0; "
+        f"{clear_share:.4%} of a window's pixels at least have such a margin)")
+    # bf16 rounding flips inside the provider move the flow by a few
+    # hundredths of a pixel at most, and every class probability by no more
+    # than prob_tol (the float16 heats, rounded once more, by no more
+    # than that plus one float16 step of a value near 0.2, 2^-13). The random-weight model's probabilities are nearly
+    # flat, so the limit is also held against what a lost warp does to the
+    # same windows: it has to lie four times below that. Two probability
+    # vectors within the limit can disagree on the argmax only where the
+    # top two lie within twice the limit of each other, which is most of
+    # this model's pixels: the share of mask pixels that differ is reported
+    # and has no limit, a pixel that differs outside that band is a fault
+    if (worst_flow > flow_tol or worst_prob > prob_tol
+            or worst_heat > prob_tol + 2.0 ** -13 or unexplained
+            or fault < 4 * prob_tol):
+        raise AssertionError(f"{what} path: kernels and plain versions "
+                             f"disagree")
+    for e in (engine, plain_engine):
+        del e._outputs, e.kept_probs
 
 
 def _depth_frames(frames):
@@ -638,10 +927,7 @@ def phase_flow_slice(frames):
     log(f"flow path, incremental: {n} frames -> CSV {csv.shape} (first run, "
         f"includes warm-up: {fps:.2f} frames/s)")
     log(f"kernel launches on the flow path: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the flow path: "
-                             f"{missing}")
+    _require_launches("raft", launches)
     if launches["raft_update"] != FLOW_ITERS * fused \
             or launches["flow_warp"] != fused:
         raise AssertionError(
@@ -656,73 +942,13 @@ def phase_flow_slice(frames):
                     8)
     log("flow path, full mode: 8 frames -> CSV (8, 12)")
 
-    # through the kernels against through the plain versions, bf16: the
-    # same engine state, window by window, on the probabilities the
-    # engines themselves decoded
-    plain_engine = InferenceEngine(model, cfg, flow_model=flow_model)
-    engine.reset()
-    _keep_probs(engine)
-    _keep_probs(plain_engine)
-    worst_heat, worst_prob, worst_flow = 0.0, 0.0, 0.0
-    flipped, unexplained, clear_share, windows = 0.0, 0, 1.0, 0
-    fault = float("inf")
     from mfcnet_tpu_torch.track import outputs as out
 
-    for i in range(6):
-        got = engine.step_async(frames[i])
-        with _plain_flow_kernels():
-            want = plain_engine.step_async(frames[i])
-        if got is None:
-            continue
-        with torch.no_grad():
-            f_got = out.flow_from_feature_ring(*engine.flow_state, (H, W),
-                                               engine.flow_model)
-            with _plain_flow_kernels():
-                f_want = out.flow_from_feature_ring(
-                    *plain_engine.flow_state, (H, W), plain_engine.flow_model)
-        worst_flow = max(worst_flow, (f_got - f_want).abs().max().item())
-        worst_heat = max(worst_heat, (got[2].float() - want[2].float()
-                                      ).abs().max().item())
-        p_got, p_want = engine.kept_probs, plain_engine.kept_probs
-        worst_prob = max(worst_prob, (p_got - p_want).abs().max().item())
-        # what a faulty warp would do to the same window: the plain head on
-        # the plain engine's maps with the flow taken away
-        with torch.no_grad(), _plain_flow_kernels():
-            p_zero = torch.softmax(plain_engine.model.fuse_nchw(
-                plain_engine.seg_buf, optflow=torch.zeros_like(f_want),
-                depth=None).float(), dim=1).permute(0, 2, 3, 1)[0]
-        fault = min(fault, (p_zero - p_want).abs().max().item())
-        top2 = p_got.topk(2, dim=-1).values
-        differ = got[0] != want[0]
-        clear = (top2[..., 0] - top2[..., 1]) > 2 * FLOW_PROB_TOL
-        flipped = max(flipped, differ.float().mean().item())
-        unexplained += int((differ & clear).sum().item())
-        clear_share = min(clear_share, clear.float().mean().item())
-        windows += 1
-    log(f"flow engine through the kernels vs through the plain versions, "
-        f"bf16, {windows} windows: max |flow diff| {worst_flow:.4g} px, max "
-        f"|probability diff| {worst_prob:.4g} (limit {FLOW_PROB_TOL:.4g}; "
-        f"a zeroed flow moves them by {fault:.4g} at least), "
-        f"max |heat diff| {worst_heat:.4g}; class-mask pixels that differ: "
-        f"{flipped:.4%} at most per window, of which {unexplained} where the "
-        f"top-2 margin exceeds {2 * FLOW_PROB_TOL:.4g} (must be 0; "
-        f"{clear_share:.4%} of a window's pixels at least have such a margin)")
-    # bf16 rounding flips inside the 12 update steps move the flow by a few
-    # hundredths of a pixel at most, and every class probability by no more
-    # than FLOW_PROB_TOL (the float16 heats, rounded once more, by no more
-    # than twice that). The random-weight model's probabilities are nearly
-    # flat, so the limit is also held against what a lost warp does to the
-    # same windows: it has to lie four times below that. Two probability
-    # vectors within the limit can disagree on the argmax only where the
-    # top two lie within twice the limit of each other, which is most of
-    # this model's pixels: the share of mask pixels that differ is reported
-    # and has no limit, a pixel that differs outside that band is a fault
-    if (worst_flow > 0.1 or worst_prob > FLOW_PROB_TOL
-            or worst_heat > 2 * FLOW_PROB_TOL or unexplained
-            or fault < 4 * FLOW_PROB_TOL):
-        raise AssertionError("flow path: kernels and plain versions disagree")
-    for e in (engine, plain_engine):
-        del e._outputs, e.kept_probs
+    _compare_with_plain_kernels(
+        "RAFT", engine, InferenceEngine(model, cfg, flow_model=flow_model),
+        frames, _plain_flow_kernels,
+        lambda e: out.flow_from_feature_ring(*e.flow_state, (H, W),
+                                             e.flow_model))
 
     with parity_mode():
         c32 = dataclasses.replace(cfg, dtype="float32")
@@ -777,6 +1003,180 @@ def phase_flow_slice(frames):
         "(8, 12)")
     torch.cuda.synchronize()
     return engine, launches, fused
+
+
+def phase_unflow_slice(frames):
+    """The UnFlow path at full width: TernausNetMulti-Basic with
+    add_optflow_inputs at 512x640, bf16, incremental, device decode, the
+    frozen UnFlow provider (2 pairs per frame at 256x320: one correlation,
+    two backward warps, one head warp). Returns (engine, launches of the
+    main-path run, number of fused frames)."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+    from mfcnet_tpu_torch.models.unflow import UnFlow, he_init_weights
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True, generator=gen)
+    flow_model = he_init_weights(UnFlow(), gen)
+    n_flow = sum(p.numel() for p in flow_model.parameters())
+    log(f"UnFlow path: TernausNetMulti-Basic + frozen UnFlow (full widths, "
+        f"{n_flow} parameters), T={T} {UH}x{UW} bf16, seed {SEED}")
+    small = TrackerConfig(dtype="bfloat16", add_optflow_inputs=True)
+    try:
+        InferenceEngine(model, small, flow_model=flow_model)
+    except ValueError as e:
+        log(f"at the default {small.input_height}x{small.input_width}: "
+            f"ValueError: {e}")
+    else:
+        raise AssertionError("UnFlow at 480x640 must raise a ValueError")
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True,
+                        input_height=UH, input_width=UW)
+    # no device argument: the entry points run on the card by default
+    engine = InferenceEngine(model, cfg, flow_model=flow_model)
+    if engine.device.type != "cuda" or engine.flow_split:
+        raise AssertionError("the engine must default to the card and keep "
+                             "a frame ring for UnFlow")
+    n = UNFLOW_FRAMES
+    fused = n - (T - 1)
+    with tempfile.TemporaryDirectory() as d:
+        _reset_all_launches()
+        _, fps = track_on_frames(frames[:n], None, cfg, d, name="unflow",
+                                 engine=engine)
+        launches = _all_launches()
+        csv = np.loadtxt(Path(d) / "unflow_tracked.csv", delimiter=",")
+    _check_rows(csv, n, (UH, UW))
+    log(f"UnFlow path, incremental: {n} frames -> CSV {csv.shape} (first "
+        f"run, includes warm-up: {fps:.2f} frames/s)")
+    log(f"kernel launches on the UnFlow path: {json.dumps(launches)}")
+    _require_launches("unflow", launches)
+    if (launches["correlation"] != fused or launches["warp_abs"] != 2 * fused
+            or launches["flow_warp"] != fused or launches["raft_update"]):
+        raise AssertionError(
+            f"expected 1 correlation, 2 warp_abs and 1 flow_warp launch per "
+            f"fused frame ({fused} frames) and no raft_update, got {launches}")
+
+    with tempfile.TemporaryDirectory() as d:
+        track_on_frames(frames[:5], model,
+                        dataclasses.replace(cfg, mode="full"), d, name="full",
+                        flow_model=flow_model, device="cuda")
+        _check_rows(np.loadtxt(Path(d) / "full_tracked.csv", delimiter=","),
+                    5, (UH, UW))
+    log("UnFlow path, full mode: 5 frames -> CSV (5, 12)")
+
+    _compare_with_plain_kernels(
+        "UnFlow", engine, InferenceEngine(model, cfg, flow_model=flow_model),
+        frames, _plain_unflow_kernels,
+        lambda e: out.flow_for_window(e.flow_state, e.flow_model), windows=5,
+        prob_tol=UNFLOW_PROB_TOL, flow_tol=UNFLOW_FLOW_TOL)
+
+    with parity_mode():
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        engines = {
+            m: InferenceEngine(model, dataclasses.replace(c32, mode=m),
+                               flow_model=flow_model, device="cuda")
+            for m in ("incremental", "full")
+        }
+        heat, mism, compared = 0.0, 0.0, 0
+        for i in range(5):
+            outs = {m: e.step_async(frames[i]) for m, e in engines.items()}
+            if outs["full"] is None:
+                continue
+            heat = max(heat, (outs["incremental"][2].float()
+                              - outs["full"][2].float()).abs().max().item())
+            mism = max(mism, (outs["incremental"][0] != outs["full"][0]
+                              ).float().mean().item())
+            compared += 1
+        log(f"UnFlow path, f32 parity mode, incremental vs full: {compared} "
+            f"windows, max |heat diff| {heat:.4g}, class-mask mismatch "
+            f"{mism:.4%}")
+        # the frame ring hands flow_for_window the very frames the full
+        # mode normalizes again: the same arithmetic, but cuDNN sees the
+        # base forward at batch 1 or batch 3
+        if heat > 1e-3 or mism > 0.01:
+            raise AssertionError("UnFlow path: f32 incremental != full")
+        # the type decision (models/unflow.py): a bf16 provider casts the
+        # cost volume and the flow down where the JAX package promotes the
+        # rest of the network to float32. Held against the float32 provider
+        # on the same window: bf16 keeps 8 bits, through ~75 layers
+        window = np.stack(frames[2::-1])  # newest first
+        with torch.no_grad():
+            f32 = out.flow_for_window(
+                engines["full"]._normalize(window)[None],
+                engines["full"].flow_model)
+            b16 = out.flow_for_window(engine._normalize(window)[None],
+                                      engine.flow_model)
+        d = (b16 - f32).abs()
+        rel_mean = d.mean().item() / f32.abs().mean().item()
+        log(f"UnFlow bf16 provider vs float32 provider, one window: max "
+            f"|flow| {f32.abs().max().item():.4g} px, mean |flow| "
+            f"{f32.abs().mean().item():.4g} px, mean |diff| "
+            f"{d.mean().item():.4g} px = {rel_mean:.3%} of the mean, max "
+            f"|diff| {d.max().item():.4g} px (limits: mean {UNFLOW_BF16_MEAN:.0%}"
+            f" of the mean flow, max {UNFLOW_BF16_MAX:.0%} of the max flow)")
+        if (rel_mean > UNFLOW_BF16_MEAN
+                or d.max().item() > UNFLOW_BF16_MAX * f32.abs().max().item()
+                or not f32.abs().max().item() > 1.0):
+            raise AssertionError("UnFlow: the bf16 provider left the float32 "
+                                 "provider's envelope")
+    torch.cuda.synchronize()
+    return engine, launches, fused
+
+
+def phase_offline(frames, smi):
+    """The offline flow CLI's path: its ``build_provider`` and its batched
+    forward on uint8 frame pairs at 512x640, RAFT and UnFlow, float32 on
+    the card by default; a batch of 4 against the same pairs one by one."""
+    import torch
+
+    from mfcnet_tpu_torch.cli.generate_opticalflow import (
+        build_provider,
+        flow_pairs,
+    )
+    from mfcnet_tpu_torch.models.unflow import he_init_weights
+
+    prevs, currs = frames[:4], frames[1:5]
+    for name in ("RAFT", "UnFlow"):
+        model = build_provider(name, UH, UW)
+        if next(model.parameters()).device.type != "cuda":
+            raise AssertionError("the CLI's provider must default to the card")
+        if name == "UnFlow":  # the generator lives on the CPU
+            model = he_init_weights(
+                model.cpu(), torch.Generator().manual_seed(SEED)).cuda()
+        _reset_all_launches()
+        flows = flow_pairs(model, prevs, currs)
+        launches = _all_launches()
+        if flows.shape != (4, UH, UW, 2) or not np.isfinite(flows).all():
+            raise AssertionError(f"offline {name}: bad flow {flows.shape}")
+        single = np.concatenate([flow_pairs(model, prevs[i:i + 1],
+                                            currs[i:i + 1]) for i in range(4)])
+        diff = np.abs(flows - single).max()
+        # every op is per-sample, but cuDNN (TF32 by default, as a user runs
+        # it) may choose another algorithm for another batch
+        if diff > 0.1 * max(1.0, np.abs(single).max()):
+            raise AssertionError(f"offline {name}: batch of 4 != per pair "
+                                 f"({diff})")
+        ms = _host_ms(lambda: flow_pairs(model, prevs, currs), 3)
+        log(f"[{smi}] offline flow CLI forward, {name}, float32, 4 pairs at "
+            f"{UH}x{UW}: {ms:.2f} ms per batch incl. upload and fetch, max "
+            f"|flow| {np.abs(flows).max():.4g} px, batch vs per pair max "
+            f"|diff| {diff:.3g} px; hand-kernel launches per batch: "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        if name == "UnFlow" and (launches["correlation"] != 1
+                                 or launches["warp_abs"] != 2):
+            raise AssertionError(f"offline UnFlow: launches {launches}")
 
 
 def _event_ms(fn, reps):
@@ -1085,6 +1485,162 @@ def phase_flow_timings(engine, frames, smi):
     return times, bounds, library
 
 
+def phase_unflow_timings(engine, frames, smi):
+    """UnFlow path frames/s, the provider's share of the frame, and kernels
+    6 to 8 against their plain versions, bounds and library yardsticks.
+    Returns (times, bounds, library ms) by kernel name."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfcnet_tpu_torch.experimental import conv3x3 as c3
+    from mfcnet_tpu_torch.experimental import stage1 as s1
+    from mfcnet_tpu_torch.models.unflow import backward_warp
+    from mfcnet_tpu_torch.ops import correlation as co
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import track_on_frames
+
+    n = UNFLOW_FRAMES
+    with tempfile.TemporaryDirectory() as d:
+        _, fps = track_on_frames(frames[:n], None, engine.cfg, d, name="warm",
+                                 engine=engine)
+    log(f"[{smi}] tracker, UnFlow path (1 correlation, 2 backward warps, 1 "
+        f"head warp per frame), {UH}x{UW}, incremental bf16 device decode, "
+        f"warm, {n} host frames: {fps:.2f} frames/s")
+    it = iter(range(10 ** 9))
+    step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]), 12)
+
+    def provider():
+        with torch.no_grad():
+            return out.flow_for_window(engine.flow_state, engine.flow_model)
+
+    flow_ms = _host_ms(provider, 12)
+    log(f"[{smi}] UnFlow path step {step_ms:.3f} ms/frame (synchronized), of "
+        f"which the flow provider {flow_ms:.3f} ms = {flow_ms / step_ms:.1%} "
+        f"of the frame")
+
+    times, bounds, library = {}, {}, {}
+    gen = torch.Generator().manual_seed(SEED)
+    # kernel 6 at the tracker's shape, with the dtype the bf16 engine feeds
+    # it, and at the offline CLI's shape in float32
+    for shape, dt, key in (((2, UH // 16, UW // 16, 256), torch.bfloat16,
+                            "correlation"),
+                           ((4, UH // 8, UW // 8, 256), torch.float32,
+                            "correlation@offline")):
+        f1 = torch.randn(shape, generator=gen).cuda().to(dt)
+        f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+        t = _in_turns(key, lambda: co.correlation_cost_volume(f1, f2),
+                      lambda: co.correlation_plain(f1, f2), smi,
+                      f"{dt}, {'x'.join(map(str, shape))}, md=20, s=2",
+                      kreps=20, preps=2)
+        got = co.correlation_cost_volume(f1, f2)
+        # an output whose window row lies outside the image is a stored
+        # zero, not a product: count the products this shape needs
+        B_, H_, W_, C_ = shape
+        rows_in = sum(1 for y in range(H_) for dy in range(-20, 21, 2)
+                      if 0 <= y + dy < H_)
+        ops = 2.0 * B_ * rows_in * W_ * 21 * C_
+        # the peak is that of the inputs' type: bfloat16 products with
+        # float32 sums are what the tensor cores compute exactly, float32
+        # products are FMAs. The kernel itself runs on FMAs for both.
+        peak, unit = ((PEAK_BF16, "989 TFLOP/s bfloat16 tensor cores")
+                      if dt == torch.bfloat16 else
+                      (PEAK_F32, "67 TFLOP/s float32 FMA"))
+        b_ops = ops / peak * 1e3
+        b_bytes = _nbytes(f1, f2, got) / PEAK_BYTES * 1e3
+        bound = (max(b_ops, b_bytes),
+                 "operations" if b_ops >= b_bytes else "bytes")
+        log(f"[{smi}] {key}: bound {bound[0]:.5f} ms ({bound[1]}: "
+            f"{ops / 1e9:.3f} GFLOP at {unit} = {b_ops:.5f} "
+            f"ms, {_nbytes(f1, f2, got)} B at 3.35 TB/s = {b_bytes:.5f} ms); "
+            f"kernel (float32 FMAs) at {ops / t[0] / 1e9:.1f} TFLOP/s = "
+            f"{ops / t[0] * 1e3 / PEAK_F32:.1%} of the FMA peak; no library "
+            f"call computes it")
+        if key == "correlation":
+            times[key], bounds[key] = t, bound
+
+    # UnFlow's backward warp (kernel 5's second entry point)
+    frame = torch.randn(2, 3, UH // 2, UW // 2, generator=gen).cuda().bfloat16()
+    fl = (torch.randn(2, 2, UH // 2, UW // 2, generator=gen) * 8.0).cuda()
+
+    def plain_warp():
+        with _plain_unflow_kernels():
+            return backward_warp(frame, fl)
+
+    times["warp_abs"] = _in_turns(
+        "warp_abs", lambda: backward_warp(frame, fl), plain_warp, smi,
+        f"UnFlow's backward_warp incl. its coordinate arithmetic, bf16 "
+        f"2x3x{UH // 2}x{UW // 2}; device time in CUDA-graph replays",
+        kreps=20, preps=3, timer=_graph_ms)
+    got = backward_warp(frame, fl)
+    wb = _nbytes(frame, fl, got) / PEAK_BYTES * 1e3
+    bounds["warp_abs"] = (wb, "bytes")
+    xs = torch.linspace(-1, 1, UW // 2, device="cuda").view(1, 1, -1)
+    ys = torch.linspace(-1, 1, UH // 2, device="cuda").view(1, -1, 1)
+    grid = torch.stack([xs + fl[:, 0] / ((UW // 2 - 1) / 2.0),
+                        ys + fl[:, 1] / ((UH // 2 - 1) / 2.0)], -1
+                       ).to(frame.dtype)
+    library["warp_abs"] = _graph_ms(lambda: F.grid_sample(
+        frame, grid, mode="bilinear", padding_mode="border",
+        align_corners=False), 20)
+    log(f"[{smi}] warp_abs: bound {wb:.5f} ms (bytes); F.grid_sample on a "
+        f"ready-made grid {library['warp_abs']:.4f} ms")
+
+    # kernels 7 and 8 at the first VGG stage's shapes, bf16, against cuDNN
+    # (F.conv2d + ReLU, bf16, channels_last)
+    stage, k1, b1, k2, b2 = _first_stage_weights(torch.bfloat16)
+    for Hc, Wc, cin, cout, key in ((H, W, 64, 64, "conv3x3"),
+                                   (H // 2, W // 2, 64, 128,
+                                    "conv3x3@240x320x64->128")):
+        x = torch.randn(1, Hc, Wc, cin, generator=gen).cuda().bfloat16()
+        w = k2 if cout == 64 else (torch.randn(3, 3, cin, cout, generator=gen)
+                                   * (2.0 / (9 * cin)) ** 0.5).cuda().bfloat16()
+        b = torch.randn(cout, generator=gen).cuda() * 0.1
+        t = _in_turns(key, lambda: c3.conv3x3(x, w, b, True),
+                      lambda: c3.conv3x3_plain(x, w, b, True), smi,
+                      f"bf16 1x{Hc}x{Wc}x{cin}->{cout}, bias + ReLU",
+                      kreps=20, preps=5)
+        got = c3.conv3x3(x, w, b, True)
+        ops = 2.0 * Hc * Wc * 9 * cin * cout
+        b_ops = ops / PEAK_BF16 * 1e3
+        b_bytes = _nbytes(x, w, b, got) / PEAK_BYTES * 1e3
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bc = b.bfloat16()
+        lib = _event_ms(lambda: F.relu(F.conv2d(xc, wc, bc, padding=1)), 20)
+        log(f"[{smi}] {key}: bound {max(b_ops, b_bytes):.5f} ms (operations "
+            f"{b_ops:.5f} ms at 989 TFLOP/s bf16, bytes {b_bytes:.5f} ms); "
+            f"kernel at {ops / t[0] / 1e9:.1f} TFLOP/s; F.conv2d + ReLU "
+            f"(cuDNN, bf16, channels_last) {lib:.4f} ms")
+        if key == "conv3x3":
+            times[key] = t
+            bounds[key] = (max(b_ops, b_bytes),
+                           "operations" if b_ops >= b_bytes else "bytes")
+            library[key] = lib
+    x = torch.randn(1, H, W, 3, generator=gen).cuda().bfloat16()
+    times["vgg_stage1"] = _in_turns(
+        "vgg_stage1", lambda: s1.vgg_stage1(x, k1, b1, k2, b2),
+        lambda: s1.vgg_stage1_plain(x, k1, b1, k2, b2), smi,
+        f"bf16 1x{H}x{W}x3, C1=64, the model's own weights", kreps=20,
+        preps=5)
+    got = s1.vgg_stage1(x, k1, b1, k2, b2)
+    ops = 2.0 * H * W * 9 * (3 * 64 + 64 * 64)
+    b_ops = ops / PEAK_BF16 * 1e3
+    b_bytes = _nbytes(x, k1, b1, k2, b2, got) / PEAK_BYTES * 1e3
+    bounds["vgg_stage1"] = (max(b_ops, b_bytes),
+                            "operations" if b_ops >= b_bytes else "bytes")
+    xc = x.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        library["vgg_stage1"] = _event_ms(lambda: stage(xc), 20)
+    log(f"[{smi}] vgg_stage1: bound {bounds['vgg_stage1'][0]:.5f} ms "
+        f"({bounds['vgg_stage1'][1]}: operations {b_ops:.5f} ms at 989 "
+        f"TFLOP/s bf16, bytes {b_bytes:.5f} ms); kernel at "
+        f"{ops / times['vgg_stage1'][0] / 1e9:.1f} TFLOP/s; the model's "
+        f"first stage (cuDNN, two F.conv2d + ReLU, bf16, channels_last) "
+        f"{library['vgg_stage1']:.4f} ms")
+    return times, bounds, library
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -1092,20 +1648,31 @@ def main():
     smi = phase_device()
     errs = phase_kernels()
     frames = synthetic_frames(64)
+    uframes = synthetic_frames(UNFLOW_FRAMES, hw=(UH, UW))
     engine, launches_noflow, _ = phase_slice(frames)
-    flow_engine, launches, fused = phase_flow_slice(frames)
+    flow_engine, launches_raft, fused_raft = phase_flow_slice(frames)
+    unflow_engine, launches_unflow, fused_unflow = phase_unflow_slice(uframes)
+    phase_offline(uframes, smi)
     _, times, bounds = phase_timings(engine, frames, smi)
-    ftimes, fbounds, library = phase_flow_timings(flow_engine, frames, smi)
-    times.update(ftimes)
-    bounds.update(fbounds)
+    library = {}
+    for t, b, lib in (phase_flow_timings(flow_engine, frames, smi),
+                      phase_unflow_timings(unflow_engine, uframes, smi)):
+        times.update(t)
+        bounds.update(b)
+        library.update(lib)
     import torch
 
+    paths = {"no_flow": (launches_noflow, len(frames) - (T - 1)),
+             "raft": (launches_raft, fused_raft),
+             "unflow": (launches_unflow, fused_unflow)}
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name],
-         "launches_per_frame": launches[name] / fused,
-         "launches_no_flow_path": launches_noflow.get(name),
+         "replaces": replaces,
+         # over the three main-path runs, each counted from 0
+         "launches": sum(c[name] for c, _ in paths.values()),
+         "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
+         "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": library.get(name)}

@@ -19,7 +19,9 @@ A flax ``.msgpack`` checkpoint is read with the JAX package (flax's
 
 :func:`raft_state_dict_from_jax` does the same for the flow provider: the
 inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
-key names.
+key names; :func:`unflow_state_dict_from_jax` for UnFlow: the inverse of
+``torch_convert.convert_unflow``, into the reference checkpoint's key
+names.
 """
 
 from __future__ import annotations
@@ -157,4 +159,44 @@ def raft_state_dict_from_jax(variables: Dict):
     _conv(sd, "update_block.flow_head.conv2", ub["flow2"])
     _conv(sd, "mask_predictor.convrelu.0", ub["mask1"])
     _conv(sd, "mask_predictor.conv", ub["mask2"])
+    return sd
+
+
+_UNFLOW_UPCONV = (
+    ("six_out", "moduleSixOut", _conv), ("six_up", "moduleSixUp", _deconv),
+    ("fiv_next", "moduleFivNext.0", _deconv),
+    ("fiv_out", "moduleFivOut", _conv), ("fiv_up", "moduleFivUp", _deconv),
+    ("fou_next", "moduleFouNext.0", _deconv),
+    ("fou_out", "moduleFouOut", _conv), ("fou_up", "moduleFouUp", _deconv),
+    ("thr_next", "moduleThrNext.0", _deconv),
+    ("thr_out", "moduleThrOut", _conv), ("thr_up", "moduleThrUp", _deconv),
+    ("two_next", "moduleTwoNext.0", _deconv),
+    ("two_out", "moduleTwoOut", _conv),
+    ("upscale", "moduleUpscale.0", _deconv),
+)
+_UNFLOW_TAIL = (("fou_a", "moduleFou.1"), ("fou_b", "moduleFou.3"),
+                ("fiv_a", "moduleFiv.1"), ("fiv_b", "moduleFiv.3"),
+                ("six_a", "moduleSix.1"), ("six_b", "moduleSix.3"))
+_UNFLOW_COMPLEX = (("one", "moduleOne.1"), ("two", "moduleTwo.1"),
+                   ("thr", "moduleThr.1"), ("redir", "moduleRedir.0"),
+                   ("combined", "moduleCombined.0")) + _UNFLOW_TAIL
+_UNFLOW_SIMPLE = (("one", "moduleOne.1"), ("two", "moduleTwo.1"),
+                  ("thr_a", "moduleThr.1"), ("thr_b", "moduleThr.3")
+                  ) + _UNFLOW_TAIL
+
+
+def unflow_state_dict_from_jax(variables: Dict):
+    """JAX ``{'params'}`` of ``mfcnet_tpu.models.unflow.UnFlow`` -> a
+    ``state_dict`` for :class:`mfcnet_tpu_torch.models.unflow.UnFlow` (the
+    reference checkpoint's ``moduleFlownets.{0,1,2}.module*`` key
+    names)."""
+    params = variables["params"]
+    sd = {}
+    for i, convs in enumerate((_UNFLOW_COMPLEX, _UNFLOW_SIMPLE,
+                               _UNFLOW_SIMPLE)):
+        net, pre = params[f"flownet{i}"], f"moduleFlownets.{i}"
+        for jname, tname in convs:
+            _conv(sd, f"{pre}.{tname}", net[jname])
+        for jname, tname, put in _UNFLOW_UPCONV:
+            put(sd, f"{pre}.moduleUpconv.{tname}", net["upconv"][jname])
     return sd

@@ -59,6 +59,24 @@ _SIGNATURES = {
             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
         ),
     },
+    "correlation.cu": {
+        # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream
+        "mfc_correlation": (
+            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+    },
+    "conv3x3.cu": {
+        # x, w, bias, out, B, H, W, cin, cout, relu, dtype, stream
+        "mfc_conv3x3": (
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+    },
+    "stage1.cu": {
+        # x, k1, b1, k2, b2, out, B, H, W, cin, C1, dtype, stream
+        "mfc_vgg_stage1": (
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+    },
 }
 
 

@@ -10,7 +10,8 @@ taps, any flow exact); on a CPU tensor it runs :func:`flow_warp_plain`,
 the same arithmetic in plain PyTorch. There is no fallback between the
 two. :func:`grid_sample_bilinear` routes through the kernel's second
 entry point, which takes absolute source coordinates as the TPU kernel
-does. Each launch adds one to :data:`LAUNCHES`.
+does; its caller is UnFlow's ``backward_warp`` (``models/unflow.py``, once
+per refinement network). Each launch adds one to :data:`LAUNCHES`.
 
 Layout: maps are (B, C, H, W) and flow (B, 2, H, W) -- the layout of the
 tracker's ring buffers; the JAX functions take (B, H, W, C) and

@@ -55,19 +55,28 @@ def _nhwc(x):
 
 def flow_for_window(frames_norm, flow_model):
     """(B, T, 3, H, W) normalized frames, newest first -> (B, T-1, 2, H, W)
-    float32 flow. All B*(T-1) pairs run as one batched solve, and the
-    newest frame's encoders run once per window, not once per pair."""
-    from mfcnet_tpu_torch.ops.resize import resize_nearest
+    float32 flow. All B*(T-1) pairs (newest, earlier) run as one batched
+    solve. A provider with split encoders (``flow_from_features``: RAFT)
+    runs the newest frame's encoders once per window, not once per pair;
+    any other provider (UnFlow) is called on the pairs as they are."""
+    from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
+    from mfcnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
     B, T, _, H, W = frames_norm.shape
     H2, W2 = H // 2, W // 2
     half = resize_nearest(frames_norm, H2, W2)
     newest = _nhwc(half[:, 0])
-    f1 = flow_model.features(newest)
-    net, inp = flow_model.context(newest)
-    f2 = flow_model.features(_nhwc(half[:, 1:].reshape(B * (T - 1), 3,
-                                                       H2, W2)))
-    return _flow_from_feature_pairs(f1, f2, net, inp, T, (H, W), flow_model)
+    earlier = _nhwc(half[:, 1:].reshape(B * (T - 1), 3, H2, W2))
+    if hasattr(flow_model, "flow_from_features"):
+        f1 = flow_model.features(newest)
+        net, inp = flow_model.context(newest)
+        f2 = flow_model.features(earlier)
+        return _flow_from_feature_pairs(f1, f2, net, inp, T, (H, W),
+                                        flow_model)
+    fl = flow_model(repeat_for_pairs(newest, T - 1), earlier)
+    fl = resize_bilinear(fl.permute(0, 3, 1, 2) / 0.5, H, W,
+                         align_corners=True)
+    return fl.reshape(B, T - 1, 2, H, W)
 
 
 def flow_ingest(frame_norm, flow_model):

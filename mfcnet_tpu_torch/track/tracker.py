@@ -8,10 +8,12 @@ Incremental mode (default) runs one base forward per new frame and keeps
 the previous frames' class maps in a ring buffer on the device; full mode
 recomputes all T base forwards per frame (the reference's pattern). Both
 give the same rows. With ``add_optflow_inputs`` a frozen flow provider
-(RAFT) gives the flow from the newest frame to each earlier one, by which
-the fusion head warps the earlier maps; incremental mode keeps a ring of
-the provider's per-frame features. With ``add_depth_inputs`` a depth map
-per frame joins the head's input.
+(RAFT, UnFlow) gives the flow from the newest frame to each earlier one,
+by which the fusion head warps the earlier maps; incremental mode keeps a
+ring of the provider's per-frame features where the provider has split
+encoders (RAFT) and a ring of normalized frames where it has none
+(UnFlow). With ``add_depth_inputs`` a depth map per frame joins the
+head's input.
 
 No module-level ``cv2``: OpenCV is imported only to read video, to draw
 the overlay and for the exact host decode (``decode='host'`` or a
@@ -343,17 +345,25 @@ class InferenceEngine:
     fusion head runs on the buffer. 'full': all T base forwards per frame.
     Both ingest from the first frame, so they agree during warmup too.
 
-    ``flow_model``: the frozen flow provider (``models.raft.RAFT``) used
-    with ``cfg.add_optflow_inputs``. Incremental mode keeps a newest-first
-    ring of its per-frame features and the newest frame's context state,
-    so the encoders run once per new frame; full mode recomputes them per
-    window (``track/outputs.py``). With ``cfg.add_depth_inputs`` a ring
-    (or queue) of depth maps, uint8 scaled to [0, 1], feeds the head.
+    ``flow_model``: the frozen flow provider used with
+    ``cfg.add_optflow_inputs``, a module that maps two (B, h, w, 3) frames
+    to a (B, h, w, 2) flow (``models.raft.RAFT``, ``models.unflow.UnFlow``).
+    For a provider with split encoders (``flow_from_features``: RAFT),
+    incremental mode keeps a newest-first ring of its per-frame features
+    and the newest frame's context state, so the encoders run once per
+    new frame; for any other provider (UnFlow) it keeps a newest-first
+    ring of normalized frames and runs the stateless
+    ``outputs.flow_for_window`` per frame. Full mode recomputes everything
+    per window (``track/outputs.py``). A provider that names a
+    ``size_multiple`` (UnFlow: 64) needs half-resolution frames of such a
+    size; other sizes raise a ``ValueError`` (there is no resize). With
+    ``cfg.add_depth_inputs`` a ring (or queue) of depth maps, uint8 scaled
+    to [0, 1], feeds the head.
 
     The engine runs copies of ``model`` and ``flow_model`` cast to
     ``cfg.dtype`` on ``device``: the card by default, wherever the caller
     built the models, and the CPU only when asked (``device="cpu"``);
-    without a card the default raises. A bfloat16 engine runs the
+    without a card the default raises. A bfloat16 engine runs a RAFT
     provider's update iterations through the fused update step, a float32
     engine through its plain convolutions."""
 
@@ -373,12 +383,24 @@ class InferenceEngine:
         if cfg.add_optflow_inputs:
             if flow_model is None:
                 raise ValueError(
-                    "cfg.add_optflow_inputs needs a flow_model (a "
-                    "mfcnet_tpu_torch.models.raft.RAFT)")
+                    "cfg.add_optflow_inputs needs a flow_model: a flow "
+                    "provider such as mfcnet_tpu_torch.models.raft.RAFT or "
+                    "mfcnet_tpu_torch.models.unflow.UnFlow")
+            mult = getattr(flow_model, "size_multiple", 1)
+            h2, w2 = cfg.input_height // 2, cfg.input_width // 2
+            if h2 % mult or w2 % mult:
+                raise ValueError(
+                    f"{type(flow_model).__name__} runs at half resolution "
+                    f"and needs {h2}x{w2} to be multiples of {mult}: frames "
+                    f"of {cfg.input_height}x{cfg.input_width} cannot use it "
+                    f"(multiples of {2 * mult} can, e.g. 512x640)")
             self.flow_model = copy.deepcopy(flow_model).to(
                 self.device, self.dtype).eval()
-            self.flow_model.fused_update = self.dtype == torch.bfloat16
-            self.flow_model.fused_dtype = "bfloat16"
+            if hasattr(self.flow_model, "fused_update"):
+                self.flow_model.fused_update = self.dtype == torch.bfloat16
+                self.flow_model.fused_dtype = "bfloat16"
+        #: split encoders: keep a feature ring; otherwise a frame ring
+        self.flow_split = hasattr(self.flow_model, "flow_from_features")
         self._mean = torch.tensor([0.485, 0.456, 0.406], dtype=self.dtype,
                                   device=self.device).view(1, 3, 1, 1)
         self._std = torch.tensor([0.229, 0.224, 0.225], dtype=self.dtype,
@@ -396,8 +418,9 @@ class InferenceEngine:
             torch.zeros(1, T, H, W, dtype=self.dtype, device=self.device)
             if cfg.add_depth_inputs else None
         )
-        # (feat_buf (1, T, h, w, 256), net, inp): filled by the first T
-        # ingests, before the first fuse reads it
+        # split encoders: (feat_buf (1, T, h, w, 256), net, inp); otherwise
+        # the (1, T, 3, H, W) ring of normalized frames. Filled by the
+        # first T ingests, before the first fuse reads it
         self.flow_state = None
         self._frame_q = []
         self._depth_q = []
@@ -441,7 +464,7 @@ class InferenceEngine:
                 self.depth_buf = torch.cat(
                     [d[None, None], self.depth_buf[:, : T - 1]], dim=1
                 )
-            if cfg.add_optflow_inputs:
+            if cfg.add_optflow_inputs and self.flow_split:
                 f_new, net, inp = out.flow_ingest(x, self.flow_model)
                 if self.flow_state is None:
                     feat_buf = f_new[:, None].repeat(1, T, 1, 1, 1)
@@ -450,14 +473,22 @@ class InferenceEngine:
                         [f_new[:, None], self.flow_state[0][:, : T - 1]],
                         dim=1)
                 self.flow_state = (feat_buf, net, inp)
+            elif cfg.add_optflow_inputs:
+                if self.flow_state is None:
+                    self.flow_state = x[:, None].repeat(1, T, 1, 1, 1)
+                else:
+                    self.flow_state = torch.cat(
+                        [x[:, None], self.flow_state[:, : T - 1]], dim=1)
             self._frame_q.append(True)
             if len(self._frame_q) < T:
                 return None
-            optflow = (
-                out.flow_from_feature_ring(*self.flow_state, (H, W),
-                                           self.flow_model)
-                if cfg.add_optflow_inputs else None
-            )
+            optflow = None
+            if cfg.add_optflow_inputs and self.flow_split:
+                optflow = out.flow_from_feature_ring(
+                    *self.flow_state, (H, W), self.flow_model)
+            elif cfg.add_optflow_inputs:
+                optflow = out.flow_for_window(self.flow_state,
+                                              self.flow_model)
             return self._outputs(self.model.fuse_nchw(
                 self.seg_buf, optflow=optflow, depth=self.depth_buf))
         # full mode: newest-first window of raw frames (reference :251)

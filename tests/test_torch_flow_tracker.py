@@ -303,3 +303,119 @@ def test_cli_tracks_with_flow_and_depth(tmp_path):
     rows = np.loadtxt(tmp_path / "vt" / "video_tracking_results"
                       / "a_tracked.csv", delimiter=",")
     assert rows.shape == (5, 12)
+
+
+# ----------------------------------- a provider without split encoders: UnFlow
+UH = UW = 128
+
+
+@pytest.fixture(scope="module")
+def unflow_parts():
+    """128x128 narrow segmenter (JAX-initialised) and full-width UnFlow
+    (He-style weights from the port, carried over with ``convert_unflow``:
+    under a default initialization the flow is nearly constant and the
+    provider's wiring would not show), with their counterparts on the same
+    weights: (jm, v, pm, jf, fv, pf)."""
+    from mfcnet_tpu.compat.torch_convert import convert_unflow
+    from mfcnet_tpu.models import MultiFrameSegmenter as JSeg
+    from mfcnet_tpu.models import TernausNet16 as JT16
+    from mfcnet_tpu.models.unflow import UnFlow as JUnFlow
+    from mfcnet_tpu.utils.jitinit import jit_init
+    from mfcnet_tpu_torch.compat.from_jax import load_jax_variables
+    from mfcnet_tpu_torch.models import MultiFrameSegmenter, TernausNet16
+    from mfcnet_tpu_torch.models.unflow import UnFlow, he_init_weights
+
+    jm = JSeg(base=JT16(num_classes=C, num_filters=4, stage_convs=STAGES),
+              num_classes=C, num_frames=T, variant="basic", base_output="exp")
+    v = _np(jit_init(jm, jax.random.PRNGKey(3),
+                     np.zeros((1, T, UH, UW, 3), np.float32),
+                     optflow=np.zeros((1, T - 1, UH, UW, 2), np.float32)))
+    pm = load_jax_variables(
+        MultiFrameSegmenter(TernausNet16(C, 4, STAGES), C, T).eval(), v)
+    jf = JUnFlow(corr_impl="shifts")
+    pf = he_init_weights(UnFlow(), torch.Generator().manual_seed(4),
+                         flow_gain=1.0 / 20.0).eval()
+    fv = convert_unflow({k: t.numpy() for k, t in pf.state_dict().items()})
+    return jm, v, pm, jf, fv, pf
+
+
+def _ucfg(**kw):
+    from mfcnet_tpu_torch.track.tracker import TrackerConfig
+
+    return TrackerConfig(num_input_frames=T, num_classes=C, input_height=UH,
+                         input_width=UW, dtype="float32",
+                         add_optflow_inputs=True, **kw)
+
+
+def test_tracker_flow_provider_without_split_encoders(unflow_parts):
+    """The port's counterpart of the JAX test of the same name: a provider
+    without ``flow_from_features`` keeps a raw-frame ring, and incremental
+    and full modes agree as they do for RAFT."""
+    from mfcnet_tpu_torch.track.outputs import flow_for_window
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine
+
+    pm, pf = unflow_parts[2], unflow_parts[5]
+    assert not hasattr(pf, "flow_from_features")
+    frames = np.random.default_rng(6).integers(0, 255, (4, UH, UW, 3),
+                                               dtype=np.uint8)
+    engines = {m: InferenceEngine(pm, _ucfg(mode=m), flow_model=pf,
+                                  device="cpu")
+               for m in ("incremental", "full")}
+    assert not engines["incremental"].flow_split
+    assert not hasattr(engines["incremental"].flow_model, "fused_update")
+    compared = 0
+    for t in range(4):
+        outs = {m: e.step(frames[t]) for m, e in engines.items()}
+        if outs["full"] is None:
+            assert outs["incremental"] is None
+            continue
+        assert engines["incremental"].flow_state.shape == (1, T, 3, UH, UW)
+        with torch.no_grad():
+            flow = flow_for_window(engines["incremental"].flow_state, pf)
+        assert flow.std() > 0.1  # pixels: the warp has something to do
+        assert (outs["incremental"][0] != outs["full"][0]).mean() < 0.01
+        np.testing.assert_allclose(
+            outs["incremental"][1].astype(np.float32),
+            outs["full"][1].astype(np.float32), rtol=0, atol=1.5e-4)
+        compared += 1
+    assert compared == 2
+
+
+def test_unflow_engine_matches_jax_engine(unflow_parts):
+    """The slice as a whole with UnFlow as provider: same frames, same
+    weights, float32, probabilities (float16 heats) within 1e-3."""
+    from mfcnet_tpu.track.tracker import InferenceEngine as JEngine
+    from mfcnet_tpu.track.tracker import TrackerConfig as JCfg
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine
+
+    jm, v, pm, jf, fv, pf = unflow_parts
+    je = JEngine(jm, v, JCfg(num_input_frames=T, num_classes=C,
+                             input_height=UH, input_width=UW,
+                             dtype="float32", add_optflow_inputs=True),
+                 flow_model=jf, flow_variables=fv)
+    pe = InferenceEngine(pm, _ucfg(), flow_model=pf, device="cpu")
+    frames = np.random.default_rng(7).integers(0, 255, (4, UH, UW, 3),
+                                               dtype=np.uint8)
+    compared = 0
+    for t in range(4):
+        want, got = je.step(frames[t]), pe.step(frames[t])
+        assert (want is None) == (got is None) == (t < T - 1)
+        if want is None:
+            continue
+        np.testing.assert_allclose(got[1].astype(np.float32),
+                                   want[1].astype(np.float32), rtol=0,
+                                   atol=1e-3)
+        assert (got[0] != want[0]).mean() < 0.01
+        compared += 1
+    assert compared == 2
+
+
+def test_unflow_engine_rejects_frame_sizes_it_cannot_run(unflow_parts):
+    """Half of 480x640 is 240x320, no multiple of 64: a ValueError that
+    says so, at construction (the JAX package fails in its decoder)."""
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine, TrackerConfig
+
+    pm, pf = unflow_parts[2], unflow_parts[5]
+    cfg = TrackerConfig(dtype="float32", add_optflow_inputs=True)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        InferenceEngine(pm, cfg, flow_model=pf, device="cpu")

@@ -195,12 +195,23 @@ _IMPORT_CHECK = """
     model = get_multiframe_segmentation_model(
         "TernausNetMulti-Basic", 5, 3, scale=0.0625,
         generator=torch.Generator().manual_seed(0))
+    S = 128 if PROVIDER == "UnFlow" else 32
     frames = np.random.default_rng(0).integers(
-        0, 255, (5, 32, 32, 3), dtype=np.uint8)
-    cfg = TrackerConfig(input_height=32, input_width=32, dtype="float32",
+        0, 255, (5, S, S, 3), dtype=np.uint8)
+    cfg = TrackerConfig(input_height=S, input_width=S, dtype="float32",
                         **CFG)
-    flow_model = (RAFT(iters=1, input_hw=(16, 16))
-                  if cfg.add_optflow_inputs else None)
+    flow_model = None
+    if cfg.add_optflow_inputs and PROVIDER == "UnFlow":
+        from mfcnet_tpu_torch.cli.generate_opticalflow import (
+            build_parser, build_provider, flow_pairs)
+        from mfcnet_tpu_torch.models.unflow import UnFlow
+        flow_model = UnFlow()
+        build_parser()
+        flows = flow_pairs(build_provider("UnFlow", 64, 64, device="cpu"),
+                           frames[:2, :64, :64], frames[1:3, :64, :64])
+        assert flows.shape == (2, 64, 64, 2)
+    elif cfg.add_optflow_inputs:
+        flow_model = RAFT(iters=1, input_hw=(16, 16))
     with tempfile.TemporaryDirectory() as d:
         rows, _ = track_on_frames(frames, model, cfg, d,
                                   flow_model=flow_model, device="cpu")
@@ -212,9 +223,9 @@ _IMPORT_CHECK = """
 """
 
 
-def _run_import_check(cfg_kwargs, forbidden):
+def _run_import_check(cfg_kwargs, forbidden, provider="RAFT"):
     code = (f"CFG = {cfg_kwargs!r}\nFORBIDDEN = {forbidden!r}\n"
-            + textwrap.dedent(_IMPORT_CHECK))
+            f"PROVIDER = {provider!r}\n" + textwrap.dedent(_IMPORT_CHECK))
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         cwd=Path(__file__).resolve().parents[1], timeout=300,
@@ -229,6 +240,14 @@ def test_port_imports_no_jax_flax_or_cv2():
     _run_import_check(
         dict(decode="device", overlay=False, add_optflow_inputs=True),
         _FORBIDDEN + ("cv2",))
+
+
+def test_unflow_run_and_flow_cli_import_no_jax_flax_or_cv2():
+    """The same for a tracker run with UnFlow as provider and for the
+    offline flow CLI's provider and batched forward."""
+    _run_import_check(
+        dict(decode="device", overlay=False, add_optflow_inputs=True),
+        _FORBIDDEN + ("cv2",), provider="UnFlow")
 
 
 def test_host_decode_and_overlay_import_nothing_of_the_jax_package():
