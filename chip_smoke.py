@@ -15,10 +15,11 @@ phases; a failing phase raises and the script exits non-zero:
    parallel);
 2. kernels against their plain PyTorch versions: the connected-component
    kernels on crafted 480x640 class maps (integer outputs and the sums
-   exactly equal), the flow warp at 2x480x640, the RAFT update step at
-   2x30x40 tokens, the correlation at UnFlow's two shapes and the two
-   experimental convolutions at the first VGG stage's shapes within the
-   tolerances stated beside them;
+   exactly equal), the flow warp at 2x480x640, UnFlow's one-launch backward
+   warp in its four modes, both memory formats and both types, the RAFT
+   update step at 4 to 38,400 tokens, the correlation at UnFlow's two
+   shapes and the two experimental convolutions at the first VGG stage's
+   shapes within the tolerances stated beside them;
 3. the slices: seeded random weights, synthetic frames, ``track_on_frames``
    in incremental and full mode, without flow, with RAFT (and once with
    depth) and with UnFlow; every kernel's launch count, set to 0 just
@@ -61,6 +62,7 @@ KERNELS = (
     ("raft_update", CSRC + "raft_update.cu",
      "mfcnet_tpu/ops/raft_update_pallas.py:151"),
     ("warp_abs", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:218"),
+    ("backward_warp", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:218"),
     ("correlation", CSRC + "correlation.cu",
      "mfcnet_tpu/ops/correlation_pallas.py:29"),
     ("vgg_stage1", CSRC + "stage1.cu",
@@ -70,11 +72,13 @@ KERNELS = (
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
 #: the kernels each main path must launch (the two experimental convolutions
-#: are on no path, in this package as in the JAX one)
+#: are on no path, in this package as in the JAX one; warp_abs, the warp by
+#: absolute coordinates, has had no caller on a path since UnFlow's backward
+#: warp became the one-launch backward_warp)
 PATH_KERNELS = {
     "no_flow": CC_KERNELS,
     "raft": CC_KERNELS + ("flow_warp", "raft_update"),
-    "unflow": CC_KERNELS + ("flow_warp", "warp_abs", "correlation"),
+    "unflow": CC_KERNELS + ("flow_warp", "backward_warp", "correlation"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and plain
 # float32 operations/s (the bounds are stated against these peaks whatever
@@ -318,7 +322,8 @@ def phase_kernels():
     torch.cuda.synchronize()
     # every comparison above demanded bit equality
     errs = {k: 0.0 for k in CC_KERNELS}
-    errs["flow_warp"], errs["warp_abs"] = _check_warp_kernel()
+    (errs["flow_warp"], errs["warp_abs"],
+     errs["backward_warp"]) = _check_warp_kernel()
     errs["raft_update"] = _check_raft_update_kernel()
     errs["correlation"] = _check_correlation_kernel()
     errs.update(_check_conv_kernels())
@@ -340,6 +345,48 @@ def _warp_flows(gen):
     return {"bounded": randn(4.0), "beyond the band": big,
             "leaves the image": randn(4.0) + 700.0,
             "zero": torch.zeros(2, 2, H, W)}
+
+
+def _warp_abs_backward_warp(img, flow):
+    """UnFlow's backward warp as it ran before the one-launch kernel: the
+    coordinates in ~20 elementwise PyTorch kernels, then ``warp_abs``
+    through ``grid_sample_bilinear`` (which copies a ``channels_last`` frame
+    to NCHW first). Kept as the yardstick the new entry point is read
+    against, and as the caller that holds ``warp_abs`` to its plain
+    version."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+
+    _, _, h, w = img.shape
+    dev = img.device
+
+    def c(v):
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+    xs = torch.linspace(-1.0, 1.0, w, dtype=torch.float32, device=dev)
+    ys = torch.linspace(-1.0, 1.0, h, dtype=torch.float32, device=dev)
+    flow = flow.float()
+    gx = xs.view(1, 1, w) + flow[:, 0] / c((w - 1) / 2.0)
+    gy = ys.view(1, h, 1) + flow[:, 1] / c((h - 1) / 2.0)
+    return warp.grid_sample_bilinear(img, gx, gy, align_corners=False,
+                                     padding_mode="border")
+
+
+def _count_device_kernels(fn):
+    """Kernels and copies the device ran for one call of ``fn``. Taken
+    before the script's first CUDA-graph capture: after one, the trace no
+    longer shows kernels launched outside PyTorch's own operators."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _check_warp_kernel():
@@ -386,27 +433,60 @@ def _check_warp_kernel():
             if err > WARP_ATOL["float32"]:
                 raise AssertionError(f"warp_abs[{ac}, {pm}]: {err}")
             worst_abs = max(worst_abs, err)
-    # ... and as UnFlow calls it: 3-channel frames at half resolution, a
-    # border-padded backward warp by a flow of a few pixels, both types
-    from mfcnet_tpu_torch.models.unflow import backward_warp
-
+    # ... and in UnFlow's backward warp as it ran before the one-launch
+    # kernel: 3-channel frames at half resolution, both types
     for dt in (torch.float32, torch.bfloat16):
         frame = torch.randn(2, 3, UH // 2, UW // 2, generator=gen).cuda().to(dt)
         fl = (torch.randn(2, 2, UH // 2, UW // 2, generator=gen) * 8.0).cuda()
-        got = backward_warp(frame, fl)
-        with _plain_unflow_kernels():
-            want = backward_warp(frame, fl)
+        got = _warp_abs_backward_warp(frame, fl)
+        want = warp.backward_warp_plain(frame, fl)
         err = (got.float() - want.float()).abs().max().item()
         if err > WARP_ATOL[str(dt).split(".")[1]] * 8:
             raise AssertionError(f"warp_abs[backward_warp, {dt}]: {err}")
         worst_abs = max(worst_abs, err)
+    # the one-launch backward warp: UnFlow's shape, the four sampling modes,
+    # NCHW and channels_last, float32 and bfloat16 frames and flows. The
+    # kernel repeats the plain version's float32 operations one by one, so
+    # float32 results are held to bit equality and bfloat16 ones to one
+    # rounding of values up to 4 (found: equal too); the result keeps its
+    # input's memory format
+    worst_bw = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        frame = torch.randn(2, 3, UH // 2, UW // 2, generator=gen).cuda().to(dt)
+        flow = (torch.randn(2, 2, UH // 2, UW // 2, generator=gen) * 8.0
+                ).cuda()
+        flow[0, :, :8] += 400.0  # rows that leave the image
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            img = frame.contiguous(memory_format=fmt)
+            for fdt in (torch.float32, torch.bfloat16):
+                fl = flow.to(fdt).contiguous(memory_format=fmt)
+                for ac in (False, True):
+                    for pm in ("zeros", "border"):
+                        got = warp.backward_warp(img, fl, ac, pm)
+                        want = warp.backward_warp_plain(img, fl, ac, pm)
+                        torch.cuda.synchronize()
+                        what = (f"backward_warp[{dt}, {fmt}, flow {fdt}, "
+                                f"align_corners={ac}, {pm}]")
+                        if got.stride() != img.stride():
+                            raise AssertionError(
+                                f"{what}: result strides {got.stride()} are "
+                                f"not the input's {img.stride()}")
+                        if dt == torch.float32:
+                            _equal(what, got, want)
+                        err = (got.float() - want.float()).abs().max().item()
+                        if err > WARP_ATOL["bfloat16"] * 8:
+                            raise AssertionError(f"{what}: {err}")
+                        worst_bw = max(worst_bw, err)
     log(f"flow_warp kernel vs plain: 2x{{{C},{C + 1}}}x{H}x{W}, f32 (atol "
         f"{WARP_ATOL['float32']}) and bf16 (atol {WARP_ATOL['bfloat16']}), "
         f"bounded / beyond the band / out of the image / zero flow on the "
-        f"576x720 grid: max |diff| {worst}; warp_abs 4 modes and UnFlow's "
-        f"backward_warp at 2x3x{UH // 2}x{UW // 2} (f32, bf16 within one "
-        f"rounding of values up to 4): max |diff| {worst_abs}")
-    return worst, worst_abs
+        f"576x720 grid: max |diff| {worst}; warp_abs 4 modes and the earlier "
+        f"backward warp at 2x3x{UH // 2}x{UW // 2} (f32, bf16 within one "
+        f"rounding of values up to 4): max |diff| {worst_abs}; backward_warp "
+        f"(one launch) at 2x3x{UH // 2}x{UW // 2}, 4 modes x NCHW / "
+        f"channels_last x f32 / bf16 frames x f32 / bf16 flows, f32 bit for "
+        f"bit, bf16 within one rounding: max |diff| {worst_bw}")
+    return worst, worst_abs, worst_bw
 
 
 def _raft_update_inputs(ub, dt, B, H8, W8, gen):
@@ -439,7 +519,11 @@ def _check_raft_update_kernel():
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         atol, rtol = RAFT_TOL[str(dt).split(".")[1]]
-        for B, H8, W8 in ((2, H // 16, W // 16), (2, 9, 13)):
+        # a near-empty call, a ragged grid, the tracker's size and the
+        # frozen provider's size inside a training step: in bfloat16 with
+        # clusters that split the taps (the first three) and without
+        for B, H8, W8 in ((1, 2, 2), (2, 9, 13), (2, H // 16, W // 16),
+                          (8, 60, 80)):
             args = _raft_update_inputs(ub, dt, B, H8, W8, gen)
             got = ru.raft_update(*args)
             torch.cuda.synchronize()
@@ -452,10 +536,38 @@ def _check_raft_update_kernel():
                         f"plain (max |diff| {err}; atol {atol} rtol {rtol})")
                 if dt == torch.bfloat16:
                     worst = max(worst, err)
+            plan = ru.tile_plan(B, H8, W8)
             log(f"raft_update kernel vs plain [{dt}, {B}x{H8}x{W8} tokens]: "
                 f"max |diff| net {(got[0] - want[0]).abs().max().item():.3g} "
                 f"delta {(got[1] - want[1]).abs().max().item():.3g} "
-                f"(atol {atol}, rtol {rtol})")
+                f"(atol {atol}, rtol {rtol})"
+                + (f"; configuration '{plan.config}', {plan.rows}x{plan.cols}-"
+                   f"token tiles, clusters {plan.clusters}"
+                   if dt == torch.bfloat16 else ""))
+        # three iterations through one workspace (hx filled once, outputs
+        # taking turns) against a new workspace per call: the same kernels
+        # on the same values, so bit for bit
+        B, H8, W8 = 2, H // 16, W // 16
+        c1, f1, inp, net, flow, packed = _raft_update_inputs(
+            ub, dt, B, H8, W8, gen)[:6]
+        ru.reset_launches()
+        ws = ru.UpdateWorkspace(B, H8, W8, packed, "cuda")
+        n_ws, n_each, kept = net, net, net.clone()
+        for i in range(3):
+            n_ws, d_ws = ru.raft_update(c1, f1, inp, n_ws, flow, packed, H8,
+                                        W8, ws)
+            n_each, d_each = ru.raft_update(c1, f1, inp, n_each, flow, packed,
+                                            H8, W8)
+            torch.cuda.synchronize()
+            _equal(f"raft_update[{dt}] through a workspace, call {i}: net",
+                   n_ws, n_each)
+            _equal(f"raft_update[{dt}] through a workspace, call {i}: delta",
+                   d_ws, d_each)
+        _equal("raft_update: the caller's net", net, kept)
+        if ru.COUNTS["hx_fills"] != 1 + 3 or ru.LAUNCHES["raft_update"] != 6:
+            raise AssertionError(
+                f"raft_update: hx must be filled once per workspace "
+                f"({ru.COUNTS}, {ru.LAUNCHES})")
     return worst
 
 
@@ -599,8 +711,8 @@ def _plain_unflow_kernels():
     stack = contextlib.ExitStack()
     stack.enter_context(mock.patch.object(unflow, "correlation_cost_volume",
                                           co.correlation_plain))
-    stack.enter_context(mock.patch.object(unflow, "grid_sample_bilinear",
-                                          warp.grid_sample_bilinear_plain))
+    stack.enter_context(mock.patch.object(unflow, "warp_by_flow",
+                                          warp.backward_warp_plain))
     stack.enter_context(mock.patch.object(mfcnet, "flow_warp",
                                           warp.flow_warp_plain))
     return stack
@@ -928,11 +1040,20 @@ def phase_flow_slice(frames):
         f"includes warm-up: {fps:.2f} frames/s)")
     log(f"kernel launches on the flow path: {json.dumps(launches)}")
     _require_launches("raft", launches)
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    log(f"raft_update on the flow path: {json.dumps(ru.COUNTS)}")
     if launches["raft_update"] != FLOW_ITERS * fused \
             or launches["flow_warp"] != fused:
         raise AssertionError(
             f"expected {FLOW_ITERS} update steps and 1 warp per fused frame "
             f"({fused} frames), got {launches}")
+    # every step on wgmma + TMA, and [net | inp] written once per solve
+    if ru.COUNTS["wgmma"] != FLOW_ITERS * fused \
+            or ru.COUNTS["hx_fills"] != fused:
+        raise AssertionError(
+            f"expected {FLOW_ITERS} wgmma steps and 1 fill of hx per fused "
+            f"frame ({fused} frames), got {ru.COUNTS}")
 
     with tempfile.TemporaryDirectory() as d:
         track_on_frames(frames[:8], model,
@@ -1062,11 +1183,15 @@ def phase_unflow_slice(frames):
         f"run, includes warm-up: {fps:.2f} frames/s)")
     log(f"kernel launches on the UnFlow path: {json.dumps(launches)}")
     _require_launches("unflow", launches)
-    if (launches["correlation"] != fused or launches["warp_abs"] != 2 * fused
-            or launches["flow_warp"] != fused or launches["raft_update"]):
+    if (launches["correlation"] != fused
+            or launches["backward_warp"] != 2 * fused
+            or launches["flow_warp"] != fused or launches["raft_update"]
+            or launches["warp_abs"]):
         raise AssertionError(
-            f"expected 1 correlation, 2 warp_abs and 1 flow_warp launch per "
-            f"fused frame ({fused} frames) and no raft_update, got {launches}")
+            f"expected 1 correlation, 2 backward_warp and 1 flow_warp launch "
+            f"per fused frame ({fused} frames) and no raft_update or "
+            f"warp_abs, got {launches}")
+    _check_unflow_warp_is_one_kernel(engine)
 
     with tempfile.TemporaryDirectory() as d:
         track_on_frames(frames[:5], model,
@@ -1135,6 +1260,42 @@ def phase_unflow_slice(frames):
     return engine, launches, fused
 
 
+def _check_unflow_warp_is_one_kernel(engine):
+    """UnFlow's forward must launch one device kernel per backward warp: no
+    layout copy, no elementwise kernel for the coordinates. The tensors the
+    provider hands the warp are recorded in one provider call, and a call
+    on tensors of those strides and types is counted by the profiler."""
+    import torch
+
+    from mfcnet_tpu_torch.models import unflow
+    from mfcnet_tpu_torch.track import outputs as out
+
+    seen = []
+    inner = unflow.warp_by_flow
+
+    def recording(img, flow, **kw):
+        seen.append((img, flow))
+        return inner(img, flow, **kw)
+
+    unflow.warp_by_flow = recording
+    try:
+        with torch.no_grad():
+            out.flow_for_window(engine.flow_state, engine.flow_model)
+    finally:
+        unflow.warp_by_flow = inner
+    if len(seen) != 2:
+        raise AssertionError(f"UnFlow: {len(seen)} backward warps per call")
+    for img, flow in seen:
+        names = _count_device_kernels(
+            lambda: unflow.backward_warp(img, flow))
+        log(f"UnFlow's backward warp on a {tuple(img.shape)} {img.dtype} "
+            f"frame (strides {img.stride()}) and a {flow.dtype} flow "
+            f"(strides {flow.stride()}): device kernels per call: {names}")
+        if len(names) != 1 or "backward_warp_kernel" not in names[0]:
+            raise AssertionError(
+                f"UnFlow's backward warp must be one kernel, got {names}")
+
+
 def phase_offline(frames, smi):
     """The offline flow CLI's path: its ``build_provider`` and its batched
     forward on uint8 frame pairs at 512x640, RAFT and UnFlow, float32 on
@@ -1175,7 +1336,7 @@ def phase_offline(frames, smi):
             f"|diff| {diff:.3g} px; hand-kernel launches per batch: "
             f"{json.dumps({k: v for k, v in launches.items() if v})}")
         if name == "UnFlow" and (launches["correlation"] != 1
-                                 or launches["warp_abs"] != 2):
+                                 or launches["backward_warp"] != 2):
             raise AssertionError(f"offline UnFlow: launches {launches}")
 
 
@@ -1298,13 +1459,14 @@ def _nbytes(*tensors):
 
 
 def _in_turns(name, kern, plain, smi, what, kreps=50, preps=3,
-              timer=_event_ms):
+              timer=_event_ms, ptimer=None):
     """ms per call, in turns (plain, kernel, kernel, plain); the better of
-    each pair."""
-    p1 = timer(plain, preps)
+    each pair. ``ptimer``: the plain version's timer where it differs."""
+    ptimer = ptimer or timer
+    p1 = ptimer(plain, preps)
     k1 = timer(kern, kreps)
     k2 = timer(kern, kreps)
-    p2 = timer(plain, preps)
+    p2 = ptimer(plain, preps)
     log(f"[{smi}] {name}: kernel {min(k1, k2):.4f} ms, plain "
         f"{min(p1, p2):.4f} ms ({what}; runs {k1:.4f}/{k2:.4f} vs "
         f"{p1:.4f}/{p2:.4f})")
@@ -1357,11 +1519,13 @@ def phase_flow_timings(engine, frames, smi):
                           1), net, inp, (H, W), fm)
 
     it = iter(range(10 ** 9))
-    step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]), 16)
-    flow_ms = _host_ms(flow_part, 16)
-    log(f"[{smi}] flow path step {step_ms:.3f} ms/frame (synchronized), of "
-        f"which the flow provider {flow_ms:.3f} ms = "
-        f"{flow_ms / step_ms:.1%} of the frame")
+    for run in range(3):  # host-bound numbers: several runs, all printed
+        step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]),
+                           16)
+        flow_ms = _host_ms(flow_part, 16)
+        log(f"[{smi}] flow path step {step_ms:.3f} ms/frame (synchronized), "
+            f"of which the flow provider {flow_ms:.3f} ms = "
+            f"{flow_ms / step_ms:.1%} of the frame (run {run + 1} of 3)")
 
     # one update iteration, piece by piece, at the main path's shapes
     ub = fm.update_block
@@ -1383,8 +1547,14 @@ def phase_flow_timings(engine, frames, smi):
         coords = coords_grid(B, H8, W8, "cuda") + flow.view(B, H8, W8, 2)
         corr = pyramid.lookup(coords).view(B, N, -1)
         lookup_ms = _event_ms(lambda: pyramid.lookup(coords), 20)
-        step_fused_ms = _event_ms(lambda: ru.fused_update_step(
-            ub, packed, corr, inp, net, flow, H8, W8), 20)
+        ws = ru.UpdateWorkspace(B, H8, W8, packed, "cuda")
+        state = [net]
+
+        def fused_step():  # as the solve calls it: one workspace, state fed back
+            state[0], _ = ru.fused_update_step(ub, packed, corr, inp, state[0],
+                                               flow, H8, W8, ws)
+
+        step_fused_ms = _event_ms(fused_step, 20)
         lookup_host = _host_ms(lambda: pyramid.lookup(coords), 20)
     log(f"[{smi}] one RAFT iteration at {B}x{H8}x{W8} tokens: lookup "
         f"{lookup_ms:.4f} ms device ({lookup_host:.4f} ms host-visible), "
@@ -1392,61 +1562,104 @@ def phase_flow_timings(engine, frames, smi):
         f"{step_fused_ms:.4f} ms")
 
     times, bounds, library = {}, {}, {}
-    times["raft_update"] = _in_turns(
-        "raft_update", lambda: ru.raft_update(*args),
-        lambda: ru.raft_update_plain(*args), smi,
-        f"bf16, {B}x{H8}x{W8} tokens")
     macs = sum(
         packed[f"w_{k}"].shape[0] * packed[f"w_{k}"].shape[1] * cols
         for k, cols in (("c2", 192), ("f2", 64), ("cv", 126), ("zr_h", 256),
                         ("q_h", 128), ("zr_v", 256), ("q_v", 128),
                         ("fl1", 256), ("fl2", 2)))
-    got = ru.raft_update(*args)
-    b_ops = 2 * macs * B * N / PEAK_BF16 * 1e3
-    b_bytes = _nbytes(c1, f1, inp, net, flow, *packed.values(),
-                      *got) / PEAK_BYTES * 1e3
-    bounds["raft_update"] = (max(b_ops, b_bytes),
-                             "operations" if b_ops >= b_bytes else "bytes")
+
+    def in_solve(sargs):
+        """One update step as the solve runs it: through a workspace, the
+        state fed back, hx already filled."""
+        sc1, sf1, sinp, snet, sflow, spacked, sh, sw = sargs
+        ws = ru.UpdateWorkspace(sc1.shape[0], sh, sw, spacked, "cuda")
+        state = [snet]
+
+        def step():
+            state[0], delta = ru.raft_update(sc1, sf1, sinp, state[0], sflow,
+                                             spacked, sh, sw, ws)
+            return state[0], delta
+
+        return step
+
+    def bound_of(sargs, outs):
+        """(ms, by what): each input and weight read once, each output
+        written once over the memory rate, against the multiply-adds over
+        the bf16 tensor-core peak."""
+        tok = sargs[0].shape[0] * sargs[0].shape[1]
+        b_ops = 2 * macs * tok / PEAK_BF16 * 1e3
+        b_bytes = _nbytes(*sargs[:5], *(sargs[5][k] for k in ru._WEIGHT_NAMES),
+                          *outs) / PEAK_BYTES * 1e3
+        return (max(b_ops, b_bytes),
+                "operations" if b_ops >= b_bytes else "bytes", b_ops, b_bytes)
+
+    def library_args(sargs, scorr):
+        sc1, _, sinp, snet, sflow = sargs[:5]
+        sb, sh, sw = sc1.shape[0], sargs[6], sargs[7]
+
+        def cl(t, ch):
+            return t.view(sb, sh, sw, ch).permute(0, 3, 1, 2)
+
+        return (cl(snet.bfloat16(), 128), cl(sinp, 128),
+                cl(scorr, scorr.shape[-1]), cl(sflow.bfloat16(), 2))
+
+    # the kernel's device time is that of CUDA-graph replays of the step in
+    # a solve (its eight launches are chained on the device; called eagerly
+    # the wrapper's host time shows instead, printed beside it)
+    step = in_solve(args)
+    eager = _event_ms(step, 50)
+    times["raft_update"] = _in_turns(
+        "raft_update", step, lambda: ru.raft_update_plain(*args), smi,
+        f"bf16, {B}x{H8}x{W8} tokens, through a solve's workspace; kernel: "
+        f"device time in CUDA-graph replays (eager wrapper calls {eager:.4f} "
+        f"ms), plain: eager", kreps=20, preps=3, timer=_graph_ms,
+        ptimer=_event_ms)
+    bound = bound_of(args, step())
+    bounds["raft_update"] = bound[:2]
     # library yardstick: the provider's own unfused UpdateBlock (cuDNN,
     # bf16, channels_last, without the mask head; it includes convcorr1 and
     # convflow1, which the kernel leaves outside)
-    def cl(t, ch):
-        return t.view(B, H8, W8, ch).permute(0, 3, 1, 2)
-
     with torch.no_grad():
-        lib_args = (cl(net.bfloat16(), 128), cl(inp, 128),
-                    cl(corr.bfloat16(), corr.shape[-1]),
-                    cl(flow.bfloat16(), 2))
+        lib_args = library_args(args, corr.bfloat16())
         lib_eager = _event_ms(lambda: ub(*lib_args), 20)
         library["raft_update"] = _graph_ms(lambda: ub(*lib_args), 10, 5)
     log(f"[{smi}] raft_update: {macs} multiply-adds per token x {B * N} "
-        f"tokens; bound {bounds['raft_update'][0]:.5f} ms "
-        f"({bounds['raft_update'][1]}: operations {b_ops:.5f} ms at 989 "
-        f"TFLOP/s bf16, bytes {b_bytes:.5f} ms); unfused UpdateBlock "
-        f"(cuDNN, bf16, channels_last) {library['raft_update']:.4f} ms per "
-        f"iteration of device time (CUDA-graph replay), {lib_eager:.4f} ms "
-        f"called eagerly (host-bound)")
+        f"tokens; bound {bound[0]:.5f} ms ({bound[1]}: operations "
+        f"{bound[2]:.5f} ms at 989 TFLOP/s bf16, bytes {bound[3]:.5f} ms); "
+        f"unfused UpdateBlock (cuDNN, bf16, channels_last) "
+        f"{library['raft_update']:.4f} ms per iteration of device time "
+        f"(CUDA-graph replay), {lib_eager:.4f} ms called eagerly "
+        f"(host-bound)")
 
     # the update step against its token count: a near-empty call (the floor
-    # of ten dependent launches), the tracker's size, and the frozen
+    # of eight dependent launches), the tracker's size, and the frozen
     # provider's size inside a training step (8 pairs at 60x80)
+    by_tokens = []
     for sb, sh, sw in ((1, 2, 2), (B, H8, W8), (8, 60, 80)):
         sargs = _raft_update_inputs(ub, torch.bfloat16, sb, sh, sw, gen)
-        k_ms = _event_ms(lambda: ru.raft_update(*sargs), 20)
-        sc1, _, sinp, snet, sflow = sargs[:5]
+        step = in_solve(sargs)
+        e_ms = _event_ms(step, 20)
+        k_ms = min(_graph_ms(step, 10, 5), _graph_ms(step, 10, 5))
+        sbound = bound_of(sargs, step())
         with torch.no_grad():
-            def scl(t, ch):
-                return t.view(sb, sh, sw, ch).permute(0, 3, 1, 2)
-
             scorr = torch.randn(sb, sh * sw, corr.shape[-1], generator=gen
                                 ).cuda().bfloat16()
-            l_args = (scl(snet.bfloat16(), 128), scl(sinp, 128),
-                      scl(scorr, corr.shape[-1]), scl(sflow.bfloat16(), 2))
+            l_args = library_args(sargs, scorr)
             l_ms = _graph_ms(lambda: ub(*l_args), 10, 5)
         tok = sb * sh * sw
-        log(f"[{smi}] raft_update at {sb}x{sh}x{sw} = {tok} tokens: kernel "
-            f"{k_ms:.4f} ms ({2 * macs * tok / k_ms / 1e9:.1f} TFLOP/s), "
-            f"unfused UpdateBlock (cuDNN, bf16, graph replay) {l_ms:.4f} ms")
+        plan = ru.tile_plan(sb, sh, sw)
+        by_tokens.append({
+            "tokens": tok, "ms": k_ms, "eager_ms": e_ms,
+            "bound_ms": sbound[0], "bound_by": sbound[1], "library_ms": l_ms,
+            "tflops": 2 * macs * tok / k_ms / 1e9, "config": plan.config,
+            "clusters": plan.clusters})
+        log(f"[{smi}] raft_update at {sb}x{sh}x{sw} = {tok} tokens "
+            f"(configuration '{plan.config}'): kernel {k_ms:.4f} ms of device "
+            f"time in graph replays ({2 * macs * tok / k_ms / 1e9:.1f} "
+            f"TFLOP/s; {e_ms:.4f} ms called eagerly), bound {sbound[0]:.5f} "
+            f"ms ({sbound[1]}), unfused UpdateBlock (cuDNN, bf16, graph "
+            f"replay) {l_ms:.4f} ms")
+    log(json.dumps({"raft_update_by_tokens": by_tokens}))
 
     # the warp at the main path's shapes and on its own last window
     Cw = C
@@ -1508,16 +1721,18 @@ def phase_unflow_timings(engine, frames, smi):
         f"head warp per frame), {UH}x{UW}, incremental bf16 device decode, "
         f"warm, {n} host frames: {fps:.2f} frames/s")
     it = iter(range(10 ** 9))
-    step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]), 12)
 
     def provider():
         with torch.no_grad():
             return out.flow_for_window(engine.flow_state, engine.flow_model)
 
-    flow_ms = _host_ms(provider, 12)
-    log(f"[{smi}] UnFlow path step {step_ms:.3f} ms/frame (synchronized), of "
-        f"which the flow provider {flow_ms:.3f} ms = {flow_ms / step_ms:.1%} "
-        f"of the frame")
+    for run in range(3):  # host-bound numbers: several runs, all printed
+        step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]),
+                           12)
+        flow_ms = _host_ms(provider, 12)
+        log(f"[{smi}] UnFlow path step {step_ms:.3f} ms/frame "
+            f"(synchronized), of which the flow provider {flow_ms:.3f} ms = "
+            f"{flow_ms / step_ms:.1%} of the frame (run {run + 1} of 3)")
 
     times, bounds, library = {}, {}, {}
     gen = torch.Generator().manual_seed(SEED)
@@ -1559,32 +1774,76 @@ def phase_unflow_timings(engine, frames, smi):
         if key == "correlation":
             times[key], bounds[key] = t, bound
 
-    # UnFlow's backward warp (kernel 5's second entry point)
-    frame = torch.randn(2, 3, UH // 2, UW // 2, generator=gen).cuda().bfloat16()
-    fl = (torch.randn(2, 2, UH // 2, UW // 2, generator=gen) * 8.0).cuda()
-
-    def plain_warp():
-        with _plain_unflow_kernels():
-            return backward_warp(frame, fl)
-
+    # UnFlow's backward warp. The provider passes channels_last bf16 frames
+    # and an NCHW bf16 flow (phase 3 printed their strides); NCHW frames
+    # with a float32 flow are what this script timed before the one-launch
+    # kernel, and that reading is kept beside the new ones.
+    hw = (UH // 2, UW // 2)
+    frame = torch.randn(2, 3, *hw, generator=gen).cuda().bfloat16()
+    fl = (torch.randn(2, 2, *hw, generator=gen) * 8.0).cuda()
+    frame_cl = frame.contiguous(memory_format=torch.channels_last)
+    fl_cl = fl.bfloat16()  # the flow as the provider passes it
+    what = (f"bf16 2x3x{hw[0]}x{hw[1]}; device time in CUDA-graph replays")
+    # kernel 5's second entry point inside the earlier composition
+    # (coordinates in PyTorch, layout copies), as the engine paid for it
     times["warp_abs"] = _in_turns(
-        "warp_abs", lambda: backward_warp(frame, fl), plain_warp, smi,
-        f"UnFlow's backward_warp incl. its coordinate arithmetic, bf16 "
-        f"2x3x{UH // 2}x{UW // 2}; device time in CUDA-graph replays",
+        "warp_abs", lambda: _warp_abs_backward_warp(frame_cl, fl_cl),
+        lambda: warp.backward_warp_plain(frame_cl, fl_cl), smi,
+        f"the earlier backward warp incl. its coordinate arithmetic and "
+        f"layout copies, channels_last frame, bf16 flow, {what}",
         kreps=20, preps=3, timer=_graph_ms)
-    got = backward_warp(frame, fl)
-    wb = _nbytes(frame, fl, got) / PEAK_BYTES * 1e3
-    bounds["warp_abs"] = (wb, "bytes")
-    xs = torch.linspace(-1, 1, UW // 2, device="cuda").view(1, 1, -1)
-    ys = torch.linspace(-1, 1, UH // 2, device="cuda").view(1, -1, 1)
-    grid = torch.stack([xs + fl[:, 0] / ((UW // 2 - 1) / 2.0),
-                        ys + fl[:, 1] / ((UH // 2 - 1) / 2.0)], -1
-                       ).to(frame.dtype)
-    library["warp_abs"] = _graph_ms(lambda: F.grid_sample(
-        frame, grid, mode="bilinear", padding_mode="border",
-        align_corners=False), 20)
-    log(f"[{smi}] warp_abs: bound {wb:.5f} ms (bytes); F.grid_sample on a "
-        f"ready-made grid {library['warp_abs']:.4f} ms")
+    old_nchw = _graph_ms(lambda: _warp_abs_backward_warp(frame, fl), 20)
+    got = _warp_abs_backward_warp(frame_cl, fl_cl)
+    bounds["warp_abs"] = (_nbytes(frame_cl, fl_cl, got) / PEAK_BYTES * 1e3,
+                          "bytes")
+    # the one-launch kernel on the same tensors
+    times["backward_warp"] = _in_turns(
+        "backward_warp", lambda: backward_warp(frame_cl, fl_cl),
+        lambda: warp.backward_warp_plain(frame_cl, fl_cl), smi,
+        f"one launch, channels_last frame, bf16 flow, {what}",
+        kreps=20, preps=3, timer=_graph_ms)
+    new_nchw = _graph_ms(lambda: backward_warp(frame, fl), 20)
+    got = backward_warp(frame_cl, fl_cl)
+    wb = _nbytes(frame_cl, fl_cl, got) / PEAK_BYTES * 1e3
+    bounds["backward_warp"] = (wb, "bytes")
+    old_names = _count_device_kernels(
+        lambda: _warp_abs_backward_warp(frame_cl, fl_cl))
+    # library yardstick, two readings: F.grid_sample on a grid made outside
+    # the timing (the earlier reading: NCHW frame), and the whole function
+    # from the flow, the grid built inside the timed call
+    xs = torch.linspace(-1, 1, hw[1], device="cuda").view(1, 1, -1)
+    ys = torch.linspace(-1, 1, hw[0], device="cuda").view(1, -1, 1)
+
+    def grid_of(flow):
+        flow = flow.float()
+        return torch.stack([xs + flow[:, 0] / ((hw[1] - 1) / 2.0),
+                            ys + flow[:, 1] / ((hw[0] - 1) / 2.0)], -1
+                           ).to(frame.dtype)
+
+    def sample(img, grid):
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    grid, grid_cl = grid_of(fl), grid_of(fl_cl)
+    lib_ready_nchw = _graph_ms(lambda: sample(frame, grid), 20)
+    lib_ready_cl = _graph_ms(lambda: sample(frame_cl, grid_cl), 20)
+    lib_whole_cl = _graph_ms(lambda: sample(frame_cl, grid_of(fl_cl)), 20)
+    lib_whole_nchw = _graph_ms(lambda: sample(frame, grid_of(fl)), 20)
+    library["warp_abs"] = lib_ready_cl
+    library["backward_warp"] = lib_whole_cl
+    log(f"[{smi}] backward_warp: bound {wb:.5f} ms (bytes: "
+        f"{_nbytes(frame_cl, fl_cl, got)} B at 3.35 TB/s); one launch "
+        f"{times['backward_warp'][0]:.4f} ms on the channels_last bf16 frame "
+        f"and bf16 flow (one device kernel: counted by the profiler in phase "
+        f"3, on the provider's own tensors), {new_nchw:.4f} ms on an "
+        f"NCHW frame with a float32 flow; the earlier composition around "
+        f"warp_abs {times['warp_abs'][0]:.4f} ms ({len(old_names)} device "
+        f"kernels and copies) on the same tensors, "
+        f"{old_nchw:.4f} ms on the NCHW frame; F.grid_sample on a ready-made "
+        f"grid {lib_ready_nchw:.4f} ms (NCHW frame) / {lib_ready_cl:.4f} ms "
+        f"(channels_last), with the grid built from the flow inside the "
+        f"timed call {lib_whole_nchw:.4f} ms (NCHW) / {lib_whole_cl:.4f} ms "
+        f"(channels_last)")
 
     # kernels 7 and 8 at the first VGG stage's shapes, bf16, against cuDNN
     # (F.conv2d + ReLU, bf16, channels_last)

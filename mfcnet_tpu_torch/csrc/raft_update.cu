@@ -8,59 +8,84 @@
 // their concatenation, the SepConvGRU (1x5 then 5x1, gates z/r/q) and the
 // flow head -- on token-major (B*N, C) tensors, N = H8*W8.
 //
-// What bounds it on this card: operations. One call at 2 x 30 x 40 tokens is
-// 2,580,480 multiply-adds per token x 2400 tokens = 12.4 GFLOP against ~10 MB
-// of weights and activations, so the tensor cores set the floor, and the
-// eight dependent stages (c2 || f2 -> cv -> z,r -> q -> z,r -> q -> flow1 ->
-// flow2) make the step a chain of small products rather than one large one.
-// In practice (NVIDIA H100 80GB HBM3, 700 W) two other limits come first: a
-// call of four tokens already takes ~0.1 ms, the length of the chain of
-// dependent tile steps and launches, and at 38,400 tokens the kernel runs at
-// ~90 TFLOP/s, where the tile copies out of L2 (about 19 operations per byte
-// staged with 32-token tiles) are the limit. Larger tiles fed by TMA into
-// wgmma would lift the second; a single persistent launch the first.
+// What bounds it on this card: by the count, operations (2,580,480
+// multiply-adds per token: 12.4 GFLOP at the tracker's 2 x 30 x 40 tokens
+// against ~10 MB of weights and activations). In practice (NVIDIA H100 80GB
+// HBM3, 700 W) the step is a chain of eight dependent stages (c2 || f2 -> cv
+// -> z,r -> q -> z,r -> q -> flow1 -> flow2), and two other limits come
+// first. With few tokens, the chain: each stage costs a launch, a first tile
+// out of L2 and an epilogue (~5 us), and a block that walks all of a tile's
+// taps pulls its whole weight slab (300 KB to 1 MB) through one SM's port.
+// With many tokens, the tile traffic out of L2: every staged byte is used for
+// 64 to 128 multiply-adds, so that the copies, not the tensor cores, set the
+// pace (~230 TFLOP/s at 38,400 tokens).
 //
-// Design:
+// Design (the bfloat16 instance; the float32 one follows below):
 //   * Every convolution is the same implicit product: out[token, n] =
 //     sum over taps, k of x[token shifted by (dy, dx), k] * w[tap][k, n],
-//     where a shifted token outside its H8 x W8 image reads zero. One
-//     templated kernel computes a 32-token x BN-column tile of it: the
-//     shifted, masked 32 x BK input tile and the BK x BN weight tile go
-//     through a three-stage shared-memory pipeline (16-byte cp.async copies,
-//     zero-filled where the mask fails, two tiles in flight while one is
-//     multiplied), are accumulated in float32, and finished by a fused
-//     epilogue (bias, ReLU / sigmoid / tanh, the GRU blend, the rounding to
-//     the operand type). A stage lasts as long as one block's chain of 18
-//     to 36 dependent tile steps, however few tokens there are, so the
-//     design shortens the step, not the product: copies in flight ahead of
-//     the multiply, copy addresses advanced incrementally, and in the
-//     bfloat16 instance the four warps splitting K so that a step is one
-//     round of independent fragment products.
-//   * The operand type is a template parameter: the bfloat16 instance
-//     multiplies on the tensor cores (ldmatrix + mma.sync m16n8k16, no
-//     Hopper-only feature), the float32 instance on plain FMAs, so that the
-//     kernel can be held to a float32 tolerance.
-//   * A concatenated input is read as two segments, never copied: [c2 | f2]
-//     for the 3x3, and for the q gate [r*net | inp, y, flow] with the second
-//     segment inside the hx buffer. hx = [net | inp | y | flow] keeps the GRU
-//     weights' own 384 rows; z and r share one product with columns [z | r]
-//     because they share every shifted hx tap.
-//   * The stages are ten launches on one stream behind the one C entry point;
-//     the intermediates (the largest, hx, is 2400 x 384 x 2 B = 1.8 MB) stay
-//     in the 50 MB L2. Channels are padded only to what a fragment needs
-//     (126 -> 128, 2 -> 16). The TPU kernel's single program, its 128-lane
-//     padding and its VMEM-driven batch chunking are not carried over.
+//     where a shifted token outside its H8 x W8 image reads zero. A token
+//     tile is a block of whole (or x-segmented) image rows, at most 128
+//     tokens, so that one TMA request on a (B, H8, W8, C) view fetches a
+//     tap's shifted 64-channel slice and the hardware's zero fill outside
+//     the tensor is the convolution's padding: no address arithmetic, no
+//     masks. The weights are K-major (taps * N, K) matrices behind 2-D maps.
+//   * Both operands land in the 128-byte swizzle that wgmma reads, in a ring
+//     of stages guarded by mbarrier pairs; one producer warp keeps the
+//     requests in flight, two consumer warpgroups multiply 64 tokens x BN
+//     columns each with wgmma.mma_async m64nBNk16, the float32 sum in
+//     registers from the first tap to the epilogue (bias, ReLU / sigmoid /
+//     tanh, the GRU blend, the rounding to bfloat16), which reads the
+//     accumulator fragments directly.
+//   * Few tokens: a cluster of up to 8 blocks shares one output tile, each
+//     block sums every cluster-th pipeline step (a tap's 64-channel slice),
+//     so that every SM pulls a share of the weights; the partial sums meet
+//     through distributed shared memory, and the blocks split the epilogue.
+//     The cluster size of each launch comes from its block count
+//     (ops/raft_update.py::tile_plan, the one place where the shape picks
+//     the configuration). Many tokens: no cluster, the token tiles alone
+//     fill the card, two blocks to an SM.
+//   * The chain: eight launches (c2 and f2 are one grid that writes one
+//     buffer cf = [c2 | f2]) joined by programmatic dependent launch: the
+//     next stage's blocks start early, set up their barriers, request their
+//     first weight tiles and wait with griddepcontrol.wait before they touch
+//     an activation. hx = [net | inp | y | flow] lives in the caller's
+//     workspace across the iterations of a solve: the q epilogue leaves net'
+//     in hx[:, 0:128], so [net | inp] is written by the first call only.
+//   * A concatenated input is never copied: the q gate reads [r*net | inp,
+//     y, flow] as two tensor maps, the second inside hx. z and r share one
+//     product with columns [z | r]. The intermediates (the largest, hx, is
+//     2400 x 384 x 2 B = 1.8 MB) stay in the 50 MB L2. Channels are padded
+//     only to what a fragment needs (126 -> 128, 2 -> 16). The TPU kernel's
+//     single program, its 128-lane padding and its VMEM-driven batch
+//     chunking are not carried over.
+//
+// The float32 instance keeps the earlier design, because wgmma has no exact
+// float32 product and this instance is what holds the arithmetic to a
+// float32 tolerance: 32-token x BN-column tiles, the shifted, masked 32 x 32
+// input tile and the 32 x BN weight tile through a three-stage cp.async
+// pipeline (zero-filled where the mask fails), plain FMAs, the same fused
+// epilogues, nine launches.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+#include <new>
 
 namespace {
+
+inline void* align64(void* p) {
+  return (void*)(((uintptr_t)p + 63) & ~(uintptr_t)63);
+}
 
 constexpr int BM = 32;        // tokens per block
 constexpr int THREADS = 128;  // four warps
 constexpr int NSTAGE = 3;     // shared-memory pipeline depth
 constexpr int HID = 128;      // GRU state width
 constexpr int HX = 384;       // hx row: net 128 | inp 128 | y 126 | flow 2
+constexpr int CF = 256;       // cf row: c2 192 | f2 64
 
 enum Epilogue { EPI_RELU = 0, EPI_Y = 1, EPI_ZR = 2, EPI_Q = 3, EPI_DELTA = 4 };
 enum TapSet { TAPS_3X3 = 0, TAPS_1X5 = 1, TAPS_5X1 = 2 };
@@ -74,22 +99,21 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
 struct ConvArgs {
-  const T* x0; int ld0; int k0;  // first input segment: rows of ld0, k0 used
-  const T* x1; int ld1; int k1;  // second segment (k1 = 0: none)
-  const T* w;                    // (taps, k0 + k1, npad)
+  const float* x0; int ld0; int k0;  // first input segment: rows of ld0, k0 used
+  const float* x1; int ld1; int k1;  // second segment (k1 = 0: none)
+  const float* w;                    // (taps, k0 + k1, npad)
   const float* bias;             // (npad)
   int npad, tapset, ntaps;
   int M, H8, W8;                 // M = B * H8 * W8 tokens
   int epi;
-  T* out; int ldo; int nreal;    // EPI_RELU, EPI_Y: out[g * ldo + n], n < nreal
+  float* out; int ldo; int nreal;    // EPI_RELU, EPI_Y: out[g * ldo + n], n < nreal
   const float* flow;             // EPI_Y: (M, 2), written beside y
   float* z;                      // EPI_ZR writes, EPI_Q reads: (M, 128)
   const float* net_in;           // EPI_ZR, EPI_Q: (M, 128)
-  T* rnet;                       // EPI_ZR: (M, 128) = r * net
+  float* rnet;                       // EPI_ZR: (M, 128) = r * net
   float* net_out;                // EPI_Q: (M, 128)
-  T* hx;                         // EPI_Q: hx[g * 384 + n] = net'
+  float* hx;                         // EPI_Q: hx[g * 384 + n] = net'
   float* delta;                  // EPI_DELTA: (M, 2)
 };
 
@@ -105,17 +129,17 @@ __device__ __forceinline__ float sigmoidf_(float v) {
 }
 
 // ---- tile shapes: BM tokens x BN columns x BK of K per pipeline stage
-template <typename T, int BN>
+template <int BN>
 struct Tile {
-  static constexpr int BK = 128 / (int)sizeof(T);  // 128 bytes of K per row
-  static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr int BK = 32;  // 128 bytes of K per row
+  static constexpr int VEC = 4;  // elements per 16 bytes
   static constexpr int LDA = BK + VEC, LDB = BN + VEC, LDC = BN + 4;
   static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-  static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * (int)sizeof(T);
-  static_assert(STAGE_BYTES % 16 == 0 && (A_ELEMS * sizeof(T)) % 16 == 0,
-                "16-byte copies and ldmatrix rows need 16-byte alignment");
-  // the accumulator staging (one BM x LDC float tile per partial sum)
-  // reuses the pipeline's memory
+  static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * 4;
+  static_assert(STAGE_BYTES % 16 == 0 && (A_ELEMS * 4) % 16 == 0,
+                "16-byte copies need 16-byte alignment");
+  // the accumulator staging (one BM x LDC float tile) reuses the
+  // pipeline's memory
   static constexpr int PART_BYTES = BM * LDC * 4;
 };
 
@@ -135,104 +159,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The product of one staged tile pair, accumulated in registers.
-template <typename T, int BN>
-struct Mma;
-
-// ---- warp-level tensor-core primitives (sm_80+ PTX, nothing Hopper-only)
-// four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4],
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bfloat16 on the tensor cores. The four warps split K, not the tile: of
-// each staged BK = 64 chunk warp w multiplies the 16-wide slice w for the
-// whole BM x BN tile, so a step is one round of BM/16 x BN/8 independent
-// m16n8k16 products per warp instead of four dependent rounds, and the
-// warps' partial sums are added in the epilogue. Operands come from shared
-// memory by ldmatrix (transposed for the row-major weight tile).
+// The product of one staged tile pair, accumulated in registers, on plain
+// FMAs: thread (tid / 16) owns BM / 8 rows, columns tid % 16 + 16 j
 template <int BN>
-struct Mma<__nv_bfloat16, BN> {
-  using TL = Tile<__nv_bfloat16, BN>;
-  static constexpr int PARTS = THREADS / 32;
-  static_assert(TL::BK == 16 * PARTS, "one 16-wide K slice per warp");
-  static constexpr int FM = BM / 16, FN = BN / 8;
-  float acc[FM][FN][4];
-  int warp, lane;
-
-  __device__ void init(int tid) {
-    warp = tid / 32;
-    lane = tid % 32;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  }
-  __device__ void step(const __nv_bfloat16* As, const __nv_bfloat16* Bs) {
-    const int kk = 16 * warp;
-    // lane l addresses row l % 16, column block l / 16 of a 16x16 tile
-    const int lrow = lane % 16, lcol = (lane / 16) * 8;
-    unsigned fa[FM][4], fb[FN / 2][4];
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-      ldmatrix_x4(fa[i], As + (16 * i + lrow) * TL::LDA + kk + lcol);
-#pragma unroll
-    for (int j = 0; j < FN / 2; ++j)
-      ldmatrix_x4_trans(fb[j], Bs + (kk + lrow) * TL::LDB + 16 * j + lcol);
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        mma_16816(acc[i][j], fa[i], fb[j / 2][2 * (j % 2)],
-                  fb[j / 2][2 * (j % 2) + 1]);
-  }
-  // partial sums of warp w at Cs + w * BM * LDC; a lane holds rows g and
-  // g + 8, columns 2t and 2t + 1 of each 16x8 block (g = lane / 4,
-  // t = lane % 4)
-  __device__ void store(float* Cs) {
-    const int g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        float* p = Cs + (warp * BM + 16 * i + g) * TL::LDC + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(p + 8 * TL::LDC) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
-      }
-  }
-};
-
-// float32 on plain FMAs: thread (tid / 16) owns BM / 8 rows, columns
-// tid % 16 + 16 j
-template <int BN>
-struct Mma<float, BN> {
-  using TL = Tile<float, BN>;
-  static constexpr int PARTS = 1;
+struct Mma {
+  using TL = Tile<BN>;
   static constexpr int TM = BM / 8, TN = BN / 16;
   float acc[TM][TN];
   int r0, c0;
@@ -269,9 +200,9 @@ struct Mma<float, BN> {
 };
 
 // One BM-token x BN-column tile of a tap convolution with its epilogue.
-template <typename T, int BN>
-__global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
-  using TL = Tile<T, BN>;
+template <int BN>
+__global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs a) {
+  using TL = Tile<BN>;
   constexpr int BK = TL::BK, VEC = TL::VEC;
   constexpr int KV = BK / VEC;               // = 8 vectors per A row
   constexpr int A_PER = BM * KV / THREADS;   // vectors per thread
@@ -282,7 +213,7 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
 
   extern __shared__ __align__(128) unsigned char smem[];  // smem_bytes()
   auto As = [&](int s) {
-    return reinterpret_cast<T*>(smem + s * TL::STAGE_BYTES);
+    return reinterpret_cast<float*>(smem + s * TL::STAGE_BYTES);
   };
   auto Bs = [&](int s) { return As(s) + TL::A_ELEMS; };
   float* Cs = reinterpret_cast<float*>(smem);  // after the last product
@@ -298,9 +229,9 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
   // pointers into both input segments), B vectors tid + 128 i
   const int arow = tid / KV, akv = tid % KV;
   int ty_[A_PER], tx_[A_PER];
-  const T* pa0[A_PER];
-  const T* pa1[A_PER];
-  T* sa[A_PER];
+  const float* pa0[A_PER];
+  const float* pa1[A_PER];
+  float* sa[A_PER];
 #pragma unroll
   for (int i = 0; i < A_PER; ++i) {
     const int row = arow + (THREADS / KV) * i;
@@ -315,16 +246,16 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
     }
     pa0[i] = a.x0 + (size_t)g * a.ld0 + akv * VEC;
     pa1[i] = a.x1 + (size_t)g * a.ld1 + akv * VEC;
-    sa[i] = reinterpret_cast<T*>(smem) + row * TL::LDA + akv * VEC;
+    sa[i] = reinterpret_cast<float*>(smem) + row * TL::LDA + akv * VEC;
   }
-  const T* pb[B_PER];
-  T* sb[B_PER];
+  const float* pb[B_PER];
+  float* sb[B_PER];
 #pragma unroll
   for (int i = 0; i < B_PER; ++i) {
     const int v = tid + THREADS * i;
     const int brow = v / NV, bv = v % NV;
     pb[i] = a.w + (size_t)brow * a.npad + n0 + bv * VEC;
-    sb[i] = reinterpret_cast<T*>(smem) + TL::A_ELEMS + brow * TL::LDB +
+    sb[i] = reinterpret_cast<float*>(smem) + TL::A_ELEMS + brow * TL::LDB +
             bv * VEC;
   }
 
@@ -347,11 +278,11 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
   set_tap();
   const size_t wstep = (size_t)BK * a.npad;
   auto start_copies = [&](int s) {
-    const int sofs = s * (TL::STAGE_BYTES / (int)sizeof(T));
+    const int sofs = s * (TL::STAGE_BYTES / 4);
     const bool seg0 = ikofs < a.k0;
 #pragma unroll
     for (int i = 0; i < A_PER; ++i) {
-      const T* src =
+      const float* src =
           seg0 ? pa0[i] + (ptrdiff_t)ishift * a.ld0 + ikofs
                : pa1[i] + (ptrdiff_t)ishift * a.ld1 + (ikofs - a.k0);
       cp_async16(sa[i] + sofs, iok[i] ? src : a.x0, iok[i]);
@@ -369,7 +300,7 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
     }
   };
 
-  Mma<T, BN> mma;
+  Mma<BN> mma;
   mma.init(tid);
   // NSTAGE - 1 tiles in flight ahead of the one being multiplied; a group
   // is committed every step (empty at the tail) so that the count holds
@@ -397,17 +328,14 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
     const int g = m0 + r;
     if (g >= a.M) continue;
     const int n = n0 + c;
-    float v = a.bias[n];
-#pragma unroll
-    for (int w = 0; w < Mma<T, BN>::PARTS; ++w)
-      v += Cs[(w * BM + r) * TL::LDC + c];
+    float v = a.bias[n] + Cs[r * TL::LDC + c];
     switch (a.epi) {
       case EPI_RELU:
         if (n < a.nreal)
-          a.out[(size_t)g * a.ldo + n] = from_f32<T>(fmaxf(v, 0.0f));
+          a.out[(size_t)g * a.ldo + n] = float(fmaxf(v, 0.0f));
         break;
       case EPI_Y:  // 126 motion channels, then the flow itself
-        a.out[(size_t)g * a.ldo + n] = from_f32<T>(
+        a.out[(size_t)g * a.ldo + n] = float(
             n < a.nreal ? fmaxf(v, 0.0f) : a.flow[(size_t)g * 2 + n - a.nreal]);
         break;
       case EPI_ZR:
@@ -415,7 +343,7 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
           a.z[(size_t)g * HID + n] = sigmoidf_(v);
         } else {
           const size_t o = (size_t)g * HID + n - HID;
-          a.rnet[o] = from_f32<T>(sigmoidf_(v) * a.net_in[o]);
+          a.rnet[o] = float(sigmoidf_(v) * a.net_in[o]);
         }
         break;
       case EPI_Q: {
@@ -423,7 +351,7 @@ __global__ void __launch_bounds__(THREADS) tap_conv_kernel(ConvArgs<T> a) {
         const float z = a.z[o];
         const float h = (1.0f - z) * a.net_in[o] + z * tanhf(v);
         a.net_out[o] = h;
-        a.hx[(size_t)g * HX + n] = from_f32<T>(h);
+        a.hx[(size_t)g * HX + n] = float(h);
         break;
       }
       default:  // EPI_DELTA
@@ -452,19 +380,29 @@ __global__ void fill_hx_kernel(const float* __restrict__ net,
     if (err_ != cudaSuccess) return (int)err_; \
   } while (0)
 
+template <typename T>
+int launch_fill_hx(const float* net, const T* inp, T* hx, int M,
+                   cudaStream_t s) {
+  const size_t n = (size_t)M * 2 * HID;
+  fill_hx_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(net, inp, hx,
+                                                                M);
+  LAUNCH_CHECK();
+  return 0;
+}
+
 // dynamic shared memory of one block: the pipeline's stages, reused for the
 // partial sums
-template <typename T, int BN>
+template <int BN>
 constexpr int smem_bytes() {
-  using TL = Tile<T, BN>;
+  using TL = Tile<BN>;
   constexpr int pipe = NSTAGE * TL::STAGE_BYTES;
-  constexpr int sums = Mma<T, BN>::PARTS * TL::PART_BYTES;
+  constexpr int sums = TL::PART_BYTES;
   return pipe > sums ? pipe : sums;
 }
 
-template <typename T, int BN>
-int launch_conv(const ConvArgs<T>& a, cudaStream_t s) {
-  constexpr int bytes = smem_bytes<T, BN>();
+template <int BN>
+int launch_conv(const ConvArgs& a, cudaStream_t s) {
+  constexpr int bytes = smem_bytes<BN>();
   if constexpr (bytes > 48 * 1024) {
     // above 48 KB a kernel has to opt in, once on each device
     constexpr int MAX_DEV = 64;
@@ -474,41 +412,39 @@ int launch_conv(const ConvArgs<T>& a, cudaStream_t s) {
     if (err != cudaSuccess) return (int)err;
     if (dev >= MAX_DEV || !allowed[dev]) {
       err = cudaFuncSetAttribute(
-          tap_conv_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          tap_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           bytes);
       if (err != cudaSuccess) return (int)err;
       if (dev < MAX_DEV) allowed[dev] = true;
     }
   }
   dim3 grid((a.M + BM - 1) / BM, a.npad / BN);
-  tap_conv_kernel<T, BN><<<grid, THREADS, bytes, s>>>(a);
+  tap_conv_kernel<BN><<<grid, THREADS, bytes, s>>>(a);
   LAUNCH_CHECK();
   return 0;
 }
 
-template <typename T>
 int run_update(void* const* in, void* const* wt, void* const* sc,
-               float* net_out, float* delta, int B, int H8, int W8,
+               float* net_out, float* delta, int B, int H8, int W8, int fill,
                cudaStream_t s) {
   const int M = B * H8 * W8;
   if (M == 0) return 0;
-  const T* c1 = (const T*)in[0];
-  const T* f1 = (const T*)in[1];
-  const T* inp = (const T*)in[2];
+  const float* c1 = (const float*)in[0];
+  const float* f1 = (const float*)in[1];
+  const float* inp = (const float*)in[2];
   const float* net = (const float*)in[3];
   const float* flow = (const float*)in[4];
-  T* c2 = (T*)sc[0];
-  T* f2 = (T*)sc[1];
-  T* hx = (T*)sc[2];
-  T* rnet = (T*)sc[3];
-  T* fh = (T*)sc[4];
-  float* z = (float*)sc[5];
-  auto W = [&](int i) { return (const T*)wt[2 * i]; };
+  float* cf = (float*)sc[0];
+  float* hx = (float*)sc[1];
+  float* rnet = (float*)sc[2];
+  float* fh = (float*)sc[3];
+  float* z = (float*)sc[4];
+  auto W = [&](int i) { return (const float*)wt[2 * i]; };
   auto Bi = [&](int i) { return (const float*)wt[2 * i + 1]; };
 
-  auto conv = [&](const T* x0, int ld0, int k0, const T* x1, int ld1, int k1,
+  auto conv = [&](const float* x0, int ld0, int k0, const float* x1, int ld1, int k1,
                   int wi, int npad, int tapset, int epi) {
-    ConvArgs<T> a = {};
+    ConvArgs a = {};
     a.x0 = x0; a.ld0 = ld0; a.k0 = k0;
     a.x1 = x1; a.ld1 = ld1; a.k1 = k1;
     a.w = W(wi); a.bias = Bi(wi);
@@ -519,83 +455,826 @@ int run_update(void* const* in, void* const* wt, void* const* sc,
   };
   int rc;
 
-  {
-    const size_t n = (size_t)M * 2 * HID;
-    fill_hx_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(net, inp,
-                                                                  hx, M);
-    LAUNCH_CHECK();
+  if (fill) {
+    if ((rc = launch_fill_hx<float>(net, inp, hx, M, s))) return rc;
   }
-  // motion encoder tail: c2 || f2, then the 3x3 over [c2 | f2] -> y, flow
+  // motion encoder tail: c2 || f2 into one buffer cf = [c2 | f2], then the
+  // 3x3 over it -> y, flow
   {
-    ConvArgs<T> a = conv(c1, 256, 256, nullptr, 0, 0, 0, 192, TAPS_3X3,
+    ConvArgs a = conv(c1, 256, 256, nullptr, 0, 0, 0, 192, TAPS_3X3,
                          EPI_RELU);
-    a.out = c2; a.ldo = 192; a.nreal = 192;
-    if ((rc = launch_conv<T, 64>(a, s))) return rc;
+    a.out = cf; a.ldo = CF; a.nreal = 192;
+    if ((rc = launch_conv<64>(a, s))) return rc;
   }
   {
-    ConvArgs<T> a = conv(f1, 128, 128, nullptr, 0, 0, 1, 64, TAPS_3X3,
+    ConvArgs a = conv(f1, 128, 128, nullptr, 0, 0, 1, 64, TAPS_3X3,
                          EPI_RELU);
-    a.out = f2; a.ldo = 64; a.nreal = 64;
-    if ((rc = launch_conv<T, 64>(a, s))) return rc;
+    a.out = cf + 192; a.ldo = CF; a.nreal = 64;
+    if ((rc = launch_conv<64>(a, s))) return rc;
   }
   {
-    ConvArgs<T> a = conv(c2, 192, 192, f2, 64, 64, 2, 128, TAPS_3X3, EPI_Y);
+    ConvArgs a = conv(cf, CF, CF, nullptr, 0, 0, 2, 128, TAPS_3X3, EPI_Y);
     a.out = hx + 2 * HID; a.ldo = HX; a.nreal = 126; a.flow = flow;
-    if ((rc = launch_conv<T, 64>(a, s))) return rc;
+    if ((rc = launch_conv<64>(a, s))) return rc;
   }
   // SepConvGRU: horizontal (1x5) then vertical (5x1)
   for (int d = 0; d < 2; ++d) {
     const int tapset = d == 0 ? TAPS_1X5 : TAPS_5X1;
     const float* net_in = d == 0 ? net : net_out;
     {
-      ConvArgs<T> a = conv(hx, HX, HX, nullptr, 0, 0, 3 + 2 * d, 2 * HID,
+      ConvArgs a = conv(hx, HX, HX, nullptr, 0, 0, 3 + 2 * d, 2 * HID,
                            tapset, EPI_ZR);
       a.z = z; a.net_in = net_in; a.rnet = rnet;
-      if ((rc = launch_conv<T, 64>(a, s))) return rc;
+      if ((rc = launch_conv<64>(a, s))) return rc;
     }
     {
-      ConvArgs<T> a = conv(rnet, HID, HID, hx + HID, HX, HX - HID, 4 + 2 * d,
+      ConvArgs a = conv(rnet, HID, HID, hx + HID, HX, HX - HID, 4 + 2 * d,
                            HID, tapset, EPI_Q);
       a.z = z; a.net_in = net_in; a.net_out = net_out; a.hx = hx;
-      if ((rc = launch_conv<T, 64>(a, s))) return rc;
+      if ((rc = launch_conv<64>(a, s))) return rc;
     }
   }
   // flow head
   {
-    ConvArgs<T> a = conv(hx, HX, HID, nullptr, 0, 0, 7, 256, TAPS_3X3,
+    ConvArgs a = conv(hx, HX, HID, nullptr, 0, 0, 7, 256, TAPS_3X3,
                          EPI_RELU);
     a.out = fh; a.ldo = 256; a.nreal = 256;
-    if ((rc = launch_conv<T, 64>(a, s))) return rc;
+    if ((rc = launch_conv<64>(a, s))) return rc;
   }
   {
-    ConvArgs<T> a = conv(fh, 256, 256, nullptr, 0, 0, 8, 16, TAPS_3X3,
+    ConvArgs a = conv(fh, 256, 256, nullptr, 0, 0, 8, 16, TAPS_3X3,
                          EPI_DELTA);
     a.delta = delta;
-    if ((rc = launch_conv<T, 16>(a, s))) return rc;
+    if ((rc = launch_conv<16>(a, s))) return rc;
+  }
+  return 0;
+}
+
+
+// ===========================================================================
+// The bfloat16 instance on Hopper's own units: wgmma fed by TMA.
+//
+// The same implicit product, tiled for the card. A token tile is R whole
+// (or x-segmented) image rows: R x XS tokens, at most 64 per consumer
+// warpgroup. One TMA request brings the 64-channel slice of the tile shifted
+// by a tap's (dy, dx) from a 4-D view (B, H8, W8, C) of the activations; what
+// lies outside the image arrives as zeros, which is the convolution's
+// padding, so no thread computes an address or a mask. A second request
+// brings the tap's 64 x BN weight slice from the K-major weight matrix. Both
+// land in the 128-byte swizzle that wgmma reads, in a ring of stages guarded
+// by mbarrier pairs (full / empty). One producer warp keeps the requests in
+// flight; each consumer warpgroup multiplies its 64 tokens x BN columns with
+// wgmma.mma_async m64nBNk16, the float32 sum in registers from the first tap
+// to the epilogue, one product group in flight behind the one just started.
+// The epilogue (bias, activation, GRU blend, rounding) reads the accumulator
+// fragments directly.
+// ===========================================================================
+
+struct SubProblem {
+  CUtensorMap a0, a1;  // activations: channels [0, k0) from a0, then a1
+  CUtensorMap w;       // (ntaps * npad, k0 + k1) K-major weights
+  const float* bias;
+  int k0, k1;          // channels taken from each, multiples of 64
+  int c0, c1;          // first channel inside each tensor
+  int ntaps, tapset;
+  int npad;            // weight rows per tap = output columns
+  int ncols;           // column tiles: npad / BN
+  int epi;
+  __nv_bfloat16* out; int ldo; int nreal;  // EPI_RELU, EPI_Y
+  const float* flow;                       // EPI_Y
+  float* z;                                // EPI_ZR writes, EPI_Q reads
+  const float* net_in;                     // EPI_ZR, EPI_Q
+  __nv_bfloat16* rnet;                     // EPI_ZR
+  float* net_out;                          // EPI_Q
+  __nv_bfloat16* hx;                       // EPI_Q
+  float* delta;                            // EPI_DELTA
+};
+
+struct StageParams {
+  SubProblem sub[2];  // blockIdx.y walks sub[0]'s column tiles, then sub[1]'s
+  int B, H8, W8;
+  int R, XS;          // token tile: R image rows x XS columns
+  int tiles_y, tiles_x;
+  int cluster;        // blocks that share one tile, each a subset of the steps
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// one tile of a 4-D tensor (channel, x, y, image) -> shared memory; bytes
+// outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* m,
+                                            uint64_t* bar, int c, int x, int y,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(m), "r"(smem_u32(bar)), "r"(c), "r"(x), "r"(y), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* m,
+                                            uint64_t* bar, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(m), "r"(smem_u32(bar)), "r"(c), "r"(r)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// shared-memory matrix descriptor of a K-major tile of 128-byte rows in the
+// 128-byte swizzle: start address, 16 bytes leading offset (unused in this
+// mode), 1024 bytes between 8-row groups
+__device__ __forceinline__ uint64_t smem_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x N float32, in the warpgroup's registers) += a (64 x 16 bf16) *
+// b (16 x N bf16, stored N x 16 K-major), both from shared memory
+template <int N>
+struct Wgmma;
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+constexpr int TMA_BK = 64;                 // channels per pipeline step
+constexpr int ROW_BYTES = TMA_BK * 2;      // one token's slice: 128 bytes
+constexpr int MAX_STAGES = 8;
+constexpr int NWG = 2;            // consumer warpgroups of a block
+constexpr int MT = 64 * NWG;      // tokens per block
+constexpr int CONSUMERS = NWG * 128;
+constexpr int TMA_THREADS = CONSUMERS + 32;  // + the producer warp
+constexpr int A_BYTES = MT * ROW_BYTES;
+constexpr int MAX_CLUSTER = 8;
+// shared memory of the ring: it leaves room for a second block on the SM
+// (228 KB an SM), so that one block's epilogue runs beside another's products
+constexpr int RING_BYTES = 96 * 1024;
+
+template <int BN>
+struct TmaTile {
+  static constexpr int B_BYTES = BN * ROW_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+                "swizzled tiles start on 1024-byte boundaries");
+  static constexpr int NST = RING_BYTES / STAGE_BYTES < MAX_STAGES
+                                 ? RING_BYTES / STAGE_BYTES
+                                 : MAX_STAGES;
+  // a cluster's partial sums: the MT x BN float32 tile, rows padded by 8
+  // floats so that a warp's fragment stores spread over all banks; it
+  // reuses the ring
+  static constexpr int LDP = BN + 8;
+  static_assert(MT * LDP * 4 <= NST * STAGE_BYTES, "partial sums fit the ring");
+  // + 1024: the dynamic segment is aligned by hand
+  static constexpr int SMEM_BYTES = NST * STAGE_BYTES + 1024;
+};
+
+// two neighbouring output columns (n, n + 1) of token g, bias added
+__device__ __forceinline__ void tma_epilogue(const SubProblem& s, size_t g,
+                                             int n, float v0, float v1) {
+  switch (s.epi) {
+    case EPI_RELU:
+      if (n < s.nreal)
+        *reinterpret_cast<__nv_bfloat162*>(s.out + g * s.ldo + n) =
+            __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      break;
+    case EPI_Y:  // 126 motion channels, then the flow itself
+      if (n < s.nreal) {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+      } else {
+        v0 = s.flow[g * 2];
+        v1 = s.flow[g * 2 + 1];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(s.out + g * s.ldo + n) =
+          __floats2bfloat162_rn(v0, v1);
+      break;
+    case EPI_ZR:
+      if (n < HID) {
+        *reinterpret_cast<float2*>(s.z + g * HID + n) =
+            make_float2(sigmoidf_(v0), sigmoidf_(v1));
+      } else {
+        const size_t o = g * HID + n - HID;
+        const float2 h = *reinterpret_cast<const float2*>(s.net_in + o);
+        *reinterpret_cast<__nv_bfloat162*>(s.rnet + o) = __floats2bfloat162_rn(
+            sigmoidf_(v0) * h.x, sigmoidf_(v1) * h.y);
+      }
+      break;
+    case EPI_Q: {
+      const size_t o = g * HID + n;
+      const float2 z = *reinterpret_cast<const float2*>(s.z + o);
+      const float2 h = *reinterpret_cast<const float2*>(s.net_in + o);
+      const float h0 = (1.0f - z.x) * h.x + z.x * tanhf(v0);
+      const float h1 = (1.0f - z.y) * h.y + z.y * tanhf(v1);
+      *reinterpret_cast<float2*>(s.net_out + o) = make_float2(h0, h1);
+      *reinterpret_cast<__nv_bfloat162*>(s.hx + g * HX + n) =
+          __floats2bfloat162_rn(h0, h1);
+      break;
+    }
+    default:  // EPI_DELTA
+      if (n == 0)
+        *reinterpret_cast<float2*>(s.delta + g * 2) = make_float2(v0, v1);
+      break;
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();  // the aligned forms want the whole warp
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// two floats at shared-memory address `addr` of block `rank` of the cluster
+__device__ __forceinline__ float2 ld_cluster_f2(unsigned addr, int rank) {
+  unsigned remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// One MT-token x BN-column tile. A cluster of p.cluster blocks shares the
+// tile: block `rank` sums pipeline steps rank, rank + cluster, ... (a step is
+// one tap's 64-channel slice), and the partial sums meet through distributed
+// shared memory before the epilogue, which the blocks split by elements.
+template <int BN>
+__global__ void __launch_bounds__(TMA_THREADS)
+tma_conv_kernel(const __grid_constant__ StageParams p) {
+  using TT = TmaTile<BN>;
+  constexpr int NST = TT::NST;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[NST];
+  __shared__ __align__(8) uint64_t empty_bar[NST];
+  const unsigned smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub_i = (int)blockIdx.y >= p.sub[0].ncols ? 1 : 0;
+  const SubProblem& s = p.sub[sub_i];
+  const int n0 = ((int)blockIdx.y - (sub_i ? p.sub[0].ncols : 0)) * BN;
+  const int cs = p.cluster;
+  const int rank = blockIdx.x % cs;  // consecutive blocks form a cluster
+  int t = blockIdx.x / cs;
+  const int tx = t % p.tiles_x;
+  t /= p.tiles_x;
+  const int ty = t % p.tiles_y;
+  const int b = t / p.tiles_y;
+  const int x0 = tx * p.XS, y0 = ty * p.R;
+  const int kch = (s.k0 + s.k1) / TMA_BK;
+  const int nsteps = s.ntaps * kch;
+  const int niter = (nsteps - rank + cs - 1) / cs;  // this block's steps
+
+  // the launches of a step are chained by programmatic dependent launch:
+  // the next stage's blocks may start now, set up their barriers and fetch
+  // their first weight tiles (which depend on no earlier stage) while this
+  // stage still runs, and wait below before they touch an activation
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full_bar[i], 1);         // the producer's expect_tx arrival
+      mbar_init(&empty_bar[i], NWG * 4);  // one lane of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NWG * 4) {
+    // ---- producer: one lane keeps the ring full
+    if (lane == 0) {
+      const unsigned bytes = (unsigned)(p.R * p.XS * ROW_BYTES + TT::B_BYTES);
+      auto load_w = [&](int it) {
+        const int st = it % NST, step = rank + it * cs;
+        mbar_expect_tx(&full_bar[st], bytes);
+        tma_load_2d(smem + st * TT::STAGE_BYTES + A_BYTES, &s.w,
+                    &full_bar[st], (step % kch) * TMA_BK,
+                    (step / kch) * s.npad + n0);
+      };
+      const int ahead = niter < NST ? niter : NST;
+      for (int it = 0; it < ahead; ++it) load_w(it);
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      for (int it = 0; it < niter; ++it) {
+        const int st = it % NST, step = rank + it * cs;
+        if (it >= NST) {
+          mbar_wait(&empty_bar[st], ((it / NST) & 1) ^ 1);
+          load_w(it);
+        }
+        int dy, dx;
+        tap_offset(s.tapset, step / kch, dy, dx);
+        const unsigned dst = smem + st * TT::STAGE_BYTES;
+        const int k = (step % kch) * TMA_BK;
+        if (k < s.k0)
+          tma_load_4d(dst, &s.a0, &full_bar[st], s.c0 + k, x0 + dx, y0 + dy,
+                      b);
+        else
+          tma_load_4d(dst, &s.a1, &full_bar[st], s.c1 + k - s.k0, x0 + dx,
+                      y0 + dy, b);
+      }
+    }
+    // the producer warp takes part in the cluster's two barriers
+    if (cs > 1) {
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // ---- consumers: warpgroup wg multiplies tokens [64 wg, 64 wg + 64)
+  const int wg = warp / 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int it = 0; it < niter; ++it) {
+    const int st = it % NST;
+    mbar_wait(&full_bar[st], (it / NST) & 1);
+    const unsigned a_addr = smem + st * TT::STAGE_BYTES + wg * 64 * ROW_BYTES;
+    const unsigned b_addr = smem + st * TT::STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TMA_BK / 16; ++kk)
+      Wgmma<BN>::mma(acc, smem_desc(a_addr + kk * 32),
+                     smem_desc(b_addr + kk * 32));
+    wgmma_commit();
+    if (it > 0) {  // the step before this one has been multiplied
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&empty_bar[(it - 1) % NST]);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // a lane holds rows q and q + 8 of its warp's 16, columns 8 j + 2 c and
+  // 8 j + 2 c + 1 (q = lane / 4, c = lane % 4)
+  const int row = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int tokens = p.R * p.XS;
+  if (cs == 1) {
+    // the epilogue reads the accumulator fragments directly
+    const int col = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      const int y = y0 + r / p.XS, x = x0 + r % p.XS;
+      if (r >= tokens || y >= p.H8 || x >= p.W8) continue;
+      const size_t g = ((size_t)b * p.H8 + y) * p.W8 + x;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = col + 8 * j;
+        const float2 bias = *reinterpret_cast<const float2*>(s.bias + n);
+        tma_epilogue(s, g, n, acc[4 * j + 2 * h] + bias.x,
+                     acc[4 * j + 2 * h + 1] + bias.y);
+      }
+    }
+    return;
+  }
+
+  // ---- the cluster's partial sums meet: every block lays its fragments
+  // out as a row-major tile over its ring (all of its products are done:
+  // the named barrier holds the consumers of both warpgroups) ...
+  constexpr int LDP = TT::LDP;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  float* part = reinterpret_cast<float*>(
+      smem_raw + (smem - smem_u32(smem_raw)));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<float2*>(part + (row + 8 * h) * LDP + 8 * j +
+                                 2 * (lane % 4)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  cluster_sync();
+  // ... and block `rank` finishes every cs-th run of 256 column pairs: the
+  // sum over the blocks in rank order, then the epilogue
+  const int tid = threadIdx.x;  // < CONSUMERS
+  for (int e = rank * CONSUMERS + tid; e < MT * (BN / 2);
+       e += cs * CONSUMERS) {
+    const int r = e / (BN / 2), cp = e % (BN / 2);
+    const int y = y0 + r / p.XS, x = x0 + r % p.XS;
+    if (r >= tokens || y >= p.H8 || x >= p.W8) continue;
+    const unsigned addr = smem + (unsigned)(r * LDP + 2 * cp) * 4u;
+    float2 v = ld_cluster_f2(addr, 0);
+    for (int q = 1; q < cs; ++q) {
+      const float2 u = ld_cluster_f2(addr, q);
+      v.x += u.x;
+      v.y += u.y;
+    }
+    const int n = n0 + 2 * cp;
+    const float2 bias = *reinterpret_cast<const float2*>(s.bias + n);
+    tma_epilogue(s, ((size_t)b * p.H8 + y) * p.W8 + x, n, v.x + bias.x,
+                 v.y + bias.y);
+  }
+  cluster_sync();  // no block leaves while another reads its sums
+}
+
+template <int BN>
+int launch_tma_conv(const StageParams& p, cudaStream_t s) {
+  using TT = TmaTile<BN>;
+  constexpr int MAX_DEV = 64;
+  static bool allowed[MAX_DEV] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEV || !allowed[dev]) {
+    err = cudaFuncSetAttribute(tma_conv_kernel<BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               TT::SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEV) allowed[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.B * p.tiles_y * p.tiles_x * p.cluster,
+                     p.sub[0].ncols + p.sub[1].ncols);
+  cfg.blockDim = dim3(TMA_THREADS);
+  cfg.dynamicSmemBytes = TT::SMEM_BYTES;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2] = {};
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = p.cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, tma_conv_kernel<BN>, p);
+  if (err != cudaSuccess) return (int)err;
+  LAUNCH_CHECK();
+  return 0;
+}
+
+int launch_tma_conv(int bn, const StageParams& p, cudaStream_t s) {
+  switch (bn) {
+    case 16: return launch_tma_conv<16>(p, s);
+    case 64: return launch_tma_conv<64>(p, s);
+    case 128: return launch_tma_conv<128>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- the plan of one solve: tile shape, tensor maps, scratch pointers. It
+// lives in host memory that the caller owns (mfc_raft_plan_bytes() bytes).
+enum Act { ACT_C1 = 0, ACT_F1, ACT_CF, ACT_HX, ACT_RNET, ACT_FH, N_ACT };
+constexpr int ACT_CH[N_ACT] = {256, 128, CF, HX, HID, 256};
+constexpr int N_CONV = 9;  // c2 f2 cv zr_h q_h zr_v q_v fl1 fl2
+constexpr int N_STAGES = 8;  // launches: c2 || f2 is one
+// per convolution: input channels, output columns (padded), taps
+constexpr int CONV_K[N_CONV] = {256, 128, 256, 384, 384, 384, 384, 128, 256};
+constexpr int CONV_N[N_CONV] = {192, 64, 128, 256, 128, 256, 128, 256, 16};
+constexpr int CONV_TAPS[N_CONV] = {9, 9, 9, 5, 5, 5, 5, 9, 9};
+constexpr int CONV_STAGE[N_CONV] = {0, 0, 1, 2, 3, 4, 5, 6, 7};
+
+struct Plan {
+  int B, H8, W8, M;
+  int R, XS, tiles_y, tiles_x;
+  int bn[N_STAGES], cluster[N_STAGES];
+  CUtensorMap act[N_ACT];
+  const void* act_ptr[N_ACT];
+  CUtensorMap w[N_CONV];
+  const float* bias[N_CONV];
+  __nv_bfloat16 *cf, *hx, *rnet, *fh;
+  float* z;
+};
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda the process has loaded (no
+// link-time dependency on it)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (!h) h = dlopen("libcuda.so", RTLD_NOW | RTLD_GLOBAL);
+    if (h) fn = (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled");
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_LIBCUDA = 20001;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_ENCODE = 10000;     // + the CUresult of a refused map
+constexpr int ERR_PLAN = 20002;       // a tile plan the kernel cannot run
+
+// (B, H8, W8, ch) bf16 activations, token-major: a box is the 64-channel
+// slice of R rows x XS columns of one image
+int encode_act(Plan& pl, int i, const void* ptr) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return ERR_NO_LIBCUDA;
+  const cuuint64_t ld = (cuuint64_t)ACT_CH[i] * 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)ACT_CH[i], (cuuint64_t)pl.W8,
+                              (cuuint64_t)pl.H8, (cuuint64_t)pl.B};
+  const cuuint64_t strides[3] = {ld, ld * pl.W8, ld * pl.W8 * pl.H8};
+  const cuuint32_t box[4] = {TMA_BK, (cuuint32_t)pl.XS, (cuuint32_t)pl.R, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult rc = enc(
+      &pl.act[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return ERR_ENCODE + (int)rc;
+  pl.act_ptr[i] = ptr;
+  return 0;
+}
+
+// (taps * npad, k) bf16 K-major weights: a box is 64 of k x bn rows
+int encode_weight(Plan& pl, int i, const void* ptr, int bn) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return ERR_NO_LIBCUDA;
+  const cuuint64_t dims[2] = {(cuuint64_t)CONV_K[i],
+                              (cuuint64_t)CONV_TAPS[i] * CONV_N[i]};
+  const cuuint64_t strides[1] = {(cuuint64_t)CONV_K[i] * 2};
+  const cuuint32_t box[2] = {TMA_BK, (cuuint32_t)bn};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult rc = enc(
+      &pl.w[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)rc;
+}
+
+int run_update_tma(Plan& pl, void* const* in, float* net_out, float* delta,
+                   int fill, cudaStream_t s) {
+  if (pl.M == 0) return 0;
+  const __nv_bfloat16* inp = (const __nv_bfloat16*)in[2];
+  const float* net = (const float*)in[3];
+  const float* flow = (const float*)in[4];
+  int rc;
+  // c1 and f1 are new tensors in every iteration: their maps follow them
+  for (int i = ACT_C1; i <= ACT_F1; ++i)
+    if (pl.act_ptr[i] != in[i] && (rc = encode_act(pl, i, in[i]))) return rc;
+  if (fill && (rc = launch_fill_hx<__nv_bfloat16>(net, inp, pl.hx, pl.M, s)))
+    return rc;
+
+  StageParams p = {};
+  p.B = pl.B; p.H8 = pl.H8; p.W8 = pl.W8;
+  p.R = pl.R; p.XS = pl.XS; p.tiles_y = pl.tiles_y; p.tiles_x = pl.tiles_x;
+  // sub-problem `si` of the next launch: convolution `ci` over channels
+  // [c0, c0 + k0) of activation a0, then [c1, c1 + k1) of a1
+  auto sub = [&](int si, int ci, int a0, int c0, int k0, int a1, int c1,
+                 int k1, int tapset, int epi) -> SubProblem& {
+    SubProblem& q = p.sub[si];
+    q = SubProblem{};
+    q.a0 = pl.act[a0]; q.c0 = c0; q.k0 = k0;
+    q.a1 = pl.act[a1]; q.c1 = c1; q.k1 = k1;
+    q.w = pl.w[ci]; q.bias = pl.bias[ci];
+    q.ntaps = CONV_TAPS[ci]; q.tapset = tapset;
+    q.npad = CONV_N[ci];
+    q.ncols = CONV_N[ci] / pl.bn[CONV_STAGE[ci]];
+    q.epi = epi;
+    return q;
+  };
+  auto launch = [&](int stage) {
+    p.cluster = pl.cluster[stage];
+    const int r = launch_tma_conv(pl.bn[stage], p, s);
+    p.sub[1] = SubProblem{};
+    return r;
+  };
+
+  // motion encoder tail: c2 || f2 in one grid -> cf = [c2 | f2]
+  {
+    SubProblem& a = sub(0, 0, ACT_C1, 0, 256, ACT_C1, 0, 0, TAPS_3X3, EPI_RELU);
+    a.out = pl.cf; a.ldo = CF; a.nreal = 192;
+    SubProblem& f = sub(1, 1, ACT_F1, 0, 128, ACT_F1, 0, 0, TAPS_3X3, EPI_RELU);
+    f.out = pl.cf + 192; f.ldo = CF; f.nreal = 64;
+    if ((rc = launch(0))) return rc;
+  }
+  {
+    SubProblem& a = sub(0, 2, ACT_CF, 0, CF, ACT_CF, 0, 0, TAPS_3X3, EPI_Y);
+    a.out = pl.hx + 2 * HID; a.ldo = HX; a.nreal = 126; a.flow = flow;
+    if ((rc = launch(1))) return rc;
+  }
+  // SepConvGRU: horizontal (1x5) then vertical (5x1)
+  for (int d = 0; d < 2; ++d) {
+    const int tapset = d == 0 ? TAPS_1X5 : TAPS_5X1;
+    const float* net_in = d == 0 ? net : net_out;
+    {
+      SubProblem& a = sub(0, 3 + 2 * d, ACT_HX, 0, HX, ACT_HX, 0, 0, tapset,
+                          EPI_ZR);
+      a.z = pl.z; a.net_in = net_in; a.rnet = pl.rnet;
+      if ((rc = launch(2 + 2 * d))) return rc;
+    }
+    {  // [r * net | inp, y, flow]: the second segment inside hx
+      SubProblem& a = sub(0, 4 + 2 * d, ACT_RNET, 0, HID, ACT_HX, HID,
+                          HX - HID, tapset, EPI_Q);
+      a.z = pl.z; a.net_in = net_in; a.net_out = net_out; a.hx = pl.hx;
+      if ((rc = launch(3 + 2 * d))) return rc;
+    }
+  }
+  // flow head
+  {
+    SubProblem& a = sub(0, 7, ACT_HX, 0, HID, ACT_HX, 0, 0, TAPS_3X3, EPI_RELU);
+    a.out = pl.fh; a.ldo = 256; a.nreal = 256;
+    if ((rc = launch(6))) return rc;
+  }
+  {
+    SubProblem& a = sub(0, 8, ACT_FH, 0, 256, ACT_FH, 0, 0, TAPS_3X3, EPI_DELTA);
+    a.delta = delta;
+    if ((rc = launch(7))) return rc;
   }
   return 0;
 }
 
 }  // namespace
 
+// The float32 instance (plain FMAs).
 // inputs: {c1 (M,256), f1 (M,128), inp (M,128)} in the operand type, {net
 // (M,128), flow (M,2)} float32; weights: the 18 packed tensors in the order
-// of ops/raft_update.py::_WEIGHT_NAMES (weight, bias, ...); scratch: {c2
-// (M,192), f2 (M,64), hx (M,384), r*net (M,128), flow-head hidden (M,256)} in
-// the operand type and z (M,128) float32. The three arrays are host arrays of
-// device pointers. dtype: 0 float32, 1 bfloat16. M = B*H8*W8 tokens in raster
-// order. Returns the first launch error.
+// of ops/raft_update.py::_WEIGHT_NAMES (weight (taps, K, N), bias, ...);
+// scratch: {cf = [c2 | f2] (M,256), hx (M,384), r*net (M,128), flow-head
+// hidden (M,256)} in the operand type and z (M,128) float32. The three
+// arrays are host arrays of device pointers. dtype: 0 float32 (bfloat16 runs
+// mfc_raft_update_tma).
+// fill: 1 writes hx[:, 0:256] = [net | inp] first; 0 when hx already holds
+// them (the step before left net' there). net_out must not be net. M =
+// B*H8*W8 tokens in raster order. Returns the first launch error.
 extern "C" int mfc_raft_update(void* const* inputs, void* const* weights,
                                void* const* scratch, void* net_out,
                                void* delta, int B, int H8, int W8, int dtype,
-                               void* stream) {
+                               int fill, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return run_update<float>(inputs, weights, scratch, (float*)net_out,
-                             (float*)delta, B, H8, W8, s);
-  if (dtype == 1)
-    return run_update<__nv_bfloat16>(inputs, weights, scratch,
-                                     (float*)net_out, (float*)delta, B, H8,
-                                     W8, s);
+    return run_update(inputs, weights, scratch, (float*)net_out,
+                      (float*)delta, B, H8, W8, fill, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---- the wgmma + TMA instance (bfloat16)
+extern "C" int mfc_raft_plan_bytes(void) { return (int)sizeof(Plan) + 64; }
+
+// Fill `plan` (mfc_raft_plan_bytes() bytes of host memory) for solves at
+// B x H8 x W8. weights: per convolution (c2 f2 cv zr_h q_h zr_v q_v fl1 fl2)
+// the K-major bf16 weight (taps, N, K) and the float32 bias; scratch as for
+// mfc_raft_update (bf16). tile: {R, XS, the column-tile width of each of the
+// 8 launches, the cluster size of each} from ops/raft_update.py::tile_plan.
+extern "C" int mfc_raft_plan_init(void* plan, void* const* weights,
+                                  void* const* scratch, int B, int H8, int W8,
+                                  const int* tile) {
+  Plan& pl = *new (align64(plan)) Plan{};
+  pl.B = B; pl.H8 = H8; pl.W8 = W8; pl.M = B * H8 * W8;
+  pl.R = tile[0]; pl.XS = tile[1];
+  if (pl.M == 0) return 0;
+  if (pl.R < 1 || pl.XS < 1 || pl.R > 256 || pl.XS > 256 || pl.R > H8 ||
+      pl.XS > W8 || pl.R * pl.XS > MT)
+    return ERR_PLAN;
+  pl.tiles_y = (H8 + pl.R - 1) / pl.R;
+  pl.tiles_x = (W8 + pl.XS - 1) / pl.XS;
+  for (int i = 0; i < N_STAGES; ++i) {
+    pl.bn[i] = tile[2 + i];
+    pl.cluster[i] = tile[2 + N_STAGES + i];
+    if (pl.cluster[i] < 1 || pl.cluster[i] > MAX_CLUSTER) return ERR_PLAN;
+  }
+  for (int i = 0; i < N_CONV; ++i)
+    if (CONV_N[i] % pl.bn[CONV_STAGE[i]] ||
+        pl.cluster[CONV_STAGE[i]] > CONV_TAPS[i] * CONV_K[i] / TMA_BK)
+      return ERR_PLAN;
+  pl.cf = (__nv_bfloat16*)scratch[0];
+  pl.hx = (__nv_bfloat16*)scratch[1];
+  pl.rnet = (__nv_bfloat16*)scratch[2];
+  pl.fh = (__nv_bfloat16*)scratch[3];
+  pl.z = (float*)scratch[4];
+  int rc;
+  const void* acts[N_ACT] = {nullptr, nullptr, pl.cf, pl.hx, pl.rnet, pl.fh};
+  for (int i = ACT_CF; i < N_ACT; ++i)
+    if ((rc = encode_act(pl, i, acts[i]))) return rc;
+  for (int i = 0; i < N_CONV; ++i) {
+    if ((rc = encode_weight(pl, i, weights[2 * i], pl.bn[CONV_STAGE[i]])))
+      return rc;
+    pl.bias[i] = (const float*)weights[2 * i + 1];
+  }
+  return 0;
+}
+
+// One update iteration on the planned shape. inputs as for mfc_raft_update
+// (bf16); net_out (M,128), delta (M,2) float32; net_out must not be net.
+extern "C" int mfc_raft_update_tma(void* plan, void* const* inputs,
+                                   void* net_out, void* delta, int fill,
+                                   void* stream) {
+  return run_update_tma(*(Plan*)align64(plan), inputs, (float*)net_out,
+                        (float*)delta, fill, (cudaStream_t)stream);
 }

@@ -8,12 +8,23 @@
 //                     the warp), in one pass
 //   mfc_warp_abs   <- banded_warp_pallas's own contract: absolute source
 //                     coordinates fx, fy, zeros padding
+//   mfc_backward_warp <- UnFlow's backward warp (linspace base grid + flow
+//                     in pixels -> grid_sample, either align_corners, zeros
+//                     or border padding) in one pass, any strides
 //
 // What bounds it on this card: bytes. Per output pixel the kernel reads two
 // flow values and four taps of each of C channels and writes C values: no
 // arithmetic to speak of. At 2 x 480 x 640 with C = 5 bf16 maps that is
 // ~17 MB moved once: 5 us at the card's memory rate. Measured there (NVIDIA
 // H100 80GB HBM3, 700 W): 13 us, the time of F.grid_sample on the same maps.
+// UnFlow's backward warp moves 3.3 MB (2 x 3 x 256 x 320 bf16 frames and a
+// two-channel flow): 1 us at the memory rate, less than a launch costs. What
+// bounded it was not the gather but the ~20 elementwise PyTorch kernels that
+// formed its coordinates and the layout copies around it, each a launch of
+// a few microseconds over one plane; mfc_backward_warp forms the coordinates
+// in the kernel and reads and writes any layout in place by its strides
+// (channels_last frames and flow, float32 or bfloat16 flow converted on
+// load), so the whole warp is one launch and no copy.
 //
 // Design: the TPU kernel turned the gather into banded one-hot matrix
 // products because the TPU has no fast gather, and needed slabs, a band
@@ -36,6 +47,8 @@ namespace {
 
 constexpr int TPB = 256;
 
+inline unsigned blocks_for(size_t n) { return (unsigned)((n + TPB - 1) / TPB); }
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -55,12 +68,13 @@ __device__ __forceinline__ float unnormalize(float g, int size,
 }
 
 // Four taps of every channel of one image at (fx, fy); out-of-image taps
-// contribute zero. img: (C, H, W) of this batch item; out: this pixel of
-// channel 0, channel stride ostride.
+// contribute zero. img: this batch item, element strides sc (channel), sh
+// (row), sw (column); out: this pixel of channel 0, channel stride ostride.
 template <typename T>
 __device__ __forceinline__ void sample_pixel(const T* img, int C, int H, int W,
-                                             float fx, float fy, T* out,
-                                             size_t ostride) {
+                                             ptrdiff_t sc, ptrdiff_t sh,
+                                             ptrdiff_t sw, float fx, float fy,
+                                             T* out, ptrdiff_t ostride) {
   const float x0f = floorf(fx), y0f = floorf(fy);
   const float tx = __fsub_rn(fx, x0f), ty = __fsub_rn(fy, y0f);
   const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
@@ -73,14 +87,13 @@ __device__ __forceinline__ void sample_pixel(const T* img, int C, int H, int W,
   const int y0 = (int)fminf(fmaxf(y0f, -1.0f), (float)(H - 1));
   const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
   const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
-  const size_t plane = (size_t)H * W;
-  const ptrdiff_t base = (ptrdiff_t)y0 * W + x0;
+  const ptrdiff_t base = (ptrdiff_t)y0 * sh + (ptrdiff_t)x0 * sw;
   for (int c = 0; c < C; ++c) {
-    const T* p = img + c * plane + base;
+    const T* p = img + c * sc + base;
     const float a = v00 ? to_f32(p[0]) : 0.0f;
-    const float b = v01 ? to_f32(p[1]) : 0.0f;
-    const float d = v10 ? to_f32(p[W]) : 0.0f;
-    const float e = v11 ? to_f32(p[W + 1]) : 0.0f;
+    const float b = v01 ? to_f32(p[sw]) : 0.0f;
+    const float d = v10 ? to_f32(p[sh]) : 0.0f;
+    const float e = v11 ? to_f32(p[sh + sw]) : 0.0f;
     const float top = __fadd_rn(__fmul_rn(a, ux), __fmul_rn(b, tx));
     const float bot = __fadd_rn(__fmul_rn(d, ux), __fmul_rn(e, tx));
     from_f32(__fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, ty)),
@@ -107,10 +120,10 @@ flow_warp_kernel(const T* __restrict__ maps, const float* __restrict__ flow,
       __fdiv_rn(__fmul_rn(2.0f, (float)y), (float)(gh - 1)), 1.0f);
   const float gx = __fadd_rn(bx, __fdiv_rn(fl[0], (float)(W - 1) / 2.0f));
   const float gy = __fadd_rn(by, __fdiv_rn(fl[hw], (float)(H - 1) / 2.0f));
-  sample_pixel(maps + (size_t)b * C * hw, C, H, W,
+  sample_pixel(maps + (size_t)b * C * hw, C, H, W, (ptrdiff_t)hw, W, 1,
                unnormalize(gx, W, align_corners),
                unnormalize(gy, H, align_corners),
-               out + (size_t)b * C * hw + r, hw);
+               out + (size_t)b * C * hw + r, (ptrdiff_t)hw);
 }
 
 template <typename T>
@@ -123,11 +136,66 @@ warp_abs_kernel(const T* __restrict__ img, const float* __restrict__ fx,
   if (i >= (size_t)B * n) return;
   const int b = (int)(i / n);
   const size_t r = i - (size_t)b * n;
-  sample_pixel(img + (size_t)b * C * H * W, C, H, W, fx[i], fy[i],
-               out + (size_t)b * C * n + r, n);
+  sample_pixel(img + (size_t)b * C * H * W, C, H, W, (ptrdiff_t)H * W, W, 1,
+               fx[i], fy[i], out + (size_t)b * C * n + r, (ptrdiff_t)n);
 }
 
-inline unsigned blocks_for(size_t n) { return (unsigned)((n + TPB - 1) / TPB); }
+// element strides of a 4-D tensor: batch, channel, row, column
+struct Strides {
+  int b, c, h, w;
+};
+
+// UnFlow's backward warp in one pass: base grid (xs, ys: the W and H values
+// of linspace(-1, 1), handed in because linspace steps from both ends and is
+// not 2j/(W-1) - 1 bit for bit) + flow / ((size-1)/2) -> unnormalize ->
+// clamp (border padding) -> four taps. One thread per output pixel, every
+// channel; image, flow and output are read and written in place by their
+// strides, the flow converted on load.
+template <typename T, typename F>
+__global__ void __launch_bounds__(TPB)
+backward_warp_kernel(const T* __restrict__ img, Strides si,
+                     const F* __restrict__ flow, Strides sf,
+                     T* __restrict__ out, Strides so,
+                     const float* __restrict__ xs,
+                     const float* __restrict__ ys, int B, int C, int H, int W,
+                     int align_corners, int border) {
+  const size_t hw = (size_t)H * W;
+  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
+  if (i >= (size_t)B * hw) return;
+  const int b = (int)(i / hw);
+  const int r = (int)(i - (size_t)b * hw);
+  const int y = r / W, x = r - y * W;
+  const F* fl = flow + (ptrdiff_t)b * sf.b + (ptrdiff_t)y * sf.h +
+                (ptrdiff_t)x * sf.w;
+  const float gx = __fadd_rn(
+      xs[x], __fdiv_rn(to_f32(fl[0]), (float)(W - 1) / 2.0f));
+  const float gy = __fadd_rn(
+      ys[y], __fdiv_rn(to_f32(fl[sf.c]), (float)(H - 1) / 2.0f));
+  float fx = unnormalize(gx, W, align_corners);
+  float fy = unnormalize(gy, H, align_corners);
+  if (border) {  // the clamped coordinate also sets the blend weights
+    fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+    fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+  }
+  sample_pixel(img + (ptrdiff_t)b * si.b, C, H, W, si.c, si.h, si.w, fx, fy,
+               out + (ptrdiff_t)b * so.b + (ptrdiff_t)y * so.h +
+                   (ptrdiff_t)x * so.w,
+               so.c);
+}
+
+template <typename T, typename F>
+int launch_backward_warp(const void* img, const void* flow, void* out,
+                         const int* st, const float* xs, const float* ys,
+                         int B, int C, int H, int W, int align_corners,
+                         int border, cudaStream_t s) {
+  const Strides si = {st[0], st[1], st[2], st[3]};
+  const Strides sf = {st[4], st[5], st[6], st[7]};
+  const Strides so = {st[8], st[9], st[10], st[11]};
+  backward_warp_kernel<T, F><<<blocks_for((size_t)B * H * W), TPB, 0, s>>>(
+      (const T*)img, si, (const F*)flow, sf, (T*)out, so, xs, ys, B, C, H, W,
+      align_corners, border);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -171,4 +239,33 @@ extern "C" int mfc_warp_abs(const void* img, const void* fx, const void* fy,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// img, out (B, C, H, W) float32 (dtype 0) or bfloat16 (dtype 1); flow
+// (B, 2, H, W) in pixels, float32 (flow_dtype 0) or bfloat16 (1); strides:
+// 12 ints on the host, the element strides (batch, channel, row, column) of
+// img, flow and out; xs (W), ys (H) float32: the base grid. border: 0 zeros
+// padding, 1 border padding.
+extern "C" int mfc_backward_warp(const void* img, const void* flow, void* out,
+                                 const int* strides, const void* xs,
+                                 const void* ys, int B, int C, int H, int W,
+                                 int align_corners, int border, int dtype,
+                                 int flow_dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((size_t)B * H * W == 0 || C == 0) return 0;
+  const float* x = (const float*)xs;
+  const float* y = (const float*)ys;
+  if (dtype == 0 && flow_dtype == 0)
+    return launch_backward_warp<float, float>(
+        img, flow, out, strides, x, y, B, C, H, W, align_corners, border, s);
+  if (dtype == 0 && flow_dtype == 1)
+    return launch_backward_warp<float, __nv_bfloat16>(
+        img, flow, out, strides, x, y, B, C, H, W, align_corners, border, s);
+  if (dtype == 1 && flow_dtype == 0)
+    return launch_backward_warp<__nv_bfloat16, float>(
+        img, flow, out, strides, x, y, B, C, H, W, align_corners, border, s);
+  if (dtype == 1 && flow_dtype == 1)
+    return launch_backward_warp<__nv_bfloat16, __nv_bfloat16>(
+        img, flow, out, strides, x, y, B, C, H, W, align_corners, border, s);
+  return (int)cudaErrorInvalidValue;
 }

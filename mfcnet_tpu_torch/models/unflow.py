@@ -22,7 +22,8 @@ convolutions run NCHW in ``channels_last`` memory format, so the
 (B, H, W, C) views that the correlation kernel reads and writes are views
 without a copy. The cost volume is the hand-written kernel of
 ``ops/correlation.py`` and the backward warp that of ``ops/warp.py``
-(``grid_sample_bilinear``) on CUDA tensors.
+(``backward_warp``: one launch that reads the ``channels_last`` frame and
+flow in place and writes a ``channels_last`` result) on CUDA tensors.
 
 Sizes: the pyramid halves the image six times and the decoder
 concatenates each level with the one above doubled, so H and W must be
@@ -45,7 +46,7 @@ import torch
 from torch import nn
 
 from mfcnet_tpu_torch.ops.correlation import correlation_cost_volume
-from mfcnet_tpu_torch.ops.warp import grid_sample_bilinear
+from mfcnet_tpu_torch.ops.warp import backward_warp as warp_by_flow
 
 # UnFlow BGR channel means / 255 (reference models/unflow_model.py:253-259)
 _MEANS_BGR = (104.920005 / 255.0, 110.175300 / 255.0, 114.785955 / 255.0)
@@ -76,20 +77,10 @@ def backward_warp(img, flow):
     """Border-padded bilinear warp (reference models/unflow_model.py:6-17;
     ``grid_sample``'s default ``align_corners=False`` on a
     ``linspace(-1, 1)`` base grid). img (B, C, H, W); flow (B, 2, H, W) in
-    pixels, channel 0 = x. Returns (B, C, H, W) in ``img``'s type."""
-    B, _, H, W = img.shape
-    dev = img.device
-
-    def c(v):  # a division by a Python scalar is a product on CUDA
-        return torch.full((), float(v), dtype=torch.float32, device=dev)
-
-    xs = torch.linspace(-1.0, 1.0, W, dtype=torch.float32, device=dev)
-    ys = torch.linspace(-1.0, 1.0, H, dtype=torch.float32, device=dev)
-    flow = flow.float()
-    gx = xs.view(1, 1, W) + flow[:, 0] / c((W - 1) / 2.0)
-    gy = ys.view(1, H, 1) + flow[:, 1] / c((H - 1) / 2.0)
-    return grid_sample_bilinear(img, gx, gy, align_corners=False,
-                                padding_mode="border")
+    pixels, channel 0 = x. Returns (B, C, H, W) in ``img``'s type and
+    memory format."""
+    return warp_by_flow(img, flow, align_corners=False,
+                        padding_mode="border")
 
 
 def _deconv(cin, cout):

@@ -51,13 +51,23 @@ _SIGNATURES = {
         "mfc_warp_abs": (
             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
+        # img, flow, out, strides[12], xs, ys, B, C, H, W, align_corners,
+        # border, dtype, flow dtype, stream
+        "mfc_backward_warp": (
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
     },
     "raft_update.cu": {
-        # inputs[5], weights[18], scratch[6], net_out, delta, B, H8, W8,
-        # dtype, stream
+        # inputs[5], weights[18], scratch[5], net_out, delta, B, H8, W8,
+        # dtype, fill, stream
         "mfc_raft_update": (
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I,
         ),
+        "mfc_raft_plan_bytes": ((), _I),
+        # plan, K-major weights[18], scratch[5], B, H8, W8, tile[18]
+        "mfc_raft_plan_init": ((_P, _P, _P, _I, _I, _I, _P), _I),
+        # plan, inputs[5], net_out, delta, fill, stream
+        "mfc_raft_update_tma": ((_P, _P, _P, _P, _I, _P), _I),
     },
     "correlation.cu": {
         # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream

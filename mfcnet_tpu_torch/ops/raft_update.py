@@ -28,6 +28,7 @@ Forward only: the provider is frozen.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -37,18 +38,26 @@ from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 #: kernel launches since the last :func:`reset_launches` (one per call of
 #: :func:`raft_update` on CUDA tensors)
 LAUNCHES = {"raft_update": 0}
+#: how many of those calls also wrote ``hx[:, 0:256] = [net | inp]`` (once
+#: per solve with an :class:`UpdateWorkspace`), and how many ran the
+#: bfloat16 kernel on wgmma and TMA
+COUNTS = {"hx_fills": 0, "wgmma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _T3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 _T1x5 = tuple((0, dx) for dx in range(-2, 3))
 _T5x1 = tuple((dy, 0) for dy in range(-2, 3))
+#: the nine convolutions of the step, in the kernel's order
+_CONVS = ("c2", "f2", "cv", "zr_h", "q_h", "zr_v", "q_v", "fl1", "fl2")
 #: order of the packed tensors handed to the kernel
-_WEIGHT_NAMES = (
-    "w_c2", "b_c2", "w_f2", "b_f2", "w_cv", "b_cv",
-    "w_zr_h", "b_zr_h", "w_q_h", "b_q_h",
-    "w_zr_v", "b_zr_v", "w_q_v", "b_q_v",
-    "w_fl1", "b_fl1", "w_fl2", "b_fl2",
-)
+_WEIGHT_NAMES = tuple(f"{p}_{c}" for c in _CONVS for p in ("w", "b"))
+#: the same with the K-major weights (taps, columns, rows) that the wgmma
+#: design reads; only a bfloat16 pack holds them
+_KMAJOR_NAMES = tuple(f"{p}_{c}" for c in _CONVS for p in ("wt", "b"))
+#: output columns of each convolution as packed (126 -> 128, 2 -> 16)
+_CONV_COLS = (192, 64, 128, 256, 128, 256, 128, 256, 16)
+#: the launch each convolution belongs to: c2 and f2 share the first grid
+_CONV_STAGE = (0, 0, 1, 2, 3, 4, 5, 6, 7)
 #: the kernel indexes its widest buffer (384 columns) with 32 bits
 MAX_TOKENS = (2 ** 31 - 1) // 384
 _TRAINING = ("the update step has no backward kernel (the flow provider is "
@@ -57,8 +66,9 @@ _TRAINING = ("the update step has no backward kernel (the flow provider is "
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, COUNTS):
+        for k in d:
+            d[k] = 0
 
 
 def _taps(conv):
@@ -105,6 +115,10 @@ def pack_update_weights(update_block, compute_dtype=torch.bfloat16):
         out[f"b_zr_{d}"] = torch.cat([b(g.convz), b(g.convr)]).contiguous()
         out[f"w_q_{d}"] = w(_taps(g.convq))
         out[f"b_q_{d}"] = b(g.convq)
+    if compute_dtype == torch.bfloat16:
+        # the wgmma design reads both operands K-major: (taps, columns, rows)
+        for c in _CONVS:
+            out[f"wt_{c}"] = out[f"w_{c}"].transpose(1, 2).contiguous()
     return out
 
 
@@ -124,8 +138,10 @@ def _tap_conv(x, w, bias, taps, H8, W8):
     return acc
 
 
-def raft_update_plain(c1, f1, inp, net, flow, packed, H8: int, W8: int):
-    """Plain version of :func:`raft_update` (same contract, any device)."""
+def raft_update_plain(c1, f1, inp, net, flow, packed, H8: int, W8: int,
+                      workspace=None):
+    """Plain version of :func:`raft_update` (same contract, any device; it
+    keeps nothing between calls, so a ``workspace`` is not used)."""
     cdt = packed["w_c2"].dtype
     c1, f1, inp = c1.to(cdt), f1.to(cdt), inp.to(cdt)
     net = net.float()
@@ -153,6 +169,89 @@ def raft_update_plain(c1, f1, inp, net, flow, packed, H8: int, W8: int):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's tile plan (host side, pure)
+# ---------------------------------------------------------------------------
+#: tokens per block of the wgmma design: two consumer warpgroups of 64
+TILE_TOKENS = 128
+#: column-tile width of each of the eight launches (c2 || f2, cv, zr_h, q_h,
+#: zr_v, q_v, fl1, fl2)
+_COLUMN_WIDTHS = (64, 128, 128, 128, 128, 128, 128, 16)
+#: a launch's clusters grow while it has no more blocks than this, up to
+#: the portable cluster size: about one and a half per SM of an H100's 132
+#: (tools/raft_update_sweep.py at 1,200 to 4,800 tokens: 160 to 230 level,
+#: 132 and 264 slower)
+TARGET_BLOCKS = 200
+MAX_CLUSTER = 8
+#: a TMA box holds at most this many elements along any dimension
+_MAX_BOX = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the wgmma design cuts one solve: a token tile is ``rows`` image
+    rows x ``cols`` columns (``rows * cols`` <= :data:`TILE_TOKENS`),
+    ``tiles_y * tiles_x`` tiles per image; launch ``i`` has
+    ``B * tiles_y * tiles_x * clusters[i]`` x ``column_tiles[i]`` blocks of
+    ``column_widths[i]`` output columns, the ``clusters[i]`` blocks of a
+    cluster each summing a subset of the tile's taps. ``config``:
+    "clusters" while some launch splits its taps so that every SM pulls a
+    share of the weights, "tiles" once the token tiles alone fill the card
+    (from about 13,000 tokens on)."""
+    config: str
+    rows: int
+    cols: int
+    tiles_y: int
+    tiles_x: int
+    column_widths: tuple
+    column_tiles: tuple
+    clusters: tuple
+
+    def tiles(self):
+        """((y0, y1), (x0, x1)) of every token tile of one image."""
+        return [((ty * self.rows, (ty + 1) * self.rows),
+                 (tx * self.cols, (tx + 1) * self.cols))
+                for ty in range(self.tiles_y) for tx in range(self.tiles_x)]
+
+
+def tile_plan(B: int, H8: int, W8: int) -> TilePlan:
+    """The tile plan of a solve at B x H8 x W8 tokens: the token tile of
+    whole or x-segmented image rows that covers an image with the fewest
+    tiles (fewest x segments among equals: 3 x 40 at 30x40 and at 60x80),
+    and each launch's cluster size from its block count
+    (:data:`TARGET_BLOCKS`), which is where the token count picks the
+    kernel's configuration."""
+    M = B * H8 * W8
+    if min(B, H8, W8) < 1:
+        raise ValueError(f"raft_update: empty grid {B}x{H8}x{W8}")
+    if M > MAX_TOKENS:
+        raise ValueError(
+            f"raft_update: {M} tokens exceed the kernel's 32-bit index "
+            f"limit of {MAX_TOKENS} tokens per call; split the batch")
+    best = None
+    for nx in range(1, W8 + 1):
+        cols = -(-W8 // nx)
+        if cols > min(TILE_TOKENS, _MAX_BOX):
+            continue
+        rows = min(TILE_TOKENS // cols, H8, _MAX_BOX)
+        key = (-(-H8 // rows) * -(-W8 // cols), nx)
+        if best is None or key < best[0]:
+            best = (key, rows, cols)
+        if cols == 1:
+            break
+    _, rows, cols = best
+    tiles_y, tiles_x = -(-H8 // rows), -(-W8 // cols)
+    column_tiles = [0] * 8
+    for n, stage in zip(_CONV_COLS, _CONV_STAGE):
+        column_tiles[stage] += n // _COLUMN_WIDTHS[stage]
+    clusters = tuple(
+        max(1, min(MAX_CLUSTER, TARGET_BLOCKS // (B * tiles_y * tiles_x * ct)))
+        for ct in column_tiles)
+    config = "clusters" if max(clusters) > 1 else "tiles"
+    return TilePlan(config, rows, cols, tiles_y, tiles_x, _COLUMN_WIDTHS,
+                    tuple(column_tiles), clusters)
+
+
+# ---------------------------------------------------------------------------
 # wrapper
 # ---------------------------------------------------------------------------
 def _check(t, name, shape, dtype):
@@ -164,14 +263,110 @@ def _check(t, name, shape, dtype):
         raise ValueError(f"{name} must be contiguous")
 
 
-def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int):
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+class UpdateWorkspace:
+    """What one recurrent solve keeps between its calls of
+    :func:`raft_update`: the scratch tensors, two (net', delta) output pairs
+    used in turns -- a call never writes the pair it returned last, nor the
+    caller's own ``net`` -- and, for the bfloat16 kernel, the tile plan and
+    its TMA tensor maps. ``hx = [net | inp | y | flow]`` lives across the
+    calls: the kernel leaves ``net'`` in ``hx[:, 0:128]`` and ``inp`` does
+    not change during a solve, so ``[net | inp]`` is written on the first
+    call only (:meth:`holds` decides, by identity of the tensors).
+
+    On CPU tensors the plain version computes and the workspace only keeps
+    the output buffers and the same bookkeeping."""
+
+    def __init__(self, B: int, H8: int, W8: int, packed, device):
+        self.shape = (B, H8, W8)
+        self.cdt = packed["w_c2"].dtype
+        self.device = torch.device(device)
+        self.plan = tile_plan(B, H8, W8)
+        M = B * H8 * W8
+        self.design = _DESIGNS[self.cdt]
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.empty(*shape, dtype=dtype, device=self.device)
+
+        self.outputs = [(buf(B, H8 * W8, 128), buf(B, H8 * W8, 2))
+                        for _ in range(2)]
+        self.turn = 0
+        self._held = None
+        self.scratch = None
+        self._plan_buf = None
+        if self.device.type == "cuda":
+            # cf = [c2 | f2], hx = [net | inp | y | flow], r*net, the flow
+            # head's hidden layer, z
+            self.scratch = [buf(M, 256, dtype=self.cdt),
+                            buf(M, 384, dtype=self.cdt),
+                            buf(M, 128, dtype=self.cdt),
+                            buf(M, 256, dtype=self.cdt), buf(M, 128)]
+            if self.design == "wgmma":
+                self._init_plan(packed)
+
+    def _init_plan(self, packed):
+        lib = kernel_lib()
+        self._plan_buf = ctypes.create_string_buffer(lib.mfc_raft_plan_bytes())
+        p = self.plan
+        tile = (ctypes.c_int * 18)(p.rows, p.cols, *p.column_widths,
+                                   *p.clusters)
+        self._weights = [packed[k] for k in _KMAJOR_NAMES]  # kept alive
+        rc = lib.mfc_raft_plan_init(
+            self._plan_buf, _ptrs(self._weights), _ptrs(self.scratch),
+            *self.shape, tile)
+        if rc != 0:
+            raise RuntimeError(f"raft_update: the tile plan {p} was refused "
+                               f"(error {rc}: 10000 + CUresult of a tensor "
+                               f"map, 20001 cuTensorMapEncodeTiled not found "
+                               f"in libcuda, 20002 a plan outside the "
+                               f"kernel's limits)")
+
+    def holds(self, net, inp) -> bool:
+        """Whether ``hx[:, 0:256]`` already is ``[net | inp]``: ``net`` is
+        the state this workspace returned last and ``inp`` the tensor it
+        was filled from, both unchanged since."""
+        if self._held is None:
+            return False
+        h_net, v_net, h_inp, v_inp = self._held
+        return (net is h_net and net._version == v_net
+                and inp is h_inp and inp._version == v_inp)
+
+    def next_outputs(self, net):
+        """The output pair of this call: not the one returned last, and
+        never ``net`` itself."""
+        self.turn ^= 1
+        out = self.outputs[self.turn]
+        if out[0] is net:  # the caller kept an older state
+            self.turn ^= 1
+            out = self.outputs[self.turn]
+        return out
+
+    def returned(self, net_out, inp):
+        self._held = (net_out, net_out._version, inp, inp._version)
+
+
+#: the kernel by compute dtype: float32 multiplies on plain FMAs, bfloat16
+#: on wgmma fed by TMA
+_DESIGNS = {torch.float32: "fma", torch.bfloat16: "wgmma"}
+
+
+def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int,
+                workspace: UpdateWorkspace | None = None):
     """One fused RAFT update iteration.
 
     c1 (B, N, 256) = relu(convcorr1(correlation lookup)), f1 (B, N, 128) =
     relu(convflow1(flow)) and inp (B, N, 128) in the compute dtype of
     ``packed`` (:func:`pack_update_weights`); net (B, N, 128) and flow
     (B, N, 2) float32; N = H8*W8 tokens in raster order. Returns
-    (net', delta flow), float32, shaped like (net, flow)."""
+    (net', delta flow), float32, shaped like (net, flow).
+
+    ``workspace``: the :class:`UpdateWorkspace` of a recurrent solve. The
+    results are then two of its buffers, valid until the call after the
+    next; without one, a workspace is made for this call alone. ``net`` is
+    never written."""
     cdt = packed["w_c2"].dtype
     B, N = c1.shape[:2]
     if N != H8 * W8:
@@ -186,33 +381,39 @@ def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int):
         raise NotImplementedError(
             f"an input requires a gradient, but {_TRAINING}")
     weights = [packed[k] for k in _WEIGHT_NAMES]
-    if route(*tensors, *weights) == "cpu":
-        return raft_update_plain(c1, f1, inp, net, flow, packed, H8, W8)
-    M = B * N
-    if M > MAX_TOKENS:
+    where = route(*tensors, *weights)
+    ws = workspace
+    if ws is None:
+        ws = UpdateWorkspace(B, H8, W8, packed, c1.device)
+    elif (ws.shape != (B, H8, W8) or ws.cdt != cdt
+          or ws.outputs[0][0].device != c1.device):
         raise ValueError(
-            f"raft_update: {M} tokens exceed the kernel's 32-bit index "
-            f"limit of {MAX_TOKENS} tokens per call; split the batch")
-    dev = c1.device
-
-    def buf(cols, dtype=cdt):
-        return torch.empty(M, cols, dtype=dtype, device=dev)
-
-    # c2, f2, hx = [net | inp | y | flow], r*net, flow-head hidden, z
-    scratch = [buf(192), buf(64), buf(384), buf(128), buf(256),
-               buf(128, torch.float32)]
-    net_out = torch.empty_like(net)
-    delta = torch.empty_like(flow)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
-    rc = kernel_lib().mfc_raft_update(
-        ptrs(tensors), ptrs(weights), ptrs(scratch), net_out.data_ptr(),
-        delta.data_ptr(), B, H8, W8, _DTYPES[cdt], stream_of(c1))
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel raft_update failed: cudaError {rc}")
-    LAUNCHES["raft_update"] += 1
+            f"workspace for {ws.shape} {ws.cdt} on "
+            f"{ws.outputs[0][0].device}, call at {(B, H8, W8)} {cdt} on "
+            f"{c1.device}")
+    fill = not ws.holds(net, inp)
+    net_out, delta = ws.next_outputs(net)
+    if where == "cpu":
+        got = raft_update_plain(c1, f1, inp, net, flow, packed, H8, W8)
+        net_out.copy_(got[0])
+        delta.copy_(got[1])
+    else:
+        if ws.design == "wgmma":
+            rc = kernel_lib().mfc_raft_update_tma(
+                ws._plan_buf, _ptrs(tensors), net_out.data_ptr(),
+                delta.data_ptr(), int(fill), stream_of(c1))
+        else:
+            rc = kernel_lib().mfc_raft_update(
+                _ptrs(tensors), _ptrs(weights), _ptrs(ws.scratch),
+                net_out.data_ptr(), delta.data_ptr(), B, H8, W8, _DTYPES[cdt],
+                int(fill), stream_of(c1))
+        if rc != 0:
+            raise RuntimeError(
+                f"CUDA kernel raft_update ({ws.design}) failed: error {rc}")
+        LAUNCHES["raft_update"] += 1
+        COUNTS["wgmma"] += ws.design == "wgmma"
+    COUNTS["hx_fills"] += int(fill)
+    ws.returned(net_out, inp)
     return net_out, delta
 
 
@@ -220,14 +421,15 @@ def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int):
 # the update step and the recurrent solve around the kernel
 # ---------------------------------------------------------------------------
 def fused_update_step(update_block, packed, corr, inp, net, flow, H8: int,
-                      W8: int):
+                      W8: int, workspace: UpdateWorkspace | None = None):
     """One full update step == ``UpdateBlock`` without the mask head, on
     token-major tensors: convcorr1 (a 1x1 product on the lookup) and
     convflow1 (a 7x7 conv on the 2-channel flow) in PyTorch, then
     :func:`raft_update` for everything else.
 
     corr (B, N, L*81) float32, inp (B, N, 128) in the compute dtype, net
-    (B, N, 128) and flow (B, N, 2) float32 -> (net', delta flow)."""
+    (B, N, 128) and flow (B, N, 2) float32 -> (net', delta flow).
+    ``workspace``: as for :func:`raft_update`."""
     cdt = packed["w_c2"].dtype
     enc = update_block.motion_encoder
     B, N, _ = corr.shape
@@ -240,7 +442,7 @@ def fused_update_step(update_block, packed, corr, inp, net, flow, H8: int,
                              padding=3))
     f1 = f1.permute(0, 2, 3, 1).reshape(B, N, 128)
     return raft_update(c1.contiguous(), f1.contiguous(), inp, net, flow,
-                       packed, H8, W8)
+                       packed, H8, W8, workspace)
 
 
 def _packed_for(model, compute_dtype):
@@ -281,11 +483,14 @@ def fused_flow_from_features(model, f1, f2, net, inp, iters: int = 12,
     net = net.float().reshape(B, N, 128).contiguous()
     inp = inp.to(compute_dtype).reshape(B, N, 128).contiguous()
     flow = torch.zeros(B, N, 2, dtype=torch.float32, device=f1.device)
+    # one workspace for the solve: scratch, outputs and tensor maps are made
+    # once, and [net | inp] is written into hx by the first call only
+    workspace = UpdateWorkspace(B, H8, W8, packed, f1.device)
     for _ in range(iters):
         corr = pyramid.lookup(coords0 + flow.view(B, H8, W8, 2))
         net, delta = fused_update_step(
             model.update_block, packed, corr.view(B, N, -1), inp, net, flow,
-            H8, W8)
+            H8, W8, workspace)
         flow = flow + delta
     # the mask head runs once, in float32 on the float32 state
     mp = model.mask_predictor

@@ -10,8 +10,13 @@ taps, any flow exact); on a CPU tensor it runs :func:`flow_warp_plain`,
 the same arithmetic in plain PyTorch. There is no fallback between the
 two. :func:`grid_sample_bilinear` routes through the kernel's second
 entry point, which takes absolute source coordinates as the TPU kernel
-does; its caller is UnFlow's ``backward_warp`` (``models/unflow.py``, once
-per refinement network). Each launch adds one to :data:`LAUNCHES`.
+does. :func:`backward_warp` is UnFlow's warp (``models/unflow.py``, once
+per refinement network): a ``linspace(-1, 1)`` base grid plus the flow in
+pixels, sampled as ``F.grid_sample`` does with either ``align_corners`` and
+zeros or border padding; the kernel's third entry point forms the
+coordinates itself and reads image and flow in place by their strides
+(NCHW or ``channels_last``, float32 or bfloat16 flow), one launch and no
+copy. Each launch adds one to :data:`LAUNCHES`.
 
 Layout: maps are (B, C, H, W) and flow (B, 2, H, W) -- the layout of the
 tracker's ring buffers; the JAX functions take (B, H, W, C) and
@@ -28,12 +33,14 @@ the training slice.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 
 #: kernel launches per entry point since the last :func:`reset_launches`
-LAUNCHES = {"flow_warp": 0, "warp_abs": 0}
+LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TRAINING = ("the warp's backward kernel comes with the training slice: "
@@ -137,6 +144,46 @@ def flow_warp_plain(maps, flow, grid_hw=None, align_corners: bool = True):
     return grid_sample_bilinear_plain(maps, gx, gy, align_corners)
 
 
+_BASE_GRIDS = {}
+
+
+def _base_grid(n: int, device):
+    """``linspace(-1, 1, n)`` float32 on ``device``, made once per size and
+    device: it steps from both ends, so it is not ``2j/(n-1) - 1`` bit for
+    bit, and kernel and plain version read the same vector."""
+    key = (n, torch.device(device))
+    if key not in _BASE_GRIDS:
+        _BASE_GRIDS[key] = torch.linspace(-1.0, 1.0, n, dtype=torch.float32,
+                                          device=device)
+    return _BASE_GRIDS[key]
+
+
+def _channels_last(t) -> bool:
+    return (not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last))
+
+
+def backward_warp_plain(img, flow, align_corners: bool = False,
+                        padding_mode: str = "border"):
+    """Plain version of :func:`backward_warp`: the grid in float32 with
+    0-dim divisors (see :func:`_flow_grid`), then
+    :func:`grid_sample_bilinear_plain`; the result in ``img``'s memory
+    format."""
+    B, _, H, W = img.shape
+    dev = img.device
+
+    def c(v):
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+    flow = flow.float()
+    gx = _base_grid(W, dev).view(1, 1, W) + flow[:, 0] / c((W - 1) / 2.0)
+    gy = _base_grid(H, dev).view(1, H, 1) + flow[:, 1] / c((H - 1) / 2.0)
+    out = grid_sample_bilinear_plain(img, gx, gy, align_corners, padding_mode)
+    if _channels_last(img):
+        out = out.contiguous(memory_format=torch.channels_last)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -211,4 +258,49 @@ def flow_warp(maps, flow, grid_hw=None, align_corners: bool = True):
         maps.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W,
         gh, gw, int(align_corners), _DTYPES[maps.dtype], stream_of(maps))
     _launch("flow_warp", rc)
+    return out
+
+
+def _dense(t) -> bool:
+    return t.is_contiguous() or _channels_last(t)
+
+
+def backward_warp(img, flow, align_corners: bool = False,
+                  padding_mode: str = "border"):
+    """Sample ``img`` (B, C, H, W) at ``linspace(-1, 1)`` base grid +
+    ``flow`` / ((size-1)/2), as ``F.grid_sample(mode='bilinear')`` does
+    (reference models/unflow_model.py:6-17 with its defaults).
+
+    img: float32 or bfloat16, NCHW or ``channels_last``; flow (B, 2, H, W)
+    in pixels, channel 0 = x, float32 or bfloat16, any strides. One kernel
+    launch on CUDA tensors: no copy of either input, the flow converted on
+    load. Returns (B, C, H, W) in ``img``'s type and memory format."""
+    _check_maps(img)
+    _no_grad_inputs(img, flow)
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    B, C, H, W = img.shape
+    if flow.shape != (B, 2, H, W):
+        raise ValueError(f"flow: expected {(B, 2, H, W)}, "
+                         f"got {tuple(flow.shape)}")
+    if flow.dtype not in _DTYPES:
+        raise TypeError(f"flow: expected float32 or bfloat16, got {flow.dtype}")
+    if route(img, flow) == "cpu":
+        return backward_warp_plain(img, flow, align_corners, padding_mode)
+    if not _dense(img):
+        img = img.contiguous()
+    if flow.numel() and max(
+            abs(st) * (n - 1) for st, n in zip(flow.stride(), flow.shape)
+    ) >= 2 ** 31:
+        raise ValueError("flow: the kernel indexes with 32 bits")
+    out = torch.empty_like(img)  # keeps a dense input's strides
+    strides = (ctypes.c_int * 12)(*img.stride(), *flow.stride(),
+                                  *out.stride())
+    rc = kernel_lib().mfc_backward_warp(
+        img.data_ptr(), flow.data_ptr(), out.data_ptr(), strides,
+        _base_grid(W, img.device).data_ptr(),
+        _base_grid(H, img.device).data_ptr(), B, C, H, W,
+        int(align_corners), int(padding_mode == "border"),
+        _DTYPES[img.dtype], _DTYPES[flow.dtype], stream_of(img))
+    _launch("backward_warp", rc)
     return out

@@ -226,12 +226,20 @@ def _tok(a):
 
 def test_pack_update_weights_layout(pair):
     from mfcnet_tpu_torch.ops.raft_update import (
+        _KMAJOR_NAMES,
         _WEIGHT_NAMES,
         pack_update_weights,
     )
 
     packed = pack_update_weights(pair[2].update_block, torch.bfloat16)
-    assert set(packed) == set(_WEIGHT_NAMES)
+    # a bfloat16 pack also holds every weight K-major for the wgmma design
+    assert set(packed) == set(_WEIGHT_NAMES) | set(_KMAJOR_NAMES)
+    assert set(pack_update_weights(pair[2].update_block, torch.float32)
+               ) == set(_WEIGHT_NAMES)
+    for k in _KMAJOR_NAMES:
+        if k.startswith("wt_"):
+            assert torch.equal(packed[k],
+                               packed["w_" + k[3:]].transpose(1, 2))
     shapes = {k: tuple(t.shape) for k, t in packed.items()}
     assert shapes["w_c2"] == (9, 256, 192) and shapes["w_f2"] == (9, 128, 64)
     assert shapes["w_cv"] == (9, 256, 128) and shapes["w_fl2"] == (9, 256, 16)
@@ -374,6 +382,138 @@ def test_raft_update_rejects_gradients_and_bad_inputs(pair):
                     packed, H8, W8)
 
 
+
+def _solve(packed, c1s, f1s, inp, net, flow, H8, W8, workspace):
+    """A short recurrent solve around ``raft_update`` as
+    ``fused_flow_from_features`` runs it; returns every call's results."""
+    from mfcnet_tpu_torch.ops.raft_update import raft_update
+
+    outs = []
+    for c1, f1 in zip(c1s, f1s):
+        net, delta = raft_update(c1, f1, inp, net, flow, packed, H8, W8,
+                                 workspace=workspace)
+        flow = flow + delta
+        outs.append((net.clone(), delta.clone()))
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_raft_update_workspace_equals_per_call_allocation(pair, dtype):
+    """A solve through one reused workspace equals per-call allocation
+    exactly (plain route), over 3 iterations and two successive solves of
+    different sizes; the caller's ``net`` is never written; ``[net | inp]``
+    is written into hx once per solve."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    packed = ru.pack_update_weights(pair[2].update_block, dtype)
+    rng = np.random.default_rng(11)
+    for B, H8, W8 in ((1, 5, 6), (2, 3, 4)):
+        N = H8 * W8
+
+        def t(cols, dt=torch.float32):
+            return torch.from_numpy(rng.standard_normal(
+                (B, N, cols)).astype(np.float32)).to(dt)
+
+        c1s = [torch.relu(t(256, dtype)) for _ in range(3)]
+        f1s = [torch.relu(t(128, dtype)) for _ in range(3)]
+        inp, net, flow = torch.relu(t(128, dtype)), torch.tanh(t(128)), t(2)
+        net_before = net.clone()
+        want = _solve(packed, c1s, f1s, inp, net, flow, H8, W8, None)
+        ru.reset_launches()
+        ws = ru.UpdateWorkspace(B, H8, W8, packed, "cpu")
+        got = _solve(packed, c1s, f1s, inp, net, flow, H8, W8, ws)
+        assert ru.COUNTS["hx_fills"] == 1 and ru.LAUNCHES["raft_update"] == 0
+        for (gn, gd), (wn, wd) in zip(got, want):
+            assert torch.equal(gn, wn) and torch.equal(gd, wd)
+        assert torch.equal(net, net_before)
+        # a state the workspace did not return (or one changed since) is
+        # written into hx again
+        ru.raft_update(c1s[0], f1s[0], inp, got[-1][0], flow, packed, H8, W8,
+                       workspace=ws)
+        assert ru.COUNTS["hx_fills"] == 2
+    with pytest.raises(ValueError, match="workspace for"):
+        ru.raft_update(c1s[0], f1s[0], inp, net, flow, packed, H8, W8,
+                       workspace=ru.UpdateWorkspace(1, 5, 6, packed, "cpu"))
+
+
+def test_raft_update_workspace_outputs_take_turns(pair):
+    """A call never writes the pair it returned last nor its own input
+    state: results stay valid until the call after the next."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    packed = ru.pack_update_weights(pair[2].update_block, torch.float32)
+    B, H8, W8 = 1, 3, 4
+    g = torch.Generator().manual_seed(3)
+    c1, f1, inp = (torch.rand(B, 12, c, generator=g) for c in (256, 128, 128))
+    net, flow = torch.rand(B, 12, 128, generator=g), torch.zeros(B, 12, 2)
+    ws = ru.UpdateWorkspace(B, H8, W8, packed, "cpu")
+    n1, d1 = ru.raft_update(c1, f1, inp, net, flow, packed, H8, W8, ws)
+    keep = n1.clone()
+    n2, d2 = ru.raft_update(c1, f1, inp, n1, flow, packed, H8, W8, ws)
+    assert n2 is not n1 and d2 is not d1 and torch.equal(n1, keep)
+    # an older state handed in again is not overwritten either
+    n3, _ = ru.raft_update(c1, f1, inp, n1, flow, packed, H8, W8, ws)
+    assert n3 is not n1 and torch.equal(n1, keep)
+
+
+@pytest.mark.parametrize("shape,config,tile,clusters", [
+    ((1, 2, 2), "clusters", (2, 2), (8,) * 8),
+    ((2, 9, 13), "clusters", (9, 13), (8,) * 8),
+    ((2, 30, 40), "clusters", (3, 40), (2, 8, 5, 8, 5, 8, 5, 8)),
+    ((8, 60, 80), "tiles", (3, 40), (1,) * 8),
+    ((1, 5, 300), "clusters", (5, 25), (4, 8, 8, 8, 8, 8, 8, 8)),
+    ((16, 30, 40), "tiles", (3, 40), (1,) * 8),
+])
+def test_raft_update_tile_plan_covers_every_token_once(shape, config, tile,
+                                                       clusters):
+    """The host-side tile plan of the wgmma design is a pure function of
+    the shape: the configuration from the block counts, tiles of whole or
+    x-segmented image rows within what a block multiplies (128 tokens) and
+    a TMA box holds (256 per side), every token in exactly one tile, the
+    column tiles of every launch covering its output columns, and clusters
+    that split a tile's taps while a launch has fewer blocks than the
+    card wants."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    B, H8, W8 = shape
+    plan = ru.tile_plan(B, H8, W8)
+    assert plan == ru.tile_plan(B, H8, W8)
+    assert plan.config == config and (plan.rows, plan.cols) == tile
+    assert plan.clusters == clusters
+    assert plan.rows * plan.cols <= ru.TILE_TOKENS
+    assert 1 <= plan.rows <= min(H8, 256) and 1 <= plan.cols <= min(W8, 256)
+    seen = np.zeros((H8, W8), np.int64)
+    tiles = plan.tiles()
+    assert len(tiles) == plan.tiles_y * plan.tiles_x
+    for (y0, y1), (x0, x1) in tiles:
+        seen[y0:min(y1, H8), x0:min(x1, W8)] += 1
+    assert (seen == 1).all()
+    # launch i: c2 || f2 (192 + 64 columns), cv 128, zr 256, q 128, zr, q,
+    # fl1 256, fl2 16; the fewest pipeline steps of a launch's tiles (f2's
+    # 9 taps x 2 slices of 64 channels, ...) bound its cluster
+    cols = (256, 128, 256, 128, 256, 128, 256, 16)
+    steps = (18, 36, 30, 30, 30, 30, 18, 36)
+    for n, width, count, cl, st in zip(cols, plan.column_widths,
+                                       plan.column_tiles, plan.clusters,
+                                       steps):
+        assert width in (16, 64, 128, 256) and width * count == n
+        assert 1 <= cl <= min(ru.MAX_CLUSTER, st)
+        blocks = B * len(tiles) * count
+        assert cl == 1 or blocks * cl <= ru.TARGET_BLOCKS
+
+
+def test_raft_update_tile_plan_limits():
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    with pytest.raises(ValueError, match="32-bit index limit"):
+        ru.tile_plan(ru.MAX_TOKENS // 4800 + 1, 60, 80)
+    with pytest.raises(ValueError, match="empty grid"):
+        ru.tile_plan(1, 0, 4)
+    # 100 token tiles: the widest launches' 200 blocks leave no room to split
+    assert ru.tile_plan(10, 30, 40).config == "clusters"
+    assert ru.tile_plan(11, 30, 40).config == "tiles"
+
+
 @pytest.mark.cuda
 def test_cuda_raft_update_kernel_matches_plain_version():
     """The CUDA kernel against its plain version (run with
@@ -397,6 +537,7 @@ def test_cuda_raft_update_kernel_matches_plain_version():
         ru.reset_launches()
         got = ru.raft_update(*args)
         assert ru.LAUNCHES["raft_update"] == 1
+        assert ru.COUNTS["wgmma"] == (dt == torch.bfloat16)
         want = ru.raft_update_plain(*args)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)

@@ -149,6 +149,31 @@ def test_backward_warp_matches_jax():
                                atol=5e-5)
 
 
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+def test_backward_warp_layouts_match_jax(channels_last, flow_dtype):
+    """UnFlow's warp as the network calls it (``channels_last`` frames, a
+    flow in the network's type) against the JAX package's on numpy-seeded
+    inputs. 5e-5: the same taps, blended in another float32 order from
+    coordinates that XLA forms with other roundings; a bfloat16 flow is
+    rounded before both see it."""
+    from mfcnet_tpu.models.unflow import backward_warp as jwarp
+    from mfcnet_tpu_torch.models.unflow import backward_warp
+
+    rng = np.random.default_rng(4)
+    img = rng.standard_normal((2, 20, 36, 3)).astype(np.float32)
+    flow = torch.from_numpy(rng.normal(0, 5, (2, 20, 36, 2)).astype(
+        np.float32)).to(flow_dtype)
+    want = np.asarray(jwarp(img, flow.float().numpy()))
+    ti, tf = torch.from_numpy(img).permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+    if not channels_last:
+        ti, tf = ti.contiguous(), tf.contiguous()
+    got = backward_warp(ti, tf)
+    assert got.stride() == ti.stride()
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=0,
+                               atol=5e-5)
+
+
 @pytest.mark.parametrize("basic", [True, False])
 def test_make_unflow_flow_fn_batched_equals_pair_loop(port_model, basic):
     from mfcnet_tpu_torch.models.unflow import make_unflow_flow_fn

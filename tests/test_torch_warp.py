@@ -178,6 +178,75 @@ def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
         flow_warp(maps.half(), flow)
 
 
+
+def _backward_warp_inputs(seed=23, B=2, C=3, H=24, W=40):
+    rng = np.random.default_rng(seed)
+    # values in [0, 1): torch blends the four taps in another float32
+    # grouping, a few ulps of the value apart
+    img = torch.from_numpy(rng.random((B, C, H, W), np.float32))
+    flow = torch.from_numpy(rng.normal(0, 6, (B, 2, H, W)).astype(np.float32))
+    return img, flow
+
+
+def _linspace_grid(flow):
+    B, _, H, W = flow.shape
+    xs = torch.linspace(-1, 1, W).view(1, 1, W)
+    ys = torch.linspace(-1, 1, H).view(1, H, 1)
+    return (xs + flow[:, 0].float() / ((W - 1) / 2.0),
+            ys + flow[:, 1].float() / ((H - 1) / 2.0))
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("flow_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("align_corners,padding_mode", [
+    (False, "border"), (False, "zeros"), (True, "border"), (True, "zeros")])
+def test_backward_warp_equals_plain_composition(channels_last, flow_dtype,
+                                                align_corners, padding_mode):
+    """The one-launch backward warp's wrapper on CPU tensors: bit for bit
+    ``grid_sample_bilinear_plain`` on the linspace grid, within 2e-6 of
+    ``F.grid_sample`` at float32, for NCHW and ``channels_last`` inputs and
+    a bfloat16 flow; the output keeps its input's memory format."""
+    import torch.nn.functional as F
+
+    from mfcnet_tpu_torch.ops.warp import (
+        backward_warp,
+        grid_sample_bilinear_plain,
+    )
+
+    img, flow = _backward_warp_inputs()
+    flow = flow.to(flow_dtype)
+    if channels_last:
+        img = img.contiguous(memory_format=torch.channels_last)
+        flow = flow.contiguous(memory_format=torch.channels_last)
+    got = backward_warp(img, flow, align_corners, padding_mode)
+    assert got.dtype == img.dtype and got.shape == img.shape
+    assert got.stride() == img.stride()
+    gx, gy = _linspace_grid(flow)
+    want = grid_sample_bilinear_plain(img, gx, gy, align_corners, padding_mode)
+    assert torch.equal(got, want)
+    ref = F.grid_sample(img, torch.stack([gx, gy], -1), mode="bilinear",
+                        padding_mode=padding_mode,
+                        align_corners=align_corners)
+    # the same four taps; torch blends with other float32 groupings
+    torch.testing.assert_close(got, ref, rtol=0, atol=ATOL_WARP)
+
+
+def test_backward_warp_rejects_gradients_and_bad_inputs():
+    from mfcnet_tpu_torch.ops.warp import backward_warp
+
+    img, flow = _backward_warp_inputs()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        backward_warp(img.clone().requires_grad_(), flow)
+    with pytest.raises(ValueError, match="flow: expected"):
+        backward_warp(img, flow[:, :1])
+    with pytest.raises(ValueError, match="padding_mode"):
+        backward_warp(img, flow, padding_mode="reflection")
+    with pytest.raises(TypeError, match="flow: expected float32"):
+        backward_warp(img, flow.half())
+    with torch.no_grad():  # a frozen provider inside a training step
+        backward_warp(img.clone().requires_grad_(), flow)
+
+
 @pytest.mark.cuda
 def test_cuda_warp_kernel_matches_plain_version():
     """The CUDA kernel against its plain version (run with
@@ -199,4 +268,20 @@ def test_cuda_warp_kernel_matches_plain_version():
             want = warp.flow_warp_plain(maps, flow, (576, 720))
             torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                        atol=ATOL_WARP)
+        # the one-launch backward warp: bit for bit its plain version,
+        # whatever the layout and the flow's type
+        frame = torch.randn(2, 3, 64, 96, generator=g).cuda().to(dt)
+        for fdt in (torch.float32, torch.bfloat16):
+            for fmt in (torch.contiguous_format, torch.channels_last):
+                img = frame.contiguous(memory_format=fmt)
+                fl = (torch.randn(2, 2, 64, 96, generator=g) * 8).cuda().to(
+                    fdt).contiguous(memory_format=fmt)
+                for ac in (False, True):
+                    for pm in ("zeros", "border"):
+                        warp.reset_launches()
+                        got = warp.backward_warp(img, fl, ac, pm)
+                        assert warp.LAUNCHES["backward_warp"] == 1
+                        assert got.stride() == img.stride()
+                        assert torch.equal(
+                            got, warp.backward_warp_plain(img, fl, ac, pm))
     torch.cuda.synchronize()
