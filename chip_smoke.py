@@ -40,6 +40,7 @@ the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -119,6 +120,11 @@ UNFLOW_PROB_TOL, UNFLOW_FLOW_TOL = 2.0 ** -14, 0.25
 #: the bf16 UnFlow provider against the float32 one: mean |difference| over
 #: mean |flow|, and max |difference| over max |flow|
 UNFLOW_BF16_MEAN, UNFLOW_BF16_MAX = 0.03, 0.05
+#: the bf16 experimental convolutions' times before their redesign (ms,
+#: PERF.md rows 7 and 8: this script on an H100 80GB HBM3 at 700 W), printed
+#: beside this run's
+EARLIER_MS = {"conv3x3": 0.2359, "conv3x3@240x320x64->128": 0.1085,
+              "vgg_stage1": 0.4764}
 
 
 def log(*a):
@@ -269,6 +275,15 @@ def phase_device():
     if regs:
         log(f"ptxas: {len(regs)} kernels, max {max(regs)} registers/thread, "
             f"{spills} with spills")
+    # C7520: ptxas serialized a kernel's wgmma (a divergent path); ~30 % of
+    # a core's time where it shows
+    serial = [re.split(r"_cu_[0-9a-f]{8}\d+", line.rstrip("'"))[-1]
+              .split("Ev")[0] for line in kl.build_log.splitlines()
+              if "(C7520)" in line]
+    if kl.build_seconds:
+        log(f"ptxas C7520 (wgmma serialized) in {len(serial)} kernels of "
+            f"the sources built now" + (f": {', '.join(serial)}" if serial
+                                        else ""))
     return smi
 
 
@@ -628,22 +643,38 @@ def _first_stage_weights(dt):
 def _check_conv_kernels():
     """conv3x3 at the first VGG stage's second convolution (1x480x640x64 ->
     64) and the second stage's first (1x240x320x64 -> 128), bias + ReLU, and
-    one odd case; vgg_stage1 at 1x480x640x3, C1 = 64, with the model's own
-    weights, also against what the model's first stage gives."""
+    ragged shapes that take the persistent walk's edges, every tile width
+    and both halo loaders of the bfloat16 core (1x37x131x64 -> 64, 3x8x64x16
+    -> 8, 2x17x23x5 -> 70 and, at full size, 1x480x640x5 -> 64 by plain
+    loads), several 64-channel chunks of cin a tile (cin 128, 100, 256, 512)
+    and the tile kernel past the core's resident weights (cin 600);
+    vgg_stage1 at 1x480x640x3, 2x19x23x3 and 1x37x131x3, C1 = 64, with the
+    model's own weights, also against what the model's first stage gives,
+    and with random first weights at cin 8 (the core, one row a tile) and
+    16 (the tile kernel). Prints the plan of each bfloat16 shape."""
     import torch
 
     from mfcnet_tpu_torch.experimental import conv3x3 as c3
     from mfcnet_tpu_torch.experimental import stage1 as s1
 
     gen = torch.Generator().manual_seed(SEED)
+    sms = c3.sm_count(torch.device("cuda"))
     worst = {"conv3x3": 0.0, "vgg_stage1": 0.0}
+    conv_shapes = ((1, H, W, 64, 64), (1, H // 2, W // 2, 64, 128),
+                   (1, 37, 131, 64, 64), (3, 8, 64, 16, 8), (2, 17, 23, 5, 70),
+                   (1, H, W, 5, 64), (1, 37, 131, 128, 64),
+                   (1, 20, 70, 100, 64), (1, 24, 70, 256, 40),
+                   (1, 9, 70, 512, 16), (1, 9, 20, 600, 70))
+    stage_shapes = ((1, H, W, 3), (2, 19, 23, 3), (1, 37, 131, 3),
+                    (1, 21, 40, 8), (1, 13, 18, 16))
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         atol, rtol = CONV_TOL[name]
         stage, k1, b1, k2, b2 = _first_stage_weights(dt)
-        for B, Hc, Wc, cin, cout in ((1, H, W, 64, 64),
-                                     (1, H // 2, W // 2, 64, 128),
-                                     (2, 17, 23, 5, 70)):
+        for B, Hc, Wc, cin, cout in conv_shapes:
+            if name == "bfloat16":
+                log(f"conv3x3 {B}x{Hc}x{Wc}x{cin}->{cout}: "
+                    f"{c3.conv_plan(B, Hc, Wc, cin, cout, sms)}")
             x = torch.randn(B, Hc, Wc, cin, generator=gen).cuda().to(dt)
             w = k2 if (cin, cout) == (64, 64) else (
                 torch.randn(3, 3, cin, cout, generator=gen)
@@ -662,11 +693,18 @@ def _check_conv_kernels():
                         f"atol {atol} rtol {rtol})")
                 if name == "bfloat16":
                     worst["conv3x3"] = max(worst["conv3x3"], err)
-        for shape in ((1, H, W, 3), (2, 19, 23, 3)):
+        for shape in stage_shapes:
+            if name == "bfloat16":
+                log(f"vgg_stage1 {'x'.join(map(str, shape))}->64: "
+                    f"{c3.stage1_plan(*shape, 64, sms)}")
             x = torch.randn(shape, generator=gen).cuda().to(dt)
-            got = s1.vgg_stage1(x, k1, b1, k2, b2)
+            model_k1 = shape[-1] == 3
+            k1x = k1 if model_k1 else (
+                torch.randn(3, 3, shape[-1], 64, generator=gen)
+                * (2.0 / (9 * shape[-1])) ** 0.5).cuda().to(dt)
+            got = s1.vgg_stage1(x, k1x, b1, k2, b2)
             torch.cuda.synchronize()
-            want = s1.vgg_stage1_plain(x, k1, b1, k2, b2)
+            want = s1.vgg_stage1_plain(x, k1x, b1, k2, b2)
             err = (got.float() - want.float()).abs().max().item()
             if not (got.dtype == dt and torch.allclose(
                     got.float(), want.float(), rtol=rtol, atol=2 * atol)):
@@ -675,6 +713,10 @@ def _check_conv_kernels():
                     f"|diff| {err}; atol {2 * atol} rtol {rtol})")
             if name == "bfloat16":
                 worst["vgg_stage1"] = max(worst["vgg_stage1"], err)
+            if not model_k1:
+                log(f"vgg_stage1 [{name}, {shape}]: max |diff| {err:.3g} vs "
+                    f"plain")
+                continue
             # the model's own first stage (cuDNN, the same type; float32
             # without TF32): another rounding of the bias and another order
             # of the sums, so bf16 steps apart at most
@@ -689,8 +731,9 @@ def _check_conv_kernels():
             log(f"vgg_stage1 [{name}, {shape}]: max |diff| {err:.3g} vs plain, "
                 f"{merr:.3g} vs the model's first stage (max value "
                 f"{ref.float().abs().max().item():.3g})")
-    log(f"conv3x3 kernel vs plain: 1x{H}x{W}x64->64, 1x{H // 2}x{W // 2}x64->"
-        f"128, 2x17x23x5->70, with bias + ReLU and without, f32 (atol "
+    log(f"conv3x3 kernel vs plain: "
+        f"{', '.join('x'.join(map(str, s[:4])) + f'->{s[4]}' for s in conv_shapes)}"
+        f", with bias + ReLU and without, f32 (atol "
         f"{CONV_TOL['float32'][0]}, rtol {CONV_TOL['float32'][1]}) and bf16 "
         f"(atol {CONV_TOL['bfloat16'][0]}, rtol {CONV_TOL['bfloat16'][1]}): "
         f"max |diff| in bf16 {worst['conv3x3']:.3g}")
@@ -1846,7 +1889,8 @@ def phase_unflow_timings(engine, frames, smi):
         f"(channels_last)")
 
     # kernels 7 and 8 at the first VGG stage's shapes, bf16, against cuDNN
-    # (F.conv2d + ReLU, bf16, channels_last)
+    # (F.conv2d + ReLU, bf16, channels_last); beside each, the time of the
+    # earlier mma.sync design (PERF.md rows 7 and 8, same card)
     stage, k1, b1, k2, b2 = _first_stage_weights(torch.bfloat16)
     for Hc, Wc, cin, cout, key in ((H, W, 64, 64, "conv3x3"),
                                    (H // 2, W // 2, 64, 128,
@@ -1857,8 +1901,10 @@ def phase_unflow_timings(engine, frames, smi):
         b = torch.randn(cout, generator=gen).cuda() * 0.1
         t = _in_turns(key, lambda: c3.conv3x3(x, w, b, True),
                       lambda: c3.conv3x3_plain(x, w, b, True), smi,
-                      f"bf16 1x{Hc}x{Wc}x{cin}->{cout}, bias + ReLU",
-                      kreps=20, preps=5)
+                      f"bf16 1x{Hc}x{Wc}x{cin}->{cout}, bias + ReLU; "
+                      f"device time in CUDA-graph replays", kreps=20,
+                      preps=5, timer=_graph_ms)
+        eager = _event_ms(lambda: c3.conv3x3(x, w, b, True), 20)
         got = c3.conv3x3(x, w, b, True)
         ops = 2.0 * Hc * Wc * 9 * cin * cout
         b_ops = ops / PEAK_BF16 * 1e3
@@ -1866,11 +1912,16 @@ def phase_unflow_timings(engine, frames, smi):
         xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         bc = b.bfloat16()
-        lib = _event_ms(lambda: F.relu(F.conv2d(xc, wc, bc, padding=1)), 20)
+        lib = _graph_ms(lambda: F.relu(F.conv2d(xc, wc, bc, padding=1)))
+        lib_eager = _event_ms(
+            lambda: F.relu(F.conv2d(xc, wc, bc, padding=1)), 20)
         log(f"[{smi}] {key}: bound {max(b_ops, b_bytes):.5f} ms (operations "
             f"{b_ops:.5f} ms at 989 TFLOP/s bf16, bytes {b_bytes:.5f} ms); "
-            f"kernel at {ops / t[0] / 1e9:.1f} TFLOP/s; F.conv2d + ReLU "
-            f"(cuDNN, bf16, channels_last) {lib:.4f} ms")
+            f"kernel {t[0]:.4f} ms = {ops / t[0] / 1e9:.1f} TFLOP/s in graph "
+            f"replays, {eager:.4f} ms eager (the earlier mma.sync design, "
+            f"eager: {EARLIER_MS[key]} ms); F.conv2d + ReLU (cuDNN, bf16, "
+            f"channels_last) {lib:.4f} ms = {ops / lib / 1e9:.1f} TFLOP/s in "
+            f"graph replays, {lib_eager:.4f} ms eager")
         if key == "conv3x3":
             times[key] = t
             bounds[key] = (max(b_ops, b_bytes),
@@ -1880,8 +1931,9 @@ def phase_unflow_timings(engine, frames, smi):
     times["vgg_stage1"] = _in_turns(
         "vgg_stage1", lambda: s1.vgg_stage1(x, k1, b1, k2, b2),
         lambda: s1.vgg_stage1_plain(x, k1, b1, k2, b2), smi,
-        f"bf16 1x{H}x{W}x3, C1=64, the model's own weights", kreps=20,
-        preps=5)
+        f"bf16 1x{H}x{W}x3, C1=64, the model's own weights; device time in "
+        f"CUDA-graph replays", kreps=20, preps=5, timer=_graph_ms)
+    eager = _event_ms(lambda: s1.vgg_stage1(x, k1, b1, k2, b2), 20)
     got = s1.vgg_stage1(x, k1, b1, k2, b2)
     ops = 2.0 * H * W * 9 * (3 * 64 + 64 * 64)
     b_ops = ops / PEAK_BF16 * 1e3
@@ -1890,13 +1942,19 @@ def phase_unflow_timings(engine, frames, smi):
                             "operations" if b_ops >= b_bytes else "bytes")
     xc = x.permute(0, 3, 1, 2)
     with torch.no_grad():
-        library["vgg_stage1"] = _event_ms(lambda: stage(xc), 20)
+        library["vgg_stage1"] = _graph_ms(lambda: stage(xc))
+        lib_eager = _event_ms(lambda: stage(xc), 20)
     log(f"[{smi}] vgg_stage1: bound {bounds['vgg_stage1'][0]:.5f} ms "
         f"({bounds['vgg_stage1'][1]}: operations {b_ops:.5f} ms at 989 "
-        f"TFLOP/s bf16, bytes {b_bytes:.5f} ms); kernel at "
-        f"{ops / times['vgg_stage1'][0] / 1e9:.1f} TFLOP/s; the model's "
-        f"first stage (cuDNN, two F.conv2d + ReLU, bf16, channels_last) "
-        f"{library['vgg_stage1']:.4f} ms")
+        f"TFLOP/s bf16, bytes {b_bytes:.5f} ms); kernel "
+        f"{times['vgg_stage1'][0]:.4f} ms = "
+        f"{ops / times['vgg_stage1'][0] / 1e9:.1f} TFLOP/s in graph "
+        f"replays, {eager:.4f} ms eager (the earlier design, eager: "
+        f"{EARLIER_MS['vgg_stage1']} ms); the model's first stage (cuDNN, "
+        f"two F.conv2d + ReLU, bf16, channels_last) "
+        f"{library['vgg_stage1']:.4f} ms = "
+        f"{ops / library['vgg_stage1'] / 1e9:.1f} TFLOP/s in graph replays, "
+        f"{lib_eager:.4f} ms eager")
     return times, bounds, library
 
 

@@ -9,8 +9,9 @@
 namespace mfc {
 
 // Allows `Kernel` the most dynamic shared memory a block of the current
-// device may ask for, once per kernel and device, and gives that size in
-// *limit. Returns 0 or the CUDA error.
+// device may ask for beside the kernel's static shared memory, once per
+// kernel and device, and gives that size in *limit. Returns 0 or the CUDA
+// error.
 template <auto Kernel>
 int allow_shared_memory(int* limit) {
   constexpr int MAX_DEV = 64;
@@ -25,6 +26,10 @@ int allow_shared_memory(int* limit) {
   err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
   if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;  // the kernel's static shared memory counts too
+  err = cudaFuncGetAttributes(&fa, Kernel);
+  if (err != cudaSuccess) return (int)err;
+  *limit -= (int)fa.sharedSizeBytes;
   err = cudaFuncSetAttribute(
       Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
   if (err != cudaSuccess) return (int)err;

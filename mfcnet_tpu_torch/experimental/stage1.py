@@ -25,6 +25,9 @@ from mfcnet_tpu_torch.experimental.conv3x3 import (
     aligned,
     check_conv_args,
     conv_nhwc_f32,
+    raise_kernel_error,
+    sm_count,
+    stage1_plan,
 )
 from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 
@@ -64,15 +67,16 @@ def vgg_stage1(x, k1, b1, k2, b2):
     out = torch.empty(B, H, W, C1, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = (stage1_plan(B, H, W, cin, C1, sm_count(x.device))
+            if x.dtype == torch.bfloat16 else None)
     rc = kernel_lib().mfc_vgg_stage1(
         x.data_ptr(), k1.data_ptr(), b1.data_ptr(), k2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), B, H, W, cin, C1, DTYPES[x.dtype],
-        stream_of(x))
+        None if plan is None else plan.ints(), stream_of(x))
     if rc == -1:
         raise ValueError(
             f"vgg_stage1: cin={cin}, C1={C1} need more shared memory than "
             "a block has (227 KB)")
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel vgg_stage1 failed: cudaError {rc}")
+    raise_kernel_error("vgg_stage1", rc, plan)
     LAUNCHES["vgg_stage1"] += 1
     return out

@@ -76,15 +76,16 @@ _SIGNATURES = {
         ),
     },
     "conv3x3.cu": {
-        # x, w, bias, out, B, H, W, cin, cout, relu, dtype, stream
+        # x, w, bias, out, B, H, W, cin, cout, relu, dtype, plan[11],
+        # stream
         "mfc_conv3x3": (
-            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
     "stage1.cu": {
-        # x, k1, b1, k2, b2, out, B, H, W, cin, C1, dtype, stream
+        # x, k1, b1, k2, b2, out, B, H, W, cin, C1, dtype, plan[11], stream
         "mfc_vgg_stage1": (
-            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
 }
