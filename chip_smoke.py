@@ -15,8 +15,11 @@ phases; a failing phase raises and the script exits non-zero:
    parallel);
 2. kernels against their plain PyTorch versions: the connected-component
    kernels on crafted 480x640 class maps (integer outputs and the sums
-   exactly equal), the flow warp at 2x480x640, UnFlow's one-launch backward
-   warp in its four modes, both memory formats and both types, the RAFT
+   exactly equal), the two flood kernels also at ragged sizes, B = 1, 4,
+   8 and 60,000, on uniform frames, a serpentine and a checkerboard (and,
+   in phase 4, on the random model's maps and in CUDA-graph replays),
+   refusing any launch plan but ``ops/cc.py::cc_plan``'s, the flow warp at
+   2x480x640, UnFlow's one-launch backward warp in its four modes, both memory formats and both types, the RAFT
    update step at 4 to 38,400 tokens, the correlation at UnFlow's two
    shapes and the two experimental convolutions at the first VGG stage's
    shapes within the tolerances stated beside them;
@@ -30,7 +33,7 @@ phases; a failing phase raises and the script exits non-zero:
 4. timings: tracker frames/s on the three paths, decode ms/frame, each
    provider's share of the frame, each kernel against its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call.
+   call; the device operations of one flood-kernel call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -202,6 +205,108 @@ def crafted_class_maps(seed: int = SEED):
     return maps
 
 
+def flood_check_maps(seed: int = SEED):
+    """(name, (B, h, w) int8 class images in the union encoding) on which
+    the two flood kernels are held to their plain versions: speckle with
+    blobs at ragged sizes and B = 1, 4 and 8, 60,000 small images,
+    all-background and all-one-class frames, a one-pixel-wide serpentine
+    (the longest parent chains, in the class and in the background between
+    its turns) and a checkerboard (4- against 8-connectivity)."""
+    rng = np.random.default_rng(seed)
+
+    def speckled(B, h, w):
+        u = rng.integers(0, 5, (B, h, w)) * (rng.random((B, h, w)) < 0.3)
+        for b in range(B):
+            for _ in range(4):
+                y, x = rng.integers(0, h), rng.integers(0, w)
+                u[b, y:y + rng.integers(1, h + 1),
+                  x:x + rng.integers(1, w + 1)] = rng.integers(1, 5)
+        return u.astype(np.int8)
+
+    maps = [(f"speckle {B}x{h}x{w}", speckled(B, h, w))
+            for B, h, w in ((1, 481, 643), (4, 481, 643), (8, 65, 129),
+                            (4, 7, 5), (8, 1, 1), (1, 1, 640))]
+    # more images than a block's shared memory could hold a chunk count of
+    # each (the kernels keep the counts in global memory)
+    B, h, w = 60000, 13, 21
+    maps.append((f"speckle {B}x{h}x{w}", (
+        rng.integers(0, 5, (B, h, w)) * (rng.random((B, h, w)) < 0.6)
+    ).astype(np.int8)))
+    maps.append(("all background", np.zeros((1, H, W), np.int8)))
+    maps.append(("all one class", np.full((1, H, W), 3, np.int8)))
+    serp = np.zeros((H, W), np.int8)
+    serp[::2, :-1] = 2
+    serp[1::4, -2] = 2
+    serp[3::4, 0] = 2
+    maps.append(("serpentine", serp[None]))
+    maps.append(("checkerboard",
+                 (np.indices((1, H, W)).sum(0) % 2 * 3).astype(np.int8)))
+    return maps
+
+
+def class_masks(u):
+    """(B, h, w) union class image -> the (4B, h, w) bool class masks that
+    the per-blob tier hands to ``flood_cc_cid``."""
+    import torch
+
+    return torch.stack([u == c for c in (1, 2, 3, 4)], 1).reshape(
+        -1, *u.shape[1:]).contiguous()
+
+
+def check_flood_kernels(u, what):
+    """Both flood kernels against their plain versions on the union class
+    image ``u`` (B, h, w) int8 and its class masks, bit for bit."""
+    from mfcnet_tpu_torch.ops import cc
+
+    for g, w, nm in zip(cc.union_flood_cc_cid(u, K),
+                        cc.union_flood_cc_cid_plain(u, K),
+                        ("cid", "he", "cide", "ncomp", "conflict")):
+        _equal(f"union_flood_cc_cid[{what}].{nm}", g, w)
+    m = class_masks(u)
+    for g, w, nm in zip(cc.flood_cc_cid(m, K), cc.flood_cc_cid_plain(m, K),
+                        ("cid", "filled", "ncomp")):
+        _equal(f"flood_cc_cid[{what}].{nm}", g, w)
+
+
+def check_flood_plan_refusals(dev):
+    """The flood kernels launch only with ``cc_plan``'s plan for the shape
+    and a grid the card holds at once: another plan raises, and nothing is
+    counted as launched."""
+    from unittest import mock
+
+    import torch
+
+    from mfcnet_tpu_torch.ops import cc
+
+    u = torch.zeros(2, 33, 70, dtype=torch.int8, device=dev)
+    m = class_masks(u)
+    right = cc.cc_plan
+
+    def more_ints(*a):
+        return dict(right(*a), work_ints=right(*a)["work_ints"] + 1)
+
+    def too_many_blocks(B, H, W, sms):
+        return right(B, H, W, sms, 4 * cc.FLOOD_BLOCKS_PER_SM)
+
+    for what, bad in (
+            ("another shape's workspace", more_ints),
+            ("another tile edge", lambda *a: dict(right(*a), tile=32)),
+            ("more blocks than the card holds at once", too_many_blocks)):
+        before = dict(cc.LAUNCHES)
+        for call in (lambda: cc.union_flood_cc_cid(u, K),
+                     lambda: cc.flood_cc_cid(m, K)):
+            with mock.patch.object(cc, "cc_plan", bad):
+                try:
+                    call()
+                except RuntimeError as e:
+                    if "refused the plan" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"a flood kernel took {what}")
+        if cc.LAUNCHES != before:
+            raise AssertionError("a refused flood launch was counted")
+
+
 def _segment_dist(yy, xx, y0, x0, y1, x1):
     """Distance of every pixel to the segment (y0, x0)-(y1, x1)."""
     dy, dx = y1 - y0, x1 - x0
@@ -303,6 +408,7 @@ def phase_kernels():
     import torch
 
     from mfcnet_tpu_torch.ops import cc
+    from mfcnet_tpu_torch.ops._build import sm_count
 
     dev = torch.device("cuda")
     for name, m in crafted_class_maps().items():
@@ -334,6 +440,15 @@ def phase_kernels():
                        cc.connected_components_plain(mm, conn))
         log(f"kernels == plain on '{name}': ncomp={int(ncomp[0])} "
             f"conflict={bool(conflict[0])}")
+    more = flood_check_maps()
+    for name, m in more:
+        check_flood_kernels(torch.from_numpy(m).to(dev), name)
+    log(f"union_flood_cc_cid and flood_cc_cid == plain on {len(more)} more "
+        f"inputs: {', '.join(n for n, _ in more)}")
+    check_flood_plan_refusals(dev)
+    log(f"flood kernel plan, B=4 {H}x{W}: "
+        f"{json.dumps(cc.cc_plan(4, H, W, sm_count(dev)))}; the C side "
+        f"refuses a plan of another shape and a grid the card cannot hold")
     torch.cuda.synchronize()
     # every comparison above demanded bit equality
     errs = {k: 0.0 for k in CC_KERNELS}
@@ -388,20 +503,36 @@ def _warp_abs_backward_warp(img, flow):
                                      padding_mode="border")
 
 
-def _count_device_kernels(fn):
-    """Kernels and copies the device ran for one call of ``fn``. Taken
-    before the script's first CUDA-graph capture: after one, the trace no
-    longer shows kernels launched outside PyTorch's own operators."""
+def _device_events(fn):
+    """(name, device us) of every kernel and copy the device ran for one
+    call of ``fn``. The trace can drop the first device events of a
+    profiling session, so the session opens with marker kernels (a bitwise
+    not, which ``fn`` does not run) and counts what follows the last of
+    them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            marker.bitwise_not_()
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+    return [(e.name, e.time_range.elapsed_us())
+            for e in events[marks[-1] + 1 if marks else 0:]]
+
+
+def _count_device_kernels(fn):
+    """Names of the kernels and copies the device ran for one call of
+    ``fn``."""
+    return [name for name, _ in _device_events(fn)]
 
 
 def _check_warp_kernel():
@@ -1275,10 +1406,11 @@ def phase_unflow_slice(frames):
         # base forward at batch 1 or batch 3
         if heat > 1e-3 or mism > 0.01:
             raise AssertionError("UnFlow path: f32 incremental != full")
-        # the type decision (models/unflow.py): a bf16 provider casts the
-        # cost volume and the flow down where the JAX package promotes the
-        # rest of the network to float32. Held against the float32 provider
-        # on the same window: bf16 keeps 8 bits, through ~75 layers
+        # the type decision (models/unflow.py): a bf16 provider rounds its
+        # weights to bf16 and computes in float32, as the JAX package does.
+        # Held against the float32 provider on the same window: the two
+        # differ by the weights' and the frames' bf16 rounding, through ~75
+        # layers
         window = np.stack(frames[2::-1])  # newest first
         with torch.no_grad():
             f32 = out.flow_for_window(
@@ -1438,9 +1570,31 @@ def phase_timings(engine, frames, smi):
     log(f"[{smi}] union tier with the host flag read {sync_ms:.3f} ms, "
         f"without {async_ms:.3f} ms per frame")
 
+    # the two flood kernels on the random model's class maps (the per-blob
+    # and exact tiers' frames), and their device operations a call
+    model_maps = {f"model window {i}": decode_inputs(p.argmax(-1))
+                  for i, p in zip((15, 23, 33), model_probs)}
+    for what, (mu, _) in model_maps.items():
+        check_flood_kernels(mu, what)
+    mu, mm = model_maps["model window 15"]
+    m4 = torch.stack([u[0] == c for c in (1, 2, 3, 4)]).contiguous()
+    flood_inputs = {"clean 480x640 map": (u, m4), "model window 15": (mu, mm)}
+    ops = {}
+    for what, (fu, fm) in flood_inputs.items():
+        for name, fn in (("union_flood_cc_cid",
+                          lambda fu=fu: cc.union_flood_cc_cid(fu, K)),
+                         ("flood_cc_cid", lambda fm=fm: cc.flood_cc_cid(fm, K))):
+            names = _count_device_kernels(fn)
+            ops[name, what] = len(names)
+            log(f"[{smi}] {name} on the {what}: {len(names)} device "
+                f"operations a call: {names}")
+    for name in ("union_flood_cc_cid", "flood_cc_cid"):
+        if any(n > 2 for (k, _), n in ops.items() if k == name):
+            raise AssertionError(f"{name}: more device operations a call than "
+                                 f"its launch and the wrapper's: {ops}")
+
     # each kernel against its plain version at the main path's shapes
     cid, he, cide, _, _ = cc.union_flood_cc_cid(u, K)
-    m4 = torch.stack([u[0] == c for c in (1, 2, 3, 4)]).contiguous()
     filled = cc.flood_cc_cid(m4, K)[1].bool()
     calls = {
         "connected_components": (
@@ -1464,13 +1618,56 @@ def phase_timings(engine, frames, smi):
     }
     times, bounds = {}, {}
     for name, (kern, plain) in calls.items():
-        times[name] = _in_turns(name, kern, plain, smi, "clean 480x640 map")
+        eager = _event_ms(kern, 50)
+        times[name] = _in_turns(
+            name, kern, plain, smi, f"clean 480x640 map; device time in "
+            f"CUDA-graph replays (eager calls {eager:.4f} ms), plain: eager",
+            kreps=20, preps=3, timer=_graph_ms, ptimer=_event_ms)
         outs = kern()
         outs = outs if isinstance(outs, tuple) else (outs,)
         bounds[name] = (_nbytes(*io[name], *outs) / PEAK_BYTES * 1e3, "bytes")
         log(f"[{smi}] {name}: bound {bounds[name][0]:.5f} ms (bytes: "
             f"{_nbytes(*io[name], *outs)} B at {PEAK_BYTES / 1e12} TB/s)")
+    for what, (fu, fm) in flood_inputs.items():
+        for name, fn in (("union_flood_cc_cid",
+                          lambda fu=fu: cc.union_flood_cc_cid(fu, K)),
+                         ("flood_cc_cid", lambda fm=fm: cc.flood_cc_cid(fm, K))):
+            if not _replay_equals(fn):
+                raise AssertionError(f"{name} on the {what}: a CUDA-graph "
+                                     f"replay differs from the eager call")
+            log(f"[{smi}] {name} on the {what}: {_graph_ms(fn):.4f} ms in "
+                f"graph replays (== the eager call's outputs), "
+                f"{_event_ms(fn, 50):.4f} ms eager, {ops[name, what]} device "
+                f"operations a call")
     return out, times, bounds
+
+
+def decode_inputs(pred):
+    """The decode's inputs of the two flood kernels for a (H, W) class map:
+    the union class image (1, H, W) int8 and the four class masks (4, H, W)
+    bool (``track/decode_device.py``)."""
+    import torch
+
+    ucls = torch.zeros_like(pred, dtype=torch.int8)
+    for src, dst in ((3, 1), (1, 2), (4, 3), (2, 4)):
+        ucls[pred == src] = dst
+    return ucls[None].contiguous(), class_masks(ucls[None])
+
+
+def _replay_equals(fn):
+    """Whether a CUDA-graph replay of ``fn`` gives the outputs of an eager
+    call on the same inputs."""
+    import torch
+
+    want = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    for t in got:
+        t.fill_(-7)
+    graph.replay()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _graph_ms(fn, reps=20, rounds=10):
@@ -1779,9 +1976,10 @@ def phase_unflow_timings(engine, frames, smi):
 
     times, bounds, library = {}, {}, {}
     gen = torch.Generator().manual_seed(SEED)
-    # kernel 6 at the tracker's shape, with the dtype the bf16 engine feeds
-    # it, and at the offline CLI's shape in float32
-    for shape, dt, key in (((2, UH // 16, UW // 16, 256), torch.bfloat16,
+    # kernel 6 at the tracker's shape, with the dtype the bf16 engine's
+    # provider feeds it (float32: its layers compute in float32), and at the
+    # offline CLI's shape in float32
+    for shape, dt, key in (((2, UH // 16, UW // 16, 256), torch.float32,
                             "correlation"),
                            ((4, UH // 8, UW // 8, 256), torch.float32,
                             "correlation@offline")):
@@ -1817,23 +2015,23 @@ def phase_unflow_timings(engine, frames, smi):
         if key == "correlation":
             times[key], bounds[key] = t, bound
 
-    # UnFlow's backward warp. The provider passes channels_last bf16 frames
-    # and an NCHW bf16 flow (phase 3 printed their strides); NCHW frames
-    # with a float32 flow are what this script timed before the one-launch
-    # kernel, and that reading is kept beside the new ones.
+    # UnFlow's backward warp. The provider passes channels_last float32
+    # frames and an NCHW float32 flow (phase 3 printed their strides); NCHW
+    # frames are what this script timed before the one-launch kernel, and
+    # that reading is kept beside the new ones.
     hw = (UH // 2, UW // 2)
-    frame = torch.randn(2, 3, *hw, generator=gen).cuda().bfloat16()
+    frame = torch.randn(2, 3, *hw, generator=gen).cuda()
     fl = (torch.randn(2, 2, *hw, generator=gen) * 8.0).cuda()
     frame_cl = frame.contiguous(memory_format=torch.channels_last)
-    fl_cl = fl.bfloat16()  # the flow as the provider passes it
-    what = (f"bf16 2x3x{hw[0]}x{hw[1]}; device time in CUDA-graph replays")
+    fl_cl = fl  # the flow as the provider passes it
+    what = (f"f32 2x3x{hw[0]}x{hw[1]}; device time in CUDA-graph replays")
     # kernel 5's second entry point inside the earlier composition
     # (coordinates in PyTorch, layout copies), as the engine paid for it
     times["warp_abs"] = _in_turns(
         "warp_abs", lambda: _warp_abs_backward_warp(frame_cl, fl_cl),
         lambda: warp.backward_warp_plain(frame_cl, fl_cl), smi,
         f"the earlier backward warp incl. its coordinate arithmetic and "
-        f"layout copies, channels_last frame, bf16 flow, {what}",
+        f"layout copies, channels_last frame, {what}",
         kreps=20, preps=3, timer=_graph_ms)
     old_nchw = _graph_ms(lambda: _warp_abs_backward_warp(frame, fl), 20)
     got = _warp_abs_backward_warp(frame_cl, fl_cl)
@@ -1843,7 +2041,7 @@ def phase_unflow_timings(engine, frames, smi):
     times["backward_warp"] = _in_turns(
         "backward_warp", lambda: backward_warp(frame_cl, fl_cl),
         lambda: warp.backward_warp_plain(frame_cl, fl_cl), smi,
-        f"one launch, channels_last frame, bf16 flow, {what}",
+        f"one launch, channels_last frame, {what}",
         kreps=20, preps=3, timer=_graph_ms)
     new_nchw = _graph_ms(lambda: backward_warp(frame, fl), 20)
     got = backward_warp(frame_cl, fl_cl)
@@ -1876,10 +2074,10 @@ def phase_unflow_timings(engine, frames, smi):
     library["backward_warp"] = lib_whole_cl
     log(f"[{smi}] backward_warp: bound {wb:.5f} ms (bytes: "
         f"{_nbytes(frame_cl, fl_cl, got)} B at 3.35 TB/s); one launch "
-        f"{times['backward_warp'][0]:.4f} ms on the channels_last bf16 frame "
-        f"and bf16 flow (one device kernel: counted by the profiler in phase "
-        f"3, on the provider's own tensors), {new_nchw:.4f} ms on an "
-        f"NCHW frame with a float32 flow; the earlier composition around "
+        f"{times['backward_warp'][0]:.4f} ms on the channels_last float32 "
+        f"frame and float32 flow (one device kernel: counted by the profiler "
+        f"in phase 3, on the provider's own tensors), {new_nchw:.4f} ms on an "
+        f"NCHW frame; the earlier composition around "
         f"warp_abs {times['warp_abs'][0]:.4f} ms ({len(old_names)} device "
         f"kernels and copies) on the same tensors, "
         f"{old_nchw:.4f} ms on the NCHW frame; F.grid_sample on a ready-made "

@@ -10,46 +10,89 @@
 //   mfc_onehot_stats        <- _onehot_stats_kernel + the value planes built
 //                              around it in base_stats_pallas/union_stats_pallas
 //
-// What bounds them on this card: bytes and launches, not arithmetic. A
-// 480x640 frame is 0.3 MB of int8 in and ~3.7 MB of int32 out (cid, he,
-// cide); each pass below reads or writes a few int32 planes, ~1.2 MB each,
-// which the 50 MB L2 holds, so a pass costs a few microseconds and the
-// decode is a chain of ~40 short launches. The TPU kernels needed
-// log2(W) shift-doubling steps per fixpoint iteration because the TPU has
-// no gathers; here a pixel reads any neighbour or parent directly.
+// What bounds them on this card: not bytes (a 480x640 frame is 0.3 MB of
+// int8 in and ~3.7 MB of int32 out) and not arithmetic, but latency:
+// union-find walks parent chains one dependent load at a time, and each
+// pass over the frame has to end everywhere before the next starts. As
+// chains of launches, one pass a launch, the two flood entry points took
+// 41 and 13 stream operations; 70-76 % of their time went to a per-pixel
+// union-find inside 32x32 tiles in which a tile-wide region serialized on
+// its root. The TPU kernels needed log2(W) shift-doubling steps per
+// fixpoint iteration because the TPU has no gathers; here a pixel reads
+// any neighbour or parent directly.
 //
 // Design:
-//   * One CC core, union-find: a pixel links to its backward neighbours of
-//     the same region (left, up; plus up-left, up-right for
-//     8-connectivity) with atomicMin on parents, so a parent index never
-//     exceeds its child and every root is its component's minimum flat
-//     index -- the TPU labels exactly. Three passes: union-find inside
-//     32x32 tiles in shared memory, then links across tile borders on the
-//     global parents, then every pixel compressed to its root. The tile
-//     pass keeps a large region (a flood domain is most of the frame)
-//     from building long parent chains through global memory. A region
-//     is a per-pixel int (0 = outside); neighbours join when their values
-//     are equal, which covers plain masks, "not class c" flood domains and
-//     the class-aware union image.
-//   * Border flood = CC of the flood domain (4-connected) plus a reached
-//     flag per root set from the border pixels.
-//   * Dense ids = rank of each root in raster order: a count of roots per
-//     256-pixel chunk, an exclusive scan over chunks (one block per
-//     image), and a ballot/popc scan inside each chunk.
+//   * One CC core, union-find: pixels of the same region join with
+//     atomicMin on parents, so a parent index never exceeds its child and
+//     every root is its component's minimum flat index -- the TPU labels
+//     exactly. A region is a per-pixel int (0 = outside); neighbours join
+//     when their values are equal, which covers plain masks, "not class c"
+//     flood domains and the class-aware union image. Three steps:
+//     union-find inside tiles in shared memory, links across tile borders
+//     on the global parents (between tile roots only), then the tile roots
+//     compressed to their roots.
+//   * mfc_cc_labels runs the core as three launches (32x32 tiles, one
+//     1024-thread block each, a link per pixel).
+//   * mfc_flood_cc_cid and mfc_union_flood_cc_cid are one cooperative
+//     launch each: as many 512-thread blocks as the card holds at once
+//     grid-stride over work items, and phases are separated by grid-wide
+//     barriers (8 each). The launch plan comes from the caller
+//     (ops/cc.py::cc_plan) and is refused unless it is the shape's and the
+//     card holds its blocks at once. A tile phase takes one (plane, image,
+//     FTILE x FTILE tile) item a block: the union kernel's four flood
+//     domains, and its class-aware (h) and relaxed (h2) planes, are
+//     separate items, so the floods run side by side on different SMs.
+//     A tile's union-find works on row runs: warp ballots find each row's
+//     runs, one link joins each pair of touching runs, and the links and
+//     run starts are listed and taken one a thread; a tile that is one
+//     region, or none, is done at once. In the global planes a pixel that
+//     is not its tile part's root stores -(tile root + 1), so later phases
+//     find tile roots by sign, only tile roots take part in global links
+//     (with path splitting by atomicMin) and compression, and a pixel's
+//     root is two loads. Along a tile edge a link is skipped when the
+//     previous edge pixel joins the same two tile parts.
+//   * Reach: after compression every region pixel on the image border
+//     marks its root reached (one atomicOr per root and warp); then one
+//     pass, a pixel a thread, gives the unreached bits, he = h*8+e and the
+//     conflict flag (or the filled mask), before the next tile phase
+//     stages he with a one-pixel halo for the straddle check.
+//   * Dense ids = rank of each root in raster order: per 2048-pixel chunk
+//     a count of the roots and each root's rank inside its chunk; after a
+//     barrier one block an image turns the image's counts into their
+//     prefix, in place in global memory (so no block's shared memory
+//     grows with B or H*W); after another every pixel gets its root's
+//     rank. The enclosing id cide is the id of the largest h root among
+//     the outer pixels of each relaxed component (ids follow the roots'
+//     raster order): an atomicMax, one per run of equal keys in a warp,
+//     beside the prefix, read after the last barrier.
 //   * Per-slot sums accumulate in shared memory (6 x K uint64) and are
 //     committed to global memory with atomics. Every summed value is an
 //     integer once w (1 or 0.5) is scaled by 2, so the sums are exact and
 //     do not depend on the order of the atomics.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shared_memory.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int TPB = 256;         // threads per block, pixels per rank chunk
-constexpr int TILE = 32;         // CC tile edge: one 1024-thread block each
+constexpr int TPB = 256;         // threads per block of the pixel passes
+constexpr int TILE = 32;         // mfc_cc_labels tile edge: 1024 threads each
 constexpr int STATS_PIX = 2048;  // pixels per block in the stats kernel
 constexpr int NROWS = 6;         // summed planes
+
+constexpr int FTILE = 64;        // tile edge of the two flood kernels
+constexpr int FTS = 6;           // log2(FTILE): a tile row is two warps
+constexpr int FT = 512;          // threads per block of the flood kernels
+constexpr int FBPS = 2;          // their blocks per SM (__launch_bounds__)
+constexpr int CHUNK = 4 * FT;    // pixels per rank chunk
+constexpr int NPLANES = 7;       // int32 B*H*W planes of the workspace
+constexpr int ERR_PLAN = 20001;  // the plan is not this shape's, or the card
+                                 // cannot hold its blocks at once
 
 #define LAUNCH_CHECK()                                 \
   do {                                                 \
@@ -80,16 +123,17 @@ struct IntRegion {  // int32 0/1 mask
   const int* r;
   __device__ int operator()(size_t i) const { return r[i]; }
 };
+__device__ __forceinline__ int h2_of(int he) {  // contained pixels relaxed
+  int h = he >> 3;                              // to their enclosing class
+  return h > 4 ? (he & 7) : h;
+}
 struct HRegion {  // class-aware union image h = he >> 3
   const int* he;
   __device__ int operator()(size_t i) const { return he[i] >> 3; }
 };
-struct H2Region {  // contained pixels relaxed to their enclosing class
+struct H2Region {
   const int* he;
-  __device__ int operator()(size_t i) const {
-    int h = he[i] >> 3;
-    return h > 4 ? (he[i] & 7) : h;
-  }
+  __device__ int operator()(size_t i) const { return h2_of(he[i]); }
 };
 
 // ------------------------------------------------------------- union-find
@@ -103,10 +147,26 @@ __device__ __forceinline__ int find_root(const int* L, int p) {
   return p;
 }
 
+// find with path splitting: each node on the walk is pointed at its
+// grandparent by atomicMin, which never raises a parent, so it can undo
+// neither a concurrent link nor a compression to the root
+__device__ __forceinline__ int find_split(int* L, int p) {
+  const volatile int* V = L;
+  int q = V[p];
+  while (q != p) {
+    int g = V[q];
+    if (g != q) atomicMin(L + p, g);
+    p = q;
+    q = g;
+  }
+  return p;
+}
+
+template <bool SPLIT = false>
 __device__ void unite(int* L, int a, int b) {
   while (true) {
-    a = find_root(L, a);
-    b = find_root(L, b);
+    a = SPLIT ? find_split(L, a) : find_root(L, a);
+    b = SPLIT ? find_split(L, b) : find_root(L, b);
     if (a == b) return;
     if (a > b) {
       int t = a;
@@ -208,207 +268,755 @@ int cc_core(R reg, int* L, int B, int H, int W, int conn, cudaStream_t s) {
   return 0;
 }
 
-// ------------------------------------------------------------ border flood
-// reach[root] = 1 for every domain pixel on the image border (L compressed)
-template <class R>
-__global__ void k_border_reach(R reg, const int* L, int* reach, int H, int W) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * (H + W)) return;
-  int p;
-  if (i < W) p = i;
-  else if (i < 2 * W) p = (H - 1) * W + (i - W);
-  else if (i < 2 * W + H) p = (i - 2 * W) * W;
-  else p = (i - 2 * W - H) * W + W - 1;
-  size_t base = (size_t)blockIdx.y * H * W;
-  if (reg(base + p)) reach[base + L[base + p]] = 1;
+// ------------------------------------------------------- the flood kernels
+// mfc_flood_cc_cid and mfc_union_flood_cc_cid: one cooperative launch each
+// (see the design note). Workspace: NPLANES planes of B*H*W ints, then the
+// B*nchunks chunk counts.
+struct FloodArgs {
+  const uint8_t* mask;  // flood: (B,H,W) bool
+  const int8_t* ucls;   // union: (B,H,W) int8 in 0..4
+  int* cid;
+  int* filled;          // flood
+  int* he;              // union
+  int* cide;            // union
+  int* ncomp;
+  int* conflict;        // union
+  int* work;
+  int B, H, W, K, ntx, nty, nchunks;
+};
+
+// The tile root of pixel p in a plane written by a tile phase: a pixel
+// that is not its tile part's root stores -(tile root + 1); a tile root
+// (and a pixel outside the region) stores its parent, >= 0.
+__device__ __forceinline__ int tile_root(const int* L, int p) {
+  int v = L[p];
+  return v < 0 ? -v - 1 : p;
 }
 
-template <class R>
-int border_flood(R reg, int* L, int* reach, int B, int H, int W,
-                 cudaStream_t s) {
-  int rc = cc_core(reg, L, B, H, W, 4, s);
-  if (rc) return rc;
-  CUDA_CHECK(cudaMemsetAsync(reach, 0, sizeof(int) * (size_t)B * H * W, s));
-  int nb = 2 * (H + W);
-  k_border_reach<<<dim3((nb + TPB - 1) / TPB, B), TPB, 0, s>>>(reg, L, reach,
-                                                             H, W);
-  LAUNCH_CHECK();
-  return 0;
+// p's root once the tile roots are compressed
+__device__ __forceinline__ int root_of(const int* L, int p) {
+  return L[tile_root(L, p)];
 }
 
-__global__ void k_filled(const uint8_t* m, const int* L, const int* reach,
-                         int* filled, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n, i = base + p;
-  filled[i] = m[i] ? 1 : (reach[base + L[i]] ? 0 : 1);
+// A tile phase's label of local pixel li (flat index p) from the roots s
+// (tile_union_find) of the tile at (x0, y0).
+__device__ __forceinline__ int tile_label(const int* s, int li, int p, int x0,
+                                          int y0, int W) {
+  int r = s[li];
+  if (r == li) return p;
+  return -((y0 + (r >> FTS)) * W + x0 + (r & (FTILE - 1))) - 1;
 }
 
-__global__ void k_unreached(const int8_t* u, int c, const int* L,
-                            const int* reach, int* unr, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n, i = base + p;
-  if (u[i] != c && !reach[base + L[i]]) unr[i] |= 1 << (c - 1);
-}
-
-// ------------------------------------------------------------- dense ids
-__device__ int block_inclusive_scan(int v, int* warp_tot) {
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
+// Stages N values of a tile into shared memory: get(i) loads value i,
+// put(i, v) stores it. A thread issues all its loads before its stores,
+// which would otherwise wait for each other (to the compiler a shared
+// store may alias a global load).
+template <int N, class Get, class Put>
+__device__ __forceinline__ void stage(Get get, Put put) {
+  constexpr int PER = (N + FT - 1) / FT;
+  int v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    int i = threadIdx.x + k * FT;
+    v[k] = i < N ? get(i) : 0;
   }
-  if (lane == 31) warp_tot[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int nw = blockDim.x >> 5;
-    int t = lane < nw ? warp_tot[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      int u = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += u;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    int i = threadIdx.x + k * FT;
+    if (i < N) put(i, v[k]);
+  }
+}
+
+// Appends v to the warp's segment of a list (*n: the entries so far, the
+// same in every lane) for every lane that wants to.
+__device__ __forceinline__ void push(uint16_t* seg, int* n, bool want, int v) {
+  unsigned m = __ballot_sync(0xffffffffu, want);
+  if (want) seg[*n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = v;
+  *n += __popc(m);
+}
+
+// Union-find of one tile's region in shared memory, by row runs. val(li)
+// is the region value of local pixel li (raster order, FTILE a row; 0 or
+// less: outside the region, below 0: off the image); s holds FTILE*FTILE
+// parents, list 3*FTILE^2
+// uint16 of scratch. A pixel starts in its row run (parent: the run's
+// first pixel, found by warp ballots, one warp a row); runs of
+// neighbouring rows join where they touch, one link per pair of touching
+// runs (at the first column of their overlap for 4-connectivity;
+// 8-connectivity adds the diagonal touch at either end); then the run
+// starts are compressed to their roots. The links and
+// the run starts are listed first (each warp in its own segment) and then
+// taken one a thread: in a uniform region they all lie in column 0, which
+// a pixel-to-thread mapping would give to a few threads in turn. On
+// return s[li] is the root of every region pixel, its component's first
+// pixel in raster order.
+template <class V>
+__device__ void tile_union_find(V val, int* s, uint16_t* list, int conn) {
+  constexpr int T = FTILE, TT = T * T, NW = FT / 32;
+  constexpr int LSEG = 2 * TT / NW, SSEG = TT / NW;  // a warp's segments
+  __shared__ int nlink[NW], nstart[NW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // a tile whose pixels on the image (val >= 0) all hold one positive value
+  // is one component, rooted at its first pixel; one without a region
+  // pixel has nothing to join
+  int v0 = val(0);
+  bool same = true, any = false;
+  for (int li = threadIdx.x; li < TT; li += FT) {
+    int v = val(li);
+    same = same && (v == v0 || v < 0);
+    any = any || v > 0;
+  }
+  if (__syncthreads_and(same) && v0 > 0) {
+    for (int li = threadIdx.x; li < TT; li += FT) s[li] = 0;
+    __syncthreads();
+    return;
+  }
+  if (!__syncthreads_or(any)) return;
+  for (int ly = warp; ly < T; ly += NW) {
+    unsigned long long starts = 0;  // bit x: pixel x of the row starts a run
+    for (int j = 0; j < T / 32; ++j) {
+      int li = ly * T + j * 32 + lane;
+      bool st = j * 32 + lane == 0 || val(li - 1) != val(li);
+      starts |= (unsigned long long)__ballot_sync(0xffffffffu, st)
+                << (32 * j);
     }
-    if (lane < nw) warp_tot[lane] = t;
+    for (int j = 0; j < T / 32; ++j) {
+      int x = j * 32 + lane;
+      s[ly * T + x] = ly * T + 63 - __clzll(starts & ((2ull << x) - 1));
+    }
   }
   __syncthreads();
-  if (wid > 0) v += warp_tot[wid - 1];
+  int nl = 0, ns = 0;
+  uint16_t* lseg = list + warp * LSEG;
+  uint16_t* sseg = list + 2 * TT + warp * SSEG;
+  for (int ly = warp; ly < T; ly += NW) {
+    for (int j = 0; j < T / 32; ++j) {
+      int x = j * 32 + lane, li = ly * T + x, v = val(li);
+      bool start = v > 0 && s[li] == li;
+      int up = -1, diag = -1;  // li*4 + kind: 0 up, 1 up-left, 2 up-right
+      if (v > 0 && ly > 0) {
+        bool u = val(li - T) == v;
+        if (u && (start || x == 0 || val(li - T - 1) != v)) up = li * 4;
+        if (conn == 8 && !u) {  // diagonal touches where up is not in it
+          if (start && x > 0 && val(li - T - 1) == v) up = li * 4 + 1;
+          if (x < T - 1 && val(li - T + 1) == v) diag = li * 4 + 2;
+        }
+      }
+      push(lseg, &nl, up >= 0, up);
+      push(lseg, &nl, diag >= 0, diag);
+      push(sseg, &ns, start, li);
+    }
+  }
+  if (lane == 0) {
+    nlink[warp] = nl;
+    nstart[warp] = ns;
+  }
   __syncthreads();
-  return v;
+  int links = 0, runs = 0;
+  for (int w = 0; w < NW; ++w) {
+    links += nlink[w];
+    runs += nstart[w];
+  }
+  for (int k = threadIdx.x; k < links; k += FT) {  // the links, one a thread
+    int w = 0, i = k;
+    while (i >= nlink[w]) i -= nlink[w++];
+    int c = list[w * LSEG + i], li = c >> 2, kind = c & 3;
+    unite(s, li, li - T + (kind == 0 ? 0 : kind == 1 ? -1 : 1));
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < runs; k += FT) {  // run starts to roots
+    int w = 0, i = k;
+    while (i >= nstart[w]) i -= nstart[w++];
+    int li = list[2 * TT + w * SSEG + i];
+    s[li] = find_root(s, li);
+  }
+  __syncthreads();
+  for (int li = threadIdx.x; li < TT; li += FT)
+    if (val(li) > 0) s[li] = s[s[li]];
+  __syncthreads();
 }
 
+// Local pixel of the k-th pixel of a tile's border: the top row, then the
+// left column below it, then the right column below it (3*FTILE-2 in
+// all; 4-connectivity needs the first 2*FTILE-1 only).
+__device__ __forceinline__ void border_pixel(int k, int* lx, int* ly) {
+  if (k < FTILE) {
+    *lx = k;
+    *ly = 0;
+  } else if (k < 2 * FTILE - 1) {
+    *lx = 0;
+    *ly = k - FTILE + 1;
+  } else {
+    *lx = FTILE - 1;
+    *ly = k - 2 * FTILE + 2;
+  }
+}
+
+// Links of border pixel (lx, ly) of the tile at (x0, y0) into the
+// neighbouring tiles, on the global plane Lb (tile labels): left, up and,
+// for 8-connectivity, up-left and up-right, where they cross the tile's
+// border. A link is skipped when the previous pixel along the edge (the
+// one before in the top row, the one above in a column), which makes the
+// same kind of link, joins the same two tile parts.
 template <class R>
-__global__ void k_root_count(R reg, const int* L, int* counts, int n,
-                             int nblk) {
-  int p = blockIdx.x * TPB + threadIdx.x;
-  size_t base = (size_t)blockIdx.y * n;
-  bool root = p < n && reg(base + p) && L[base + p] == p;
-  int c = __syncthreads_count(root);
-  if (threadIdx.x == 0) counts[(size_t)blockIdx.y * (nblk + 1) + blockIdx.x] = c;
-}
-
-// exclusive scan of the per-chunk root counts; one block per image
-__global__ void k_scan_counts(int* counts, int nblk, int* ncomp) {
-  __shared__ int warp_tot[32];
-  __shared__ int carry;
-  int* c = counts + (size_t)blockIdx.x * (nblk + 1);
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int start = 0; start < nblk; start += blockDim.x) {
-    int i = start + threadIdx.x;
-    int v = i < nblk ? c[i] : 0;
-    int incl = block_inclusive_scan(v, warp_tot);
-    int off = carry;
-    if (i < nblk) c[i] = off + incl - v;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = off + incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    c[nblk] = carry;
-    ncomp[blockIdx.x] = carry;
+__device__ void border_links(R reg, int* Lb, size_t base, int x0, int y0,
+                             int lx, int ly, int H, int W, int conn) {
+  int x = x0 + lx, y = y0 + ly;
+  if (x >= W || y >= H) return;
+  int p = y * W + x;
+  int r = reg(base + p);
+  if (!r) return;
+  bool row = ly == 0;
+  bool has_prev = !row || lx > 0;
+  int px = row ? x - 1 : x, py = row ? y : y - 1;
+  for (int k = 0; k < (conn == 8 ? 4 : 2); ++k) {
+    int dx = k == 1 ? 0 : (k == 3 ? 1 : -1);
+    int dy = k == 0 ? 0 : -1;
+    bool cross = k == 0   ? lx == 0
+                 : k == 1 ? ly == 0
+                 : k == 2 ? (lx == 0 || ly == 0)
+                          : (lx == FTILE - 1 || ly == 0);
+    int qx = x + dx, qy = y + dy;
+    if (!cross || qx < 0 || qx >= W || qy < 0) continue;
+    int q = qy * W + qx;
+    if (reg(base + q) != r) continue;
+    int tp = tile_root(Lb, p), tq = tile_root(Lb, q);
+    int rx = px + dx, ry = py + dy;
+    if (has_prev && rx >= 0 && rx < W && ry >= 0 &&
+        tile_root(Lb, py * W + px) == tp && tile_root(Lb, ry * W + rx) == tq)
+      continue;
+    unite<true>(Lb, tp, tq);
   }
 }
 
-// rank[root] = number of roots before it in raster order
-template <class R>
-__global__ void k_root_rank(R reg, const int* L, const int* counts, int* rank,
-                            int n, int nblk) {
-  __shared__ int warp_cnt[TPB / 32];
-  int p = blockIdx.x * TPB + threadIdx.x;
-  size_t base = (size_t)blockIdx.y * n;
-  bool root = p < n && reg(base + p) && L[base + p] == p;
-  unsigned ball = __ballot_sync(0xffffffffu, root);
+// Points tile root p of plane Lb (one image) at its root.
+__device__ __forceinline__ void compress_tile_root(int* Lb, int p) {
+  int v = Lb[p];
+  if (v >= 0 && v != p) Lb[p] = find_split(Lb, v);
+}
+
+// Sets bit `bit` of reach_b at the root of pixel p of plane Lb (one image,
+// tile labels) if `on` (p lies on the image border and in the region);
+// one atomicOr per root and warp, whose lanes must all call it.
+__device__ __forceinline__ void mark_reached(int* Lb, int p, bool on,
+                                             unsigned long long image,
+                                             int* reach_b, int bit) {
+  int r = on ? find_split(Lb, tile_root(Lb, p)) : -1;
+  unsigned same = __match_any_sync(
+      0xffffffffu, on ? (image << 32 | (unsigned)r) : ~0ull);
+  if (on && (threadIdx.x & 31) == __ffs(same) - 1) atomicOr(reach_b + r, bit);
+}
+
+// Exclusive scan of `count` ints of `in` into `out` by the whole block;
+// returns the total. warp_tot: FT/32 ints of shared memory.
+__device__ int block_exclusive_scan(const int* in, int* out, int count,
+                                    int* warp_tot) {
   int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) warp_cnt[wid] = __popc(ball);
-  __syncthreads();
-  if (root) {
-    int off = counts[(size_t)blockIdx.y * (nblk + 1) + blockIdx.x];
-    for (int w = 0; w < wid; ++w) off += warp_cnt[w];
-    rank[base + p] = off + __popc(ball & ((1u << lane) - 1u));
+  int carry = 0;
+  for (int s = 0; s < count; s += FT) {
+    int i = s + threadIdx.x;
+    int v = i < count ? in[i] : 0, incl = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) warp_tot[wid] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < FT / 32; ++w) {
+      before += w < wid ? warp_tot[w] : 0;
+      total += warp_tot[w];
+    }
+    if (i < count) out[i] = carry + before + incl - v;
+    carry += total;
+    __syncthreads();
+  }
+  return carry;
+}
+
+// Dense ids, first half (one phase): compresses the tile roots of the
+// labelled plane L and of plane L2 (if given), counts the roots (region
+// value > 0 and L[p] == p) of every CHUNK-pixel chunk (four consecutive
+// pixels a thread, their loads issued together) and stores each root's
+// rank inside its chunk in `rank`; resets plane `reset` to -1 (if given).
+template <class R>
+__device__ void chunk_ranks(R reg, const FloodArgs& a, int* L, int* L2,
+                            int* rank, int* counts, int* reset) {
+  __shared__ int wtot[FT / 32];
+  const int n = a.H * a.W;
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int it = blockIdx.x; it < a.B * a.nchunks; it += gridDim.x) {
+    int b = it / a.nchunks, ch = it - b * a.nchunks;
+    size_t base = (size_t)b * n;
+    int* Lb = L + base;
+    int p0 = ch * CHUNK + 4 * threadIdx.x, v[4], g[4], cnt = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = p0 + k < n ? Lb[p0 + k] : -1;
+      g[k] = p0 + k < n ? reg(base + p0 + k) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int p = p0 + k;
+      if (p >= n) continue;
+      if (v[k] >= 0 && v[k] != p) Lb[p] = find_split(Lb, v[k]);
+      if (L2 != nullptr) compress_tile_root(L2 + base, p);
+      if (reset != nullptr) reset[base + p] = -1;
+      cnt += v[k] == p && g[k] > 0;
+    }
+    int incl = cnt;
+    for (int o = 1; o < 32; o <<= 1) {
+      int t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) wtot[wid] = incl;
+    __syncthreads();
+    int r = incl - cnt, total = 0;
+    for (int w = 0; w < FT / 32; ++w) {
+      r += w < wid ? wtot[w] : 0;
+      total += wtot[w];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (p0 + k < n && v[k] == p0 + k && g[k] > 0) rank[base + p0 + k] = r++;
+    if (threadIdx.x == 0) counts[it] = total;
+    __syncthreads();
   }
 }
 
-template <class R>
-__global__ void k_cid(R reg, const int* L, const int* rank, int* cid, int n,
-                      int K) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n, i = base + p;
-  cid[i] = reg(i) ? min(rank[base + L[i]], K - 1) : -1;
+// Dense ids, second half: one block an image turns the image's chunk
+// counts into their exclusive prefix, in place, and writes ncomp.
+__device__ void chunk_prefix(const FloodArgs& a, int* counts) {
+  __shared__ int warp_tot[FT / 32];
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    int* cb = counts + (size_t)b * a.nchunks;
+    int total = block_exclusive_scan(cb, cb, a.nchunks, warp_tot);
+    if (threadIdx.x == 0) a.ncomp[b] = total;
+  }
 }
 
-template <class R>
-int dense_ids(R reg, const int* L, int* rank, int* counts, int* cid,
-              int* ncomp, int B, int n, int K, cudaStream_t s) {
-  int nblk = (n + TPB - 1) / TPB;
-  dim3 g(nblk, B);
-  k_root_count<<<g, TPB, 0, s>>>(reg, L, counts, n, nblk);
-  LAUNCH_CHECK();
-  k_scan_counts<<<B, 1024, 0, s>>>(counts, nblk, ncomp);
-  LAUNCH_CHECK();
-  k_root_rank<<<g, TPB, 0, s>>>(reg, L, counts, rank, n, nblk);
-  LAUNCH_CHECK();
-  k_cid<<<g, TPB, 0, s>>>(reg, L, rank, cid, n, K);
-  LAUNCH_CHECK();
-  return 0;
+// the dense id of root r of image b (pre_b, rank_b: the image's chunk
+// prefix and ranks)
+__device__ __forceinline__ int dense_id(const FloodArgs& a, const int* pre_b,
+                                        const int* rank_b, int r) {
+  return min(pre_b[r / CHUNK] + rank_b[r], a.K - 1);
 }
 
-// ------------------------------------------------- containment encoding
-__global__ void k_he(const int8_t* u, const int* unr, int* he, int* conflict,
-                     int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t i = (size_t)blockIdx.y * n + p;
-  int uc = u[i], un = unr[i];
-  if (un & (un - 1)) atomicOr(conflict + blockIdx.y, 1);  // >= 2 unreached
-  int e = (un & 1) ? 1 : (un & 2) ? 2 : (un & 4) ? 3 : (un & 8) ? 4 : 0;
-  int h = uc > 0 ? (e > 0 ? uc + 4 : uc) : e;
-  he[i] = h * 8 + e;
+// ---- mfc_flood_cc_cid: planes 0 = background labels (then chunk ranks),
+// 1 = reach, 2 = labels of the filled mask
+__global__ void __launch_bounds__(FT, FBPS) k_flood_cc_cid(FloodArgs a) {
+  extern __shared__ int sm[];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int T = FTILE, TT = T * T;
+  const int H = a.H, W = a.W, n = H * W, ntile = a.ntx * a.nty;
+  const int items = a.B * ntile;
+  const size_t Bn = (size_t)a.B * n;
+  int* Lbg = a.work;
+  int* reach = a.work + Bn;
+  int* Lf = a.work + 2 * Bn;
+  int* rank = a.work;
+  int* counts = a.work + NPLANES * Bn;
+  uint16_t* list = (uint16_t*)(sm + TT);  // A, F: the tile's parents first
+  uint8_t* sr = (uint8_t*)(list + 3 * TT);
+  auto region = [&](int li) { return sr[li] == 0xff ? -1 : (int)sr[li]; };
+
+  // A: union-find of the background (4-connected) inside each tile
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    int y0 = t / a.ntx * T, x0 = t % a.ntx * T;
+    size_t base = (size_t)b * n;
+    stage<TT>(
+        [&](int li) {
+          int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+          return y < H && x < W ? (int)!a.mask[base + (size_t)y * W + x]
+                                : 0xff;
+        },
+        [&](int li, int v) { sr[li] = v; });
+    __syncthreads();
+    tile_union_find(region, sm, list, 4);
+    for (int li = threadIdx.x; li < TT; li += FT) {
+      int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+      if (y >= H || x >= W) continue;
+      int p = y * W + x;
+      Lbg[base + p] = sr[li] == 1 ? tile_label(sm, li, p, x0, y0, W) : p;
+      reach[base + p] = 0;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // B: background links across tile borders
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    size_t base = (size_t)b * n;
+    for (int k = threadIdx.x; k < 2 * T - 1; k += FT) {
+      int lx, ly;
+      border_pixel(k, &lx, &ly);
+      border_links(NotMaskRegion{a.mask}, Lbg + base, base, t % a.ntx * T,
+                   t / a.ntx * T, lx, ly, H, W, 4);
+    }
+  }
+  grid.sync();
+
+  // C: tile roots to their roots; background pixels on the image border
+  // mark their roots reached
+  for (size_t i0 = (size_t)blockIdx.x * FT; i0 < Bn;
+       i0 += (size_t)gridDim.x * FT) {
+    size_t i = i0 + threadIdx.x;
+    bool ok = i < Bn;
+    int b = ok ? (int)(i / n) : 0;
+    size_t base = (size_t)b * n;
+    int p = (int)(i - base), y = p / W, x = p - y * W;
+    if (ok) compress_tile_root(Lbg + base, p);
+    mark_reached(Lbg + base, p,
+                 ok && !a.mask[i] &&
+                     (y == 0 || y == H - 1 || x == 0 || x == W - 1),
+                 b, reach + base, 1);
+  }
+  grid.sync();
+
+  // E: filled = mask or an unreached background pixel, one pixel a thread
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    size_t base = i / n * n;
+    a.filled[i] = a.mask[i] ||
+                  !(reach[base + root_of(Lbg + base, (int)(i - base))] & 1);
+  }
+  grid.sync();
+
+  // F: union-find of the filled mask (8-connected) inside each tile
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    int y0 = t / a.ntx * T, x0 = t % a.ntx * T;
+    size_t base = (size_t)b * n;
+    stage<TT>(
+        [&](int li) {
+          int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+          return y < H && x < W ? a.filled[base + (size_t)y * W + x] : 0xff;
+        },
+        [&](int li, int v) { sr[li] = v; });
+    __syncthreads();
+    tile_union_find(region, sm, list, 8);
+    for (int li = threadIdx.x; li < TT; li += FT) {
+      int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+      if (y >= H || x >= W) continue;
+      int p = y * W + x;
+      Lf[base + p] = sr[li] == 1 ? tile_label(sm, li, p, x0, y0, W) : p;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // G: filled-mask links across tile borders
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    size_t base = (size_t)b * n;
+    for (int k = threadIdx.x; k < 3 * T - 2; k += FT) {
+      int lx, ly;
+      border_pixel(k, &lx, &ly);
+      border_links(IntRegion{a.filled}, Lf + base, base, t % a.ntx * T,
+                   t / a.ntx * T, lx, ly, H, W, 8);
+    }
+  }
+  grid.sync();
+
+  // H: compression, roots counted and ranked per chunk
+  chunk_ranks(IntRegion{a.filled}, a, Lf, nullptr, rank, counts, nullptr);
+  grid.sync();
+
+  // I: the chunk prefix
+  chunk_prefix(a, counts);
+  grid.sync();
+
+  // J: dense ids
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    int b = (int)(i / n);
+    size_t base = (size_t)b * n;
+    a.cid[i] = a.filled[i]
+                   ? dense_id(a, counts + (size_t)b * a.nchunks, rank + base,
+                              root_of(Lf + base, (int)(i - base)))
+                   : -1;
+  }
 }
 
-// a contained pixel beside an outer pixel of its own class: one per-class
-// component would straddle the containment boundary
-__global__ void k_straddle(const int* he, int* conflict, int H, int W) {
-  int n = H * W;
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n;
-  int h = he[base + p] >> 3;
-  if (h <= 4) return;
-  int y = p / W, x = p - y * W;
-  for (int dy = -1; dy <= 1; ++dy) {
-    for (int dx = -1; dx <= 1; ++dx) {
-      int yy = y + dy, xx = x + dx;
-      if ((dy || dx) && yy >= 0 && yy < H && xx >= 0 && xx < W &&
-          (he[base + yy * W + xx] >> 3) == h - 4) {
-        atomicOr(conflict + blockIdx.y, 1);
-        return;
+// ---- mfc_union_flood_cc_cid: planes 0-3 = the labels of the four flood
+// domains (then 0 = chunk ranks, 1 = per-root max of the outer roots),
+// 4 = reach bits, 5 = class-aware labels (h), 6 = relaxed labels (h2)
+__global__ void __launch_bounds__(FT, FBPS) k_union_flood_cc_cid(FloodArgs a) {
+  extern __shared__ int sm[];
+  __shared__ int flag;
+  cg::grid_group grid = cg::this_grid();
+  constexpr int T = FTILE, TT = T * T, HT = T + 2;
+  const int H = a.H, W = a.W, n = H * W, ntile = a.ntx * a.nty;
+  const int items = a.B * ntile;
+  const size_t Bn = (size_t)a.B * n;
+  int* reach = a.work + 4 * Bn;
+  int* Lh = a.work + 5 * Bn;
+  int* Lh2 = a.work + 6 * Bn;
+  int* rank = a.work;
+  int* cmax = a.work + Bn;
+  int* counts = a.work + NPLANES * Bn;
+
+  // A: the four floods' union-finds (4-connected, domain u != c) inside
+  // the tiles, one (domain, image, tile) item a block
+  uint16_t* list = (uint16_t*)(sm + TT);
+  int8_t* su = (int8_t*)(list + 3 * TT);
+  if (blockIdx.x == 0)
+    for (int b = threadIdx.x; b < a.B; b += FT) a.conflict[b] = 0;
+  for (int it = blockIdx.x; it < 4 * items; it += gridDim.x) {
+    int c = it / items + 1, b = (it % items) / ntile, t = it % ntile;
+    int y0 = t / a.ntx * T, x0 = t % a.ntx * T;
+    size_t base = (size_t)b * n;
+    stage<TT>(
+        [&](int li) {
+          int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+          return y < H && x < W ? (int)a.ucls[base + (size_t)y * W + x] : -1;
+        },
+        [&](int li, int v) { su[li] = (int8_t)v; });
+    __syncthreads();
+    tile_union_find(
+        [&](int li) { return su[li] < 0 ? -1 : (int)(su[li] != c); }, sm,
+        list, 4);
+    int* Lc = a.work + (c - 1) * Bn + base;
+    for (int li = threadIdx.x; li < TT; li += FT) {
+      int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+      if (y >= H || x >= W) continue;
+      int p = y * W + x;
+      Lc[p] = su[li] != c ? tile_label(sm, li, p, x0, y0, W) : p;
+      if (c == 1) reach[base + p] = 0;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // B: the four domains' links across tile borders
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    size_t base = (size_t)b * n;
+    for (int k = threadIdx.x; k < 4 * (2 * T - 1); k += FT) {
+      int c = k / (2 * T - 1), lx, ly;
+      border_pixel(k - c * (2 * T - 1), &lx, &ly);
+      border_links(NotClassRegion{a.ucls, c + 1}, a.work + c * Bn + base,
+                   base, t % a.ntx * T, t / a.ntx * T, lx, ly, H, W, 4);
+    }
+  }
+  grid.sync();
+
+  // C: the four planes' tile roots to their roots; pixels on the image
+  // border mark their roots reached in each domain they lie in
+  for (size_t i0 = (size_t)blockIdx.x * FT; i0 < Bn;
+       i0 += (size_t)gridDim.x * FT) {
+    size_t i = i0 + threadIdx.x;
+    bool ok = i < Bn;
+    int b = ok ? (int)(i / n) : 0;
+    size_t base = (size_t)b * n;
+    int p = (int)(i - base), y = p / W, x = p - y * W;
+    bool border = ok && (y == 0 || y == H - 1 || x == 0 || x == W - 1);
+    int uc = ok ? a.ucls[i] : 0;
+    for (int c = 0; c < 4; ++c) {
+      int* Lb = a.work + c * Bn + base;
+      if (ok) compress_tile_root(Lb, p);
+      mark_reached(Lb, p, border && uc != c + 1, b, reach + base, 1 << c);
+    }
+  }
+  grid.sync();
+
+  // E: per pixel the unreached bits, he = h*8+e and the conflict of two or
+  // more floods missing it (the four domains' loads issued together)
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    int b = (int)(i / n);
+    size_t base = (size_t)b * n;
+    int p = (int)(i - base), uc = a.ucls[i], tr[4], un = 0;
+    for (int c = 0; c < 4; ++c) tr[c] = tile_root(a.work + c * Bn + base, p);
+    for (int c = 0; c < 4; ++c) tr[c] = a.work[c * Bn + base + tr[c]];
+    for (int c = 0; c < 4; ++c)
+      if (uc != c + 1 && !(reach[base + tr[c]] & (1 << c))) un |= 1 << c;
+    int e = (un & 1) ? 1 : (un & 2) ? 2 : (un & 4) ? 3 : (un & 8) ? 4 : 0;
+    int h = uc > 0 ? (e > 0 ? uc + 4 : uc) : e;
+    a.he[i] = h * 8 + e;
+    if ((un & (un - 1)) && !a.conflict[b]) atomicOr(a.conflict + b, 1);
+  }
+  grid.sync();
+
+  // F: the union-finds of h and h2 (8-connected, class-aware) inside the
+  // tiles, one (plane, image, tile) item a block, on the tile's he with
+  // its halo; the h items check the straddle there
+  int* she = sm;            // HT x HT, -1 outside the image
+  int* sp = sm + HT * HT;   // TT parents
+  list = (uint16_t*)(sp + TT);
+  if (threadIdx.x == 0) flag = 0;
+  __syncthreads();
+  for (int it = blockIdx.x; it < 2 * items; it += gridDim.x) {
+    int relaxed = it >= items, b = (it % items) / ntile, t = it % ntile;
+    int y0 = t / a.ntx * T, x0 = t % a.ntx * T;
+    size_t base = (size_t)b * n;
+    stage<HT * HT>(
+        [&](int hi) {
+          int y = y0 + hi / HT - 1, x = x0 + hi % HT - 1;
+          return y >= 0 && y < H && x >= 0 && x < W
+                     ? a.he[base + (size_t)y * W + x]
+                     : -1;
+        },
+        [&](int hi, int v) { she[hi] = v; });
+    __syncthreads();
+    auto halo = [&](int li) {
+      return she[((li >> FTS) + 1) * HT + (li & (T - 1)) + 1];
+    };
+    if (!relaxed) {
+      for (int li = threadIdx.x; li < TT; li += FT) {
+        int hi = ((li >> FTS) + 1) * HT + (li & (T - 1)) + 1;
+        int h = she[hi] >> 3;
+        if (h > 4)  // a contained pixel beside an outer pixel of its class
+          for (int dy = -1; dy <= 1; ++dy)
+            for (int dx = -1; dx <= 1; ++dx)
+              if ((dy || dx) && (she[hi + dy * HT + dx] >> 3) == h - 4)
+                flag = 1;
+      }
+      tile_union_find([&](int li) { return halo(li) >> 3; }, sp, list, 8);
+    } else {
+      tile_union_find(
+          [&](int li) {
+            int v = halo(li);
+            return v < 0 ? -1 : h2_of(v);
+          },
+          sp, list, 8);
+    }
+    int* Lp = (relaxed ? Lh2 : Lh) + base;
+    for (int li = threadIdx.x; li < TT; li += FT) {
+      int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+      if (y >= H || x >= W) continue;
+      int v = halo(li), p = y * W + x;
+      Lp[p] = (relaxed ? h2_of(v) : v >> 3) > 0
+                  ? tile_label(sp, li, p, x0, y0, W)
+                  : p;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (flag) atomicOr(a.conflict + b, 1);
+      flag = 0;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // G: h and h2 links across tile borders
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    size_t base = (size_t)b * n;
+    for (int k = threadIdx.x; k < 2 * (3 * T - 2); k += FT) {
+      int which = k >= 3 * T - 2, lx, ly;
+      border_pixel(k - which * (3 * T - 2), &lx, &ly);
+      int x0 = t % a.ntx * T, y0 = t / a.ntx * T;
+      if (which)
+        border_links(H2Region{a.he}, Lh2 + base, base, x0, y0, lx, ly, H, W,
+                     8);
+      else
+        border_links(HRegion{a.he}, Lh + base, base, x0, y0, lx, ly, H, W,
+                     8);
+    }
+  }
+  grid.sync();
+
+  // H: compression of both planes, h roots counted and ranked per chunk,
+  // the per-root maxima reset
+  chunk_ranks(HRegion{a.he}, a, Lh, Lh2, rank, counts, cmax);
+  grid.sync();
+
+  // I: the chunk prefix; every relaxed root's maximum of the h roots of
+  // its outer pixels. Dense ids follow the roots' raster order, so the
+  // largest root has the largest id: the maximum needs no id yet.
+  chunk_prefix(a, counts);
+  for (size_t i0 = (size_t)blockIdx.x * FT; i0 < Bn;
+       i0 += (size_t)gridDim.x * FT) {
+    size_t i = i0 + threadIdx.x;
+    int c = -1, r2 = -1;
+    unsigned long long base = 0;
+    if (i < Bn) {
+      int b = (int)(i / n);
+      base = (size_t)b * n;
+      int p = (int)(i - base), h = a.he[i] >> 3;
+      if (h >= 1 && h <= 4) {
+        c = root_of(Lh + base, p);
+        r2 = root_of(Lh2 + base, p);
       }
     }
+    // the previous pixel in the warp already raised this maximum
+    int pr = __shfl_up_sync(0xffffffffu, r2, 1);
+    int pc = __shfl_up_sync(0xffffffffu, c, 1);
+    unsigned long long pb = __shfl_up_sync(0xffffffffu, base, 1);
+    bool same = (threadIdx.x & 31) > 0 && pr == r2 && pc == c && pb == base;
+    if (r2 >= 0 && !same && cmax[base + r2] < c)
+      atomicMax(cmax + base + r2, c);
+  }
+  grid.sync();
+
+  // J: dense ids, and the enclosing id of every contained pixel
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    int b = (int)(i / n);
+    size_t base = (size_t)b * n;
+    const int* pre = counts + (size_t)b * a.nchunks;
+    int p = (int)(i - base), h = a.he[i] >> 3, m = -1;
+    if (h > 4) m = cmax[base + root_of(Lh2 + base, p)];
+    a.cid[i] = h > 0 ? dense_id(a, pre, rank + base, root_of(Lh + base, p))
+                     : -1;
+    a.cide[i] = m >= 0 ? dense_id(a, pre, rank + base, m) : -1;
   }
 }
 
-__global__ void k_fill(int* a, int v, size_t count) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < count) a[i] = v;
-}
+// Dynamic shared memory of a flood kernel's block: the larger of the
+// union kernel's phase F (he with its halo, the parents, the link and
+// run-start lists, 3*FTILE^2 uint16) and the A phases (the parents, the
+// lists and the class or mask tile).
+constexpr int FLOOD_SHARED_F =
+    4 * ((FTILE + 2) * (FTILE + 2) + FTILE * FTILE) + 2 * 3 * FTILE * FTILE;
+constexpr int FLOOD_SHARED_A =
+    4 * FTILE * FTILE + 2 * 3 * FTILE * FTILE + FTILE * FTILE;
+constexpr int FLOOD_SHARED =
+    FLOOD_SHARED_F > FLOOD_SHARED_A ? FLOOD_SHARED_F : FLOOD_SHARED_A;
 
-// max of the outer pixels' ids over each relaxed (h2) component
-__global__ void k_seed_max(const int* he, const int* cid, const int* L,
-                           int* cmax, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n, i = base + p;
-  int h = he[i] >> 3;
-  if (h >= 1 && h <= 4) atomicMax(cmax + base + L[i], cid[i]);
-}
-
-__global__ void k_cide(const int* he, const int* L, const int* cmax,
-                       int* cide, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t base = (size_t)blockIdx.y * n, i = base + p;
-  cide[i] = (he[i] >> 3) > 4 ? cmax[base + L[i]] : -1;
+// Launches Kernel with the launch plan of ops/cc.py::cc_plan: tile edge,
+// threads, grid, dynamic shared bytes, work ints per image, pixels per
+// rank chunk. ERR_PLAN unless the plan is this shape's and the card holds
+// all its blocks at once, as the grid barriers need.
+template <auto Kernel>
+int launch_flood(FloodArgs a, const int* plan, cudaStream_t s) {
+  if ((size_t)a.B * a.H * a.W == 0) return 0;
+  if (plan == nullptr) return ERR_PLAN;
+  const long long n = (long long)a.H * a.W;
+  const long long work = NPLANES * n + (n + CHUNK - 1) / CHUNK;
+  const int grid = plan[2], shared = plan[3];
+  if (plan[0] != FTILE || plan[1] != FT || grid < 1 ||
+      shared != FLOOD_SHARED || work >= (1ll << 31) || plan[4] != work ||
+      plan[5] != CHUNK)
+    return ERR_PLAN;
+  a.nchunks = (int)((n + CHUNK - 1) / CHUNK);
+  int limit = 0, dev = 0, sms = 0, per_sm = 0;
+  int rc = mfc::allow_shared_memory<Kernel>(&limit);
+  if (rc) return rc;
+  if (shared > limit) return ERR_PLAN;
+  CUDA_CHECK(cudaGetDevice(&dev));
+  CUDA_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  CUDA_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, FT,
+                                                           shared));
+  if (grid > sms * per_sm) return ERR_PLAN;
+  a.ntx = (a.W + FTILE - 1) / FTILE;
+  a.nty = (a.H + FTILE - 1) / FTILE;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(FT);
+  cfg.dynamicSmemBytes = shared;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;  // all blocks co-resident
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  CUDA_CHECK(cudaLaunchKernelEx(&cfg, Kernel, a));
+  LAUNCH_CHECK();
+  return 0;
 }
 
 // ------------------------------------------------------------------ stats
@@ -487,12 +1095,6 @@ __global__ void k_stats_final(const unsigned long long* acc, float* stats,
 // =================================================================== C API
 extern "C" {
 
-// int32 scratch words per image for mfc_flood_cc_cid / mfc_union_flood_cc_cid
-int mfc_work_ints(int H, int W) {
-  int n = H * W;
-  return 4 * n + (n + TPB - 1) / TPB + 1;
-}
-
 // mask (B,H,W) bool -> lab (B,H,W) int32: component minimum flat index,
 // background H*W
 int mfc_cc_labels(const uint8_t* mask, int* lab, int B, int H, int W,
@@ -507,65 +1109,44 @@ int mfc_cc_labels(const uint8_t* mask, int* lab, int B, int H, int W,
 }
 
 // mask (B,H,W) bool -> cid (-1 outside the filled mask, ids clamped to
-// K-1), filled 0/1, ncomp (B,)
+// K-1), filled 0/1, ncomp (B,); one launch. work: B * plan[4] ints; plan:
+// the 6 ints of ops/cc.py::cc_plan for this shape (20001 if it is not).
 int mfc_flood_cc_cid(const uint8_t* mask, int* cid, int* filled, int* ncomp,
-                     int* work, int B, int H, int W, int K, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int n = H * W;
-  size_t Bn = (size_t)B * n;
-  int* L = work;
-  int* rank = work + Bn;
-  int* reach = work + 2 * Bn;
-  int* counts = work + 4 * Bn;
-  int rc = border_flood(NotMaskRegion{mask}, L, reach, B, H, W, s);
-  if (rc) return rc;
-  k_filled<<<pix_grid(n, B), TPB, 0, s>>>(mask, L, reach, filled, n);
-  LAUNCH_CHECK();
-  rc = cc_core(IntRegion{filled}, L, B, H, W, 8, s);
-  if (rc) return rc;
-  return dense_ids(IntRegion{filled}, L, rank, counts, cid, ncomp, B, n, K, s);
+                     int* work, int B, int H, int W, int K, const int* plan,
+                     void* stream) {
+  FloodArgs a = {};
+  a.mask = mask;
+  a.cid = cid;
+  a.filled = filled;
+  a.ncomp = ncomp;
+  a.work = work;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.K = K;
+  return launch_flood<k_flood_cc_cid>(a, plan, (cudaStream_t)stream);
 }
 
 // ucls (B,H,W) int8 in 0..4 -> cid, he = h*8+e, cide, ncomp (B,),
-// conflict (B,) (nonzero = the union image cannot represent the frame)
+// conflict (B,) (nonzero = the union image cannot represent the frame);
+// one launch. work and plan as for mfc_flood_cc_cid.
 int mfc_union_flood_cc_cid(const int8_t* ucls, int* cid, int* he, int* cide,
                            int* ncomp, int* conflict, int* work, int B, int H,
-                           int W, int K, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int n = H * W;
-  size_t Bn = (size_t)B * n;
-  int* L = work;
-  int* rank = work + Bn;
-  int* reach = work + 2 * Bn;
-  int* unr = work + 3 * Bn;
-  int* counts = work + 4 * Bn;
-  dim3 g = pix_grid(n, B);
-  CUDA_CHECK(cudaMemsetAsync(unr, 0, sizeof(int) * Bn, s));
-  CUDA_CHECK(cudaMemsetAsync(conflict, 0, sizeof(int) * (size_t)B, s));
-  for (int c = 1; c <= 4; ++c) {
-    int rc = border_flood(NotClassRegion{ucls, c}, L, reach, B, H, W, s);
-    if (rc) return rc;
-    k_unreached<<<g, TPB, 0, s>>>(ucls, c, L, reach, unr, n);
-    LAUNCH_CHECK();
-  }
-  k_he<<<g, TPB, 0, s>>>(ucls, unr, he, conflict, n);
-  LAUNCH_CHECK();
-  k_straddle<<<g, TPB, 0, s>>>(he, conflict, H, W);
-  LAUNCH_CHECK();
-  int rc = cc_core(HRegion{he}, L, B, H, W, 8, s);
-  if (rc) return rc;
-  rc = dense_ids(HRegion{he}, L, rank, counts, cid, ncomp, B, n, K, s);
-  if (rc) return rc;
-  rc = cc_core(H2Region{he}, L, B, H, W, 8, s);
-  if (rc) return rc;
-  int* cmax = rank;  // ranks are consumed: reuse as per-root maxima
-  k_fill<<<(unsigned)((Bn + TPB - 1) / TPB), TPB, 0, s>>>(cmax, -1, Bn);
-  LAUNCH_CHECK();
-  k_seed_max<<<g, TPB, 0, s>>>(he, cid, L, cmax, n);
-  LAUNCH_CHECK();
-  k_cide<<<g, TPB, 0, s>>>(he, L, cmax, cide, n);
-  LAUNCH_CHECK();
-  return 0;
+                           int W, int K, const int* plan, void* stream) {
+  FloodArgs a = {};
+  a.ucls = ucls;
+  a.cid = cid;
+  a.he = he;
+  a.cide = cide;
+  a.ncomp = ncomp;
+  a.conflict = conflict;
+  a.work = work;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.K = K;
+  return launch_flood<k_union_flood_cc_cid>(a, plan,
+                                               (cudaStream_t)stream);
 }
 
 // cid, he (B,H,W) int32, cide (B,H,W) int32 or NULL -> stats (B,8,K) f32,

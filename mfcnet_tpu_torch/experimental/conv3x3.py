@@ -25,7 +25,12 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+from mfcnet_tpu_torch.ops._build import (
+    kernel_lib,
+    route,
+    sm_count,
+    stream_of,
+)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"conv3x3": 0}
@@ -205,12 +210,6 @@ def stage1_plan(B: int, H: int, W: int, cin: int, C1: int,
     raise ValueError(
         f"vgg_stage1: cin={cin}, C1={C1} need more shared memory than a "
         "block has (227 KB)")
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device) -> int:
-    """SMs of a CUDA device (cached: the wrappers ask on every call)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_conv_args(name, x, w, bias, cin=None):

@@ -26,10 +26,14 @@ from mfcnet_tpu_torch.experimental.conv3x3 import (
     check_conv_args,
     conv_nhwc_f32,
     raise_kernel_error,
-    sm_count,
     stage1_plan,
 )
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+from mfcnet_tpu_torch.ops._build import (
+    kernel_lib,
+    route,
+    sm_count,
+    stream_of,
+)
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {"vgg_stage1": 0}

@@ -31,13 +31,15 @@ multiples of 64 (the tracker runs the provider at half resolution: 128 at
 full resolution). Other sizes raise a ``ValueError``; the JAX package
 fails on them in its decoder's concatenation.
 
-Types: the whole network runs in the type of its parameters. The cost
-volume (float32 from the kernel) and the flow between the three networks
-are cast to that type, where the JAX package lets them promote the rest of
-the network to float32: PyTorch's convolutions take no mixed types, and a
-bfloat16 engine wants the convolutions on the tensor cores. The
-coordinates of the backward warp are float32 in either type. The result is
-returned in float32.
+Types: the network computes in float32 whatever type it is cast to, as
+the JAX package's does: there a bfloat16 model's float32 channel means
+promote its bfloat16 input to float32 before the first convolution, and
+float32 activations then promote every bfloat16 kernel. So a cast to
+bfloat16 (or float16), as a bfloat16 engine makes of its provider, rounds
+the parameters to that type once and keeps them in float32, and the input
+is rounded to that type before the float32 means are subtracted; the cost
+volume, the flows and the backward warp are float32. Cast after loading
+weights: a later load stores them unrounded. The result is float32.
 """
 
 from __future__ import annotations
@@ -152,7 +154,7 @@ class ComplexNet(nn.Module):
         corr = correlation_cost_volume(
             conv3_first.permute(0, 2, 3, 1), conv3_second.permute(0, 2, 3, 1),
             max_displacement=20, stride=2)
-        corr = corr.to(redir.dtype).permute(0, 3, 1, 2)
+        corr = corr.permute(0, 3, 1, 2)
         conv3 = self.moduleCombined(torch.cat([redir, corr], dim=1))
         conv4 = self.moduleFou(conv3)
         conv5 = self.moduleFiv(conv4)
@@ -177,7 +179,7 @@ class SimpleNet(nn.Module):
 
     def forward(self, first, second, flow):
         warp = backward_warp(second, flow)
-        x = torch.cat([first, second, flow.to(first.dtype), warp,
+        x = torch.cat([first, second, flow, warp,
                        (first - warp).abs()], dim=1)
         conv2 = self.moduleTwo(self.moduleOne(x))
         conv3 = self.moduleThr(conv2)
@@ -203,6 +205,8 @@ class UnFlow(nn.Module):
         self.register_buffer(
             "means_bgr", torch.tensor(_MEANS_BGR).view(1, 3, 1, 1),
             persistent=False)
+        #: the type the input is rounded to (that of the last cast)
+        self.input_dtype = torch.float32
         self.to(memory_format=torch.channels_last)
 
     @staticmethod
@@ -215,10 +219,25 @@ class UnFlow(nn.Module):
                 f"tracker runs it at half resolution, so its frames must be "
                 f"multiples of {2 * SIZE_MULTIPLE}")
 
+    def _apply(self, fn, recurse=True):
+        # a cast to a 16-bit float type rounds the parameters to it and
+        # stores them back in float32 (see the module's note on types); the
+        # means stay float32 constants (the JAX package's are numpy
+        # float32), only their device follows the module
+        means = self.means_bgr
+        super()._apply(fn, recurse)
+        self.means_bgr = means.to(self.means_bgr.device)
+        dtype = self.moduleFlownets[0].moduleOne[1].weight.dtype
+        if dtype in (torch.bfloat16, torch.float16):
+            self.input_dtype = dtype
+            super()._apply(
+                lambda t: t.float() if t.is_floating_point() else t, recurse)
+        return self
+
     def _prep(self, image):
-        """(B, H, W, 3) RGB -> NCHW BGR minus the means, channels_last, in
-        the parameters' type."""
-        x = image.permute(0, 3, 1, 2).flip(1).to(self.means_bgr.dtype)
+        """(B, H, W, 3) RGB -> NCHW BGR minus the means, channels_last,
+        float32, from the input rounded to :attr:`input_dtype`."""
+        x = image.permute(0, 3, 1, 2).flip(1).to(self.input_dtype).float()
         return (x - self.means_bgr).contiguous(
             memory_format=torch.channels_last)
 
@@ -228,7 +247,7 @@ class UnFlow(nn.Module):
         flow = self.moduleFlownets[0](first, second)
         flow = self.moduleFlownets[1](first, second, flow)
         flow = self.moduleFlownets[2](first, second, flow)
-        return flow.float().permute(0, 2, 3, 1)
+        return flow.permute(0, 2, 3, 1)
 
 
 def he_init_weights(model: UnFlow, generator: torch.Generator,

@@ -12,6 +12,7 @@ imported, so the CPU-only test runs never touch ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,11 +35,15 @@ _I = ctypes.c_int
 # C entry points by source file: (argtypes, restype)
 _SIGNATURES = {
     "cc.cu": {
-        "mfc_work_ints": ((_I, _I), _I),
         "mfc_cc_labels": ((_P, _P, _I, _I, _I, _I, _P), _I),
-        "mfc_flood_cc_cid": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+        # mask, cid, filled, ncomp, work, B, H, W, K, plan[6], stream
+        "mfc_flood_cc_cid": (
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I,
+        ),
+        # ucls, cid, he, cide, ncomp, conflict, work, B, H, W, K, plan[6],
+        # stream
         "mfc_union_flood_cc_cid": (
-            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I,
         ),
         "mfc_onehot_stats": (
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
@@ -189,3 +194,11 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of a CUDA device (cached: the wrappers ask on every call)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -17,7 +17,9 @@ onehot_stats             ``_onehot_stats_kernel``            onehot_stats_plain
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor; there is no fallback between the two. Each kernel
-launch adds one to :data:`LAUNCHES`. :func:`base_stats` and
+launch adds one to :data:`LAUNCHES`. ``flood_cc_cid`` and
+``union_flood_cc_cid`` are one cooperative launch each, configured by
+:func:`cc_plan`, which the C side checks. :func:`base_stats` and
 :func:`union_stats` compose them exactly as ``base_stats_pallas`` and
 ``union_stats_pallas`` do.
 
@@ -33,9 +35,12 @@ from __future__ import annotations
 
 import torch
 
+import ctypes
+
 from mfcnet_tpu_torch.ops._build import (
     kernel_lib as _lib,
     route as _route,
+    sm_count as _sm_count,
     stream_of as _stream,
 )
 
@@ -49,6 +54,15 @@ LAUNCHES = {
 
 #: largest slot count the stats kernel's shared-memory sums hold (48 KB)
 MAX_K = 1024
+#: the flood kernels' tile edge, threads per block, pixels per rank chunk,
+#: int32 planes of workspace and blocks an SM holds at once (``csrc/cc.cu``:
+#: FTILE, FT, CHUNK, NPLANES, FBPS; the C side refuses a plan that differs)
+FLOOD_TILE, FLOOD_THREADS, FLOOD_CHUNK, FLOOD_PLANES = 64, 512, 2048, 7
+FLOOD_BLOCKS_PER_SM = 2
+#: shared memory a block of an H100 may use (the opt-in limit)
+MAX_SHARED_BYTES = 232448
+#: the order in which the C entry points take a plan's ints
+PLAN_KEYS = ("tile", "threads", "grid", "shared_bytes", "work_ints", "chunk")
 
 
 def reset_launches():
@@ -330,6 +344,38 @@ def onehot_stats_plain(cid, he, cide=None, K: int = 256):
 
 
 # ---------------------------------------------------------------------------
+# the flood kernels' launch plan
+# ---------------------------------------------------------------------------
+def cc_plan(B: int, H: int, W: int, sm_count: int,
+            blocks_per_sm: int = FLOOD_BLOCKS_PER_SM):
+    """Launch plan of ``mfc_flood_cc_cid`` and ``mfc_union_flood_cc_cid``
+    for B images of H x W on a card of ``sm_count`` SMs: FLOOD_TILE-edge
+    tiles and FLOOD_CHUNK-pixel rank chunks per image, as many
+    FLOOD_THREADS-thread blocks as the card holds at once (``sm_count *
+    blocks_per_sm``; the pixel phases use every one, the tile phases leave
+    the rest idle), the dynamic shared memory of the largest tile phase
+    (the union kernel's halo tile of ``he``, a parent plane and the link and
+    run-start lists, or a parent plane, the lists and a class tile: the
+    same for every shape) and the int32 workspace per image (the planes and
+    the chunk counts). The C side refuses a plan that is not this one or
+    whose blocks the card cannot hold at once. Raises ``ValueError`` for an
+    image whose workspace the kernels' 32-bit indices cannot address."""
+    n = H * W
+    if FLOOD_PLANES * n + -(-n // FLOOD_CHUNK) >= 2 ** 31:
+        raise ValueError(f"flood kernels: a {H}x{W} image's workspace is "
+                         "beyond 32-bit indices")
+    tile = FLOOD_TILE
+    chunks = -(-n // FLOOD_CHUNK)
+    tt, ht = tile * tile, (tile + 2) ** 2
+    return {"tile": tile, "threads": FLOOD_THREADS,
+            "grid": sm_count * blocks_per_sm,
+            "shared_bytes": max(4 * (ht + tt) + 2 * 3 * tt,
+                                4 * tt + 2 * 3 * tt + tt),
+            "work_ints": FLOOD_PLANES * n + chunks, "chunk": FLOOD_CHUNK,
+            "tiles": -(-H // tile) * -(-W // tile), "chunks": chunks}
+
+
+# ---------------------------------------------------------------------------
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 def _check(t, name, dtype, ndim=3):
@@ -363,9 +409,21 @@ def connected_components(mask, connectivity: int = 8):
     return lab
 
 
-def _work(lib, B, H, W, device):
-    return torch.empty(B * lib.mfc_work_ints(H, W), dtype=torch.int32,
+def _flood_plan(B, H, W, device):
+    """(plan, its ints for the C side, the workspace) of one flood call."""
+    plan = cc_plan(B, H, W, _sm_count(device))
+    ints = (ctypes.c_int * len(PLAN_KEYS))(*(plan[k] for k in PLAN_KEYS))
+    work = torch.empty(B * plan["work_ints"], dtype=torch.int32,
                        device=device)
+    return plan, ints, work
+
+
+def _launch_flood(name, rc, plan):
+    if rc == 20001:
+        raise RuntimeError(f"CUDA kernel {name} refused the plan {plan}: "
+                           "not this shape's, or more blocks than the card "
+                           "holds at once")
+    _launch(name, rc)
 
 
 def flood_cc_cid(mask, K: int = 256):
@@ -380,12 +438,12 @@ def flood_cc_cid(mask, K: int = 256):
     cid = torch.empty(B, H, W, dtype=torch.int32, device=dev)
     filled = torch.empty_like(cid)
     ncomp = torch.empty(B, dtype=torch.int32, device=dev)
-    work = _work(lib, B, H, W, dev)
+    plan, ints, work = _flood_plan(B, H, W, dev)
     rc = lib.mfc_flood_cc_cid(
         mask.data_ptr(), cid.data_ptr(), filled.data_ptr(),
-        ncomp.data_ptr(), work.data_ptr(), B, H, W, K, _stream(mask),
+        ncomp.data_ptr(), work.data_ptr(), B, H, W, K, ints, _stream(mask),
     )
-    _launch("flood_cc_cid", rc)
+    _launch_flood("flood_cc_cid", rc, plan)
     return cid, filled, ncomp
 
 
@@ -403,13 +461,13 @@ def union_flood_cc_cid(ucls, K: int = 256):
     cide = torch.empty_like(cid)
     ncomp = torch.empty(B, dtype=torch.int32, device=dev)
     conflict = torch.empty(B, dtype=torch.int32, device=dev)
-    work = _work(lib, B, H, W, dev)
+    plan, ints, work = _flood_plan(B, H, W, dev)
     rc = lib.mfc_union_flood_cc_cid(
         ucls.data_ptr(), cid.data_ptr(), he.data_ptr(), cide.data_ptr(),
         ncomp.data_ptr(), conflict.data_ptr(), work.data_ptr(),
-        B, H, W, K, _stream(ucls),
+        B, H, W, K, ints, _stream(ucls),
     )
-    _launch("union_flood_cc_cid", rc)
+    _launch_flood("union_flood_cc_cid", rc, plan)
     return cid, he, cide, ncomp, conflict != 0
 
 

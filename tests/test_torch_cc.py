@@ -178,3 +178,14 @@ def test_cuda_kernels_match_plain_versions(ucls):
                            cc.connected_components_plain(masks, conn))
     torch.cuda.synchronize()
     assert all(v > 0 for v in cc.LAUNCHES.values())
+    # the two flood kernels (one cooperative launch each) on ragged sizes,
+    # B = 1, 4, 8 and 60,000, uniform frames, a serpentine and a
+    # checkerboard; in CUDA-graph replays; no launch with another plan
+    from chip_smoke import (_replay_equals, check_flood_kernels,
+                            check_flood_plan_refusals, flood_check_maps)
+
+    for name, m in flood_check_maps():
+        check_flood_kernels(torch.from_numpy(m).cuda(), name)
+    assert _replay_equals(lambda: cc.union_flood_cc_cid(u, K))
+    assert _replay_equals(lambda: cc.flood_cc_cid(masks, K))
+    check_flood_plan_refusals(torch.device("cuda"))

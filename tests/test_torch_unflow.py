@@ -195,9 +195,11 @@ def test_make_unflow_flow_fn_batched_equals_pair_loop(port_model, basic):
 
 
 def test_bfloat16_unflow_runs_in_bfloat16_and_returns_float32(port_model):
-    """The dtype decision: the cost volume and the flow are cast to the
-    parameters' type; the result leaves in float32, inside a bf16 envelope
-    of the float32 model (bf16 keeps 8 bits through ~75 convolutions)."""
+    """The dtype decision: parameters and input rounded to bfloat16,
+    float32 arithmetic (as the JAX package's bfloat16 UnFlow computes); the
+    result leaves in float32,
+    inside a bf16 envelope of the float32 model (the weights and the input
+    rounded to 8 bits, carried through ~75 convolutions)."""
     import copy
 
     m16 = copy.deepcopy(port_model).bfloat16()
