@@ -15,10 +15,11 @@ phases; a failing phase raises and the script exits non-zero:
    parallel);
 2. kernels against their plain PyTorch versions: the connected-component
    kernels on crafted 480x640 class maps (integer outputs and the sums
-   exactly equal), the two flood kernels also at ragged sizes, B = 1, 4,
-   8 and 60,000, on uniform frames, a serpentine and a checkerboard (and,
-   in phase 4, on the random model's maps and in CUDA-graph replays),
-   refusing any launch plan but ``ops/cc.py::cc_plan``'s, the flow warp at
+   exactly equal), all four also at ragged sizes, B = 1, 4, 8 and 60,000,
+   on uniform frames, a serpentine and a checkerboard (and, in phase 4,
+   on the random model's maps and in CUDA-graph replays; each one device
+   operation a call, the union kernel's wrapper adding one), refusing any
+   launch plan but ``ops/cc.py::cc_plan``'s, the flow warp at
    2x480x640, UnFlow's one-launch backward warp in its four modes, both memory formats and both types, the RAFT
    update step at 4 to 38,400 tokens, the correlation at UnFlow's two
    shapes and the two experimental convolutions at the first VGG stage's
@@ -253,25 +254,46 @@ def class_masks(u):
         -1, *u.shape[1:]).contiguous()
 
 
-def check_flood_kernels(u, what):
-    """Both flood kernels against their plain versions on the union class
-    image ``u`` (B, h, w) int8 and its class masks, bit for bit."""
+def check_cc_kernels(u, what):
+    """The four ``cc.cu`` kernels against their plain versions, bit for
+    bit, on the union class image ``u`` (B, h, w) int8 and its class masks:
+    the two flood kernels; ``connected_components`` 4- and 8-connected on
+    the masks, their background and the hole-filled masks (the decode's
+    two calls among them); ``onehot_stats`` on the union tier's outputs
+    and on the per-blob tier's. Returns the union kernel's outputs."""
     from mfcnet_tpu_torch.ops import cc
 
-    for g, w, nm in zip(cc.union_flood_cc_cid(u, K),
-                        cc.union_flood_cc_cid_plain(u, K),
+    union = cc.union_flood_cc_cid(u, K)
+    for g, w, nm in zip(union, cc.union_flood_cc_cid_plain(u, K),
                         ("cid", "he", "cide", "ncomp", "conflict")):
         _equal(f"union_flood_cc_cid[{what}].{nm}", g, w)
+    for g, w, nm in zip(cc.onehot_stats(*union[:3], K),
+                        cc.onehot_stats_plain(*union[:3], K),
+                        ("stats", "ccls")):
+        _equal(f"onehot_stats[{what}, union tier].{nm}", g, w)
     m = class_masks(u)
-    for g, w, nm in zip(cc.flood_cc_cid(m, K), cc.flood_cc_cid_plain(m, K),
+    got = cc.flood_cc_cid(m, K)
+    for g, w, nm in zip(got, cc.flood_cc_cid_plain(m, K),
                         ("cid", "filled", "ncomp")):
         _equal(f"flood_cc_cid[{what}].{nm}", g, w)
+    cid, filled = got[:2]
+    for g, w, nm in zip(cc.onehot_stats(cid, filled * 8, None, K),
+                        cc.onehot_stats_plain(cid, filled * 8, None, K),
+                        ("stats", "ccls")):
+        _equal(f"onehot_stats[{what}, per-blob tier].{nm}", g, w)
+    for mm, nm in ((m, "masks"), ((~m).contiguous(), "background"),
+                   (filled.bool(), "filled")):
+        for conn in (4, 8):
+            _equal(f"connected_components[{what}, {nm}, {conn}]",
+                   cc.connected_components(mm, conn),
+                   cc.connected_components_plain(mm, conn))
+    return union
 
 
-def check_flood_plan_refusals(dev):
-    """The flood kernels launch only with ``cc_plan``'s plan for the shape
-    and a grid the card holds at once: another plan raises, and nothing is
-    counted as launched."""
+def check_plan_refusals(dev):
+    """Every ``cc.cu`` kernel launches only with ``cc_plan``'s plan for
+    its entry point and shape and a grid the card holds at once: another
+    plan raises, and nothing is counted as launched."""
     from unittest import mock
 
     import torch
@@ -280,21 +302,33 @@ def check_flood_plan_refusals(dev):
 
     u = torch.zeros(2, 33, 70, dtype=torch.int8, device=dev)
     m = class_masks(u)
+    i32 = torch.zeros(2, 33, 70, dtype=torch.int32, device=dev)
     right = cc.cc_plan
 
-    def more_ints(*a):
-        return dict(right(*a), work_ints=right(*a)["work_ints"] + 1)
+    def more_ints(*a, **kw):
+        plan = right(*a, **kw)
+        return dict(plan, work_ints=plan["work_ints"] + 1)
 
-    def too_many_blocks(B, H, W, sms):
-        return right(B, H, W, sms, 4 * cc.FLOOD_BLOCKS_PER_SM)
+    def too_many_blocks(B, H, W, sms, **kw):
+        return right(B, H, W, sms, 4 * cc.FLOOD_BLOCKS_PER_SM, **kw)
+
+    def other_entry(*a, entry="flood", **kw):  # a plan of another kernel
+        other = {"flood": "cc_labels", "cc_labels": "onehot_stats",
+                 "onehot_stats": "cc_labels"}[entry]
+        return right(*a, entry=other)
 
     for what, bad in (
             ("another shape's workspace", more_ints),
-            ("another tile edge", lambda *a: dict(right(*a), tile=32)),
+            ("another tile edge", lambda *a, **kw: dict(right(*a, **kw),
+                                                        tile=32)),
+            ("another entry point's plan", other_entry),
             ("more blocks than the card holds at once", too_many_blocks)):
         before = dict(cc.LAUNCHES)
         for call in (lambda: cc.union_flood_cc_cid(u, K),
-                     lambda: cc.flood_cc_cid(m, K)):
+                     lambda: cc.flood_cc_cid(m, K),
+                     lambda: cc.connected_components(m, 4),
+                     lambda: cc.connected_components(m, 8),
+                     lambda: cc.onehot_stats(i32, i32, i32, K)):
             with mock.patch.object(cc, "cc_plan", bad):
                 try:
                     call()
@@ -302,9 +336,9 @@ def check_flood_plan_refusals(dev):
                     if "refused the plan" not in str(e):
                         raise
                 else:
-                    raise AssertionError(f"a flood kernel took {what}")
+                    raise AssertionError(f"a cc.cu kernel took {what}")
         if cc.LAUNCHES != before:
-            raise AssertionError("a refused flood launch was counted")
+            raise AssertionError("a refused launch was counted")
 
 
 def _segment_dist(yy, xx, y0, x0, y1, x1):
@@ -412,43 +446,21 @@ def phase_kernels():
 
     dev = torch.device("cuda")
     for name, m in crafted_class_maps().items():
-        u = torch.from_numpy(m).to(dev)[None].contiguous()
-        got = cc.union_flood_cc_cid(u, K)
-        want = cc.union_flood_cc_cid_plain(u, K)
-        for g, w, nm in zip(got, want,
-                            ("cid", "he", "cide", "ncomp", "conflict")):
-            _equal(f"union_flood_cc_cid[{name}].{nm}", g, w)
-        cid, he, cide, ncomp, conflict = got
-        st, cl = cc.onehot_stats(cid, he, cide, K)
-        st_p, cl_p = cc.onehot_stats_plain(cid, he, cide, K)
-        _equal(f"onehot_stats[{name}]", st, st_p)
-        _equal(f"onehot_stats[{name}].ccls", cl, cl_p)
-        # the per-blob tier's inputs: the four class masks of this frame
-        masks4 = torch.stack([u[0] == c for c in (1, 2, 3, 4)]).contiguous()
-        got = cc.flood_cc_cid(masks4, K)
-        want = cc.flood_cc_cid_plain(masks4, K)
-        for g, w, nm in zip(got, want, ("cid", "filled", "ncomp")):
-            _equal(f"flood_cc_cid[{name}].{nm}", g, w)
-        st, _ = cc.onehot_stats(got[0], got[1] * 8, None, K)
-        st_p, _ = cc.onehot_stats_plain(got[0], got[1] * 8, None, K)
-        _equal(f"onehot_stats_base[{name}]", st, st_p)
-        for conn in (4, 8):
-            for mm in (masks4, ~masks4):
-                mm = mm.contiguous()
-                _equal(f"connected_components[{name},{conn}]",
-                       cc.connected_components(mm, conn),
-                       cc.connected_components_plain(mm, conn))
+        ncomp, conflict = check_cc_kernels(
+            torch.from_numpy(m).to(dev)[None].contiguous(), name)[3:]
         log(f"kernels == plain on '{name}': ncomp={int(ncomp[0])} "
             f"conflict={bool(conflict[0])}")
     more = flood_check_maps()
     for name, m in more:
-        check_flood_kernels(torch.from_numpy(m).to(dev), name)
-    log(f"union_flood_cc_cid and flood_cc_cid == plain on {len(more)} more "
-        f"inputs: {', '.join(n for n, _ in more)}")
-    check_flood_plan_refusals(dev)
-    log(f"flood kernel plan, B=4 {H}x{W}: "
-        f"{json.dumps(cc.cc_plan(4, H, W, sm_count(dev)))}; the C side "
-        f"refuses a plan of another shape and a grid the card cannot hold")
+        check_cc_kernels(torch.from_numpy(m).to(dev), name)
+    log(f"the four cc.cu kernels == plain on {len(more)} more inputs: "
+        f"{', '.join(n for n, _ in more)}")
+    check_plan_refusals(dev)
+    for entry in cc.PLAN_ENTRIES:
+        log(f"cc.cu plan of {entry}, B=4 {H}x{W}: "
+            f"{json.dumps(cc.cc_plan(4, H, W, sm_count(dev), entry=entry))}")
+    log("the C side refuses a plan of another shape or entry point and a "
+        "grid the card cannot hold")
     torch.cuda.synchronize()
     # every comparison above demanded bit equality
     errs = {k: 0.0 for k in CC_KERNELS}
@@ -1570,76 +1582,75 @@ def phase_timings(engine, frames, smi):
     log(f"[{smi}] union tier with the host flag read {sync_ms:.3f} ms, "
         f"without {async_ms:.3f} ms per frame")
 
-    # the two flood kernels on the random model's class maps (the per-blob
-    # and exact tiers' frames), and their device operations a call
+    # the cc.cu kernels on the random model's class maps (the per-blob and
+    # exact tiers' frames), and their device operations a call
     model_maps = {f"model window {i}": decode_inputs(p.argmax(-1))
                   for i, p in zip((15, 23, 33), model_probs)}
     for what, (mu, _) in model_maps.items():
-        check_flood_kernels(mu, what)
-    mu, mm = model_maps["model window 15"]
-    m4 = torch.stack([u[0] == c for c in (1, 2, 3, 4)]).contiguous()
-    flood_inputs = {"clean 480x640 map": (u, m4), "model window 15": (mu, mm)}
+        check_cc_kernels(mu, what)
+    m4 = class_masks(u)
+    inputs = {"clean 480x640 map": decode_calls(u, m4),
+              "model window 15": decode_calls(*model_maps["model window 15"])}
     ops = {}
-    for what, (fu, fm) in flood_inputs.items():
-        for name, fn in (("union_flood_cc_cid",
-                          lambda fu=fu: cc.union_flood_cc_cid(fu, K)),
-                         ("flood_cc_cid", lambda fm=fm: cc.flood_cc_cid(fm, K))):
-            names = _count_device_kernels(fn)
-            ops[name, what] = len(names)
-            log(f"[{smi}] {name} on the {what}: {len(names)} device "
+    for what, calls in inputs.items():
+        for call, (kern, _, _) in calls.items():
+            names = _count_device_kernels(kern)
+            ops[call, what] = len(names)
+            log(f"[{smi}] {call} on the {what}: {len(names)} device "
                 f"operations a call: {names}")
-    for name in ("union_flood_cc_cid", "flood_cc_cid"):
-        if any(n > 2 for (k, _), n in ops.items() if k == name):
-            raise AssertionError(f"{name}: more device operations a call than "
-                                 f"its launch and the wrapper's: {ops}")
+    # one launch a call; the union wrapper adds its `conflict != 0`
+    for (call, what), n in ops.items():
+        if n > (2 if call == "union_flood_cc_cid" else 1):
+            raise AssertionError(f"{call} on the {what}: {n} device "
+                                 f"operations a call, more than its launch "
+                                 f"and the wrapper's: {ops}")
 
-    # each kernel against its plain version at the main path's shapes
-    cid, he, cide, _, _ = cc.union_flood_cc_cid(u, K)
-    filled = cc.flood_cc_cid(m4, K)[1].bool()
-    calls = {
-        "connected_components": (
-            lambda: cc.connected_components(filled, 8),
-            lambda: cc.connected_components_plain(filled, 8)),
-        "flood_cc_cid": (lambda: cc.flood_cc_cid(m4, K),
-                         lambda: cc.flood_cc_cid_plain(m4, K)),
-        "union_flood_cc_cid": (lambda: cc.union_flood_cc_cid(u, K),
-                               lambda: cc.union_flood_cc_cid_plain(u, K)),
-        "onehot_stats": (lambda: cc.onehot_stats(cid, he, cide, K),
-                         lambda: cc.onehot_stats_plain(cid, he, cide, K)),
-    }
-    # bounds: each input read once and each output written once over the
-    # card's memory rate; the labelling's integer work depends on the data
-    # and has no rate in the table, so bytes set the bound
-    io = {
-        "connected_components": (filled,),
-        "flood_cc_cid": (m4,),
-        "union_flood_cc_cid": (u,),
-        "onehot_stats": (cid, he, cide),
-    }
-    times, bounds = {}, {}
-    for name, (kern, plain) in calls.items():
+    # each kernel against its plain version at the main path's shapes, on
+    # the clean map: the first call of each kernel is the one its row of
+    # the kernels line reports, the others stand beside it under
+    # "kernel@call". Bounds: each input read once and each output written
+    # once over the card's memory rate; the labelling's integer work
+    # depends on the data and has no rate in the table, so bytes set the
+    # bound. The library yardstick of onehot_stats: index_add_ of the six
+    # prepared planes into (B*K, 6) int64 (the accumulation only).
+    calls = inputs["clean 480x640 map"]
+    timed = {"connected_components": "cc_labels filled 8-conn",
+             "connected_components@background 4-conn":
+                 "cc_labels background 4-conn",
+             "flood_cc_cid": "flood_cc_cid",
+             "union_flood_cc_cid": "union_flood_cc_cid",
+             "onehot_stats": "onehot_stats union tier",
+             "onehot_stats@per-blob tier": "onehot_stats per-blob tier"}
+    times, bounds, library = {}, {}, {}
+    for name, call in timed.items():
+        kern, plain, ins = calls[call]
         eager = _event_ms(kern, 50)
         times[name] = _in_turns(
-            name, kern, plain, smi, f"clean 480x640 map; device time in "
-            f"CUDA-graph replays (eager calls {eager:.4f} ms), plain: eager",
+            name, kern, plain, smi, f"{call}, clean 480x640 map; device time "
+            f"in CUDA-graph replays (eager calls {eager:.4f} ms), plain: eager",
             kreps=20, preps=3, timer=_graph_ms, ptimer=_event_ms)
-        outs = kern()
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        bounds[name] = (_nbytes(*io[name], *outs) / PEAK_BYTES * 1e3, "bytes")
+        nbytes = _nbytes(*ins, *kern())
+        bounds[name] = (nbytes / PEAK_BYTES * 1e3, "bytes")
         log(f"[{smi}] {name}: bound {bounds[name][0]:.5f} ms (bytes: "
-            f"{_nbytes(*io[name], *outs)} B at {PEAK_BYTES / 1e12} TB/s)")
-    for what, (fu, fm) in flood_inputs.items():
-        for name, fn in (("union_flood_cc_cid",
-                          lambda fu=fu: cc.union_flood_cc_cid(fu, K)),
-                         ("flood_cc_cid", lambda fm=fm: cc.flood_cc_cid(fm, K))):
-            if not _replay_equals(fn):
-                raise AssertionError(f"{name} on the {what}: a CUDA-graph "
+            f"{nbytes} B at {PEAK_BYTES / 1e12} TB/s)")
+        if name.startswith("onehot_stats"):
+            idx, vals = stats_rows(*ins)
+            acc = torch.zeros(ins[0].shape[0] * K, 6, dtype=torch.int64,
+                              device="cuda")
+            library[name] = _graph_ms(lambda: (acc.index_add_(0, idx, vals),))
+            log(f"[{smi}] {name}: library index_add_ of {idx.numel()} "
+                f"prepared rows of 6 int64 into ({acc.shape[0]}, 6), the "
+                f"accumulation only: {library[name]:.4f} ms in graph replays")
+    for what, calls in inputs.items():
+        for call, (kern, _, _) in calls.items():
+            if not _replay_equals(kern):
+                raise AssertionError(f"{call} on the {what}: a CUDA-graph "
                                      f"replay differs from the eager call")
-            log(f"[{smi}] {name} on the {what}: {_graph_ms(fn):.4f} ms in "
+            log(f"[{smi}] {call} on the {what}: {_graph_ms(kern):.4f} ms in "
                 f"graph replays (== the eager call's outputs), "
-                f"{_event_ms(fn, 50):.4f} ms eager, {ops[name, what]} device "
-                f"operations a call")
-    return out, times, bounds
+                f"{_event_ms(kern, 50):.4f} ms eager, {ops[call, what]} "
+                f"device operations a call")
+    return out, times, bounds, library
 
 
 def decode_inputs(pred):
@@ -1652,6 +1663,77 @@ def decode_inputs(pred):
     for src, dst in ((3, 1), (1, 2), (4, 3), (2, 4)):
         ucls[pred == src] = dst
     return ucls[None].contiguous(), class_masks(ucls[None])
+
+
+def decode_calls(u, m4):
+    """{call: (kernel, plain, inputs)} of the decode's ``cc.cu`` calls on
+    the union class image ``u`` (1, H, W) and its four class masks ``m4``
+    (``track/decode_device.py``): ``union_flood_cc_cid`` (union tier),
+    ``flood_cc_cid`` (per-blob tier), ``connected_components`` 4-connected
+    on the masks' background (``fill_holes``) and 8-connected on the
+    hole-filled masks (exact tier), ``onehot_stats`` on the union tier's
+    and on the per-blob tier's outputs. Each function returns a tuple of
+    tensors; ``inputs`` are the tensors the call reads."""
+    from mfcnet_tpu_torch.ops import cc
+
+    cid, he, cide = cc.union_flood_cc_cid(u, K)[:3]
+    fcid, filled = cc.flood_cc_cid(m4, K)[:2]
+    bg, fm, fhe = (~m4).contiguous(), filled.bool(), filled * 8
+    return {
+        "union_flood_cc_cid": (lambda: cc.union_flood_cc_cid(u, K),
+                               lambda: cc.union_flood_cc_cid_plain(u, K),
+                               (u,)),
+        "flood_cc_cid": (lambda: cc.flood_cc_cid(m4, K),
+                         lambda: cc.flood_cc_cid_plain(m4, K), (m4,)),
+        "cc_labels background 4-conn": (
+            lambda: (cc.connected_components(bg, 4),),
+            lambda: (cc.connected_components_plain(bg, 4),), (bg,)),
+        "cc_labels filled 8-conn": (
+            lambda: (cc.connected_components(fm, 8),),
+            lambda: (cc.connected_components_plain(fm, 8),), (fm,)),
+        "onehot_stats union tier": (
+            lambda: cc.onehot_stats(cid, he, cide, K),
+            lambda: cc.onehot_stats_plain(cid, he, cide, K),
+            (cid, he, cide)),
+        "onehot_stats per-blob tier": (
+            lambda: cc.onehot_stats(fcid, fhe, None, K),
+            lambda: cc.onehot_stats_plain(fcid, fhe, None, K),
+            (fcid, fhe)),
+    }
+
+
+def stats_rows(cid, he, cide=None):
+    """(slot index b*K + id (N,) int64, values (N, 6) int64): the rows
+    whose per-slot sums ``onehot_stats`` computes (``onehot_stats_plain``'s
+    prepared planes), for the library yardstick ``index_add_``."""
+    import torch
+    import torch.nn.functional as F
+
+    B, h_, w_ = cid.shape
+    dev = cid.device
+    h, e = he >> 3, he & 7
+    hp = F.pad(h, (1, 1, 1, 1), value=-1)
+    ep = F.pad(e, (1, 1, 1, 1), value=-1)
+    inside = h > 0
+    for dy, dx in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        hq = hp[:, 1 + dy:1 + dy + h_, 1 + dx:1 + dx + w_]
+        eq = ep[:, 1 + dy:1 + dy + h_, 1 + dx:1 + dx + w_]
+        inside &= (hq == h) | ((h <= 4) & (hq > 4) & (eq == h))
+    y = torch.arange(h_, device=dev).view(1, h_, 1).expand(B, h_, w_)
+    x = torch.arange(w_, device=dev).view(1, 1, w_).expand(B, h_, w_)
+    one = torch.ones_like(y)
+    base = (torch.arange(B, device=dev) * K).view(B, 1, 1)
+    w2 = torch.where(inside, 2, 1)
+    own = (cid >= 0) & (h > 0)
+    idx = [(cid + base)[own]]
+    vals = [torch.stack([one, (~inside).long(), w2, w2 * x, w2 * y,
+                         torch.where(h > 4, h - 4, h).long()], -1)[own]]
+    if cide is not None:
+        cont = (h > 4) & (cide >= 0)
+        idx.append((cide + base)[cont])
+        vals.append(torch.stack([one, 0 * one, 2 * one, 2 * x, 2 * y,
+                                 e.long()], -1)[cont])
+    return torch.cat(idx).long(), torch.cat(vals)
 
 
 def _replay_equals(fn):
@@ -2168,8 +2250,7 @@ def main():
     flow_engine, launches_raft, fused_raft = phase_flow_slice(frames)
     unflow_engine, launches_unflow, fused_unflow = phase_unflow_slice(uframes)
     phase_offline(uframes, smi)
-    _, times, bounds = phase_timings(engine, frames, smi)
-    library = {}
+    _, times, bounds, library = phase_timings(engine, frames, smi)
     for t, b, lib in (phase_flow_timings(flow_engine, frames, smi),
                       phase_unflow_timings(unflow_engine, uframes, smi)):
         times.update(t)
@@ -2190,7 +2271,12 @@ def main():
          "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},
          "max_abs_err": errs[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": library.get(name)}
+         "bound_by": bounds[name][1], "library_ms": library.get(name),
+         # the kernel's other calls on the main path
+         "calls": {k.split("@")[1]: {
+             "ms": times[k][0], "plain_ms": times[k][1],
+             "bound_ms": bounds[k][0], "library_ms": library.get(k)}
+             for k in times if k.startswith(name + "@")}}
         for name, source, replaces in KERNELS
     ]}))
     log(json.dumps({"ok": True, "device": {

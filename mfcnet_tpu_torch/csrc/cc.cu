@@ -15,11 +15,13 @@
 // union-find walks parent chains one dependent load at a time, and each
 // pass over the frame has to end everywhere before the next starts. As
 // chains of launches, one pass a launch, the two flood entry points took
-// 41 and 13 stream operations; 70-76 % of their time went to a per-pixel
-// union-find inside 32x32 tiles in which a tile-wide region serialized on
-// its root. The TPU kernels needed log2(W) shift-doubling steps per
-// fixpoint iteration because the TPU has no gathers; here a pixel reads
-// any neighbour or parent directly.
+// 41 and 13 stream operations and mfc_cc_labels 4; 70-76 % of their time
+// went to a per-pixel union-find inside 32x32 tiles in which a tile-wide
+// region serialized on its root. The TPU kernels needed log2(W)
+// shift-doubling steps per fixpoint iteration because the TPU has no
+// gathers; here a pixel reads any neighbour or parent directly. The sums
+// of mfc_onehot_stats are bound by contended shared-memory atomics: inside
+// one large component every thread of a block adds to the same six slots.
 //
 // Design:
 //   * One CC core, union-find: pixels of the same region join with
@@ -31,14 +33,14 @@
 //     union-find inside tiles in shared memory, links across tile borders
 //     on the global parents (between tile roots only), then the tile roots
 //     compressed to their roots.
-//   * mfc_cc_labels runs the core as three launches (32x32 tiles, one
-//     1024-thread block each, a link per pixel).
-//   * mfc_flood_cc_cid and mfc_union_flood_cc_cid are one cooperative
-//     launch each: as many 512-thread blocks as the card holds at once
-//     grid-stride over work items, and phases are separated by grid-wide
-//     barriers (8 each). The launch plan comes from the caller
-//     (ops/cc.py::cc_plan) and is refused unless it is the shape's and the
-//     card holds its blocks at once. A tile phase takes one (plane, image,
+//   * Every entry point is one cooperative launch: as many 512-thread
+//     blocks as the card holds at once grid-stride over work items, and
+//     phases are separated by grid-wide barriers (mfc_flood_cc_cid 8,
+//     mfc_union_flood_cc_cid 8, mfc_cc_labels 3, mfc_onehot_stats 2), so
+//     a call is one device operation with no memset. The launch plan comes
+//     from the caller (ops/cc.py::cc_plan) and is refused unless it is the
+//     shape's and the entry point's and the card holds its blocks at once.
+//     A tile phase takes one (plane, image,
 //     FTILE x FTILE tile) item a block: the union kernel's four flood
 //     domains, and its class-aware (h) and relaxed (h2) planes, are
 //     separate items, so the floods run side by side on different SMs.
@@ -65,10 +67,18 @@
 //     the outer pixels of each relaxed component (ids follow the roots'
 //     raster order): an atomicMax, one per run of equal keys in a warp,
 //     beside the prefix, read after the last barrier.
-//   * Per-slot sums accumulate in shared memory (6 x K uint64) and are
-//     committed to global memory with atomics. Every summed value is an
-//     integer once w (1 or 0.5) is scaled by 2, so the sums are exact and
-//     do not depend on the order of the atomics.
+//   * mfc_cc_labels runs the flood kernels' tile core on the mask: tile
+//     union-find, links across tile borders, tile roots compressed, then
+//     every pixel's root (or H*W) written in place over its tile label.
+//   * Per-slot sums: the zeroed (B,6,K) accumulator, then per chunk of
+//     pixels the lanes of a warp that share a key (__match_any_sync) sum
+//     their six values (__reduce_add_sync) and one of them adds the sums
+//     to the block's 6 x K uint64 in shared memory; the block commits each
+//     non-zero slot with one global atomic, and the last phase turns the
+//     sums into stats and ccls. Ids are dense in raster order, so a warp
+//     holds few keys. Every summed value is an integer once w (1 or 0.5)
+//     is scaled by 2, so the sums are exact and do not depend on the order
+//     of the atomics.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,16 +90,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TPB = 256;         // threads per block of the pixel passes
-constexpr int TILE = 32;         // mfc_cc_labels tile edge: 1024 threads each
-constexpr int STATS_PIX = 2048;  // pixels per block in the stats kernel
 constexpr int NROWS = 6;         // summed planes
+constexpr int MAX_K = 1024;      // most slots: 6 x K uint64 = 48 KB a block
 
-constexpr int FTILE = 64;        // tile edge of the two flood kernels
+constexpr int FTILE = 64;        // tile edge of the tile phases
 constexpr int FTS = 6;           // log2(FTILE): a tile row is two warps
-constexpr int FT = 512;          // threads per block of the flood kernels
+constexpr int FT = 512;          // threads per block of every kernel
 constexpr int FBPS = 2;          // their blocks per SM (__launch_bounds__)
-constexpr int CHUNK = 4 * FT;    // pixels per rank chunk
+constexpr int CHUNK = 4 * FT;    // pixels per rank chunk and per sums item
 constexpr int NPLANES = 7;       // int32 B*H*W planes of the workspace
 constexpr int ERR_PLAN = 20001;  // the plan is not this shape's, or the card
                                  // cannot hold its blocks at once
@@ -177,95 +185,6 @@ __device__ void unite(int* L, int a, int b) {
     if (old == b) return;  // b was still a root: linked
     b = old;               // b was linked meanwhile: join a with its parent
   }
-}
-
-// Phase 1: union-find inside one TILE x TILE tile in shared memory (local
-// index ty*TILE+tx follows raster order, so a local root is the tile
-// part's minimum flat index); every pixel then points at its tile root.
-template <class R>
-__global__ void k_local_merge(R reg, int* L, int H, int W, int conn) {
-  __shared__ int s[TILE * TILE];
-  int tx = threadIdx.x, ty = threadIdx.y;
-  int x = blockIdx.x * TILE + tx, y = blockIdx.y * TILE + ty;
-  size_t base = (size_t)blockIdx.z * H * W;
-  int li = ty * TILE + tx;
-  bool in = x < W && y < H;
-  size_t gi = base + (size_t)y * W + x;
-  int r = in ? reg(gi) : 0;
-  s[li] = li;
-  __syncthreads();
-  if (r) {
-    if (tx > 0 && reg(gi - 1) == r) unite(s, li, li - 1);
-    if (ty > 0) {
-      if (reg(gi - W) == r) unite(s, li, li - TILE);
-      if (conn == 8) {
-        if (tx > 0 && reg(gi - W - 1) == r) unite(s, li, li - TILE - 1);
-        if (tx < TILE - 1 && x + 1 < W && reg(gi - W + 1) == r)
-          unite(s, li, li - TILE + 1);
-      }
-    }
-  }
-  __syncthreads();
-  if (in) {
-    int root = find_root(s, li);
-    L[gi] = (blockIdx.y * TILE + root / TILE) * W + blockIdx.x * TILE +
-            root % TILE;
-  }
-}
-
-// Phase 2: link across tile borders only, on the global parents.
-template <class R>
-__global__ void k_border_merge(R reg, int* L, int H, int W, int conn) {
-  int tx = threadIdx.x, ty = threadIdx.y;
-  if (tx != 0 && ty != 0 && tx != TILE - 1) return;  // interior of a tile
-  int x = blockIdx.x * TILE + tx, y = blockIdx.y * TILE + ty;
-  if (x >= W || y >= H) return;
-  size_t base = (size_t)blockIdx.z * H * W;
-  int p = y * W + x;
-  int r = reg(base + p);
-  if (!r) return;
-  int* Lb = L + base;
-  if (tx == 0 && x > 0 && reg(base + p - 1) == r) unite(Lb, p, p - 1);
-  if (y == 0) return;
-  if (ty == 0 && reg(base + p - W) == r) unite(Lb, p, p - W);
-  if (conn == 8) {
-    if (x > 0 && (tx == 0 || ty == 0) && reg(base + p - W - 1) == r)
-      unite(Lb, p, p - W - 1);
-    if (x + 1 < W && (tx == TILE - 1 || ty == 0) &&
-        reg(base + p - W + 1) == r)
-      unite(Lb, p, p - W + 1);
-  }
-}
-
-// Phase 3: every pixel to its root.
-__global__ void k_compress(int* L, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int* Lb = L + (size_t)blockIdx.y * n;
-  Lb[p] = find_root(Lb, p);
-}
-
-// labels of the pixels outside the mask become n (background contract)
-__global__ void k_label_bg(const uint8_t* m, int* L, int n) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  size_t i = (size_t)blockIdx.y * n + p;
-  if (!m[i]) L[i] = n;
-}
-
-inline dim3 pix_grid(int n, int B) { return dim3((n + TPB - 1) / TPB, B); }
-
-template <class R>
-int cc_core(R reg, int* L, int B, int H, int W, int conn, cudaStream_t s) {
-  dim3 tiles((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  dim3 tile_threads(TILE, TILE);
-  k_local_merge<<<tiles, tile_threads, 0, s>>>(reg, L, H, W, conn);
-  LAUNCH_CHECK();
-  k_border_merge<<<tiles, tile_threads, 0, s>>>(reg, L, H, W, conn);
-  LAUNCH_CHECK();
-  k_compress<<<pix_grid(H * W, B), TPB, 0, s>>>(L, H * W);
-  LAUNCH_CHECK();
-  return 0;
 }
 
 // ------------------------------------------------------- the flood kernels
@@ -966,44 +885,250 @@ __global__ void __launch_bounds__(FT, FBPS) k_union_flood_cc_cid(FloodArgs a) {
   }
 }
 
-// Dynamic shared memory of a flood kernel's block: the larger of the
+// ---- mfc_cc_labels: the tile core on a bool mask; lab itself is the
+// working plane (tile labels, then roots), so no workspace is needed
+struct CcArgs {
+  const uint8_t* mask;
+  int* lab;
+  int B, H, W, conn, ntx, nty;
+};
+
+__global__ void __launch_bounds__(FT, FBPS) k_cc_labels(CcArgs a) {
+  extern __shared__ int sm[];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int T = FTILE, TT = T * T;
+  const int H = a.H, W = a.W, n = H * W, ntile = a.ntx * a.nty;
+  const int items = a.B * ntile;
+  const size_t Bn = (size_t)a.B * n;
+  uint16_t* list = (uint16_t*)(sm + TT);
+  uint8_t* sr = (uint8_t*)(list + 3 * TT);
+  auto region = [&](int li) { return sr[li] == 0xff ? -1 : (int)sr[li]; };
+
+  // A: union-find of the mask inside each tile, one (image, tile) item a
+  // block; tile labels into lab
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    int y0 = t / a.ntx * T, x0 = t % a.ntx * T;
+    size_t base = (size_t)b * n;
+    stage<TT>(
+        [&](int li) {
+          int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+          return y < H && x < W
+                     ? (int)(a.mask[base + (size_t)y * W + x] != 0)
+                     : 0xff;
+        },
+        [&](int li, int v) { sr[li] = v; });
+    __syncthreads();
+    tile_union_find(region, sm, list, a.conn);
+    for (int li = threadIdx.x; li < TT; li += FT) {
+      int y = y0 + (li >> FTS), x = x0 + (li & (T - 1));
+      if (y >= H || x >= W) continue;
+      int p = y * W + x;
+      a.lab[base + p] = sr[li] == 1 ? tile_label(sm, li, p, x0, y0, W) : p;
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // B: links across tile borders
+  const int nborder = a.conn == 8 ? 3 * T - 2 : 2 * T - 1;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    int b = it / ntile, t = it - b * ntile;
+    size_t base = (size_t)b * n;
+    for (int k = threadIdx.x; k < nborder; k += FT) {
+      int lx, ly;
+      border_pixel(k, &lx, &ly);
+      border_links(MaskRegion{a.mask}, a.lab + base, base, t % a.ntx * T,
+                   t / a.ntx * T, lx, ly, H, W, a.conn);
+    }
+  }
+  grid.sync();
+
+  // C: tile roots to their roots
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    size_t base = i / n * n;
+    compress_tile_root(a.lab + base, (int)(i - base));
+  }
+  grid.sync();
+
+  // D: every pixel its root, or n outside the mask, in place. A pixel reads
+  // its own slot, which only it writes, and its tile root's, which after C
+  // holds the root and is written back with that same value.
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < Bn;
+       i += (size_t)gridDim.x * FT) {
+    size_t base = i / n * n;
+    a.lab[i] = a.mask[i] ? root_of(a.lab + base, (int)(i - base)) : n;
+  }
+}
+
+// ------------------------------------------------------------------ stats
+struct StatsArgs {
+  const int* cid;
+  const int* he;
+  const int* cide;  // nullptr: no contained pixels
+  float* stats;
+  int* ccls;
+  unsigned long long* acc;  // (B, NROWS, K)
+  int B, H, W, K, nchunks;
+};
+
+// Adds the NROWS values v of every lane whose key is >= 0 to slot `key` of
+// s (NROWS x K): the lanes that share a key sum their values and the first
+// of them adds the non-zero sums. Every lane of the warp calls it. A sum
+// of 32 lanes stays below 2^32 (see mfc_onehot_stats).
+__device__ __forceinline__ void warp_add(unsigned long long* s, int K, int key,
+                                         const unsigned (&v)[NROWS]) {
+  if (!__any_sync(0xffffffffu, key >= 0)) return;
+  unsigned same = __match_any_sync(0xffffffffu, key);
+  if (key < 0) return;
+  bool first = (threadIdx.x & 31) == __ffs(same) - 1;
+#pragma unroll
+  for (int r = 0; r < NROWS; ++r) {
+    unsigned sum = __reduce_add_sync(same, v[r]);
+    if (first && sum) atomicAdd(s + r * K + key, (unsigned long long)sum);
+  }
+}
+
+// Three phases: the accumulator zeroed; per (image, CHUNK pixels) item the
+// warp-aggregated sums into shared memory, committed to the accumulator
+// when a block's next item lies in another image and at the end; the sums
+// turned into stats and ccls. The blocks grid-stride over the items, which
+// spreads a component's chunks over blocks (runs of consecutive items a
+// block were slower). A thread takes pixels FT apart, so that a warp holds
+// 32 consecutive pixels, and issues the loads of its CHUNK/FT pixels (each
+// with its four neighbours' he) before it sums any.
+__global__ void __launch_bounds__(FT, FBPS) k_onehot_stats(StatsArgs a) {
+  extern __shared__ unsigned long long s[];  // NROWS x K
+  cg::grid_group grid = cg::this_grid();
+  constexpr int TRIPS = CHUNK / FT;
+  const int H = a.H, W = a.W, K = a.K, n = H * W, SK = NROWS * K;
+  const size_t BK = (size_t)a.B * K;
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < BK * NROWS;
+       i += (size_t)gridDim.x * FT)
+    a.acc[i] = 0ull;
+  for (int i = threadIdx.x; i < SK; i += FT) s[i] = 0ull;
+  grid.sync();
+
+  int cur = -1;  // the image whose sums shared memory holds
+  auto commit = [&]() {
+    __syncthreads();
+    unsigned long long* g = a.acc + (size_t)cur * SK;
+    for (int i = threadIdx.x; i < SK; i += FT) {
+      unsigned long long v = s[i];
+      if (v) {
+        atomicAdd(g + i, v);
+        s[i] = 0ull;
+      }
+    }
+    __syncthreads();
+  };
+  for (int it = blockIdx.x; it < a.B * a.nchunks; it += gridDim.x) {
+    int b = it / a.nchunks, ch = it - b * a.nchunks;
+    if (b != cur) {
+      if (cur >= 0) commit();
+      cur = b;
+    }
+    const size_t base = (size_t)b * n;
+    const int* heb = a.he + base;
+    const int left = n - ch * CHUNK;  // pixels of the image from the chunk on
+    int hv[TRIPS], k1[TRIPS], k2[TRIPS], nb[TRIPS][4];
+#pragma unroll
+    for (int j = 0; j < TRIPS; ++j) {  // -1: off the image or not counted
+      int o = threadIdx.x + j * FT;
+      bool on = o < left;
+      int p = on ? ch * CHUNK + o : 0;
+      int y = p / W, x = p - y * W;
+      hv[j] = on ? heb[p] : 0;
+      k1[j] = on ? a.cid[base + p] : -1;
+      k2[j] = on && a.cide != nullptr ? a.cide[base + p] : -1;
+      nb[j][0] = on && y > 0 ? heb[p - W] : -1;
+      nb[j][1] = on && y + 1 < H ? heb[p + W] : -1;
+      nb[j][2] = on && x > 0 ? heb[p - 1] : -1;
+      nb[j][3] = on && x + 1 < W ? heb[p + 1] : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < TRIPS; ++j) {  // the same trips in every lane
+      int o = threadIdx.x + j * FT;
+      int p = o < left ? ch * CHUNK + o : 0;
+      int y = p / W, x = p - y * W;
+      int h = hv[j] >> 3;
+      bool own = k1[j] >= 0 && h > 0, interior = own;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {  // each neighbour in its own component
+        int hq = nb[j][d] >> 3, eq = nb[j][d] & 7;
+        interior = interior && (hq == h || (h <= 4 && hq > 4 && eq == h));
+      }
+      unsigned w2 = interior ? 2u : 1u;
+      unsigned v[NROWS] = {1u, interior ? 0u : 1u, w2, w2 * x, w2 * y,
+                           (unsigned)(h > 4 ? h - 4 : h)};
+      warp_add(s, K, own ? k1[j] : -1, v);
+      if (a.cide != nullptr) {  // contained: interior of its encloser
+        unsigned c[NROWS] = {1u, 0u, 2u, 2u * x, 2u * y,
+                             (unsigned)(hv[j] & 7)};
+        warp_add(s, K, h > 4 ? k2[j] : -1, c);
+      }
+    }
+  }
+  if (cur >= 0) commit();
+  grid.sync();
+
+  for (size_t i = (size_t)blockIdx.x * FT + threadIdx.x; i < BK;
+       i += (size_t)gridDim.x * FT) {
+    size_t b = i / K;
+    int k = (int)(i - b * K);
+    const unsigned long long* g = a.acc + b * SK;
+    float* st = a.stats + b * 8 * K;
+    double cnt = (double)g[k];
+    st[k] = (float)cnt;
+    st[K + k] = (float)(double)g[K + k];
+    for (int r = 2; r < 5; ++r)
+      st[r * K + k] = (float)((double)g[r * K + k] * 0.5);
+    double cls = (double)g[5 * K + k];
+    st[5 * K + k] = (float)cls;
+    st[6 * K + k] = 0.f;
+    st[7 * K + k] = 0.f;
+    a.ccls[i] = cnt > 0 ? (int)rint(cls / cnt) : 0;
+  }
+}
+
+// ------------------------------------------------------------ launch plans
+// Dynamic shared memory of a block: the flood kernels' is the larger of the
 // union kernel's phase F (he with its halo, the parents, the link and
 // run-start lists, 3*FTILE^2 uint16) and the A phases (the parents, the
-// lists and the class or mask tile).
+// lists and the class or mask tile), k_cc_labels' that of an A phase,
+// k_onehot_stats' the NROWS x K sums.
 constexpr int FLOOD_SHARED_F =
     4 * ((FTILE + 2) * (FTILE + 2) + FTILE * FTILE) + 2 * 3 * FTILE * FTILE;
-constexpr int FLOOD_SHARED_A =
+constexpr int CC_SHARED =
     4 * FTILE * FTILE + 2 * 3 * FTILE * FTILE + FTILE * FTILE;
 constexpr int FLOOD_SHARED =
-    FLOOD_SHARED_F > FLOOD_SHARED_A ? FLOOD_SHARED_F : FLOOD_SHARED_A;
+    FLOOD_SHARED_F > CC_SHARED ? FLOOD_SHARED_F : CC_SHARED;
 
-// Launches Kernel with the launch plan of ops/cc.py::cc_plan: tile edge,
-// threads, grid, dynamic shared bytes, work ints per image, pixels per
-// rank chunk. ERR_PLAN unless the plan is this shape's and the card holds
-// all its blocks at once, as the grid barriers need.
-template <auto Kernel>
-int launch_flood(FloodArgs a, const int* plan, cudaStream_t s) {
-  if ((size_t)a.B * a.H * a.W == 0) return 0;
-  if (plan == nullptr) return ERR_PLAN;
-  const long long n = (long long)a.H * a.W;
-  const long long work = NPLANES * n + (n + CHUNK - 1) / CHUNK;
+// Whether plan (the 6 ints of ops/cc.py::cc_plan: tile edge, threads, grid,
+// dynamic shared bytes, work ints per image, chunk pixels) is the one with
+// these tile edge, shared bytes, work ints and chunk.
+bool plan_is(const int* plan, int tile, int shared, long long work,
+             int chunk) {
+  return plan != nullptr && plan[0] == tile && plan[1] == FT &&
+         plan[3] == shared && plan[4] == work && plan[5] == chunk;
+}
+
+// Launches Kernel(a) cooperatively on plan's grid of FT-thread blocks with
+// its dynamic shared bytes: ERR_PLAN unless the card holds all the blocks
+// at once, as the grid barriers need.
+template <auto Kernel, class Args>
+int launch_cooperative(const Args& a, const int* plan, cudaStream_t s) {
   const int grid = plan[2], shared = plan[3];
-  if (plan[0] != FTILE || plan[1] != FT || grid < 1 ||
-      shared != FLOOD_SHARED || work >= (1ll << 31) || plan[4] != work ||
-      plan[5] != CHUNK)
-    return ERR_PLAN;
-  a.nchunks = (int)((n + CHUNK - 1) / CHUNK);
   int limit = 0, dev = 0, sms = 0, per_sm = 0;
   int rc = mfc::allow_shared_memory<Kernel>(&limit);
   if (rc) return rc;
-  if (shared > limit) return ERR_PLAN;
+  if (grid < 1 || shared > limit) return ERR_PLAN;
   CUDA_CHECK(cudaGetDevice(&dev));
   CUDA_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   CUDA_CHECK(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, FT,
                                                            shared));
   if (grid > sms * per_sm) return ERR_PLAN;
-  a.ntx = (a.W + FTILE - 1) / FTILE;
-  a.nty = (a.H + FTILE - 1) / FTILE;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(FT);
@@ -1019,75 +1144,17 @@ int launch_flood(FloodArgs a, const int* plan, cudaStream_t s) {
   return 0;
 }
 
-// ------------------------------------------------------------------ stats
-__device__ __forceinline__ bool own_inside(const int* heb, int h, int y,
-                                           int x, int H, int W) {
-  if (y < 0 || y >= H || x < 0 || x >= W) return false;
-  int v = heb[y * W + x];
-  int hq = v >> 3, eq = v & 7;
-  return hq == h || (h <= 4 && hq > 4 && eq == h);
-}
-
-__global__ void k_stats(const int* cid, const int* he, const int* cide,
-                        unsigned long long* acc, int H, int W, int K) {
-  extern __shared__ unsigned long long s[];  // NROWS x K
-  int n = H * W;
-  size_t base = (size_t)blockIdx.y * n;
-  for (int i = threadIdx.x; i < NROWS * K; i += blockDim.x) s[i] = 0ull;
-  __syncthreads();
-  const int* heb = he + base;
-  int end = min(n, (int)(blockIdx.x + 1) * STATS_PIX);
-  for (int p = blockIdx.x * STATS_PIX + threadIdx.x; p < end;
-       p += blockDim.x) {
-    int hv = heb[p];
-    int h = hv >> 3;
-    int y = p / W, x = p - y * W;
-    int k = cid[base + p];
-    if (k >= 0 && h > 0) {
-      bool interior = own_inside(heb, h, y - 1, x, H, W) &&
-                      own_inside(heb, h, y + 1, x, H, W) &&
-                      own_inside(heb, h, y, x - 1, H, W) &&
-                      own_inside(heb, h, y, x + 1, H, W);
-      unsigned long long w2 = interior ? 2ull : 1ull;
-      atomicAdd(s + 0 * K + k, 1ull);
-      if (!interior) atomicAdd(s + 1 * K + k, 1ull);
-      atomicAdd(s + 2 * K + k, w2);
-      atomicAdd(s + 3 * K + k, w2 * (unsigned long long)x);
-      atomicAdd(s + 4 * K + k, w2 * (unsigned long long)y);
-      atomicAdd(s + 5 * K + k, (unsigned long long)(h > 4 ? h - 4 : h));
-    }
-    if (cide != nullptr && h > 4) {
-      int k2 = cide[base + p];
-      if (k2 >= 0) {  // contained: interior of its encloser
-        atomicAdd(s + 0 * K + k2, 1ull);
-        atomicAdd(s + 2 * K + k2, 2ull);
-        atomicAdd(s + 3 * K + k2, 2ull * (unsigned long long)x);
-        atomicAdd(s + 4 * K + k2, 2ull * (unsigned long long)y);
-        atomicAdd(s + 5 * K + k2, (unsigned long long)(hv & 7));
-      }
-    }
-  }
-  __syncthreads();
-  unsigned long long* a = acc + (size_t)blockIdx.y * NROWS * K;
-  for (int i = threadIdx.x; i < NROWS * K; i += blockDim.x)
-    if (s[i]) atomicAdd(a + i, s[i]);
-}
-
-__global__ void k_stats_final(const unsigned long long* acc, float* stats,
-                              int* ccls, int K) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const unsigned long long* a = acc + (size_t)blockIdx.y * NROWS * K;
-  float* st = stats + (size_t)blockIdx.y * 8 * K;
-  double cnt = (double)a[k];
-  st[0 * K + k] = (float)cnt;
-  st[1 * K + k] = (float)(double)a[1 * K + k];
-  for (int r = 2; r < 5; ++r) st[r * K + k] = (float)((double)a[r * K + k] * 0.5);
-  double cls = (double)a[5 * K + k];
-  st[5 * K + k] = (float)cls;
-  st[6 * K + k] = 0.f;
-  st[7 * K + k] = 0.f;
-  ccls[(size_t)blockIdx.y * K + k] = cnt > 0 ? (int)rint(cls / cnt) : 0;
+template <auto Kernel>
+int launch_flood(FloodArgs a, const int* plan, cudaStream_t s) {
+  if ((size_t)a.B * a.H * a.W == 0) return 0;
+  const long long n = (long long)a.H * a.W;
+  const long long work = NPLANES * n + (n + CHUNK - 1) / CHUNK;
+  if (work >= (1ll << 31) || !plan_is(plan, FTILE, FLOOD_SHARED, work, CHUNK))
+    return ERR_PLAN;
+  a.nchunks = (int)((n + CHUNK - 1) / CHUNK);
+  a.ntx = (a.W + FTILE - 1) / FTILE;
+  a.nty = (a.H + FTILE - 1) / FTILE;
+  return launch_cooperative<Kernel>(a, plan, s);
 }
 
 }  // namespace
@@ -1096,16 +1163,20 @@ __global__ void k_stats_final(const unsigned long long* acc, float* stats,
 extern "C" {
 
 // mask (B,H,W) bool -> lab (B,H,W) int32: component minimum flat index,
-// background H*W
+// background H*W; conn 4 or 8; one launch. plan: the 6 ints of
+// ops/cc.py::cc_plan(..., entry="cc_labels") for this shape (20001 if it
+// is not).
 int mfc_cc_labels(const uint8_t* mask, int* lab, int B, int H, int W,
-                  int conn, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int n = H * W;
-  int rc = cc_core(MaskRegion{mask}, lab, B, H, W, conn, s);
-  if (rc) return rc;
-  k_label_bg<<<pix_grid(n, B), TPB, 0, s>>>(mask, lab, n);
-  LAUNCH_CHECK();
-  return 0;
+                  int conn, const int* plan, void* stream) {
+  if ((size_t)B * H * W == 0) return 0;
+  if (conn != 4 && conn != 8) return (int)cudaErrorInvalidValue;
+  CcArgs a = {mask, lab, B, H, W, conn, (W + FTILE - 1) / FTILE,
+              (H + FTILE - 1) / FTILE};
+  if ((long long)H * W >= (1ll << 31) ||
+      (long long)B * a.ntx * a.nty >= (1ll << 31) ||
+      !plan_is(plan, FTILE, CC_SHARED, 0, 0))
+    return ERR_PLAN;
+  return launch_cooperative<k_cc_labels>(a, plan, (cudaStream_t)stream);
 }
 
 // mask (B,H,W) bool -> cid (-1 outside the filled mask, ids clamped to
@@ -1150,22 +1221,25 @@ int mfc_union_flood_cc_cid(const int8_t* ucls, int* cid, int* he, int* cide,
 }
 
 // cid, he (B,H,W) int32, cide (B,H,W) int32 or NULL -> stats (B,8,K) f32,
-// ccls (B,K) int32; acc is (B,6,K) uint64 scratch
+// ccls (B,K) int32; acc: B * plan[4] ints of scratch, the (B,6,K) uint64
+// sums; one launch. plan: the 6 ints of ops/cc.py::cc_plan(...,
+// entry="onehot_stats", K=K) (20001 if it is not, or K is not in
+// 1..MAX_K). 32-bit intermediates: p < H*W < 2^31; a warp's sum of a
+// plane is at most 32 lanes x 2*(max(H,W)-1) < 64*max(H,W) < 2^32, which
+// the plan requires (at W, H <= 16,384: 2^20).
 int mfc_onehot_stats(const int* cid, const int* he, const int* cide,
                      float* stats, int* ccls, unsigned long long* acc, int B,
-                     int H, int W, int K, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int n = H * W;
-  CUDA_CHECK(cudaMemsetAsync(
-      acc, 0, sizeof(unsigned long long) * (size_t)B * NROWS * K, s));
-  size_t smem = sizeof(unsigned long long) * NROWS * K;
-  k_stats<<<dim3((n + STATS_PIX - 1) / STATS_PIX, B), TPB, smem, s>>>(
-      cid, he, cide, acc, H, W, K);
-  LAUNCH_CHECK();
-  k_stats_final<<<dim3((K + TPB - 1) / TPB, B), TPB, 0, s>>>(acc, stats, ccls,
-                                                           K);
-  LAUNCH_CHECK();
-  return 0;
+                     int H, int W, int K, const int* plan, void* stream) {
+  if (B == 0) return 0;
+  const long long n = (long long)H * W;
+  StatsArgs a = {cid, he, cide, stats, ccls, acc, B, H, W, K,
+                 (int)((n + CHUNK - 1) / CHUNK)};
+  if (K < 1 || K > MAX_K || n >= (1ll << 31) ||
+      64ll * (H > W ? H : W) >= (1ll << 32) ||
+      (long long)B * a.nchunks >= (1ll << 31) ||
+      !plan_is(plan, 0, 8 * NROWS * K, 2 * NROWS * K, CHUNK))
+    return ERR_PLAN;
+  return launch_cooperative<k_onehot_stats>(a, plan, (cudaStream_t)stream);
 }
 
 }  // extern "C"

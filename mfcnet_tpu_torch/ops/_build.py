@@ -35,7 +35,8 @@ _I = ctypes.c_int
 # C entry points by source file: (argtypes, restype)
 _SIGNATURES = {
     "cc.cu": {
-        "mfc_cc_labels": ((_P, _P, _I, _I, _I, _I, _P), _I),
+        # mask, lab, B, H, W, conn, plan[6], stream
+        "mfc_cc_labels": ((_P, _P, _I, _I, _I, _I, _P, _P), _I),
         # mask, cid, filled, ncomp, work, B, H, W, K, plan[6], stream
         "mfc_flood_cc_cid": (
             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I,
@@ -45,8 +46,9 @@ _SIGNATURES = {
         "mfc_union_flood_cc_cid": (
             (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I,
         ),
+        # cid, he, cide, stats, ccls, acc, B, H, W, K, plan[6], stream
         "mfc_onehot_stats": (
-            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
     "warp.cu": {

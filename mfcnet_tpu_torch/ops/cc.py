@@ -17,11 +17,11 @@ onehot_stats             ``_onehot_stats_kernel``            onehot_stats_plain
 
 A wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor; there is no fallback between the two. Each kernel
-launch adds one to :data:`LAUNCHES`. ``flood_cc_cid`` and
-``union_flood_cc_cid`` are one cooperative launch each, configured by
-:func:`cc_plan`, which the C side checks. :func:`base_stats` and
-:func:`union_stats` compose them exactly as ``base_stats_pallas`` and
-``union_stats_pallas`` do.
+launch adds one to :data:`LAUNCHES`. Every kernel is one cooperative
+launch (one device operation a call), configured by :func:`cc_plan`,
+which the C side checks. :func:`base_stats` and :func:`union_stats`
+compose them exactly as ``base_stats_pallas`` and ``union_stats_pallas``
+do.
 
 The plain versions transcribe the Pallas bodies' array math (static
 shifts, segmented scans, fixpoint loops), which is what defines the
@@ -54,15 +54,24 @@ LAUNCHES = {
 
 #: largest slot count the stats kernel's shared-memory sums hold (48 KB)
 MAX_K = 1024
-#: the flood kernels' tile edge, threads per block, pixels per rank chunk,
-#: int32 planes of workspace and blocks an SM holds at once (``csrc/cc.cu``:
-#: FTILE, FT, CHUNK, NPLANES, FBPS; the C side refuses a plan that differs)
+#: summed planes of the stats kernel (``csrc/cc.cu``: NROWS)
+STATS_ROWS = 6
+#: the kernels' tile edge, threads per block, pixels per rank chunk (and
+#: per item of the stats kernel), int32 planes of the flood kernels'
+#: workspace and blocks an SM holds at once (``csrc/cc.cu``: FTILE, FT,
+#: CHUNK, NPLANES, FBPS; the C side refuses a plan that differs)
 FLOOD_TILE, FLOOD_THREADS, FLOOD_CHUNK, FLOOD_PLANES = 64, 512, 2048, 7
 FLOOD_BLOCKS_PER_SM = 2
 #: shared memory a block of an H100 may use (the opt-in limit)
 MAX_SHARED_BYTES = 232448
 #: the order in which the C entry points take a plan's ints
 PLAN_KEYS = ("tile", "threads", "grid", "shared_bytes", "work_ints", "chunk")
+#: what a C entry point returns for a plan that is not its shape's, or whose
+#: blocks the card cannot hold at once (``csrc/cc.cu``: ERR_PLAN)
+PLAN_REFUSED = 20001
+#: the C entry points a plan is for: the two flood kernels, the labels and
+#: the sums
+PLAN_ENTRIES = ("flood", "cc_labels", "onehot_stats")
 
 
 def reset_launches():
@@ -344,35 +353,70 @@ def onehot_stats_plain(cid, he, cide=None, K: int = 256):
 
 
 # ---------------------------------------------------------------------------
-# the flood kernels' launch plan
+# the kernels' launch plans
 # ---------------------------------------------------------------------------
 def cc_plan(B: int, H: int, W: int, sm_count: int,
-            blocks_per_sm: int = FLOOD_BLOCKS_PER_SM):
-    """Launch plan of ``mfc_flood_cc_cid`` and ``mfc_union_flood_cc_cid``
-    for B images of H x W on a card of ``sm_count`` SMs: FLOOD_TILE-edge
-    tiles and FLOOD_CHUNK-pixel rank chunks per image, as many
-    FLOOD_THREADS-thread blocks as the card holds at once (``sm_count *
-    blocks_per_sm``; the pixel phases use every one, the tile phases leave
-    the rest idle), the dynamic shared memory of the largest tile phase
-    (the union kernel's halo tile of ``he``, a parent plane and the link and
-    run-start lists, or a parent plane, the lists and a class tile: the
-    same for every shape) and the int32 workspace per image (the planes and
-    the chunk counts). The C side refuses a plan that is not this one or
-    whose blocks the card cannot hold at once. Raises ``ValueError`` for an
-    image whose workspace the kernels' 32-bit indices cannot address."""
+            blocks_per_sm: int = FLOOD_BLOCKS_PER_SM, entry: str = "flood",
+            K: int = 256):
+    """Launch plan of a ``cc.cu`` entry point for B images of H x W on a
+    card of ``sm_count`` SMs. Every entry point is one cooperative launch
+    of as many FLOOD_THREADS-thread blocks as the card holds at once
+    (``sm_count * blocks_per_sm``), which grid-stride over work items; no
+    block's shared memory depends on B, H or W. The C side refuses a plan
+    that is not this one or whose blocks the card cannot hold at once.
+    ``entry``:
+
+    * ``"flood"``: ``mfc_flood_cc_cid`` and ``mfc_union_flood_cc_cid``.
+      FLOOD_TILE-edge tiles and FLOOD_CHUNK-pixel rank chunks per image;
+      the dynamic shared memory of the largest tile phase (the union
+      kernel's halo tile of ``he``, a parent plane and the link and
+      run-start lists, or a parent plane, the lists and a class tile); the
+      int32 workspace per image (the planes and the chunk counts).
+    * ``"cc_labels"``: ``mfc_cc_labels``. The same tiles and the shared
+      memory of a mask tile's phase; no workspace (the labels are the
+      working plane) and no chunks.
+    * ``"onehot_stats"``: ``mfc_onehot_stats`` with K slots. No tiles;
+      FLOOD_CHUNK-pixel items; the STATS_ROWS x K uint64 sums in shared
+      memory; the (STATS_ROWS, K) uint64 accumulator per image, counted
+      in int32s.
+
+    Raises ``ValueError`` for images that the kernels' 32-bit indices
+    cannot address, and for K outside 1..MAX_K."""
+    if entry not in PLAN_ENTRIES:
+        raise ValueError(f"cc_plan: entry must be one of {PLAN_ENTRIES}, "
+                         f"got {entry!r}")
     n = H * W
-    if FLOOD_PLANES * n + -(-n // FLOOD_CHUNK) >= 2 ** 31:
-        raise ValueError(f"flood kernels: a {H}x{W} image's workspace is "
-                         "beyond 32-bit indices")
     tile = FLOOD_TILE
+    tiles = -(-H // tile) * -(-W // tile)
     chunks = -(-n // FLOOD_CHUNK)
     tt, ht = tile * tile, (tile + 2) ** 2
-    return {"tile": tile, "threads": FLOOD_THREADS,
-            "grid": sm_count * blocks_per_sm,
-            "shared_bytes": max(4 * (ht + tt) + 2 * 3 * tt,
-                                4 * tt + 2 * 3 * tt + tt),
-            "work_ints": FLOOD_PLANES * n + chunks, "chunk": FLOOD_CHUNK,
-            "tiles": -(-H // tile) * -(-W // tile), "chunks": chunks}
+    mask_tile_bytes = 4 * tt + 2 * 3 * tt + tt
+    beyond = n >= 2 ** 31
+    if entry == "flood":
+        beyond |= FLOOD_PLANES * n + chunks >= 2 ** 31
+        plan = {"tile": tile,
+                "shared_bytes": max(4 * (ht + tt) + 2 * 3 * tt,
+                                    mask_tile_bytes),
+                "work_ints": FLOOD_PLANES * n + chunks, "chunk": FLOOD_CHUNK,
+                "tiles": tiles, "chunks": chunks}
+    elif entry == "cc_labels":
+        beyond |= B * tiles >= 2 ** 31
+        plan = {"tile": tile, "shared_bytes": mask_tile_bytes,
+                "work_ints": 0, "chunk": 0, "tiles": tiles, "chunks": 0}
+    else:
+        if not 0 < K <= MAX_K:
+            raise ValueError(f"onehot_stats: K must be in 1..{MAX_K}, "
+                             f"got {K}")
+        # a warp's sum of a plane (32 lanes of up to 2 * coordinate) must
+        # stay below 2^32
+        beyond |= 64 * max(H, W) >= 2 ** 32 or B * chunks >= 2 ** 31
+        plan = {"tile": 0, "shared_bytes": 8 * STATS_ROWS * K,
+                "work_ints": 2 * STATS_ROWS * K, "chunk": FLOOD_CHUNK,
+                "tiles": 0, "chunks": chunks}
+    if beyond:
+        raise ValueError(f"{entry}: {B} images of {H}x{W} are beyond the "
+                         "kernels' 32-bit indices")
+    return dict(plan, threads=FLOOD_THREADS, grid=sm_count * blocks_per_sm)
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +437,20 @@ def _launch(name, rc):
     LAUNCHES[name] += 1
 
 
+def _plan_ints(B, H, W, device, entry="flood", K=256):
+    """(plan, its ints for the C side) of one call."""
+    plan = cc_plan(B, H, W, _sm_count(device), entry=entry, K=K)
+    return plan, (ctypes.c_int * len(PLAN_KEYS))(*(plan[k] for k in PLAN_KEYS))
+
+
+def _launch_planned(name, rc, plan):
+    if rc == PLAN_REFUSED:
+        raise RuntimeError(f"CUDA kernel {name} refused the plan {plan}: "
+                           "not this shape's, or more blocks than the card "
+                           "holds at once")
+    _launch(name, rc)
+
+
 def connected_components(mask, connectivity: int = 8):
     """(B, H, W) bool -> int32 labels (see
     :func:`connected_components_plain`)."""
@@ -403,27 +461,19 @@ def connected_components(mask, connectivity: int = 8):
         return connected_components_plain(mask, connectivity)
     B, H, W = mask.shape
     lab = torch.empty(B, H, W, dtype=torch.int32, device=mask.device)
+    plan, ints = _plan_ints(B, H, W, mask.device, "cc_labels")
     rc = _lib().mfc_cc_labels(mask.data_ptr(), lab.data_ptr(), B, H, W,
-                              connectivity, _stream(mask))
-    _launch("connected_components", rc)
+                              connectivity, ints, _stream(mask))
+    _launch_planned("connected_components", rc, plan)
     return lab
 
 
 def _flood_plan(B, H, W, device):
     """(plan, its ints for the C side, the workspace) of one flood call."""
-    plan = cc_plan(B, H, W, _sm_count(device))
-    ints = (ctypes.c_int * len(PLAN_KEYS))(*(plan[k] for k in PLAN_KEYS))
+    plan, ints = _plan_ints(B, H, W, device)
     work = torch.empty(B * plan["work_ints"], dtype=torch.int32,
                        device=device)
     return plan, ints, work
-
-
-def _launch_flood(name, rc, plan):
-    if rc == 20001:
-        raise RuntimeError(f"CUDA kernel {name} refused the plan {plan}: "
-                           "not this shape's, or more blocks than the card "
-                           "holds at once")
-    _launch(name, rc)
 
 
 def flood_cc_cid(mask, K: int = 256):
@@ -443,7 +493,7 @@ def flood_cc_cid(mask, K: int = 256):
         mask.data_ptr(), cid.data_ptr(), filled.data_ptr(),
         ncomp.data_ptr(), work.data_ptr(), B, H, W, K, ints, _stream(mask),
     )
-    _launch_flood("flood_cc_cid", rc, plan)
+    _launch_planned("flood_cc_cid", rc, plan)
     return cid, filled, ncomp
 
 
@@ -467,7 +517,7 @@ def union_flood_cc_cid(ucls, K: int = 256):
         ncomp.data_ptr(), conflict.data_ptr(), work.data_ptr(),
         B, H, W, K, ints, _stream(ucls),
     )
-    _launch_flood("union_flood_cc_cid", rc, plan)
+    _launch_planned("union_flood_cc_cid", rc, plan)
     return cid, he, cide, ncomp, conflict != 0
 
 
@@ -488,14 +538,15 @@ def onehot_stats(cid, he, cide=None, K: int = 256):
     dev = cid.device
     stats = torch.empty(B, 8, K, dtype=torch.float32, device=dev)
     ccls = torch.empty(B, K, dtype=torch.int32, device=dev)
-    acc = torch.empty(B, 6, K, dtype=torch.int64, device=dev)
+    plan, ints = _plan_ints(B, H, W, dev, "onehot_stats", K)
+    acc = torch.empty(B * plan["work_ints"], dtype=torch.int32, device=dev)
     rc = _lib().mfc_onehot_stats(
         cid.data_ptr(), he.data_ptr(),
         None if cide is None else cide.data_ptr(),
         stats.data_ptr(), ccls.data_ptr(), acc.data_ptr(),
-        B, H, W, K, _stream(cid),
+        B, H, W, K, ints, _stream(cid),
     )
-    _launch("onehot_stats", rc)
+    _launch_planned("onehot_stats", rc, plan)
     return stats, ccls
 
 

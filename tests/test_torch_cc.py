@@ -178,14 +178,21 @@ def test_cuda_kernels_match_plain_versions(ucls):
                            cc.connected_components_plain(masks, conn))
     torch.cuda.synchronize()
     assert all(v > 0 for v in cc.LAUNCHES.values())
-    # the two flood kernels (one cooperative launch each) on ragged sizes,
+    # every cc.cu kernel (one cooperative launch each) on ragged sizes,
     # B = 1, 4, 8 and 60,000, uniform frames, a serpentine and a
-    # checkerboard; in CUDA-graph replays; no launch with another plan
-    from chip_smoke import (_replay_equals, check_flood_kernels,
-                            check_flood_plan_refusals, flood_check_maps)
+    # checkerboard (cc_labels 4- and 8-connected, onehot_stats on both
+    # tiers' inputs); in CUDA-graph replays; no launch with another plan
+    from chip_smoke import (_replay_equals, check_cc_kernels,
+                            check_plan_refusals, flood_check_maps)
 
     for name, m in flood_check_maps():
-        check_flood_kernels(torch.from_numpy(m).cuda(), name)
-    assert _replay_equals(lambda: cc.union_flood_cc_cid(u, K))
-    assert _replay_equals(lambda: cc.flood_cc_cid(masks, K))
-    check_flood_plan_refusals(torch.device("cuda"))
+        check_cc_kernels(torch.from_numpy(m).cuda(), name)
+    cid, filled = cc.flood_cc_cid(masks, K)[:2]
+    for fn in (lambda: cc.union_flood_cc_cid(u, K),
+               lambda: cc.flood_cc_cid(masks, K),
+               lambda: (cc.connected_components((~masks).contiguous(), 4),),
+               lambda: (cc.connected_components(filled.bool(), 8),),
+               lambda: cc.onehot_stats(*got[:3], K),
+               lambda: cc.onehot_stats(cid, filled * 8, None, K)):
+        assert _replay_equals(fn)
+    check_plan_refusals(torch.device("cuda"))

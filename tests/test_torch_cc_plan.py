@@ -1,6 +1,7 @@
-"""The launch plan of the two flood kernels (``ops/cc.py::cc_plan``) and a
-numpy model of their schedule (``csrc/cc.cu``: ``k_flood_cc_cid``,
-``k_union_flood_cc_cid``), on the CPU, without JAX.
+"""The launch plans of the ``cc.cu`` kernels (``ops/cc.py::cc_plan``) and
+numpy models of their schedules (``csrc/cc.cu``: ``k_flood_cc_cid``,
+``k_union_flood_cc_cid``, ``k_cc_labels``, ``k_onehot_stats``), on the
+CPU, without JAX.
 
 The model runs the kernels' phases one after another as the grid barriers
 order them, with the kernels' data: union-find inside tiles (the four flood
@@ -10,8 +11,12 @@ borders with the kernels' skip rule, applied in random orders, compression
 of the tile roots, the image border's pixels marking their roots reached,
 he / conflict / straddle, the
 class-aware and relaxed planes, ranks per chunk and the chunk prefix, the
-per-root maxima of the outer pixels' roots and cide. It must give the plain versions' outputs exactly,
-whatever order the links take."""
+per-root maxima of the outer pixels' roots and cide. The labels kernel
+runs the same tile core and then writes every pixel's root in place over
+the tile labels. The sums kernel's model takes the pixels in 32-lane warps
+within the blocks' chunks, sums each warp's lanes by key and commits the
+blocks' sums in random orders. Each model must give the plain versions'
+outputs exactly, whatever order the links and the commits take."""
 
 import re
 from pathlib import Path
@@ -41,6 +46,15 @@ def test_plan_constants_are_the_c_sides():
     assert cc.FLOOD_CHUNK == 4 * cc.FLOOD_THREADS
     assert cc.FLOOD_TILE == 1 << int(re.search(
         r"constexpr int FTS = (\d+);", src).group(1))
+    for name, value in (("MAX_K", cc.MAX_K), ("NROWS", cc.STATS_ROWS),
+                        ("ERR_PLAN", cc.PLAN_REFUSED)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src).group(
+            1) == str(value), name
+    # the shared bytes and work ints each entry point's plan must carry
+    assert "constexpr int CC_SHARED =\n    4 * FTILE * FTILE + 2 * 3 * FTILE " \
+           "* FTILE + FTILE * FTILE;" in src
+    assert "plan_is(plan, FTILE, CC_SHARED, 0, 0)" in src
+    assert "plan_is(plan, 0, 8 * NROWS * K, 2 * NROWS * K, CHUNK)" in src
 
 
 @pytest.mark.parametrize("B,H,W", [(1, 480, 640), (4, 480, 640),
@@ -88,6 +102,63 @@ def test_plan_shared_memory_does_not_grow_with_the_batch(B, H, W):
 def test_plan_refuses_images_beyond_32_bit_indices():
     with pytest.raises(ValueError, match="32-bit"):
         cc.cc_plan(1, 20000, 20000, 132)
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 480, 640), (4, 481, 643),
+                                   (60000, 13, 21), (1, 1, 1)])
+@pytest.mark.parametrize("sm,bps", [(132, 2), (8, 3)])
+def test_plan_of_the_labels_and_sums_kernels(B, H, W, sm, bps):
+    """One cooperative launch each: grid = SMs x blocks per SM; the labels
+    kernel has the flood kernels' tiles, a mask tile's shared memory and
+    no workspace; the sums kernel FLOOD_CHUNK-pixel items, 6 x K uint64 of
+    shared memory and a (6, K) uint64 accumulator per image."""
+    T, tt = cc.FLOOD_TILE, cc.FLOOD_TILE ** 2
+    lab = cc.cc_plan(B, H, W, sm, bps, entry="cc_labels")
+    assert set(cc.PLAN_KEYS) <= set(lab)
+    assert (lab["grid"], lab["threads"]) == (sm * bps, cc.FLOOD_THREADS)
+    assert (lab["tile"], lab["work_ints"], lab["chunk"]) == (T, 0, 0)
+    assert lab["shared_bytes"] == 4 * tt + 2 * 3 * tt + tt
+    assert lab["tiles"] == -(-H // T) * -(-W // T)
+    for K_ in (1, 64, 256, cc.MAX_K):
+        st = cc.cc_plan(B, H, W, sm, bps, entry="onehot_stats", K=K_)
+        assert set(cc.PLAN_KEYS) <= set(st)
+        assert (st["grid"], st["threads"]) == (sm * bps, cc.FLOOD_THREADS)
+        assert (st["tile"], st["chunk"]) == (0, cc.FLOOD_CHUNK)
+        assert st["shared_bytes"] == 8 * cc.STATS_ROWS * K_
+        assert st["work_ints"] == 2 * cc.STATS_ROWS * K_
+        assert st["chunks"] == -(-H * W // cc.FLOOD_CHUNK)
+
+
+@pytest.mark.parametrize("entry", ["cc_labels", "onehot_stats"])
+def test_labels_and_sums_shared_memory_is_the_same_for_every_shape(entry):
+    """No block's shared memory grows with B, H or W; two blocks fit an SM
+    (228 KB, 1 KB of it reserved a block), the sums kernel's at K =
+    MAX_K too (48 KB of sums)."""
+    K_ = cc.MAX_K
+    plans = [cc.cc_plan(B, H, W, 132, entry=entry, K=K_)
+             for B, H, W in ((1, 1, 1), (64, 1024, 2048), (16, 2160, 3840),
+                             (60000, 13, 21), (1, 16384, 16384))]
+    assert len({p["shared_bytes"] for p in plans}) == 1
+    assert cc.FLOOD_BLOCKS_PER_SM * (plans[0]["shared_bytes"] + 1024 + 256) \
+        <= 228 * 1024
+    assert plans[0]["shared_bytes"] <= cc.MAX_SHARED_BYTES
+
+
+def test_labels_and_sums_plans_refuse_what_32_bits_cannot_index():
+    for entry in ("cc_labels", "onehot_stats"):
+        with pytest.raises(ValueError, match="32-bit"):
+            cc.cc_plan(1, 1 << 16, 1 << 15, 132, entry=entry)  # 2^31 pixels
+    # a warp's sum of 32 lanes' 2 * x must stay below 2^32
+    cc.cc_plan(1, 1, (1 << 26) - 1, 132, entry="onehot_stats")
+    with pytest.raises(ValueError, match="32-bit"):
+        cc.cc_plan(1, 1, 1 << 26, 132, entry="onehot_stats")
+    with pytest.raises(ValueError, match="32-bit"):
+        cc.cc_plan(1 << 20, 64, 64 * 2048, 132, entry="cc_labels")
+    for K_ in (0, cc.MAX_K + 1):
+        with pytest.raises(ValueError, match="K must be"):
+            cc.cc_plan(1, 480, 640, 132, entry="onehot_stats", K=K_)
+    with pytest.raises(ValueError, match="entry"):
+        cc.cc_plan(1, 480, 640, 132, entry="stats")
 
 
 # ------------------------------------------------------- schedule model
@@ -307,13 +378,107 @@ def model_union_flood_cc_cid(ucls, K_, T, rng):
 
 
 def model_connected_components(mask, conn, T, rng):
+    """``k_cc_labels``: phases A-C on the labels themselves (tile
+    union-find, cross-tile links, tile roots compressed), then D: every
+    pixel, in a random order, writes its root (or H*W outside the mask)
+    over its own slot. No pixel may read a value that D changes."""
     out = []
     for m in mask:
         H, W = m.shape
+        n = H * W
         L, _ = _labels(m.astype(np.int32), H, W, T, conn, rng)
-        out.append(np.array([_root(L, p) if m.flat[p] else H * W
-                             for p in range(H * W)]).reshape(H, W))
+        after_c = L.copy()
+        for p in rng.permutation(n):
+            if not m.flat[p]:
+                L[p] = n
+                continue
+            t = _tile_root(L, p)  # p's own slot: only p writes it
+            assert L[t] == after_c[t] and after_c[after_c[t]] == after_c[t]
+            L[p] = L[t]
+        out.append(L.reshape(H, W))
     return np.stack(out)
+
+
+def _interior(he):
+    """Per pixel of (B, H, W) he: all four neighbours in its own
+    hole-filled component (the kernel's ``own_inside``)."""
+    h, e = he >> 3, he & 7
+    hp = np.pad(h, ((0, 0), (1, 1), (1, 1)), constant_values=-1)
+    ep = np.pad(e, ((0, 0), (1, 1), (1, 1)), constant_values=-1)
+    H, W = h.shape[1:]
+    inside = np.ones(h.shape, bool)
+    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        hq = hp[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+        eq = ep[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+        inside &= (hq == h) | ((h <= 4) & (hq > 4) & (eq == h))
+    return inside
+
+
+def model_onehot_stats(cid, he, cide, K_, grid, rng):
+    """``k_onehot_stats`` with ``grid`` blocks: the zeroed accumulator;
+    per block its grid-stride share of the (image, chunk) items, each
+    chunk in FLOOD_THREADS-pixel trips of 32-lane warps
+    (in a random order within a trip); the lanes of a warp that share a
+    key sum their six values in 32 bits and one adds the sums to the
+    block's; the block commits its sums when its next item lies in
+    another image, and at the end; the commits land in a random order;
+    then stats and ccls."""
+    B, H, W = cid.shape
+    n, C, FT = H * W, cc.FLOOD_CHUNK, cc.FLOOD_THREADS
+    h, e = he >> 3, he & 7
+    inside = _interior(he)
+    own = (cid >= 0) & (h > 0)
+    interior = own & inside
+    y, x = np.indices((H, W))
+    w2 = np.where(interior, 2, 1)
+    keys = [np.where(own, cid, -1).reshape(B, n)]
+    vals = [np.stack([np.ones_like(w2), (~interior).astype(np.int64), w2,
+                      w2 * x, w2 * y, np.where(h > 4, h - 4, h)],
+                     -1).reshape(B, n, 6)]
+    if cide is not None:
+        keys.append(np.where(h > 4, cide, -1).reshape(B, n))
+        one = np.ones_like(w2)
+        vals.append(np.stack([one, 0 * one, 2 * one, 2 * x + 0 * one,
+                              2 * y + 0 * one, e], -1).reshape(B, n, 6))
+    nchunks = -(-n // C)
+    items = B * nchunks
+    commits, covered = [], np.zeros(items, int)
+    for blk in range(grid):
+        cur, s = -1, np.zeros((6, K_), np.uint64)
+        for it in range(blk, items, grid):
+            covered[it] += 1
+            b, ch = divmod(it, nchunks)
+            if b != cur:
+                if cur >= 0:
+                    commits.append((cur, s))
+                    s = np.zeros((6, K_), np.uint64)
+                cur = b
+            for o in range(0, C, FT):
+                for w in rng.permutation(FT // 32):
+                    p = ch * C + o + 32 * w + np.arange(32)
+                    p = p[p < n]
+                    for key, val in zip(keys, vals):
+                        k = key[b, p]
+                        groups = np.unique(k[k >= 0])
+                        for g in rng.permutation(groups):
+                            sums = val[b, p[k == g]].sum(0)
+                            assert sums.max() < 2 ** 32  # 32-bit sums
+                            s[:, g] += sums.astype(np.uint64)
+        if cur >= 0:
+            commits.append((cur, s))
+    assert (covered == 1).all()  # every item taken once
+    acc = np.zeros((B, 6, K_), np.uint64)
+    for i in rng.permutation(len(commits)):
+        b, s = commits[i]
+        acc[b] += s
+    a = acc.astype(np.float64)
+    stats = np.zeros((B, 8, K_), np.float32)
+    stats[:, 0:2] = a[:, 0:2]
+    stats[:, 2:5] = a[:, 2:5] * 0.5
+    stats[:, 5] = a[:, 5]
+    cnt = a[:, 0]
+    ccls = np.where(cnt > 0, np.rint(a[:, 5] / np.maximum(cnt, 1)), 0)
+    return stats, ccls.astype(np.int32)
 
 
 def _random_maps(seed, H, W, B=2):
@@ -375,3 +540,26 @@ def test_schedule_model_gives_the_plain_outputs(name, ucls, tiles):
                 np.testing.assert_array_equal(
                     model_connected_components(m, conn, T, rng),
                     want_cc[conn], err_msg=f"labels conn={conn} T={T}")
+
+
+@pytest.mark.parametrize("name,ucls,tiles", list(_cases()),
+                         ids=[c[0] for c in _cases()])
+def test_sums_model_gives_the_plain_sums(name, ucls, tiles):
+    """The warp-aggregated sums on the union tier's outputs (with cide) and
+    on the per-blob tier's (cid, filled * 8), with few blocks (each walks
+    several images) and with more blocks than items."""
+    u = torch.from_numpy(ucls)
+    cid, he, cide = cc.union_flood_cc_cid_plain(u, K)[:3]
+    masks = torch.stack([u == c for c in (1, 2, 3, 4)], 1).reshape(
+        -1, *ucls.shape[1:])
+    fcid, filled = cc.flood_cc_cid_plain(masks, K)[:2]
+    for args in ((cid, he, cide), (fcid, filled * 8, None)):
+        want = [t.numpy() for t in cc.onehot_stats_plain(*args, K)]
+        arrays = [None if t is None else t.numpy() for t in args]
+        for grid in (3, 7, 264):
+            rng = np.random.default_rng(grid)
+            got = model_onehot_stats(*arrays, K, grid, rng)
+            for g, w, what in zip(got, want, ("stats", "ccls")):
+                np.testing.assert_array_equal(
+                    g, w, err_msg=f"{what}, cide={args[2] is not None}, "
+                    f"grid={grid}")

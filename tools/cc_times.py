@@ -1,18 +1,23 @@
-"""Device times of the decode's two flood kernels, ``union_flood_cc_cid``
-and ``flood_cc_cid`` (the four class masks of one frame), for the package
-of this checkout, or of this checkout and another tree in turns on one
-card in one call:
+"""Device times of the decode's four ``cc.cu`` kernels at the decode's own
+inputs, for the package of this checkout, or of this checkout and another
+tree in turns on one card in one call:
 
     python3 tools/cc_times.py [--breakdown] [--tree DIR]
 
-Two inputs, both 480x640: the crafted clean class map of ``chip_smoke.py``
-(the union tier) and the class map of the random-weight tracker model's
-window ending at frame 15 (``chip_smoke.py``'s seed and synthetic frames;
-speckled, the per-blob tier). For each entry point and input: ms per call
+Two class maps, both 480x640: the crafted clean class map of
+``chip_smoke.py`` (the union tier) and the class map of the random-weight
+tracker model's window ending at frame 15 (``chip_smoke.py``'s seed and
+synthetic frames; speckled, the per-blob tier). On each, the calls the
+decode makes (``track/decode_device.py``): ``union_flood_cc_cid`` on the
+union class image; ``flood_cc_cid`` on the four class masks;
+``connected_components`` 4-connected on the masks' background
+(``fill_holes``) and 8-connected on the hole-filled masks (the exact
+tier); ``onehot_stats`` on the union tier's outputs (with ``cide``) and on
+the per-blob tier's (``cid``, ``filled * 8``). For each call: ms per call
 called eagerly (CUDA events around 50 calls) and by CUDA-graph replay
 (``chip_smoke.py::_graph_ms``). ``--breakdown`` also lists the device
 operations of one call with their device times (``torch.profiler``).
-Both outputs are checked against the plain versions first.
+Every output is checked against its plain version first.
 
 Prints the card's name and power limit, then one JSON line of readings.
 With ``--tree DIR`` (another checkout, say the parent commit unpacked under
@@ -97,8 +102,8 @@ def main():
         return
     tree = (args.time_tree or ROOT).resolve()
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (K, _device_events, _event_ms, _graph_ms,
-                            _replay_equals, crafted_class_maps,
+    from chip_smoke import (_device_events, _event_ms, _graph_ms,
+                            _replay_equals, crafted_class_maps, decode_calls,
                             decode_inputs, synthetic_frames)
 
     sys.path.insert(0, str(tree))
@@ -117,27 +122,20 @@ def main():
     out = {"tree": str(tree), "package": cc.__file__}
     calls = {}
     for what, pred in maps.items():
-        u, m4 = decode_inputs(pred)
-        calls[what] = {
-            "union_flood_cc_cid": (lambda u=u: cc.union_flood_cc_cid(u, K),
-                                   lambda u=u: cc.union_flood_cc_cid_plain(
-                                       u, K)),
-            "flood_cc_cid": (lambda m=m4: cc.flood_cc_cid(m, K),
-                             lambda m=m4: cc.flood_cc_cid_plain(m, K)),
-        }
+        calls[what] = decode_calls(*decode_inputs(pred))
     for what, fns in calls.items():
-        for name, (kern, plain) in fns.items():
+        for name, (kern, plain, _) in fns.items():
             if not all(torch.equal(a, b) for a, b in zip(kern(), plain())):
                 raise AssertionError(f"{name} on {what}: kernel != plain")
     if args.breakdown:
         for what, fns in calls.items():
-            for name, (kern, _) in fns.items():
+            for name, (kern, _, _) in fns.items():
                 ops = _device_events(kern)
                 out[f"{name} ops, {what}"] = {
                     "count": len(ops), "device_us": sum(t for _, t in ops),
                     "ops": [[n[:60], round(t, 3)] for n, t in ops]}
     for what, fns in calls.items():
-        for name, (kern, _) in fns.items():
+        for name, (kern, _, _) in fns.items():
             out[f"{name} eager ms, {what}"] = _event_ms(kern, 50)
             out[f"{name} graph ms, {what}"] = _graph_ms(kern)
             out[f"{name} graph equals eager, {what}"] = _replay_equals(kern)
