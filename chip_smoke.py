@@ -20,21 +20,29 @@ phases; a failing phase raises and the script exits non-zero:
    on the random model's maps and in CUDA-graph replays; each one device
    operation a call, the union kernel's wrapper adding one), refusing any
    launch plan but ``ops/cc.py::cc_plan``'s, the flow warp at
-   2x480x640, UnFlow's one-launch backward warp in its four modes, both memory formats and both types, the RAFT
+   2x480x640 (one device operation a call), UnFlow's one-launch backward
+   warp in its four modes, both memory formats and both types, the RAFT
    update step at 4 to 38,400 tokens, the correlation at UnFlow's two
-   shapes and the two experimental convolutions at the first VGG stage's
-   shapes within the tolerances stated beside them;
+   shapes on both routes of ``ops/correlation.py::corr_plan`` (printed,
+   with the worst difference per route; one device operation a call; any
+   other plan refused) and the two experimental convolutions at the first
+   VGG stage's shapes within the tolerances stated beside them;
 3. the slices: seeded random weights, synthetic frames, ``track_on_frames``
    in incremental and full mode, without flow, with RAFT (and once with
    depth) and with UnFlow; every kernel's launch count, set to 0 just
    before a main-path run and read just after, must have risen on the
    paths that run it; f32 parity mode checks
    incremental against full and the path through the kernels against the
-   path through the plain versions;
+   path through the plain versions; the correlation is held to its plain
+   version and to a float64 reference on the UnFlow provider's own conv3
+   features, in the tracker and in the offline CLI (the share of the
+   tolerance each difference uses printed beside it);
 4. timings: tracker frames/s on the three paths, decode ms/frame, each
    provider's share of the frame, each kernel against its plain version,
    its bound and, where one PyTorch call computes the same function, that
-   call; the device operations of one flood-kernel call.
+   call (for the correlation ``torch.bmm`` of its residue sub-grids' Gram
+   matrices, products only); the device operations of one flood-kernel
+   call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -85,10 +93,10 @@ PATH_KERNELS = {
     "raft": CC_KERNELS + ("flow_warp", "raft_update"),
     "unflow": CC_KERNELS + ("flow_warp", "backward_warp", "correlation"),
 }
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core and plain
-# float32 operations/s (the bounds are stated against these peaks whatever
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
+# and plain float32 operations/s (the bounds are stated against these peaks whatever
 # the card's power limit, which is printed beside them)
-PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+PEAK_BYTES, PEAK_BF16, PEAK_TF32, PEAK_F32 = 3.35e12, 989e12, 495e12, 67e12
 FLOW_FRAMES, FLOW_ITERS = 24, 12
 # the UnFlow path: frames whose half is a multiple of 64
 UH, UW, UNFLOW_FRAMES = 512, 640, 18
@@ -520,23 +528,27 @@ def _device_events(fn):
     call of ``fn``. The trace can drop the first device events of a
     profiling session, so the session opens with marker kernels (a bitwise
     not, which ``fn`` does not run) and counts what follows the last of
-    them."""
+    them; a session that recorded no marker at all (seen on the card) is
+    run again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            marker.bitwise_not_()
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+    for _ in range(3):  # a session that recorded not even its markers
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                marker.bitwise_not_()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+        if marks:
+            break
     return [(e.name, e.time_range.elapsed_us())
             for e in events[marks[-1] + 1 if marks else 0:]]
 
@@ -577,6 +589,11 @@ def _check_warp_kernel():
                     raise AssertionError("flow_warp: zero flow on the "
                                          "576x720 grid is not an identity")
                 worst = max(worst, err)
+            ops = _count_device_kernels(
+                lambda: warp.flow_warp(maps, flow, (576, 720)))
+            if len(ops) != 1 or "flow_warp" not in ops[0]:
+                raise AssertionError(f"flow_warp[{dt}, C={ch}]: one device "
+                                     f"operation a call expected, got {ops}")
     # the second entry point (absolute coordinates) through
     # grid_sample_bilinear, both align_corners and padding modes
     img = torch.randn(2, 3, 50, 70, generator=gen).cuda()
@@ -638,7 +655,8 @@ def _check_warp_kernel():
     log(f"flow_warp kernel vs plain: 2x{{{C},{C + 1}}}x{H}x{W}, f32 (atol "
         f"{WARP_ATOL['float32']}) and bf16 (atol {WARP_ATOL['bfloat16']}), "
         f"bounded / beyond the band / out of the image / zero flow on the "
-        f"576x720 grid: max |diff| {worst}; warp_abs 4 modes and the earlier "
+        f"576x720 grid: max |diff| {worst}, one device operation a call; "
+        f"warp_abs 4 modes and the earlier "
         f"backward warp at 2x3x{UH // 2}x{UW // 2} (f32, bf16 within one "
         f"rounding of values up to 4): max |diff| {worst_abs}; backward_warp "
         f"(one launch) at 2x3x{UH // 2}x{UW // 2}, 4 modes x NCHW / "
@@ -732,35 +750,180 @@ def _check_raft_update_kernel():
 def _check_correlation_kernel():
     """The cost volume at the UnFlow path's two shapes (tracker: 2 pairs at
     256x320 -> 32x40 features; offline CLI: 4 pairs at 512x640 -> 64x80) and
-    one odd small case, float32 and bfloat16 inputs."""
+    one odd small case, float32 and bfloat16 inputs; the route
+    ``ops/correlation.py::corr_plan`` chose for each, and the worst
+    |difference| per route."""
     import torch
 
     from mfcnet_tpu_torch.ops import correlation as co
 
     gen = torch.Generator().manual_seed(SEED)
-    atol, rtol = CORR_TOL
-    worst = 0.0
+    worst = {}
     for dt in (torch.float32, torch.bfloat16):
         for shape, md, s in (((2, UH // 16, UW // 16, 256), 20, 2),
                              ((4, UH // 8, UW // 8, 256), 20, 2),
                              ((1, 9, 45, 7), 5, 3)):
             f1 = torch.randn(shape, generator=gen).cuda().to(dt)
             f2 = torch.randn(shape, generator=gen).cuda().to(dt)
-            got = co.correlation_cost_volume(f1, f2, md, s)
-            torch.cuda.synchronize()
-            want = co.correlation_plain(f1, f2, md, s)
-            err = (got - want).abs().max().item()
-            if not (got.shape == want.shape and got.dtype == torch.float32
-                    and torch.allclose(got, want, rtol=rtol, atol=atol)):
-                raise AssertionError(
-                    f"correlation[{dt}, {shape}, md={md}, s={s}]: kernel != "
-                    f"plain (max |diff| {err}; atol {atol} rtol {rtol})")
-            worst = max(worst, err)
+            plan = co.corr_plan(*shape, md, s, str(dt).split(".")[1])
+            r = _hold_correlation(f1, f2, md, s,
+                                  f"{dt}, {shape}, md={md}, s={s}")
+            log(f"correlation {str(dt).split('.')[1]} {'x'.join(map(str, shape))}"
+                f" md={md} s={s}: route {plan.route} "
+                f"{json.dumps(plan._asdict())}, {_corr_readings(r)}")
+            worst[plan.route] = max(worst.get(plan.route, 0.0), r["err"])
+    # the C side computes corr_plan's plan itself and refuses any other
+    import ctypes
+
+    from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
+
+    shape = (2, UH // 16, UW // 16, 256)
+    f = torch.zeros(shape, device="cuda")
+    out = torch.empty(*shape[:3], 441, device="cuda")
+    good = co.corr_plan(*shape, 20, 2, "float32").ints()
+    for i in range(1, len(good)):
+        bad = list(good)
+        bad[i] += 1
+        rc = kernel_lib().mfc_correlation(
+            f.data_ptr(), f.data_ptr(), out.data_ptr(), *shape, 20, 2, 0,
+            (ctypes.c_int * len(bad))(*bad), stream_of(f))
+        if rc != 20003:
+            raise AssertionError(f"correlation: plan {bad} not refused ({rc})")
+    atol, rtol = CORR_TOL
+    log("correlation: the C side refuses every plan that differs from "
+        "corr_plan's in one field (20003)")
     log(f"correlation kernel vs plain: 2x{UH // 16}x{UW // 16}x256 and "
         f"4x{UH // 8}x{UW // 8}x256 (md=20, s=2, 441 channels) and 1x9x45x7 "
-        f"(md=5, s=3), f32 and bf16 inputs: max |diff| {worst:.3g} (atol "
-        f"{atol}, rtol {rtol})")
-    return worst
+        f"(md=5, s=3), f32 and bf16 inputs: max |diff| by route "
+        f"{json.dumps(worst)} (atol {atol}, rtol {rtol})")
+    return max(worst.values())
+
+
+def _residue_grams(f1, f2, s):
+    """Each (image, y mod s, x mod s) sub-grid of f1 and f2 as a (P, C)
+    matrix, stacked (B * s * s, P, C): the correlation's library yardstick
+    multiplies them."""
+    B, H, W, C = f1.shape
+
+    def split(f):
+        g = f.reshape(B, H // s, s, W // s, s, C).permute(0, 2, 4, 1, 3, 5)
+        return g.reshape(B * s * s, (H // s) * (W // s), C).contiguous()
+
+    return split(f1), split(f2)
+
+
+def _abs_coords(flow, H, W):
+    """UnFlow's backward-warp coordinates (linspace grid + flow, unnormalized
+    with align_corners=False, border clamp) as absolute pixel positions
+    (B, H, W) each, and the same grid normalized for ``F.grid_sample``."""
+    import torch
+
+    dev = flow.device
+    xs = torch.linspace(-1, 1, W, device=dev).view(1, 1, W)
+    ys = torch.linspace(-1, 1, H, device=dev).view(1, H, 1)
+    gx = xs + flow[:, 0] / ((W - 1) / 2.0)
+    gy = ys + flow[:, 1] / ((H - 1) / 2.0)
+    fx = (((gx + 1.0) * W - 1.0) * 0.5).clamp(0, W - 1).contiguous()
+    fy = (((gy + 1.0) * H - 1.0) * 0.5).clamp(0, H - 1).contiguous()
+    return fx, fy, torch.stack([gx, gy], -1)
+
+
+def _correlation_f64(f1, f2, md, s):
+    """The correlation in float64 (the plain version's loop, exact mean):
+    the yardstick that tells the kernel's rounding from the plain
+    version's."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, W, C = f1.shape
+    r = md // s
+    a = f1.double()
+    b = F.pad(f2.double(), (0, 0, md, md, md, md))
+    return torch.stack([(a * b[:, md + dy * s:md + dy * s + H,
+                               md + dx * s:md + dx * s + W]).sum(-1) / C
+                        for dy in range(-r, r + 1)
+                        for dx in range(-r, r + 1)], dim=-1)
+
+
+def _hold_correlation(f1, f2, md, s, what):
+    """The kernel against its plain version and against a float64
+    reference, within CORR_TOL of each; one launch and one device
+    operation. Returns the max |difference| from the plain version
+    (``err``), the share of the tolerance it uses, max(|diff| / (atol +
+    rtol |want|)) (``margin``), and the same two against float64 for the
+    kernel (``err_f64``, ``margin_f64``) and for the plain version
+    (``plain_err_f64``, ``plain_margin_f64``)."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import correlation as co
+
+    co.reset_launches()
+    got = co.correlation_cost_volume(f1, f2, md, s)
+    launches = co.LAUNCHES["correlation"]
+    torch.cuda.synchronize()
+    want = co.correlation_plain(f1, f2, md, s)
+    exact = _correlation_f64(f1, f2, md, s)
+    atol, rtol = CORR_TOL
+
+    def diff(x, ref):
+        d = (x.double() - ref.double()).abs()
+        return (d.max().item(),
+                (d / (atol + rtol * ref.double().abs())).max().item())
+
+    err, margin = diff(got, want)
+    err64, margin64 = diff(got, exact)
+    plain64, plain_margin64 = diff(want, exact)
+    if not (got.shape == want.shape and got.dtype == torch.float32
+            and margin <= 1.0 and margin64 <= 1.0):
+        raise AssertionError(
+            f"correlation[{what}]: kernel != plain or float64 (max |diff| "
+            f"{err}, {margin:.3g} of the tolerance; from float64 {err64}, "
+            f"{margin64:.3g}; atol {atol} rtol {rtol})")
+    ops = _count_device_kernels(
+        lambda: co.correlation_cost_volume(f1, f2, md, s))
+    if launches != 1 or len(ops) != 1:
+        raise AssertionError(f"correlation[{what}]: {launches} launches, "
+                             f"device operations {ops}; expected one each")
+    return {"err": err, "margin": margin, "err_f64": err64,
+            "margin_f64": margin64, "plain_err_f64": plain64,
+            "plain_margin_f64": plain_margin64}
+
+
+def _corr_readings(r):
+    """One line's worth of ``_hold_correlation``'s readings."""
+    return (f"max |diff| from plain {r['err']:.3g} = {r['margin']:.3g} of "
+            f"the tolerance; from float64: kernel {r['err_f64']:.3g} = "
+            f"{r['margin_f64']:.3g}, plain {r['plain_err_f64']:.3g} = "
+            f"{r['plain_margin_f64']:.3g}")
+
+
+def _corr_route(f1, kw):
+    from mfcnet_tpu_torch.ops import correlation as co
+
+    return co.corr_plan(*f1.shape, kw["max_displacement"], kw["stride"],
+                        str(f1.dtype).split(".")[1]).route
+
+
+def _provider_correlation_inputs(model, run):
+    """The (f1, f2) that ``model`` (a UnFlow) hands the correlation during
+    ``run()``: its own conv3 features, recorded at the call."""
+    from mfcnet_tpu_torch.models import unflow
+
+    seen = []
+    inner = unflow.correlation_cost_volume
+
+    def recording(f1, f2, **kw):
+        seen.append((f1, f2, kw))
+        return inner(f1, f2, **kw)
+
+    unflow.correlation_cost_volume = recording
+    try:
+        run()
+    finally:
+        unflow.correlation_cost_volume = inner
+    if len(seen) != 1:
+        raise AssertionError(f"UnFlow: {len(seen)} correlations per call")
+    return seen[0]
 
 
 def _first_stage_weights(dt):
@@ -1378,6 +1541,21 @@ def phase_unflow_slice(frames):
             f"per fused frame ({fused} frames) and no raft_update or "
             f"warp_abs, got {launches}")
     _check_unflow_warp_is_one_kernel(engine)
+    # the correlation on the provider's own conv3 features: the random He
+    # model on the first window's two frame pairs (the provider halves the
+    # 512x640 frames), as the bf16 engine passes them (float32)
+    window = np.stack(frames[2::-1])  # newest first
+    with torch.no_grad():
+        f1, f2, kw = _provider_correlation_inputs(
+            engine.flow_model, lambda: out.flow_for_window(
+                engine._normalize(window)[None], engine.flow_model))
+    r = _hold_correlation(f1, f2, kw["max_displacement"], kw["stride"],
+                          "UnFlow provider's conv3 features")
+    log(f"correlation on the UnFlow provider's own conv3 features "
+        f"({tuple(f1.shape)} {f1.dtype}, strides {f1.stride()}, max |f| "
+        f"{max(f1.abs().max().item(), f2.abs().max().item()):.4g}): route "
+        f"{_corr_route(f1, kw)}, {_corr_readings(r)} (atol, rtol "
+        f"{CORR_TOL}); one launch, one device operation")
 
     with tempfile.TemporaryDirectory() as d:
         track_on_frames(frames[:5], model,
@@ -1506,6 +1684,16 @@ def phase_offline(frames, smi):
         _reset_all_launches()
         flows = flow_pairs(model, prevs, currs)
         launches = _all_launches()
+        if name == "UnFlow":  # the correlation on the CLI's own features
+            f1, f2, kw = _provider_correlation_inputs(
+                model, lambda: flow_pairs(model, prevs, currs))
+            r = _hold_correlation(f1, f2, kw["max_displacement"],
+                                  kw["stride"], "offline UnFlow features")
+            log(f"correlation on the offline UnFlow's own conv3 features "
+                f"({tuple(f1.shape)} {f1.dtype}, max |f| "
+                f"{max(f1.abs().max().item(), f2.abs().max().item()):.4g}): "
+                f"route {_corr_route(f1, kw)}, {_corr_readings(r)} (atol, "
+                f"rtol {CORR_TOL})")
         if flows.shape != (4, UH, UW, 2) or not np.isfinite(flows).all():
             raise AssertionError(f"offline {name}: bad flow {flows.shape}")
         single = np.concatenate([flow_pairs(model, prevs[i:i + 1],
@@ -2067,35 +2255,61 @@ def phase_unflow_timings(engine, frames, smi):
                             "correlation@offline")):
         f1 = torch.randn(shape, generator=gen).cuda().to(dt)
         f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+        plan = co.corr_plan(*shape, 20, 2, str(dt).split(".")[1])
         t = _in_turns(key, lambda: co.correlation_cost_volume(f1, f2),
                       lambda: co.correlation_plain(f1, f2), smi,
-                      f"{dt}, {'x'.join(map(str, shape))}, md=20, s=2",
-                      kreps=20, preps=2)
+                      f"{dt}, {'x'.join(map(str, shape))}, md=20, s=2, route "
+                      f"{plan.route}; kernel in CUDA-graph replays",
+                      kreps=20, preps=2, ptimer=_event_ms, timer=_graph_ms)
+        eager = _event_ms(lambda: co.correlation_cost_volume(f1, f2), 20)
         got = co.correlation_cost_volume(f1, f2)
-        # an output whose window row lies outside the image is a stored
-        # zero, not a product: count the products this shape needs
+        # an output whose window pixel lies outside the image (its row or
+        # its column) is a stored zero, not a product: count the products
+        # this shape needs, the in-image (y, dy) and (x, dx) pairs
         B_, H_, W_, C_ = shape
-        rows_in = sum(1 for y in range(H_) for dy in range(-20, 21, 2)
-                      if 0 <= y + dy < H_)
-        ops = 2.0 * B_ * rows_in * W_ * 21 * C_
-        # the peak is that of the inputs' type: bfloat16 products with
-        # float32 sums are what the tensor cores compute exactly, float32
-        # products are FMAs. The kernel itself runs on FMAs for both.
+
+        def pairs_in(n):
+            return sum(1 for i in range(n) for d in range(-20, 21, 2)
+                       if 0 <= i + d < n)
+
+        ops = 2.0 * B_ * pairs_in(H_) * pairs_in(W_) * C_
+        # the peak is that of the inputs' type on the tensor cores: bf16
+        # products with float32 sums are exact at 989 TFLOP/s; float32-exact
+        # products are three TF32 passes (split TF32), 495 / 3 TFLOP/s. The
+        # float32 FMA rate (67 TFLOP/s) is printed beside it.
         peak, unit = ((PEAK_BF16, "989 TFLOP/s bfloat16 tensor cores")
                       if dt == torch.bfloat16 else
-                      (PEAK_F32, "67 TFLOP/s float32 FMA"))
+                      (PEAK_TF32 / 3, "495 / 3 TFLOP/s, float32 products as "
+                       "three TF32 passes"))
         b_ops = ops / peak * 1e3
         b_bytes = _nbytes(f1, f2, got) / PEAK_BYTES * 1e3
         bound = (max(b_ops, b_bytes),
                  "operations" if b_ops >= b_bytes else "bytes")
-        log(f"[{smi}] {key}: bound {bound[0]:.5f} ms ({bound[1]}: "
-            f"{ops / 1e9:.3f} GFLOP at {unit} = {b_ops:.5f} "
-            f"ms, {_nbytes(f1, f2, got)} B at 3.35 TB/s = {b_bytes:.5f} ms); "
-            f"kernel (float32 FMAs) at {ops / t[0] / 1e9:.1f} TFLOP/s = "
-            f"{ops / t[0] * 1e3 / PEAK_F32:.1%} of the FMA peak; no library "
-            f"call computes it")
-        if key == "correlation":
-            times[key], bounds[key] = t, bound
+        # library yardstick: torch.bmm of each residue sub-grid's Gram
+        # matrix, f32, TF32 off, products only (the correlation needs the
+        # window's band of it; the sub-grids are gathered outside the timing)
+        a, b = _residue_grams(f1.float(), f2.float(), 2)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            lib = _graph_ms(lambda: torch.bmm(a, b.transpose(1, 2)), 20)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        gram_ops = 2.0 * a.shape[0] * a.shape[1] * b.shape[1] * a.shape[2]
+        staged = co.staged_rows(plan, B_, H_, W_, 20, 2) * C_ * 4 / 1e6
+        log(f"[{smi}] {key}: bound {bound[0]:.5f} ms (by {bound[1]}; "
+            f"operations {ops / 1e9:.3f} GFLOP at {unit} = {b_ops:.5f} ms, at the "
+            f"67 TFLOP/s float32 FMA rate {ops / PEAK_F32 * 1e3:.5f} ms; "
+            f"bytes {_nbytes(f1, f2, got)} B at 3.35 TB/s = {b_bytes:.5f} "
+            f"ms); kernel {t[0]:.4f} ms in graph replays = "
+            f"{ops / t[0] / 1e9:.1f} TFLOP/s ({eager:.4f} ms eager), "
+            f"{bound[0] / t[0]:.1%} of its bound; its blocks stage "
+            f"{staged:.1f} MB of f1 and f2 rows = "
+            f"{staged / t[0] / 1e3:.2f} TB/s; library yardstick torch.bmm "
+            f"of the {a.shape[0]} residue sub-grids' full {a.shape[1]}x"
+            f"{b.shape[1]} Gram matrices (f32, TF32 off, products only: "
+            f"{gram_ops / 1e9:.3f} GFLOP, no window, no zeros) {lib:.4f} ms")
+        times[key], bounds[key], library[key] = t, bound, lib
 
     # UnFlow's backward warp. The provider passes channels_last float32
     # frames and an NCHW float32 flow (phase 3 printed their strides); NCHW
@@ -2107,18 +2321,38 @@ def phase_unflow_timings(engine, frames, smi):
     frame_cl = frame.contiguous(memory_format=torch.channels_last)
     fl_cl = fl  # the flow as the provider passes it
     what = (f"f32 2x3x{hw[0]}x{hw[1]}; device time in CUDA-graph replays")
-    # kernel 5's second entry point inside the earlier composition
-    # (coordinates in PyTorch, layout copies), as the engine paid for it
+    # kernel 5's second entry point alone, on ready absolute coordinates
+    # (the backward warp's grid, border clamp) of the NCHW frame, and inside
+    # the earlier composition (coordinates in PyTorch, layout copies), as
+    # the engine paid for it before the one-launch backward warp
+    from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
+
+    fx, fy, ready = _abs_coords(fl, *hw)
+    res = torch.empty_like(frame)
+
+    def warp_abs_alone():
+        rc = kernel_lib().mfc_warp_abs(
+            frame.data_ptr(), fx.data_ptr(), fy.data_ptr(), res.data_ptr(),
+            2, 3, *hw, *hw, 0, stream_of(frame))
+        if rc != 0:
+            raise RuntimeError(f"mfc_warp_abs: cudaError {rc}")
+        return res
+
+    err = (warp_abs_alone() - warp._sample_abs_plain(frame, fx, fy)).abs()
+    if err.max().item() > WARP_ATOL["float32"]:
+        raise AssertionError(f"warp_abs alone: {err.max().item()}")
     times["warp_abs"] = _in_turns(
-        "warp_abs", lambda: _warp_abs_backward_warp(frame_cl, fl_cl),
-        lambda: warp.backward_warp_plain(frame_cl, fl_cl), smi,
-        f"the earlier backward warp incl. its coordinate arithmetic and "
-        f"layout copies, channels_last frame, {what}",
+        "warp_abs", warp_abs_alone,
+        lambda: warp._sample_abs_plain(frame, fx, fy), smi,
+        f"alone, NCHW frame, ready coordinates, {what}",
         kreps=20, preps=3, timer=_graph_ms)
+    bounds["warp_abs"] = (
+        _nbytes(frame, fx, fy, res) / PEAK_BYTES * 1e3, "bytes")
+    library["warp_abs"] = _graph_ms(lambda: F.grid_sample(
+        frame, ready, mode="bilinear", padding_mode="border",
+        align_corners=False), 20)
+    old_cl = _graph_ms(lambda: _warp_abs_backward_warp(frame_cl, fl_cl), 20)
     old_nchw = _graph_ms(lambda: _warp_abs_backward_warp(frame, fl), 20)
-    got = _warp_abs_backward_warp(frame_cl, fl_cl)
-    bounds["warp_abs"] = (_nbytes(frame_cl, fl_cl, got) / PEAK_BYTES * 1e3,
-                          "bytes")
     # the one-launch kernel on the same tensors
     times["backward_warp"] = _in_turns(
         "backward_warp", lambda: backward_warp(frame_cl, fl_cl),
@@ -2152,15 +2386,17 @@ def phase_unflow_timings(engine, frames, smi):
     lib_ready_cl = _graph_ms(lambda: sample(frame_cl, grid_cl), 20)
     lib_whole_cl = _graph_ms(lambda: sample(frame_cl, grid_of(fl_cl)), 20)
     lib_whole_nchw = _graph_ms(lambda: sample(frame, grid_of(fl)), 20)
-    library["warp_abs"] = lib_ready_cl
     library["backward_warp"] = lib_whole_cl
+    log(f"[{smi}] warp_abs alone: bound {bounds['warp_abs'][0]:.5f} ms "
+        f"(bytes); F.grid_sample on the same ready grid "
+        f"{library['warp_abs']:.4f} ms")
     log(f"[{smi}] backward_warp: bound {wb:.5f} ms (bytes: "
         f"{_nbytes(frame_cl, fl_cl, got)} B at 3.35 TB/s); one launch "
         f"{times['backward_warp'][0]:.4f} ms on the channels_last float32 "
         f"frame and float32 flow (one device kernel: counted by the profiler "
         f"in phase 3, on the provider's own tensors), {new_nchw:.4f} ms on an "
         f"NCHW frame; the earlier composition around "
-        f"warp_abs {times['warp_abs'][0]:.4f} ms ({len(old_names)} device "
+        f"warp_abs {old_cl:.4f} ms ({len(old_names)} device "
         f"kernels and copies) on the same tensors, "
         f"{old_nchw:.4f} ms on the NCHW frame; F.grid_sample on a ready-made "
         f"grid {lib_ready_nchw:.4f} ms (NCHW frame) / {lib_ready_cl:.4f} ms "

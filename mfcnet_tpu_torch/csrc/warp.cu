@@ -12,27 +12,47 @@
 //                     in pixels -> grid_sample, either align_corners, zeros
 //                     or border padding) in one pass, any strides
 //
-// What bounds it on this card: bytes. Per output pixel the kernel reads two
-// flow values and four taps of each of C channels and writes C values: no
-// arithmetic to speak of. At 2 x 480 x 640 with C = 5 bf16 maps that is
-// ~17 MB moved once: 5 us at the card's memory rate. Measured there (NVIDIA
-// H100 80GB HBM3, 700 W): 13 us, the time of F.grid_sample on the same maps.
-// UnFlow's backward warp moves 3.3 MB (2 x 3 x 256 x 320 bf16 frames and a
+// What bounds them on this card: bytes, and the gather. flow_warp reads two
+// flow values and four taps of each of C channels per output pixel and
+// writes C values: at 2 x 480 x 640 with C = 5 bf16 maps, ~17 MB moved once,
+// 5.1 us at the card's memory rate. The first design (one thread per pixel
+// over the flattened B * H * W) took 12.4 us (NVIDIA H100 80GB HBM3, 700 W,
+// tools/flowk_times.py). Stripped variants of it (tools/flowk_variants.cu)
+// located the time: without the taps it ran at 7.2 us, the time of a plain
+// copy of the same bytes (6.8 us); with the taps and no stores at all it
+// took the whole 12.3 us. The taps cost not bytes but requests: per pixel
+// 20 two-byte loads of rows y0 and y0 + 1, each warp request touching a few
+// sectors, and in the flattened layout the next image row, whose upper taps
+// are this row's lower ones, lies in another block on another SM.
+//
+// Design of flow_warp: 2D blocks of 64 x 8 pixels of one image, a thread two
+// adjacent x of a row, a warp one 64-pixel row of the tile. The tile's rows
+// share their tap rows in the SM's L1; a warp's tap request covers two
+// 32-pixel spans; the flow is read as one float2 from each plane and each
+// channel's pair is stored as one 4-byte (bf16) or 8-byte (float32) vector;
+// the base grid's divisions run once per column and once per row of the
+// tile, into shared memory, not per pixel (the same operations on the same
+// values: the bits do not change). Of the candidates timed side by side
+// (runs of 2 or 4 x on flattened or 2D blocks, 1 pixel a thread on 2D
+// blocks, the tap box staged in shared memory, taps read in aligned 8-byte
+// pairs) this one was the fastest on smooth and on noisy flow. Odd W or
+// misaligned tensors take the same kernel element by element.
+//
+// UnFlow's backward warp moves 3.3 MB (2 x 3 x 256 x 320 frames and a
 // two-channel flow): 1 us at the memory rate, less than a launch costs. What
 // bounded it was not the gather but the ~20 elementwise PyTorch kernels that
 // formed its coordinates and the layout copies around it, each a launch of
 // a few microseconds over one plane; mfc_backward_warp forms the coordinates
 // in the kernel and reads and writes any layout in place by its strides
 // (channels_last frames and flow, float32 or bfloat16 flow converted on
-// load), so the whole warp is one launch and no copy.
+// load), so the whole warp is one launch and no copy. mfc_warp_abs, timed
+// alone on ready coordinates, is faster than F.grid_sample on a ready grid.
 //
-// Design: the TPU kernel turned the gather into banded one-hot matrix
-// products because the TPU has no fast gather, and needed slabs, a band
-// bound and a fallback for flow that left the band. A GPU thread gathers
-// directly: one thread per output pixel, the maps kept in (B, C, H, W) so
-// that, for smooth flow, neighbouring threads read neighbouring addresses of
-// one channel plane and store coalesced. No band, no slab, no guard: any
-// flow is exact, and flow that leaves the image samples zeros.
+// The TPU kernel turned the gather into banded one-hot matrix products
+// because the TPU has no fast gather, and needed slabs, a band bound and a
+// fallback for flow that left the band. A GPU thread gathers directly: no
+// band, no slab, no guard: any flow is exact, and taps that leave the image
+// read zero.
 //
 // The coordinates are formed in float32 in the JAX code's order
 // (ops/warp.py:198-203 then :36-38) with the round-to-nearest intrinsics, so
@@ -42,6 +62,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -67,63 +89,143 @@ __device__ __forceinline__ float unnormalize(float g, int size,
                    0.5f);
 }
 
-// Four taps of every channel of one image at (fx, fy); out-of-image taps
-// contribute zero. img: this batch item, element strides sc (channel), sh
-// (row), sw (column); out: this pixel of channel 0, channel stride ostride.
+// One pixel's bilinear sample at (fx, fy): the tap row and column, which of
+// the four taps lie in the image (the others contribute zero) and the blend
+// weights. Validity is tested in float first: a coordinate may be far
+// outside int range.
+struct Taps {
+  float tx, ty, ux, uy;
+  int x0, y0;
+  bool v00, v01, v10, v11;
+};
+
+__device__ __forceinline__ Taps taps_of(float fx, float fy, int H, int W) {
+  Taps q;
+  const float x0f = floorf(fx), y0f = floorf(fy);
+  q.tx = __fsub_rn(fx, x0f);
+  q.ty = __fsub_rn(fy, y0f);
+  q.ux = __fsub_rn(1.0f, q.tx);
+  q.uy = __fsub_rn(1.0f, q.ty);
+  const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+  const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+  const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+  const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+  q.x0 = (int)fminf(fmaxf(x0f, -1.0f), (float)(W - 1));
+  q.y0 = (int)fminf(fmaxf(y0f, -1.0f), (float)(H - 1));
+  q.v00 = vy0 && vx0;
+  q.v01 = vy0 && vx1;
+  q.v10 = vy1 && vx0;
+  q.v11 = vy1 && vx1;
+  return q;
+}
+
+// the sample of one channel plane p (element strides sh, sw)
+template <typename T>
+__device__ __forceinline__ float sample(const Taps& q, const T* p,
+                                        ptrdiff_t sh, ptrdiff_t sw) {
+  p += (ptrdiff_t)q.y0 * sh + (ptrdiff_t)q.x0 * sw;
+  const float a = q.v00 ? to_f32(p[0]) : 0.0f;
+  const float b = q.v01 ? to_f32(p[sw]) : 0.0f;
+  const float d = q.v10 ? to_f32(p[sh]) : 0.0f;
+  const float e = q.v11 ? to_f32(p[sh + sw]) : 0.0f;
+  const float top = __fadd_rn(__fmul_rn(a, q.ux), __fmul_rn(b, q.tx));
+  const float bot = __fadd_rn(__fmul_rn(d, q.ux), __fmul_rn(e, q.tx));
+  return __fadd_rn(__fmul_rn(top, q.uy), __fmul_rn(bot, q.ty));
+}
+
+// Four taps of every channel of one image at (fx, fy). img: this batch
+// item, element strides sc (channel), sh (row), sw (column); out: this pixel
+// of channel 0, channel stride ostride.
 template <typename T>
 __device__ __forceinline__ void sample_pixel(const T* img, int C, int H, int W,
                                              ptrdiff_t sc, ptrdiff_t sh,
                                              ptrdiff_t sw, float fx, float fy,
                                              T* out, ptrdiff_t ostride) {
-  const float x0f = floorf(fx), y0f = floorf(fy);
-  const float tx = __fsub_rn(fx, x0f), ty = __fsub_rn(fy, y0f);
-  const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
-  // validity in float first: a coordinate may be far outside int range
-  const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
-  const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
-  const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
-  const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
-  const int x0 = (int)fminf(fmaxf(x0f, -1.0f), (float)(W - 1));
-  const int y0 = (int)fminf(fmaxf(y0f, -1.0f), (float)(H - 1));
-  const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
-  const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
-  const ptrdiff_t base = (ptrdiff_t)y0 * sh + (ptrdiff_t)x0 * sw;
-  for (int c = 0; c < C; ++c) {
-    const T* p = img + c * sc + base;
-    const float a = v00 ? to_f32(p[0]) : 0.0f;
-    const float b = v01 ? to_f32(p[sw]) : 0.0f;
-    const float d = v10 ? to_f32(p[sh]) : 0.0f;
-    const float e = v11 ? to_f32(p[sh + sw]) : 0.0f;
-    const float top = __fadd_rn(__fmul_rn(a, ux), __fmul_rn(b, tx));
-    const float bot = __fadd_rn(__fmul_rn(d, ux), __fmul_rn(e, tx));
-    from_f32(__fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, ty)),
-             out + c * ostride);
-  }
+  const Taps q = taps_of(fx, fy, H, W);
+  for (int c = 0; c < C; ++c)
+    from_f32(sample(q, img + c * sc, sh, sw), out + c * ostride);
 }
 
-template <typename T>
+// base grid value 2 * j / (g - 1) - 1 of pixel j on a grid of g
+__device__ __forceinline__ float base_grid(int j, int g) {
+  return __fsub_rn(__fdiv_rn(__fmul_rn(2.0f, (float)j), (float)(g - 1)),
+                   1.0f);
+}
+
+// two adjacent values of one channel row, stored as one vector
+__device__ __forceinline__ void store_pair(float a, float b, float* o) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(float a, float b,
+                                           __nv_bfloat16* o) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+
+// flow_warp: a block owns FW_TW x FW_TH pixels of one image, a thread two
+// adjacent x of a row, a warp one row of the tile. VEC (W even, 8-byte
+// aligned tensors): the flow read as a float2 from each plane and each
+// channel's pair stored as one vector; else element by element.
+constexpr int FW_TW = 64, FW_TH = 8;
+
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(TPB)
 flow_warp_kernel(const T* __restrict__ maps, const float* __restrict__ flow,
-                 T* __restrict__ out, int B, int C, int H, int W, int gh,
-                 int gw, int align_corners) {
+                 T* __restrict__ out, int C, int H, int W, int gh, int gw,
+                 int align_corners) {
+  __shared__ float bxs[FW_TW], bys[FW_TH];
+  const int xb = blockIdx.x * FW_TW, yb = blockIdx.y * FW_TH, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  // the base grid once per column and once per row of the tile
+  if (tid < FW_TW)
+    bxs[tid] = base_grid(xb + tid, gw);
+  else if (tid < FW_TW + FW_TH)
+    bys[tid - FW_TW] = base_grid(yb + tid - FW_TW, gh);
+  __syncthreads();
+  const int lx = (tid % (FW_TW / 2)) * 2, ly = tid / (FW_TW / 2);
+  const int x = xb + lx, y = yb + ly;
+  if (x >= W || y >= H) return;
+  const bool two = x + 1 < W;
   const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const int b = (int)(i / hw);
-  const int r = (int)(i - (size_t)b * hw);
-  const int y = r / W, x = r - y * W;
+  const size_t r = (size_t)y * W + x;
   const float* fl = flow + (size_t)b * 2 * hw + r;
-  // base grid value 2*j/(g-1) - 1, plus flow/((size-1)/2)
-  const float bx = __fsub_rn(
-      __fdiv_rn(__fmul_rn(2.0f, (float)x), (float)(gw - 1)), 1.0f);
-  const float by = __fsub_rn(
-      __fdiv_rn(__fmul_rn(2.0f, (float)y), (float)(gh - 1)), 1.0f);
-  const float gx = __fadd_rn(bx, __fdiv_rn(fl[0], (float)(W - 1) / 2.0f));
-  const float gy = __fadd_rn(by, __fdiv_rn(fl[hw], (float)(H - 1) / 2.0f));
-  sample_pixel(maps + (size_t)b * C * hw, C, H, W, (ptrdiff_t)hw, W, 1,
-               unnormalize(gx, W, align_corners),
-               unnormalize(gy, H, align_corners),
-               out + (size_t)b * C * hw + r, (ptrdiff_t)hw);
+  float flx[2], fly[2];
+  if (VEC) {
+    const float2 u = *reinterpret_cast<const float2*>(fl);
+    const float2 v = *reinterpret_cast<const float2*>(fl + hw);
+    flx[0] = u.x;
+    flx[1] = u.y;
+    fly[0] = v.x;
+    fly[1] = v.y;
+  } else {
+    flx[0] = fl[0];
+    fly[0] = fl[hw];
+    flx[1] = two ? fl[1] : 0.0f;
+    fly[1] = two ? fl[hw + 1] : 0.0f;
+  }
+  // base grid + flow / ((size - 1) / 2), unnormalized: the JAX code's order
+  // (ops/warp.py:198-203 then :36-38)
+  Taps q[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float gx =
+        __fadd_rn(bxs[lx + k], __fdiv_rn(flx[k], (float)(W - 1) / 2.0f));
+    const float gy =
+        __fadd_rn(bys[ly], __fdiv_rn(fly[k], (float)(H - 1) / 2.0f));
+    q[k] = taps_of(unnormalize(gx, W, align_corners),
+                   unnormalize(gy, H, align_corners), H, W);
+  }
+  const T* img = maps + (size_t)b * C * hw;
+  T* o = out + (size_t)b * C * hw + r;
+  for (int c = 0; c < C; ++c) {
+    const T* p = img + c * hw;
+    const float v0 = sample(q[0], p, W, 1);
+    if (VEC) {
+      store_pair(v0, sample(q[1], p, W, 1), o + c * hw);
+    } else {
+      from_f32(v0, o + c * hw);
+      if (two) from_f32(sample(q[1], p, W, 1), o + c * hw + 1);
+    }
+  }
 }
 
 template <typename T>
@@ -197,6 +299,26 @@ int launch_backward_warp(const void* img, const void* flow, void* out,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
+                     int C, int H, int W, int gh, int gw, int align_corners,
+                     cudaStream_t s) {
+  if (B > 65535 || (H + FW_TH - 1) / FW_TH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + FW_TW - 1) / FW_TW, (H + FW_TH - 1) / FW_TH, B);
+  const bool vec = W % 2 == 0 && ((uintptr_t)maps | (uintptr_t)flow |
+                                  (uintptr_t)out) % 8 == 0;
+  if (vec)
+    flow_warp_kernel<T, true><<<grid, TPB, 0, s>>>(
+        (const T*)maps, (const float*)flow, (T*)out, C, H, W, gh, gw,
+        align_corners);
+  else
+    flow_warp_kernel<T, false><<<grid, TPB, 0, s>>>(
+        (const T*)maps, (const float*)flow, (T*)out, C, H, W, gh, gw,
+        align_corners);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // maps (B, C, H, W) float32 (dtype 0) or bfloat16 (dtype 1); flow
@@ -205,19 +327,14 @@ extern "C" int mfc_flow_warp(const void* maps, const void* flow, void* out,
                              int B, int C, int H, int W, int gh, int gw,
                              int align_corners, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t n = (size_t)B * H * W;
-  if (n == 0 || C == 0) return 0;
+  if ((size_t)B * H * W == 0 || C == 0) return 0;
   if (dtype == 0)
-    flow_warp_kernel<float><<<blocks_for(n), TPB, 0, s>>>(
-        (const float*)maps, (const float*)flow, (float*)out, B, C, H, W, gh,
-        gw, align_corners);
-  else if (dtype == 1)
-    flow_warp_kernel<__nv_bfloat16><<<blocks_for(n), TPB, 0, s>>>(
-        (const __nv_bfloat16*)maps, (const float*)flow, (__nv_bfloat16*)out,
-        B, C, H, W, gh, gw, align_corners);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_flow_warp<float>(maps, flow, out, B, C, H, W, gh, gw,
+                                   align_corners, s);
+  if (dtype == 1)
+    return launch_flow_warp<__nv_bfloat16>(maps, flow, out, B, C, H, W, gh,
+                                           gw, align_corners, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // img (B, C, H, W); fx, fy (B, Ho, Wo) float32 absolute source coordinates;

@@ -77,9 +77,10 @@ _SIGNATURES = {
         "mfc_raft_update_tma": ((_P, _P, _P, _P, _I, _P), _I),
     },
     "correlation.cu": {
-        # f1, f2, out, B, H, W, C, max_displacement, stride, dtype, stream
+        # f1, f2, out, B, H, W, C, max_displacement, stride, dtype,
+        # plan[9], stream
         "mfc_correlation": (
-            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
     "conv3x3.cu": {

@@ -19,7 +19,22 @@ is a multiple of ``stride``). UnFlow runs it at
 ``csrc/correlation.cu`` on CUDA tensors and runs
 :func:`correlation_plain`, the same function in plain PyTorch, on CPU
 tensors. There is no fallback between the two. Each launch adds one to
-:data:`LAUNCHES`.
+:data:`LAUNCHES`. :func:`corr_plan` chooses the kernel's route by shape:
+
+* ``"tc"`` (C a multiple of 8, a window at most 96 sub-grid pixels wide):
+  the tensor cores. With stride s the volume splits into s * s residue
+  sub-grids (y mod s, x mod s) at stride 1, and each output is an entry of
+  a sub-grid's Gram matrix; a block multiplies a tile of f1 pixels with the
+  f2 rows its windows reach by ``mma.sync``. bfloat16 inputs: one bf16
+  product per 16 channels (exact products, float32 sums). float32 inputs:
+  split TF32 ("3xTF32"): each operand is big + small, ``big = tf32(a)``
+  and ``small = tf32(a - big)``, and the products small*big + big*small +
+  big*big are summed in float32 (``tests/test_torch_corr_plan.py`` models
+  the split's error).
+* ``"fma"`` (any other shape): float32 multiply-adds, the first design.
+
+The C side refuses a plan that is not :func:`corr_plan`'s for the shape:
+the choice is made by shape and stated, never taken when a launch fails.
 
 Layout: inputs and output are (B, H, W, channels), the JAX functions'
 layout. The kernel wants the C values of a pixel contiguous (a dot product
@@ -29,16 +44,20 @@ after a concatenation with ``redir`` (``models/unflow.py``), which runs in
 storage of the (B, 441, H, W) tensor that convolution takes, so neither
 side of the kernel needs a copy.
 
-Types: inputs float32 or bfloat16, read as they are and widened inside
-the kernel; float32 sums; float32 output. ``(1 / C)`` is a product with the
-rounded reciprocal, as in the TPU kernel (``correlation_shifts`` takes a
-mean: one rounding apart). The sum over C runs in another order in the
-kernel than in the plain version, so the two agree to atol 1e-5, rtol 1e-5
-at float32 (the JAX package's own limit for its kernel), not bit for bit.
-Forward only: the backward kernel comes with the training slice.
+Types: inputs float32 or bfloat16, read as they are; float32 sums; float32
+output. ``(1 / C)`` is a product with the rounded reciprocal, as in the TPU
+kernel (``correlation_shifts`` takes a mean: one rounding apart). The sum
+over C runs in another order in the kernel than in the plain version, so
+the two agree to atol 1e-5, rtol 1e-5 (the JAX package's own limit for its
+kernel) on both routes and both types, not bit for bit. Forward only: the
+backward kernel comes with the training slice.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +70,119 @@ LAUNCHES = {"correlation": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TRAINING = ("the correlation's backward kernel comes with the training "
              "slice: ROADMAP.md Queue 1 item 8 (training)")
+
+
+#: the tensor-core route's block: MROWS f1 pixels (four m16 tiles), at
+#: most 8 * NT_MAX f2 pixels (n8 tiles), a ring of slices of KW 32-bit words
+#: a pixel, rows padded to LDW words: four stages in a grid of at most
+#: SMALL_GRID blocks, else three; SMEM_MAX bytes of shared memory a block
+#: may have (H100). ``csrc/correlation.cu`` has the same.
+MROWS, NT_MAX, KW, LDW, SMALL_GRID, SMEM_MAX = 64, 12, 32, 36, 1024, 232448
+ROUTES = ("fma", "tc")
+
+
+class CorrPlan(NamedTuple):
+    """The kernel's launch plan (see :func:`corr_plan`); its ints are what
+    the C entry point takes, in this order."""
+    route: str         # "tc" or "fma"
+    ty: int            # rows of the f1 tile in a residue sub-grid
+    l: int             # ... and its columns
+    tz: int            # f2 rows a block takes
+    nq: int            # f2 columns of a row that the tile's windows reach
+    nt: int            # n8 tiles, even (two halves): 2 ceil(tz * nq / 16)
+    stages: int        # cp.async ring stages
+    grid: int          # blocks
+    shared_bytes: int  # dynamic shared memory a block
+
+    def ints(self):
+        return (ROUTES.index(self.route),) + tuple(self)[1:]
+
+
+def _needed_cols(ws: int, l: int, r: int) -> int:
+    """The most f2 columns that one of the x tiles of width ``l`` reaches
+    with radius ``r`` in a sub-grid row of ``ws`` pixels."""
+    return max(min(ws, x0 + l + r) - max(0, x0 - r)
+               for x0 in range(0, ws, l))
+
+
+@functools.lru_cache(maxsize=None)
+def corr_plan(B: int, H: int, W: int, C: int, max_displacement: int,
+              stride: int, dtype: str) -> CorrPlan:
+    """Launch plan of ``mfc_correlation`` for (B, H, W, C) inputs of
+    ``dtype`` ("float32" or "bfloat16").
+
+    Route "tc" where C is a multiple of 8 and a one-column tile's window
+    reaches at most 8 * NT_MAX f2 columns of its residue sub-grid (Hs x Ws
+    = ceil(H / s) x ceil(W / s)); else "fma" (all other fields 0). On the
+    "tc" route a block owns a tile of ``ty`` x ``l`` f1 pixels of one
+    sub-grid (at most MROWS: ``l`` near Ws / ceil(Ws / 24), ``ty`` as many
+    rows as fit) and a run of ``tz`` f2 rows, counted from the tile's first
+    row minus the radius R (so that every (pixel, dy) has one owner); of
+    each row the ``nq`` columns its windows reach. ``tz`` is as large as
+    8 * NT_MAX f2 pixels allow, and the shared-memory image of the tile's
+    outputs (MROWS x tz x D floats). The C side computes the same plan and
+    refuses any other."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"corr_plan: dtype must be float32 or bfloat16, "
+                         f"got {dtype!r}")
+    if min(B, H, W, C) < 1:
+        raise ValueError(f"corr_plan: empty input {(B, H, W, C)}")
+    s = stride
+    R = displacements(max_displacement, s) // 2
+    D = 2 * R + 1
+    hs, ws = -(-H // s), -(-W // s)
+    fma = CorrPlan("fma", 0, 0, 0, 0, 0, 0, 0, 0)
+    if C % 8 or _needed_cols(ws, 1, R) > 8 * NT_MAX:
+        return fma
+    l = -(-ws // -(-ws // 24))
+    while _needed_cols(ws, l, R) > 8 * NT_MAX:
+        l -= 1
+    ty = min(max(1, MROWS // l), hs)
+    nq = _needed_cols(ws, l, R)
+    tz = max(1, min(8 * NT_MAX // nq, ty + 2 * R))
+    while tz > 1 and MROWS * tz * D * 4 > SMEM_MAX:
+        tz -= 1
+    if MROWS * tz * D * 4 > SMEM_MAX:
+        return fma
+    nt = 2 * -(-(tz * nq) // 16)
+    grid = B * s * s * -(-hs // ty) * -(-ws // l) * -(-(ty + 2 * R) // tz)
+    if grid >= 2 ** 31:
+        return fma
+    stages = 4 if grid <= SMALL_GRID else 3
+    shared = max(stages * (MROWS + 8 * nt) * LDW * 4, MROWS * tz * D * 4)
+    return CorrPlan("tc", ty, l, tz, nq, nt, stages, grid, shared)
+
+
+def staged_rows(plan: CorrPlan, B: int, H: int, W: int, max_displacement: int,
+                stride: int) -> int:
+    """Pixel rows (C channels each) that the blocks of a "tc" plan copy out
+    of memory: each block's f1 and f2 pixels that lie in the image (the
+    others are zero-filled, not read); blocks whose f2 rows all leave the
+    image read none. The operand traffic of the route."""
+    s, R = stride, max_displacement // stride
+    TY, L, TZ, NQ = plan.ty, plan.l, plan.tz, plan.nq
+    hs, ws = -(-H // s), -(-W // s)
+    rows = 0
+    for ry in range(s):
+        for rx in range(s):
+            Hs, Ws = -(-(H - ry) // s), -(-(W - rx) // s)
+            for y0 in range(0, -(-hs // TY) * TY, TY):
+                for x0 in range(0, -(-ws // L) * L, L):
+                    if y0 >= Hs or x0 >= Ws:
+                        continue
+                    p = (min(Hs, y0 + TY) - y0) * (min(Ws, x0 + L) - x0)
+                    qx0 = max(0, x0 - R)
+                    q = min(Ws, qx0 + NQ) - qx0
+                    for z0 in range(y0 - R, y0 + TY + R, TZ):
+                        zin = min(Hs, z0 + TZ) - max(0, z0)
+                        if zin > 0:
+                            rows += p + zin * q
+    return B * rows
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: CorrPlan):
+    return (ctypes.c_int * len(plan))(*plan.ints())
 
 
 def reset_launches():
@@ -116,13 +248,18 @@ def correlation_cost_volume(f1, f2, max_displacement: int = 20,
     out = torch.empty(B, H, W, D * D, dtype=torch.float32, device=f1.device)
     if out.numel() == 0:
         return out
+    plan = corr_plan(B, H, W, C, max_displacement, stride,
+                     str(f1.dtype).split(".")[1])
     rc = kernel_lib().mfc_correlation(
         f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C,
-        max_displacement, stride, _DTYPES[f1.dtype], stream_of(f1))
+        max_displacement, stride, _DTYPES[f1.dtype], _plan_ints(plan),
+        stream_of(f1))
     if rc == -1:
         raise ValueError(
             f"correlation: C={C} with max_displacement={max_displacement} "
             "needs more shared memory than a block has (227 KB)")
+    if rc == 20003:
+        raise RuntimeError(f"correlation: the kernel refused the plan {plan}")
     if rc != 0:
         raise RuntimeError(f"CUDA kernel correlation failed: cudaError {rc}")
     LAUNCHES["correlation"] += 1

@@ -5,9 +5,11 @@
 :func:`flow_warp` is the MFCNet Basic head's alignment step: the maps of
 an earlier frame sampled at ``base grid + flow`` with zeros padding
 (``F.grid_sample`` semantics). On a CUDA tensor it launches the
-hand-written kernel of ``csrc/warp.cu`` (one thread per output pixel, four
-taps, any flow exact); on a CPU tensor it runs :func:`flow_warp_plain`,
-the same arithmetic in plain PyTorch. There is no fallback between the
+hand-written kernel of ``csrc/warp.cu`` (one launch; 2D tiles of 64 x 8
+pixels, two adjacent x a thread, the flow and each channel's pair moved
+as vectors where W is even, the base grid once per tile column and row;
+four taps, any flow exact); on a CPU tensor it runs
+:func:`flow_warp_plain`, the same arithmetic in plain PyTorch. There is no fallback between the
 two. :func:`grid_sample_bilinear` routes through the kernel's second
 entry point, which takes absolute source coordinates as the TPU kernel
 does. :func:`backward_warp` is UnFlow's warp (``models/unflow.py``, once

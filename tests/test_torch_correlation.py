@@ -98,16 +98,22 @@ def test_correlation_rejects_gradients_and_bad_inputs():
 
 @pytest.mark.cuda
 def test_cuda_correlation_kernel_matches_plain_version():
-    """The CUDA kernel against its plain version (run with ``python -m
-    pytest tests/test_torch_correlation.py -m cuda --noconftest`` on a
-    GPU)."""
+    """The CUDA kernel against its plain version on both routes of
+    ``corr_plan``: the tensor cores at UnFlow's tracker and offline shapes,
+    the FMA body at an odd shape (run with ``python -m pytest
+    tests/test_torch_correlation.py -m cuda --noconftest`` on a GPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from mfcnet_tpu_torch.ops import correlation as co
 
     g = torch.Generator().manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
-        for shape, md, s in (((2, 16, 20, 256), 20, 2), ((1, 9, 45, 7), 5, 3)):
+        for shape, md, s, route in (((2, 32, 40, 256), 20, 2, "tc"),
+                                    ((4, 64, 80, 256), 20, 2, "tc"),
+                                    ((2, 16, 20, 256), 20, 2, "tc"),
+                                    ((1, 9, 45, 7), 5, 3, "fma")):
+            name = str(dt).split(".")[1]
+            assert co.corr_plan(*shape, md, s, name).route == route
             f1 = torch.randn(shape, generator=g).cuda().to(dt)
             f2 = torch.randn(shape, generator=g).cuda().to(dt)
             co.reset_launches()

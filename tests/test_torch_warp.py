@@ -258,16 +258,23 @@ def test_cuda_warp_kernel_matches_plain_version():
 
     g = torch.Generator().manual_seed(0)
     for dt in (torch.float32, torch.bfloat16):
-        maps = torch.rand(2, 6, 120, 160, generator=g).cuda().to(dt)
-        for scale, shift in ((4.0, 0.0), (50.0, 0.0), (4.0, 400.0)):
-            flow = (torch.randn(2, 2, 120, 160, generator=g) * scale
-                    + shift).cuda()
-            warp.reset_launches()
-            got = warp.flow_warp(maps, flow, (576, 720))
-            assert warp.LAUNCHES["flow_warp"] == 1
-            want = warp.flow_warp_plain(maps, flow, (576, 720))
-            torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                                       atol=ATOL_WARP)
+        # the head's maps on the RAFT path (480x640) and the UnFlow path
+        # (512x640): the vector route; an odd width takes the element route
+        for shape in ((2, 6, 120, 160), (2, 5, 480, 640), (2, 5, 512, 640),
+                      (1, 3, 37, 61)):
+            B, C, H, W = shape
+            maps = torch.rand(shape, generator=g).cuda().to(dt)
+            for scale, shift in ((4.0, 0.0), (50.0, 0.0), (4.0, 400.0)):
+                flow = (torch.randn(B, 2, H, W, generator=g) * scale
+                        + shift).cuda()
+                warp.reset_launches()
+                got = warp.flow_warp(maps, flow, (576, 720))
+                assert warp.LAUNCHES["flow_warp"] == 1
+                want = warp.flow_warp_plain(maps, flow, (576, 720))
+                if dt == torch.float32:  # the same operations, op for op
+                    assert torch.equal(got, want)
+                torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                           atol=ATOL_WARP)
         # the one-launch backward warp: bit for bit its plain version,
         # whatever the layout and the flow's type
         frame = torch.randn(2, 3, 64, 96, generator=g).cuda().to(dt)
