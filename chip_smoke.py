@@ -6,8 +6,9 @@ Drives the port's main paths -- the video tracker with TernausNetMulti-Basic
 at full width (T=3, 5 classes, bf16) and ``decode="device"``: at 480x640
 without flow and with the frozen RAFT flow provider (raft_large widths,
 12 iterations, fused update step), at 512x640 with the frozen UnFlow
-provider (its only widths), and the offline flow CLI's batched forward --
-through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in four
+provider (its only widths), the offline flow CLI's batched forward, and
+the training CLI (the same model with frozen RAFT and depth in the step) --
+through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in five
 phases; a failing phase raises and the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
@@ -42,7 +43,18 @@ phases; a failing phase raises and the script exits non-zero:
    its bound and, where one PyTorch call computes the same function, that
    call (for the correlation ``torch.bmm`` of its residue sub-grids' Gram
    matrices, products only); the device operations of one flood-kernel
-   call.
+   call;
+5. training (``phase_train``): the training CLI in process on packs of
+   the port's generator -- run A at full width, 480x640, batch 4, frozen
+   RAFT (bf16 fused update) and depth in the step, the base trained, bf16,
+   grad_accum 2, EMA, one epoch of 6 micro-steps, validation, a
+   checkpoint that the port's tracker loads (and its EMA), an interrupted
+   copy resumed at its batch; run B with the base frozen in float32 for 2
+   steps; the JAX package's learning recipe at 64x64; the flow warp's
+   backward (B1, both entry points) against its plain version on
+   ``_warp_flows``' cases, integer coordinates and run A's own tensors,
+   and its time, bound and ``grid_sampler_2d_backward`` yardstick; step
+   times, samples/s and peak memory of runs A and B.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -51,6 +63,9 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import json
 import re
 import subprocess
@@ -82,6 +97,7 @@ KERNELS = (
      "mfcnet_tpu/experimental/stage1_pallas.py:47"),
     ("conv3x3", CSRC + "conv3x3.cu",
      "mfcnet_tpu/experimental/conv3x3_pallas.py:54"),
+    ("flow_warp_bwd", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:147"),
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
 #: the kernels each main path must launch (the two experimental convolutions
@@ -92,6 +108,7 @@ PATH_KERNELS = {
     "no_flow": CC_KERNELS,
     "raft": CC_KERNELS + ("flow_warp", "raft_update"),
     "unflow": CC_KERNELS + ("flow_warp", "backward_warp", "correlation"),
+    "train": ("flow_warp", "raft_update", "flow_warp_bwd"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -1245,10 +1262,13 @@ def _reset_all_launches():
 
 
 def _all_launches():
-    """Launch count of every kernel in ``KERNELS``, by name."""
+    """Launch count of every kernel in ``KERNELS``, by name (B1,
+    ``flow_warp_bwd``: its two entry points together)."""
     counts = {}
     for mod in _launch_modules():
         counts.update(mod.LAUNCHES)
+    counts["flow_warp_bwd"] = (counts["flow_warp_bwd_maps"]
+                               + counts["flow_warp_bwd_flow"])
     return {name: counts[name] for name, _, _ in KERNELS}
 
 
@@ -2474,6 +2494,668 @@ def phase_unflow_timings(engine, frames, smi):
     return times, bounds, library
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training (TernausNetMulti-Basic at full width with frozen RAFT in
+# the step and depth inputs) and B1, the flow warp's backward
+# ---------------------------------------------------------------------------
+#: the training runs: batch, run A's micro-steps (24 train frames / 4),
+#: the learning check (tests/test_e2e_learning.py's recipe). A single
+#: seed's loss curve is chaotic on this tiny model (tools/learn_seeds.py):
+#: seed 0 read 0.617 on an H100 and 0.35 on the CPU, seeds 1 and 2
+#: 0.38-0.52 on the card from run to run (cuDNN's weight gradients add in
+#: another order each run) and 0.38-0.39 on the CPU, while the card's
+#: steps agree with the CPU's (``_check_step_on_card``); so the check
+#: trains seeds 0 to 4 and holds the median ratio
+TRAIN_B, TRAIN_ACCUM = 4, 2
+LEARN_HW, LEARN_EPOCHS, LEARN_RATIO, LEARN_SEEDS = 64, 8, 0.6, (0, 1, 2, 3, 4)
+#: the card's float32 train step against the CPU's on the same weights and
+#: batch (parity mode: no TF32): loss parts to 1e-4 relative (convolutions
+#: summed in other orders over ~10^4 terms); parameters after the updates
+#: within 1e-5 of a tensor's largest value plus 1e-4 of the learning rate,
+#: but for one element in a thousand, which may differ by what Adam can
+#: move an element, the learning rate per update, on each side: an element
+#: whose gradient is of the order of Adam's eps (1e-8) moves by lr * g /
+#: (|g| + eps), which passes on the relative difference of that gradient
+#: whole (cuDNN's sums against the CPU's: found 2.9 % of the learning rate
+#: on one element, as tests/test_torch_train_steps.py finds against JAX)
+STEP_LR, STEP_LOSS_RTOL = 1e-3, 1e-4
+#: B1 against its plain version. Maps gradient: float32 atomics add in
+#: another order than index_add_, so float32 results agree to float32
+#: rounding of unit-scale sums (1e-5) and bf16 results to one bf16 rounding
+#: of the float32 result plus that margin. Flow gradient: a per-pixel sum
+#: over channels in another order, relative 1e-5 of values up to ~10^2.
+B1_MAPS_ATOL, B1_FLOW_TOL = 1e-5, (1e-5, 1e-4)
+
+
+def _train_args(pack, out, name, *extra):
+    return ["--dataset", "JIGSAWS", "--packed_dir", str(pack),
+            "--expt_savedir", str(out), "--expt_name", name,
+            "--batch_size", str(TRAIN_B), "--num_workers", "4",
+            "--num_epochs", "0", "--print_freq", "100",
+            "--input_height", str(H), "--input_width", str(W),
+            "--add_optflow_inputs", "True", "--add_depth_inputs", "True",
+            "--loss_fns", "nll", "soft_jaccard", "--loss_wts", "0.7", "0.3",
+            "--seed", str(SEED), *extra]
+
+
+#: the micro-step of run A traced by the profiler (after two of warm-up)
+TRAIN_TRACED = 3
+
+
+def _traced(fn):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity), opened
+    with marker kernels as ``_device_events`` does; returns (its result,
+    [(kernel name, device us)], wall ms of the call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            marker.bitwise_not_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+    return out, [(e.name, e.time_range.elapsed_us())
+                 for e in events[marks[-1] + 1 if marks else 0:]], wall
+
+
+#: kernel-name patterns of the train step's device time, in order of test
+#: (cuDNN's convolutions are implicit GEMMs: their names are tested before
+#: the matrix products')
+STEP_PARTS = (("B1 (flow_warp_bwd)", ("flow_warp_bwd",)),
+              ("flow_warp", ("flow_warp_kernel",)),
+              ("raft_update", ("fill_hx_kernel", "tap_conv_kernel",
+                               "tma_conv_kernel")),
+              ("convolutions (cuDNN)", (
+                  "fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
+                  "winograd")),
+              ("matrix products", ("gemm", "gemv", "cutlass", "xmma")),
+              ("Adam / EMA (multi-tensor)", ("multi_tensor", "foreach")),
+              ("other: copies, casts, elementwise, reductions", ("",)))
+
+
+def _step_breakdown(events, wall_ms, smi):
+    """Device ms of one traced micro-step by part, the busy sum, the idle
+    share of its wall time (under the profiler), and the largest kernels of
+    the last part."""
+    parts = {name: 0.0 for name, _ in STEP_PARTS}
+    other = {}
+    for name, us in events:
+        low = name.lower()
+        for part, keys in STEP_PARTS:
+            if any(k in low for k in keys):
+                parts[part] += us / 1e3
+                if part == STEP_PARTS[-1][0]:
+                    short = re.sub(r"<.*", "", name.replace("void ", ""))
+                    other[short] = other.get(short, 0.0) + us / 1e3
+                break
+    busy = sum(parts.values())
+    log(f"[{smi}] train run A, micro-step {TRAIN_TRACED + 1} traced: "
+        f"{len(events)} device operations, busy {busy:.2f} ms of {wall_ms:.2f} "
+        f"ms wall (idle share {1 - busy / wall_ms:.1%}, under the profiler): "
+        + json.dumps({k: round(v, 3) for k, v in parts.items()}))
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[{smi}] the largest of the other part: "
+        + json.dumps({k[:90]: round(v, 3) for k, v in top}))
+    return parts, busy
+
+
+def _probe_train_steps(cli, records, capture):
+    """Wrap the training CLI's train step: per micro-step device-synchronized
+    ms, kernel launches, loss parts, whether it updated, and whether a head
+    parameter, a base parameter and the head parameter's EMA moved. The
+    first micro-step also captures B1's inputs (the upstream gradient, the
+    maps and the flow of the head's warp) into ``capture``; micro-step
+    ``TRAIN_TRACED`` runs under the profiler (its events in the record,
+    its ms not used for the median). Returns the unwrapped factory."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+
+    real = cli.make_multiframe_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def probed(state, batch):
+            named = dict(state.model.named_parameters())
+            keys = ("multiframe_net.multiframe_net.0.weight",
+                    "base_model.encoder.0.weight")
+            before = [named[k].detach().clone() for k in keys]
+            ema0 = None if state.ema is None else state.ema[keys[0]].clone()
+            undo = []
+            if "g" not in capture:
+                fwd, bwd = warp._FlowWarp.forward, warp.flow_warp_bwd_maps
+
+                def cap_fwd(ctx, maps, flow, grid_hw, ac):
+                    capture.setdefault("maps", maps.detach().clone())
+                    capture.setdefault("flow", flow.detach().clone())
+                    return fwd(ctx, maps, flow, grid_hw, ac)
+
+                def cap_bwd(g, flow, *rest):
+                    capture.setdefault("g", g.detach().clone())
+                    return bwd(g, flow, *rest)
+
+                warp._FlowWarp.forward = staticmethod(cap_fwd)
+                warp.flow_warp_bwd_maps = cap_bwd
+                undo = [("forward", fwd), ("bwd", bwd)]
+            counts0 = _all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events = wall = None
+            try:
+                if len(records) == TRAIN_TRACED and capture.get("trace"):
+                    parts, events, wall = _traced(lambda: step(state, batch))
+                else:
+                    parts = step(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                for what, fn in undo:
+                    if what == "forward":
+                        warp._FlowWarp.forward = staticmethod(fn)
+                    else:
+                        warp.flow_warp_bwd_maps = fn
+            ms = (time.perf_counter() - t0) * 1e3
+            records.append({
+                "ms": ms, "events": events, "traced_wall": wall,
+                "launches": {k: v - counts0[k]
+                             for k, v in _all_launches().items()},
+                "parts": {k: float(v) for k, v in parts.items()},
+                "update": state.micro == 0,
+                "head_moved": not torch.equal(before[0], named[keys[0]]),
+                "base_moved": not torch.equal(before[1], named[keys[1]]),
+                "ema_moved": (ema0 is not None and not torch.equal(
+                    ema0, state.ema[keys[0]])),
+            })
+            return parts
+
+        return probed
+
+    cli.make_multiframe_train_step = make
+    return real
+
+
+def _hold_flow_warp_bwd(g, maps, flow, what, grid_hw=(576, 720)):
+    """Both B1 entry points against the plain backward on these tensors;
+    returns (max |diff| of the maps gradient, of the flow gradient)."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+
+    warp.reset_launches()
+    gm = warp.flow_warp_bwd_maps(g, flow, grid_hw)
+    gf = warp.flow_warp_bwd_flow(g, maps, flow, grid_hw)
+    if (warp.LAUNCHES["flow_warp_bwd_maps"],
+            warp.LAUNCHES["flow_warp_bwd_flow"]) != (1, 1):
+        raise AssertionError(f"{what}: one launch per entry point expected, "
+                             f"got {warp.LAUNCHES}")
+    pm, pf = warp.flow_warp_backward_plain(g, maps, flow, grid_hw)
+    torch.cuda.synchronize()
+    if gm.dtype != g.dtype or gm.shape != maps.shape or gf.shape != flow.shape:
+        raise AssertionError(f"{what}: wrong result types or shapes")
+    err_m = (gm.float() - pm.float()).abs().max().item()
+    if g.dtype == torch.float32:
+        ok = err_m <= B1_MAPS_ATOL
+    else:  # one bf16 rounding of the float32 result, plus the f32 margin
+        ref = warp.flow_warp_backward_plain(g.float(), maps.float(), flow,
+                                            grid_hw)[0]
+        ulp = 2.0 ** -8 * ref.abs()
+        ok = bool(((gm.float() - ref).abs() <= ulp + B1_MAPS_ATOL).all())
+    rtol, atol = B1_FLOW_TOL
+    err_f = (gf - pf).abs().max().item()
+    ok_f = bool(((gf - pf).abs() <= atol + rtol * pf.abs()).all())
+    if not (ok and ok_f):
+        raise AssertionError(f"{what}: B1 kernel != plain (maps max |diff| "
+                             f"{err_m}, flow max |diff| {err_f})")
+    return err_m, err_f
+
+
+def _check_flow_warp_bwd(step_inputs):
+    """B1 on _warp_flows' cases plus a smooth flow and integer coordinates
+    (zero flow on the identity grid) at 480x640, and on the train step's
+    own tensors; float32 and bf16; one device operation per entry point
+    per call. Returns the worst float32 maps-gradient difference."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    smooth = torch.stack([6 * torch.sin(xx / 37.0) * torch.cos(yy / 53.0),
+                          4 * torch.cos(xx / 61.0 + yy / 29.0)])[None]
+    cases = dict(_warp_flows(gen))
+    cases["smooth"] = smooth.expand(2, 2, H, W).contiguous()
+    n_int = None
+    for dt in (torch.float32, torch.bfloat16):
+        maps = torch.rand(2, C + 1, H, W, generator=gen).cuda().to(dt)
+        g = torch.randn(2, C + 1, H, W, generator=gen).cuda().to(dt)
+        for name, flow in cases.items():
+            flow = flow.cuda()
+            em, _ = _hold_flow_warp_bwd(g, maps, flow, f"B1[{dt}, {name}]")
+            worst[str(dt).split(".")[1]] = max(
+                worst[str(dt).split(".")[1]], em)
+        zero = torch.zeros(2, 2, H, W, device="cuda")
+        em, _ = _hold_flow_warp_bwd(g, maps, zero, f"B1[{dt}, integer]",
+                                    grid_hw=None)
+        worst[str(dt).split(".")[1]] = max(worst[str(dt).split(".")[1]], em)
+        if n_int is None:
+            from mfcnet_tpu_torch.ops.warp import _abs_coords, _flow_grid
+
+            fx, fy = _abs_coords(*_flow_grid(zero, None), H, W, True, "zeros")
+            n_int = int(((fx == fx.floor()) & (fy == fy.floor())).sum())
+            if n_int == 0:
+                raise AssertionError("B1: the integer case has no integer "
+                                     "coordinates")
+    g, maps, flow = (step_inputs[k] for k in ("g", "maps", "flow"))
+    for dt in (torch.bfloat16, torch.float32):
+        em, _ = _hold_flow_warp_bwd(g.to(dt), maps.to(dt), flow.float(),
+                                     f"B1[{dt}, the train step's tensors]")
+        worst[str(dt).split(".")[1]] = max(worst[str(dt).split(".")[1]], em)
+    from mfcnet_tpu_torch.ops import warp
+
+    # the kernels read a float32 flow; the bf16 step's flow (cast with the
+    # inputs, as the JAX step casts it) costs the wrapper one conversion
+    flow = flow.float().contiguous()
+    ops = {e: _count_device_kernels(fn) for e, fn in (
+        ("maps", lambda: warp.flow_warp_bwd_maps(g, flow, (576, 720))),
+        ("flow", lambda: warp.flow_warp_bwd_flow(g, maps, flow,
+                                                 (576, 720))))}
+    for e, names in ops.items():
+        if len(names) != 1 or f"flow_warp_bwd_{e}" not in names[0]:
+            raise AssertionError(f"B1 {e} entry: one device operation a "
+                                 f"call expected, got {names}")
+    log(f"flow_warp_bwd (B1) kernel vs plain: 2x{C + 1}x{H}x{W} on "
+        f"{', '.join(cases)} flows and integer coordinates ({n_int} pixels "
+        f"on both integer axes), and the train step's {tuple(g.shape)} "
+        f"tensors; maps gradient f32 atol {B1_MAPS_ATOL}, bf16 one rounding "
+        f"+ {B1_MAPS_ATOL} (max |diff| f32 {worst['float32']}, bf16 "
+        f"{worst['bfloat16']}); flow gradient rtol {B1_FLOW_TOL[0]} atol "
+        f"{B1_FLOW_TOL[1]}; one device operation per entry point per call "
+        f"on a float32 flow ({ops['maps'][0]}, {ops['flow'][0]})")
+    return worst["float32"]
+
+
+def _time_flow_warp_bwd(step_inputs, smi):
+    """B1's maps entry on the train step's tensors: kernel, plain version
+    and grid_sampler_2d_backward (maps gradient only) in CUDA-graph
+    replays; its bound. Returns (times, bounds, library)."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.ops.warp import _flow_grid
+
+    g, maps, flow = (step_inputs[k] for k in ("g", "maps", "flow"))
+    flow = flow.float().contiguous()
+    Bn, Cw = g.shape[:2]
+    t = _in_turns(
+        "flow_warp_bwd", lambda: warp.flow_warp_bwd_maps(g, flow, (576, 720)),
+        lambda: warp.flow_warp_backward_plain(g, maps, flow, (576, 720)),
+        smi, f"maps gradient, device time in CUDA-graph replays; the train "
+        f"step's {Bn}x{Cw}x{H}x{W} {g.dtype} gradient and its flow (max "
+        f"|flow| {flow.abs().max().item():.1f} px)",
+        kreps=10, preps=2, timer=_graph_ms, ptimer=_event_ms)
+    out = warp.flow_warp_bwd_maps(g, flow, (576, 720))
+    b_bytes = _nbytes(g, flow, out) / PEAK_BYTES * 1e3
+    b_ops = Bn * H * W * (30 + 8 * Cw) / PEAK_F32 * 1e3
+    bound = (max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations")
+    # what the kernel moves besides: the float32 accumulator zeroed, its
+    # atomics, read back for the cast
+    acc = Bn * Cw * H * W * 4
+    moved = _nbytes(g, flow, out) + (3 * acc if g.dtype != torch.float32
+                                     else acc)
+    gx, gy = _flow_grid(flow, (576, 720))
+    grid = torch.stack([gx, gy], -1).to(maps.dtype).contiguous()
+    lib = _graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g, maps, grid, 0, 0, True, [True, False]), 10)
+    # the flow entry (no path of the trainer runs it: the providers are
+    # frozen), beside grid_sampler_2d_backward's grid gradient
+    key = "flow_warp_bwd@flow entry"
+    tf = _in_turns(
+        key, lambda: warp.flow_warp_bwd_flow(g, maps, flow, (576, 720)),
+        lambda: warp.flow_warp_backward_plain(g, maps, flow, (576, 720)),
+        smi, "flow gradient, the same tensors", kreps=10, preps=2,
+        timer=_graph_ms, ptimer=_event_ms)
+    gf = warp.flow_warp_bwd_flow(g, maps, flow, (576, 720))
+    f_bytes = _nbytes(g, maps, flow, gf) / PEAK_BYTES * 1e3
+    f_ops = Bn * H * W * (40 + 16 * Cw) / PEAK_F32 * 1e3
+    f_lib = _graph_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g, maps, grid, 0, 0, True, [False, True]), 10)
+    log(f"[{smi}] {key}: bound {max(f_bytes, f_ops):.5f} ms (bytes "
+        f"{f_bytes:.5f}, operations {f_ops:.5f}); grid_sampler_2d_backward "
+        f"(grid gradient) {f_lib:.4f} ms")
+    log(f"[{smi}] flow_warp_bwd: bound {bound[0]:.5f} ms ({bound[1]}: "
+        f"{_nbytes(g, flow, out)} B read g + flow, write the gradient, at "
+        f"3.35 TB/s); the kernel also zeroes, accumulates and reads back a "
+        f"float32 buffer: ~{moved} B ({moved / PEAK_BYTES * 1e3:.5f} ms at "
+        f"the memory rate); grid_sampler_2d_backward (maps gradient) "
+        f"{lib:.4f} ms")
+    return ({"flow_warp_bwd": t, key: tf},
+            {"flow_warp_bwd": bound,
+             key: (max(f_bytes, f_ops),
+                   "bytes" if f_bytes >= f_ops else "operations")},
+            {"flow_warp_bwd": lib, key: f_lib})
+
+
+def _check_step_on_card():
+    """Two float32 train steps of a 64x64 TernausNetMulti-Basic at scale
+    0.25 with frozen RAFT in the step, depth and the base trained, on the
+    card (the kernels: flow_warp, B1's maps entry) and on the CPU (their
+    plain versions; the CPU path is held to the JAX step by
+    tests/test_torch_train_steps.py), from the same weights and batches."""
+    import torch
+
+    from mfcnet_tpu_torch.data.transforms import (
+        TransformConfig,
+        augment_train_batch,
+    )
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+        init_weights_lecun,
+    )
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.track.outputs import flow_for_training
+    from mfcnet_tpu_torch.train.schedule import make_schedule
+    from mfcnet_tpu_torch.train.state import TrainState
+    from mfcnet_tpu_torch.train.steps import make_multiframe_train_step
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    hw = LEARN_HW
+    model = init_weights_lecun(get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+        add_depth_inputs=True, scale=0.25), torch.Generator().manual_seed(4))
+    raft = init_weights(RAFT(iters=FLOW_ITERS, input_hw=(hw, hw)),
+                        torch.Generator().manual_seed(5)).eval()
+    rng = np.random.default_rng(6)
+    cfg = TransformConfig(out_height=hw, out_width=hw)
+    batches = [augment_train_batch({
+        "frames": rng.integers(0, 256, (2, T, hw, hw, 3), dtype=np.uint8),
+        "mask": rng.integers(0, C, (2, hw, hw), dtype=np.uint8),
+        "depth": rng.integers(0, 256, (2, T, hw, hw), dtype=np.uint8)},
+        torch.Generator().manual_seed(i), cfg) for i in range(2)]
+    out = {}
+    with parity_mode():
+        for dev in ("cpu", "cuda"):
+            m = copy.deepcopy(model).to(dev)
+            r = copy.deepcopy(raft).to(dev).requires_grad_(False)
+            st = TrainState(m, make_schedule("Constant", STEP_LR, 1, 1), T)
+            step = make_multiframe_train_step(
+                ["nll", "soft_jaccard"], [0.7, 0.3], C,
+                class_weights=[1, 50, 50, 50, 50],
+                flow_fn=lambda f, r=r: flow_for_training(f, r))
+            warp.reset_launches()
+            parts = [step(st, {k: v.to(dev) for k, v in b.items()})
+                     for b in batches]
+            out[dev] = ([{k: float(v) for k, v in p.items()} for p in parts],
+                        {k: v.float().cpu() for k, v in
+                         m.state_dict().items()},
+                        dict(warp.LAUNCHES))
+    (pc, sdc, _), (pg, sdg, lg) = out["cpu"], out["cuda"]
+    if lg["flow_warp_bwd_maps"] != 2 or lg["flow_warp"] != 2:
+        raise AssertionError(f"card step: launches {lg}")
+    worst_loss = max(abs(g[k] - c[k]) / abs(c[k])
+                     for c, g in zip(pc, pg) for k in c)
+    worst_par, n_loose = 0.0, 0
+    for k, w in sdc.items():
+        if not w.is_floating_point():
+            continue
+        err = (sdg[k] - w).abs()
+        tight = 1e-5 * float(w.abs().max()) + 1e-4 * STEP_LR
+        loose = int((err > tight).sum())
+        if (float(err.max()) > 2 * len(batches) * STEP_LR
+                or loose > max(1, err.numel() // 1000)):
+            raise AssertionError(f"card step: {k} max |diff| "
+                                 f"{float(err.max())}, {loose} loose")
+        worst_par = max(worst_par, float(err.max()))
+        n_loose += loose
+    if worst_loss > STEP_LOSS_RTOL:
+        raise AssertionError(f"card step: loss parts {pg} vs CPU {pc}")
+    log(f"two f32 train steps on the card (flow_warp + B1 kernels, RAFT, "
+        f"depth, base trained; parity mode) == on the CPU (plain "
+        f"versions): loss parts within {worst_loss:.2e} relative (< "
+        f"{STEP_LOSS_RTOL}), parameters within {worst_par:.2e} ({n_loose} "
+        f"elements beyond 1e-5 of their tensor's scale + 1e-4 lr)")
+
+
+def phase_train(smi):
+    """The training slice: the training CLI in process on the card.
+
+    Run A: full-width TernausNetMulti-Basic, batch 4, T=3, 480x640, frozen
+    RAFT (random weights, 12 iterations, bf16 fused update) inside the
+    step, depth inputs, the base trained, bf16, grad_accum 2, EMA 0.999,
+    nll + soft_jaccard: one epoch of 6 micro-steps (3 updates), validation,
+    a checkpoint; the checkpoint (and its EMA) tracks frames in the port's
+    engine; an interrupted copy of run A resumes at the right batch. Run B:
+    the base frozen, float32, 2 steps. The learning check: the JAX e2e
+    recipe at 64x64. B1 is held to its plain version and timed on run A's
+    own tensors. Returns (run A's launches, its micro-steps, times,
+    bounds, library, B1's max |diff|)."""
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli import train_multiframe_detection as cli
+    from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+        init_weights_lecun,
+    )
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.track.tracker import TrackerConfig, track_on_frames
+    from mfcnet_tpu_torch.train.state import TrainState
+    from mfcnet_tpu_torch.utils.checkpoint import load_state_dict_file
+
+    capture, records = {"trace": True}, []
+    real_factory = _probe_train_steps(cli, records, capture)
+    summary = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            d = Path(d)
+            t0 = time.perf_counter()
+            pack = make_synthetic_pack(d / "pack", videos=(
+                ("train", 3, 8), ("val", 1, 4)), height=H, width=W, seed=SEED)
+            packb = make_synthetic_pack(d / "packb", videos=(
+                ("train", 2, 4), ("val", 1, 2)), height=H, width=W,
+                seed=SEED + 1)
+            log(f"training packs written by the port's generator: 24 + 4 and "
+                f"8 + 2 frames at {H}x{W} with depth "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+            # ---- run A: the slice --------------------------------------
+            a_extra = ["--train_base_model", "True", "--compute_dtype",
+                       "bfloat16", "--grad_accum", str(TRAIN_ACCUM),
+                       "--ema_decay", "0.999"]
+            a_args = _train_args(pack, d, "A", *a_extra)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            state_a = cli.main(a_args)
+            torch.cuda.synchronize()
+            launches = _all_launches()
+            wall_a = time.perf_counter() - t0
+            peak_a = torch.cuda.max_memory_allocated()
+            recs_a = list(records)
+            n_a = len(recs_a)
+            capture.pop("trace")
+            log(f"train run A (bf16, base trained, RAFT + depth, accum "
+                f"{TRAIN_ACCUM}, EMA): {n_a} micro-steps, "
+                f"{state_a.updates} updates, {wall_a:.1f} s with validation "
+                f"and checkpoint; launches {json.dumps(launches)}")
+            _require_launches("train", launches)
+            if n_a != 6 or state_a.updates != 3:
+                raise AssertionError(f"run A: 6 micro-steps and 3 updates "
+                                     f"expected, got {n_a}, {state_a.updates}")
+            for i, r in enumerate(recs_a):
+                if not all(np.isfinite(v) for v in r["parts"].values()):
+                    raise AssertionError(f"run A step {i}: {r['parts']}")
+                upd = (i + 1) % TRAIN_ACCUM == 0
+                moved = (r["head_moved"], r["base_moved"], r["ema_moved"])
+                if r["update"] != upd or moved != (upd, upd, upd):
+                    raise AssertionError(
+                        f"run A micro-step {i}: update {r['update']}, "
+                        f"head/base/EMA moved {moved}; expected {upd}")
+                lc = r["launches"]
+                if (lc["flow_warp_bwd"], lc["raft_update"],
+                        lc["flow_warp"]) != (1, FLOW_ITERS, 1):
+                    raise AssertionError(
+                        f"run A micro-step {i}: 1 flow_warp_bwd, "
+                        f"{FLOW_ITERS} raft_update and 1 flow_warp expected, "
+                        f"got {lc}")
+            log("run A: losses finite; head, base and EMA moved on the 3 "
+                "updates only; per micro-step 1 flow_warp_bwd, "
+                f"{FLOW_ITERS} raft_update, 1 flow_warp: "
+                + json.dumps([{k: round(v, 4) for k, v in r["parts"].items()}
+                              for r in recs_a]))
+            summary["A"] = (recs_a, peak_a)
+
+            # the checkpoint in the port's tracker, raw and EMA weights
+            ck = d / "A" / "ckpts" / "model_000.pth"
+            frames = synthetic_frames(6)
+            gen = torch.Generator().manual_seed(SEED)
+            flow_model = init_weights(RAFT(iters=FLOW_ITERS), gen)
+            cfg = TrackerConfig(dtype="bfloat16", decode="device",
+                                overlay=False, decode_tie_fallback=False,
+                                add_optflow_inputs=True,
+                                add_depth_inputs=True)
+            for use_ema in (False, True):
+                model = get_multiframe_segmentation_model(
+                    "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+                    add_depth_inputs=True)
+                model.load_state_dict(load_state_dict_file(ck, use_ema))
+                rows, _ = track_on_frames(
+                    frames, model, cfg, d, name=f"ck{use_ema}",
+                    depth_frames=_depth_frames(frames), flow_model=flow_model)
+                _check_rows(np.loadtxt(d / f"ck{use_ema}_tracked.csv",
+                                       delimiter=","), len(frames))
+            log(f"run A's checkpoint ({ck.stat().st_size} B) tracks "
+                f"{len(frames)} frames in the port's engine, with its raw and "
+                "its EMA weights")
+
+            # an interrupted copy of run A resumes at the right batch
+            real_apply = TrainState.apply_gradients
+
+            def interrupt(self):
+                if self.step == 3:
+                    raise KeyboardInterrupt
+                return real_apply(self)
+
+            TrainState.apply_gradients = interrupt
+            try:
+                cli.main(_train_args(pack, d, "Acut", *a_extra))
+                raise AssertionError("the interrupted run did not raise")
+            except KeyboardInterrupt:
+                pass
+            finally:
+                TrainState.apply_gradients = real_apply
+            meta = json.loads((d / "Acut" / "ckpts" / "model_999.json"
+                               ).read_text())
+            if meta != {"epoch": 0, "batches_done": 3}:
+                raise AssertionError(f"interrupt snapshot: {meta}")
+            resumed = cli.main(_train_args(pack, d, "Acut", *a_extra,
+                                           "--resume", "True"))
+            if (resumed.step, resumed.updates) != (6, 3):
+                raise AssertionError(f"resume: step {resumed.step}, updates "
+                                     f"{resumed.updates}; expected 6, 3")
+            log("run A interrupted in micro-step 4 (mid-update): snapshot "
+                "model_999 {epoch 0, batches_done 3} with the accumulated "
+                "gradient; --resume True re-entered epoch 0 at batch 3 and "
+                "ended at micro-step 6, update 3")
+
+            # ---- run B: base frozen, float32, 2 steps -------------------
+            records.clear()
+            base0 = init_weights_lecun(get_multiframe_segmentation_model(
+                "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+                add_depth_inputs=True), torch.Generator().manual_seed(SEED))
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            state_b = cli.main(_train_args(packb, d, "B", "--compute_dtype",
+                                           "float32"))
+            launches_b = _all_launches()
+            peak_b = torch.cuda.max_memory_allocated()
+            recs_b = list(records)
+            sd0, sd1 = base0.state_dict(), state_b.model.state_dict()
+            changed = [k for k in sd0 if k.startswith("base_model.")
+                       and not torch.equal(sd0[k], sd1[k].cpu())]
+            if len(recs_b) != 2 or changed or launches_b["flow_warp_bwd"]:
+                raise AssertionError(
+                    f"run B: {len(recs_b)} steps, base changed {changed}, "
+                    f"flow_warp_bwd launches {launches_b['flow_warp_bwd']}")
+            if not all(r["head_moved"] for r in recs_b):
+                raise AssertionError("run B: the head did not train")
+            log(f"train run B (f32, base frozen, RAFT + depth): 2 steps, base "
+                f"bit-identical, flow_warp_bwd never launched; launches "
+                f"{json.dumps(launches_b)}")
+            summary["B"] = (recs_b, peak_b)
+
+            # ---- the learning check ------------------------------------
+            lpack = make_synthetic_pack(d / "learn_pack", videos=(
+                ("train", 2, 12), ("val", 2, 12)), height=LEARN_HW,
+                width=LEARN_HW, seed=3, add_depth=False)
+            ratios, curves = [], []
+            for seed in LEARN_SEEDS:
+                name = f"learn{seed}"
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main([
+                        "--dataset", "JIGSAWS", "--packed_dir", str(lpack),
+                        "--expt_savedir", str(d), "--expt_name", name,
+                        "--batch_size", "4", "--num_workers", "2",
+                        "--num_epochs", str(LEARN_EPOCHS), "--save_freq",
+                        str(LEARN_EPOCHS), "--print_freq", "100",
+                        "--lr", "3e-3", "--scheduler", "Constant",
+                        "--loss_fns", "nll", "soft_jaccard",
+                        "--loss_wts", "0.7", "0.3",
+                        "--class_weights", "1", "50", "50", "50", "50",
+                        "--input_height", str(LEARN_HW),
+                        "--input_width", str(LEARN_HW),
+                        "--model_scale", "0.25", "--train_base_model",
+                        "true", "--seed", str(seed)])
+                scalars = [json.loads(line) for line in (
+                    d / name / "logs" / "scalars.jsonl").read_text().split(
+                        "\n") if line]
+                losses = [s["value"] for s in scalars
+                          if s["tag"] == "Training/Loss"]
+                ratios.append(losses[-1] / losses[0])
+                curves.append([round(v, 3) for v in losses])
+            med = float(np.median(ratios))
+            log(f"learning check (tests/test_e2e_learning.py's recipe, "
+                f"{LEARN_HW}x{LEARN_HW}, scale 0.25, {LEARN_EPOCHS + 1} "
+                f"epochs, seeds {LEARN_SEEDS}): training loss by epoch "
+                f"{curves}, last/first {[round(r, 3) for r in ratios]}, "
+                f"median {med:.3f} (< {LEARN_RATIO})")
+            if not med < LEARN_RATIO:
+                raise AssertionError("the learning check failed")
+    finally:
+        cli.make_multiframe_train_step = real_factory
+
+    _check_step_on_card()
+    err = _check_flow_warp_bwd(capture)
+    times, bounds, library = _time_flow_warp_bwd(capture, smi)
+    traced = [r for r in summary["A"][0] if r["events"]]
+    if len(traced) != 1:
+        raise AssertionError("run A: one traced micro-step expected")
+    _step_breakdown(traced[0]["events"], traced[0]["traced_wall"], smi)
+    for run, dt in (("A", "bf16"), ("B", "f32")):
+        recs, peak = summary[run]
+        warm = [(i + 1, r["ms"]) for i, r in enumerate(recs)
+                if i >= min(2, len(recs) - 1) and not r["events"]]
+        med = float(np.median([ms for _, ms in warm]))
+        log(f"[{smi}] train run {run} ({dt}): step median {med:.2f} ms over "
+            f"micro-steps {[i for i, _ in warm]} (all: "
+            f"{[round(r['ms'], 1) for r in recs]}; the traced one under the "
+            f"profiler), {TRAIN_B / med * 1e3:.2f} samples/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    return launches, n_a, times, bounds, library, err
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -2492,16 +3174,23 @@ def main():
         times.update(t)
         bounds.update(b)
         library.update(lib)
+    (launches_train, n_micro, t, b, lib,
+     errs["flow_warp_bwd"]) = phase_train(smi)
+    times.update(t)
+    bounds.update(b)
+    library.update(lib)
     import torch
 
+    # per frame on the tracker paths, per micro-step on the training path
     paths = {"no_flow": (launches_noflow, len(frames) - (T - 1)),
              "raft": (launches_raft, fused_raft),
-             "unflow": (launches_unflow, fused_unflow)}
+             "unflow": (launches_unflow, fused_unflow),
+             "train": (launches_train, n_micro)}
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
-         # over the three main-path runs, each counted from 0
+         # over the four main-path runs, each counted from 0
          "launches": sum(c[name] for c, _ in paths.values()),
          "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
          "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},

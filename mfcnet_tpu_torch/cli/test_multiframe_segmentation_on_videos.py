@@ -6,8 +6,10 @@ scripts/test_multiframe_segmentation_on_videos_v3.py). Writes
 
 Same flags as the JAX CLI. ``--load_wts_model`` takes a reference
 ``.pth`` (a ``{model, optimizer, epoch}`` dict or a bare state_dict,
-DataParallel ``module.`` prefixes allowed). ``--add_optflow_inputs True``
-adds the frozen RAFT flow provider; ``--load_wts_flow_model`` takes a
+DataParallel ``module.`` prefixes allowed), such as a checkpoint of the
+port's trainer; ``--use_ema True`` loads that checkpoint's EMA weights.
+``--add_optflow_inputs True`` adds the frozen RAFT flow provider;
+``--load_wts_flow_model`` takes a
 torchvision ``raft_large`` ``.pth`` (its key names load directly), and
 without it the provider keeps its seeded random weights.
 ``--add_depth_inputs True`` reads one depth video per RGB video from
@@ -50,7 +52,6 @@ _LATER_FLAGS = {
     "artifact": (None, "Queue 1 item 11 (serving and scale)"),
     "parallel_videos": (1, "Queue 1 item 11 (serving and scale)"),
     "spatial_shards": (1, "Queue 1 item 11 (serving and scale)"),
-    "use_ema": (False, "Queue 1 item 8 (training)"),
 }
 
 
@@ -108,18 +109,22 @@ def list_video_files(directory):
     return sorted(out)
 
 
-def load_reference_state_dict(path):
-    """A reference ``.pth`` -> state_dict (``module.`` prefixes off)."""
+def load_reference_state_dict(path, use_ema: bool = False):
+    """A reference ``.pth`` (or a checkpoint of the port's trainer, whose
+    ``ema`` entry ``use_ema`` selects) -> state_dict (``module.`` prefixes
+    off)."""
+    from mfcnet_tpu_torch.utils.checkpoint import load_state_dict_file
+
     if str(path).endswith(".msgpack"):
         raise SystemExit(
             f"{path}: a flax checkpoint; convert its variables with "
             "mfcnet_tpu_torch/compat/from_jax.py (state_dict_from_jax) and "
             "torch.save the result as a .pth"
         )
-    blob = torch.load(path, map_location="cpu", weights_only=False)
-    sd = blob["model"] if isinstance(blob, dict) and "model" in blob else blob
-    return {k[len("module."):] if k.startswith("module.") else k: v
-            for k, v in sd.items()}
+    try:
+        return load_state_dict_file(path, use_ema=use_ema)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def main(argv=None):
@@ -151,8 +156,10 @@ def main(argv=None):
         )
     except NotImplementedError as e:
         raise SystemExit(str(e))
-    model.load_state_dict(load_reference_state_dict(args.load_wts_model))
-    logger.info(f"Loaded model weights from {args.load_wts_model}")
+    model.load_state_dict(load_reference_state_dict(args.load_wts_model,
+                                                    args.use_ema))
+    logger.info(f"Loaded model weights from {args.load_wts_model}"
+                + (" (EMA)" if args.use_ema else ""))
 
     cfg = TrackerConfig(
         num_input_frames=T, num_classes=num_classes, input_height=H,

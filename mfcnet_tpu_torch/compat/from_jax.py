@@ -114,6 +114,16 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict):
     return model
 
 
+def load_jax_train_state(model: torch.nn.Module, params: Dict,
+                         batch_stats: Dict):
+    """Load a JAX ``TrainState``'s ``params`` and ``batch_stats`` (nested
+    dicts of arrays) into ``model``, so that a training run of the port
+    starts from the JAX run's numbers. Optimizer moments are not carried:
+    both sides start a fresh Adam. Returns the model."""
+    return load_jax_variables(
+        model, {"params": params, "batch_stats": batch_stats})
+
+
 def _raft_encoder(sd, prefix, params, stats):
     """flax RAFTEncoder subtree -> torchvision FeatureEncoder keys (conv
     at Sequential index 0, batch norm at index 1)."""

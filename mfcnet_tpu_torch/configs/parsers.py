@@ -1,0 +1,182 @@
+"""Training parsers (counterpart of the training half of
+``mfcnet_tpu/configs/parsers.py``; reference configs/config_multiframe.py
+and configs/config_toolposeseg.py): the JAX package's flag names and
+defaults, plus ``--device``. Boolean flags take true/false/1/0/yes/no;
+``-c FILE`` reads ``key = value`` lines (command-line flags win).
+
+Flags that have no counterpart on one card (``--spatial_shards`` > 1,
+``--multihost``, ``--ckpt_backend orbax``, ``--remat``) are accepted and
+raise in the CLI, naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+SINGLEFRAME_MODELS = ["TernausNet11", "TernausNet16", "TAPNet11", "TAPNet16",
+                      "DeepLab_v3", "FCN", "HRNet", "SegFormer", "UNet",
+                      "ResUNet"]
+MULTIFRAME_MODELS = [
+    f"{fam}Multi-{var}"
+    for fam in ("TernausNet", "DeepLab", "FCN", "SegFormer", "HRNet", "UNet",
+                "ResUNet")
+    for var in ("Basic", "Large")
+]
+
+
+def str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes", "y"):
+        return True
+    if v.lower() in ("false", "0", "no", "n", ""):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
+
+
+class _ConfigFileParser(argparse.ArgumentParser):
+    """ArgumentParser with a ``-c FILE`` of ``key = value`` lines."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.add_argument("-c", "--config", type=str, default=None,
+                          help="config file with 'key = value' lines")
+
+    def parse_args(self, args=None, namespace=None):
+        args = list(sys.argv[1:] if args is None else args)
+        ns, _ = super().parse_known_args(args=args, namespace=namespace)
+        if ns.config:
+            file_args = []
+            for line in Path(ns.config).read_text().splitlines():
+                line = line.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                key, _, val = line.partition("=")
+                file_args.append(f"--{key.strip()}")
+                file_args.extend(val.split())
+            args = file_args + args
+        return super().parse_args(args=args, namespace=namespace)
+
+
+def _add_train_flags(p, multiframe: bool):
+    g = p.add_argument_group("dataset")
+    g.add_argument("--data_dir", type=str, default="./data")
+    g.add_argument("--dataset", type=str, default="MICCAI2017",
+                   choices=["MICCAI2015", "MICCAI2017", "JIGSAWS"])
+    g.add_argument("--fold_index", type=int, default=-1,
+                   choices=[-1, 0, 1, 2, 3])
+    g.add_argument("--prediction_task", type=str,
+                   default="toolpose_segmentation",
+                   choices=["tooltip_segmentation", "toolpose_segmentation",
+                            "endovis15_segmentation", "binary"])
+    g.add_argument("--mode", type=str, default="training",
+                   choices=["training", "testing"])
+    g.add_argument("--num_frames_per_video", type=int, default=225)
+    if multiframe:
+        g.add_argument("--num_input_frames", type=int, default=3)
+    g.add_argument("--packed_dir", type=str, default=None,
+                   help="read packs (data/packed.py: train/ and val/) "
+                        "instead of decoding the --data_dir image tree")
+
+    g = p.add_argument_group("io")
+    g.add_argument("--expt_savedir", type=str, default="./")
+    g.add_argument("--expt_name", type=str, default="expt")
+    g.add_argument("--print_freq", type=int, default=10)
+    g.add_argument("--save_freq", type=int, default=10)
+    g.add_argument("--multihost", type=str2bool, default=False)
+    g.add_argument("--ckpt_backend", type=str, default="msgpack",
+                   choices=["msgpack", "orbax"],
+                   help="the port writes .pth checkpoints whatever the "
+                        "value; orbax raises")
+    g.add_argument("--debug", type=str2bool, default=False)
+
+    g = p.add_argument_group("optimizer")
+    g.add_argument("--batch_size", type=int, default=8 if multiframe else 4)
+    g.add_argument("--num_workers", type=int, default=4)
+    g.add_argument("--num_classes", type=int, default=5)
+    g.add_argument("--metric_fns", type=str, nargs="+",
+                   default=["iou", "dice"], choices=["iou", "dice"])
+    g.add_argument("--loss_fns", type=str, nargs="+", default=["nll"],
+                   choices=["mse", "nll", "soft_jaccard"])
+    g.add_argument("--loss_wts", type=float, nargs="+", default=[1.0])
+    g.add_argument("--lr", type=float, default=1e-4 if multiframe else 3e-5)
+    g.add_argument("--scheduler", type=str, default="StepDecay",
+                   choices=["StepDecay", "Constant"])
+    g.add_argument("--num_epochs", type=int, default=10)
+    g.add_argument("--class_weights", type=float, nargs="+",
+                   default=[1, 100, 100, 100, 100])
+    g.add_argument("--grad_accum", type=int, default=1,
+                   help="average the gradients of N micro-batches per "
+                        "optimizer update; the schedule counts updates")
+    g.add_argument("--ema_decay", type=float, default=0.0,
+                   help="keep an EMA of the parameters (e.g. 0.999), saved "
+                        "as the checkpoint's 'ema'; 0 disables")
+    g.add_argument("--seed", type=int, default=42)
+    g.add_argument("--resume", type=str2bool, default=False)
+    g.add_argument("--starting_epoch", type=int, default=0)
+
+    g = p.add_argument_group("model")
+    if multiframe:
+        g.add_argument("--model_type", type=str,
+                       default="TernausNetMulti-Basic",
+                       choices=MULTIFRAME_MODELS)
+        g.add_argument("--train_base_model", type=str2bool, default=False)
+        g.add_argument("--load_wts_base_model", type=str, default=None,
+                       help="TernausNet16 .pth (state_dict or {model: ...})")
+    else:
+        g.add_argument("--model_type", type=str, default="TernausNet16",
+                       choices=SINGLEFRAME_MODELS)
+    g.add_argument("--pretrained", type=str2bool, default=False)
+    g.add_argument("--load_wts_model", type=str, default=None)
+    g.add_argument("--input_height", type=int, default=480)
+    g.add_argument("--input_width", type=int, default=640)
+    if multiframe:
+        g.add_argument("--add_optflow_inputs", type=str2bool, default=False)
+        g.add_argument("--optflow_model", type=str, default="RAFT",
+                       choices=["RAFT", "FlowFormerPlusPlus", "UnFlow"])
+        g.add_argument("--load_wts_flow_model", type=str, default=None,
+                       help="torchvision raft_large .pth (or the UnFlow "
+                            "reference checkpoint); without it the frozen "
+                            "provider keeps seeded random weights")
+        g.add_argument("--add_depth_inputs", type=str2bool, default=False)
+        g.add_argument("--parity_grid", type=str2bool, default=True)
+    g.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    g.add_argument("--spatial_shards", type=int, default=1)
+    g.add_argument("--model_scale", type=float, default=1.0,
+                   help="uniform channel-width scale (< 1 for smoke tests)")
+    g.add_argument("--remat", type=str2bool, default=False)
+    g.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    return p
+
+
+def multiframe_train_parser() -> argparse.ArgumentParser:
+    return _add_train_flags(_ConfigFileParser(), multiframe=True)
+
+
+def toolposeseg_train_parser() -> argparse.ArgumentParser:
+    return _add_train_flags(_ConfigFileParser(), multiframe=False)
+
+
+#: flag -> (value that means "not used", ROADMAP item that ports it)
+LATER_FLAGS = {
+    "spatial_shards": (1, "Queue 1 item 11d (spatial sharding)"),
+    "multihost": (False, "Queue 1 item 11d (multi-host training)"),
+    "ckpt_backend": ("msgpack", "Queue 1 item 12 (orbax checkpoints)"),
+    "remat": (False, "Queue 1 item 8c (--remat: torch.utils.checkpoint)"),
+    "pretrained": (False, "Queue 1 item 10 (pretrained backbones need "
+                          "weights from the network; pass "
+                          "--load_wts_base_model)"),
+}
+
+
+def check_ported(args):
+    """Raise SystemExit naming the ROADMAP item of a flag with no
+    counterpart yet."""
+    for flag, (unused, item) in LATER_FLAGS.items():
+        if getattr(args, flag) != unused:
+            raise SystemExit(f"--{flag} {getattr(args, flag)} is not ported "
+                             f"yet: ROADMAP.md {item}")

@@ -9,7 +9,10 @@ newest frame (``ops/warp.py::flow_warp``, on the reference's cropped
 depth inputs the T depth maps follow the class maps. Module names follow
 the reference (``base_model``, ``multiframe_net.multiframe_net.{0..9}``).
 
-Public methods take and return the JAX package's NHWC layout;
+The head's train mode is the JAX head's (biased batch variance, JAX's
+running-statistics update); eval mode uses the running statistics, as
+the tracker does. Public methods take and return the JAX package's NHWC
+layout;
 ``base_nchw``/``fuse_nchw`` are the NCHW forms the tracker's engine
 keeps its ring buffers in.
 """
@@ -27,10 +30,41 @@ from mfcnet_tpu_torch.ops.warp import flow_warp
 REFERENCE_GRID_HW = (576, 720)
 
 
+BN_EPS = 1e-5
+#: the JAX head's running-statistics update: running = 0.9 * running + 0.1
+#: * batch
+BN_MOMENTUM = 0.1
+
+
+def batch_norm_train(y, bn: nn.BatchNorm2d):
+    """Train-mode batch norm of the JAX head (``mfcnet_tpu/models/
+    mfcnet.py:116-147``), not ``nn.BatchNorm2d``'s: float32 batch mean and
+    the biased variance E[y^2] - E[y]^2 (clamped at 0) over (N, H, W); the
+    running statistics become 0.9 * running + 0.1 * batch, with the biased
+    variance (PyTorch's BatchNorm stores the unbiased one, which gives
+    another eval model after the first step); y normalized in the
+    promoted type of y and the BN parameters (bf16 under a bf16 step)."""
+    yf = y.float()
+    mean = yf.mean(dim=(0, 2, 3))
+    var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        keep = 1.0 - BN_MOMENTUM
+        bn.running_mean.copy_(keep * bn.running_mean + BN_MOMENTUM * mean)
+        bn.running_var.copy_(keep * bn.running_var + BN_MOMENTUM * var)
+    dt = torch.promote_types(y.dtype, bn.weight.dtype)
+
+    def ch(v):
+        return v.to(dt).view(1, -1, 1, 1)
+
+    return ((y.to(dt) - ch(mean)) * torch.rsqrt(ch(var) + BN_EPS)
+            * ch(bn.weight) + ch(bn.bias))
+
+
 class MultiFrameHead(nn.Sequential):
     """Conv11x11(-> T*C, no bias) + BN + ReLU, 2 x [Conv3x3 + BN + ReLU],
     Conv1x1(-> C, no bias) (reference models/multiframe_model.py:62-73).
-    In eval mode BN uses its running statistics."""
+    In eval mode BN uses its running statistics; in train mode the JAX
+    head's batch statistics (:func:`batch_norm_train`)."""
 
     def __init__(self, in_ch: int, num_classes: int, num_frames: int):
         tc = num_frames * num_classes
@@ -46,6 +80,14 @@ class MultiFrameHead(nn.Sequential):
             nn.ReLU(),
             nn.Conv2d(tc, num_classes, 1, bias=False),
         )
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        for mod in self:
+            x = (batch_norm_train(x, mod) if isinstance(mod, nn.BatchNorm2d)
+                 else mod(x))
+        return x
 
 
 class MultiFrameNet(nn.Module):

@@ -63,6 +63,15 @@ _SIGNATURES = {
         "mfc_backward_warp": (
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
+        # g, flow, acc, out, B, C, H, W, gh, gw, align_corners, dtype, stream
+        "mfc_flow_warp_bwd_maps": (
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+        # g, maps, flow, gflow, B, C, H, W, gh, gw, align_corners, dtype,
+        # stream
+        "mfc_flow_warp_bwd_flow": (
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
     },
     "raft_update.cu": {
         # inputs[5], weights[18], scratch[5], net_out, delta, B, H8, W8,

@@ -68,8 +68,9 @@ from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 LAUNCHES = {"correlation": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING = ("the correlation's backward kernel comes with the training "
-             "slice: ROADMAP.md Queue 1 item 8 (training)")
+_TRAINING = ("the correlation has no backward kernel (B2; the flow "
+             "providers train frozen): ROADMAP.md Queue 1 item 8b (training a "
+             "flow provider: B2 and the update step's backward)")
 
 
 #: the tensor-core route's block: MROWS f1 pixels (four m16 tiles), at

@@ -29,8 +29,21 @@ patch table, ``onehot_window_sample``) are not carried over.
 Coordinates are formed in float32 in the JAX code's order, and the four
 taps blend with float32 weights whatever the maps' dtype (the TPU kernel
 rounds its hat weights to bf16, the gather tier does not); the result is
-returned in the maps' dtype. Forward only: the backward kernel comes with
-the training slice.
+returned in the maps' dtype.
+
+:func:`flow_warp` is differentiable (a ``torch.autograd.Function``): its
+backward is the VJP that the JAX package attaches to the TPU kernel
+(``warp_pallas.py::_banded_warp_bwd``, XLA autodiff of the kernel's hat
+weights max(1 - |xs - fx|, 0)). On CUDA tensors the maps gradient is the
+kernel entry ``mfc_flow_warp_bwd_maps`` (a scatter with float32 atomics,
+one cooperative launch) and the flow gradient ``mfc_flow_warp_bwd_flow``
+(a gather, run only when the flow requires a gradient); on CPU tensors
+:func:`flow_warp_backward_plain`. Between taps the flow gradient is the
+difference of the two taps; at an exactly integer coordinate k it is the
+banded hat convention as XLA differentiates it, v[k] + (v[k+1] - v[k-1]) /
+2, not the floor form's v[k+1] - v[k] (the JAX package's gather tier, taken
+when the flow leaves the band, differentiates the floor form). The other
+warps (``grid_sample_bilinear``, ``backward_warp``) stay forward only.
 """
 
 from __future__ import annotations
@@ -42,16 +55,24 @@ import torch
 from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 
 #: kernel launches per entry point since the last :func:`reset_launches`
-LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0}
+LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
+            "flow_warp_bwd_maps": 0, "flow_warp_bwd_flow": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING = ("the warp's backward kernel comes with the training slice: "
-             "ROADMAP.md Queue 1 item 8 (training)")
+_TRAINING = ("this warp has no backward kernel (the flow providers train "
+             "frozen): ROADMAP.md Queue 1 item 8b (training a flow provider: "
+             "B2 and the update step's backward)")
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _wf(t):
+    """The plain versions' working type: float32, or float64 for float64
+    inputs (the CPU route only: ``gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 def _no_grad_inputs(*tensors):
@@ -63,6 +84,24 @@ def _no_grad_inputs(*tensors):
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+def _tap_valid(yf, xf, H, W):
+    return (xf >= 0) & (xf <= W - 1) & (yf >= 0) & (yf <= H - 1)
+
+
+def _tap_plain(flat, yf, xf, H, W):
+    """Values (B, C, Ho, Wo) of the taps at integral float rows ``yf`` and
+    columns ``xf`` (B, Ho, Wo) of ``flat`` (B, C, H*W), in the
+    coordinates' type; zero outside the image."""
+    B, C, _ = flat.shape
+    Ho, Wo = xf.shape[-2:]
+    valid = _tap_valid(yf, xf, H, W)
+    xi = xf.clamp(0, W - 1).to(torch.int64)
+    yi = yf.clamp(0, H - 1).to(torch.int64)
+    idx = (yi * W + xi).reshape(B, 1, Ho * Wo).expand(B, C, Ho * Wo)
+    v = flat.gather(2, idx).reshape(B, C, Ho, Wo).to(xf.dtype)
+    return v * valid.unsqueeze(1).to(xf.dtype)
+
+
 def _sample_abs_plain(img, fx, fy):
     """img (B, C, H, W) at absolute float32 coordinates fx, fy
     (B, Ho, Wo): four taps, out-of-image taps contribute zero, float32
@@ -76,12 +115,7 @@ def _sample_abs_plain(img, fx, fy):
     flat = img.reshape(B, C, H * W)
 
     def tap(yf, xf):
-        valid = (xf >= 0) & (xf <= W - 1) & (yf >= 0) & (yf <= H - 1)
-        xi = xf.clamp(0, W - 1).to(torch.int64)
-        yi = yf.clamp(0, H - 1).to(torch.int64)
-        idx = (yi * W + xi).reshape(B, 1, Ho * Wo).expand(B, C, Ho * Wo)
-        v = flat.gather(2, idx).reshape(B, C, Ho, Wo).float()
-        return v * valid.unsqueeze(1).to(torch.float32)
+        return _tap_plain(flat, yf, xf, H, W)
 
     v00, v01 = tap(y0, x0), tap(y0, x0 + 1)
     v10, v11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
@@ -99,8 +133,8 @@ def _unnormalize(g, size: int, align_corners: bool):
 def _abs_coords(grid_x, grid_y, H, W, align_corners, padding_mode):
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
-    fx = _unnormalize(grid_x.float(), W, align_corners)
-    fy = _unnormalize(grid_y.float(), H, align_corners)
+    fx = _unnormalize(grid_x.to(_wf(grid_x)), W, align_corners)
+    fy = _unnormalize(grid_y.to(_wf(grid_y)), H, align_corners)
     if padding_mode == "border":
         # torch clamps the unnormalized coordinate, so the fractional
         # weights see the clamped value too
@@ -127,14 +161,14 @@ def _flow_grid(flow, grid_hw):
     gh, gw = (H, W) if grid_hw is None else grid_hw
     if gh < H or gw < W:
         raise ValueError(f"grid_hw {grid_hw} smaller than input {(H, W)}")
-    dev = flow.device
+    dev, dt = flow.device, _wf(flow)
 
     def c(v):
-        return torch.full((), float(v), dtype=torch.float32, device=dev)
+        return torch.full((), float(v), dtype=dt, device=dev)
 
-    xs = 2.0 * torch.arange(W, dtype=torch.float32, device=dev) / c(gw - 1) - 1.0
-    ys = 2.0 * torch.arange(H, dtype=torch.float32, device=dev) / c(gh - 1) - 1.0
-    flow = flow.float()
+    xs = 2.0 * torch.arange(W, dtype=dt, device=dev) / c(gw - 1) - 1.0
+    ys = 2.0 * torch.arange(H, dtype=dt, device=dev) / c(gh - 1) - 1.0
+    flow = flow.to(dt)
     gx = xs.view(1, 1, W) + flow[:, 0] / c((W - 1) / 2.0)
     gy = ys.view(1, H, 1) + flow[:, 1] / c((H - 1) / 2.0)
     return gx, gy
@@ -144,6 +178,81 @@ def flow_warp_plain(maps, flow, grid_hw=None, align_corners: bool = True):
     """Plain version of :func:`flow_warp` (same arithmetic, any device)."""
     gx, gy = _flow_grid(flow, grid_hw)
     return grid_sample_bilinear_plain(maps, gx, gy, align_corners)
+
+
+def _hat_diff(below, lo, hi, integer):
+    """Derivative of a bilinear sample along one axis from the taps below
+    the floor, at it and above it: ``hi - lo`` between taps; at an integer
+    coordinate XLA's derivative of the hat weights, ``lo + (hi - below) /
+    2`` (|.|'s derivative at 0 taken as +1, maximum's tie split 0.5/0.5)."""
+    return torch.where(integer, lo + 0.5 * (hi - below), hi - lo)
+
+
+def sample_abs_backward_plain(g, img, fx, fy):
+    """VJP of the bilinear sample of ``img`` (B, C, H, W) at absolute
+    float32 coordinates ``fx``, ``fy`` (B, Ho, Wo), zeros padding, for the
+    upstream gradient ``g`` (B, C, Ho, Wo). Returns float32
+    ``(grad_img, grad_fx, grad_fy)``: each output's gradient added to its
+    four taps with the forward's weights (``index_add_``), and the
+    derivative of the sample along x and y summed over channels (see
+    :func:`_hat_diff` for integer coordinates)."""
+    B, C, H, W = img.shape
+    Ho, Wo = fx.shape[-2:]
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    tx, ty = fx - x0, fy - y0
+    ux, uy = 1.0 - tx, 1.0 - ty
+    gf = g.to(fx.dtype)
+    acc = torch.zeros(B * H * W, C, dtype=fx.dtype, device=img.device)
+    boff = (torch.arange(B, device=img.device) * (H * W)).view(B, 1, 1)
+    for dy, dx, w in ((0, 0, ux * uy), (0, 1, tx * uy), (1, 0, ux * ty),
+                      (1, 1, tx * ty)):
+        yf, xf = y0 + dy, x0 + dx
+        valid = _tap_valid(yf, xf, H, W)
+        idx = (boff + yf.clamp(0, H - 1).to(torch.int64) * W
+               + xf.clamp(0, W - 1).to(torch.int64))
+        src = gf * (w * valid.to(fx.dtype)).unsqueeze(1)
+        acc.index_add_(0, idx.reshape(-1),
+                       src.permute(0, 2, 3, 1).reshape(-1, C))
+    grad_img = acc.view(B, H, W, C).permute(0, 3, 1, 2)
+
+    flat = img.reshape(B, C, H * W)
+
+    def tap(dy, dx):
+        return _tap_plain(flat, y0 + dy, x0 + dx, H, W)
+
+    v00, v01, v10, v11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    ix, iy = (tx == 0).unsqueeze(1), (ty == 0).unsqueeze(1)
+    tx, ty, ux, uy = (t.unsqueeze(1) for t in (tx, ty, ux, uy))
+    dxv = (uy * _hat_diff(tap(0, -1), v00, v01, ix)
+           + ty * _hat_diff(tap(1, -1), v10, v11, ix))
+    dyv = (ux * _hat_diff(tap(-1, 0), v00, v10, iy)
+           + tx * _hat_diff(tap(-1, 1), v01, v11, iy))
+    return grad_img, (gf * dxv).sum(1), (gf * dyv).sum(1)
+
+
+def flow_warp_backward_plain(g, maps, flow, grid_hw=None,
+                             align_corners: bool = True):
+    """Plain version of :func:`flow_warp`'s backward: for the upstream
+    gradient ``g`` (B, C, H, W) returns ``(grad_maps, grad_flow)``, the
+    maps gradient in the maps' dtype and the flow gradient (B, 2, H, W)
+    float32, the coordinate chain transposed in the JAX code's float32
+    order."""
+    B, C, H, W = maps.shape
+    gx, gy = _flow_grid(flow, grid_hw)
+    fx, fy = _abs_coords(gx, gy, H, W, align_corners, "zeros")
+    gi, gfx, gfy = sample_abs_backward_plain(g, maps, fx, fy)
+    dev, dt = maps.device, fx.dtype
+
+    def c(v):
+        return torch.full((), float(v), dtype=dt, device=dev)
+
+    if align_corners:
+        cx, cy = gfx * c(W - 1) * 0.5, gfy * c(H - 1) * 0.5
+    else:
+        cx, cy = gfx * 0.5 * c(W), gfy * 0.5 * c(H)
+    grad_flow = torch.stack([cx / c((W - 1) / 2.0), cy / c((H - 1) / 2.0)],
+                            dim=1)
+    return gi.to(maps.dtype), grad_flow
 
 
 _BASE_GRIDS = {}
@@ -192,8 +301,10 @@ def backward_warp_plain(img, flow, align_corners: bool = False,
 def _check_maps(maps):
     if maps.dim() != 4:
         raise ValueError(f"maps: expected (B, C, H, W), got {tuple(maps.shape)}")
-    if maps.dtype not in _DTYPES:
-        raise TypeError(f"maps: expected float32 or bfloat16, got {maps.dtype}")
+    if maps.dtype not in _DTYPES and not (maps.dtype == torch.float64
+                                          and maps.device.type == "cpu"):
+        raise TypeError(f"maps: expected float32 or bfloat16 (float64 on "
+                        f"the CPU), got {maps.dtype}")
     if maps.numel() >= 2 ** 31:
         raise ValueError("maps: the kernel indexes with 32 bits; "
                          f"{maps.numel()} elements exceed 2**31 - 1")
@@ -241,9 +352,9 @@ def flow_warp(maps, flow, grid_hw=None, align_corners: bool = True):
     grid was built at before it was cropped to (H, W); the reference
     builds it at a fixed 576x720, so at 480x640 zero flow is NOT an
     identity sample. ``None`` gives the identity grid. Returns
-    (B, C, H, W) in the maps' dtype."""
+    (B, C, H, W) in the maps' dtype. Differentiable in maps and flow (see
+    the module docstring)."""
     _check_maps(maps)
-    _no_grad_inputs(maps, flow)
     B, C, H, W = maps.shape
     if flow.shape != (B, 2, H, W):
         raise ValueError(f"flow: expected {(B, 2, H, W)}, "
@@ -251,8 +362,16 @@ def flow_warp(maps, flow, grid_hw=None, align_corners: bool = True):
     gh, gw = (H, W) if grid_hw is None else grid_hw
     if gh < H or gw < W:
         raise ValueError(f"grid_hw {grid_hw} smaller than input {(H, W)}")
+    if torch.is_grad_enabled() and (maps.requires_grad or flow.requires_grad):
+        return _FlowWarp.apply(maps, flow, grid_hw, align_corners)
+    return _flow_warp_forward(maps, flow, grid_hw, align_corners)
+
+
+def _flow_warp_forward(maps, flow, grid_hw, align_corners):
     if route(maps, flow) == "cpu":
         return flow_warp_plain(maps, flow, grid_hw, align_corners)
+    B, C, H, W = maps.shape
+    gh, gw = (H, W) if grid_hw is None else grid_hw
     maps = maps.contiguous()
     flow = flow.float().contiguous()
     out = torch.empty_like(maps)
@@ -261,6 +380,80 @@ def flow_warp(maps, flow, grid_hw=None, align_corners: bool = True):
         gh, gw, int(align_corners), _DTYPES[maps.dtype], stream_of(maps))
     _launch("flow_warp", rc)
     return out
+
+
+def flow_warp_bwd_maps(g, flow, grid_hw=None, align_corners: bool = True):
+    """The maps gradient of :func:`flow_warp` on CUDA tensors: ``g``
+    (B, C, H, W) float32 or bfloat16, the upstream gradient; ``flow``
+    (B, 2, H, W). One cooperative launch of ``mfc_flow_warp_bwd_maps``
+    (zero a float32 accumulator, scatter with atomics, cast to g's type).
+    Returns (B, C, H, W) in g's type."""
+    _check_maps(g)
+    B, C, H, W = g.shape
+    gh, gw = (H, W) if grid_hw is None else grid_hw
+    g = g.contiguous()
+    flow = flow.float().contiguous()
+    if g.dtype == torch.float32:
+        acc = out = torch.empty_like(g)
+        out_ptr = None
+    else:
+        acc = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        out = torch.empty_like(g)
+        out_ptr = out.data_ptr()
+    rc = kernel_lib().mfc_flow_warp_bwd_maps(
+        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), out_ptr, B, C, H, W,
+        gh, gw, int(align_corners), _DTYPES[g.dtype], stream_of(g))
+    _launch("flow_warp_bwd_maps", rc)
+    return out
+
+
+def flow_warp_bwd_flow(g, maps, flow, grid_hw=None,
+                       align_corners: bool = True):
+    """The flow gradient of :func:`flow_warp` on CUDA tensors: ``g`` and
+    ``maps`` (B, C, H, W) of one type, ``flow`` (B, 2, H, W). One launch
+    of ``mfc_flow_warp_bwd_flow``. Returns (B, 2, H, W) float32."""
+    _check_maps(maps)
+    B, C, H, W = maps.shape
+    gh, gw = (H, W) if grid_hw is None else grid_hw
+    g = g.to(maps.dtype).contiguous()
+    maps = maps.contiguous()
+    flow = flow.float().contiguous()
+    out = torch.empty(B, 2, H, W, dtype=torch.float32, device=maps.device)
+    rc = kernel_lib().mfc_flow_warp_bwd_flow(
+        g.data_ptr(), maps.data_ptr(), flow.data_ptr(), out.data_ptr(),
+        B, C, H, W, gh, gw, int(align_corners), _DTYPES[maps.dtype],
+        stream_of(maps))
+    _launch("flow_warp_bwd_flow", rc)
+    return out
+
+
+class _FlowWarp(torch.autograd.Function):
+    """:func:`flow_warp` with its backward: the kernels on CUDA tensors,
+    :func:`flow_warp_backward_plain` on CPU tensors; each gradient only
+    where its input requires one."""
+
+    @staticmethod
+    def forward(ctx, maps, flow, grid_hw, align_corners):
+        ctx.save_for_backward(maps, flow)
+        ctx.grid_hw, ctx.align_corners = grid_hw, align_corners
+        return _flow_warp_forward(maps, flow, grid_hw, align_corners)
+
+    @staticmethod
+    def backward(ctx, g):
+        maps, flow = ctx.saved_tensors
+        want_maps, want_flow = ctx.needs_input_grad[:2]
+        g = g.to(maps.dtype)
+        if route(g, maps, flow) == "cpu":
+            gm, gf = flow_warp_backward_plain(g, maps, flow, ctx.grid_hw,
+                                              ctx.align_corners)
+        else:
+            gm = (flow_warp_bwd_maps(g, flow, ctx.grid_hw, ctx.align_corners)
+                  if want_maps else None)
+            gf = (flow_warp_bwd_flow(g, maps, flow, ctx.grid_hw,
+                                     ctx.align_corners)
+                  if want_flow else None)
+        return (gm if want_maps else None,
+                gf.to(flow.dtype) if want_flow else None, None, None)
 
 
 def _dense(t) -> bool:

@@ -79,6 +79,30 @@ def flow_for_window(frames_norm, flow_model):
     return fl.reshape(B, T - 1, 2, H, W)
 
 
+def flow_for_training(frames_norm, flow_model):
+    """The train step's frozen provider (``mfcnet_tpu/models/raft.py:568-
+    633``, ``unflow.py:218-247``; reference src/engine.py:39-53): (B, T, H,
+    W, 3) normalized frames, newest first, in the provider's dtype ->
+    (B, T-1, H, W, 2) float32 flow(frame_i -> frame_0) of the Basic
+    variant (image1 = frame_i, image2 = frame_0), at the input resolution
+    (the tracker instead runs at half resolution and rescales). All T-1
+    pairs are one batched solve; with split encoders (RAFT) the newest
+    frame's features are computed once."""
+    from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
+
+    B, T, H, W, _ = frames_norm.shape
+    f0 = frames_norm[:, 0]
+    rest = frames_norm[:, 1:].reshape(B * (T - 1), H, W, 3)
+    if hasattr(flow_model, "flow_from_features"):
+        net, inp = flow_model.context(rest)
+        fl = flow_model.flow_from_features(
+            flow_model.features(rest),
+            repeat_for_pairs(flow_model.features(f0), T - 1), net, inp)
+    else:
+        fl = flow_model(rest, repeat_for_pairs(f0, T - 1))
+    return fl.float().reshape(B, T - 1, H, W, 2)
+
+
 def flow_ingest(frame_norm, flow_model):
     """One frame's cacheable provider state: (B, 3, H, W) normalized
     frame -> ``(features, net, inp)``, the 0.5x-resolution feature

@@ -3,6 +3,7 @@ package from its seeded weights, incremental == full, the CLI on a tiny
 video, and the import boundary (nothing of jax, flax or the JAX package
 on any path, and no cv2 on the device-decode path)."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -216,6 +217,22 @@ _IMPORT_CHECK = """
         rows, _ = track_on_frames(frames, model, cfg, d,
                                   flow_model=flow_model, device="cpu")
     assert rows.shape == (5, 12)
+    if TRAIN:
+        from mfcnet_tpu_torch.cli.train_multiframe_detection import main
+        from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+        with tempfile.TemporaryDirectory() as d:
+            make_synthetic_pack(d + "/pack", videos=(("train", 1, 2),
+                                                     ("val", 1, 1)),
+                                height=32, width=32)
+            state = main(["--dataset", "JIGSAWS", "--packed_dir",
+                          d + "/pack", "--expt_savedir", d,
+                          "--batch_size", "1", "--num_workers", "1",
+                          "--num_epochs", "0", "--input_height", "32",
+                          "--input_width", "32", "--model_scale", "0.0625",
+                          "--add_optflow_inputs", "true",
+                          "--add_depth_inputs", "true",
+                          "--train_base_model", "true", "--device", "cpu"])
+        assert state.step == 2
     bad = [m for m in sys.modules
            if m.split(".")[0] in FORBIDDEN]
     print("LOADED", bad)
@@ -223,23 +240,29 @@ _IMPORT_CHECK = """
 """
 
 
-def _run_import_check(cfg_kwargs, forbidden, provider="RAFT"):
+def _run_import_check(cfg_kwargs, forbidden, provider="RAFT", train=False):
     code = (f"CFG = {cfg_kwargs!r}\nFORBIDDEN = {forbidden!r}\n"
-            f"PROVIDER = {provider!r}\n" + textwrap.dedent(_IMPORT_CHECK))
+            f"PROVIDER = {provider!r}\nTRAIN = {train!r}\n"
+            + textwrap.dedent(_IMPORT_CHECK))
+    # two intra-op threads: the suite runs several workers at once
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         cwd=Path(__file__).resolve().parents[1], timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "2"},
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_port_imports_no_jax_flax_or_cv2():
-    """A fresh interpreter: importing every module of the port and
-    tracking with decode='device', no overlay and the flow provider loads
-    nothing of jax, jaxlib, flax or the JAX package, and no cv2."""
+    """A fresh interpreter: importing every module of the port (the
+    training modules included), tracking with decode='device', no overlay
+    and the flow provider, and two training steps of the training CLI on
+    a pack of the port's synthetic generator (RAFT in the step, depth,
+    the base trained) load nothing of jax, jaxlib, flax or the JAX
+    package, and no cv2."""
     _run_import_check(
         dict(decode="device", overlay=False, add_optflow_inputs=True),
-        _FORBIDDEN + ("cv2",))
+        _FORBIDDEN + ("cv2",), train=True)
 
 
 def test_unflow_run_and_flow_cli_import_no_jax_flax_or_cv2():

@@ -159,17 +159,24 @@ def test_flow_warp_bf16_envelope(warp_case):
 
 
 def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
+    """flow_warp is differentiable (its gradient flows to maps and flow);
+    grid_sample_bilinear still refuses a gradient; bad shapes and types
+    raise."""
     from mfcnet_tpu_torch.ops.warp import flow_warp, grid_sample_bilinear
 
     maps = torch.rand(1, 5, 8, 8)
     flow = torch.zeros(1, 2, 8, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        flow_warp(maps.clone().requires_grad_(), flow)
+    m = maps.clone().requires_grad_()
+    f = flow.clone().requires_grad_()
+    flow_warp(m, f).sum().backward()
+    assert m.grad is not None and m.grad.shape == maps.shape
+    assert f.grad is not None and f.grad.shape == flow.shape
+    assert float(m.grad.abs().sum()) > 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         grid_sample_bilinear(maps, flow[:, 0].clone().requires_grad_(),
                              flow[:, 1])
     with torch.no_grad():  # inference over parameters that require grad
-        flow_warp(maps.clone().requires_grad_(), flow)
+        assert not flow_warp(maps.clone().requires_grad_(), flow).requires_grad
     with pytest.raises(ValueError, match="flow"):
         flow_warp(maps, torch.zeros(1, 8, 8, 2))
     with pytest.raises(ValueError, match="grid_hw"):
@@ -177,6 +184,83 @@ def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flow_warp(maps.half(), flow)
 
+
+
+@pytest.mark.parametrize("grid_hw", [None, (576, 720)])
+@pytest.mark.parametrize("case", ["bounded", "out_of_image"])
+def test_flow_warp_backward_matches_jax_vjp(warp_case, case, grid_hw):
+    """B1's plain version (the autograd Function on CPU tensors) against
+    jax.vjp of the JAX flow_warp, whose banded tier runs the Pallas kernel
+    in interpret mode with its custom VJP: maps and flow gradients, float32
+    at non-integer coordinates, 1e-5 (the chain of float32 sums; flow
+    gradients of up to ~15)."""
+    import jax
+
+    from mfcnet_tpu.ops.warp import flow_warp as jwarp
+    from mfcnet_tpu_torch.ops.warp import flow_warp
+
+    img = warp_case[0]
+    flow = _flows(warp_case)[case].astype(np.float32)
+    g = np.random.default_rng(5).standard_normal(img.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jwarp(a, b, grid_hw=grid_hw, banded=True),
+                     img, flow)
+    want_maps, want_flow = vjp(g)
+    m = _nchw(img).requires_grad_()
+    f = _nchw(flow).requires_grad_()
+    flow_warp(m, f, grid_hw=grid_hw).backward(_nchw(g))
+    np.testing.assert_allclose(_nhwc(m.grad), np.asarray(want_maps), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(_nhwc(f.grad), np.asarray(want_flow), rtol=0,
+                               atol=1e-5)
+
+
+def test_flow_warp_backward_at_integer_coordinates_matches_xla_kinks():
+    """At integer coordinates the JAX VJP of the TPU kernel's hat weights
+    (_banded_warp_reference) is v[k] + (v[k+1] - v[k-1]) / 2 along each
+    axis (XLA: |.|'s derivative at 0 is +1, maximum's tie splits 0.5/0.5);
+    the port's plain backward gives the same, 1e-5."""
+    import jax
+
+    from mfcnet_tpu.ops.warp_pallas import _banded_warp_reference
+    from mfcnet_tpu_torch.ops.warp import sample_abs_backward_plain
+
+    rng = np.random.default_rng(9)
+    B, H, W, C = 2, 32, 24, 3
+    img = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    g = rng.standard_normal((B, H, W, C)).astype(np.float32)
+    fx = (np.arange(W)[None, None, :] + rng.integers(-2, 3, (B, H, W))
+          ).astype(np.float32)
+    fy = (np.arange(H)[None, :, None] + rng.integers(-2, 3, (B, H, W))
+          ).astype(np.float32)
+    fx[0, :4] += 0.25  # some pixels between taps in x only
+    bounds = tuple((b * 16 - 4, b * 16 + 20) for b in range(H // 16))
+    _, vjp = jax.vjp(
+        lambda a, x, y: _banded_warp_reference(a, x, y, bounds, 16),
+        img, fx, fy)
+    want = vjp(g)
+    got = sample_abs_backward_plain(_nchw(g), _nchw(img),
+                                    torch.from_numpy(fx),
+                                    torch.from_numpy(fy))
+    np.testing.assert_allclose(_nhwc(got[0]), np.asarray(want[0]), rtol=0,
+                               atol=1e-5)
+    for k in (1, 2):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid_hw,align_corners", [
+    (None, True), ((10, 12), True), (None, False)])
+def test_flow_warp_gradcheck_float64(grid_hw, align_corners):
+    """torch.autograd.gradcheck of flow_warp in float64 (the CPU route),
+    away from the kinks: random flows put no coordinate on an integer."""
+    from mfcnet_tpu_torch.ops.warp import flow_warp
+
+    g = torch.Generator().manual_seed(3)
+    maps = torch.rand(1, 2, 6, 7, dtype=torch.float64, generator=g)
+    flow = torch.randn(1, 2, 6, 7, dtype=torch.float64, generator=g) * 2.3
+    assert torch.autograd.gradcheck(
+        lambda m, f: flow_warp(m, f, grid_hw, align_corners),
+        (maps.requires_grad_(), flow.requires_grad_()), eps=1e-6, atol=1e-5)
 
 
 def _backward_warp_inputs(seed=23, B=2, C=3, H=24, W=40):
@@ -291,4 +375,28 @@ def test_cuda_warp_kernel_matches_plain_version():
                         assert got.stride() == img.stride()
                         assert torch.equal(
                             got, warp.backward_warp_plain(img, fl, ac, pm))
+        # B1, both entry points, against the plain backward: float32
+        # within 1e-5 (atomics add in another order), bf16 within one bf16
+        # rounding of the float32 result (and the float32 margin)
+        B, C, H, W = 4, 6, 480, 640
+        maps = torch.rand(B, C, H, W, generator=g).cuda().to(dt)
+        gout = torch.randn(B, C, H, W, generator=g).cuda().to(dt)
+        for flow in (torch.randn(B, 2, H, W, generator=g).cuda() * 8,
+                     torch.zeros(B, 2, H, W, device="cuda")):
+            warp.reset_launches()
+            gm = warp.flow_warp_bwd_maps(gout, flow, (576, 720))
+            gf = warp.flow_warp_bwd_flow(gout, maps, flow, (576, 720))
+            assert warp.LAUNCHES["flow_warp_bwd_maps"] == 1
+            assert warp.LAUNCHES["flow_warp_bwd_flow"] == 1
+            pm, pf = warp.flow_warp_backward_plain(gout, maps, flow,
+                                                   (576, 720))
+            if dt == torch.float32:
+                torch.testing.assert_close(gm, pm, rtol=0, atol=1e-5)
+            else:
+                ref = warp.flow_warp_backward_plain(gout.float(),
+                                                    maps.float(), flow,
+                                                    (576, 720))[0]
+                ulp = 2.0 ** -8 * ref.abs().clamp_min(2.0 ** -126)
+                assert bool(((gm.float() - ref).abs() <= ulp + 1e-5).all())
+            torch.testing.assert_close(gf, pf, rtol=1e-5, atol=1e-4)
     torch.cuda.synchronize()
