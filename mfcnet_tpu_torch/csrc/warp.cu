@@ -71,6 +71,8 @@
 
 #include <cstdint>
 
+#include "shared_memory.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -330,18 +332,63 @@ int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
 // ---------------------------------------------------------------------------
 // B1: the backward of flow_warp
 //
-// What bounds it: bytes, and for the maps gradient the scatter. The maps
-// gradient sends each output pixel's upstream gradient to its four source
-// taps: a scatter whose targets the flow decides, so two pixels may hit one
-// tap. It reads g (B, C, H, W) and the flow once and writes the gradient
-// once; at the trainer's shapes (8 x 6 x 480 x 640, bf16 g) that is
-// 29.5 + 19.7 + 29.5 MB, 0.023 ms at the card's memory rate. This first
-// design accumulates in a float32 buffer with atomicAdd (four per pixel and
-// channel) and casts at the end, so it also zeroes and reads back that
-// buffer: 59 MB more in bf16. It is one cooperative launch: the blocks zero
-// the buffer, meet at a grid barrier, scatter, meet again and (bf16) cast.
-// Atomics add in another order from run to run: float32 results agree with
-// the plain version to a few float32 rounding steps, not bit for bit.
+// The maps gradient sends each output pixel's upstream gradient g to its
+// four source taps with the forward's float32 weights: a scatter whose
+// targets the flow decides, so many pixels may hit one tap. Its bound is
+// bytes: g (B, C, H, W) and the flow read once, the gradient written once;
+// at the trainer's shapes (8 x 6 x 480 x 640, bf16 g) 29.5 + 19.7 + 29.5 MB,
+// 0.0235 ms at the card's memory rate. The first design scattered with
+// float32 atomicAdd (four a pixel and channel, ~59 M at that shape) into a
+// (B, C, H, W) float32 accumulator in global memory, zeroed before and cast
+// after, in one cooperative launch: 255.6 MB moved, 0.2716 ms (NVIDIA H100
+// 80GB HBM3, 700 W). Its stripped variants (tools/flowk_variants.cu) split
+// that time: on a smooth flow the atomics took half (0.29 ms against 0.14
+// with plain stores), the accumulator's zero and cast passes 0.066; on a
+// noisy flow the scattered writes into the 59 MB accumulator took 0.73 ms
+// atomic or not. Shared-memory float atomics are no way out on this card:
+// they compile to compare-and-swap loops, and a tile design built on them
+// was no faster.
+//
+// Design: destination-owned tiles. The gradient of each image is cut into
+// BW_TH x BW_TW pixel tiles; one block sums a tile in shared memory and
+// writes it once, so there is no global accumulator and no float atomic at
+// all. One cooperative launch, its phases split by grid barriers
+// (ops/warp.py::warp_bwd_plan fixes tiles, channel groups, grid, shared
+// memory and workspace; the C side refuses any other plan):
+//   0 zero the per-tile counts and the tile counter;
+//   1 count: a warp takes 128 pixels of a row, forms their coordinates
+//     (kept for the next phases) and taps and adds each pixel to the count
+//     of every distinct tile its in-image taps reach (one; up to four at
+//     tile corners), one integer atomic per warp and tile
+//     (__match_any_sync);
+//   2 scan: block 0 turns the counts into list offsets;
+//   3 bin: the same pass on the kept coordinates writes each pixel, with
+//     the corner (top-left tap) of its tap box in that tile, into its
+//     tiles' lists, a warp's pixels of one tile as one run;
+//   4 accumulate: the blocks take (tile, channel group) items from a
+//     counter and a tile's list in chunks of BW_CAP entries. A chunk is
+//     staged in shared memory (coordinates and g by asynchronous copies)
+//     and sorted by corner (a counting sort on shared integer counters);
+//     each thread owns a pixel pair and sums, in registers, the entries of
+//     the six corners whose boxes reach it, then adds that to the tile's
+//     float32 sums, which the block writes once, in g's type.
+// The weights are the forward's float32 operations. It reads the flow
+// once, the coordinates twice (the second time through the lists), g once
+// and the lists twice (two ints an entry; ~1.14 entries a pixel on a
+// smooth flow, at most four), and writes the gradient once: ~185 MB at the
+// trainer's shape in bf16. It is bound by the latency of its dependent
+// loads and its barriers, not by those bytes (0.15 ms against 0.055 at the
+// memory rate): the coordinates are kept so they are formed once, the
+// lists carry each entry's corner so staging waits on one load, g arrives
+// by cp.async, and the next tile is asked for while one is summed. The workspace
+// is sized for the worst case, four entries a pixel, so no flow overflows
+// it. Sums are taken in another order from run to run (the counters hand
+// out ranks in any order): float32 results agree with the plain version to
+// a few float32 roundings of the summed terms' magnitude, not bit for bit;
+// bf16 is the float32 sum rounded once. A flow that converges puts most
+// of an image in one tile's list: one block takes it, chunk by chunk (a
+// warp a corner where a corner holds more than BW_DENSE entries), which
+// is slower than the first design (tools/flowk_times.py times that case).
 //
 // The flow gradient is a gather and runs only when the flow requires a
 // gradient (no path of the trainer: its providers are frozen): per pixel,
@@ -352,73 +399,529 @@ int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
 // difference of the two taps; at an exactly integer coordinate k it is
 // v[k] + (v[k+1] - v[k-1]) / 2 (XLA takes |.|'s derivative at 0 as +1 and
 // splits maximum's tie at |xs - fx| = 1 as 0.5 / 0.5), so those pixels read
-// a third tap column or row.
+// a third tap column or row. Like flow_warp, the taps' requests and not
+// the bytes set its time, so it runs on the forward's layout: 2D tiles of
+// FW_TW x FW_TH pixels, two adjacent x a thread, the flow and each
+// channel's pair of g read as vectors and the two gradient planes stored
+// as vectors, the base grid once per tile column and row.
 // ---------------------------------------------------------------------------
 
-// absolute source coordinates of pixel (x, y) of flow_warp: base grid +
-// flow / ((size - 1) / 2), unnormalized, in the forward kernel's operations
-__device__ __forceinline__ void flow_coords(float flx, float fly, int x, int y,
-                                            int H, int W, int gh, int gw,
+// absolute source coordinates of a pixel of flow_warp from its base grid
+// values bx, by: base + flow / ((size - 1) / 2), unnormalized, in the
+// forward kernel's operations
+__device__ __forceinline__ void coords_from(float bx, float by, float flx,
+                                            float fly, int H, int W,
                                             int align_corners, float* fx,
                                             float* fy) {
-  const float gx =
-      __fadd_rn(base_grid(x, gw), __fdiv_rn(flx, (float)(W - 1) / 2.0f));
-  const float gy =
-      __fadd_rn(base_grid(y, gh), __fdiv_rn(fly, (float)(H - 1) / 2.0f));
+  const float gx = __fadd_rn(bx, __fdiv_rn(flx, (float)(W - 1) / 2.0f));
+  const float gy = __fadd_rn(by, __fdiv_rn(fly, (float)(H - 1) / 2.0f));
   *fx = unnormalize(gx, W, align_corners);
   *fy = unnormalize(gy, H, align_corners);
 }
 
-// the maps gradient: zero acc, scatter g into acc, cast acc into out (out is
-// null when acc is the float32 result). A cooperative launch: every block is
-// resident, and the phases are split by grid barriers.
-template <typename T>
-__global__ void __launch_bounds__(TPB)
-flow_warp_bwd_maps_kernel(const T* __restrict__ g,
-                          const float* __restrict__ flow,
-                          float* __restrict__ acc, T* __restrict__ out, int B,
-                          int C, int H, int W, int gh, int gw,
-                          int align_corners) {
-  cg::grid_group grid = cg::this_grid();
-  const size_t hw = (size_t)H * W, n = (size_t)B * C * hw;
-  const size_t stride = (size_t)gridDim.x * TPB;
-  const size_t t0 = (size_t)blockIdx.x * TPB + threadIdx.x;
-  for (size_t i = t0; i < n; i += stride) acc[i] = 0.0f;
-  grid.sync();
-  for (size_t i = t0; i < (size_t)B * hw; i += stride) {
-    const int b = (int)(i / hw);
-    const size_t r = i - (size_t)b * hw;
-    const int y = (int)(r / W), x = (int)(r - (size_t)y * W);
-    const float* fl = flow + (size_t)b * 2 * hw + r;
-    float fx, fy;
-    flow_coords(fl[0], fl[hw], x, y, H, W, gh, gw, align_corners, &fx, &fy);
-    const Taps q = taps_of(fx, fy, H, W);
-    const float w00 = __fmul_rn(q.ux, q.uy), w01 = __fmul_rn(q.tx, q.uy);
-    const float w10 = __fmul_rn(q.ux, q.ty), w11 = __fmul_rn(q.tx, q.ty);
-    const T* gp = g + (size_t)b * C * hw + r;
-    float* a = acc + (size_t)b * C * hw + (ptrdiff_t)q.y0 * W + q.x0;
-    for (int c = 0; c < C; ++c, gp += hw, a += hw) {
-      const float v = to_f32(*gp);
-      if (v == 0.0f) continue;
-      if (q.v00) atomicAdd(a, __fmul_rn(v, w00));
-      if (q.v01) atomicAdd(a + 1, __fmul_rn(v, w01));
-      if (q.v10) atomicAdd(a + W, __fmul_rn(v, w10));
-      if (q.v11) atomicAdd(a + W + 1, __fmul_rn(v, w11));
-    }
-  }
-  if (out == nullptr) return;
-  grid.sync();
-  for (size_t i = t0; i < n; i += stride) from_f32(acc[i], out + i);
+constexpr int BW_TH = 8, BW_TW = 64;  // a destination tile: rows, columns
+constexpr int BW_MAX_GC = 6;  // channels a tile pass sums
+constexpr int BW_BPS = 4;     // blocks an SM
+constexpr int BW_CAP = 1024;  // list entries a block stages at once
+constexpr int BW_SEGS = 4;    // 32-pixel segments of a row a warp loads at once
+constexpr int BW_STAGE = BW_CAP / TPB;  // staged entries a thread loads
+constexpr int BW_DENSE = 32;  // a chunk with a corner of more entries:
+                              // a warp a corner
+// the tap-box corners (top-left taps) whose boxes reach a tile: its pixels
+// and the row above and column left of it
+constexpr int BW_CORNERS = (BW_TH + 1) * (BW_TW + 1);
+constexpr int BW_PLAN_INTS = 9;
+constexpr int ERR_PLAN = 20004;  // the plan is not warp_bwd_plan's
+
+// ops/warp.py::warp_bwd_plan, field for field
+struct BwdPlan {
+  int tile_h, tile_w, group_c, groups, shared_bytes, tiles, work_ints, grid,
+      threads;
+};
+
+// the plan of B images of C x H x W on a card of `sms` SMs; false where the
+// workspace is beyond 32-bit indices
+bool bwd_plan_of(int B, int C, int H, int W, int sms, BwdPlan* p) {
+  const long long tiles =
+      (long long)((H + BW_TH - 1) / BW_TH) * ((W + BW_TW - 1) / BW_TW);
+  const int groups = (C + BW_MAX_GC - 1) / BW_MAX_GC;
+  const int gc = (C + groups - 1) / groups;
+  const long long nt = (long long)B * tiles;
+  const long long work = 10LL * B * H * W + 2 * nt + 2;
+  if (work >= (1LL << 31) || nt * groups >= (1LL << 31)) return false;
+  // per staged entry its coordinates, gc words of g and its place in
+  // corner order; a count (then a start) per corner and the total; the
+  // tile's float32 sums
+  const int shared =
+      4 * (BW_CAP * (3 + gc) + BW_CORNERS + 1 + gc * BW_TH * BW_TW);
+  *p = {BW_TH, BW_TW, gc, groups, shared, (int)tiles, (int)work,
+        sms * BW_BPS, TPB};
+  return true;
 }
 
-// one tap of plane p, zero outside the image (row yi, column xi as floats:
-// a coordinate may be far outside int range)
-template <typename T>
-__device__ __forceinline__ float tap(const T* p, float yi, float xi, int H,
-                                     int W) {
-  if (xi < 0.0f || xi > (float)(W - 1) || yi < 0.0f || yi > (float)(H - 1))
-    return 0.0f;
-  return to_f32(p[(ptrdiff_t)yi * W + (ptrdiff_t)xi]);
+// the distinct destination tiles (numbers within the image, ntx a tile
+// row; -1 for none) that the in-image taps of q reach, and the corner
+// (top-left tap) of q's tap box relative to each: its index among a
+// tile's BW_CORNERS
+__device__ __forceinline__ void tap_tiles(const Taps& q, int ntx, int* key,
+                                          int* corner) {
+  int ra = q.v00 || q.v01 ? q.y0 / BW_TH : -1;
+  int rb = q.v10 || q.v11 ? (q.y0 + 1) / BW_TH : -1;
+  int ca = q.v00 || q.v10 ? q.x0 / BW_TW : -1;
+  int cb = q.v01 || q.v11 ? (q.x0 + 1) / BW_TW : -1;
+  if (rb == ra) rb = -1;
+  if (cb == ca) cb = -1;
+  const int rows[2] = {ra, rb}, cols[2] = {ca, cb};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = rows[k >> 1], c = cols[k & 1];
+    key[k] = r >= 0 && c >= 0 ? r * ntx + c : -1;
+    corner[k] = (q.y0 - r * BW_TH + 1) * (BW_TW + 1) + q.x0 - c * BW_TW + 1;
+  }
+}
+
+// exclusive prefix of a[0, n) in place, a[n] = the total, by one block;
+// returns the largest a[i]. ws: 2 * TPB / 32 ints of shared memory
+__device__ int block_exclusive_scan(int* a, int n, int* ws) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + TPB - 1) / TPB;
+  const int lo = min(n, tid * per), hi = min(n, lo + per);
+  int s = 0, mx = 0;
+  for (int j = lo; j < hi; ++j) {
+    s += a[j];
+    mx = max(mx, a[j]);
+  }
+  int x = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  if (lane == 31) ws[warp] = x;
+  if (lane == 0) ws[TPB / 32 + warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < TPB / 32 ? ws[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += y;
+    }
+    if (lane < TPB / 32) ws[lane] = v;
+  }
+  __syncthreads();
+  int run = x - s + (warp ? ws[warp - 1] : 0);
+  for (int j = lo; j < hi; ++j) {
+    const int t = a[j];
+    a[j] = run;
+    run += t;
+  }
+  if (tid == TPB - 1) a[n] = run;
+  mx = 0;
+#pragma unroll
+  for (int w = 0; w < TPB / 32; ++w) mx = max(mx, ws[TPB / 32 + w]);
+  __syncthreads();
+  return mx;
+}
+
+// the count (BIN false: coordinates formed from the flow and kept, tiles
+// counted) or the bin pass (BIN true: coordinates read back; each pixel's
+// index and tap-box corner written into its tiles' lists) over the source
+// pixels. A warp takes 32 x BW_SEGS pixels of one row at a time and loads
+// them first; a pixel's tiles are counted once a warp and tile
+// (__match_any_sync); the bin pass asks for the slots of all its
+// segments' first tiles before it waits for any.
+template <bool BIN>
+__device__ __forceinline__ void bin_pass(const float* __restrict__ flow,
+                                         float2* __restrict__ coords,
+                                         int* __restrict__ at,
+                                         int2* __restrict__ list, int B,
+                                         int H, int W, int gh, int gw,
+                                         int align_corners, int tiles,
+                                         int ntx) {
+  constexpr int SPAN = 32 * BW_SEGS;
+  const int lane = threadIdx.x & 31;
+  const size_t hw = (size_t)H * W;
+  const int spans = (W + SPAN - 1) / SPAN;
+  const int warps = gridDim.x * (TPB / 32);
+  for (int task = blockIdx.x * (TPB / 32) + (threadIdx.x >> 5);
+       task < B * H * spans; task += warps) {
+    const int row = task / spans, xs = (task - row * spans) * SPAN;
+    const int b = row / H, y = row - b * H;
+    const size_t rb = (size_t)b * hw + (size_t)y * W;  // the row in coords
+    float2 c[BW_SEGS];
+#pragma unroll
+    for (int j = 0; j < BW_SEGS; ++j) {
+      const int x = xs + 32 * j + lane;
+      if (x >= W) continue;
+      if (BIN) {
+        c[j] = coords[rb + x];
+      } else {
+        const float* fl = flow + rb + (size_t)b * hw + x;
+        c[j] = make_float2(fl[0], fl[hw]);
+      }
+    }
+    const float by = BIN ? 0.0f : base_grid(y, gh);
+    int first[BW_SEGS], corner0[BW_SEGS], slot[BW_SEGS];
+    unsigned peers[BW_SEGS];
+#pragma unroll
+    for (int j = 0; j < BW_SEGS; ++j) {
+      const int x = xs + 32 * j + lane;
+      first[j] = -1;
+      if (xs + 32 * j >= W) continue;  // the same for the whole warp
+      int key[4] = {-1, -1, -1, -1}, corner[4];
+      if (x < W) {
+        float fx = c[j].x, fy = c[j].y;
+        if (!BIN) {
+          coords_from(base_grid(x, gw), by, c[j].x, c[j].y, H, W,
+                      align_corners, &fx, &fy);
+          coords[rb + x] = make_float2(fx, fy);
+        }
+        tap_tiles(taps_of(fx, fy, H, W), ntx, key, corner);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (key[k] >= 0) key[k] += b * tiles;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!__any_sync(0xffffffffu, key[k] >= 0)) continue;
+        const unsigned pk = __match_any_sync(0xffffffffu, key[k]);
+        const int leader = __ffs(pk) - 1;
+        int s = 0;
+        if (key[k] >= 0 && lane == leader)
+          s = atomicAdd(at + key[k], __popc(pk));
+        if (!BIN) continue;
+        if (k == 0) {  // the slot is read after the other segments ask
+          first[j] = key[0];
+          corner0[j] = corner[0];
+          slot[j] = s;
+          peers[j] = pk;
+        } else {
+          s = __shfl_sync(0xffffffffu, s, leader);
+          if (key[k] >= 0)
+            list[s + __popc(pk & ((1u << lane) - 1u))] =
+                make_int2(y * W + x, corner[k]);
+        }
+      }
+    }
+    if (!BIN) continue;
+#pragma unroll
+    for (int j = 0; j < BW_SEGS; ++j) {
+      if (xs + 32 * j >= W || !__any_sync(0xffffffffu, first[j] >= 0))
+        continue;
+      const int leader = __ffs(peers[j]) - 1;
+      const int s = __shfl_sync(0xffffffffu, slot[j], leader);
+      if (first[j] >= 0)
+        list[s + __popc(peers[j] & ((1u << lane) - 1u))] =
+            make_int2(y * W + xs + 32 * j + lane, corner0[j]);
+    }
+  }
+}
+
+// 4 and 8 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the value of g a staged word holds: float32, or the bf16 half `hi`
+__device__ __forceinline__ float staged(unsigned w, int hi, const float*) {
+  return __uint_as_float(w);
+}
+__device__ __forceinline__ float staged(unsigned w, int hi,
+                                        const __nv_bfloat16*) {
+  return __uint_as_float((hi ? w >> 16 : w & 0xffffu) << 16);
+}
+
+#ifdef BW_PHASE_STAMPS
+__device__ unsigned long long bw_stamps[6][4096];
+__device__ unsigned long long bw_sub[4][4096];
+#define BW_STAMP(k)                                                    \
+  do {                                                                 \
+    if (threadIdx.x == 0 && blockIdx.x < 4096) {                       \
+      unsigned long long t_;                                           \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));           \
+      bw_stamps[k][blockIdx.x] = t_;                                   \
+    }                                                                  \
+  } while (0)
+#define BW_SUB_START() long long sub_t_ = clock64()
+#define BW_SUB(k)                                                       \
+  do {                                                                  \
+    if (threadIdx.x == 0 && blockIdx.x < 4096) {                        \
+      const long long now_ = clock64();                                 \
+      bw_sub[k][blockIdx.x] += now_ - sub_t_;                           \
+      sub_t_ = now_;                                                    \
+    }                                                                   \
+  } while (0)
+#else
+#define BW_STAMP(k)
+#define BW_SUB_START()
+#define BW_SUB(k)
+#endif
+
+// the maps gradient (phases above). VEC: W even and out 8-byte aligned,
+// pairs stored as vectors. g: 4-byte aligned. work: the plan's work_ints
+// int32.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(TPB, BW_BPS)
+flow_warp_bwd_maps_kernel(const T* __restrict__ g,
+                          const float* __restrict__ flow,
+                          int* __restrict__ work, T* __restrict__ out, int B,
+                          int C, int H, int W, int gh, int gw,
+                          int align_corners, BwdPlan p) {
+  extern __shared__ int smem[];
+  __shared__ int s_next[2], s_ws[2 * TPB / 32];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t hw = (size_t)H * W, n = (size_t)B * hw;
+  const int ntx = (W + BW_TW - 1) / BW_TW, nt = B * p.tiles;
+  float2* coords = reinterpret_cast<float2*>(work);  // n
+  int* offs = work + 2 * n;                           // nt + 1
+  int* cursor = offs + nt + 1;                        // nt
+  int* next = cursor + nt;
+  int2* list = reinterpret_cast<int2*>(next + 1);  // 8-byte aligned
+
+  BW_STAMP(0);
+  for (int i = blockIdx.x * TPB + tid; i < nt; i += gridDim.x * TPB)
+    offs[i] = 0;
+  if (blockIdx.x == 0 && tid == 0) *next = 0;
+  grid.sync();
+  BW_STAMP(1);
+  bin_pass<false>(flow, coords, offs, list, B, H, W, gh, gw, align_corners,
+                  p.tiles, ntx);
+  grid.sync();
+  BW_STAMP(2);
+  if (blockIdx.x == 0) {  // through shared memory, in coalesced pieces
+    const int cap = p.shared_bytes / 4 - 1;
+    int carry = 0;
+    for (int base = 0; base < nt; base += cap) {
+      const int len = min(cap, nt - base);
+      for (int i = tid; i < len; i += TPB) smem[i] = offs[base + i];
+      __syncthreads();
+      block_exclusive_scan(smem, len, s_ws);
+      for (int i = tid; i < len; i += TPB)
+        offs[base + i] = cursor[base + i] = smem[i] + carry;
+      carry += smem[len];
+      __syncthreads();
+    }
+    if (tid == 0) offs[nt] = carry;
+  }
+  grid.sync();
+  BW_STAMP(3);
+  bin_pass<true>(flow, coords, cursor, list, B, H, W, gh, gw, align_corners,
+                 p.tiles, ntx);
+  grid.sync();
+  BW_STAMP(4);
+
+  // accumulate: per (tile, channel group) item, the list in chunks of
+  // BW_CAP entries. A chunk is staged (coordinates and g by asynchronous
+  // copies) and sorted by the corner of its entries' tap boxes (a counting
+  // sort: ranks from shared integer counters). Then each thread sums, for
+  // the pixel pair it owns, the entries of the six corners whose boxes
+  // reach it (two runs of three corners in sorted order) in registers and
+  // adds that to the tile's float32 sums, which no other thread writes.
+  // Where a corner holds more than BW_DENSE entries (a flow that
+  // converges), a warp takes each corner instead, its lanes splitting the
+  // entries, and adds its four pixels' sums with shared atomics.
+  float2* s_xy = reinterpret_cast<float2*>(smem);
+  unsigned* s_g = reinterpret_cast<unsigned*>(s_xy + BW_CAP);  // gc x CAP
+  int* s_cnt = reinterpret_cast<int*>(s_g + p.group_c * BW_CAP);
+  float* s_acc = reinterpret_cast<float*>(s_cnt + BW_CORNERS + 1);
+  unsigned* s_perm =
+      reinterpret_cast<unsigned*>(s_acc + p.group_c * BW_TH * BW_TW);
+  constexpr int TS = BW_TH * BW_TW;
+  const int items = nt * p.groups;
+  const int ly = warp, lx = 2 * lane;  // the pixel pair a thread owns
+  if (tid == 0) s_next[0] = atomicAdd(next, 1);
+  __syncthreads();
+  for (int k = 0;; k ^= 1) {
+    const int item = s_next[k];
+    if (item >= items) break;
+    // the next item is asked for now, and written to the other slot at the
+    // end (a slow thread may still read this one)
+    const int ask = tid == 0 ? atomicAdd(next, 1) : 0;
+    BW_SUB_START();
+    const int key = item / p.groups;
+    const int c0 = (item - key * p.groups) * p.group_c;
+    const int cn = min(p.group_c, C - c0);
+    const int b = key / p.tiles, t = key - b * p.tiles;
+    const int ty0 = t / ntx * BW_TH, tx0 = (t - t / ntx * ntx) * BW_TW;
+    const float2* cb = coords + (size_t)b * hw;
+    const T* gb = g + ((size_t)b * C + c0) * hw;
+    for (int c = 0; c < cn; ++c) {
+      s_acc[c * TS + ly * BW_TW + lx] = 0.0f;
+      s_acc[c * TS + ly * BW_TW + lx + 1] = 0.0f;
+    }
+    // the half of a staged bf16 word: the element's index parity, that of
+    // the pixel and of its channel plane's offset
+    int plane_odd[BW_MAX_GC];
+#pragma unroll
+    for (int c = 0; c < BW_MAX_GC; ++c)
+      plane_odd[c] =
+          sizeof(T) == 2 && ((((size_t)b * C + c0 + c) * hw) & 1) != 0;
+    const int end = offs[key + 1];
+    for (int cbeg = offs[key]; cbeg < end; cbeg += BW_CAP) {
+      const int m = min(BW_CAP, end - cbeg);
+      for (int j = tid; j <= BW_CORNERS; j += TPB) s_cnt[j] = 0;
+      __syncthreads();
+      // each thread's entries tid + u * TPB: source pixel, corner, rank
+      int2 en[BW_STAGE];
+      int rank[BW_STAGE];
+#pragma unroll
+      for (int u = 0; u < BW_STAGE; ++u)
+        en[u] = tid + u * TPB < m ? list[cbeg + tid + u * TPB]
+                                  : make_int2(-1, 0);
+#pragma unroll
+      for (int u = 0; u < BW_STAGE; ++u) {
+        if (en[u].x < 0) continue;
+        const int e = tid + u * TPB;
+        cp_async8(s_xy + e, cb + en[u].x);
+        const size_t i0 = (size_t)en[u].x & ~(size_t)(4 / sizeof(T) - 1);
+        for (int c = 0; c < cn; ++c)  // the aligned word holding g
+          cp_async4(s_g + c * BW_CAP + e, gb + (size_t)c * hw + i0);
+        rank[u] = atomicAdd(s_cnt + en[u].y, 1);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      __syncthreads();
+      BW_SUB(0);
+      const bool dense =
+          block_exclusive_scan(s_cnt, BW_CORNERS, s_ws) > BW_DENSE;
+#pragma unroll
+      for (int u = 0; u < BW_STAGE; ++u)
+        if (en[u].x >= 0)  // the entry, its word's half, its corner
+          s_perm[s_cnt[en[u].y] + rank[u]] =
+              (unsigned)(tid + u * TPB) | (unsigned)(en[u].x & 1) << 15 |
+              (unsigned)en[u].y << 16;
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      BW_SUB(1);
+      if (!dense) {
+        float acc[2][BW_MAX_GC];
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int c = 0; c < BW_MAX_GC; ++c) acc[k][c] = 0.0f;
+        // corners (ly, lx .. lx + 2), then (ly + 1, lx .. lx + 2): boxes
+        // with this pair in their lower, then upper row; in one loop
+        const int ca = ly * (BW_TW + 1) + lx, cb2 = ca + BW_TW + 1;
+        const int a0 = s_cnt[ca], a1 = s_cnt[ca + 1], a2 = s_cnt[ca + 2];
+        const int a3 = s_cnt[ca + 3];
+        const int b0 = s_cnt[cb2], b1 = s_cnt[cb2 + 1], b2 = s_cnt[cb2 + 2];
+        const int b3 = s_cnt[cb2 + 3];
+        const int na = a3 - a0, total = na + b3 - b0;
+        for (int i = 0; i < total; ++i) {
+          const bool upper = i >= na;  // box row 0 holds the pair
+          const int j = upper ? b0 + i - na : a0 + i;
+          const int cxi = upper ? (j >= b1) + (j >= b2) : (j >= a1) + (j >= a2);
+          const unsigned pe = s_perm[j];
+          const int e = pe & 0x7fff;
+          const float2 q = s_xy[e];
+          const float tx = __fsub_rn(q.x, floorf(q.x));
+          const float ty = __fsub_rn(q.y, floorf(q.y));
+          const float rowp = upper ? __fsub_rn(1.0f, ty) : ty;
+          const float ux = __fsub_rn(1.0f, tx);
+          // the forward's weights: column part times row part; the pair's
+          // left pixel is box column 1 (cxi 0) or 0 (cxi 1), the right
+          // one box column 1 (cxi 1) or 0 (cxi 2)
+          const float w0 = cxi < 2 ? __fmul_rn(cxi ? ux : tx, rowp) : 0.0f;
+          const float w1 = cxi > 0 ? __fmul_rn(cxi == 1 ? tx : ux, rowp) : 0.0f;
+#pragma unroll
+          for (int c = 0; c < BW_MAX_GC; ++c) {
+            if (c >= cn) break;
+            const float v = staged(s_g[c * BW_CAP + e],
+                                   (pe >> 15 & 1) ^ plane_odd[c], gb);
+            if (cxi < 2) acc[0][c] = __fadd_rn(acc[0][c], __fmul_rn(v, w0));
+            if (cxi > 0) acc[1][c] = __fadd_rn(acc[1][c], __fmul_rn(v, w1));
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < BW_MAX_GC; ++c) {
+          if (c >= cn) break;
+          float* a = s_acc + c * TS + ly * BW_TW + lx;
+          a[0] = __fadd_rn(a[0], acc[0][c]);
+          a[1] = __fadd_rn(a[1], acc[1][c]);
+        }
+      } else {
+        for (int ci = warp; ci < BW_CORNERS; ci += TPB / 32) {
+          const int jbeg = s_cnt[ci], jend = s_cnt[ci + 1];
+          if (jbeg == jend) continue;
+          float sum[4][BW_MAX_GC];  // box pixels (0,0), (0,1), (1,0), (1,1)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int c = 0; c < BW_MAX_GC; ++c) sum[k][c] = 0.0f;
+          for (int j = jbeg + lane; j < jend; j += 32) {
+            const unsigned pe = s_perm[j];
+            const int e = pe & 0x7fff;
+            const float2 q = s_xy[e];
+            const float tx = __fsub_rn(q.x, floorf(q.x));
+            const float ty = __fsub_rn(q.y, floorf(q.y));
+            const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
+            const float w[4] = {__fmul_rn(ux, uy), __fmul_rn(tx, uy),
+                                __fmul_rn(ux, ty), __fmul_rn(tx, ty)};
+#pragma unroll
+            for (int c = 0; c < BW_MAX_GC; ++c) {
+              if (c >= cn) break;
+              const float v = staged(s_g[c * BW_CAP + e],
+                                     (pe >> 15 & 1) ^ plane_odd[c], gb);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                sum[k][c] = __fadd_rn(sum[k][c], __fmul_rn(v, w[k]));
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int c = 0; c < BW_MAX_GC; ++c)
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1)
+                sum[k][c] = __fadd_rn(
+                    sum[k][c], __shfl_xor_sync(0xffffffffu, sum[k][c], off));
+          if (lane == 0) {
+            const int cy = ci / (BW_TW + 1), cx = ci - cy * (BW_TW + 1);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int py = cy - 1 + (k >> 1), px = cx - 1 + (k & 1);
+              if ((unsigned)py >= BW_TH || (unsigned)px >= BW_TW) continue;
+#pragma unroll
+              for (int c = 0; c < BW_MAX_GC; ++c)
+                if (c < cn)
+                  atomicAdd(s_acc + c * TS + py * BW_TW + px, sum[k][c]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the next chunk overwrites the staging
+      BW_SUB(2);
+    }
+    const int th = min(BW_TH, H - ty0), tw = min(BW_TW, W - tx0);
+    if (ly < th && lx < tw) {  // this thread's own pair: no barrier needed
+      T* o = out + ((size_t)b * C + c0) * hw + (size_t)(ty0 + ly) * W + tx0 +
+             lx;
+      for (int c = 0; c < cn; ++c) {
+        const float* a = s_acc + c * TS + ly * BW_TW + lx;
+        if (VEC) {  // lx + 1 < tw: W is even, and so are tx0 and lx
+          store_pair(a[0], a[1], o + (size_t)c * hw);
+        } else {
+          from_f32(a[0], o + (size_t)c * hw);
+          if (lx + 1 < tw) from_f32(a[1], o + (size_t)c * hw + 1);
+        }
+      }
+    }
+    if (tid == 0) s_next[k ^ 1] = ask;
+    __syncthreads();  // every thread has read its sums; the slot is written
+    BW_SUB(3);
+  }
+  BW_STAMP(5);
 }
 
 // the derivative of a bilinear sample along one axis, from the taps below
@@ -430,81 +933,234 @@ __device__ __forceinline__ float hat_diff(float below, float lo, float hi,
                  : __fsub_rn(hi, lo);
 }
 
-// the flow gradient: a thread per pixel, every channel
+// one pixel's sample position for the flow gradient: the weights, whether
+// the coordinate is integer along x and y, the tap box's offset in a
+// channel plane and which of its taps lie in the image: columns x0 - 1
+// (m), x0, x0 + 1 and rows y0 - 1, y0, y0 + 1 (tested in float: a
+// coordinate may be far outside int range)
+struct Deriv {
+  float tx, ty, ux, uy;
+  ptrdiff_t at;
+  bool ix, iy, xm, x0, x1, ym, y0, y1;
+};
+
+__device__ __forceinline__ Deriv deriv_of(float fx, float fy, int H, int W) {
+  Deriv d;
+  const float x0f = floorf(fx), y0f = floorf(fy);
+  d.tx = __fsub_rn(fx, x0f);
+  d.ty = __fsub_rn(fy, y0f);
+  d.ux = __fsub_rn(1.0f, d.tx);
+  d.uy = __fsub_rn(1.0f, d.ty);
+  d.ix = d.tx == 0.0f;
+  d.iy = d.ty == 0.0f;
+  d.xm = x0f >= 1.0f && x0f <= (float)W;
+  d.x0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+  d.x1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+  d.ym = y0f >= 1.0f && y0f <= (float)H;
+  d.y0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+  d.y1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+  // clamped where no tap of the row or column lies in the image
+  const int x0 = (int)fminf(fmaxf(x0f, -2.0f), (float)W);
+  const int y0 = (int)fminf(fmaxf(y0f, -2.0f), (float)H);
+  d.at = (ptrdiff_t)y0 * W + x0;
+  return d;
+}
+
+// the derivatives along x and y of one channel plane's sample at d; the
+// taps outside the image read zero
 template <typename T>
+__device__ __forceinline__ void sample_deriv(const Deriv& d, const T* plane,
+                                             int W, float* dx, float* dy) {
+  const T* p = plane + d.at;
+  const float v00 = d.y0 && d.x0 ? to_f32(p[0]) : 0.0f;
+  const float v01 = d.y0 && d.x1 ? to_f32(p[1]) : 0.0f;
+  const float v10 = d.y1 && d.x0 ? to_f32(p[W]) : 0.0f;
+  const float v11 = d.y1 && d.x1 ? to_f32(p[W + 1]) : 0.0f;
+  const float v0m = d.ix && d.y0 && d.xm ? to_f32(p[-1]) : 0.0f;
+  const float v1m = d.ix && d.y1 && d.xm ? to_f32(p[W - 1]) : 0.0f;
+  const float vm0 = d.iy && d.ym && d.x0 ? to_f32(p[-W]) : 0.0f;
+  const float vm1 = d.iy && d.ym && d.x1 ? to_f32(p[1 - W]) : 0.0f;
+  *dx = __fadd_rn(__fmul_rn(d.uy, hat_diff(v0m, v00, v01, d.ix)),
+                  __fmul_rn(d.ty, hat_diff(v1m, v10, v11, d.ix)));
+  *dy = __fadd_rn(__fmul_rn(d.ux, hat_diff(vm0, v00, v10, d.iy)),
+                  __fmul_rn(d.tx, hat_diff(vm1, v01, v11, d.iy)));
+}
+
+// two adjacent values of one channel row of g, read as one vector
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// the flow gradient on flow_warp's layout: a block owns FW_TW x FW_TH
+// pixels of one image, a thread two adjacent x of a row. VEC (W even,
+// 8-byte aligned tensors): the flow and g read as pairs and the two
+// gradient planes stored as pairs; else element by element.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(TPB)
 flow_warp_bwd_flow_kernel(const T* __restrict__ g, const T* __restrict__ maps,
                           const float* __restrict__ flow,
-                          float* __restrict__ gflow, int B, int C, int H,
-                          int W, int gh, int gw, int align_corners) {
+                          float* __restrict__ gflow, int C, int H, int W,
+                          int gh, int gw, int align_corners) {
+  __shared__ float bxs[FW_TW], bys[FW_TH];
+  const int xb = blockIdx.x * FW_TW, yb = blockIdx.y * FW_TH, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (tid < FW_TW)
+    bxs[tid] = base_grid(xb + tid, gw);
+  else if (tid < FW_TW + FW_TH)
+    bys[tid - FW_TW] = base_grid(yb + tid - FW_TW, gh);
+  __syncthreads();
+  const int lx = (tid % (FW_TW / 2)) * 2, ly = tid / (FW_TW / 2);
+  const int x = xb + lx, y = yb + ly;
+  if (x >= W || y >= H) return;
+  const bool two = VEC || x + 1 < W;
   const size_t hw = (size_t)H * W;
-  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
-  if (i >= (size_t)B * hw) return;
-  const int b = (int)(i / hw);
-  const size_t r = i - (size_t)b * hw;
-  const int y = (int)(r / W), x = (int)(r - (size_t)y * W);
+  const size_t r = (size_t)y * W + x;
   const float* fl = flow + (size_t)b * 2 * hw + r;
-  float fx, fy;
-  flow_coords(fl[0], fl[hw], x, y, H, W, gh, gw, align_corners, &fx, &fy);
-  const float x0 = floorf(fx), y0 = floorf(fy);
-  const float tx = __fsub_rn(fx, x0), ty = __fsub_rn(fy, y0);
-  const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
-  const bool ix = tx == 0.0f, iy = ty == 0.0f;
-  float sx = 0.0f, sy = 0.0f;
+  float flx[2], fly[2];
+  if (VEC) {
+    const float2 u = *reinterpret_cast<const float2*>(fl);
+    const float2 v = *reinterpret_cast<const float2*>(fl + hw);
+    flx[0] = u.x;
+    flx[1] = u.y;
+    fly[0] = v.x;
+    fly[1] = v.y;
+  } else {
+    flx[0] = fl[0];
+    fly[0] = fl[hw];
+    flx[1] = two ? fl[1] : 0.0f;
+    fly[1] = two ? fl[hw + 1] : 0.0f;
+  }
+  Deriv d[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float fx, fy;
+    coords_from(bxs[lx + k], bys[ly], flx[k], fly[k], H, W, align_corners,
+                &fx, &fy);
+    d[k] = deriv_of(fx, fy, H, W);
+  }
+  float sx[2] = {0.0f, 0.0f}, sy[2] = {0.0f, 0.0f};
+  const T* gp = g + (size_t)b * C * hw + r;
+  const T* img = maps + (size_t)b * C * hw;
+  // two channels' loads in flight at once
+#pragma unroll 2
   for (int c = 0; c < C; ++c) {
-    const T* p = maps + ((size_t)b * C + c) * hw;
-    const float v00 = tap(p, y0, x0, H, W), v01 = tap(p, y0, x0 + 1.0f, H, W);
-    const float v10 = tap(p, y0 + 1.0f, x0, H, W);
-    const float v11 = tap(p, y0 + 1.0f, x0 + 1.0f, H, W);
-    const float v0m = ix ? tap(p, y0, x0 - 1.0f, H, W) : 0.0f;
-    const float v1m = ix ? tap(p, y0 + 1.0f, x0 - 1.0f, H, W) : 0.0f;
-    const float vm0 = iy ? tap(p, y0 - 1.0f, x0, H, W) : 0.0f;
-    const float vm1 = iy ? tap(p, y0 - 1.0f, x0 + 1.0f, H, W) : 0.0f;
-    const float dx = __fadd_rn(__fmul_rn(uy, hat_diff(v0m, v00, v01, ix)),
-                               __fmul_rn(ty, hat_diff(v1m, v10, v11, ix)));
-    const float dy = __fadd_rn(__fmul_rn(ux, hat_diff(vm0, v00, v10, iy)),
-                               __fmul_rn(tx, hat_diff(vm1, v01, v11, iy)));
-    const float gv = to_f32(g[((size_t)b * C + c) * hw + r]);
-    sx = __fadd_rn(sx, __fmul_rn(gv, dx));
-    sy = __fadd_rn(sy, __fmul_rn(gv, dy));
+    float gv[2];
+    if (VEC) {
+      const float2 u = load_pair(gp + c * hw);
+      gv[0] = u.x;
+      gv[1] = u.y;
+    } else {
+      gv[0] = to_f32(gp[c * hw]);
+      gv[1] = two ? to_f32(gp[c * hw + 1]) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k == 1 && !two) break;
+      float dx, dy;
+      sample_deriv(d[k], img + c * hw, W, &dx, &dy);
+      sx[k] = __fadd_rn(sx[k], __fmul_rn(gv[k], dx));
+      sy[k] = __fadd_rn(sy[k], __fmul_rn(gv[k], dy));
+    }
   }
   // d fx / d flow_x, transposed in the JAX code's order: fx = ((gx + 1) *
   // 0.5) * (W - 1) [align_corners] or ((gx + 1) * W - 1) * 0.5, and
   // gx = base + flow_x / ((W - 1) / 2)
-  const float cx = align_corners
-                       ? __fmul_rn(__fmul_rn(sx, (float)(W - 1)), 0.5f)
-                       : __fmul_rn(__fmul_rn(sx, 0.5f), (float)W);
-  const float cy = align_corners
-                       ? __fmul_rn(__fmul_rn(sy, (float)(H - 1)), 0.5f)
-                       : __fmul_rn(__fmul_rn(sy, 0.5f), (float)H);
-  gflow[(size_t)b * 2 * hw + r] = __fdiv_rn(cx, (float)(W - 1) / 2.0f);
-  gflow[(size_t)b * 2 * hw + hw + r] = __fdiv_rn(cy, (float)(H - 1) / 2.0f);
+  float ox[2], oy[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float cx = align_corners
+                         ? __fmul_rn(__fmul_rn(sx[k], (float)(W - 1)), 0.5f)
+                         : __fmul_rn(__fmul_rn(sx[k], 0.5f), (float)W);
+    const float cy = align_corners
+                         ? __fmul_rn(__fmul_rn(sy[k], (float)(H - 1)), 0.5f)
+                         : __fmul_rn(__fmul_rn(sy[k], 0.5f), (float)H);
+    ox[k] = __fdiv_rn(cx, (float)(W - 1) / 2.0f);
+    oy[k] = __fdiv_rn(cy, (float)(H - 1) / 2.0f);
+  }
+  float* o = gflow + (size_t)b * 2 * hw + r;
+  if (VEC) {
+    store_pair(ox[0], ox[1], o);
+    store_pair(oy[0], oy[1], o + hw);
+  } else {
+    o[0] = ox[0];
+    o[hw] = oy[0];
+    if (two) {
+      o[1] = ox[1];
+      o[hw + 1] = oy[1];
+    }
+  }
 }
 
-template <typename T>
-int launch_flow_warp_bwd_maps(const void* g, const void* flow, float* acc,
-                              void* out, int B, int C, int H, int W, int gh,
-                              int gw, int align_corners, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
+template <typename T, bool VEC>
+int launch_bwd_maps(const void* g, const void* flow, void* work, void* out,
+                    int B, int C, int H, int W, int gh, int gw,
+                    int align_corners, const int* plan, cudaStream_t s) {
+  constexpr auto kernel = flow_warp_bwd_maps_kernel<T, VEC>;
+  int dev = 0, sms = 0, limit = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flow_warp_bwd_maps_kernel<T>, TPB, 0);
   if (e != cudaSuccess) return (int)e;
-  const size_t need = blocks_for((size_t)B * C * H * W);
-  const unsigned grid =
-      (unsigned)(need < (size_t)sms * per_sm ? need : (size_t)sms * per_sm);
+  BwdPlan p;
+  if (!bwd_plan_of(B, C, H, W, sms, &p)) return ERR_PLAN;
+  const int want[BW_PLAN_INTS] = {p.tile_h, p.tile_w, p.group_c,
+                                  p.groups, p.shared_bytes, p.tiles,
+                                  p.work_ints, p.grid, p.threads};
+  for (int k = 0; k < BW_PLAN_INTS; ++k)
+    if (plan[k] != want[k]) return ERR_PLAN;
+  int rc = mfc::allow_shared_memory<kernel>(&limit);
+  if (rc != 0) return rc;
+  if (p.shared_bytes > limit) return ERR_PLAN;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TPB,
+                                                    p.shared_bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < BW_BPS) return ERR_PLAN;  // the grid must be resident at once
   const T* gp = (const T*)g;
   const float* fp = (const float*)flow;
+  int* wp = (int*)work;
   T* op = (T*)out;
-  void* args[] = {(void*)&gp, (void*)&fp, (void*)&acc, (void*)&op,
-                  (void*)&B,  (void*)&C,  (void*)&H,   (void*)&W,
-                  (void*)&gh, (void*)&gw, (void*)&align_corners};
-  e = cudaLaunchCooperativeKernel((const void*)flow_warp_bwd_maps_kernel<T>,
-                                  dim3(grid), dim3(TPB), args, 0, s);
+  void* args[] = {(void*)&gp, (void*)&fp, (void*)&wp, (void*)&op,
+                  (void*)&B,  (void*)&C,  (void*)&H,  (void*)&W,
+                  (void*)&gh, (void*)&gw, (void*)&align_corners, (void*)&p};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(p.grid),
+                                  dim3(TPB), args, p.shared_bytes, s);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_flow_warp_bwd_maps(const void* g, const void* flow, void* work,
+                              void* out, int B, int C, int H, int W, int gh,
+                              int gw, int align_corners, const int* plan,
+                              cudaStream_t s) {
+  if (W % 2 == 0 && (uintptr_t)out % 8 == 0)
+    return launch_bwd_maps<T, true>(g, flow, work, out, B, C, H, W, gh, gw,
+                                    align_corners, plan, s);
+  return launch_bwd_maps<T, false>(g, flow, work, out, B, C, H, W, gh, gw,
+                                   align_corners, plan, s);
+}
+
+template <typename T>
+int launch_flow_warp_bwd_flow(const void* g, const void* maps,
+                              const void* flow, void* gflow, int B, int C,
+                              int H, int W, int gh, int gw, int align_corners,
+                              cudaStream_t s) {
+  if (B > 65535 || (H + FW_TH - 1) / FW_TH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + FW_TW - 1) / FW_TW, (H + FW_TH - 1) / FW_TH, B);
+  const bool vec = W % 2 == 0 && ((uintptr_t)g | (uintptr_t)maps |
+                                  (uintptr_t)flow | (uintptr_t)gflow) % 8 == 0;
+  if (vec)
+    flow_warp_bwd_flow_kernel<T, true><<<grid, TPB, 0, s>>>(
+        (const T*)g, (const T*)maps, (const float*)flow, (float*)gflow, C, H,
+        W, gh, gw, align_corners);
+  else
+    flow_warp_bwd_flow_kernel<T, false><<<grid, TPB, 0, s>>>(
+        (const T*)g, (const T*)maps, (const float*)flow, (float*)gflow, C, H,
+        W, gh, gw, align_corners);
   return (int)cudaGetLastError();
 }
 
@@ -577,22 +1233,24 @@ extern "C" int mfc_backward_warp(const void* img, const void* flow, void* out,
 }
 
 // the gradient of flow_warp for its maps: g (B, C, H, W) float32 (dtype 0)
-// or bfloat16 (1), the upstream gradient; flow (B, 2, H, W) float32; acc
-// (B, C, H, W) float32 scratch, or the float32 result; out (B, C, H, W) in
-// g's type, or null when acc is the result. One cooperative launch.
+// or bfloat16 (1), the upstream gradient; flow (B, 2, H, W) float32; work:
+// the plan's work_ints int32 of scratch (no state crosses calls); out
+// (B, C, H, W) in g's type; plan: the 9 ints of ops/warp.py::warp_bwd_plan
+// for this shape and card (ERR_PLAN for any other, or when the card cannot
+// hold the grid at once). One cooperative launch.
 extern "C" int mfc_flow_warp_bwd_maps(const void* g, const void* flow,
-                                      void* acc, void* out, int B, int C,
+                                      void* work, void* out, int B, int C,
                                       int H, int W, int gh, int gw,
                                       int align_corners, int dtype,
-                                      void* stream) {
+                                      const int* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((size_t)B * H * W == 0 || C == 0) return 0;
   if (dtype == 0)
-    return launch_flow_warp_bwd_maps<float>(g, flow, (float*)acc, out, B, C,
-                                            H, W, gh, gw, align_corners, s);
+    return launch_flow_warp_bwd_maps<float>(g, flow, work, out, B, C, H, W,
+                                            gh, gw, align_corners, plan, s);
   if (dtype == 1)
     return launch_flow_warp_bwd_maps<__nv_bfloat16>(
-        g, flow, (float*)acc, out, B, C, H, W, gh, gw, align_corners, s);
+        g, flow, work, out, B, C, H, W, gh, gw, align_corners, plan, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -605,18 +1263,21 @@ extern "C" int mfc_flow_warp_bwd_flow(const void* g, const void* maps,
                                       int align_corners, int dtype,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t n = (size_t)B * H * W;
-  if (n == 0) return 0;
+  if ((size_t)B * H * W == 0) return 0;
   if (dtype == 0)
-    flow_warp_bwd_flow_kernel<float><<<blocks_for(n), TPB, 0, s>>>(
-        (const float*)g, (const float*)maps, (const float*)flow,
-        (float*)gflow, B, C, H, W, gh, gw, align_corners);
-  else if (dtype == 1)
-    flow_warp_bwd_flow_kernel<__nv_bfloat16><<<blocks_for(n), TPB, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)maps,
-        (const float*)flow, (float*)gflow, B, C, H, W, gh, gw,
-        align_corners);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_flow_warp_bwd_flow<float>(g, maps, flow, gflow, B, C, H, W,
+                                            gh, gw, align_corners, s);
+  if (dtype == 1)
+    return launch_flow_warp_bwd_flow<__nv_bfloat16>(
+        g, maps, flow, gflow, B, C, H, W, gh, gw, align_corners, s);
+  return (int)cudaErrorInvalidValue;
 }
+
+#ifdef BW_PHASE_STAMPS
+extern "C" int bw_read_stamps(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, bw_stamps, sizeof(bw_stamps));
+}
+extern "C" int bw_read_sub(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, bw_sub, sizeof(bw_sub));
+}
+#endif

@@ -63,9 +63,10 @@ _SIGNATURES = {
         "mfc_backward_warp": (
             (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
-        # g, flow, acc, out, B, C, H, W, gh, gw, align_corners, dtype, stream
+        # g, flow, work, out, B, C, H, W, gh, gw, align_corners, dtype,
+        # plan[9], stream
         "mfc_flow_warp_bwd_maps": (
-            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
         # g, maps, flow, gflow, B, C, H, W, gh, gw, align_corners, dtype,
         # stream

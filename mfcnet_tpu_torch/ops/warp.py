@@ -34,11 +34,17 @@ returned in the maps' dtype.
 :func:`flow_warp` is differentiable (a ``torch.autograd.Function``): its
 backward is the VJP that the JAX package attaches to the TPU kernel
 (``warp_pallas.py::_banded_warp_bwd``, XLA autodiff of the kernel's hat
-weights max(1 - |xs - fx|, 0)). On CUDA tensors the maps gradient is the
-kernel entry ``mfc_flow_warp_bwd_maps`` (a scatter with float32 atomics,
-one cooperative launch) and the flow gradient ``mfc_flow_warp_bwd_flow``
-(a gather, run only when the flow requires a gradient); on CPU tensors
-:func:`flow_warp_backward_plain`. Between taps the flow gradient is the
+weights max(1 - |xs - fx|, 0)). On CPU tensors it is
+:func:`flow_warp_backward_plain`. On CUDA tensors the maps gradient is the
+kernel entry ``mfc_flow_warp_bwd_maps``: one cooperative launch that bins
+the source pixels by the destination tiles their taps reach (count, scan,
+bin), then sorts each tile's list by tap-box corner in shared memory,
+sums each pixel pair in one thread's registers and writes the tile once:
+no global accumulator and no float atomics. :func:`warp_bwd_plan` fixes
+its tiles, grid and workspace (worst case: four list entries a pixel), and
+the C side refuses any other plan. The flow gradient is
+``mfc_flow_warp_bwd_flow``, a gather on the forward's 2D tiles, run only
+when the flow requires a gradient. Between taps the flow gradient is the
 difference of the two taps; at an exactly integer coordinate k it is the
 banded hat convention as XLA differentiates it, v[k] + (v[k+1] - v[k-1]) /
 2, not the floor form's v[k+1] - v[k] (the JAX package's gather tier, taken
@@ -49,10 +55,12 @@ warps (``grid_sample_bilinear``, ``backward_warp``) stay forward only.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+from mfcnet_tpu_torch.ops._build import kernel_lib, route, sm_count, stream_of
 
 #: kernel launches per entry point since the last :func:`reset_launches`
 LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
@@ -64,9 +72,73 @@ _TRAINING = ("this warp has no backward kernel (the flow providers train "
              "B2 and the update step's backward)")
 
 
+#: the maps gradient's kernel (``csrc/warp.cu`` has the same): destination
+#: tiles of BWD_TILE_H x BWD_TILE_W pixels, at most BWD_MAX_GROUP_C channels
+#: a tile pass, BWD_BLOCKS_PER_SM blocks of BWD_THREADS threads an SM, up to
+#: BWD_CAP list entries staged at once, and the error code of a refused plan
+BWD_TILE_H, BWD_TILE_W, BWD_MAX_GROUP_C = 8, 64, 6
+BWD_BLOCKS_PER_SM, BWD_THREADS, BWD_CAP, PLAN_REFUSED = 4, 256, 1024, 20004
+#: tap-box corners (top-left taps) whose boxes reach a tile
+BWD_CORNERS = (BWD_TILE_H + 1) * (BWD_TILE_W + 1)
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan of ``mfc_flow_warp_bwd_maps`` (see
+    :func:`warp_bwd_plan`); its ints are what the C entry point takes, in
+    this order."""
+    tile_h: int        # rows of a destination tile
+    tile_w: int        # ... and its columns
+    group_c: int       # channels a tile pass sums
+    groups: int        # passes a tile takes
+    shared_bytes: int  # dynamic shared memory a block
+    tiles: int         # tiles an image
+    work_ints: int     # the int32 workspace
+    grid: int          # blocks, all resident at once
+    threads: int       # threads a block
+
+
+@functools.lru_cache(maxsize=None)
+def warp_bwd_plan(B: int, C: int, H: int, W: int, sms: int) -> BwdPlan:
+    """Launch plan of the maps gradient for a (B, C, H, W) upstream
+    gradient on a card of ``sms`` SMs: BWD_TILE_H x BWD_TILE_W destination
+    tiles; ceil(C / BWD_MAX_GROUP_C) channel groups of equal size (a block
+    sums one group of its tile); a cooperative grid of ``sms *
+    BWD_BLOCKS_PER_SM`` blocks; the shared memory of a block, whatever B,
+    H and W: BWD_CAP staged list entries (each with its coordinates, a
+    group of g in 32-bit words and its place in corner order), a count per
+    tap-box corner and the total, and the tile's float32 sums; and the
+    int32 workspace: each pixel's float32 coordinates (two ints), per
+    (image, tile) an offset (and one total) and a cursor, the tile
+    counter, and the lists (a pixel and its tap box's corner in the tile,
+    two ints an entry), four entries a pixel (the most a pixel's four taps
+    can reach), so that no flow overflows them. The C side computes the
+    same plan and refuses any other. Raises ``ValueError`` for an empty
+    shape or one beyond the kernel's 32-bit indices."""
+    if min(B, C, H, W, sms) < 1:
+        raise ValueError(f"warp_bwd_plan: empty shape {(B, C, H, W)} or "
+                         f"{sms} SMs")
+    tiles = -(-H // BWD_TILE_H) * -(-W // BWD_TILE_W)
+    groups = -(-C // BWD_MAX_GROUP_C)
+    group_c = -(-C // groups)
+    nt = B * tiles
+    work = 10 * B * H * W + 2 * nt + 2
+    if work >= 2 ** 31 or nt * groups >= 2 ** 31:
+        raise ValueError(f"warp_bwd_plan: {B} images of {H}x{W} are beyond "
+                         "the kernel's 32-bit indices")
+    shared = 4 * (BWD_CAP * (3 + group_c) + BWD_CORNERS + 1
+                  + group_c * BWD_TILE_H * BWD_TILE_W)
+    return BwdPlan(BWD_TILE_H, BWD_TILE_W, group_c, groups, shared, tiles,
+                   work, sms * BWD_BLOCKS_PER_SM, BWD_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(plan: BwdPlan):
+    return (ctypes.c_int * len(plan))(*plan)
 
 
 def _wf(t):
@@ -255,6 +327,37 @@ def flow_warp_backward_plain(g, maps, flow, grid_hw=None,
     return gi.to(maps.dtype), grad_flow
 
 
+def tap_tiles(flow, grid_hw=None, align_corners: bool = True,
+              tile=(BWD_TILE_H, BWD_TILE_W)):
+    """The maps-gradient kernel's binning: (B, 4, H, W) int64, for each
+    pixel the destination tiles (numbers within its image, raster order of
+    ``tile``-sized tiles; -1 for none) that its in-image taps reach, each
+    tile once: the tile rows of tap rows y0 and y0 + 1 where a tap of that
+    row lies in the image, the same for the columns, a second row or
+    column dropped where it is the first's tile. Their count over the
+    pixels is the list entries one call writes and reads."""
+    B, _, H, W = flow.shape
+    th, tw = tile
+    fx, fy = _abs_coords(*_flow_grid(flow, grid_hw), H, W, align_corners,
+                         "zeros")
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+    vx0, vx1 = (x0 >= 0) & (x0 <= W - 1), (x0 >= -1) & (x0 <= W - 2)
+    vy0, vy1 = (y0 >= 0) & (y0 <= H - 1), (y0 >= -1) & (y0 <= H - 2)
+    xi = x0.clamp(-1, W - 1).to(torch.int64)
+    yi = y0.clamp(-1, H - 1).to(torch.int64)
+    none = torch.full_like(xi, -1)
+    ra = torch.where(vy0 & (vx0 | vx1), yi.clamp_min(0) // th, none)
+    rb = torch.where(vy1 & (vx0 | vx1), (yi + 1) // th, none)
+    ca = torch.where(vx0 & (vy0 | vy1), xi.clamp_min(0) // tw, none)
+    cb = torch.where(vx1 & (vy0 | vy1), (xi + 1) // tw, none)
+    rb = torch.where(rb == ra, none, rb)
+    cb = torch.where(cb == ca, none, cb)
+    ntx = -(-W // tw)
+    keys = [torch.where((r >= 0) & (c >= 0), r * ntx + c, none)
+            for r, c in ((ra, ca), (ra, cb), (rb, ca), (rb, cb))]
+    return torch.stack(keys, 1)
+
+
 _BASE_GRIDS = {}
 
 
@@ -385,24 +488,31 @@ def _flow_warp_forward(maps, flow, grid_hw, align_corners):
 def flow_warp_bwd_maps(g, flow, grid_hw=None, align_corners: bool = True):
     """The maps gradient of :func:`flow_warp` on CUDA tensors: ``g``
     (B, C, H, W) float32 or bfloat16, the upstream gradient; ``flow``
-    (B, 2, H, W). One cooperative launch of ``mfc_flow_warp_bwd_maps``
-    (zero a float32 accumulator, scatter with atomics, cast to g's type).
-    Returns (B, C, H, W) in g's type."""
+    (B, 2, H, W). One cooperative launch of ``mfc_flow_warp_bwd_maps`` on
+    :func:`warp_bwd_plan`'s plan (bin the pixels by destination tile, sum
+    each tile in shared memory, write it in g's type). Returns (B, C, H, W)
+    in g's type."""
     _check_maps(g)
     B, C, H, W = g.shape
     gh, gw = (H, W) if grid_hw is None else grid_hw
     g = g.contiguous()
+    if g.data_ptr() % 4:  # the kernel copies g in aligned 32-bit words
+        g = g.clone()
     flow = flow.float().contiguous()
-    if g.dtype == torch.float32:
-        acc = out = torch.empty_like(g)
-        out_ptr = None
-    else:
-        acc = torch.empty(g.shape, dtype=torch.float32, device=g.device)
-        out = torch.empty_like(g)
-        out_ptr = out.data_ptr()
+    out = torch.empty_like(g)
+    if out.numel() == 0:
+        return out
+    plan = warp_bwd_plan(B, C, H, W, sm_count(g.device))
+    # scratch of this call: the caching allocator hands the same block back
+    # to the next call of the shape, and nothing in it outlives the launch
+    work = torch.empty(plan.work_ints, dtype=torch.int32, device=g.device)
     rc = kernel_lib().mfc_flow_warp_bwd_maps(
-        g.data_ptr(), flow.data_ptr(), acc.data_ptr(), out_ptr, B, C, H, W,
-        gh, gw, int(align_corners), _DTYPES[g.dtype], stream_of(g))
+        g.data_ptr(), flow.data_ptr(), work.data_ptr(), out.data_ptr(),
+        B, C, H, W, gh, gw, int(align_corners), _DTYPES[g.dtype],
+        _plan_ints(plan), stream_of(g))
+    if rc == PLAN_REFUSED:
+        raise RuntimeError(f"CUDA kernel flow_warp_bwd_maps refused the plan "
+                           f"{plan} for {(B, C, H, W)} (error {rc})")
     _launch("flow_warp_bwd_maps", rc)
     return out
 

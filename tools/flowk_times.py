@@ -3,7 +3,8 @@ cost volume and the head's flow warp -- and of the warp's absolute-coordinate
 entry point alone, for the package of this checkout, or of this checkout and
 another tree in turns on one card in one call:
 
-    python3 tools/flowk_times.py [--breakdown] [--variants] [--tree DIR]
+    python3 tools/flowk_times.py [--breakdown] [--variants] [--raft-f32]
+        [--phases] [--tree DIR]
 
 Inputs, seeded: the correlation at UnFlow's tracker shape (f32 and bf16
 2x32x40x256: the conv3 features of 2 pairs at 256x320) and at the offline
@@ -18,12 +19,28 @@ correlation needs the banded part of it), and ``F.grid_sample`` on a ready
 grid. Every output is checked against its plain version first. For each:
 ms per call by CUDA-graph replay (``chip_smoke.py::_graph_ms``) and, for
 the two kernels, called eagerly (CUDA events around 50 calls).
+B1, the flow warp's backward, at the trainer's shape (the maps gradient
+and the flow gradient of 8x6x480x640 bf16 and f32 g on the 576x720 grid)
+on the smooth flow, the noise flow and a convergent flow (every pixel
+within 2 px of one point), each held to the plain backward and timed
+beside ``grid_sampler_2d_backward`` (maps gradient only, grid gradient
+only); its byte bound and, by design, the bytes each moves.
 ``--breakdown`` lists the device operations of one call with their device
 times (``torch.profiler``). For the correlation the line also holds
 ``corr_plan``'s plan and the operand rows its blocks stage (MB). ``--variants`` also builds
 ``tools/flowk_variants.cu`` (stripped variants of the earlier flow warp:
 coordinates only, taps without stores, 2D blocks, a copy of the same bytes)
-and times each at the same inputs.
+and times each at the same inputs, and the stripped variants of B1's
+first maps-gradient kernel (zero and cast only, plain stores in place of
+its atomics, its scatter into shared memory only, and the whole) at the
+trainer's shape, bf16, on the smooth and the noise flow.
+``--raft-f32`` times the float32 route of ``raft_update`` (plain FMAs; no
+path launches it) at 2,400 and 38,400 tokens by graph replay, beside its
+bound and the float32 ``UpdateBlock`` (cuDNN, TF32 off and on).
+``--phases`` builds ``csrc/warp.cu`` once more with ``-DBW_PHASE_STAMPS``
+(in-kernel ``%globaltimer`` stamps at the maps kernel's grid barriers and
+``clock64`` sums of the accumulate phase's steps, per block) and prints
+where one call at the trainer's shape spends its time.
 
 Prints the card's name and power limit, then one JSON line of readings.
 With ``--tree DIR`` (another checkout, say the parent commit unpacked under
@@ -55,6 +72,12 @@ ABS_SHAPE = (2, 3, 256, 320)
 VARIANTS = ("parent", "coordinates", "taps", "tile 32x8", "copy")
 #: the variants that compute the warp itself (bit-equal to "parent")
 EXACT = ("parent", "tile 32x8")
+#: B1 at the trainer's shape (run A: batch 4 x 2 earlier frames, C = 6)
+B1_SHAPE, B1_GRID = (8, 6, 480, 640), (576, 720)
+B1_VARIANTS = ("first design", "zero and cast", "plain stores",
+               "shared scatter")
+#: (B, H8, W8) of the float32 update step's timed calls
+RAFT_F32_CALLS = ((2, 30, 40), (8, 60, 80))
 
 
 def card() -> str:
@@ -91,10 +114,237 @@ def build_variants():
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.probe_flow_warp.argtypes = (I, P, P, P, I, I, I, I, I, I, I, P)
     lib.probe_flow_warp.restype = I
+    lib.probe_bwd_maps.argtypes = (I, P, P, P, P, I, I, I, I, I, I, I, P)
+    lib.probe_bwd_maps.restype = I
     return lib
 
 
-def readings(breakdown: bool, variants: bool, tree: Path):
+def b1_calls(gen, out):
+    """B1's two entries at the trainer's shape, f32 and bf16, on three
+    flows, each checked against the plain backward first: {label: (kernel
+    call, library call)}; bounds and bytes moved into ``out``. Returns the
+    calls and the bf16 inputs (for the variants)."""
+    import torch
+
+    from chip_smoke import PEAK_BYTES, _hold_flow_warp_bwd, _nbytes, \
+        b1_flows, b1_moved_bytes
+    from mfcnet_tpu_torch.ops import warp
+
+    B, C, H, W = B1_SHAPE
+    flows = {"smooth 17 px": smooth_flow(gen, B, H, W, 17.0).cuda(),
+             "noise 4 px": (torch.randn(B, 2, H, W, generator=gen) * 4.0
+                            ).cuda(),
+             "convergent": b1_flows(gen, B, H, W, B1_GRID)[
+                 "convergent"].cuda()}
+    calls, kept = {}, None
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        g = torch.randn(B1_SHAPE, generator=gen).cuda().to(dt)
+        maps = torch.rand(B1_SHAPE, generator=gen).cuda().to(dt)
+        kept = kept or (g, flows)
+        gflow = torch.empty(B, 2, H, W, device="cuda")
+        out[f"B1 maps {name} bound ms"] = \
+            _nbytes(g, flows["noise 4 px"], g) / PEAK_BYTES * 1e3
+        out[f"B1 flow {name} bound ms"] = \
+            _nbytes(g, maps, flows["noise 4 px"], gflow) / PEAK_BYTES * 1e3
+        for label, fl in flows.items():
+            _hold_flow_warp_bwd(g, maps, fl, f"B1 {name} {label}", B1_GRID,
+                                converges=label == "convergent")
+            if hasattr(warp, "tap_tiles"):  # entries and bytes by design
+                first, this, entries = b1_moved_bytes(g, fl, B1_GRID)
+                out[f"B1 maps {name} {label} MB moved"] = {
+                    "first design": first / 1e6, "tiles": this / 1e6,
+                    "list entries": entries}
+            gx, gy = warp._flow_grid(fl, B1_GRID)
+            grid = torch.stack([gx, gy], -1).to(dt).contiguous()
+            for entry, mask in (("maps", [True, False]),
+                                ("flow", [False, True])):
+                kern = ((lambda g=g, fl=fl: warp.flow_warp_bwd_maps(
+                    g, fl, B1_GRID)) if entry == "maps" else
+                    (lambda g=g, maps=maps, fl=fl: warp.flow_warp_bwd_flow(
+                        g, maps, fl, B1_GRID)))
+                calls[f"B1 {entry} {name} {label}"] = (
+                    kern, lambda g=g, maps=maps, grid=grid, mask=mask:
+                    torch.ops.aten.grid_sampler_2d_backward(
+                        g, maps, grid, 0, 0, True, mask))
+    return calls, kept
+
+
+def b1_variants(vlib, g, flows, out):
+    """The first maps-gradient kernel's stripped variants, graph replay."""
+    import torch
+
+    from chip_smoke import _graph_ms
+    from mfcnet_tpu_torch.ops._build import stream_of
+    from mfcnet_tpu_torch.ops.warp import flow_warp_backward_plain
+
+    B, C, H, W = B1_SHAPE
+    acc = torch.empty(B1_SHAPE, device="cuda")
+    for label in ("smooth 17 px", "noise 4 px"):
+        fl = flows[label]
+        for v, name in enumerate(B1_VARIANTS):
+            vout = torch.empty_like(g)
+
+            def probe(v=v, vout=vout, fl=fl):
+                rc = vlib.probe_bwd_maps(
+                    v, g.data_ptr(), fl.data_ptr(), acc.data_ptr(),
+                    vout.data_ptr(), B, C, H, W, *B1_GRID, 1, stream_of(g))
+                if rc != 0:
+                    raise RuntimeError(f"B1 variant {name}: cudaError {rc}")
+                return vout
+
+            probe()
+            if v == 0:  # the whole kernel: one bf16 rounding of plain
+                ref = flow_warp_backward_plain(g.float(), g.float(), fl,
+                                               B1_GRID)[0]
+                bad = (vout.float() - ref).abs() > 2.0 ** -8 * ref.abs() + 1e-5
+                if bool(bad.any()):
+                    raise AssertionError("B1 variant 'first design' != plain")
+            out[f"B1 maps variant {name} graph ms, {label}"] = _graph_ms(probe)
+
+
+def b1_phases():
+    """Where one call of B1's maps kernel spends its time, phase by phase:
+    csrc/warp.cu built with BW_PHASE_STAMPS, called on the trainer's
+    shape (bf16 and f32; smooth, noise, convergent flow)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import b1_flows
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, \
+        _nvcc, sm_count, stream_of
+
+    src = CSRC / "warp.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"libwarp_phases_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-DBW_PHASE_STAMPS", "-I",
+                        str(CSRC), "-o", str(so), str(src)], check=True,
+                       capture_output=True, text=True)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = lib.mfc_flow_warp_bwd_maps
+    fn.argtypes = (P, P, P, P, I, I, I, I, I, I, I, I, P, P)
+    fn.restype = I
+    lib.bw_read_stamps.argtypes = lib.bw_read_sub.argtypes = (P,)
+    gen = torch.Generator().manual_seed(0)
+    B, C, H, W = B1_SHAPE
+    flows = {"smooth 17 px": smooth_flow(gen, B, H, W, 17.0).cuda(),
+             "noise 4 px": (torch.randn(B, 2, H, W, generator=gen) * 4.0
+                            ).cuda(),
+             "convergent": b1_flows(gen, B, H, W, B1_GRID)[
+                 "convergent"].cuda()}
+    plan = warp.warp_bwd_plan(B, C, H, W, sm_count(torch.device("cuda")))
+    ints = (ctypes.c_int * len(plan))(*plan)
+    work = torch.empty(plan.work_ints, dtype=torch.int32, device="cuda")
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        g = torch.randn(B1_SHAPE, generator=gen).cuda().to(dt)
+        res = torch.empty_like(g)
+        for label, fl in flows.items():
+            stamps = (ctypes.c_ulonglong * (6 * 4096))()
+            sub0 = (ctypes.c_ulonglong * (4 * 4096))()
+            sub1 = (ctypes.c_ulonglong * (4 * 4096))()
+            for _ in range(2):  # the second call is read
+                lib.bw_read_sub(sub0)
+                rc = fn(g.data_ptr(), fl.data_ptr(), work.data_ptr(),
+                        res.data_ptr(), B, C, H, W, *B1_GRID, 1,
+                        0 if dt == torch.float32 else 1, ints, stream_of(g))
+                if rc != 0:
+                    raise RuntimeError(f"B1 phases: cudaError {rc}")
+                torch.cuda.synchronize()
+            lib.bw_read_stamps(stamps)
+            lib.bw_read_sub(sub1)
+            t = np.frombuffer(stamps, np.uint64).reshape(6, 4096)[
+                :, :plan.grid].astype(np.int64)
+            sub = (np.frombuffer(sub1, np.uint64).astype(np.float64)
+                   - np.frombuffer(sub0, np.uint64)).reshape(4, 4096)[
+                :, :plan.grid]
+            out[f"B1 maps {str(dt).split('.')[1]} {label} phases us"] = {
+                "zero": (t[1].max() - t[0].min()) / 1e3,
+                "count": (t[2].max() - t[1].max()) / 1e3,
+                "scan": (t[3].max() - t[2].max()) / 1e3,
+                "bin": (t[4].max() - t[3].max()) / 1e3,
+                "accumulate, last block": (t[5].max() - t[4].max()) / 1e3,
+                "accumulate, median block": float(np.median(t[5])
+                                                  - t[4].max()) / 1e3,
+                "accumulate steps, mean cycles a block": dict(zip(
+                    ("stage", "sort", "sum", "write"),
+                    sub.mean(1).round().tolist()))}
+    return out
+
+
+def raft_f32_readings():
+    """The float32 update step (``mfc_raft_update``, plain FMAs) by graph
+    replay through a solve's workspace, its bound and the float32
+    ``UpdateBlock`` (cuDNN) at the same tokens."""
+    import torch
+
+    from chip_smoke import PEAK_BYTES, PEAK_F32, RAFT_TOL, _graph_ms, \
+        _nbytes, _raft_update_inputs
+    from mfcnet_tpu_torch.models import init_weights
+    from mfcnet_tpu_torch.models.raft import UpdateBlock
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    gen = torch.Generator().manual_seed(0)
+    ub = init_weights(UpdateBlock(), gen).cuda().eval()
+    atol, rtol = RAFT_TOL["float32"]
+    out = []
+    for B, H8, W8 in RAFT_F32_CALLS:
+        args = _raft_update_inputs(ub, torch.float32, B, H8, W8, gen)
+        c1, f1, inp, net, flow, packed = args[:6]
+        for got, want in zip(ru.raft_update(*args), ru.raft_update_plain(
+                *args)):
+            if not torch.allclose(got, want, rtol=rtol, atol=atol):
+                raise AssertionError(f"raft_update f32 {B}x{H8}x{W8}: kernel "
+                                     "!= plain")
+        ws = ru.UpdateWorkspace(B, H8, W8, packed, "cuda")
+        state = [net]
+
+        def step():
+            state[0], delta = ru.raft_update(c1, f1, inp, state[0], flow,
+                                             packed, H8, W8, ws)
+            return state[0], delta
+
+        ms = min(_graph_ms(step, 10, 5), _graph_ms(step, 10, 5))
+        tok = B * H8 * W8
+        macs = sum(packed[f"w_{k}"].shape[0] * packed[f"w_{k}"].shape[1]
+                   * cols for k, cols in (
+                       ("c2", 192), ("f2", 64), ("cv", 126), ("zr_h", 256),
+                       ("q_h", 128), ("zr_v", 256), ("q_v", 128),
+                       ("fl1", 256), ("fl2", 2)))
+        b_ops = 2 * macs * tok / PEAK_F32 * 1e3
+        b_bytes = _nbytes(*args[:5], *(packed[k] for k in ru._WEIGHT_NAMES),
+                          *step()) / PEAK_BYTES * 1e3
+        corr = torch.randn(B, tok // B, 4 * 81, generator=gen).cuda()
+
+        def cl(t, ch):
+            return t.view(B, H8, W8, ch).permute(0, 3, 1, 2)
+
+        lib_args = (cl(net, 128), cl(inp, 128), cl(corr, 4 * 81),
+                    cl(flow, 2))
+        library = {}
+        tf32 = torch.backends.cudnn.allow_tf32
+        try:
+            for allow in (False, True):
+                torch.backends.cudnn.allow_tf32 = allow
+                with torch.no_grad():
+                    library[f"tf32 {'on' if allow else 'off'}"] = _graph_ms(
+                        lambda: ub(*lib_args), 10, 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        out.append({"tokens": tok, "ms": ms, "bound_ms": max(b_ops, b_bytes),
+                    "bound_by": "operations" if b_ops >= b_bytes
+                    else "bytes", "ops_ms": b_ops, "bytes_ms": b_bytes,
+                    "tflops": 2 * macs * tok / ms / 1e9,
+                    "UpdateBlock f32 ms": library})
+    return out
+
+
+def readings(breakdown: bool, variants: bool, tree: Path,
+             raft_f32: bool = False, phases: bool = False):
     import torch
     import torch.nn.functional as F
 
@@ -168,6 +418,8 @@ def readings(breakdown: bool, variants: bool, tree: Path):
         warp_abs, lambda: F.grid_sample(img, grid, mode="bilinear",
                                         padding_mode="border",
                                         align_corners=False))
+    b1, b1_inputs = b1_calls(gen, out)
+    calls.update(b1)
     if breakdown:
         for label, (kern, _) in calls.items():
             ops = _device_events(kern)
@@ -178,10 +430,14 @@ def readings(breakdown: bool, variants: bool, tree: Path):
     torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in f32
     try:
         for label, (kern, library) in calls.items():
-            out[f"{label} graph ms, kernel"] = _graph_ms(kern)
+            # a convergent flow takes milliseconds a call: fewer replays
+            slow = "convergent" in label
+            reps = (5, 2) if slow else (20, 10)
+            out[f"{label} graph ms, kernel"] = _graph_ms(kern, *reps)
             if not label.startswith("warp_abs"):
-                out[f"{label} eager ms, kernel"] = _event_ms(kern, 50)
-            out[f"{label} graph ms, library"] = _graph_ms(library)
+                out[f"{label} eager ms, kernel"] = _event_ms(
+                    kern, 5 if slow else 50)
+            out[f"{label} graph ms, library"] = _graph_ms(library, *reps)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     if variants:
@@ -206,6 +462,11 @@ def readings(breakdown: bool, variants: bool, tree: Path):
                         raise AssertionError(f"variant {name} != parent")
                 out[f"flow_warp variant {name} graph ms, {label}"] = \
                     _graph_ms(probe)
+        b1_variants(vlib, *b1_inputs, out)
+    if raft_f32:
+        out["raft_update f32"] = raft_f32_readings()
+    if phases:
+        out.update(b1_phases())
     return out
 
 
@@ -235,15 +496,23 @@ def main():
     ap.add_argument("--breakdown", action="store_true",
                     help="list each call's device operations")
     ap.add_argument("--variants", action="store_true",
-                    help="time the stripped variants of the earlier warp")
+                    help="time the stripped variants of the earlier warp "
+                         "and of B1's first maps kernel")
+    ap.add_argument("--raft-f32", action="store_true",
+                    help="time raft_update's float32 route")
+    ap.add_argument("--phases", action="store_true",
+                    help="split B1's maps kernel into its phases")
     args = ap.parse_args()
     if args.tree is not None:
         print(card(), flush=True)
         print(json.dumps(in_turns(args.tree.resolve(), args.breakdown)),
               flush=True)
-        if args.variants:
+        extra = [f for f, on in (("--variants", args.variants),
+                                 ("--raft-f32", args.raft_f32),
+                                 ("--phases", args.phases)) if on]
+        if extra:
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--variants"], check=True)
+                            *extra], check=True)
         return
     tree = (args.time_tree or ROOT).resolve()
     sys.path.insert(0, str(ROOT))
@@ -256,8 +525,8 @@ def main():
         raise SystemExit("flowk_times: needs an NVIDIA GPU")
     if args.time_tree is None:
         print(card(), flush=True)
-    print(json.dumps(readings(args.breakdown, args.variants, tree)),
-          flush=True)
+    print(json.dumps(readings(args.breakdown, args.variants, tree,
+                              args.raft_f32, args.phases)), flush=True)
 
 
 if __name__ == "__main__":

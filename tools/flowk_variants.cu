@@ -14,9 +14,24 @@
 //   3 "tile 32x8"   0's body on 2D blocks of 32 x 8 pixels
 //   4 "copy"        the same bytes without a gather: the flow read, each
 //                   channel read at the pixel itself and written out
+//
+// and of the first design of B1's maps gradient (bf16 g, float32 flow;
+// probe_bwd_maps), one cooperative launch each, to split its time:
+//
+//   0 "first design"   zero a float32 (B, C, H, W) accumulator, scatter
+//                      with global float32 atomicAdd, cast to bf16
+//   1 "zero and cast"  the accumulator's two passes, no scatter
+//   2 "plain stores"   0 with a plain store in place of each atomic (wrong
+//                      where taps are shared: for timing only)
+//   3 "shared scatter" the scatter's reads and weights, its atomics into a
+//                      block's 16 KB of shared memory (the tap's address
+//                      folded into it); no accumulator, no zero, no cast
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,7 +148,134 @@ tile_kernel(const bf16* __restrict__ maps, const float* __restrict__ flow,
   pixel<0>(maps, flow, out, blockIdx.z, x, y, C, H, W, gh, gw, ac);
 }
 
+// B1's first maps-gradient kernel and its stripped variants
+constexpr int SH = 4096;  // floats of variant 3's shared buffer
+
+template <int V>
+__global__ void __launch_bounds__(TPB)
+bwd_maps_probe(const bf16* __restrict__ g, const float* __restrict__ flow,
+               float* __restrict__ acc, bf16* __restrict__ out, int B, int C,
+               int H, int W, int gh, int gw, int ac) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float sh[V == 3 ? SH : 1];
+  const size_t hw = (size_t)H * W, n = (size_t)B * C * hw;
+  const size_t stride = (size_t)gridDim.x * TPB;
+  const size_t t0 = (size_t)blockIdx.x * TPB + threadIdx.x;
+  if (V == 3) {
+    for (int j = threadIdx.x; j < SH; j += TPB) sh[j] = 0.0f;
+    __syncthreads();
+  } else {
+    for (size_t i = t0; i < n; i += stride) acc[i] = 0.0f;
+    grid.sync();
+  }
+  if (V != 1) {
+    for (size_t i = t0; i < (size_t)B * hw; i += stride) {
+      const int b = (int)(i / hw);
+      const size_t r = i - (size_t)b * hw;
+      const int y = (int)(r / W), x = (int)(r - (size_t)y * W);
+      const Coords q = coords(flow + (size_t)b * 2 * hw + r, hw, x, y, H, W,
+                              gh, gw, ac);
+      const float x0f = floorf(q.fx), y0f = floorf(q.fy);
+      const float tx = __fsub_rn(q.fx, x0f), ty = __fsub_rn(q.fy, y0f);
+      const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
+      const bool vx0 = x0f >= 0.0f && x0f <= (float)(W - 1);
+      const bool vx1 = x0f >= -1.0f && x0f <= (float)(W - 2);
+      const bool vy0 = y0f >= 0.0f && y0f <= (float)(H - 1);
+      const bool vy1 = y0f >= -1.0f && y0f <= (float)(H - 2);
+      const int x0 = (int)fminf(fmaxf(x0f, -1.0f), (float)(W - 1));
+      const int y0 = (int)fminf(fmaxf(y0f, -1.0f), (float)(H - 1));
+      const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
+      const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
+      const float w00 = __fmul_rn(ux, uy), w01 = __fmul_rn(tx, uy);
+      const float w10 = __fmul_rn(ux, ty), w11 = __fmul_rn(tx, ty);
+      const bf16* gp = g + (size_t)b * C * hw + r;
+      const ptrdiff_t o = (ptrdiff_t)y0 * W + x0;
+      float* a = acc + (size_t)b * C * hw + o;
+      for (int c = 0; c < C; ++c, gp += hw, a += hw) {
+        const float v = __bfloat162float(*gp);
+        if (v == 0.0f) continue;
+        if (V == 0) {
+          if (v00) atomicAdd(a, __fmul_rn(v, w00));
+          if (v01) atomicAdd(a + 1, __fmul_rn(v, w01));
+          if (v10) atomicAdd(a + W, __fmul_rn(v, w10));
+          if (v11) atomicAdd(a + W + 1, __fmul_rn(v, w11));
+        } else if (V == 2) {
+          if (v00) a[0] = __fmul_rn(v, w00);
+          if (v01) a[1] = __fmul_rn(v, w01);
+          if (v10) a[W] = __fmul_rn(v, w10);
+          if (v11) a[W + 1] = __fmul_rn(v, w11);
+        } else {
+          const int s = (int)((o + c * 61) & (SH - 1));
+          if (v00) atomicAdd(sh + s, __fmul_rn(v, w00));
+          if (v01) atomicAdd(sh + ((s + 1) & (SH - 1)), __fmul_rn(v, w01));
+          if (v10) atomicAdd(sh + ((s + W) & (SH - 1)), __fmul_rn(v, w10));
+          if (v11)
+            atomicAdd(sh + ((s + W + 1) & (SH - 1)), __fmul_rn(v, w11));
+        }
+      }
+    }
+  }
+  if (V == 3) {  // a block's sums leave in one small store
+    __syncthreads();
+    float sum = 0.0f;
+    for (int j = threadIdx.x; j < SH; j += TPB) sum += sh[j];
+    out[t0 % n] = __float2bfloat16_rn(sum);
+    return;
+  }
+  grid.sync();
+  for (size_t i = t0; i < n; i += stride) out[i] = __float2bfloat16_rn(acc[i]);
+}
+
+template <int V>
+int launch_bwd_probe(const void* g, const void* flow, float* acc, void* out,
+                     int B, int C, int H, int W, int gh, int gw, int ac,
+                     cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bwd_maps_probe<V>, TPB, 0);
+  if (e != cudaSuccess) return (int)e;
+  const size_t need = ((size_t)B * C * H * W + TPB - 1) / TPB;
+  const unsigned grid =
+      (unsigned)(need < (size_t)sms * per_sm ? need : (size_t)sms * per_sm);
+  const bf16* gp = (const bf16*)g;
+  const float* fp = (const float*)flow;
+  bf16* op = (bf16*)out;
+  void* args[] = {(void*)&gp, (void*)&fp, (void*)&acc, (void*)&op,
+                  (void*)&B,  (void*)&C,  (void*)&H,   (void*)&W,
+                  (void*)&gh, (void*)&gw, (void*)&ac};
+  e = cudaLaunchCooperativeKernel((const void*)bwd_maps_probe<V>, dim3(grid),
+                                  dim3(TPB), args, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// g, out (B, C, H, W) bf16; flow (B, 2, H, W) float32; acc (B, C, H, W)
+// float32 scratch. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// an unknown variant.
+extern "C" int probe_bwd_maps(int variant, const void* g, const void* flow,
+                              void* acc, void* out, int B, int C, int H,
+                              int W, int gh, int gw, int ac, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float* a = (float*)acc;
+  switch (variant) {
+    case 0:
+      return launch_bwd_probe<0>(g, flow, a, out, B, C, H, W, gh, gw, ac, s);
+    case 1:
+      return launch_bwd_probe<1>(g, flow, a, out, B, C, H, W, gh, gw, ac, s);
+    case 2:
+      return launch_bwd_probe<2>(g, flow, a, out, B, C, H, W, gh, gw, ac, s);
+    case 3:
+      return launch_bwd_probe<3>(g, flow, a, out, B, C, H, W, gh, gw, ac, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // maps, out (B, C, H, W) bf16; flow (B, 2, H, W) float32. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for an unknown variant.
