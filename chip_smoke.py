@@ -2519,8 +2519,8 @@ LEARN_HW, LEARN_EPOCHS, LEARN_RATIO, LEARN_SEEDS = 64, 8, 0.6, (0, 1, 2, 3, 4)
 #: whole (cuDNN's sums against the CPU's: found 2.9 % of the learning rate
 #: on one element, as tests/test_torch_train_steps.py finds against JAX)
 STEP_LR, STEP_LOSS_RTOL = 1e-3, 1e-4
-#: B1 against its plain version. Maps gradient: shared-memory float32
-#: atomics add in another order than index_add_, so float32 results agree
+#: B1 against its plain version. Maps gradient: the kernel adds in
+#: another order than index_add_, so float32 results agree
 #: to float32 rounding of unit-scale sums (1e-5) and bf16 results to one
 #: bf16 rounding of the float32 result plus that margin. Flow gradient: a per-pixel sum
 #: over channels in another order, relative 1e-5 of values up to ~10^2.
@@ -2532,6 +2532,9 @@ B1_MAPS_ATOL, B1_FLOW_TOL = 1e-5, (1e-5, 1e-4)
 #: such roundings to each element's bound (for the other cases they are
 #: ~1e-6 and the bound is not widened)
 B1_ORDER_ROUNDINGS = 8
+#: B1's odd shape: H * W odd, so channel planes of g alternate in parity;
+#: on a grid 1.2 times the image, as 576x720 is to 480x640
+B1_ODD_HW = (37, 61)
 
 
 def b1_flows(gen, B, h, w, grid_hw=(576, 720)):
@@ -2803,9 +2806,10 @@ def _check_bwd_plan_refusals(g, flow):
 
 def _check_flow_warp_bwd(step_inputs):
     """B1 on _warp_flows' cases plus a smooth flow and integer coordinates
-    (zero flow on the identity grid) at 480x640, and on the train step's
-    own tensors; float32 and bf16; one device operation per entry point
-    per call. Returns the worst float32 maps-gradient difference."""
+    (zero flow on the identity grid) at 480x640, on B1_ODD_HW (an odd H and
+    W: g's channel planes start at odd element offsets) and on the train
+    step's own tensors; float32 and bf16; one device operation per entry
+    point per call. Returns the worst float32 maps-gradient difference."""
     import torch
 
     gen = torch.Generator().manual_seed(SEED + 9)
@@ -2842,6 +2846,29 @@ def _check_flow_warp_bwd(step_inputs):
             if n_int == 0:
                 raise AssertionError("B1: the integer case has no integer "
                                      "coordinates")
+    oh, ow = B1_ODD_HW
+    odd_grid = (oh + oh // 5, ow + ow // 5)
+    odd = {"bounded": torch.randn(2, 2, oh, ow, generator=gen) * 4.0,
+           "leaves the image": torch.randn(2, 2, oh, ow, generator=gen) * 4.0
+           + 700.0}
+    odd.update(b1_flows(gen, 2, oh, ow, odd_grid))
+    for dt in (torch.float32, torch.bfloat16):
+        maps = torch.rand(2, C + 1, oh, ow, generator=gen).cuda().to(dt)
+        g = torch.randn(2, C + 1, oh, ow, generator=gen).cuda().to(dt)
+        d = str(dt).split(".")[1]
+        for name, flow in odd.items():
+            em, _ = _hold_flow_warp_bwd(g, maps, flow.cuda(),
+                                        f"B1[{dt}, {oh}x{ow}, {name}]",
+                                        grid_hw=odd_grid,
+                                        converges=name == "convergent")
+            if name == "convergent":
+                converged[d] = max(converged[d], em)
+            else:
+                worst[d] = max(worst[d], em)
+        em, _ = _hold_flow_warp_bwd(
+            g, maps, torch.zeros(2, 2, oh, ow, device="cuda"),
+            f"B1[{dt}, {oh}x{ow}, integer]", grid_hw=None)
+        worst[d] = max(worst[d], em)
     g, maps, flow = (step_inputs[k] for k in ("g", "maps", "flow"))
     for dt in (torch.bfloat16, torch.float32):
         em, _ = _hold_flow_warp_bwd(g.to(dt), maps.to(dt), flow.float(),
@@ -2863,7 +2890,8 @@ def _check_flow_warp_bwd(step_inputs):
                                  f"call expected, got {names}")
     log(f"flow_warp_bwd (B1) kernel vs plain: 2x{C + 1}x{H}x{W} on "
         f"{', '.join(cases)} flows and integer coordinates ({n_int} pixels "
-        f"on both integer axes), and the train step's {tuple(g.shape)} "
+        f"on both integer axes), 2x{C + 1}x{oh}x{ow} on {', '.join(odd)} "
+        f"flows and integer coordinates, and the train step's {tuple(g.shape)} "
         f"tensors; maps gradient f32 atol {B1_MAPS_ATOL}, bf16 one rounding "
         f"+ {B1_MAPS_ATOL}, the convergent case + {B1_ORDER_ROUNDINGS} f32 "
         f"roundings of the summed magnitudes (max |diff| f32 "

@@ -351,8 +351,8 @@ int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
 //
 // Design: destination-owned tiles. The gradient of each image is cut into
 // BW_TH x BW_TW pixel tiles; one block sums a tile in shared memory and
-// writes it once, so there is no global accumulator and no float atomic at
-// all. One cooperative launch, its phases split by grid barriers
+// writes it once, so there is no global accumulator and no global float
+// atomic. One cooperative launch, its phases split by grid barriers
 // (ops/warp.py::warp_bwd_plan fixes tiles, channel groups, grid, shared
 // memory and workspace; the C side refuses any other plan):
 //   0 zero the per-tile counts and the tile counter;
@@ -371,7 +371,10 @@ int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
 //     and sorted by corner (a counting sort on shared integer counters);
 //     each thread owns a pixel pair and sums, in registers, the entries of
 //     the six corners whose boxes reach it, then adds that to the tile's
-//     float32 sums, which the block writes once, in g's type.
+//     float64 sums, which the block writes once, in g's type. Only where a
+//     corner holds more than BW_DENSE entries of a chunk (a flow that
+//     converges) does a warp take each corner and add its sums with shared
+//     float64 atomics.
 // The weights are the forward's float32 operations. It reads the flow
 // once, the coordinates twice (the second time through the lists), g once
 // and the lists twice (two ints an entry; ~1.14 entries a pixel on a
@@ -382,10 +385,13 @@ int launch_flow_warp(const void* maps, const void* flow, void* out, int B,
 // lists carry each entry's corner so staging waits on one load, g arrives
 // by cp.async, and the next tile is asked for while one is summed. The workspace
 // is sized for the worst case, four entries a pixel, so no flow overflows
-// it. Sums are taken in another order from run to run (the counters hand
-// out ranks in any order): float32 results agree with the plain version to
-// a few float32 roundings of the summed terms' magnitude, not bit for bit;
-// bf16 is the float32 sum rounded once. A flow that converges puts most
+// it. The float32 products are summed in float64 and rounded once: the
+// counters hand out ranks, and so list and chunk orders, in any order from
+// run to run, and float32 sums taken in those orders differed from run to
+// run by a few roundings, enough to move a train step's Adam update of
+// near-zero gradients. In float64 the order shows only where a sum's
+// float64 rounding decides its float32 one. bf16 is the float32 result
+// rounded once. A flow that converges puts most
 // of an image in one tile's list: one block takes it, chunk by chunk (a
 // warp a corner where a corner holds more than BW_DENSE entries), which
 // is slower than the first design (tools/flowk_times.py times that case).
@@ -421,7 +427,7 @@ __device__ __forceinline__ void coords_from(float bx, float by, float flx,
 
 constexpr int BW_TH = 8, BW_TW = 64;  // a destination tile: rows, columns
 constexpr int BW_MAX_GC = 6;  // channels a tile pass sums
-constexpr int BW_BPS = 4;     // blocks an SM
+constexpr int BW_BPS = 3;     // blocks an SM
 constexpr int BW_CAP = 1024;  // list entries a block stages at once
 constexpr int BW_SEGS = 4;    // 32-pixel segments of a row a warp loads at once
 constexpr int BW_STAGE = BW_CAP / TPB;  // staged entries a thread loads
@@ -430,6 +436,8 @@ constexpr int BW_DENSE = 32;  // a chunk with a corner of more entries:
 // the tap-box corners (top-left taps) whose boxes reach a tile: its pixels
 // and the row above and column left of it
 constexpr int BW_CORNERS = (BW_TH + 1) * (BW_TW + 1);
+// the tile's float64 sums follow the staging and the counts 8-byte aligned
+static_assert(BW_CAP % 2 == 0 && (BW_CORNERS + 1) % 2 == 0, "alignment");
 constexpr int BW_PLAN_INTS = 9;
 constexpr int ERR_PLAN = 20004;  // the plan is not warp_bwd_plan's
 
@@ -451,9 +459,9 @@ bool bwd_plan_of(int B, int C, int H, int W, int sms, BwdPlan* p) {
   if (work >= (1LL << 31) || nt * groups >= (1LL << 31)) return false;
   // per staged entry its coordinates, gc words of g and its place in
   // corner order; a count (then a start) per corner and the total; the
-  // tile's float32 sums
+  // tile's float64 sums
   const int shared =
-      4 * (BW_CAP * (3 + gc) + BW_CORNERS + 1 + gc * BW_TH * BW_TW);
+      4 * (BW_CAP * (3 + gc) + BW_CORNERS + 1) + 8 * gc * BW_TH * BW_TW;
   *p = {BW_TH, BW_TW, gc, groups, shared, (int)tiles, (int)work,
         sms * BW_BPS, TPB};
   return true;
@@ -642,35 +650,234 @@ __device__ __forceinline__ float staged(unsigned w, int hi,
   return __uint_as_float((hi ? w >> 16 : w & 0xffffu) << 16);
 }
 
-#ifdef BW_PHASE_STAMPS
-__device__ unsigned long long bw_stamps[6][4096];
-__device__ unsigned long long bw_sub[4][4096];
-#define BW_STAMP(k)                                                    \
-  do {                                                                 \
-    if (threadIdx.x == 0 && blockIdx.x < 4096) {                       \
-      unsigned long long t_;                                           \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));           \
-      bw_stamps[k][blockIdx.x] = t_;                                   \
-    }                                                                  \
-  } while (0)
-#define BW_SUB_START() long long sub_t_ = clock64()
-#define BW_SUB(k)                                                       \
-  do {                                                                  \
-    if (threadIdx.x == 0 && blockIdx.x < 4096) {                        \
-      const long long now_ = clock64();                                 \
-      bw_sub[k][blockIdx.x] += now_ - sub_t_;                           \
-      sub_t_ = now_;                                                    \
-    }                                                                   \
-  } while (0)
-#else
-#define BW_STAMP(k)
-#define BW_SUB_START()
-#define BW_SUB(k)
-#endif
+// the parts of the maps kernel's workspace (the plan's work_ints int32)
+struct BwWork {
+  float2* coords;  // each pixel's source coordinates, B * H * W
+  int* offs;       // per tile its count, then its list's offset; the total
+  int* cursor;     // per tile the bin pass's next slot
+  int* next;       // the accumulate phase's item counter
+  int2* list;      // per entry its pixel and tap-box corner; 8-byte aligned
+};
 
-// the maps gradient (phases above). VEC: W even and out 8-byte aligned,
-// pairs stored as vectors. g: 4-byte aligned. work: the plan's work_ints
-// int32.
+__device__ __forceinline__ BwWork bw_work(int* work, size_t n, int nt) {
+  BwWork w;
+  w.coords = reinterpret_cast<float2*>(work);
+  w.offs = work + 2 * n;
+  w.cursor = w.offs + nt + 1;
+  w.next = w.cursor + nt;
+  w.list = reinterpret_cast<int2*>(w.next + 1);
+  return w;
+}
+
+// phase 2, by one block: the nt tile counts become list offsets (in offs
+// and cursor) and offs[nt] their total, through `cap` ints of shared
+// memory in coalesced pieces
+__device__ void bw_scan(const BwWork& w, int nt, int cap, int* smem,
+                        int* ws) {
+  const int tid = threadIdx.x;
+  int carry = 0;
+  for (int base = 0; base < nt; base += cap) {
+    const int len = min(cap, nt - base);
+    for (int i = tid; i < len; i += TPB) smem[i] = w.offs[base + i];
+    __syncthreads();
+    block_exclusive_scan(smem, len, ws);
+    for (int i = tid; i < len; i += TPB)
+      w.offs[base + i] = w.cursor[base + i] = smem[i] + carry;
+    carry += smem[len];
+    __syncthreads();
+  }
+  if (tid == 0) w.offs[nt] = carry;
+}
+
+// phase 4 for one (tile, channel group) item: the tile's list in chunks of
+// BW_CAP entries. A chunk is staged (coordinates and g by asynchronous
+// copies) and sorted by the corner of its entries' tap boxes (a counting
+// sort: ranks from shared integer counters). Then each thread sums, for
+// the pixel pair it owns, the entries of the six corners whose boxes reach
+// it (two runs of three corners in sorted order) in registers and adds
+// that to the tile's float64 sums, which no other thread writes. Where a
+// corner holds more than BW_DENSE entries (a flow that converges), a warp
+// takes each corner instead, a channel at a time, its lanes splitting the
+// entries, and adds its four pixels' sums with shared float64 atomics. The
+// tile is written once, in g's type. VEC: W even and out 8-byte aligned, pairs stored as
+// vectors. g: 4-byte aligned.
+template <typename T, bool VEC>
+__device__ __forceinline__ void bw_item(int item, const T* __restrict__ g,
+                                        const BwWork& w, T* __restrict__ out,
+                                        int C, int H, int W,
+                                        const BwdPlan& p, int* smem,
+                                        int* s_ws) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t hw = (size_t)H * W;
+  const int ntx = (W + BW_TW - 1) / BW_TW;
+  float2* s_xy = reinterpret_cast<float2*>(smem);
+  unsigned* s_g = reinterpret_cast<unsigned*>(s_xy + BW_CAP);  // gc x CAP
+  int* s_cnt = reinterpret_cast<int*>(s_g + p.group_c * BW_CAP);
+  double* s_acc = reinterpret_cast<double*>(s_cnt + BW_CORNERS + 1);
+  unsigned* s_perm =
+      reinterpret_cast<unsigned*>(s_acc + p.group_c * BW_TH * BW_TW);
+  constexpr int TS = BW_TH * BW_TW;
+  const int ly = warp, lx = 2 * lane;  // the pixel pair a thread owns
+  const int key = item / p.groups;
+  const int c0 = (item - key * p.groups) * p.group_c;
+  const int cn = min(p.group_c, C - c0);
+  const int b = key / p.tiles, t = key - b * p.tiles;
+  const int ty0 = t / ntx * BW_TH, tx0 = (t - t / ntx * ntx) * BW_TW;
+  const float2* cb = w.coords + (size_t)b * hw;
+  const size_t plane0 = ((size_t)b * C + c0) * hw;  // g's first plane here
+  for (int c = 0; c < cn; ++c) {
+    s_acc[c * TS + ly * BW_TW + lx] = 0.0;
+    s_acc[c * TS + ly * BW_TW + lx + 1] = 0.0;
+  }
+  // bf16 g is staged a 32-bit word an element: the word at the element's
+  // index in g rounded down to even (an aligned word never crosses the end
+  // of g's pages), its half that index's parity: the pixel's and that of
+  // its channel plane's offset
+  int plane_odd[BW_MAX_GC];
+#pragma unroll
+  for (int c = 0; c < BW_MAX_GC; ++c)
+    plane_odd[c] = sizeof(T) == 2 && ((plane0 + (size_t)c * hw) & 1) != 0;
+  const int end = w.offs[key + 1];
+  for (int cbeg = w.offs[key]; cbeg < end; cbeg += BW_CAP) {
+    const int m = min(BW_CAP, end - cbeg);
+    for (int j = tid; j <= BW_CORNERS; j += TPB) s_cnt[j] = 0;
+    __syncthreads();
+    // each thread's entries tid + u * TPB: source pixel, corner, rank
+    int2 en[BW_STAGE];
+    int rank[BW_STAGE];
+#pragma unroll
+    for (int u = 0; u < BW_STAGE; ++u)
+      en[u] = tid + u * TPB < m ? w.list[cbeg + tid + u * TPB]
+                                : make_int2(-1, 0);
+#pragma unroll
+    for (int u = 0; u < BW_STAGE; ++u) {
+      if (en[u].x < 0) continue;
+      const int e = tid + u * TPB;
+      cp_async8(s_xy + e, cb + en[u].x);
+      for (int c = 0; c < cn; ++c)  // the aligned word holding g
+        cp_async4(s_g + c * BW_CAP + e,
+                  g + ((plane0 + (size_t)c * hw + en[u].x) &
+                       ~(size_t)(4 / sizeof(T) - 1)));
+      rank[u] = atomicAdd(s_cnt + en[u].y, 1);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    __syncthreads();
+    const bool dense =
+        block_exclusive_scan(s_cnt, BW_CORNERS, s_ws) > BW_DENSE;
+#pragma unroll
+    for (int u = 0; u < BW_STAGE; ++u)
+      if (en[u].x >= 0)  // the entry, its pixel's parity, its corner
+        s_perm[s_cnt[en[u].y] + rank[u]] =
+            (unsigned)(tid + u * TPB) | (unsigned)(en[u].x & 1) << 15 |
+            (unsigned)en[u].y << 16;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (!dense) {
+      double acc[2][BW_MAX_GC];
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int c = 0; c < BW_MAX_GC; ++c) acc[k][c] = 0.0;
+      // corners (ly, lx .. lx + 2), then (ly + 1, lx .. lx + 2): boxes
+      // with this pair in their lower, then upper row; in one loop
+      const int ca = ly * (BW_TW + 1) + lx, cb2 = ca + BW_TW + 1;
+      const int a0 = s_cnt[ca], a1 = s_cnt[ca + 1], a2 = s_cnt[ca + 2];
+      const int a3 = s_cnt[ca + 3];
+      const int b0 = s_cnt[cb2], b1 = s_cnt[cb2 + 1], b2 = s_cnt[cb2 + 2];
+      const int b3 = s_cnt[cb2 + 3];
+      const int na = a3 - a0, total = na + b3 - b0;
+      for (int i = 0; i < total; ++i) {
+        const bool upper = i >= na;  // box row 0 holds the pair
+        const int j = upper ? b0 + i - na : a0 + i;
+        const int cxi = upper ? (j >= b1) + (j >= b2) : (j >= a1) + (j >= a2);
+        const unsigned pe = s_perm[j];
+        const int e = pe & 0x7fff;
+        const float2 q = s_xy[e];
+        const float tx = __fsub_rn(q.x, floorf(q.x));
+        const float ty = __fsub_rn(q.y, floorf(q.y));
+        const float rowp = upper ? __fsub_rn(1.0f, ty) : ty;
+        const float ux = __fsub_rn(1.0f, tx);
+        // the forward's weights: column part times row part; the pair's
+        // left pixel is box column 1 (cxi 0) or 0 (cxi 1), the right
+        // one box column 1 (cxi 1) or 0 (cxi 2)
+        const float w0 = cxi < 2 ? __fmul_rn(cxi ? ux : tx, rowp) : 0.0f;
+        const float w1 = cxi > 0 ? __fmul_rn(cxi == 1 ? tx : ux, rowp) : 0.0f;
+#pragma unroll
+        for (int c = 0; c < BW_MAX_GC; ++c) {
+          if (c >= cn) break;
+          const float v = staged(s_g[c * BW_CAP + e],
+                                 (pe >> 15 & 1) ^ plane_odd[c], g);
+          if (cxi < 2) acc[0][c] = __dadd_rn(acc[0][c], __fmul_rn(v, w0));
+          if (cxi > 0) acc[1][c] = __dadd_rn(acc[1][c], __fmul_rn(v, w1));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < BW_MAX_GC; ++c) {
+        if (c >= cn) break;
+        double* a = s_acc + c * TS + ly * BW_TW + lx;
+        a[0] = __dadd_rn(a[0], acc[0][c]);
+        a[1] = __dadd_rn(a[1], acc[1][c]);
+      }
+    } else {
+      for (int ci = warp; ci < BW_CORNERS; ci += TPB / 32) {
+        const int jbeg = s_cnt[ci], jend = s_cnt[ci + 1];
+        if (jbeg == jend) continue;
+        const int cy = ci / (BW_TW + 1), cx = ci - cy * (BW_TW + 1);
+        for (int c = 0; c < cn; ++c) {
+          const int odd =
+              sizeof(T) == 2 && ((plane0 + (size_t)c * hw) & 1) != 0;
+          double sum[4] = {0.0, 0.0, 0.0, 0.0};  // box pixels (0,0) .. (1,1)
+          for (int j = jbeg + lane; j < jend; j += 32) {
+            const unsigned pe = s_perm[j];
+            const int e = pe & 0x7fff;
+            const float2 q = s_xy[e];
+            const float tx = __fsub_rn(q.x, floorf(q.x));
+            const float ty = __fsub_rn(q.y, floorf(q.y));
+            const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
+            const float wk[4] = {__fmul_rn(ux, uy), __fmul_rn(tx, uy),
+                                 __fmul_rn(ux, ty), __fmul_rn(tx, ty)};
+            const float v = staged(s_g[c * BW_CAP + e],
+                                   (pe >> 15 & 1) ^ odd, g);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              sum[k] = __dadd_rn(sum[k], __fmul_rn(v, wk[k]));
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              sum[k] = __dadd_rn(sum[k],
+                                 __shfl_xor_sync(0xffffffffu, sum[k], off));
+          if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int py = cy - 1 + (k >> 1), px = cx - 1 + (k & 1);
+              if ((unsigned)py < BW_TH && (unsigned)px < BW_TW)
+                atomicAdd(s_acc + c * TS + py * BW_TW + px, sum[k]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the staging
+  }
+  const int th = min(BW_TH, H - ty0), tw = min(BW_TW, W - tx0);
+  if (ly < th && lx < tw) {  // this thread's own pair: no barrier needed
+    T* o = out + plane0 + (size_t)(ty0 + ly) * W + tx0 + lx;
+    for (int c = 0; c < cn; ++c) {
+      const double* a = s_acc + c * TS + ly * BW_TW + lx;
+      const float a0 = __double2float_rn(a[0]), a1 = __double2float_rn(a[1]);
+      if (VEC) {  // lx + 1 < tw: W is even, and so are tx0 and lx
+        store_pair(a0, a1, o + (size_t)c * hw);
+      } else {
+        from_f32(a0, o + (size_t)c * hw);
+        if (lx + 1 < tw) from_f32(a1, o + (size_t)c * hw + 1);
+      }
+    }
+  }
+}
+
+// the maps gradient (phases above); work: the plan's work_ints int32
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(TPB, BW_BPS)
 flow_warp_bwd_maps_kernel(const T* __restrict__ g,
@@ -681,247 +888,35 @@ flow_warp_bwd_maps_kernel(const T* __restrict__ g,
   extern __shared__ int smem[];
   __shared__ int s_next[2], s_ws[2 * TPB / 32];
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t hw = (size_t)H * W, n = (size_t)B * hw;
+  const int tid = threadIdx.x;
   const int ntx = (W + BW_TW - 1) / BW_TW, nt = B * p.tiles;
-  float2* coords = reinterpret_cast<float2*>(work);  // n
-  int* offs = work + 2 * n;                           // nt + 1
-  int* cursor = offs + nt + 1;                        // nt
-  int* next = cursor + nt;
-  int2* list = reinterpret_cast<int2*>(next + 1);  // 8-byte aligned
-
-  BW_STAMP(0);
+  const BwWork w = bw_work(work, (size_t)B * H * W, nt);
   for (int i = blockIdx.x * TPB + tid; i < nt; i += gridDim.x * TPB)
-    offs[i] = 0;
-  if (blockIdx.x == 0 && tid == 0) *next = 0;
+    w.offs[i] = 0;
+  if (blockIdx.x == 0 && tid == 0) *w.next = 0;
   grid.sync();
-  BW_STAMP(1);
-  bin_pass<false>(flow, coords, offs, list, B, H, W, gh, gw, align_corners,
-                  p.tiles, ntx);
+  bin_pass<false>(flow, w.coords, w.offs, w.list, B, H, W, gh, gw,
+                  align_corners, p.tiles, ntx);
   grid.sync();
-  BW_STAMP(2);
-  if (blockIdx.x == 0) {  // through shared memory, in coalesced pieces
-    const int cap = p.shared_bytes / 4 - 1;
-    int carry = 0;
-    for (int base = 0; base < nt; base += cap) {
-      const int len = min(cap, nt - base);
-      for (int i = tid; i < len; i += TPB) smem[i] = offs[base + i];
-      __syncthreads();
-      block_exclusive_scan(smem, len, s_ws);
-      for (int i = tid; i < len; i += TPB)
-        offs[base + i] = cursor[base + i] = smem[i] + carry;
-      carry += smem[len];
-      __syncthreads();
-    }
-    if (tid == 0) offs[nt] = carry;
-  }
+  if (blockIdx.x == 0) bw_scan(w, nt, p.shared_bytes / 4 - 1, smem, s_ws);
   grid.sync();
-  BW_STAMP(3);
-  bin_pass<true>(flow, coords, cursor, list, B, H, W, gh, gw, align_corners,
-                 p.tiles, ntx);
+  bin_pass<true>(flow, w.coords, w.cursor, w.list, B, H, W, gh, gw,
+                 align_corners, p.tiles, ntx);
   grid.sync();
-  BW_STAMP(4);
-
-  // accumulate: per (tile, channel group) item, the list in chunks of
-  // BW_CAP entries. A chunk is staged (coordinates and g by asynchronous
-  // copies) and sorted by the corner of its entries' tap boxes (a counting
-  // sort: ranks from shared integer counters). Then each thread sums, for
-  // the pixel pair it owns, the entries of the six corners whose boxes
-  // reach it (two runs of three corners in sorted order) in registers and
-  // adds that to the tile's float32 sums, which no other thread writes.
-  // Where a corner holds more than BW_DENSE entries (a flow that
-  // converges), a warp takes each corner instead, its lanes splitting the
-  // entries, and adds its four pixels' sums with shared atomics.
-  float2* s_xy = reinterpret_cast<float2*>(smem);
-  unsigned* s_g = reinterpret_cast<unsigned*>(s_xy + BW_CAP);  // gc x CAP
-  int* s_cnt = reinterpret_cast<int*>(s_g + p.group_c * BW_CAP);
-  float* s_acc = reinterpret_cast<float*>(s_cnt + BW_CORNERS + 1);
-  unsigned* s_perm =
-      reinterpret_cast<unsigned*>(s_acc + p.group_c * BW_TH * BW_TW);
-  constexpr int TS = BW_TH * BW_TW;
+  // accumulate: the blocks take items from the counter; the next item is
+  // asked for while one is summed, and written to the other slot at the
+  // end (a slow thread may still read this one)
   const int items = nt * p.groups;
-  const int ly = warp, lx = 2 * lane;  // the pixel pair a thread owns
-  if (tid == 0) s_next[0] = atomicAdd(next, 1);
+  if (tid == 0) s_next[0] = atomicAdd(w.next, 1);
   __syncthreads();
   for (int k = 0;; k ^= 1) {
     const int item = s_next[k];
     if (item >= items) break;
-    // the next item is asked for now, and written to the other slot at the
-    // end (a slow thread may still read this one)
-    const int ask = tid == 0 ? atomicAdd(next, 1) : 0;
-    BW_SUB_START();
-    const int key = item / p.groups;
-    const int c0 = (item - key * p.groups) * p.group_c;
-    const int cn = min(p.group_c, C - c0);
-    const int b = key / p.tiles, t = key - b * p.tiles;
-    const int ty0 = t / ntx * BW_TH, tx0 = (t - t / ntx * ntx) * BW_TW;
-    const float2* cb = coords + (size_t)b * hw;
-    const T* gb = g + ((size_t)b * C + c0) * hw;
-    for (int c = 0; c < cn; ++c) {
-      s_acc[c * TS + ly * BW_TW + lx] = 0.0f;
-      s_acc[c * TS + ly * BW_TW + lx + 1] = 0.0f;
-    }
-    // the half of a staged bf16 word: the element's index parity, that of
-    // the pixel and of its channel plane's offset
-    int plane_odd[BW_MAX_GC];
-#pragma unroll
-    for (int c = 0; c < BW_MAX_GC; ++c)
-      plane_odd[c] =
-          sizeof(T) == 2 && ((((size_t)b * C + c0 + c) * hw) & 1) != 0;
-    const int end = offs[key + 1];
-    for (int cbeg = offs[key]; cbeg < end; cbeg += BW_CAP) {
-      const int m = min(BW_CAP, end - cbeg);
-      for (int j = tid; j <= BW_CORNERS; j += TPB) s_cnt[j] = 0;
-      __syncthreads();
-      // each thread's entries tid + u * TPB: source pixel, corner, rank
-      int2 en[BW_STAGE];
-      int rank[BW_STAGE];
-#pragma unroll
-      for (int u = 0; u < BW_STAGE; ++u)
-        en[u] = tid + u * TPB < m ? list[cbeg + tid + u * TPB]
-                                  : make_int2(-1, 0);
-#pragma unroll
-      for (int u = 0; u < BW_STAGE; ++u) {
-        if (en[u].x < 0) continue;
-        const int e = tid + u * TPB;
-        cp_async8(s_xy + e, cb + en[u].x);
-        const size_t i0 = (size_t)en[u].x & ~(size_t)(4 / sizeof(T) - 1);
-        for (int c = 0; c < cn; ++c)  // the aligned word holding g
-          cp_async4(s_g + c * BW_CAP + e, gb + (size_t)c * hw + i0);
-        rank[u] = atomicAdd(s_cnt + en[u].y, 1);
-      }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      __syncthreads();
-      BW_SUB(0);
-      const bool dense =
-          block_exclusive_scan(s_cnt, BW_CORNERS, s_ws) > BW_DENSE;
-#pragma unroll
-      for (int u = 0; u < BW_STAGE; ++u)
-        if (en[u].x >= 0)  // the entry, its word's half, its corner
-          s_perm[s_cnt[en[u].y] + rank[u]] =
-              (unsigned)(tid + u * TPB) | (unsigned)(en[u].x & 1) << 15 |
-              (unsigned)en[u].y << 16;
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncthreads();
-      BW_SUB(1);
-      if (!dense) {
-        float acc[2][BW_MAX_GC];
-#pragma unroll
-        for (int k = 0; k < 2; ++k)
-#pragma unroll
-          for (int c = 0; c < BW_MAX_GC; ++c) acc[k][c] = 0.0f;
-        // corners (ly, lx .. lx + 2), then (ly + 1, lx .. lx + 2): boxes
-        // with this pair in their lower, then upper row; in one loop
-        const int ca = ly * (BW_TW + 1) + lx, cb2 = ca + BW_TW + 1;
-        const int a0 = s_cnt[ca], a1 = s_cnt[ca + 1], a2 = s_cnt[ca + 2];
-        const int a3 = s_cnt[ca + 3];
-        const int b0 = s_cnt[cb2], b1 = s_cnt[cb2 + 1], b2 = s_cnt[cb2 + 2];
-        const int b3 = s_cnt[cb2 + 3];
-        const int na = a3 - a0, total = na + b3 - b0;
-        for (int i = 0; i < total; ++i) {
-          const bool upper = i >= na;  // box row 0 holds the pair
-          const int j = upper ? b0 + i - na : a0 + i;
-          const int cxi = upper ? (j >= b1) + (j >= b2) : (j >= a1) + (j >= a2);
-          const unsigned pe = s_perm[j];
-          const int e = pe & 0x7fff;
-          const float2 q = s_xy[e];
-          const float tx = __fsub_rn(q.x, floorf(q.x));
-          const float ty = __fsub_rn(q.y, floorf(q.y));
-          const float rowp = upper ? __fsub_rn(1.0f, ty) : ty;
-          const float ux = __fsub_rn(1.0f, tx);
-          // the forward's weights: column part times row part; the pair's
-          // left pixel is box column 1 (cxi 0) or 0 (cxi 1), the right
-          // one box column 1 (cxi 1) or 0 (cxi 2)
-          const float w0 = cxi < 2 ? __fmul_rn(cxi ? ux : tx, rowp) : 0.0f;
-          const float w1 = cxi > 0 ? __fmul_rn(cxi == 1 ? tx : ux, rowp) : 0.0f;
-#pragma unroll
-          for (int c = 0; c < BW_MAX_GC; ++c) {
-            if (c >= cn) break;
-            const float v = staged(s_g[c * BW_CAP + e],
-                                   (pe >> 15 & 1) ^ plane_odd[c], gb);
-            if (cxi < 2) acc[0][c] = __fadd_rn(acc[0][c], __fmul_rn(v, w0));
-            if (cxi > 0) acc[1][c] = __fadd_rn(acc[1][c], __fmul_rn(v, w1));
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < BW_MAX_GC; ++c) {
-          if (c >= cn) break;
-          float* a = s_acc + c * TS + ly * BW_TW + lx;
-          a[0] = __fadd_rn(a[0], acc[0][c]);
-          a[1] = __fadd_rn(a[1], acc[1][c]);
-        }
-      } else {
-        for (int ci = warp; ci < BW_CORNERS; ci += TPB / 32) {
-          const int jbeg = s_cnt[ci], jend = s_cnt[ci + 1];
-          if (jbeg == jend) continue;
-          float sum[4][BW_MAX_GC];  // box pixels (0,0), (0,1), (1,0), (1,1)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int c = 0; c < BW_MAX_GC; ++c) sum[k][c] = 0.0f;
-          for (int j = jbeg + lane; j < jend; j += 32) {
-            const unsigned pe = s_perm[j];
-            const int e = pe & 0x7fff;
-            const float2 q = s_xy[e];
-            const float tx = __fsub_rn(q.x, floorf(q.x));
-            const float ty = __fsub_rn(q.y, floorf(q.y));
-            const float ux = __fsub_rn(1.0f, tx), uy = __fsub_rn(1.0f, ty);
-            const float w[4] = {__fmul_rn(ux, uy), __fmul_rn(tx, uy),
-                                __fmul_rn(ux, ty), __fmul_rn(tx, ty)};
-#pragma unroll
-            for (int c = 0; c < BW_MAX_GC; ++c) {
-              if (c >= cn) break;
-              const float v = staged(s_g[c * BW_CAP + e],
-                                     (pe >> 15 & 1) ^ plane_odd[c], gb);
-#pragma unroll
-              for (int k = 0; k < 4; ++k)
-                sum[k][c] = __fadd_rn(sum[k][c], __fmul_rn(v, w[k]));
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int c = 0; c < BW_MAX_GC; ++c)
-#pragma unroll
-              for (int off = 16; off > 0; off >>= 1)
-                sum[k][c] = __fadd_rn(
-                    sum[k][c], __shfl_xor_sync(0xffffffffu, sum[k][c], off));
-          if (lane == 0) {
-            const int cy = ci / (BW_TW + 1), cx = ci - cy * (BW_TW + 1);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int py = cy - 1 + (k >> 1), px = cx - 1 + (k & 1);
-              if ((unsigned)py >= BW_TH || (unsigned)px >= BW_TW) continue;
-#pragma unroll
-              for (int c = 0; c < BW_MAX_GC; ++c)
-                if (c < cn)
-                  atomicAdd(s_acc + c * TS + py * BW_TW + px, sum[k][c]);
-            }
-          }
-        }
-      }
-      __syncthreads();  // the next chunk overwrites the staging
-      BW_SUB(2);
-    }
-    const int th = min(BW_TH, H - ty0), tw = min(BW_TW, W - tx0);
-    if (ly < th && lx < tw) {  // this thread's own pair: no barrier needed
-      T* o = out + ((size_t)b * C + c0) * hw + (size_t)(ty0 + ly) * W + tx0 +
-             lx;
-      for (int c = 0; c < cn; ++c) {
-        const float* a = s_acc + c * TS + ly * BW_TW + lx;
-        if (VEC) {  // lx + 1 < tw: W is even, and so are tx0 and lx
-          store_pair(a[0], a[1], o + (size_t)c * hw);
-        } else {
-          from_f32(a[0], o + (size_t)c * hw);
-          if (lx + 1 < tw) from_f32(a[1], o + (size_t)c * hw + 1);
-        }
-      }
-    }
+    const int ask = tid == 0 ? atomicAdd(w.next, 1) : 0;
+    bw_item<T, VEC>(item, g, w, out, C, H, W, p, smem, s_ws);
     if (tid == 0) s_next[k ^ 1] = ask;
     __syncthreads();  // every thread has read its sums; the slot is written
-    BW_SUB(3);
   }
-  BW_STAMP(5);
 }
 
 // the derivative of a bilinear sample along one axis, from the taps below
@@ -1272,12 +1267,3 @@ extern "C" int mfc_flow_warp_bwd_flow(const void* g, const void* maps,
         g, maps, flow, gflow, B, C, H, W, gh, gw, align_corners, s);
   return (int)cudaErrorInvalidValue;
 }
-
-#ifdef BW_PHASE_STAMPS
-extern "C" int bw_read_stamps(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, bw_stamps, sizeof(bw_stamps));
-}
-extern "C" int bw_read_sub(void* host) {
-  return (int)cudaMemcpyFromSymbol(host, bw_sub, sizeof(bw_sub));
-}
-#endif

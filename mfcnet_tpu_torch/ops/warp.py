@@ -39,8 +39,13 @@ weights max(1 - |xs - fx|, 0)). On CPU tensors it is
 kernel entry ``mfc_flow_warp_bwd_maps``: one cooperative launch that bins
 the source pixels by the destination tiles their taps reach (count, scan,
 bin), then sorts each tile's list by tap-box corner in shared memory,
-sums each pixel pair in one thread's registers and writes the tile once:
-no global accumulator and no float atomics. :func:`warp_bwd_plan` fixes
+sums each pixel pair in one thread's registers, in float64, and writes
+the tile once, rounded: no global accumulator and no global float atomics
+(shared float64 atomics only where a chunk's tap-box corner holds more
+than 32 entries, as on a flow that converges). The float64 sums make the
+result independent of the order the kernel takes its entries in, but for
+the rare sum whose float64 rounding decides its float32 one.
+:func:`warp_bwd_plan` fixes
 its tiles, grid and workspace (worst case: four list entries a pixel), and
 the C side refuses any other plan. The flow gradient is
 ``mfc_flow_warp_bwd_flow``, a gather on the forward's 2D tiles, run only
@@ -77,7 +82,7 @@ _TRAINING = ("this warp has no backward kernel (the flow providers train "
 #: a tile pass, BWD_BLOCKS_PER_SM blocks of BWD_THREADS threads an SM, up to
 #: BWD_CAP list entries staged at once, and the error code of a refused plan
 BWD_TILE_H, BWD_TILE_W, BWD_MAX_GROUP_C = 8, 64, 6
-BWD_BLOCKS_PER_SM, BWD_THREADS, BWD_CAP, PLAN_REFUSED = 4, 256, 1024, 20004
+BWD_BLOCKS_PER_SM, BWD_THREADS, BWD_CAP, PLAN_REFUSED = 3, 256, 1024, 20004
 #: tap-box corners (top-left taps) whose boxes reach a tile
 BWD_CORNERS = (BWD_TILE_H + 1) * (BWD_TILE_W + 1)
 
@@ -111,7 +116,7 @@ def warp_bwd_plan(B: int, C: int, H: int, W: int, sms: int) -> BwdPlan:
     BWD_BLOCKS_PER_SM`` blocks; the shared memory of a block, whatever B,
     H and W: BWD_CAP staged list entries (each with its coordinates, a
     group of g in 32-bit words and its place in corner order), a count per
-    tap-box corner and the total, and the tile's float32 sums; and the
+    tap-box corner and the total, and the tile's float64 sums; and the
     int32 workspace: each pixel's float32 coordinates (two ints), per
     (image, tile) an offset (and one total) and a cursor, the tile
     counter, and the lists (a pixel and its tap box's corner in the tile,
@@ -130,8 +135,8 @@ def warp_bwd_plan(B: int, C: int, H: int, W: int, sms: int) -> BwdPlan:
     if work >= 2 ** 31 or nt * groups >= 2 ** 31:
         raise ValueError(f"warp_bwd_plan: {B} images of {H}x{W} are beyond "
                          "the kernel's 32-bit indices")
-    shared = 4 * (BWD_CAP * (3 + group_c) + BWD_CORNERS + 1
-                  + group_c * BWD_TILE_H * BWD_TILE_W)
+    shared = (4 * (BWD_CAP * (3 + group_c) + BWD_CORNERS + 1)
+              + 8 * group_c * BWD_TILE_H * BWD_TILE_W)
     return BwdPlan(BWD_TILE_H, BWD_TILE_W, group_c, groups, shared, tiles,
                    work, sms * BWD_BLOCKS_PER_SM, BWD_THREADS)
 

@@ -380,43 +380,51 @@ def test_cuda_warp_kernel_matches_plain_version():
         # rounding of the float32 result (and the float32 margin); where
         # the flow converges, a tap sums thousands of terms, and the bound
         # grows by 8 float32 roundings of the sum of their magnitudes (two
-        # summation orders differ by about one)
-        B, C, H, W = 4, 6, 480, 640
-        maps = torch.rand(B, C, H, W, generator=g).cuda().to(dt)
-        gout = torch.randn(B, C, H, W, generator=g).cuda().to(dt)
-        yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
-                                torch.arange(W, dtype=torch.float32),
-                                indexing="ij")
-        convergent = torch.stack([
-            0.6 * W + 0.3 - xx * (W - 1) / 719, 0.4 * H + 0.7 - yy * (H - 1)
-            / 575])[None] + (torch.rand(B, 2, H, W, generator=g) - 0.5) * 4
-        long = torch.stack([100 * torch.sin(xx / 97 + yy / 61),
-                            100 * torch.cos(xx / 83 - yy / 71)])[None]
-        for flow, converges in (
-                (torch.randn(B, 2, H, W, generator=g).cuda() * 8, False),
-                (torch.zeros(B, 2, H, W, device="cuda"), False),
-                (convergent.cuda(), True),
-                (long.expand(B, 2, H, W).contiguous().cuda(), False)):
-            warp.reset_launches()
-            gm = warp.flow_warp_bwd_maps(gout, flow, (576, 720))
-            gf = warp.flow_warp_bwd_flow(gout, maps, flow, (576, 720))
-            assert warp.LAUNCHES["flow_warp_bwd_maps"] == 1
-            assert warp.LAUNCHES["flow_warp_bwd_flow"] == 1
-            pm, pf = warp.flow_warp_backward_plain(gout, maps, flow,
-                                                   (576, 720))
-            atol = 1e-5
-            if converges:
-                atol = atol + 8 * 2.0 ** -24 * warp.flow_warp_backward_plain(
-                    gout.float().abs(), maps.float(), flow, (576, 720))[0]
-            if dt == torch.float32 and not converges:
-                torch.testing.assert_close(gm, pm, rtol=0, atol=1e-5)
-            elif dt == torch.float32:
-                assert bool(((gm - pm).abs() <= atol).all())
-            else:
-                ref = warp.flow_warp_backward_plain(gout.float(),
-                                                    maps.float(), flow,
-                                                    (576, 720))[0]
-                ulp = 2.0 ** -8 * ref.abs().clamp_min(2.0 ** -126)
-                assert bool(((gm.float() - ref).abs() <= ulp + atol).all())
-            torch.testing.assert_close(gf, pf, rtol=1e-5, atol=1e-4)
+        # summation orders differ by about one). The trainer's width, and
+        # an odd H and W: g's channel planes then start at odd element
+        # offsets, which the maps kernel's bf16 word staging must follow
+        # (on a grid 1.2 times the image, as 576x720 is to 480x640: on
+        # 576x720 a 37x61 image's pixels all land within 3 px)
+        for (B, C, H, W), grid in (((4, 6, 480, 640), (576, 720)),
+                                   ((2, 6, 37, 61), (44, 73))):
+            maps = torch.rand(B, C, H, W, generator=g).cuda().to(dt)
+            gout = torch.randn(B, C, H, W, generator=g).cuda().to(dt)
+            yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                                    torch.arange(W, dtype=torch.float32),
+                                    indexing="ij")
+            convergent = torch.stack([
+                0.6 * W + 0.3 - xx * (W - 1) / (grid[1] - 1),
+                0.4 * H + 0.7 - yy * (H - 1) / (grid[0] - 1)])[None] + (
+                torch.rand(B, 2, H, W, generator=g) - 0.5) * 4
+            long = torch.stack([100 * torch.sin(xx / 97 + yy / 61),
+                                100 * torch.cos(xx / 83 - yy / 71)])[None]
+            for flow, converges in (
+                    (torch.randn(B, 2, H, W, generator=g).cuda() * 8, False),
+                    (torch.zeros(B, 2, H, W, device="cuda"), False),
+                    (convergent.cuda(), True),
+                    (long.expand(B, 2, H, W).contiguous().cuda(), False)):
+                warp.reset_launches()
+                gm = warp.flow_warp_bwd_maps(gout, flow, grid)
+                gf = warp.flow_warp_bwd_flow(gout, maps, flow, grid)
+                assert warp.LAUNCHES["flow_warp_bwd_maps"] == 1
+                assert warp.LAUNCHES["flow_warp_bwd_flow"] == 1
+                pm, pf = warp.flow_warp_backward_plain(gout, maps, flow,
+                                                       grid)
+                atol = 1e-5
+                if converges:
+                    atol = atol + 8 * 2.0 ** -24 * \
+                        warp.flow_warp_backward_plain(
+                            gout.float().abs(), maps.float(), flow,
+                            grid)[0]
+                if dt == torch.float32 and not converges:
+                    torch.testing.assert_close(gm, pm, rtol=0, atol=1e-5)
+                elif dt == torch.float32:
+                    assert bool(((gm - pm).abs() <= atol).all())
+                else:
+                    ref = warp.flow_warp_backward_plain(
+                        gout.float(), maps.float(), flow, grid)[0]
+                    ulp = 2.0 ** -8 * ref.abs().clamp_min(2.0 ** -126)
+                    assert bool(((gm.float() - ref).abs()
+                                 <= ulp + atol).all())
+                torch.testing.assert_close(gf, pf, rtol=1e-5, atol=1e-4)
     torch.cuda.synchronize()

@@ -12,8 +12,10 @@ pixels of one tile as one run in lane order; then the (tile, channel
 group) items in a random order, each taking its list in chunks, sorting a
 chunk's entries by the corner of their tap boxes (ranks within a corner
 in a random order, as the kernel's shared counters hand them out) and
-summing, per pixel in float32, the boxes that reach it in the kernel's
-order. The sum must be the plain
+summing, per pixel in float64, the float32 products of the boxes that
+reach it in the kernel's order, rounded once to float32; bf16 g is read
+through the kernel's staging, a 32-bit word an element. The sum must be
+the plain
 version's within 1e-5 (float32); for a convergent flow, whose taps each
 receive hundreds of terms, that bound grows by 8 float32 roundings of the
 sum of the terms' magnitudes (two summation orders differ by about one
@@ -59,8 +61,8 @@ def test_plan_constants_are_the_c_sides():
     assert [f.strip() for f in fields.split(",")] == list(
         warp.BwdPlan._fields)
     assert "constexpr int BW_CORNERS = (BW_TH + 1) * (BW_TW + 1);" in src
-    assert ("const int shared =\n      4 * (BW_CAP * (3 + gc) + BW_CORNERS + 1"
-            " + gc * BW_TH * BW_TW);") in src
+    assert ("const int shared =\n      4 * (BW_CAP * (3 + gc) + BW_CORNERS + 1)"
+            " + 8 * gc * BW_TH * BW_TW;") in src
     assert "constexpr int BW_STAGE = BW_CAP / TPB;" in src
     assert "const long long work = 10LL * B * H * W + 2 * nt + 2;" in src
     assert re.search(r"constexpr int BW_DENSE = (\d+);", src).group(1) == \
@@ -88,8 +90,8 @@ def test_plan_tiles_groups_grid_and_workspace(B, C, H, W, sms):
     # the blocks of an SM fit its 228 KB (1 KB reserved a block, and the
     # kernel's static ints)
     assert p.shared_bytes == 4 * (
-        warp.BWD_CAP * (3 + p.group_c) + warp.BWD_CORNERS + 1
-        + p.group_c * p.tile_h * p.tile_w)
+        warp.BWD_CAP * (3 + p.group_c) + warp.BWD_CORNERS + 1) \
+        + 8 * p.group_c * p.tile_h * p.tile_w
     assert p.shared_bytes + 4 * (1 + warp.BWD_THREADS // 32) <= 227 * 1024
     assert warp.BWD_BLOCKS_PER_SM * (p.shared_bytes + 1024 + 64) \
         <= 228 * 1024
@@ -129,7 +131,8 @@ def test_list_workspace_holds_the_worst_flow():
 
 # ------------------------------------------------------------------ model
 def model_maps_grad(g, flow, grid_hw, tile, cap, rng, group_c=6):
-    """The kernel's phases in numpy (float32 sums). Returns the gradient,
+    """The kernel's phases in numpy (float64 sums of float32 products,
+    rounded once). Returns the gradient,
     the lists and their offsets, and how many chunks took a warp a
     corner."""
     B, C, H, W = g.shape
@@ -172,7 +175,27 @@ def model_maps_grad(g, flow, grid_hw, tile, cap, rng, group_c=6):
     tx, ty = (fx - x0).numpy(), (fy - y0).numpy()
     ux, uy = 1.0 - tx, 1.0 - ty
     x0, y0 = x0.numpy(), y0.numpy()
-    gn = g.numpy().astype(np.float32)
+    if g.dtype == torch.bfloat16:
+        # staged a 32-bit word an element: the word at the element's index
+        # in g rounded down to even, its half the parity of that index, the
+        # pixel's xor its channel plane's offset
+        bits = g.contiguous().view(torch.int16).numpy().view(np.uint16)
+        bits = bits.reshape(-1)
+        words = np.concatenate([bits, np.zeros(len(bits) % 2, np.uint16)]
+                               ).view("<u4")
+
+        def g_at(b, c, pix):
+            plane = (b * C + c) * hw
+            at = ((plane + pix) & ~1) * 2  # the word's byte offset in g
+            assert (at % 4 == 0).all()  # cp.async copies aligned words
+            half = (pix & 1) ^ (plane & 1)
+            v = (words[at // 4] >> (16 * half).astype(np.uint32)) & 0xFFFF
+            return (v.astype(np.uint32) << 16).view(np.float32)
+    else:
+        gn = g.numpy().astype(np.float32)
+
+        def g_at(b, c, pix):
+            return gn[b, c].reshape(-1)[pix]
     out = np.zeros((B, C, H, W), np.float32)
     dense_chunks = 0
     groups = -(-C // group_c)
@@ -183,7 +206,7 @@ def model_maps_grad(g, flow, grid_hw, tile, cap, rng, group_c=6):
         ty0, tx0 = t // ntx * th, t % ntx * tw
         c0 = grp * gc
         cn = min(gc, C - c0)
-        acc = np.zeros((cn, th, tw), np.float32)
+        acc = np.zeros((cn, th, tw), np.float64)
         ent = lists[offs[key]:offs[key + 1]]
         for lo in range(0, len(ent), cap):
             e = ent[lo:lo + cap]
@@ -202,7 +225,7 @@ def model_maps_grad(g, flow, grid_hw, tile, cap, rng, group_c=6):
                 part times row part) of box pixel (i, j)"""
                 w = ((tx if j else ux)[b].reshape(-1)[e[sel]]
                      * (ty if i else uy)[b].reshape(-1)[e[sel]])
-                return gn[b, c0 + c].reshape(-1)[e[sel]] * w
+                return g_at(b, c0 + c, e[sel]) * w
 
             if np.bincount(corner).max() <= DENSE:
                 # a thread a pixel pair: the corners of its lower box row,
@@ -229,13 +252,14 @@ def model_maps_grad(g, flow, grid_hw, tile, cap, rng, group_c=6):
                     py, px = (ky - 1 + i)[adds], (kx - 1 + jj)[adds]
                     inside = (py >= 0) & (py < th) & (px >= 0) & (px < tw)
                     for c in range(cn):
-                        sums = np.zeros(len(useg), np.float32)
+                        sums = np.zeros(len(useg), np.float64)
                         np.add.at(sums, inv[in_order],
                                   terms(i, jj, every, c)[in_order])
                         np.add.at(acc[c], (py[inside], px[inside]),
                                   sums[adds][inside])
         h, w_ = min(th, H - ty0), min(tw, W - tx0)
         out[b, c0:c0 + cn, ty0:ty0 + h, tx0:tx0 + w_] = acc[:, :h, :w_]
+    # the tile's sums rounded once (assigning casts to float32)
     return torch.from_numpy(out), lists, offs, dense_chunks
 
 
@@ -304,6 +328,32 @@ def test_model_of_the_maps_kernel_matches_the_plain_backward(case, shape,
     for key in range(len(offs) - 1):
         ent = lists[offs[key]:offs[key + 1]]
         assert len(np.unique(ent)) == len(ent)
+
+
+@pytest.mark.parametrize("case", ("smooth", "noise", "convergent"))
+@pytest.mark.parametrize("shape", [(2, 6, 37, 61), (1, 6, 33, 65)])
+def test_model_stages_bf16_g_a_word_an_element(case, shape):
+    """bf16 g through the kernel's word staging: with H * W odd, g's
+    channel planes start at odd element offsets, and each element must
+    still come from an aligned word and the right half of it. The model's
+    float32 sums of those values are the plain backward's on the same
+    (bf16-exact) values within 1e-5."""
+    B, C, H, W = shape
+    rng = np.random.default_rng(zlib.crc32(f"bf16 {case} {shape}".encode()))
+    grid_hw = (H + H // 5, W + W // 5)
+    flow = _flows(case, B, H, W, grid_hw, rng)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        torch.bfloat16)
+    maps = torch.zeros(shape)
+    got = model_maps_grad(g, flow, grid_hw, (8, 64), 1024, rng)[0]
+    want = warp.flow_warp_backward_plain(g.float(), maps, flow, grid_hw)[0]
+    atol = MAPS_ATOL
+    if case == "convergent":
+        atol = MAPS_ATOL + ORDER_ROUNDINGS * 2.0 ** -24 * \
+            warp.flow_warp_backward_plain(g.float().abs(), maps, flow,
+                                          grid_hw)[0]
+    assert bool(((got - want).abs() <= atol).all()), \
+        float((got - want).abs().max())
 
 
 @pytest.mark.parametrize("B,H,W", [(2, 480, 640), (1, 37, 61), (1, 1, 1),

@@ -37,9 +37,9 @@ trainer's shape, bf16, on the smooth and the noise flow.
 ``--raft-f32`` times the float32 route of ``raft_update`` (plain FMAs; no
 path launches it) at 2,400 and 38,400 tokens by graph replay, beside its
 bound and the float32 ``UpdateBlock`` (cuDNN, TF32 off and on).
-``--phases`` builds ``csrc/warp.cu`` once more with ``-DBW_PHASE_STAMPS``
-(in-kernel ``%globaltimer`` stamps at the maps kernel's grid barriers and
-``clock64`` sums of the accumulate phase's steps, per block) and prints
+``--phases`` builds ``tools/warp_bwd_phases.cu`` (the maps kernel's own
+device functions with ``%globaltimer`` stamps at its grid barriers and
+around each block's items) and prints
 where one call at the trainer's shape spends its time.
 
 Prints the card's name and power limit, then one JSON line of readings.
@@ -205,8 +205,10 @@ def b1_variants(vlib, g, flows, out):
 
 def b1_phases():
     """Where one call of B1's maps kernel spends its time, phase by phase:
-    csrc/warp.cu built with BW_PHASE_STAMPS, called on the trainer's
-    shape (bf16 and f32; smooth, noise, convergent flow)."""
+    ``tools/warp_bwd_phases.cu`` (the kernel's device functions with
+    ``%globaltimer`` stamps) at the trainer's shape (bf16 and f32; smooth,
+    noise, convergent flow), each call's result held to the package's
+    kernel."""
     import numpy as np
     import torch
 
@@ -215,20 +217,20 @@ def b1_phases():
     from mfcnet_tpu_torch.ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, \
         _nvcc, sm_count, stream_of
 
-    src = CSRC / "warp.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libwarp_phases_{digest}.so"
+    src = Path(__file__).resolve().with_name("warp_bwd_phases.cu")
+    digest = hashlib.sha256(src.read_bytes() + (CSRC / "warp.cu").read_bytes()
+                            ).hexdigest()[:16]
+    so = BUILD_DIR / f"libwarp_bwd_phases_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-DBW_PHASE_STAMPS", "-I",
-                        str(CSRC), "-o", str(so), str(src)], check=True,
-                       capture_output=True, text=True)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so),
+                        str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = lib.mfc_flow_warp_bwd_maps
-    fn.argtypes = (P, P, P, P, I, I, I, I, I, I, I, I, P, P)
-    fn.restype = I
-    lib.bw_read_stamps.argtypes = lib.bw_read_sub.argtypes = (P,)
+    lib.phases_bwd_maps.argtypes = (P, P, P, P, I, I, I, I, I, I, I, I, P)
+    lib.phases_bwd_maps.restype = I
+    lib.phases_read.argtypes = (P, P, P)
+    lib.phases_read.restype = I
     gen = torch.Generator().manual_seed(0)
     B, C, H, W = B1_SHAPE
     flows = {"smooth 17 px": smooth_flow(gen, B, H, W, 17.0).cuda(),
@@ -237,32 +239,39 @@ def b1_phases():
              "convergent": b1_flows(gen, B, H, W, B1_GRID)[
                  "convergent"].cuda()}
     plan = warp.warp_bwd_plan(B, C, H, W, sm_count(torch.device("cuda")))
-    ints = (ctypes.c_int * len(plan))(*plan)
     work = torch.empty(plan.work_ints, dtype=torch.int32, device="cuda")
+    blocks, grid = 4096, plan.grid
     out = {}
     for dt in (torch.bfloat16, torch.float32):
         g = torch.randn(B1_SHAPE, generator=gen).cuda().to(dt)
         res = torch.empty_like(g)
         for label, fl in flows.items():
-            stamps = (ctypes.c_ulonglong * (6 * 4096))()
-            sub0 = (ctypes.c_ulonglong * (4 * 4096))()
-            sub1 = (ctypes.c_ulonglong * (4 * 4096))()
             for _ in range(2):  # the second call is read
-                lib.bw_read_sub(sub0)
-                rc = fn(g.data_ptr(), fl.data_ptr(), work.data_ptr(),
-                        res.data_ptr(), B, C, H, W, *B1_GRID, 1,
-                        0 if dt == torch.float32 else 1, ints, stream_of(g))
+                rc = lib.phases_bwd_maps(
+                    g.data_ptr(), fl.data_ptr(), work.data_ptr(),
+                    res.data_ptr(), B, C, H, W, *B1_GRID, 1,
+                    0 if dt == torch.float32 else 1, stream_of(g))
                 if rc != 0:
-                    raise RuntimeError(f"B1 phases: cudaError {rc}")
+                    raise RuntimeError(f"B1 phases: error {rc}")
                 torch.cuda.synchronize()
-            lib.bw_read_stamps(stamps)
-            lib.bw_read_sub(sub1)
-            t = np.frombuffer(stamps, np.uint64).reshape(6, 4096)[
-                :, :plan.grid].astype(np.int64)
-            sub = (np.frombuffer(sub1, np.uint64).astype(np.float64)
-                   - np.frombuffer(sub0, np.uint64)).reshape(4, 4096)[
-                :, :plan.grid]
+            want = warp.flow_warp_bwd_maps(g, fl, B1_GRID)
+            # the package's kernel, to an order of sums (bf16: a rounding)
+            if not torch.equal(res, want) and not torch.allclose(
+                    res.float(), want.float(), rtol=2.0 ** -7, atol=1e-3):
+                raise AssertionError(f"B1 phases: {label} != the kernel")
+            st = (ctypes.c_ulonglong * (6 * blocks))()
+            lg = (ctypes.c_ulonglong * blocks)()
+            ln = (ctypes.c_int * blocks)()
+            if lib.phases_read(st, lg, ln) != 0:
+                raise RuntimeError("B1 phases: reading the stamps failed")
+            t = np.frombuffer(st, np.uint64).reshape(6, blocks)[
+                :, :grid].astype(np.int64)
+            lg = np.frombuffer(lg, np.uint64)[:grid].astype(np.int64)
+            ln = np.frombuffer(ln, np.int32)[:grid]
+            top = int(lg.argmax())
+            call = (t[5].max() - t[0].min()) / 1e3
             out[f"B1 maps {str(dt).split('.')[1]} {label} phases us"] = {
+                "call": call,
                 "zero": (t[1].max() - t[0].min()) / 1e3,
                 "count": (t[2].max() - t[1].max()) / 1e3,
                 "scan": (t[3].max() - t[2].max()) / 1e3,
@@ -270,9 +279,9 @@ def b1_phases():
                 "accumulate, last block": (t[5].max() - t[4].max()) / 1e3,
                 "accumulate, median block": float(np.median(t[5])
                                                   - t[4].max()) / 1e3,
-                "accumulate steps, mean cycles a block": dict(zip(
-                    ("stage", "sort", "sum", "write"),
-                    sub.mean(1).round().tolist()))}
+                "longest item": lg[top] / 1e3,
+                "longest item, list entries": int(ln[top]),
+                "longest item, share of the call": lg[top] / 1e3 / call}
     return out
 
 
