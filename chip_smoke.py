@@ -611,20 +611,36 @@ def _check_warp_kernel():
             if len(ops) != 1 or "flow_warp" not in ops[0]:
                 raise AssertionError(f"flow_warp[{dt}, C={ch}]: one device "
                                      f"operation a call expected, got {ops}")
-    # the second entry point (absolute coordinates) through
-    # grid_sample_bilinear, both align_corners and padding modes
-    img = torch.randn(2, 3, 50, 70, generator=gen).cuda()
-    gx = (torch.rand(2, 100, 120, generator=gen) * 2.4 - 1.2).cuda()
-    gy = (torch.rand(2, 100, 120, generator=gen) * 2.4 - 1.2).cuda()
+    # the second entry point (the sample at source coordinates, which it
+    # forms from the normalized grid) through grid_sample_bilinear, both
+    # align_corners and padding modes, an even and an odd output width (the
+    # vector and the element path), float32 and bf16 images; one device
+    # operation a call on a float32 grid
     worst_abs = 0.0
-    for ac in (True, False):
-        for pm in ("zeros", "border"):
-            got = warp.grid_sample_bilinear(img, gx, gy, ac, pm)
-            want = warp.grid_sample_bilinear_plain(img, gx, gy, ac, pm)
-            err = (got - want).abs().max().item()
-            if err > WARP_ATOL["float32"]:
-                raise AssertionError(f"warp_abs[{ac}, {pm}]: {err}")
-            worst_abs = max(worst_abs, err)
+    for ho, wo in ((100, 120), (37, 61)):
+        gx = (torch.rand(2, ho, wo, generator=gen) * 2.4 - 1.2).cuda()
+        gy = (torch.rand(2, ho, wo, generator=gen) * 2.4 - 1.2).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            img = torch.randn(2, 3, 50, 70, generator=gen).cuda().to(dt)
+            for ac in (True, False):
+                for pm in ("zeros", "border"):
+                    got = warp.grid_sample_bilinear(img, gx, gy, ac, pm)
+                    want = warp.grid_sample_bilinear_plain(img, gx, gy, ac,
+                                                           pm)
+                    what = f"warp_abs[{dt}, {ho}x{wo}, {ac}, {pm}]"
+                    if got.dtype != dt or got.shape != (2, 3, ho, wo):
+                        raise AssertionError(f"{what}: type or shape")
+                    if dt == torch.float32:
+                        _equal(what, got, want)
+                    err = (got.float() - want.float()).abs().max().item()
+                    if err > WARP_ATOL[str(dt).split(".")[1]]:
+                        raise AssertionError(f"{what}: {err}")
+                    worst_abs = max(worst_abs, err)
+        ops = _count_device_kernels(
+            lambda: warp.grid_sample_bilinear(img, gx, gy, False, "border"))
+        if len(ops) != 1 or "warp_abs" not in ops[0]:
+            raise AssertionError(f"grid_sample_bilinear: one device "
+                                 f"operation a call expected, got {ops}")
     # ... and in UnFlow's backward warp as it ran before the one-launch
     # kernel: 3-channel frames at half resolution, both types
     for dt in (torch.float32, torch.bfloat16):
@@ -673,7 +689,9 @@ def _check_warp_kernel():
         f"{WARP_ATOL['float32']}) and bf16 (atol {WARP_ATOL['bfloat16']}), "
         f"bounded / beyond the band / out of the image / zero flow on the "
         f"576x720 grid: max |diff| {worst}, one device operation a call; "
-        f"warp_abs 4 modes and the earlier "
+        f"warp_abs (grid_sample_bilinear, one device operation a call) 4 "
+        f"modes at 2x3x100x120 and 2x3x37x61, f32 bit for bit, bf16 within "
+        f"one rounding, and the earlier "
         f"backward warp at 2x3x{UH // 2}x{UW // 2} (f32, bf16 within one "
         f"rounding of values up to 4): max |diff| {worst_abs}; backward_warp "
         f"(one launch) at 2x3x{UH // 2}x{UW // 2}, 4 modes x NCHW / "
@@ -730,13 +748,15 @@ def _check_raft_update_kernel():
                 if dt == torch.bfloat16:
                     worst = max(worst, err)
             plan = ru.tile_plan(B, H8, W8)
+            # the share of the tolerance used: |diff| / (atol + rtol |plain|)
+            share = max(((g - w).abs() / (atol + rtol * w.abs())).max().item()
+                        for g, w in zip(got, want))
             log(f"raft_update kernel vs plain [{dt}, {B}x{H8}x{W8} tokens]: "
                 f"max |diff| net {(got[0] - want[0]).abs().max().item():.3g} "
                 f"delta {(got[1] - want[1]).abs().max().item():.3g} "
-                f"(atol {atol}, rtol {rtol})"
-                + (f"; configuration '{plan.config}', {plan.rows}x{plan.cols}-"
-                   f"token tiles, clusters {plan.clusters}"
-                   if dt == torch.bfloat16 else ""))
+                f"(atol {atol}, rtol {rtol}; {share:.3f} of the tolerance); "
+                f"configuration '{plan.config}', {plan.rows}x{plan.cols}-"
+                f"token tiles, clusters {plan.clusters}")
         # three iterations through one workspace (hx filled once, outputs
         # taking turns) against a new workspace per call: the same kernels
         # on the same values, so bit for bit
@@ -2191,6 +2211,45 @@ def phase_flow_timings(engine, frames, smi):
             f"replay) {l_ms:.4f} ms")
     log(json.dumps({"raft_update_by_tokens": by_tokens}))
 
+    # the float32 route (three TF32 products on wgmma; no path launches it:
+    # the tracker and the trainer fuse the update step in bf16 only) at the
+    # tracker's tokens, in the kernel line's "calls": its bound counts the
+    # products as three TF32 passes; library: the float32 UpdateBlock with
+    # cuDNN's TF32 off (the same arithmetic as the plain version), and on
+    key = f"raft_update@float32 route, {B}x{H8}x{W8} tokens, no path"
+    fargs = _raft_update_inputs(ub, torch.float32, B, H8, W8, gen)
+    fstep = in_solve(fargs)
+    times[key] = _in_turns(
+        key, fstep, lambda: ru.raft_update_plain(*fargs), smi,
+        "f32, through a solve's workspace; kernel: device time in CUDA-graph "
+        "replays, plain: eager", kreps=20, preps=3, timer=_graph_ms,
+        ptimer=_event_ms)
+    f_ops = 2 * macs * B * N / (PEAK_TF32 / 3) * 1e3
+    f_bytes = _nbytes(*fargs[:5], *(fargs[5][k] for k in ru._WEIGHT_NAMES),
+                      *fstep()) / PEAK_BYTES * 1e3
+    bounds[key] = (max(f_ops, f_bytes),
+                   "operations" if f_ops >= f_bytes else "bytes")
+    f_lib = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        with torch.no_grad():
+            l_args = library_args(fargs, corr)
+            l_args = tuple(t.float() for t in l_args)
+            ubf = copy.deepcopy(ub).float()
+            for allow in (False, True):
+                torch.backends.cudnn.allow_tf32 = allow
+                f_lib[allow] = _graph_ms(lambda: ubf(*l_args), 10, 5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    library[key] = f_lib[False]
+    f_fma = 2 * macs * B * N / PEAK_F32 * 1e3
+    log(f"[{smi}] raft_update float32 route at {B}x{H8}x{W8} tokens: bound "
+        f"{bounds[key][0]:.5f} ms ({bounds[key][1]}: operations {f_ops:.5f} "
+        f"ms as three TF32 passes at 495 TFLOP/s, {f_fma:.5f} ms at the 67 "
+        f"TFLOP/s float32 FMA rate; bytes {f_bytes:.5f} ms); "
+        f"float32 UpdateBlock (cuDNN, graph replay) {f_lib[False]:.4f} ms "
+        f"with TF32 off, {f_lib[True]:.4f} ms with TF32 on (cuDNN's default)")
+
     # the warp at the main path's shapes and on its own last window
     Cw = C
     maps = engine.seg_buf[:, Cw:].reshape(B, Cw, H, W).contiguous()
@@ -2347,27 +2406,30 @@ def phase_unflow_timings(engine, frames, smi):
     # the engine paid for it before the one-launch backward warp
     from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
 
-    fx, fy, ready = _abs_coords(fl, *hw)
+    ready = _abs_coords(fl, *hw)[2]
+    gx, gy = ready[..., 0].contiguous(), ready[..., 1].contiguous()
     res = torch.empty_like(frame)
 
     def warp_abs_alone():
         rc = kernel_lib().mfc_warp_abs(
-            frame.data_ptr(), fx.data_ptr(), fy.data_ptr(), res.data_ptr(),
-            2, 3, *hw, *hw, 0, stream_of(frame))
+            frame.data_ptr(), gx.data_ptr(), gy.data_ptr(), res.data_ptr(),
+            2, 3, *hw, *hw, 0, 1, 0, stream_of(frame))
         if rc != 0:
             raise RuntimeError(f"mfc_warp_abs: cudaError {rc}")
         return res
 
-    err = (warp_abs_alone() - warp._sample_abs_plain(frame, fx, fy)).abs()
-    if err.max().item() > WARP_ATOL["float32"]:
-        raise AssertionError(f"warp_abs alone: {err.max().item()}")
+    _equal("warp_abs alone", warp_abs_alone(),
+           warp.grid_sample_bilinear_plain(frame, gx, gy, False, "border"))
     times["warp_abs"] = _in_turns(
         "warp_abs", warp_abs_alone,
-        lambda: warp._sample_abs_plain(frame, fx, fy), smi,
-        f"alone, NCHW frame, ready coordinates, {what}",
+        lambda: warp.grid_sample_bilinear_plain(frame, gx, gy, False,
+                                                "border"), smi,
+        f"alone, NCHW frame, ready normalized grid, {what}",
         kreps=20, preps=3, timer=_graph_ms)
+    whole_abs = _graph_ms(lambda: warp.grid_sample_bilinear(
+        frame, gx, gy, False, "border"), 20)
     bounds["warp_abs"] = (
-        _nbytes(frame, fx, fy, res) / PEAK_BYTES * 1e3, "bytes")
+        _nbytes(frame, gx, gy, res) / PEAK_BYTES * 1e3, "bytes")
     library["warp_abs"] = _graph_ms(lambda: F.grid_sample(
         frame, ready, mode="bilinear", padding_mode="border",
         align_corners=False), 20)
@@ -2408,8 +2470,8 @@ def phase_unflow_timings(engine, frames, smi):
     lib_whole_nchw = _graph_ms(lambda: sample(frame, grid_of(fl)), 20)
     library["backward_warp"] = lib_whole_cl
     log(f"[{smi}] warp_abs alone: bound {bounds['warp_abs'][0]:.5f} ms "
-        f"(bytes); F.grid_sample on the same ready grid "
-        f"{library['warp_abs']:.4f} ms")
+        f"(bytes); the whole grid_sample_bilinear call {whole_abs:.4f} ms; "
+        f"F.grid_sample on the same ready grid {library['warp_abs']:.4f} ms")
     log(f"[{smi}] backward_warp: bound {wb:.5f} ms (bytes: "
         f"{_nbytes(frame_cl, fl_cl, got)} B at 3.35 TB/s); one launch "
         f"{times['backward_warp'][0]:.4f} ms on the channels_last float32 "
@@ -2603,8 +2665,7 @@ def _traced(fn):
 #: the matrix products')
 STEP_PARTS = (("B1 (flow_warp_bwd)", ("flow_warp_bwd",)),
               ("flow_warp", ("flow_warp_kernel",)),
-              ("raft_update", ("fill_hx_kernel", "tap_conv_kernel",
-                               "tma_conv_kernel")),
+              ("raft_update", ("fill_hx_kernel", "tma_conv_kernel")),
               ("convolutions (cuDNN)", (
                   "fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn",
                   "winograd")),

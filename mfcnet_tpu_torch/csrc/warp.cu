@@ -6,8 +6,11 @@
 // (_warp_band_kernel) and the tiers around it in mfcnet_tpu/ops/warp.py:
 //   mfc_flow_warp  <- flow_warp (base grid + flow -> absolute coordinates ->
 //                     the warp), in one pass
-//   mfc_warp_abs   <- banded_warp_pallas's own contract: absolute source
-//                     coordinates fx, fy, zeros padding
+//   mfc_warp_abs   <- banded_warp_pallas's own contract (bilinear samples at
+//                     source coordinates, zeros padding) behind
+//                     grid_sample_bilinear: the normalized grid unnormalized
+//                     (either align_corners, zeros or border padding) and
+//                     sampled in one pass
 //   mfc_backward_warp <- UnFlow's backward warp (linspace base grid + flow
 //                     in pixels -> grid_sample, either align_corners, zeros
 //                     or border padding) in one pass, any strides
@@ -238,18 +241,86 @@ flow_warp_kernel(const T* __restrict__ maps, const float* __restrict__ flow,
   }
 }
 
-template <typename T>
+// mfc_warp_abs: the sample from the normalized grid, as grid_sample takes
+// it. Each output pixel's (gx, gy) is unnormalized (either align_corners)
+// and, for border padding, clamped to the image in the kernel, in the plain
+// version's float32 operations, so that the whole call is one launch. The
+// layout is flow_warp's: a block owns FW_TW x FW_TH output pixels of one
+// image, a thread two adjacent x of a row. VEC (Wo even, 8-byte aligned
+// tensors): the grid pair read as one float2 from each plane and each
+// channel's pair stored as one vector; else element by element.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(TPB)
-warp_abs_kernel(const T* __restrict__ img, const float* __restrict__ fx,
-                const float* __restrict__ fy, T* __restrict__ out, int B,
-                int C, int H, int W, int Ho, int Wo) {
+warp_abs_kernel(const T* __restrict__ img, const float* __restrict__ gxs,
+                const float* __restrict__ gys, T* __restrict__ out, int C,
+                int H, int W, int Ho, int Wo, int align_corners, int border) {
+  const int tid = threadIdx.x;
+  const int lx = (tid % (FW_TW / 2)) * 2, ly = tid / (FW_TW / 2);
+  const int x = blockIdx.x * FW_TW + lx, y = blockIdx.y * FW_TH + ly;
+  const int b = blockIdx.z;
+  if (x >= Wo || y >= Ho) return;
+  const bool two = x + 1 < Wo;
   const size_t n = (size_t)Ho * Wo;
-  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
-  if (i >= (size_t)B * n) return;
-  const int b = (int)(i / n);
-  const size_t r = i - (size_t)b * n;
-  sample_pixel(img + (size_t)b * C * H * W, C, H, W, (ptrdiff_t)H * W, W, 1,
-               fx[i], fy[i], out + (size_t)b * C * n + r, (ptrdiff_t)n);
+  const size_t r = (size_t)y * Wo + x;
+  const size_t at = (size_t)b * n + r;
+  float gx[2], gy[2];
+  if (VEC) {
+    const float2 u = *reinterpret_cast<const float2*>(gxs + at);
+    const float2 v = *reinterpret_cast<const float2*>(gys + at);
+    gx[0] = u.x;
+    gx[1] = u.y;
+    gy[0] = v.x;
+    gy[1] = v.y;
+  } else {
+    gx[0] = gxs[at];
+    gy[0] = gys[at];
+    gx[1] = two ? gxs[at + 1] : 0.0f;
+    gy[1] = two ? gys[at + 1] : 0.0f;
+  }
+  Taps q[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float fx = unnormalize(gx[k], W, align_corners);
+    float fy = unnormalize(gy[k], H, align_corners);
+    if (border) {  // the clamped coordinate also sets the blend weights
+      fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+      fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+    }
+    q[k] = taps_of(fx, fy, H, W);
+  }
+  const size_t hw = (size_t)H * W;
+  const T* im = img + (size_t)b * C * hw;
+  T* o = out + (size_t)b * C * n + r;
+  for (int c = 0; c < C; ++c) {
+    const T* p = im + c * hw;
+    const float v0 = sample(q[0], p, W, 1);
+    if (VEC) {
+      store_pair(v0, sample(q[1], p, W, 1), o + c * n);
+    } else {
+      from_f32(v0, o + c * n);
+      if (two) from_f32(sample(q[1], p, W, 1), o + c * n + 1);
+    }
+  }
+}
+
+template <typename T>
+int launch_warp_abs(const void* img, const void* gx, const void* gy,
+                    void* out, int B, int C, int H, int W, int Ho, int Wo,
+                    int align_corners, int border, cudaStream_t s) {
+  if (B > 65535 || (Ho + FW_TH - 1) / FW_TH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Wo + FW_TW - 1) / FW_TW, (Ho + FW_TH - 1) / FW_TH, B);
+  const bool vec = Wo % 2 == 0 && ((uintptr_t)gx | (uintptr_t)gy |
+                                   (uintptr_t)out) % 8 == 0;
+  if (vec)
+    warp_abs_kernel<T, true><<<grid, TPB, 0, s>>>(
+        (const T*)img, (const float*)gx, (const float*)gy, (T*)out, C, H, W,
+        Ho, Wo, align_corners, border);
+  else
+    warp_abs_kernel<T, false><<<grid, TPB, 0, s>>>(
+        (const T*)img, (const float*)gx, (const float*)gy, (T*)out, C, H, W,
+        Ho, Wo, align_corners, border);
+  return (int)cudaGetLastError();
 }
 
 // element strides of a 4-D tensor: batch, channel, row, column
@@ -1177,25 +1248,23 @@ extern "C" int mfc_flow_warp(const void* maps, const void* flow, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-// img (B, C, H, W); fx, fy (B, Ho, Wo) float32 absolute source coordinates;
-// out (B, C, Ho, Wo). Zeros padding.
-extern "C" int mfc_warp_abs(const void* img, const void* fx, const void* fy,
+// img (B, C, H, W) float32 (dtype 0) or bfloat16 (dtype 1); gx, gy
+// (B, Ho, Wo) float32, the normalized grid (x indexes width); out
+// (B, C, Ho, Wo). align_corners: 0 or 1; border: 0 zeros padding, 1 border
+// padding.
+extern "C" int mfc_warp_abs(const void* img, const void* gx, const void* gy,
                             void* out, int B, int C, int H, int W, int Ho,
-                            int Wo, int dtype, void* stream) {
+                            int Wo, int align_corners, int border, int dtype,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t n = (size_t)B * Ho * Wo;
-  if (n == 0 || C == 0) return 0;
+  if ((size_t)B * Ho * Wo == 0 || C == 0) return 0;
   if (dtype == 0)
-    warp_abs_kernel<float><<<blocks_for(n), TPB, 0, s>>>(
-        (const float*)img, (const float*)fx, (const float*)fy, (float*)out, B,
-        C, H, W, Ho, Wo);
-  else if (dtype == 1)
-    warp_abs_kernel<__nv_bfloat16><<<blocks_for(n), TPB, 0, s>>>(
-        (const __nv_bfloat16*)img, (const float*)fx, (const float*)fy,
-        (__nv_bfloat16*)out, B, C, H, W, Ho, Wo);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_warp_abs<float>(img, gx, gy, out, B, C, H, W, Ho, Wo,
+                                  align_corners, border, s);
+  if (dtype == 1)
+    return launch_warp_abs<__nv_bfloat16>(img, gx, gy, out, B, C, H, W, Ho,
+                                          Wo, align_corners, border, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // img, out (B, C, H, W) float32 (dtype 0) or bfloat16 (dtype 1); flow

@@ -55,8 +55,10 @@ _SIGNATURES = {
         "mfc_flow_warp": (
             (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
+        # img, gx, gy, out, B, C, H, W, Ho, Wo, align_corners, border,
+        # dtype, stream
         "mfc_warp_abs": (
-            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
         # img, flow, out, strides[12], xs, ys, B, C, H, W, align_corners,
         # border, dtype, flow dtype, stream
@@ -75,14 +77,10 @@ _SIGNATURES = {
         ),
     },
     "raft_update.cu": {
-        # inputs[5], weights[18], scratch[5], net_out, delta, B, H8, W8,
-        # dtype, fill, stream
-        "mfc_raft_update": (
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I,
-        ),
         "mfc_raft_plan_bytes": ((), _I),
-        # plan, K-major weights[18], scratch[5], B, H8, W8, tile[18]
-        "mfc_raft_plan_init": ((_P, _P, _P, _I, _I, _I, _P), _I),
+        # plan, K-major weights[18] (bf16) or [27] (f32), scratch[5], B, H8,
+        # W8, dtype, tile[18]
+        "mfc_raft_plan_init": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
         # plan, inputs[5], net_out, delta, fill, stream
         "mfc_raft_update_tma": ((_P, _P, _P, _P, _I, _P), _I),
     },

@@ -39,8 +39,9 @@ from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 #: :func:`raft_update` on CUDA tensors)
 LAUNCHES = {"raft_update": 0}
 #: how many of those calls also wrote ``hx[:, 0:256] = [net | inp]`` (once
-#: per solve with an :class:`UpdateWorkspace`), and how many ran the
-#: bfloat16 kernel on wgmma and TMA
+#: per solve with an :class:`UpdateWorkspace`), and how many ran the kernel
+#: on wgmma and TMA (every one: bfloat16 products, or float32 ones as three
+#: TF32 passes)
 COUNTS = {"hx_fills": 0, "wgmma": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,9 +52,14 @@ _T5x1 = tuple((dy, 0) for dy in range(-2, 3))
 _CONVS = ("c2", "f2", "cv", "zr_h", "q_h", "zr_v", "q_v", "fl1", "fl2")
 #: order of the packed tensors handed to the kernel
 _WEIGHT_NAMES = tuple(f"{p}_{c}" for c in _CONVS for p in ("w", "b"))
-#: the same with the K-major weights (taps, columns, rows) that the wgmma
-#: design reads; only a bfloat16 pack holds them
-_KMAJOR_NAMES = tuple(f"{p}_{c}" for c in _CONVS for p in ("wt", "b"))
+#: the tensors the kernel reads, K-major weights (taps, columns, rows):
+#: bfloat16 the weight itself, float32 its split into a TF32 part and the
+#: rest (:func:`split_tf32`), each beside its bias
+_KMAJOR_NAMES = {
+    torch.bfloat16: tuple(f"{p}_{c}" for c in _CONVS for p in ("wt", "b")),
+    torch.float32: tuple(f"{p}_{c}" for c in _CONVS
+                         for p in ("wtb", "wts", "b")),
+}
 #: output columns of each convolution as packed (126 -> 128, 2 -> 16)
 _CONV_COLS = (192, 64, 128, 256, 128, 256, 128, 256, 16)
 #: the launch each convolution belongs to: c2 and f2 share the first grid
@@ -82,12 +88,28 @@ def _pad_cols(w, n):
     return F.pad(w, (0, n - w.shape[-1])) if w.shape[-1] < n else w
 
 
+def split_tf32(w):
+    """float32 ``w`` -> (big, small): big = w rounded to TF32 (10 explicit
+    mantissa bits, to nearest, ties away from zero: its low 13 bits zero)
+    by integer arithmetic on the bits, as the kernel splits its
+    activations, and small = w - big, exact in float32, so that big +
+    small == w."""
+    if w.dtype != torch.float32:
+        raise TypeError(f"split_tf32: expected float32, got {w.dtype}")
+    bits = w.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return big, w - big
+
+
 def pack_update_weights(update_block, compute_dtype=torch.bfloat16):
     """``models.raft.UpdateBlock`` -> dict of product-ready tensors:
-    weights (taps, rows, columns) in ``compute_dtype``, biases float32.
-    convcorr1/convflow1 run outside the kernel (:func:`fused_update_step`)
-    and are not packed. z and r of each GRU direction share one weight
-    (columns ``[z | r]``) because they share every shifted input tap."""
+    weights (taps, rows, columns) in ``compute_dtype``, biases float32, and
+    the weights K-major (taps, columns, rows) as the kernel reads them:
+    bfloat16 ``wt_*``; float32 ``wtb_*`` and ``wts_*``, the split
+    (:func:`split_tf32`) of its three TF32 products. convcorr1/convflow1
+    run outside the kernel (:func:`fused_update_step`) and are not packed.
+    z and r of each GRU direction share one weight (columns ``[z | r]``)
+    because they share every shifted input tap."""
     if compute_dtype not in _DTYPES:
         raise TypeError(f"compute dtype must be float32 or bfloat16, "
                         f"got {compute_dtype}")
@@ -115,10 +137,13 @@ def pack_update_weights(update_block, compute_dtype=torch.bfloat16):
         out[f"b_zr_{d}"] = torch.cat([b(g.convz), b(g.convr)]).contiguous()
         out[f"w_q_{d}"] = w(_taps(g.convq))
         out[f"b_q_{d}"] = b(g.convq)
-    if compute_dtype == torch.bfloat16:
-        # the wgmma design reads both operands K-major: (taps, columns, rows)
-        for c in _CONVS:
-            out[f"wt_{c}"] = out[f"w_{c}"].transpose(1, 2).contiguous()
+    # the kernel reads both operands K-major: (taps, columns, rows)
+    for c in _CONVS:
+        wt = out[f"w_{c}"].transpose(1, 2).contiguous()
+        if compute_dtype == torch.bfloat16:
+            out[f"wt_{c}"] = wt
+        else:
+            out[f"wtb_{c}"], out[f"wts_{c}"] = split_tf32(wt)
     return out
 
 
@@ -178,8 +203,9 @@ TILE_TOKENS = 128
 _COLUMN_WIDTHS = (64, 128, 128, 128, 128, 128, 128, 16)
 #: a launch's clusters grow while it has no more blocks than this, up to
 #: the portable cluster size: about one and a half per SM of an H100's 132
-#: (tools/raft_update_sweep.py at 1,200 to 4,800 tokens: 160 to 230 level,
-#: 132 and 264 slower)
+#: (tools/raft_update_sweep.py at 1,200 to 4,800 tokens, bf16: 160 to 230
+#: level, 132 and 264 slower; the float32 route, timed at 132 and 200 by
+#: tools/raft_f32_variants.py, is faster at 200 too)
 TARGET_BLOCKS = 200
 MAX_CLUSTER = 8
 #: a TMA box holds at most this many elements along any dimension
@@ -214,12 +240,15 @@ class TilePlan:
 
 
 def tile_plan(B: int, H8: int, W8: int) -> TilePlan:
-    """The tile plan of a solve at B x H8 x W8 tokens: the token tile of
-    whole or x-segmented image rows that covers an image with the fewest
-    tiles (fewest x segments among equals: 3 x 40 at 30x40 and at 60x80),
-    and each launch's cluster size from its block count
-    (:data:`TARGET_BLOCKS`), which is where the token count picks the
-    kernel's configuration."""
+    """The tile plan of a solve at B x H8 x W8 tokens, for both compute
+    types: the token tile of whole or x-segmented image rows that covers an
+    image with the fewest tiles (fewest x segments among equals: 3 x 40 at
+    30x40 and at 60x80), and each launch's cluster size from its block
+    count (:data:`TARGET_BLOCKS`), which is where the token count picks the
+    kernel's configuration. The C side (``mfc_raft_plan_init``) computes
+    the same plan for the float32 route and refuses any other; for the
+    bfloat16 route it refuses a plan outside the kernel's limits (error
+    20002)."""
     M = B * H8 * W8
     if min(B, H8, W8) < 1:
         raise ValueError(f"raft_update: empty grid {B}x{H8}x{W8}")
@@ -244,7 +273,8 @@ def tile_plan(B: int, H8: int, W8: int) -> TilePlan:
     for n, stage in zip(_CONV_COLS, _CONV_STAGE):
         column_tiles[stage] += n // _COLUMN_WIDTHS[stage]
     clusters = tuple(
-        max(1, min(MAX_CLUSTER, TARGET_BLOCKS // (B * tiles_y * tiles_x * ct)))
+        max(1, min(MAX_CLUSTER,
+                   TARGET_BLOCKS // (B * tiles_y * tiles_x * ct)))
         for ct in column_tiles)
     config = "clusters" if max(clusters) > 1 else "tiles"
     return TilePlan(config, rows, cols, tiles_y, tiles_x, _COLUMN_WIDTHS,
@@ -271,11 +301,11 @@ class UpdateWorkspace:
     """What one recurrent solve keeps between its calls of
     :func:`raft_update`: the scratch tensors, two (net', delta) output pairs
     used in turns -- a call never writes the pair it returned last, nor the
-    caller's own ``net`` -- and, for the bfloat16 kernel, the tile plan and
-    its TMA tensor maps. ``hx = [net | inp | y | flow]`` lives across the
-    calls: the kernel leaves ``net'`` in ``hx[:, 0:128]`` and ``inp`` does
-    not change during a solve, so ``[net | inp]`` is written on the first
-    call only (:meth:`holds` decides, by identity of the tensors).
+    caller's own ``net`` -- and the tile plan and its TMA tensor maps.
+    ``hx = [net | inp | y | flow]`` lives across the calls: the kernel
+    leaves ``net'`` in ``hx[:, 0:128]`` and ``inp`` does not change during
+    a solve, so ``[net | inp]`` is written on the first call only
+    (:meth:`holds` decides, by identity of the tensors).
 
     On CPU tensors the plain version computes and the workspace only keeps
     the output buffers and the same bookkeeping."""
@@ -304,8 +334,7 @@ class UpdateWorkspace:
                             buf(M, 384, dtype=self.cdt),
                             buf(M, 128, dtype=self.cdt),
                             buf(M, 256, dtype=self.cdt), buf(M, 128)]
-            if self.design == "wgmma":
-                self._init_plan(packed)
+            self._init_plan(packed)
 
     def _init_plan(self, packed):
         lib = kernel_lib()
@@ -313,16 +342,17 @@ class UpdateWorkspace:
         p = self.plan
         tile = (ctypes.c_int * 18)(p.rows, p.cols, *p.column_widths,
                                    *p.clusters)
-        self._weights = [packed[k] for k in _KMAJOR_NAMES]  # kept alive
+        # kept alive
+        self._weights = [packed[k] for k in _KMAJOR_NAMES[self.cdt]]
         rc = lib.mfc_raft_plan_init(
             self._plan_buf, _ptrs(self._weights), _ptrs(self.scratch),
-            *self.shape, tile)
+            *self.shape, _DTYPES[self.cdt], tile)
         if rc != 0:
             raise RuntimeError(f"raft_update: the tile plan {p} was refused "
                                f"(error {rc}: 10000 + CUresult of a tensor "
                                f"map, 20001 cuTensorMapEncodeTiled not found "
-                               f"in libcuda, 20002 a plan outside the "
-                               f"kernel's limits)")
+                               f"in libcuda, 20002 a plan other than "
+                               f"tile_plan's)")
 
     def holds(self, net, inp) -> bool:
         """Whether ``hx[:, 0:256]`` already is ``[net | inp]``: ``net`` is
@@ -348,9 +378,9 @@ class UpdateWorkspace:
         self._held = (net_out, net_out._version, inp, inp._version)
 
 
-#: the kernel by compute dtype: float32 multiplies on plain FMAs, bfloat16
-#: on wgmma fed by TMA
-_DESIGNS = {torch.float32: "fma", torch.bfloat16: "wgmma"}
+#: the kernel's products by compute dtype, both on wgmma fed by TMA:
+#: bfloat16 operands, or float32 ones split into three TF32 products
+_DESIGNS = {torch.float32: "3xtf32", torch.bfloat16: "wgmma"}
 
 
 def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int,
@@ -398,20 +428,14 @@ def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int,
         net_out.copy_(got[0])
         delta.copy_(got[1])
     else:
-        if ws.design == "wgmma":
-            rc = kernel_lib().mfc_raft_update_tma(
-                ws._plan_buf, _ptrs(tensors), net_out.data_ptr(),
-                delta.data_ptr(), int(fill), stream_of(c1))
-        else:
-            rc = kernel_lib().mfc_raft_update(
-                _ptrs(tensors), _ptrs(weights), _ptrs(ws.scratch),
-                net_out.data_ptr(), delta.data_ptr(), B, H8, W8, _DTYPES[cdt],
-                int(fill), stream_of(c1))
+        rc = kernel_lib().mfc_raft_update_tma(
+            ws._plan_buf, _ptrs(tensors), net_out.data_ptr(),
+            delta.data_ptr(), int(fill), stream_of(c1))
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel raft_update ({ws.design}) failed: error {rc}")
         LAUNCHES["raft_update"] += 1
-        COUNTS["wgmma"] += ws.design == "wgmma"
+        COUNTS["wgmma"] += 1
     COUNTS["hx_fills"] += int(fill)
     ws.returned(net_out, inp)
     return net_out, delta

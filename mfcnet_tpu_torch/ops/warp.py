@@ -11,8 +11,9 @@ as vectors where W is even, the base grid once per tile column and row;
 four taps, any flow exact); on a CPU tensor it runs
 :func:`flow_warp_plain`, the same arithmetic in plain PyTorch. There is no fallback between the
 two. :func:`grid_sample_bilinear` routes through the kernel's second
-entry point, which takes absolute source coordinates as the TPU kernel
-does. :func:`backward_warp` is UnFlow's warp (``models/unflow.py``, once
+entry point, which samples at source coordinates as the TPU kernel does,
+forming them from the normalized grid itself (one launch on the same 2D
+tiles). :func:`backward_warp` is UnFlow's warp (``models/unflow.py``, once
 per refinement network): a ``linspace(-1, 1)`` base grid plus the flow in
 pixels, sampled as ``F.grid_sample`` does with either ``align_corners`` and
 zeros or border padding; the kernel's third entry point forms the
@@ -429,23 +430,32 @@ def grid_sample_bilinear(img, grid_x, grid_y, align_corners: bool = True,
     """Sample ``img`` (B, C, H, W) at normalized coordinates ``grid_x``,
     ``grid_y`` (B, Ho, Wo) in [-1, 1] (x indexes width), as
     ``F.grid_sample(mode='bilinear')`` does. ``padding_mode``: 'zeros' or
-    'border' (coordinates clamped to the edge). Returns (B, C, Ho, Wo)."""
+    'border' (coordinates clamped to the edge). Returns (B, C, Ho, Wo).
+    On CUDA tensors one launch of ``mfc_warp_abs``, which unnormalizes and
+    clamps the grid itself (float32 or bfloat16 grids; a float32 grid and
+    an NCHW image are read in place)."""
     _check_maps(img)
     _no_grad_inputs(img, grid_x, grid_y)
     if grid_x.shape != grid_y.shape or grid_x.dim() != 3 \
             or grid_x.shape[0] != img.shape[0]:
         raise ValueError("grid_x, grid_y: expected two (B, Ho, Wo) tensors")
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
     if route(img, grid_x, grid_y) == "cpu":
         return grid_sample_bilinear_plain(img, grid_x, grid_y, align_corners,
                                           padding_mode)
+    if grid_x.dtype not in _DTYPES or grid_y.dtype not in _DTYPES:
+        raise TypeError(f"grid: expected float32 or bfloat16, got "
+                        f"{grid_x.dtype}, {grid_y.dtype}")
     B, C, H, W = img.shape
-    fx, fy = _abs_coords(grid_x, grid_y, H, W, align_corners, padding_mode)
-    fx, fy, img = fx.contiguous(), fy.contiguous(), img.contiguous()
-    Ho, Wo = fx.shape[-2:]
+    img = img.contiguous()
+    gx, gy = grid_x.float().contiguous(), grid_y.float().contiguous()
+    Ho, Wo = gx.shape[-2:]
     out = torch.empty(B, C, Ho, Wo, dtype=img.dtype, device=img.device)
     rc = kernel_lib().mfc_warp_abs(
-        img.data_ptr(), fx.data_ptr(), fy.data_ptr(), out.data_ptr(),
-        B, C, H, W, Ho, Wo, _DTYPES[img.dtype], stream_of(img))
+        img.data_ptr(), gx.data_ptr(), gy.data_ptr(), out.data_ptr(),
+        B, C, H, W, Ho, Wo, int(align_corners), int(padding_mode == "border"),
+        _DTYPES[img.dtype], stream_of(img))
     _launch("warp_abs", rc)
     return out
 

@@ -9,6 +9,9 @@ Tolerances: float32 convolutions and products summed in another order
 (1e-5 .. 5e-5 per module; 2e-5 / 1e-4 for the update step, the JAX test's
 own; 1e-3 on the whole model's flow, the COMPONENTS.md gate)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -232,14 +235,24 @@ def test_pack_update_weights_layout(pair):
     )
 
     packed = pack_update_weights(pair[2].update_block, torch.bfloat16)
-    # a bfloat16 pack also holds every weight K-major for the wgmma design
-    assert set(packed) == set(_WEIGHT_NAMES) | set(_KMAJOR_NAMES)
-    assert set(pack_update_weights(pair[2].update_block, torch.float32)
-               ) == set(_WEIGHT_NAMES)
-    for k in _KMAJOR_NAMES:
+    # a pack also holds every weight K-major as the kernel reads it: the
+    # bfloat16 weight, or the float32 weight's split into a TF32 part and
+    # the rest
+    assert set(packed) == set(_WEIGHT_NAMES) | set(
+        _KMAJOR_NAMES[torch.bfloat16])
+    f32 = pack_update_weights(pair[2].update_block, torch.float32)
+    assert set(f32) == set(_WEIGHT_NAMES) | set(_KMAJOR_NAMES[torch.float32])
+    for k in _KMAJOR_NAMES[torch.bfloat16]:
         if k.startswith("wt_"):
             assert torch.equal(packed[k],
                                packed["w_" + k[3:]].transpose(1, 2))
+    for k in _KMAJOR_NAMES[torch.float32]:
+        if k.startswith("wtb_"):
+            c = k[4:]
+            assert f32[k].dtype == f32["wts_" + c].dtype == torch.float32
+            assert f32[k].is_contiguous() and f32["wts_" + c].is_contiguous()
+            assert torch.equal(f32[k] + f32["wts_" + c],
+                               f32["w_" + c].transpose(1, 2))
     shapes = {k: tuple(t.shape) for k, t in packed.items()}
     assert shapes["w_c2"] == (9, 256, 192) and shapes["w_f2"] == (9, 128, 64)
     assert shapes["w_cv"] == (9, 256, 128) and shapes["w_fl2"] == (9, 256, 16)
@@ -518,8 +531,8 @@ def test_raft_update_tile_plan_limits():
 def test_cuda_raft_update_kernel_matches_plain_version():
     """The CUDA kernel against its plain version (run with
     ``python -m pytest tests/test_torch_raft.py -m cuda --noconftest`` on
-    a GPU): the float32 instance to the JAX test's tolerance, the
-    bfloat16 instance to the rounding-flip envelope."""
+    a GPU): the float32 instance (three TF32 products) to the JAX test's
+    tolerance, the bfloat16 instance to the rounding-flip envelope."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from mfcnet_tpu_torch.models.raft import UpdateBlock
@@ -537,8 +550,138 @@ def test_cuda_raft_update_kernel_matches_plain_version():
         ru.reset_launches()
         got = ru.raft_update(*args)
         assert ru.LAUNCHES["raft_update"] == 1
-        assert ru.COUNTS["wgmma"] == (dt == torch.bfloat16)
+        assert ru.COUNTS["wgmma"] == 1
         want = ru.raft_update_plain(*args)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)
     torch.cuda.synchronize()
+
+
+# ---------------------------------- the float32 route's split and plan
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 3e4])
+def test_split_tf32_is_exact_and_big_is_tf32(scale):
+    """w = big + small exactly; big keeps 10 explicit mantissa bits (its
+    low 13 bits are zero) and is w rounded to the nearest such value
+    (ties away from zero), so |small| <= 2^-11 |w|; the kernel splits its
+    activations by the same integer operations."""
+    from mfcnet_tpu_torch.ops.raft_update import split_tf32
+
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.standard_normal(4099) * scale).astype(
+        np.float32))
+    w[:3] = torch.tensor([0.0, -0.0, 1.0 + 2.0 ** -11])  # a tie: away
+    big, small = split_tf32(w)
+    assert torch.equal(big + small, w)
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert bool((small.abs() <= 2.0 ** -11 * w.abs()).all())
+    assert big[2].item() == 1.0 + 2.0 ** -10
+    # the nearest: no other value with 10 mantissa bits is closer
+    up = (big.view(torch.int32) + 0x2000).view(torch.float32)
+    dn = (big.view(torch.int32) - 0x2000).view(torch.float32)
+    nz = w != 0
+    assert bool(((w - big).abs()[nz] <= (w - up).abs()[nz]).all())
+    assert bool(((w - big).abs()[nz] <= (w - dn).abs()[nz]).all())
+    with pytest.raises(TypeError, match="float32"):
+        split_tf32(w.double())
+
+
+def _c_tile_plan(B, H8, W8, target, widths, mt=128, max_box=256,
+                 max_cluster=8):
+    """``csrc/raft_update.cu::tile_plan_of``, line for line in C's integer
+    arithmetic: the 18 ints the C side demands."""
+    best, rows, cols = -1, 0, 0
+    widest = min(mt, max_box)
+    for nx in range(1, W8 + 1):
+        c = (W8 + nx - 1) // nx
+        if c > widest:
+            continue
+        r = min(mt // c, H8, max_box)
+        n = ((H8 + r - 1) // r) * ((W8 + c - 1) // c)
+        if best < 0 or n < best:
+            best, rows, cols = n, r, c
+        if c == 1:
+            break
+    tiles = B * ((H8 + rows - 1) // rows) * ((W8 + cols - 1) // cols)
+    conv_n = (192, 64, 128, 256, 128, 256, 128, 256, 16)
+    stage = (0, 0, 1, 2, 3, 4, 5, 6, 7)
+    ct = [0] * 8
+    for n, st in zip(conv_n, stage):
+        ct[st] += n // widths[st]
+    return (rows, cols, *widths,
+            *(max(1, min(max_cluster, target // (tiles * c))) for c in ct))
+
+
+def test_raft_update_tile_plan_is_the_c_sides():
+    """The C side recomputes the plan (``tile_plan_of``) and refuses any
+    other for the float32 route: its constants are Python's, and its loop,
+    transcribed, gives Python's 18 ints over a range of shapes."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    src = (Path(ru.__file__).resolve().parents[1] / "csrc"
+           / "raft_update.cu").read_text()
+    m = re.search(r"constexpr int COLUMN_WIDTHS\[N_STAGES\] = \{([^}]*)\};",
+                  src)
+    widths = tuple(int(v) for v in m.group(1).split(","))
+    assert re.search(r"constexpr int TARGET_BLOCKS = (\d+);", src).group(1) \
+        == str(ru.TARGET_BLOCKS)
+    assert re.search(r"constexpr int MAX_CLUSTER = (\d+);", src).group(1) \
+        == str(ru.MAX_CLUSTER)
+    assert re.search(r"constexpr int MAX_BOX = (\d+);", src).group(1) == "256"
+    assert "constexpr int MT = 64 * NWG;" in src and "constexpr int NWG = 2;" \
+        in src and ru.TILE_TOKENS == 128
+    assert "if (tile[i] != want[i]) return ERR_PLAN;" in src
+    for B, H8, W8 in ((1, 1, 1), (1, 2, 2), (2, 9, 13), (2, 30, 40),
+                      (8, 60, 80), (1, 5, 300), (16, 30, 40), (3, 1, 257),
+                      (1, 129, 1), (4, 17, 129), (11, 30, 40), (2, 64, 64)):
+        p = ru.tile_plan(B, H8, W8)
+        assert p.column_widths == widths
+        assert (p.rows, p.cols, *p.column_widths, *p.clusters) == \
+            _c_tile_plan(B, H8, W8, ru.TARGET_BLOCKS, widths), (B, H8, W8)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (2, 9, 13), (2, 30, 40),
+                                   (8, 60, 80), (1, 5, 300), (16, 30, 40)])
+def test_raft_update_f32_tile_plan_covers_every_token_once(shape):
+    """The float32 route runs on the same plan as the bfloat16 one (the
+    workspace makes it for either type): every token in exactly one tile,
+    and no cluster splits a tile into more blocks than the launch's
+    fewest pipeline steps, which for float32 are 32 channels (the C side
+    refuses more)."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    B, H8, W8 = shape
+    plan = ru.tile_plan(B, H8, W8)
+    ws = ru.UpdateWorkspace(B, H8, W8, {"w_c2": torch.zeros(1)}, "cpu")
+    assert ws.plan == plan and ws.design == "3xtf32"
+    seen = np.zeros((H8, W8), np.int64)
+    for (y0, y1), (x0, x1) in plan.tiles():
+        seen[y0:min(y1, H8), x0:min(x1, W8)] += 1
+    assert (seen == 1).all()
+    # a launch's fewest steps: f2's 9 taps x 128 channels / 32, cv's 9 x
+    # 256 / 32, the GRU's 5 x 384 / 32, fl1's 9 x 128 / 32, fl2's 9 x 256 / 32
+    steps = (36, 72, 60, 60, 60, 60, 36, 72)
+    for cl, st in zip(plan.clusters, steps):
+        assert 1 <= cl <= min(ru.MAX_CLUSTER, st)
+    src = (Path(ru.__file__).resolve().parents[1] / "csrc"
+           / "raft_update.cu").read_text()
+    assert "CONV_TAPS[i] * CONV_K[i] / (dtype == DT_F32 ? 32 : 64))" in src
+
+
+def test_raft_update_f32_tile_plan_refusals():
+    """What the C side refuses (``tile_plan_of`` returns false), the plan
+    refuses first: an empty grid, a grid beyond the kernel's 32-bit
+    indices."""
+    from mfcnet_tpu_torch.ops import raft_update as ru
+
+    with pytest.raises(ValueError, match="32-bit index limit"):
+        ru.tile_plan(ru.MAX_TOKENS // 4800 + 1, 60, 80)
+    with pytest.raises(ValueError, match="empty grid"):
+        ru.tile_plan(2, 3, 0)
+    with pytest.raises(ValueError, match="empty grid"):
+        ru.tile_plan(1, 0, 5)
+    src = (Path(ru.__file__).resolve().parents[1] / "csrc"
+           / "raft_update.cu").read_text()
+    assert ("if (B < 1 || H8 < 1 || W8 < 1 || (long long)B * H8 * W8 > "
+            "MAX_TOKENS)") in src
+    assert "constexpr long long MAX_TOKENS = 2147483647LL / HX;" in src
+    assert ru.MAX_TOKENS == (2 ** 31 - 1) // 384

@@ -359,6 +359,20 @@ def test_cuda_warp_kernel_matches_plain_version():
                     assert torch.equal(got, want)
                 torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                            atol=ATOL_WARP)
+        # grid_sample_bilinear: one launch of warp_abs (the grid
+        # unnormalized and clamped in the kernel), bit for bit its plain
+        # version in every mode, at an even (vector) and odd output width
+        img = torch.randn(2, 3, 50, 70, generator=g).cuda().to(dt)
+        for ho, wo in ((100, 120), (37, 61)):
+            gx = (torch.rand(2, ho, wo, generator=g) * 2.4 - 1.2).cuda()
+            gy = (torch.rand(2, ho, wo, generator=g) * 2.4 - 1.2).cuda()
+            for ac in (False, True):
+                for pm in ("zeros", "border"):
+                    warp.reset_launches()
+                    got = warp.grid_sample_bilinear(img, gx, gy, ac, pm)
+                    assert warp.LAUNCHES["warp_abs"] == 1
+                    assert torch.equal(got, warp.grid_sample_bilinear_plain(
+                        img, gx, gy, ac, pm))
         # the one-launch backward warp: bit for bit its plain version,
         # whatever the layout and the flow's type
         frame = torch.randn(2, 3, 64, 96, generator=g).cuda().to(dt)

@@ -11,8 +11,10 @@ Inputs, seeded: the correlation at UnFlow's tracker shape (f32 and bf16
 CLI's (f32 4x64x80x256), md=20, s=2; ``flow_warp`` on bf16 maps 2x5x480x640
 (the head's call, ``models/mfcnet.py``) on the 576x720 crop grid with a
 smooth flow of up to ~17 px (the RAFT path's size) and with per-pixel
-noise of 4 px; ``mfc_warp_abs`` called alone on ready absolute coordinates
-(UnFlow's backward-warp grid, border clamp) of an f32 2x3x256x320 image.
+noise of 4 px; ``mfc_warp_abs`` called alone on its ready inputs (UnFlow's
+backward-warp grid, border clamp, of an f32 2x3x256x320 image: absolute
+coordinates for the first design, the normalized grid for the 2D-tile one)
+and the whole ``grid_sample_bilinear`` call from the normalized grid.
 Beside each, the library yardstick: ``torch.bmm`` of each residue
 sub-grid's full Gram matrix in f32 with TF32 off (products only; the
 correlation needs the banded part of it), and ``F.grid_sample`` on a ready
@@ -34,9 +36,11 @@ and times each at the same inputs, and the stripped variants of B1's
 first maps-gradient kernel (zero and cast only, plain stores in place of
 its atomics, its scatter into shared memory only, and the whole) at the
 trainer's shape, bf16, on the smooth and the noise flow.
-``--raft-f32`` times the float32 route of ``raft_update`` (plain FMAs; no
-path launches it) at 2,400 and 38,400 tokens by graph replay, beside its
-bound and the float32 ``UpdateBlock`` (cuDNN, TF32 off and on).
+``--raft-f32`` times the float32 route of ``raft_update`` (no path
+launches it) at 2,400 and 38,400 tokens by graph replay, beside its bounds
+and the float32 ``UpdateBlock`` (cuDNN, TF32 off and on), and prints how
+far cuDNN's TF32 result lies from the plain version; with ``--tree`` in
+turns with the other tree.
 ``--phases`` builds ``tools/warp_bwd_phases.cu`` (the maps kernel's own
 device functions with ``%globaltimer`` stamps at its grid barriers and
 around each block's items) and prints
@@ -285,14 +289,19 @@ def b1_phases():
     return out
 
 
-def raft_f32_readings():
-    """The float32 update step (``mfc_raft_update``, plain FMAs) by graph
-    replay through a solve's workspace, its bound and the float32
-    ``UpdateBlock`` (cuDNN) at the same tokens."""
+def raft_f32_readings(out):
+    """The float32 update step (``raft_update`` on float32 operands: the
+    tree's own design) by graph replay through a solve's workspace, held to
+    the plain version first, at each of RAFT_F32_CALLS; beside it its two
+    bounds (operations as three TF32 passes at 495 / 3 TFLOP/s, and at the
+    67 TFLOP/s float32 FMA rate; bytes) and the float32 ``UpdateBlock``
+    (cuDNN) with TF32 off and on, with the TF32-on call's largest
+    difference from the plain version (the update step's part of it: net'
+    and the flow delta, TF32 off in the plain version)."""
     import torch
 
-    from chip_smoke import PEAK_BYTES, PEAK_F32, RAFT_TOL, _graph_ms, \
-        _nbytes, _raft_update_inputs
+    from chip_smoke import PEAK_BYTES, PEAK_F32, PEAK_TF32, RAFT_TOL, \
+        _graph_ms, _nbytes, _raft_update_inputs
     from mfcnet_tpu_torch.models import init_weights
     from mfcnet_tpu_torch.models.raft import UpdateBlock
     from mfcnet_tpu_torch.ops import raft_update as ru
@@ -300,15 +309,19 @@ def raft_f32_readings():
     gen = torch.Generator().manual_seed(0)
     ub = init_weights(UpdateBlock(), gen).cuda().eval()
     atol, rtol = RAFT_TOL["float32"]
-    out = []
     for B, H8, W8 in RAFT_F32_CALLS:
+        tok = B * H8 * W8
+        key = f"raft_update f32 {tok} tokens"
         args = _raft_update_inputs(ub, torch.float32, B, H8, W8, gen)
         c1, f1, inp, net, flow, packed = args[:6]
-        for got, want in zip(ru.raft_update(*args), ru.raft_update_plain(
-                *args)):
-            if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        want = ru.raft_update_plain(*args)
+        for got, w in zip(ru.raft_update(*args), want):
+            if not torch.allclose(got, w, rtol=rtol, atol=atol):
                 raise AssertionError(f"raft_update f32 {B}x{H8}x{W8}: kernel "
                                      "!= plain")
+        out[f"{key} share of the tolerance"] = max(
+            ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+            for g, w in zip(ru.raft_update(*args), want))
         ws = ru.UpdateWorkspace(B, H8, W8, packed, "cuda")
         state = [net]
 
@@ -317,16 +330,23 @@ def raft_f32_readings():
                                              packed, H8, W8, ws)
             return state[0], delta
 
-        ms = min(_graph_ms(step, 10, 5), _graph_ms(step, 10, 5))
-        tok = B * H8 * W8
+        out[f"{key} graph ms, kernel"] = min(_graph_ms(step, 10, 5),
+                                             _graph_ms(step, 10, 5))
         macs = sum(packed[f"w_{k}"].shape[0] * packed[f"w_{k}"].shape[1]
                    * cols for k, cols in (
                        ("c2", 192), ("f2", 64), ("cv", 126), ("zr_h", 256),
                        ("q_h", 128), ("zr_v", 256), ("q_v", 128),
                        ("fl1", 256), ("fl2", 2)))
-        b_ops = 2 * macs * tok / PEAK_F32 * 1e3
-        b_bytes = _nbytes(*args[:5], *(packed[k] for k in ru._WEIGHT_NAMES),
-                          *step()) / PEAK_BYTES * 1e3
+        out[f"{key} bound ms (3xTF32)"] = \
+            2 * macs * tok / (PEAK_TF32 / 3) * 1e3
+        out[f"{key} bound ms (FMA)"] = 2 * macs * tok / PEAK_F32 * 1e3
+        out[f"{key} bound ms (bytes)"] = _nbytes(
+            *args[:5], *(packed[k] for k in ru._WEIGHT_NAMES),
+            *step()) / PEAK_BYTES * 1e3
+        # the UpdateBlock on the same state: its convcorr1 and convflow1
+        # inputs (a correlation lookup and the flow) are random here, so its
+        # error is read on the part the kernel computes: the same c1, f1
+        # through the block's own convolutions
         corr = torch.randn(B, tok // B, 4 * 81, generator=gen).cuda()
 
         def cl(t, ch):
@@ -334,22 +354,58 @@ def raft_f32_readings():
 
         lib_args = (cl(net, 128), cl(inp, 128), cl(corr, 4 * 81),
                     cl(flow, 2))
-        library = {}
         tf32 = torch.backends.cudnn.allow_tf32
         try:
             for allow in (False, True):
                 torch.backends.cudnn.allow_tf32 = allow
                 with torch.no_grad():
-                    library[f"tf32 {'on' if allow else 'off'}"] = _graph_ms(
+                    out[f"{key} graph ms, library tf32 "
+                        f"{'on' if allow else 'off'}"] = _graph_ms(
                         lambda: ub(*lib_args), 10, 5)
+            with torch.no_grad():
+                torch.backends.cudnn.allow_tf32 = True
+                on = _update_block_tail(ub, c1, f1, inp, net, flow, B, H8, W8)
+                torch.backends.cudnn.allow_tf32 = False
+                off = _update_block_tail(ub, c1, f1, inp, net, flow, B, H8,
+                                         W8)
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
-        out.append({"tokens": tok, "ms": ms, "bound_ms": max(b_ops, b_bytes),
-                    "bound_by": "operations" if b_ops >= b_bytes
-                    else "bytes", "ops_ms": b_ops, "bytes_ms": b_bytes,
-                    "tflops": 2 * macs * tok / ms / 1e9,
-                    "UpdateBlock f32 ms": library})
-    return out
+        out[f"{key} library tf32 on, max |diff| from plain"] = max(
+            (a - b).abs().max().item() for a, b in zip(on, want))
+        out[f"{key} library tf32 on, share of the tolerance"] = max(
+            ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+            for a, b in zip(on, want))
+        out[f"{key} library tf32 off, max |diff| from plain"] = max(
+            (a - b).abs().max().item() for a, b in zip(off, want))
+
+
+def _update_block_tail(ub, c1, f1, inp, net, flow, B, H8, W8):
+    """The UpdateBlock's own modules from convc2/convf2 on (what
+    ``raft_update`` computes), on token-major c1, f1, inp, net, flow:
+    (net', delta) token-major, in cuDNN's arithmetic of the moment."""
+    import torch
+    import torch.nn.functional as F
+
+    def img(t):
+        return t.view(B, H8, W8, -1).permute(0, 3, 1, 2)
+
+    def tok(t):
+        return t.permute(0, 2, 3, 1).reshape(B, H8 * W8, -1)
+
+    enc, gru, head = ub.motion_encoder, ub.recurrent_block, ub.flow_head
+    c2 = F.relu(enc.convcorr2[0](img(c1)))
+    f2 = F.relu(enc.convflow2[0](img(f1)))
+    y = F.relu(enc.conv[0](torch.cat([c2, f2], 1)))
+    x = torch.cat([img(inp), y, img(flow)], 1)
+    h = img(net)
+    for g in (gru.convgru1, gru.convgru2):
+        hx = torch.cat([h, x], 1)
+        z = torch.sigmoid(g.convz(hx))
+        r = torch.sigmoid(g.convr(hx))
+        q = torch.tanh(g.convq(torch.cat([r * h, x], 1)))
+        h = (1 - z) * h + z * q
+    delta = head.conv2(F.relu(head.conv1(h)))
+    return tok(h), tok(delta)
 
 
 def readings(breakdown: bool, variants: bool, tree: Path,
@@ -357,8 +413,8 @@ def readings(breakdown: bool, variants: bool, tree: Path,
     import torch
     import torch.nn.functional as F
 
-    from chip_smoke import CORR_TOL, WARP_ATOL, _abs_coords, _device_events, \
-        _event_ms, _graph_ms, _residue_grams
+    from chip_smoke import CORR_TOL, PEAK_BYTES, WARP_ATOL, _abs_coords, \
+        _device_events, _event_ms, _graph_ms, _nbytes, _residue_grams
     from mfcnet_tpu_torch.ops import correlation as co
     from mfcnet_tpu_torch.ops import warp
     from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
@@ -404,29 +460,50 @@ def readings(breakdown: bool, variants: bool, tree: Path,
             lambda grid=grid: F.grid_sample(
                 maps, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True))
-    # mfc_warp_abs alone: the C entry point on ready coordinates
+    # mfc_warp_abs alone: the C entry point on its ready inputs (the first
+    # design took absolute coordinates, formed in PyTorch; the 2D-tile one
+    # takes the normalized grid and forms them itself), and the whole
+    # grid_sample_bilinear call as a caller sees it, from the normalized grid
     Ba, Ca, Ha, Wa = ABS_SHAPE
     img = torch.randn(ABS_SHAPE, generator=gen).cuda()
     fx, fy, grid = _abs_coords(
         (torch.randn(Ba, 2, Ha, Wa, generator=gen) * 8.0).cuda(), Ha, Wa)
+    gx, gy = grid[..., 0].contiguous(), grid[..., 1].contiguous()
     res = torch.empty_like(img)
     lib = kernel_lib()
+    from mfcnet_tpu_torch.ops import _build
+
+    first = len(_build._SIGNATURES["warp.cu"]["mfc_warp_abs"][0]) == 12
 
     def warp_abs():
-        rc = lib.mfc_warp_abs(img.data_ptr(), fx.data_ptr(), fy.data_ptr(),
-                              res.data_ptr(), Ba, Ca, Ha, Wa, Ha, Wa, 0,
-                              stream_of(img))
+        if first:
+            rc = lib.mfc_warp_abs(img.data_ptr(), fx.data_ptr(),
+                                  fy.data_ptr(), res.data_ptr(), Ba, Ca, Ha,
+                                  Wa, Ha, Wa, 0, stream_of(img))
+        else:
+            rc = lib.mfc_warp_abs(img.data_ptr(), gx.data_ptr(),
+                                  gy.data_ptr(), res.data_ptr(), Ba, Ca, Ha,
+                                  Wa, Ha, Wa, 0, 1, 0, stream_of(img))
         if rc != 0:
             raise RuntimeError(f"mfc_warp_abs: cudaError {rc}")
         return res
 
-    err = (warp_abs() - warp._sample_abs_plain(img, fx, fy)).abs().max()
-    if err.item() > WARP_ATOL["float32"]:
-        raise AssertionError(f"warp_abs: kernel != plain ({err.item()})")
-    calls["warp_abs alone f32 2x3x256x320"] = (
-        warp_abs, lambda: F.grid_sample(img, grid, mode="bilinear",
-                                        padding_mode="border",
-                                        align_corners=False))
+    def whole():
+        return warp.grid_sample_bilinear(img, gx, gy, False, "border")
+
+    want = warp.grid_sample_bilinear_plain(img, gx, gy, False, "border")
+    for label, fn in (("warp_abs", warp_abs), ("grid_sample_bilinear", whole)):
+        err = (fn() - want).abs().max().item()
+        if err > WARP_ATOL["float32"]:
+            raise AssertionError(f"{label}: kernel != plain ({err})")
+
+    def library():
+        return F.grid_sample(img, grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    calls["warp_abs alone f32 2x3x256x320"] = (warp_abs, library)
+    calls["grid_sample_bilinear f32 2x3x256x320"] = (whole, library)
+    out["warp_abs bound ms"] = _nbytes(img, gx, gy, res) / PEAK_BYTES * 1e3
     b1, b1_inputs = b1_calls(gen, out)
     calls.update(b1)
     if breakdown:
@@ -473,19 +550,20 @@ def readings(breakdown: bool, variants: bool, tree: Path,
                     _graph_ms(probe)
         b1_variants(vlib, *b1_inputs, out)
     if raft_f32:
-        out["raft_update f32"] = raft_f32_readings()
+        raft_f32_readings(out)
     if phases:
         out.update(b1_phases())
     return out
 
 
-def in_turns(tree: Path, breakdown: bool):
+def in_turns(tree: Path, breakdown: bool, raft_f32: bool):
     """A (``tree``) B (this checkout) B A, a process each; the best reading
     of each tree per timed key."""
     turns = []
     for t in (tree, ROOT, ROOT, tree):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--time-tree",
-               str(t)] + (["--breakdown"] if breakdown else [])
+               str(t)] + (["--breakdown"] if breakdown else []) + (
+                   ["--raft-f32"] if raft_f32 else [])
         line = subprocess.run(cmd, capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -514,10 +592,9 @@ def main():
     args = ap.parse_args()
     if args.tree is not None:
         print(card(), flush=True)
-        print(json.dumps(in_turns(args.tree.resolve(), args.breakdown)),
-              flush=True)
+        print(json.dumps(in_turns(args.tree.resolve(), args.breakdown,
+                                  args.raft_f32)), flush=True)
         extra = [f for f, on in (("--variants", args.variants),
-                                 ("--raft-f32", args.raft_f32),
                                  ("--phases", args.phases)) if on]
         if extra:
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
