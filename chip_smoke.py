@@ -5,11 +5,13 @@
 Drives the port's main paths -- the video tracker with TernausNetMulti-Basic
 at full width (T=3, 5 classes, bf16) and ``decode="device"``: at 480x640
 without flow and with the frozen RAFT flow provider (raft_large widths,
-12 iterations, fused update step), at 512x640 with the frozen UnFlow
-provider (its only widths), the offline flow CLI's batched forward, and
-the training CLI (the same model with frozen RAFT and depth in the step) --
-through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in five
-phases; a failing phase raises and the script exits non-zero:
+12 iterations, fused update step), TernausNetMulti-Large with RAFT and
+depth, four streams at once (``num_streams=4``, ``track_on_frame_streams``),
+at 512x640 with the frozen UnFlow provider (its only widths), the offline
+flow CLI's batched forward, and the training CLI (the same model with
+frozen RAFT and depth in the step) -- through its hand-written CUDA kernels
+(``mfcnet_tpu_torch/csrc``), in five phases; a failing phase raises and the
+script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -30,20 +32,31 @@ phases; a failing phase raises and the script exits non-zero:
    VGG stage's shapes within the tolerances stated beside them;
 3. the slices: seeded random weights, synthetic frames, ``track_on_frames``
    in incremental and full mode, without flow, with RAFT (and once with
-   depth) and with UnFlow; every kernel's launch count, set to 0 just
-   before a main-path run and read just after, must have risen on the
-   paths that run it; f32 parity mode checks
-   incremental against full and the path through the kernels against the
-   path through the plain versions; the correlation is held to its plain
+   depth) and with UnFlow; TernausNetMulti-Large (its 22-channel head:
+   class maps, raw RAFT flows, depth) over 16 frames incremental and 6
+   full, where ``flow_warp`` must stay at 0 launches; four streams of 24,
+   24, 20 and 13 frames through one 4-stream RAFT engine, one solve, one
+   warp and one decode a lockstep step; every kernel's launch count, set
+   to 0 just before a main-path run and read just after, must have risen
+   on the paths that run it; the path through the kernels is held
+   against the path through the plain versions (on every RAFT path, the
+   4-stream one included, and the 4-stream decode), f32 parity mode
+   checks incremental against full and each of the four streams against
+   a single-stream run (heats within 1e-3, tip RMSE within 0.5 px, rows
+   byte-equal counted); the correlation is held to its plain
    version and to a float64 reference on the UnFlow provider's own conv3
    features, in the tracker and in the offline CLI (the share of the
    tolerance each difference uses printed beside it);
-4. timings: tracker frames/s on the three paths, decode ms/frame, each
+4. timings: tracker frames/s on the three paths, aggregate and
+   per-stream frames/s at 1, 2, 4 and 8 streams without flow and with
+   RAFT, the Large RAFT path's frames/s, decode ms/frame, each
    provider's share of the frame, each kernel against its plain version,
    its bound and, where one PyTorch call computes the same function, that
    call (for the correlation ``torch.bmm`` of its residue sub-grids' Gram
-   matrices, products only); the device operations of one flood-kernel
-   call;
+   matrices, products only), also at the 4-stream engine's shapes (the
+   update step at 9,600 tokens, the decode's kernels on 4 images and 16
+   masks, the warp over 8 maps: ``calls`` of their kernels); the device
+   operations of one flood-kernel call;
 5. training (``phase_train``): the training CLI in process on packs of
    the port's generator -- run A at full width, 480x640, batch 4, frozen
    RAFT (bf16 fused update) and depth in the step, the base trained, bf16,
@@ -108,6 +121,9 @@ PATH_KERNELS = {
     "no_flow": CC_KERNELS,
     "raft": CC_KERNELS + ("flow_warp", "raft_update"),
     "unflow": CC_KERNELS + ("flow_warp", "backward_warp", "correlation"),
+    # the Large head warps nothing: flow_warp must stay at 0 there
+    "large": CC_KERNELS + ("raft_update",),
+    "streams": CC_KERNELS + ("flow_warp", "raft_update"),
     "train": ("flow_warp", "raft_update", "flow_warp_bwd"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
@@ -115,6 +131,12 @@ PATH_KERNELS = {
 # the card's power limit, which is printed beside them)
 PEAK_BYTES, PEAK_BF16, PEAK_TF32, PEAK_F32 = 3.35e12, 989e12, 495e12, 67e12
 FLOW_FRAMES, FLOW_ITERS = 24, 12
+#: the Large path's incremental run; the multi-stream path's four streams
+#: (unequal: the padded steps' results are dropped); the streams timed at
+#: each B of phase 4, and their length
+LARGE_FRAMES = 16
+STREAM_LENGTHS = (24, 24, 20, 13)
+TIMED_STREAMS, TIMED_STREAM_FRAMES = (1, 2, 4, 8), 24
 # the UnFlow path: frames whose half is a multiple of 64
 UH, UW, UNFLOW_FRAMES = 512, 640, 18
 # kernel-vs-plain tolerances. flow_warp: the kernel forms its coordinates
@@ -140,6 +162,13 @@ RAFT_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-3, 1e-2)}
 #: most a class probability may move, one step of the float16 heats the
 #: tracker keeps at a probability near 1/C = 0.2
 FLOW_PROB_TOL = 2.0 ** -13
+#: the same for the Large path, whose head reads the flow raw (the 11x11
+#: conv's 4 x 121 flow taps): a flipped bf16 rounding in the update step
+#: moves the flow by a few hundredths of a pixel, and at these random widths
+#: a flow difference of d px moves a class probability by about 0.15 d;
+#: 2^-8 holds 0.025 px of it. The Basic head only resamples maps by the
+#: flow and moves far less
+LARGE_PROB_TOL = 2.0 ** -8
 #: the same for the UnFlow path, whose random provider gives flows of ~6 px
 #: (RAFT's: ~17 px), so that a lost flow moves the probabilities less: half
 #: the limit. Its flow may differ by more: three stacked bf16 networks of
@@ -540,34 +569,66 @@ def _warp_abs_backward_warp(img, flow):
                                      padding_mode="border")
 
 
-def _device_events(fn):
-    """(name, device us) of every kernel and copy the device ran for one
-    call of ``fn``. The trace can drop the first device events of a
-    profiling session, so the session opens with marker kernels (a bitwise
-    not, which ``fn`` does not run) and counts what follows the last of
-    them; a session that recorded no marker at all (seen on the card) is
-    run again, up to three times."""
+#: marker kernels (a bitwise not, which no measured call runs) on each side
+#: of a profiled call, the seconds of host time after the opening and the
+#: closing ones, and the sessions tried before the trace is given up
+MARKS, SETTLE_S, SESSIONS = 3, 0.02, 8
+
+
+def _profiled(fn):
+    """One ``torch.profiler`` session (CUDA activity) around one call of
+    ``fn``: (its result, [(name, device us)] of the kernels and copies it
+    ran, whether the trace is whole, wall ms of the call). The card's trace
+    has dropped device events of a session, at its start and after its
+    opening markers, so MARKS markers open the call and MARKS close it; the
+    trace is whole when all of them were recorded, and the call's events
+    are then those between the two groups."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
-    for _ in range(3):  # a session that recorded not even its markers
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                marker.bitwise_not_()
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
-        if marks:
-            break
-    return [(e.name, e.time_range.elapsed_us())
-            for e in events[marks[-1] + 1 if marks else 0:]]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(MARKS):
+            marker.bitwise_not_()
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for _ in range(MARKS):
+            marker.bitwise_not_()
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+    whole = (len(marks) == 2 * MARKS
+             and marks[MARKS - 1] - marks[0] == MARKS - 1
+             and marks[-1] - marks[MARKS] == MARKS - 1)
+    if whole:
+        inside = events[marks[MARKS - 1] + 1:marks[MARKS]]
+    else:  # what the trace kept of the call
+        inside = [e for e in events if "bitwise_not" not in e.name]
+    return out, [(e.name, e.time_range.elapsed_us()) for e in inside], \
+        whole, wall
+
+
+def _device_events(fn):
+    """(name, device us) of every kernel and copy the device ran for one
+    call of ``fn``, from the first whole trace of up to SESSIONS (see
+    ``_profiled``); raises if none was whole."""
+    fn()
+    for i in range(SESSIONS):
+        _, events, whole, _ = _profiled(fn)
+        if whole:
+            return events
+        log(f"profiler session {i + 1} of {SESSIONS} lost device events "
+            f"(kept {len(events)} of the call's); tried again")
+    raise RuntimeError(f"the profiler lost device events in all {SESSIONS} "
+                       "sessions; the call's device operations are unknown")
 
 
 def _count_device_kernels(fn):
@@ -1256,14 +1317,21 @@ def _plain_flow_kernels():
     return stack
 
 
-def _keep_probs(engine):
-    """Make ``engine`` keep the (H, W, C) float32 probabilities of its
-    newest window as ``engine.kept_probs``, beside what it returns."""
+def _probs(engine, logits):
+    """float32 probabilities of an engine's logits: (H, W, C) for one
+    stream, (B, H, W, C) for B."""
     import torch
 
+    probs = torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
+    return probs if engine.num_streams > 1 else probs[0]
+
+
+def _keep_probs(engine):
+    """Make ``engine`` keep the float32 probabilities of its newest window
+    (``_probs``) as ``engine.kept_probs``, beside what it returns."""
+
     def outputs(logits):
-        probs = torch.softmax(logits.float(), dim=1)
-        engine.kept_probs = probs.permute(0, 2, 3, 1)[0]
+        engine.kept_probs = _probs(engine, logits)
         return type(engine)._outputs(engine, logits)
 
     engine._outputs = outputs
@@ -1304,7 +1372,8 @@ def _compare_with_plain_kernels(what, engine, plain_engine, frames,
                                 prob_tol=FLOW_PROB_TOL, flow_tol=0.1):
     """A bf16 engine through the kernels against an engine of the same
     weights through the plain versions (``plain_kernels()``: the context
-    that swaps them in), window by window over the first frames, on the
+    that swaps them in), window by window over the first frames (one
+    frame, or a (B, H, W, 3) stack a step for B streams), on the
     probabilities the engines themselves decoded. ``window_flow(engine)``
     gives the flow of an engine's newest window."""
     import torch
@@ -1334,9 +1403,9 @@ def _compare_with_plain_kernels(what, engine, plain_engine, frames,
         # what a faulty warp would do to the same window: the plain head on
         # the plain engine's maps with the flow taken away
         with torch.no_grad(), plain_kernels():
-            p_zero = torch.softmax(plain_engine.model.fuse_nchw(
+            p_zero = _probs(plain_engine, plain_engine.model.fuse_nchw(
                 plain_engine.seg_buf, optflow=torch.zeros_like(f_want),
-                depth=None).float(), dim=1).permute(0, 2, 3, 1)[0]
+                depth=plain_engine.depth_buf))
         fault = min(fault, (p_zero - p_want).abs().max().item())
         top2 = p_got.topk(2, dim=-1).values
         differ = got[0] != want[0]
@@ -1376,6 +1445,32 @@ def _compare_with_plain_kernels(what, engine, plain_engine, frames,
 def _depth_frames(frames):
     """(n, H, W) uint8 stand-in depth maps: the frames' red channel."""
     return np.ascontiguousarray(frames[..., 0])
+
+
+def _parity_incremental_full(what, engines, frames, depth=None, n=8):
+    """f32 parity mode: the incremental and the full engine step by step
+    over ``n`` frames; returns (max |heat diff|, worst class-mask
+    mismatch, windows compared)."""
+    heat, mism, compared = 0.0, 0.0, 0
+    for i in range(n):
+        d = None if depth is None else depth[i]
+        outs = {m: e.step_async(frames[i], d) for m, e in engines.items()}
+        if outs["full"] is None:
+            continue
+        heat = max(heat, (outs["incremental"][-1].float()
+                          - outs["full"][-1].float()).abs().max().item())
+        mism = max(mism, (outs["incremental"][0] != outs["full"][0]
+                          ).float().mean().item())
+        compared += 1
+    log(f"{what}, f32 parity mode, incremental vs full: {compared} windows, "
+        f"max |heat diff| {heat:.4g}, class-mask mismatch {mism:.4%}")
+    # the feature ring reorders no arithmetic, but cuDNN sees the earlier
+    # frames' encoder at batch 1 (ring) or batch 2 (window): float32 sums in
+    # another order, at most a float16 heat step or two; the argmax of
+    # nearly tied probabilities may flip on it (reported)
+    if heat > 1e-3 or mism > 0.01:
+        raise AssertionError(f"{what}: f32 incremental != full")
+    return heat, mism, compared
 
 
 def phase_flow_slice(frames):
@@ -1467,16 +1562,7 @@ def phase_flow_slice(frames):
                                flow_model=flow_model, device="cuda")
             for m in ("incremental", "full")
         }
-        heat, mism, compared = 0.0, 0.0, 0
-        for i in range(8):
-            outs = {m: e.step_async(frames[i]) for m, e in engines.items()}
-            if outs["full"] is None:
-                continue
-            heat = max(heat, (outs["incremental"][2].float()
-                              - outs["full"][2].float()).abs().max().item())
-            mism = max(mism, (outs["incremental"][0] != outs["full"][0]
-                              ).float().mean().item())
-            compared += 1
+        _parity_incremental_full("flow path", engines, frames)
         with tempfile.TemporaryDirectory() as d:
             rows = {
                 m: track_on_frames(frames[:12], None, e.cfg, d, name=m,
@@ -1487,16 +1573,9 @@ def phase_flow_slice(frames):
         both = ~np.isnan(rows["incremental"]) & ~np.isnan(rows["full"])
         row_diff = (np.abs(rows["incremental"][both] - rows["full"][both]).max()
                     if both.any() else 0.0)
-        log(f"flow path, f32 parity mode, incremental vs full: {compared} "
-            f"windows, max |heat diff| {heat:.4g}, class-mask mismatch "
-            f"{mism:.4%}; 12-frame rows: NaN pattern equal "
-            f"{bool(same_nan.all())}, max |row diff| {row_diff:.4g} px")
-        # the feature ring reorders no arithmetic, but cuDNN sees the earlier
-        # frames' encoder at batch 1 (ring) or batch 2 (window): float32
-        # sums in another order, at most a float16 heat step or two; the
-        # argmax of nearly tied probabilities may flip on it (reported)
-        if heat > 1e-3 or mism > 0.01:
-            raise AssertionError("flow path: f32 incremental != full")
+        log(f"flow path, f32 parity mode, incremental vs full, 12-frame "
+            f"rows: NaN pattern equal {bool(same_nan.all())}, max |row diff| "
+            f"{row_diff:.4g} px")
 
     # one short run with depth inputs
     dmodel = get_multiframe_segmentation_model(
@@ -1513,6 +1592,242 @@ def phase_flow_slice(frames):
         "(8, 12)")
     torch.cuda.synchronize()
     return engine, launches, fused
+
+
+def phase_large_slice(frames):
+    """TernausNetMulti-Large at full width: no warp, the T class maps, the
+    T-1 raw RAFT flows and the T depth maps into a 22-channel head, bf16,
+    RAFT x12 with the fused update step, depth, device decode. Returns
+    (engine, depth frames, launches of the main-path run, fused frames)."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+    )
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.ops import raft_update as ru
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Large", C, T, add_optflow_inputs=True,
+        add_depth_inputs=True, generator=gen)
+    flow_model = init_weights(RAFT(iters=FLOW_ITERS), gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    in_ch = model.multiframe_net.multiframe_net[0].in_channels
+    log(f"Large path: TernausNetMulti-Large full width (VGG16 encoder, "
+        f"num_filters=64), {n_params} parameters, head input {in_ch} "
+        f"channels ({T} x {C} class maps, {T - 1} x 2 raw flows, {T} depth "
+        f"maps), + frozen RAFT x{FLOW_ITERS} (fused update step), T={T} "
+        f"{H}x{W} bf16, device decode, seed {SEED}")
+    if in_ch != T * C + 2 * (T - 1) + T:
+        raise AssertionError(f"Large head: {in_ch} input channels")
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True,
+                        add_depth_inputs=True)
+    engine = InferenceEngine(model, cfg, flow_model=flow_model)
+    n = LARGE_FRAMES
+    fused = n - (T - 1)
+    depth = _depth_frames(frames[:n])
+    with tempfile.TemporaryDirectory() as d:
+        _reset_all_launches()
+        _, fps = track_on_frames(frames[:n], None, cfg, d, name="large",
+                                 depth_frames=depth, engine=engine)
+        launches = _all_launches()
+        csv = np.loadtxt(Path(d) / "large_tracked.csv", delimiter=",")
+    _check_rows(csv, n)
+    log(f"Large path, incremental: {n} frames -> CSV {csv.shape} (first "
+        f"run, includes warm-up: {fps:.2f} frames/s)")
+    log(f"kernel launches on the Large path: {json.dumps(launches)}")
+    _require_launches("large", launches)
+    if launches["flow_warp"] != 0:
+        raise AssertionError("the Large head warps nothing: flow_warp was "
+                             f"launched {launches['flow_warp']} times")
+    if launches["raft_update"] != FLOW_ITERS * fused \
+            or ru.COUNTS["hx_fills"] != fused:
+        raise AssertionError(
+            f"expected {FLOW_ITERS} update steps and 1 fill of hx per fused "
+            f"frame ({fused} frames), got {launches}, {ru.COUNTS}")
+    with tempfile.TemporaryDirectory() as d:
+        track_on_frames(frames[:6], model,
+                        dataclasses.replace(cfg, mode="full"), d,
+                        name="full", depth_frames=depth[:6],
+                        flow_model=flow_model, device="cuda")
+        _check_rows(np.loadtxt(Path(d) / "full_tracked.csv", delimiter=","),
+                    6)
+    log("Large path, full mode: 6 frames -> CSV (6, 12)")
+
+    _compare_with_plain_kernels(
+        "Large", engine, InferenceEngine(model, cfg, flow_model=flow_model),
+        frames, _plain_flow_kernels,
+        lambda e: out.flow_from_feature_ring(*e.flow_state, (H, W),
+                                             e.flow_model),
+        prob_tol=LARGE_PROB_TOL)
+    with parity_mode():
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        engines = {
+            m: InferenceEngine(model, dataclasses.replace(c32, mode=m),
+                               flow_model=flow_model, device="cuda")
+            for m in ("incremental", "full")
+        }
+        _parity_incremental_full("Large path", engines, frames, depth)
+    torch.cuda.synchronize()
+    return engine, depth, launches, fused
+
+
+def _stream_frames(lengths, seed=SEED):
+    """One synthetic stream per length, each from its own seed."""
+    return [synthetic_frames(n, seed=seed + b) for b, n in enumerate(lengths)]
+
+
+def _tip_rmse(a, b):
+    """(tip RMSE in px over the tip coordinates both runs detected, rows
+    whose detections (NaN pattern) differ) of two N x 12 row arrays."""
+    ta, tb = a[:, :8], b[:, :8]
+    both = np.isfinite(ta) & np.isfinite(tb)
+    rmse = (float(np.sqrt(np.mean((ta[both] - tb[both]) ** 2)))
+            if both.any() else 0.0)
+    return rmse, int((np.isnan(a) != np.isnan(b)).any(axis=1).sum())
+
+
+def phase_streams_slice():
+    """The multi-stream tracker at full width: TernausNetMulti-Basic with
+    RAFT x12 (fused update step), bf16, device decode, num_streams=4, four
+    synthetic streams of STREAM_LENGTHS frames from seeds 0..3 through
+    ``track_on_frame_streams``. Returns (engine, launches of the main-path
+    run, lockstep fused steps)."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+    )
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.track import decode_device as dd
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frame_streams,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    B = len(STREAM_LENGTHS)
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True, generator=gen)
+    flow_model = init_weights(RAFT(iters=FLOW_ITERS), gen)
+    streams = _stream_frames(STREAM_LENGTHS)
+    log(f"streams path: TernausNetMulti-Basic + frozen RAFT x{FLOW_ITERS}, "
+        f"num_streams={B}, streams of {list(STREAM_LENGTHS)} frames (seeds "
+        f"{SEED}..{SEED + B - 1}), {H}x{W} bf16, device decode")
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True)
+    engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                             num_streams=B)
+    steps = max(STREAM_LENGTHS) - (T - 1)
+    names = [f"s{b}" for b in range(B)]
+    with tempfile.TemporaryDirectory() as d:
+        _reset_all_launches()
+        dd.reset_tier_counts()
+        rows, fps = track_on_frame_streams(streams, None, cfg, d,
+                                           names=names, engine=engine)
+        launches = _all_launches()
+        tiers = dict(dd.TIER_COUNTS)
+        csvs = [np.loadtxt(Path(d) / f"{n}_tracked.csv", delimiter=",")
+                for n in names]
+    for csv, n in zip(csvs, STREAM_LENGTHS):
+        if csv.shape != (n, 12) or not np.isnan(csv[:T - 1]).all():
+            raise AssertionError(f"stream CSV {csv.shape}, {n} frames")
+    if not any(np.isfinite(c).any() for c in csvs):
+        raise AssertionError("no keypoint detected in any stream")
+    log(f"streams path: {B} CSVs {[c.shape for c in csvs]} (first run, "
+        f"includes warm-up: {fps:.2f} frames/s in all)")
+    log(f"kernel launches on the streams path: {json.dumps(launches)}; "
+        f"decode calls per tier (one a step): {json.dumps(tiers)}")
+    _require_launches("streams", launches)
+    # one solve, one warp and one decode a lockstep step, whatever B
+    if launches["raft_update"] != FLOW_ITERS * steps \
+            or launches["flow_warp"] != steps or sum(tiers.values()) != steps:
+        raise AssertionError(
+            f"expected {FLOW_ITERS} update steps, 1 warp and 1 decode per "
+            f"lockstep step ({steps} steps), got {launches}, {tiers}")
+
+    # the kernels at the batched shapes against their plain versions: the
+    # flow path's two inside the engine, the decode's on its (B, ...) maps
+    def window_flow(e):
+        return out.flow_from_feature_ring(*e.flow_state, (H, W),
+                                          e.flow_model)
+
+    n_cmp = min(STREAM_LENGTHS)
+    stacked = [np.stack([s[i] for s in streams]) for i in range(n_cmp)]
+    _compare_with_plain_kernels(
+        f"{B}-stream RAFT", engine,
+        InferenceEngine(model, cfg, flow_model=flow_model, num_streams=B),
+        stacked, _plain_flow_kernels, window_flow)
+    _keep_probs(engine)
+    engine.reset()
+    for f in stacked[:6]:
+        engine.step_async(f)
+    probs = engine.kept_probs
+    del engine._outputs, engine.kept_probs
+    got = dd.decode_keypoints_device(probs, 100)
+    with _plain_kernels():
+        want = dd.decode_keypoints_device(probs, 100)
+    _equal(f"decode rows of {B} streams", got, want)
+    log(f"decode of {B} streams' windows through the kernels == through "
+        f"the plain versions, one call")
+
+    # f32 parity mode: each stream against a single-stream engine on the
+    # same frames: heats within 1e-3, tip RMSE within 0.5 px (BASELINE.json)
+    with parity_mode():
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        multi = InferenceEngine(model, c32, flow_model=flow_model,
+                                device="cuda", num_streams=B)
+        singles = [InferenceEngine(model, c32, flow_model=flow_model,
+                                   device="cuda") for _ in range(B)]
+        heat = 0.0
+        for f in stacked[:8]:
+            got = multi.step_async(f)
+            refs = [e.step_async(f[b]) for b, e in enumerate(singles)]
+            if got is not None:
+                ref = torch.stack([r[2] for r in refs])
+                heat = max(heat, (got[2].float() - ref.float()
+                                  ).abs().max().item())
+        with tempfile.TemporaryDirectory() as d:
+            multi_rows, _ = track_on_frame_streams(
+                streams, None, c32, d, names=names, engine=multi)
+            single_rows = [track_on_frames(s, None, c32, d, name=f"r{b}",
+                                           engine=e)[0]
+                           for b, (s, e) in enumerate(zip(streams, singles))]
+        equal = sum(int(np.array_equal(x, y, equal_nan=True))
+                    for a, b_ in zip(multi_rows, single_rows)
+                    for x, y in zip(a, b_))
+        stats = [_tip_rmse(a, b_) for a, b_ in zip(multi_rows, single_rows)]
+    log(f"streams path, f32 parity mode, {B} streams against single-stream "
+        f"runs: max |heat diff| {heat:.4g} (limit 1e-3); tip RMSE per stream "
+        f"{[round(r, 6) for r, _ in stats]} px (limit 0.5), rows whose "
+        f"detections differ {[m for _, m in stats]}; rows byte-equal: "
+        f"{equal} of {sum(STREAM_LENGTHS)}")
+    if heat > 1e-3 or max(r for r, _ in stats) > 0.5:
+        raise AssertionError("streams path: a stream departs from its "
+                             "single-stream run")
+    torch.cuda.synchronize()
+    return engine, launches, steps
 
 
 def phase_unflow_slice(frames):
@@ -2250,6 +2565,28 @@ def phase_flow_timings(engine, frames, smi):
         f"float32 UpdateBlock (cuDNN, graph replay) {f_lib[False]:.4f} ms "
         f"with TF32 off, {f_lib[True]:.4f} ms with TF32 on (cuDNN's default)")
 
+    # the update step at the 4-stream engine's solve: its streams' (T-1)
+    # pairs each, one launch chain
+    sb = len(STREAM_LENGTHS) * B
+    key = f"raft_update@{sb * N} tokens"
+    sargs = _raft_update_inputs(ub, torch.bfloat16, sb, H8, W8, gen)
+    sstep = in_solve(sargs)
+    times[key] = _in_turns(
+        key, sstep, lambda: ru.raft_update_plain(*sargs), smi,
+        f"bf16, {sb}x{H8}x{W8} tokens ({len(STREAM_LENGTHS)} streams' "
+        f"solve), through a solve's workspace; kernel: device time in "
+        f"CUDA-graph replays, plain: eager", kreps=20, preps=3,
+        timer=_graph_ms, ptimer=_event_ms)
+    bounds[key] = bound_of(sargs, sstep())[:2]
+    with torch.no_grad():
+        scorr = torch.randn(sb, N, corr.shape[-1], generator=gen
+                            ).cuda().bfloat16()
+        s_args = library_args(sargs, scorr)
+        library[key] = _graph_ms(lambda: ub(*s_args), 10, 5)
+    log(f"[{smi}] {key}: bound {bounds[key][0]:.5f} ms ({bounds[key][1]}); "
+        f"unfused UpdateBlock (cuDNN, bf16, graph replay) "
+        f"{library[key]:.4f} ms")
+
     # the warp at the main path's shapes and on its own last window
     Cw = C
     maps = engine.seg_buf[:, Cw:].reshape(B, Cw, H, W).contiguous()
@@ -2284,6 +2621,136 @@ def phase_flow_timings(engine, frames, smi):
     log(f"[{smi}] flow_warp: bound {bounds['flow_warp'][0]:.5f} ms "
         f"({bounds['flow_warp'][1]}: {_nbytes(maps, fl, got)} B at 3.35 "
         f"TB/s); F.grid_sample {library['flow_warp']:.4f} ms")
+    return times, bounds, library
+
+
+def _fps_by_streams(what, model, cfg, flow_model, streams_all, smi):
+    """Aggregate and per-stream frames/s of ``track_on_frame_streams`` at
+    each B of TIMED_STREAMS (an engine each, a warm-up run, then the timed
+    run on B host streams of TIMED_STREAM_FRAMES frames)."""
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        track_on_frame_streams,
+    )
+
+    by_b = {}
+    for B in TIMED_STREAMS:
+        engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                                 num_streams=B)
+        streams = streams_all[:B]
+        with tempfile.TemporaryDirectory() as d:
+            track_on_frame_streams([s[:6] for s in streams], None, cfg, d,
+                                   engine=engine)
+            _, fps = track_on_frame_streams(streams, None, cfg, d,
+                                            engine=engine)
+        by_b[B] = fps
+        log(f"[{smi}] {what}, {B} stream(s) x {len(streams[0])} host "
+            f"frames: {fps:.2f} frames/s in all, {fps / B:.2f} per stream")
+    return by_b
+
+
+def phase_stream_timings(noflow_engine, flow_engine, large, streams_engine,
+                         smi):
+    """Phase 4 for the slices of this script's later part: frames/s
+    against the number of streams on the no-flow and RAFT paths, the
+    Large RAFT path's frames/s, and the decode's and the warp's kernels at
+    the 4-stream engine's shapes against their plain versions, bounds and
+    library calls. Returns (times, bounds, library) by ``kernel@call``."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.ops.warp import _flow_grid
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import track_on_frames
+
+    streams_all = _stream_frames([TIMED_STREAM_FRAMES] * max(TIMED_STREAMS),
+                                 seed=SEED + 10)
+    fps = {}
+    for what, e in (("no-flow path", noflow_engine),
+                    ("RAFT path", flow_engine)):
+        fps[what] = _fps_by_streams(what, e.model, e.cfg, e.flow_model,
+                                    streams_all, smi)
+    large_engine, depth = large
+    n = len(depth)
+    with tempfile.TemporaryDirectory() as d:
+        _, fl = track_on_frames(streams_all[0][:n], None, large_engine.cfg,
+                                d, depth_frames=depth, engine=large_engine)
+    fps["Large RAFT path"] = {1: fl}
+    log(f"[{smi}] Large path (RAFT x{FLOW_ITERS}, depth, no warp), 1 "
+        f"stream x {n} host frames: {fl:.2f} frames/s")
+    log(json.dumps({"frames_per_s_by_streams": fps}))
+
+    # the 4-stream engine's newest window: its class maps decode as B
+    # images in the union tier and 4B masks in the per-blob tier, and its
+    # B*(T-1) earlier maps warp in one call
+    times, bounds, library = {}, {}, {}
+    e = streams_engine
+    B = e.num_streams
+    _keep_probs(e)
+    e.reset()
+    streams = _stream_frames([T] * B, seed=SEED + 20)
+    for i in range(T):
+        e.step_async(np.stack([s[i] for s in streams]))
+    pred = e.kept_probs.argmax(-1)
+    del e._outputs, e.kept_probs
+    ucls = torch.zeros_like(pred, dtype=torch.int8)
+    for src, dst in ((3, 1), (1, 2), (4, 3), (2, 4)):
+        ucls[pred == src] = dst
+    u = ucls.contiguous()
+    m = class_masks(u)
+    calls = decode_calls(u, m)
+    for name, call, label in (
+            ("union_flood_cc_cid", "union_flood_cc_cid", f"{B} images"),
+            ("onehot_stats", "onehot_stats union tier", f"{B} images"),
+            ("flood_cc_cid", "flood_cc_cid", f"{4 * B} masks")):
+        kern, plain, ins = calls[call]
+        key = f"{name}@{label}"
+        for k_out, p_out in zip(kern(), plain()):
+            _equal(key, k_out, p_out)
+        times[key] = _in_turns(
+            key, kern, plain, smi, f"{call} on the {B}-stream engine's "
+            f"window; kernel: device time in CUDA-graph replays, plain: "
+            f"eager", kreps=20, preps=3, timer=_graph_ms, ptimer=_event_ms)
+        nbytes = _nbytes(*ins, *kern())
+        bounds[key] = (nbytes / PEAK_BYTES * 1e3, "bytes")
+        if name == "onehot_stats":
+            idx, vals = stats_rows(*ins)
+            acc = torch.zeros(B * K, 6, dtype=torch.int64, device="cuda")
+            library[key] = _graph_ms(lambda: (acc.index_add_(0, idx, vals),))
+        log(f"[{smi}] {key}: bound {bounds[key][0]:.5f} ms (bytes: {nbytes} "
+            f"B at {PEAK_BYTES / 1e12} TB/s)"
+            + (f", library index_add_ {library[key]:.4f} ms"
+               if key in library else ""))
+
+    maps = e.seg_buf[:, C:].reshape(B * (T - 1), C, H, W).contiguous()
+    with torch.no_grad():
+        fl = out.flow_from_feature_ring(*e.flow_state, (H, W), e.flow_model)
+    fl = fl.reshape(B * (T - 1), 2, H, W).contiguous()
+    key = f"flow_warp@{B * (T - 1)} maps"
+    got = warp.flow_warp(maps, fl, (576, 720))
+    want = warp.flow_warp_plain(maps, fl, (576, 720))
+    err = (got.float() - want.float()).abs().max().item()
+    if err > WARP_ATOL["bfloat16"]:
+        raise AssertionError(f"{key}: kernel != plain ({err})")
+    times[key] = _in_turns(
+        key, lambda: warp.flow_warp(maps, fl, (576, 720)),
+        lambda: warp.flow_warp_plain(maps, fl, (576, 720)), smi,
+        f"device time in CUDA-graph replays; bf16 maps {tuple(maps.shape)} "
+        f"of the {B}-stream engine, its flow, max |flow| "
+        f"{fl.abs().max().item():.1f} px; max |kernel - plain| {err:.3g}",
+        kreps=20, preps=3, timer=_graph_ms)
+    w_bytes = _nbytes(maps, fl, got) / PEAK_BYTES * 1e3
+    w_ops = maps.shape[0] * H * W * (30 + 7 * C) / PEAK_F32 * 1e3
+    bounds[key] = (max(w_bytes, w_ops),
+                   "bytes" if w_bytes >= w_ops else "operations")
+    gx, gy = _flow_grid(fl, (576, 720))
+    grid = torch.stack([gx, gy], -1).to(maps.dtype)
+    library[key] = _graph_ms(lambda: F.grid_sample(
+        maps, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 20)
+    log(f"[{smi}] {key}: bound {bounds[key][0]:.5f} ms ({bounds[key][1]}); "
+        f"F.grid_sample {library[key]:.4f} ms")
     return times, bounds, library
 
 
@@ -2636,28 +3103,14 @@ TRAIN_TRACED = 3
 
 
 def _traced(fn):
-    """Run ``fn`` once under ``torch.profiler`` (CUDA activity), opened
-    with marker kernels as ``_device_events`` does; returns (its result,
-    [(kernel name, device us)], wall ms of the call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            marker.bitwise_not_()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
-    return out, [(e.name, e.time_range.elapsed_us())
-                 for e in events[marks[-1] + 1 if marks else 0:]], wall
+    """Run ``fn`` once under ``_profiled``; returns (its result, [(kernel
+    name, device us)], wall ms of the call). A step is not run twice, so a
+    trace that is not whole is used as it is, and said so."""
+    out, events, whole, wall = _profiled(fn)
+    if not whole:
+        log("the profiler lost device events of the traced step; its "
+            "breakdown below counts what was recorded")
+    return out, events, wall
 
 
 #: kernel-name patterns of the train step's device time, in order of test
@@ -3346,11 +3799,17 @@ def main():
     uframes = synthetic_frames(UNFLOW_FRAMES, hw=(UH, UW))
     engine, launches_noflow, _ = phase_slice(frames)
     flow_engine, launches_raft, fused_raft = phase_flow_slice(frames)
+    large_engine, large_depth, launches_large, fused_large = \
+        phase_large_slice(frames)
+    streams_engine, launches_streams, steps_streams = phase_streams_slice()
     unflow_engine, launches_unflow, fused_unflow = phase_unflow_slice(uframes)
     phase_offline(uframes, smi)
     _, times, bounds, library = phase_timings(engine, frames, smi)
     for t, b, lib in (phase_flow_timings(flow_engine, frames, smi),
-                      phase_unflow_timings(unflow_engine, uframes, smi)):
+                      phase_unflow_timings(unflow_engine, uframes, smi),
+                      phase_stream_timings(engine, flow_engine,
+                                           (large_engine, large_depth),
+                                           streams_engine, smi)):
         times.update(t)
         bounds.update(b)
         library.update(lib)
@@ -3361,16 +3820,21 @@ def main():
     library.update(lib)
     import torch
 
-    # per frame on the tracker paths, per micro-step on the training path
+    # per frame on the tracker paths (a lockstep step of the streams path
+    # fuses one frame of each stream, padding included), per micro-step on
+    # the training path
     paths = {"no_flow": (launches_noflow, len(frames) - (T - 1)),
              "raft": (launches_raft, fused_raft),
+             "large": (launches_large, fused_large),
+             "streams": (launches_streams,
+                         steps_streams * len(STREAM_LENGTHS)),
              "unflow": (launches_unflow, fused_unflow),
              "train": (launches_train, n_micro)}
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
-         # over the four main-path runs, each counted from 0
+         # over the six main-path runs, each counted from 0
          "launches": sum(c[name] for c, _ in paths.values()),
          "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
          "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},

@@ -13,10 +13,15 @@ port's trainer; ``--use_ema True`` loads that checkpoint's EMA weights.
 torchvision ``raft_large`` ``.pth`` (its key names load directly), and
 without it the provider keeps its seeded random weights.
 ``--add_depth_inputs True`` reads one depth video per RGB video from
-``--depth_videos_dir``. The tracker runs on the card; ``--device cpu``
-asks for the CPU, and without a card the default is an error. Flags of
-later slices are accepted and raise an error that names their ROADMAP
-item.
+``--depth_videos_dir``. ``--model_type`` TernausNetMulti-Basic warps the
+earlier maps by the flow; TernausNetMulti-Large takes the flow raw into
+its head. ``--parallel_videos P`` tracks the videos in groups of up to P
+at once, through one engine with ``num_streams`` = the group's size (one
+engine kept per group size): each group's frames are read into memory
+first, and the CSVs are those of the sequential run. The tracker runs on
+the card; ``--device cpu`` asks for the CPU, and without a card the
+default is an error. Flags of later slices are accepted and raise an
+error that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
 from mfcnet_tpu_torch.track.tracker import (
     InferenceEngine,
     TrackerConfig,
+    track_on_frame_streams,
     track_on_video,
 )
 
@@ -50,7 +56,6 @@ _MODELS = [
 #: flag -> (value that means "not used", ROADMAP item that ports it)
 _LATER_FLAGS = {
     "artifact": (None, "Queue 1 item 11 (serving and scale)"),
-    "parallel_videos": (1, "Queue 1 item 11 (serving and scale)"),
     "spatial_shards": (1, "Queue 1 item 11 (serving and scale)"),
 }
 
@@ -94,7 +99,9 @@ def build_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--model_scale", type=float, default=1.0)
     p.add_argument("--spatial_shards", type=int, default=1)
-    p.add_argument("--parallel_videos", type=int, default=1)
+    p.add_argument("--parallel_videos", type=int, default=1,
+                   help="track this many videos at once through one "
+                        "batched engine; rows equal the sequential run's")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
@@ -196,8 +203,6 @@ def main(argv=None):
                 load_reference_state_dict(args.load_wts_flow_model))
             logger.info(
                 f"Loaded flow model weights from {args.load_wts_flow_model}")
-    engine = InferenceEngine(model, cfg, flow_model=flow_model,
-                             device=args.device)
     videos = list_video_files(args.videos_dir)
     if args.num_videos > 0:
         videos = videos[: args.num_videos]
@@ -211,16 +216,67 @@ def main(argv=None):
                 f"{len(videos)} videos but {len(depth_videos)} depth videos")
     else:
         depth_videos = [None] * len(videos)
+    engines = {}
+
+    def engine_for(streams):
+        if streams not in engines:
+            engines[streams] = InferenceEngine(
+                model, cfg, flow_model=flow_model, device=args.device,
+                num_streams=streams)
+        return engines[streams]
+
     fps_all = []
-    for video, depth_video in zip(videos, depth_videos):
-        logger.info(f"Processing video: {video}")
-        _, fps = track_on_video(video, None, cfg, out_dir,
-                                depth_video_path=depth_video, logger=logger,
-                                engine=engine)
-        fps_all.append(fps)
+    P = max(1, args.parallel_videos)
+    if P > 1:
+        items = list(zip(videos, depth_videos))
+        for i in range(0, len(items), P):
+            group = items[i:i + P]
+            streams = [read_all_frames(v, W, H) for v, _ in group]
+            dstreams = None
+            if args.add_depth_inputs:
+                dstreams = [read_all_frames(d, W, H, gray=True)
+                            for _, d in group]
+                for (v, d), fs, ds in zip(group, streams, dstreams):
+                    if len(fs) != len(ds):
+                        raise ValueError(
+                            f"RGB({len(fs)}) vs depth({len(ds)}) frame-count "
+                            f"mismatch: {v} / {d}")
+            names = [Path(v).stem for v, _ in group]
+            logger.info(f"Tracking {len(group)} videos at once: {names}")
+            _, fps = track_on_frame_streams(
+                streams, None, cfg, out_dir, names=names,
+                depth_streams=dstreams, logger=logger,
+                engine=engine_for(len(group)))
+            fps_all.append(fps)
+    else:
+        for video, depth_video in zip(videos, depth_videos):
+            logger.info(f"Processing video: {video}")
+            _, fps = track_on_video(video, None, cfg, out_dir,
+                                    depth_video_path=depth_video,
+                                    logger=logger, engine=engine_for(1))
+            fps_all.append(fps)
     if fps_all:
         logger.info(f"mean throughput: {np.mean(fps_all):.1f} frames/s")
     return fps_all
+
+
+def read_all_frames(path, W, H, gray=False):
+    """A whole video as resized RGB (or grayscale) uint8 frames in
+    memory."""
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    out = []
+    try:
+        while True:
+            ret, f = cap.read()
+            if not ret:
+                return out
+            f = cv2.cvtColor(f, cv2.COLOR_BGR2GRAY if gray
+                             else cv2.COLOR_BGR2RGB)
+            out.append(cv2.resize(f, (W, H)))
+    finally:
+        cap.release()
 
 
 if __name__ == "__main__":

@@ -5,9 +5,11 @@ scripts/train_multiframe_detection.py).
     python -m mfcnet_tpu_torch.cli.train_multiframe_detection \
         --dataset JIGSAWS --packed_dir PACKS --add_optflow_inputs True ...
 
-TernausNetMulti-Basic (weights drawn from ``--seed`` as the JAX trainer
-draws them, ``models.init_weights_lecun``), with the frozen flow provider (RAFT, or UnFlow)
-inside the step and depth inputs as the flags say; the base frozen (the
+TernausNetMulti-Basic or -Large (weights drawn from ``--seed`` as the JAX
+trainer draws them, ``models.init_weights_lecun``), with the frozen flow
+provider (RAFT, or UnFlow) inside the step and depth inputs as the flags
+say: Basic warps the earlier maps by flow(frame_i -> frame_0), Large
+takes flow(frame_0 -> frame_i) raw into its head; the base frozen (the
 default) or trained (``--train_base_model True``); float32 or bfloat16
 (``--compute_dtype``, by cast, see ``train/steps.py``); gradient
 accumulation and EMA. Reads packs (``--packed_dir``: no OpenCV, the way
@@ -59,11 +61,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def build_flow_fn(optflow_model: str, input_hw, weights_path=None,
-                  compute_dtype=None, device="cuda", seed: int = 1):
+                  compute_dtype=None, device="cuda", seed: int = 1,
+                  basic: bool = True):
     """The frozen provider of the train step: frames (B, T, H, W, 3)
     -> (B, T-1, H, W, 2) float32 flow at the input resolution
-    (``track/outputs.py::flow_for_training``), under ``no_grad`` in the
-    step. The provider runs in the step's compute dtype: a bfloat16 RAFT
+    (``track/outputs.py::flow_for_training``; ``basic`` False gives the
+    Large variant's direction), under ``no_grad`` in the step. The provider runs in the step's compute dtype: a bfloat16 RAFT
     runs its update iterations through the fused update kernel. Without
     ``weights_path`` its weights are random from ``seed``."""
     from mfcnet_tpu_torch.models import init_weights
@@ -91,7 +94,7 @@ def build_flow_fn(optflow_model: str, input_hw, weights_path=None,
         model.fused_update = dt == torch.bfloat16
 
     def flow_fn(frames):
-        return flow_for_training(frames.to(dt), model)
+        return flow_for_training(frames.to(dt), model, basic=basic)
 
     flow_fn.model = model
     return flow_fn
@@ -157,7 +160,7 @@ def main(argv=None):
     if args.add_optflow_inputs:
         flow_fn = build_flow_fn(args.optflow_model, (H, W),
                                 args.load_wts_flow_model, args.compute_dtype,
-                                device)
+                                device, basic="Basic" in args.model_type)
         if not args.load_wts_flow_model:
             logger.warning("--add_optflow_inputs without "
                            "--load_wts_flow_model: the frozen flow provider "

@@ -58,12 +58,14 @@ def _bn(sd, key, p, st):
 
 
 def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
-    """JAX ``{'params', 'batch_stats'}`` of a TernausNetMulti-Basic
-    MultiFrameSegmenter -> a complete ``state_dict`` for ``model`` (the
-    port's module of the same widths; it fixes the encoder's layer
-    indices and the ``conv1``..``conv5`` aliases). The head's first conv
-    takes as many input channels as the JAX kernel has (T more with
-    depth inputs)."""
+    """JAX ``{'params', 'batch_stats'}`` of a TernausNetMulti-Basic or
+    -Large MultiFrameSegmenter -> a complete ``state_dict`` for ``model``
+    (the port's module of the same widths and variant; it fixes the
+    encoder's layer indices and the ``conv1``..``conv5`` aliases). Both
+    variants keep the head under ``multiframe_net.multiframe_net``, as
+    ``torch_convert.convert_multiframe_ternausnet`` reads it; the head's
+    first conv takes as many input channels as the JAX kernel has (T more
+    with depth inputs, and for Large 2(T-1) more with flow inputs)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     base = params["base"]

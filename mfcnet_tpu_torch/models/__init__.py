@@ -1,8 +1,9 @@
 """Model registry (counterpart of ``mfcnet_tpu/models/__init__.py``).
 
-Builds ``TernausNetMulti-Basic`` (with or without flow and depth inputs)
-and the single-frame ``TernausNet16``; every other model type the JAX
-package knows raises an error that names its ROADMAP item.
+Builds ``TernausNetMulti-Basic`` and ``TernausNetMulti-Large`` (with or
+without flow and depth inputs) and the single-frame ``TernausNet16``;
+every other model type the JAX package knows raises an error that names
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,9 +18,8 @@ from mfcnet_tpu_torch.models.mfcnet import (
 )
 from mfcnet_tpu_torch.models.ternausnet import TernausNet16
 
-_LATER = {
-    "TernausNetMulti-Large": "ROADMAP.md Queue 1 item 2 (MultiFrameNet Large)",
-}
+_VARIANTS = {"TernausNetMulti-Basic": "basic",
+             "TernausNetMulti-Large": "large"}
 _ZOO = "ROADMAP.md Queue 1 item 10 (rest of the model zoo)"
 _KNOWN_FAMILIES = ("TernausNetMulti", "DeepLabMulti", "FCNMulti",
                    "SegFormerMulti", "HRNetMulti", "UNetMulti",
@@ -44,14 +44,13 @@ def get_multiframe_segmentation_model(
     """Build a multi-frame model by the reference's model-type string.
 
     ``add_optflow_inputs`` changes no parameter of the Basic variant
-    (the flow only warps); ``add_depth_inputs`` widens the head's first
-    conv by T channels. ``scale`` < 1 shrinks the channel widths as in the JAX registry;
+    (the flow only warps) and widens the Large head's first conv by
+    2(T-1) channels (the raw flows); ``add_depth_inputs`` widens the
+    head's first conv by T channels. ``scale`` < 1 shrinks the channel widths as in the JAX registry;
     ``generator`` seeds the random initialization (PyTorch's default
     init schemes, drawn from this generator)."""
-    if model_type != "TernausNetMulti-Basic":
+    if model_type not in _VARIANTS:
         family = model_type.rsplit("-", 1)[0]
-        if model_type in _LATER:
-            raise NotImplementedError(f"{model_type}: {_LATER[model_type]}")
         if family in _KNOWN_FAMILIES:
             raise NotImplementedError(f"{model_type}: {_ZOO}")
         raise ValueError(f"Model type {model_type} not recognized")
@@ -61,7 +60,9 @@ def get_multiframe_segmentation_model(
         stage_convs=_scaled_vgg(VGG16_STAGES, scale),
     )
     model = MultiFrameSegmenter(base, num_classes, num_input_frames,
-                                add_depth_inputs=add_depth_inputs)
+                                variant=_VARIANTS[model_type],
+                                add_depth_inputs=add_depth_inputs,
+                                add_optflow_inputs=add_optflow_inputs)
     if generator is not None:
         init_weights(model, generator)
     return model.eval()

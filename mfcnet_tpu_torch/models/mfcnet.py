@@ -6,8 +6,16 @@ are stacked on the channel axis and fused by a 4-conv head. With optical
 flow the earlier frames' maps (and depth maps) are first warped into the
 newest frame (``ops/warp.py::flow_warp``, on the reference's cropped
 576x720 grid); the flow channels themselves do not reach the head. With
-depth inputs the T depth maps follow the class maps. Module names follow
-the reference (``base_model``, ``multiframe_net.multiframe_net.{0..9}``).
+depth inputs the T depth maps follow the class maps.
+
+The Large variant warps nothing: the T class maps, the T-1 raw flows
+(channels in (i, xy) order) and the T depth maps go into a wider head in
+that order, JAX's NHWC ``[seg_t..., flow_i..., depth_t...]``. Its head is
+sized at construction (the JAX head is sized lazily by flax at init), so
+it is built for the inputs it will be given and refuses others.
+
+Module names follow the reference (``base_model``,
+``multiframe_net.multiframe_net.{0..9}``) for both variants.
 
 The head's train mode is the JAX head's (biased batch variance, JAX's
 running-statistics update); eval mode uses the running statistics, as
@@ -91,24 +99,43 @@ class MultiFrameHead(nn.Sequential):
 
 
 class MultiFrameNet(nn.Module):
-    """Fusion module, variant 'basic': optional flow-warp alignment of the
-    earlier frames' maps, then the head over class (and depth) channels.
-    ``parity_grid`` reproduces the reference's 576x720 crop grid."""
+    """Fusion module. ``variant='basic'``: optional flow-warp alignment of
+    the earlier frames' maps, then the head over class (and depth)
+    channels; ``parity_grid`` reproduces the reference's 576x720 crop
+    grid. ``variant='large'``: no warp; class, raw flow and depth channels
+    all go into the head, which ``add_optflow_inputs`` and
+    ``add_depth_inputs`` size (``parity_grid`` is unused)."""
 
     def __init__(self, num_classes: int, num_frames: int,
                  variant: str = "basic", add_depth_inputs: bool = False,
-                 parity_grid: bool = True):
+                 parity_grid: bool = True, add_optflow_inputs: bool = False):
         super().__init__()
-        if variant != "basic":
-            raise NotImplementedError(
-                f"MFCNet variant {variant!r} is not ported yet: "
-                "ROADMAP.md Queue 1 item 2 (MultiFrameNet Large)"
-            )
+        if variant not in ("basic", "large"):
+            raise ValueError(f"unknown MFCNet variant: {variant!r}")
+        self.variant = variant
         self.num_classes = num_classes
         self.num_frames = num_frames
         self.parity_grid = parity_grid
+        self.add_depth_inputs = add_depth_inputs
+        self.add_optflow_inputs = add_optflow_inputs
         in_ch = num_frames * (num_classes + int(add_depth_inputs))
+        if variant == "large":
+            in_ch += 2 * (num_frames - 1) * int(add_optflow_inputs)
         self.multiframe_net = MultiFrameHead(in_ch, num_classes, num_frames)
+
+    def _check_large_inputs(self, optflow, depth):
+        """A Large head runs only on the inputs it was sized for."""
+        for name, flag, built, given in (
+                ("optflow", "add_optflow_inputs", self.add_optflow_inputs,
+                 optflow is not None),
+                ("depth", "add_depth_inputs", self.add_depth_inputs,
+                 depth is not None)):
+            if built and not given:
+                raise ValueError(f"this Large head was built with {flag}="
+                                 f"True and was called without {name}")
+            if given and not built:
+                raise ValueError(f"this Large head was built without {flag} "
+                                 f"and was called with {name}")
 
     def forward(self, seg, optflow=None, depth=None):
         """seg: (B, T*C, H, W) stacked maps, newest frame first; optflow:
@@ -116,6 +143,16 @@ class MultiFrameNet(nn.Module):
         depth: optional (B, T, H, W) -> (B, C, H, W) fused logits."""
         B, _, H, W = seg.shape
         T, C = self.num_frames, self.num_classes
+        if self.variant == "large":
+            self._check_large_inputs(optflow, depth)
+            parts = [seg]
+            if optflow is not None:
+                parts.append(optflow.reshape(B, 2 * (T - 1), H, W)
+                             .to(seg.dtype))
+            if depth is not None:
+                parts.append(depth.to(seg.dtype))
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            return self.multiframe_net(x)
         parts = [seg]
         if depth is not None:
             parts.append(depth.to(seg.dtype))
@@ -146,7 +183,8 @@ class MultiFrameSegmenter(nn.Module):
 
     def __init__(self, base: nn.Module, num_classes: int, num_frames: int,
                  variant: str = "basic", base_output: str = "exp",
-                 add_depth_inputs: bool = False, parity_grid: bool = True):
+                 add_depth_inputs: bool = False, parity_grid: bool = True,
+                 add_optflow_inputs: bool = False):
         super().__init__()
         if base_output != "exp":
             raise NotImplementedError(
@@ -156,7 +194,8 @@ class MultiFrameSegmenter(nn.Module):
         self.base_model = base
         self.multiframe_net = MultiFrameNet(
             num_classes, num_frames, variant,
-            add_depth_inputs=add_depth_inputs, parity_grid=parity_grid)
+            add_depth_inputs=add_depth_inputs, parity_grid=parity_grid,
+            add_optflow_inputs=add_optflow_inputs)
         self.num_classes = num_classes
         self.num_frames = num_frames
 

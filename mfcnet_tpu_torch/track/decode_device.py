@@ -20,9 +20,13 @@ Component stats come from three tiers, each exact:
      more than K components.
 
 The JAX package picks the tier on the device with ``lax.cond``; here the
-flags are read on the host once per frame (one small sync) and the
-branch runs eagerly. :data:`TIER_COUNTS` counts the frames each tier
-decoded.
+flags are read on the host once per call (one small sync) and the
+branch runs eagerly. A call with leading dimensions (the engine's B
+streams) decodes in lockstep, as the JAX package does: the one host read
+picks the tier for all of them, and any stream's conflict or overflow
+sends every stream to the per-blob tier. Every tier is exact, so no row
+depends on the tier. :data:`TIER_COUNTS` counts the calls (the engine's
+steps, not frames) each tier decoded.
 
 Ties in every top-k resolve to the lowest index, as ``jax.lax.top_k``
 does: a stable descending sort, first k.
@@ -39,7 +43,7 @@ import torch
 from mfcnet_tpu_torch.ops.cc import base_stats, connected_components, union_stats
 from mfcnet_tpu_torch.ops.peaks import gaussian_blur, local_maxima
 
-#: frames decoded by each tier since the last reset
+#: decode calls (engine steps) of each tier since the last reset
 TIER_COUNTS = {"union": 0, "per_blob": 0, "exact": 0}
 #: component slots of the union and per-blob tiers
 K_SLOTS = 256

@@ -10,7 +10,10 @@ the flow is divided by the 0.5 resize factor and rescaled x2 (bilinear,
 
 Frames and flows are NCHW here, the layout of the engine's ring buffers:
 frames (B, T, 3, H, W), flow (B, T-1, 2, H, W). The provider's own
-methods take and return NHWC.
+methods take and return NHWC. B is the engine's stream axis (1 for one
+video): every helper runs all B*(T-1) pairs of a window in one provider
+solve, stream-major (pair b*(T-1) + i is stream b's newest frame with its
+frame i + 1), and reshapes the result back per stream.
 """
 
 from __future__ import annotations
@@ -79,27 +82,40 @@ def flow_for_window(frames_norm, flow_model):
     return fl.reshape(B, T - 1, 2, H, W)
 
 
-def flow_for_training(frames_norm, flow_model):
+def flow_for_training(frames_norm, flow_model, basic: bool = True):
     """The train step's frozen provider (``mfcnet_tpu/models/raft.py:568-
     633``, ``unflow.py:218-247``; reference src/engine.py:39-53): (B, T, H,
     W, 3) normalized frames, newest first, in the provider's dtype ->
-    (B, T-1, H, W, 2) float32 flow(frame_i -> frame_0) of the Basic
-    variant (image1 = frame_i, image2 = frame_0), at the input resolution
-    (the tracker instead runs at half resolution and rescales). All T-1
-    pairs are one batched solve; with split encoders (RAFT) the newest
-    frame's features are computed once."""
+    (B, T-1, H, W, 2) float32 flow at the input resolution (the tracker
+    instead runs at half resolution and rescales). ``basic``: the Basic
+    variant's flow(frame_i -> frame_0) (image1 = frame_i, image2 =
+    frame_0); otherwise the Large variant's flow(frame_0 -> frame_i)
+    (image1 = frame_0, its context encoder once). All T-1 pairs are one
+    batched solve; with split encoders (RAFT) the newest frame's features
+    are computed once."""
     from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
 
     B, T, H, W, _ = frames_norm.shape
     f0 = frames_norm[:, 0]
     rest = frames_norm[:, 1:].reshape(B * (T - 1), H, W, 3)
+
+    def rep(t):
+        return repeat_for_pairs(t, T - 1)
+
     if hasattr(flow_model, "flow_from_features"):
-        net, inp = flow_model.context(rest)
-        fl = flow_model.flow_from_features(
-            flow_model.features(rest),
-            repeat_for_pairs(flow_model.features(f0), T - 1), net, inp)
+        f_rest = flow_model.features(rest)
+        f_0 = rep(flow_model.features(f0))
+        if basic:
+            net, inp = flow_model.context(rest)
+            fl = flow_model.flow_from_features(f_rest, f_0, net, inp)
+        else:
+            net, inp = flow_model.context(f0)
+            fl = flow_model.flow_from_features(f_0, f_rest, rep(net),
+                                               rep(inp))
+    elif basic:
+        fl = flow_model(rest, rep(f0))
     else:
-        fl = flow_model(rest, repeat_for_pairs(f0, T - 1))
+        fl = flow_model(rep(f0), rest)
     return fl.float().reshape(B, T - 1, H, W, 2)
 
 

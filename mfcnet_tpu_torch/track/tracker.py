@@ -13,7 +13,11 @@ by which the fusion head warps the earlier maps; incremental mode keeps a
 ring of the provider's per-frame features where the provider has split
 encoders (RAFT) and a ring of normalized frames where it has none
 (UnFlow). With ``add_depth_inputs`` a depth map per frame joins the
-head's input.
+head's input. The Large variant's head takes the same flow raw.
+
+``InferenceEngine(num_streams=B)`` and :func:`track_on_frame_streams`
+track B videos in lockstep, one batched step per frame; each stream's
+rows are those of its own run.
 
 No module-level ``cv2``: OpenCV is imported only to read video, to draw
 the overlay and for the exact host decode (``decode='host'`` or a
@@ -38,7 +42,7 @@ import torch
 
 _ROADMAP = {
     "spatial_shards": "ROADMAP.md Queue 1 item 11 (not ported: one card)",
-    "fused_dispatch": "ROADMAP.md Queue 1 item 11 (CUDA graphs for the step)",
+    "fused_dispatch": "ROADMAP.md Queue 1 item 11a (the step as a CUDA graph)",
 }
 
 
@@ -338,7 +342,8 @@ def render_overlay(frame_rgb, mask_array):
 
 
 class InferenceEngine:
-    """Per-frame inference on one device, one stream.
+    """Per-frame inference on one device, for one stream or for B streams
+    in lockstep (``num_streams``).
 
     'incremental': one base forward per frame into a ring buffer of the T
     newest class maps (NCHW, channel order (t, c), newest first); the
@@ -358,7 +363,20 @@ class InferenceEngine:
     ``size_multiple`` (UnFlow: 64) needs half-resolution frames of such a
     size; other sizes raise a ``ValueError`` (there is no resize). With
     ``cfg.add_depth_inputs`` a ring (or queue) of depth maps, uint8 scaled
-    to [0, 1], feeds the head.
+    to [0, 1], feeds the head. The Basic head warps the earlier maps by
+    the flow; the Large head takes the same flow raw.
+
+    ``num_streams`` B > 1 tracks B videos at once: every ring carries a
+    leading stream axis (seg (B, T*C, H, W), depth (B, T, H, W), the
+    provider's feature ring (B, T, h, w, 256) with its (B, ...) context
+    state, or its frame ring (B, T, 3, H, W)), ``step_async`` takes a
+    lockstep (B, H, W, 3) uint8 stack (and (B, H, W) depth) and returns
+    (B, ...) outputs from one base forward over B frames (B*T in full
+    mode), one head call, one provider solve over the B*(T-1) pairs and
+    one decode with one host read. Each stream's outputs are those of its
+    own single-stream engine. With B == 1 the engine takes one (H, W, 3)
+    frame and returns unbatched outputs. ``stream_shards`` > 1 (the JAX
+    package's stream axis over a device mesh) raises.
 
     The engine runs copies of ``model`` and ``flow_model`` cast to
     ``cfg.dtype`` on ``device``: the card by default, wherever the caller
@@ -368,9 +386,15 @@ class InferenceEngine:
     engine through its plain convolutions."""
 
     def __init__(self, model, cfg: TrackerConfig, flow_model=None,
-                 device="cuda"):
+                 device="cuda", num_streams: int = 1,
+                 stream_shards: int = 1):
         cfg.check_ported()
+        if int(stream_shards) > 1:
+            raise NotImplementedError(
+                f"InferenceEngine(stream_shards={stream_shards}): "
+                "ROADMAP.md Queue 1 item 11d (not ported: one card)")
         self.cfg = cfg
+        self.num_streams = max(1, int(num_streams))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -408,22 +432,29 @@ class InferenceEngine:
         self.reset()
 
     def reset(self):
-        """Zero the ring buffers and the warmup queues (start of a video)."""
+        """Zero the ring buffers and the warmup queues (start of a video,
+        or of a group of B videos)."""
         cfg = self.cfg
-        T, C = cfg.num_input_frames, cfg.num_classes
+        B, T, C = self.num_streams, cfg.num_input_frames, cfg.num_classes
         H, W = cfg.input_height, cfg.input_width
-        self.seg_buf = torch.zeros(1, T * C, H, W, dtype=self.dtype,
+        self.seg_buf = torch.zeros(B, T * C, H, W, dtype=self.dtype,
                                    device=self.device)
         self.depth_buf = (
-            torch.zeros(1, T, H, W, dtype=self.dtype, device=self.device)
+            torch.zeros(B, T, H, W, dtype=self.dtype, device=self.device)
             if cfg.add_depth_inputs else None
         )
-        # split encoders: (feat_buf (1, T, h, w, 256), net, inp); otherwise
-        # the (1, T, 3, H, W) ring of normalized frames. Filled by the
+        # split encoders: (feat_buf (B, T, h, w, 256), net, inp); otherwise
+        # the (B, T, 3, H, W) ring of normalized frames. Filled by the
         # first T ingests, before the first fuse reads it
         self.flow_state = None
         self._frame_q = []
         self._depth_q = []
+
+    def _streams(self, x):
+        """A step's input with the stream axis: (B, ...) as given when
+        B > 1, the one stream's array with a new leading axis when B == 1."""
+        x = torch.as_tensor(x)
+        return x if self.num_streams > 1 else x[None]
 
     def _normalize(self, frames_u8):
         """(N, H, W, 3) uint8 -> (N, 3, H, W) normalized, engine dtype."""
@@ -431,38 +462,47 @@ class InferenceEngine:
         x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0
         return (x - self._mean) / self._std
 
-    def _depth(self, depth_u8, like_hw):
-        """(..., H, W) uint8 depth (None: zeros) -> engine dtype in [0, 1]."""
+    def _depth(self, depth_u8):
+        """(B, H, W) uint8 depth of a step (None: zeros) -> engine dtype in
+        [0, 1]."""
+        cfg = self.cfg
         if depth_u8 is None:
-            return torch.zeros(like_hw, dtype=self.dtype, device=self.device)
-        return torch.as_tensor(depth_u8).to(self.device).to(self.dtype) / 255.0
+            return torch.zeros(self.num_streams, cfg.input_height,
+                               cfg.input_width, dtype=self.dtype,
+                               device=self.device)
+        d = self._streams(depth_u8).to(self.device)
+        return d.to(self.dtype) / 255.0
 
     def _outputs(self, logits):
+        """(B, C, H, W) logits -> the decode's outputs, (B, ...) for B
+        streams and unbatched for one."""
         from mfcnet_tpu_torch.track.outputs import outputs_from_probs
 
         probs = torch.softmax(logits.float(), dim=1)
-        return outputs_from_probs(probs.permute(0, 2, 3, 1)[0], self.cfg)
+        out = outputs_from_probs(probs.permute(0, 2, 3, 1), self.cfg)
+        return out if self.num_streams > 1 else tuple(v[0] for v in out)
 
     @torch.no_grad()
     def step_async(self, frame_u8, depth_u8=None):
-        """Dispatch one (H, W, 3) uint8 frame (and its (H, W) uint8 depth
-        map with ``cfg.add_depth_inputs``); returns device tensors
-        (mask, aux...) or None during warmup."""
+        """Dispatch one step: an (H, W, 3) uint8 frame (and its (H, W)
+        uint8 depth map with ``cfg.add_depth_inputs``), or with B streams
+        a (B, H, W, 3) stack (and (B, H, W) depth). Returns device tensors
+        (mask, aux...), (B, ...) with B streams, or None during warmup."""
         from mfcnet_tpu_torch.track import outputs as out
 
         cfg = self.cfg
-        T, C = cfg.num_input_frames, cfg.num_classes
+        B, T, C = self.num_streams, cfg.num_input_frames, cfg.num_classes
         H, W = cfg.input_height, cfg.input_width
         if cfg.mode == "incremental":
-            x = self._normalize(torch.as_tensor(frame_u8)[None])
+            x = self._normalize(self._streams(frame_u8))
             seg_new = self.model.base_nchw(x)
             self.seg_buf = torch.cat(
                 [seg_new, self.seg_buf[:, : (T - 1) * C]], dim=1
             )
             if cfg.add_depth_inputs:
-                d = self._depth(depth_u8, (H, W))
                 self.depth_buf = torch.cat(
-                    [d[None, None], self.depth_buf[:, : T - 1]], dim=1
+                    [self._depth(depth_u8)[:, None],
+                     self.depth_buf[:, : T - 1]], dim=1
                 )
             if cfg.add_optflow_inputs and self.flow_split:
                 f_new, net, inp = out.flow_ingest(x, self.flow_model)
@@ -492,26 +532,25 @@ class InferenceEngine:
             return self._outputs(self.model.fuse_nchw(
                 self.seg_buf, optflow=optflow, depth=self.depth_buf))
         # full mode: newest-first window of raw frames (reference :251)
-        self._frame_q.append(frame_u8)
+        self._frame_q.append(self._streams(frame_u8))
         self._depth_q.append(depth_u8)
         if len(self._frame_q) > T:
             self._frame_q.pop(0)
             self._depth_q.pop(0)
         if len(self._frame_q) < T:
             return None
-        x = self._normalize(torch.stack(
-            [torch.as_tensor(f) for f in self._frame_q[::-1]]
-        ))
+        # (B, T, H, W, 3) -> B*T frames, stream-major, newest first
+        window = torch.stack(self._frame_q[::-1], dim=1)
+        x = self._normalize(window.reshape(B * T, H, W, 3))
         y = self.model.base_nchw(x)
-        depth = (
-            torch.stack([self._depth(d, (H, W))
-                         for d in self._depth_q[::-1]])[None]
-            if cfg.add_depth_inputs else None
-        )
-        optflow = (out.flow_for_window(x[None], self.flow_model)
+        depth = (torch.stack([self._depth(d) for d in self._depth_q[::-1]],
+                             dim=1)
+                 if cfg.add_depth_inputs else None)
+        optflow = (out.flow_for_window(x.reshape(B, T, 3, H, W),
+                                       self.flow_model)
                    if cfg.add_optflow_inputs else None)
         return self._outputs(self.model.fuse_nchw(
-            y.reshape(1, T * C, *y.shape[-2:]), optflow=optflow, depth=depth
+            y.reshape(B, T * C, H, W), optflow=optflow, depth=depth
         ))
 
     def step(self, frame_u8, depth_u8=None):
@@ -576,71 +615,123 @@ def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
     fetch_staged()
 
 
-def _track_stream(frame_iter, num_frames_total: int, name: str,
-                  engine: InferenceEngine, cfg: TrackerConfig, output_dir,
-                  logger=None):
-    """(frame, depth or None) pairs -> engine -> keypoint decode ->
-    tracker -> CSV (+ MP4). Returns (rows, frames/s)."""
+def _host_array(x):
+    """A frame or a stack of frames as a host numpy array."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _track_streams(steps, lengths, names, engine: InferenceEngine,
+                   cfg: TrackerConfig, output_dir, logger=None):
+    """Lockstep steps -> engine -> keypoint decode -> one tracker per
+    stream -> a CSV (+ MP4) each. ``steps`` yields (frames, depth, active):
+    the engine's input for one step (an (H, W, 3) frame and (H, W) depth
+    or None for a one-stream engine, (B, H, W, 3) and (B, H, W) for B
+    streams) and the streams whose own frame it is; the other streams'
+    results (padding) are dropped. ``lengths``: each stream's frame count,
+    the row hint of its :class:`KeypointTracker`. The host decode of the B
+    > 1 streams of a step runs on a pool of up to 8 threads. Returns (per-
+    stream rows, aggregate frames/s)."""
+    B = len(names)
     H, W = cfg.input_height, cfg.input_width
     engine.reset()
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    writer = None
+    writers = None
     if cfg.overlay:
         import cv2
 
-        writer = cv2.VideoWriter(
-            str(output_dir / f"{name}_tracked.mp4"),
-            cv2.VideoWriter_fourcc(*"mp4v"), cfg.output_fps, (W, H),
-        )
-    tracker = KeypointTracker(num_frames_total, cfg)
+        writers = [cv2.VideoWriter(str(output_dir / f"{name}_tracked.mp4"),
+                                   cv2.VideoWriter_fourcc(*"mp4v"),
+                                   cfg.output_fps, (W, H))
+                   for name in names]
+    trackers = [KeypointTracker(n, cfg) for n in lengths]
     t_start = time.perf_counter()
     frames_done = 0
     need_mask = cfg.overlay or cfg.decode != "device"
+    fallback = cfg.decode_tie_fallback
+    # the host decode of the streams of one step is independent (a tracker
+    # each) and runs in OpenCV's and scipy's C cores, which drop the GIL
+    pool = None
+    if cfg.decode != "device" and B > 1:
+        from concurrent.futures import ThreadPoolExecutor
 
-    def consume(frame, mask_np, aux_np, mask_handle, extras):
-        nonlocal frames_done
-        disp = (render_overlay(np.asarray(frame), mask_np)
+        pool = ThreadPoolExecutor(max_workers=min(B, 8))
+
+    def consume_one(b, frames, masks_np, aux_np, mask_handle, heat_handle):
+        disp = (render_overlay(_host_array(frames[b]), masks_np[b])
                 if cfg.overlay else None)
         if cfg.decode == "device":
-            fallback = cfg.decode_tie_fallback
-            tracker.update_device(
-                aux_np, mask_np, disp,
-                mask_provider=((lambda h=mask_handle: h.cpu().numpy())
-                               if fallback else None),
-                heat_provider=((lambda h=extras[0]: h.cpu().numpy())
-                               if extras and fallback else None),
+            trackers[b].update_device(
+                aux_np[b], None if masks_np is None else masks_np[b], disp,
+                mask_provider=((lambda h=mask_handle, bb=b:
+                                h[bb].cpu().numpy()) if fallback else None),
+                heat_provider=((lambda h=heat_handle, bb=b:
+                                h[bb].cpu().numpy())
+                               if fallback and heat_handle is not None
+                               else None),
             )
         else:
-            heats = aux_np.astype(np.float32)
-            tracker.update(mask_np, heats[..., 1], heats[..., 0], disp)
-        if writer is not None:
+            heats = aux_np[b].astype(np.float32)
+            trackers[b].update(masks_np[b], heats[..., 1], heats[..., 0],
+                               disp)
+        if writers is not None:
             import cv2
 
-            writer.write(cv2.cvtColor(disp, cv2.COLOR_RGB2BGR))
-        frames_done += 1
+            writers[b].write(cv2.cvtColor(disp, cv2.COLOR_RGB2BGR))
+
+    def consume(payload, masks_np, aux_np, mask_handle, extras):
+        """One lockstep step, for every stream still running at it."""
+        nonlocal frames_done
+        frames, active = payload
+
+        def one(b):
+            consume_one(b, frames, masks_np, aux_np, mask_handle,
+                        extras[0] if extras else None)
+
+        if pool is not None:
+            list(pool.map(one, active))
+        else:
+            for b in active:
+                one(b)
+        frames_done += len(active)
+
+    def on_skip(payload):
+        for b in payload[1]:
+            trackers[b].skip()
 
     def dispatch():
-        for frame, dframe in frame_iter:
-            yield frame, engine.step_async(frame, dframe)
+        for frames, depth, active in steps:
+            handles = engine.step_async(frames, depth)
+            if engine.num_streams == 1:  # give one stream its axis back
+                frames = (frames,)
+                if handles is not None:
+                    handles = tuple(h[None] for h in handles)
+            yield (frames, active), handles
 
     try:
-        _staged_fetch_loop(dispatch(), on_skip=lambda f: tracker.skip(),
-                           consume=consume, need_mask=need_mask,
-                           K=max(1, cfg.fetch_batch))
+        _staged_fetch_loop(dispatch(), on_skip=on_skip, consume=consume,
+                           need_mask=need_mask, K=max(1, cfg.fetch_batch))
     finally:
-        if writer is not None:
-            writer.release()
+        if pool is not None:
+            pool.shutdown(wait=True)
+        if writers is not None:
+            for w in writers:
+                w.release()
     elapsed = time.perf_counter() - t_start
-    csv_path = output_dir / f"{name}_tracked.csv"
-    np.savetxt(csv_path, tracker.rows, delimiter=",")
     fps = frames_done / max(elapsed, 1e-9)
+    for name, tracker in zip(names, trackers):
+        csv_path = output_dir / f"{name}_tracked.csv"
+        np.savetxt(csv_path, tracker.rows, delimiter=",")
+        if logger:
+            lmiss, rmiss = tracker.missing_rates
+            logger.info(f"Saved tracked results to {csv_path}")
+            logger.info(f"Missing centroids — left: {lmiss:.3f}, right: "
+                        f"{rmiss:.3f}")
     if logger:
-        lmiss, rmiss = tracker.missing_rates
-        logger.info(f"Saved tracked results to {csv_path}")
-        logger.info(f"Missing centroids — left: {lmiss:.3f}, right: "
-                    f"{rmiss:.3f}; {fps:.1f} frames/s")
-    return tracker.rows, fps
+        logger.info(f"{fps:.1f} frames/s" if B == 1 else
+                    f"Tracked {B} streams at once: {fps:.1f} frames/s in "
+                    f"all ({fps / B:.1f} per stream)")
+    return [t.rows for t in trackers], fps
 
 
 def track_on_frames(frames, model, cfg: TrackerConfig, output_dir,
@@ -658,13 +749,98 @@ def track_on_frames(frames, model, cfg: TrackerConfig, output_dir,
         engine = InferenceEngine(model, cfg, flow_model=flow_model,
                                  device=device)
 
-    def stream():
+    def steps():
         for i, frame in enumerate(frames):
             yield frame, (depth_frames[i] if depth_frames is not None
-                          else None)
+                          else None), (0,)
 
-    return _track_stream(stream(), len(frames), name, engine, cfg,
-                         output_dir, logger)
+    rows, fps = _track_streams(steps(), [len(frames)], [name], engine, cfg,
+                               output_dir, logger)
+    return rows[0], fps
+
+
+def track_on_frame_streams(streams, model, cfg: TrackerConfig, output_dir,
+                           names=None, depth_streams=None, logger=None,
+                           flow_model=None,
+                           engine: Optional[InferenceEngine] = None,
+                           prestacked: bool = False, device="cuda"):
+    """Track B videos at once through one engine with ``num_streams=B``
+    (counterpart of the JAX package's ``track_on_frame_streams``): all B
+    streams advance in lockstep, one batched step per frame, and each
+    keeps its own :class:`KeypointTracker` and writes its own
+    ``{name}_tracked.csv`` (and overlay MP4 with ``cfg.overlay``). Each
+    stream's rows are those of its own :func:`track_on_frames` run.
+
+    ``streams``: B sequences of (H, W, 3) uint8 frames; their lengths may
+    differ: a shorter stream is padded by repeating its last frame and
+    the padded steps' results are dropped. With ``prestacked``: N
+    lockstep (B, H, W, 3) batches (host arrays or tensors) instead, of
+    one length. ``depth_streams`` follows the same layout ((H, W) items,
+    or (B, H, W) batches). B == 1 runs :func:`track_on_frames`.
+    ``engine``: a built engine with ``num_streams=B`` (``model``,
+    ``flow_model`` and ``device`` are then ignored); otherwise one is built
+    on ``device``, the card unless the caller passes ``"cpu"``. The host
+    decode (``cfg.decode='host'``) of the B streams of a step runs on a
+    pool of up to 8 threads.
+
+    Returns (B per-stream row arrays, aggregate frames/s)."""
+    if prestacked:
+        N = len(streams)
+        B = int(streams[0].shape[0]) if N else 0
+        Ns = [N] * B
+
+        def get_batch(i):
+            return streams[i]
+
+        def get_depth(i):
+            return None if depth_streams is None else depth_streams[i]
+    else:
+        B = len(streams)
+        Ns = [len(s) for s in streams]
+        N = max(Ns) if B else 0
+        # stand-in for an empty stream, whose results are never consumed
+        zf = np.zeros((cfg.input_height, cfg.input_width, 3), np.uint8)
+
+        def pad_get(seqs, i, zero):
+            return np.stack([_host_array(s[min(i, len(s) - 1)]) if len(s)
+                             else zero for s in seqs])
+
+        def get_batch(i):
+            return pad_get(streams, i, zf)
+
+        def get_depth(i):
+            return (None if depth_streams is None
+                    else pad_get(depth_streams, i, zf[..., 0]))
+
+    names = (list(names) if names is not None
+             else [f"stream{b}" for b in range(B)])
+    if len(names) != B:
+        raise ValueError(f"{len(names)} names for {B} streams")
+    if B == 1:
+        frames = [x[0] for x in streams] if prestacked else streams[0]
+        dframes = None
+        if depth_streams is not None:
+            dframes = ([x[0] for x in depth_streams] if prestacked
+                       else depth_streams[0])
+        rows, fps = track_on_frames(frames, model, cfg, output_dir,
+                                    name=names[0], depth_frames=dframes,
+                                    logger=logger, flow_model=flow_model,
+                                    engine=engine, device=device)
+        return [rows], fps
+    if engine is None:
+        engine = InferenceEngine(model, cfg, flow_model=flow_model,
+                                 device=device, num_streams=B)
+    if engine.num_streams != B:
+        raise ValueError(f"the engine has num_streams={engine.num_streams}, "
+                         f"the call {B} streams")
+
+    def steps():
+        for i in range(N):
+            yield get_batch(i), get_depth(i), [b for b in range(B)
+                                               if i < Ns[b]]
+
+    return _track_streams(steps(), Ns, names, engine, cfg, output_dir,
+                          logger)
 
 
 def track_on_video(video_path, model, cfg: TrackerConfig, output_dir,
@@ -706,10 +882,11 @@ def track_on_video(video_path, model, cfg: TrackerConfig, output_dir,
                         return
                     dframe = cv2.resize(
                         cv2.cvtColor(d, cv2.COLOR_BGR2GRAY), (W, H))
-                yield frame, dframe
+                yield frame, dframe, (0,)
 
-        return _track_stream(frames(), n, Path(video_path).stem, engine,
-                             cfg, output_dir, logger)
+        rows, fps = _track_streams(frames(), [n], [Path(video_path).stem],
+                                   engine, cfg, output_dir, logger)
+        return rows[0], fps
     finally:
         vid.release()
         if depth_vid is not None:

@@ -93,7 +93,9 @@ def make_multiframe_train_step(loss_fns: Sequence[str],
     'frames' (B, T, H, W, 3) float32 normalized, newest first, 'mask'
     (B, H, W) int, optional 'depth' (B, T, H, W, 1). ``flow_fn``: frames
     -> (B, T-1, H, W, 2) flow, a frozen provider
-    (``track/outputs.py::flow_for_training``)."""
+    (``track/outputs.py::flow_for_training``); the Basic variant warps by
+    it (B1 in the backward when the base trains), the Large variant takes
+    it raw into its head."""
     cdt = resolve_dtype(compute_dtype)
 
     def train_step(state, batch):

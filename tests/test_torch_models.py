@@ -154,7 +154,7 @@ def test_reference_state_dict_keys_load(pair):
 
 
 @pytest.mark.parametrize("model_type,err", [
-    ("TernausNetMulti-Large", "Queue 1 item 2"),
+    ("DeepLabMulti-Large", "Queue 1 item 10"),
     ("HRNetMulti-Basic", "Queue 1 item 10"),
     ("NoSuchNet-Basic", "not recognized"),
 ])

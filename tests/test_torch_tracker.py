@@ -171,7 +171,7 @@ def test_cli_tracks_a_tiny_video(tmp_path):
     assert rows.shape == (6, 12)
     assert (out / "a_tracked.mp4").exists()
     with pytest.raises(SystemExit, match="Queue 1 item 11"):
-        main(args + ["--parallel_videos", "2"])
+        main(args + ["--spatial_shards", "2"])
     with pytest.raises(SystemExit, match="depth_videos_dir"):
         main(args + ["--add_depth_inputs", "true"])
     msgpack = list(args)
