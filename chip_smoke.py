@@ -7,9 +7,11 @@ at full width (T=3, 5 classes, bf16) and ``decode="device"``: at 480x640
 without flow and with the frozen RAFT flow provider (raft_large widths,
 12 iterations, fused update step), TernausNetMulti-Large with RAFT and
 depth, four streams at once (``num_streams=4``, ``track_on_frame_streams``),
-at 512x640 with the frozen UnFlow provider (its only widths), the offline
-flow CLI's batched forward, and the training CLI (the same model with
-frozen RAFT and depth in the step) -- through its hand-written CUDA kernels
+at 512x640 with the frozen UnFlow provider (its only widths), at 480x640
+with the frozen FlowFormer++ provider (default widths, 12 iterations), the
+offline flow CLI's batched forward, and the training CLI (the same model
+with frozen RAFT, and again with FlowFormer++, and depth in the step) --
+through its hand-written CUDA kernels
 (``mfcnet_tpu_torch/csrc``), in five phases; a failing phase raises and the
 script exits non-zero:
 
@@ -40,7 +42,11 @@ script exits non-zero:
    to 0 just before a main-path run and read just after, must have risen
    on the paths that run it; the path through the kernels is held
    against the path through the plain versions (on every RAFT path, the
-   4-stream one included, and the 4-stream decode), f32 parity mode
+   4-stream one included, the FFPP one, and the 4-stream decode); the
+   FlowFormer++ path over 24 frames incremental and 6 full (one warp a
+   fused frame, no other flow kernel: the provider is PyTorch operations),
+   its f32 provider on the card held to the same model on the CPU at the
+   engine's 2 pairs of 240x320 (``FFPP_F32_TOL``); f32 parity mode
    checks incremental against full and each of the four streams against
    a single-stream run (heats within 1e-3, tip RMSE within 0.5 px, rows
    byte-equal counted); the correlation is held to its plain
@@ -49,7 +55,8 @@ script exits non-zero:
    tolerance each difference uses printed beside it);
 4. timings: tracker frames/s on the three paths, aggregate and
    per-stream frames/s at 1, 2, 4 and 8 streams without flow and with
-   RAFT, the Large RAFT path's frames/s, decode ms/frame, each
+   RAFT, the Large RAFT path's frames/s, the FFPP path's frames/s at 1
+   and 4 streams, its provider's ms and share and its decode ms/frame, each
    provider's share of the frame, each kernel against its plain version,
    its bound and, where one PyTorch call computes the same function, that
    call (for the correlation ``torch.bmm`` of its residue sub-grids' Gram
@@ -63,11 +70,13 @@ script exits non-zero:
    grad_accum 2, EMA, one epoch of 6 micro-steps, validation, a
    checkpoint that the port's tracker loads (and its EMA), an interrupted
    copy resumed at its batch; run B with the base frozen in float32 for 2
-   steps; the JAX package's learning recipe at 64x64; the flow warp's
+   steps; run F, run A with ``--optflow_model FlowFormerPlusPlus``
+   (8 pairs of 4,800 tokens through FFPP a micro-step); the JAX package's
+   learning recipe at 64x64; the flow warp's
    backward (B1, both entry points) against its plain version on
    ``_warp_flows``' cases, integer coordinates and run A's own tensors,
    and its time, bound and ``grid_sampler_2d_backward`` yardstick; step
-   times, samples/s and peak memory of runs A and B.
+   times, samples/s and peak memory of runs A, B and F.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -125,6 +134,9 @@ PATH_KERNELS = {
     "large": CC_KERNELS + ("raft_update",),
     "streams": CC_KERNELS + ("flow_warp", "raft_update"),
     "train": ("flow_warp", "raft_update", "flow_warp_bwd"),
+    # FlowFormer++: no hand kernel in the provider; the head's warp
+    "ffpp": CC_KERNELS + ("flow_warp",),
+    "train_ffpp": ("flow_warp", "flow_warp_bwd"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -178,6 +190,20 @@ UNFLOW_PROB_TOL, UNFLOW_FLOW_TOL = 2.0 ** -14, 0.25
 #: the bf16 UnFlow provider against the float32 one: mean |difference| over
 #: mean |flow|, and max |difference| over max |flow|
 UNFLOW_BF16_MEAN, UNFLOW_BF16_MAX = 0.03, 0.05
+#: the FFPP path: FlowFormer++ at its default widths, 12 iterations, its
+#: random flow head's last convolution scaled by FFPP_FLOW_GAIN: unscaled
+#: the flows reach 13.4 px at 240x320 on a shifted noise pair (CPU); scaled,
+#: on the engine's frames, 9.2 px at 240x320 (mean 3.2) and 18.3 px at full
+#: resolution. Its limit for the kernels-vs-plain probabilities is half the
+#: RAFT path's, as UnFlow's is: a zeroed flow moves this random model's
+#: probabilities by only ~5e-4, and the check needs four limits below that
+FFPP_FRAMES, FFPP_FLOW_GAIN, FFPP_PROB_TOL = 24, 0.25, 2.0 ** -14
+#: the card's float32 FFPP (TF32 off) against the same model on the CPU, 2
+#: pairs at 240x320, 12 iterations: max |diff| - rtol * |flow| <= atol px.
+#: float32 sums in other orders carried through the perceiver and 12
+#: recurrent iterations: the default-width tolerance of the CPU tests
+#: against the JAX package (tests/test_torch_ffpp.py, (atol, rtol))
+FFPP_F32_TOL = (2e-3, 1e-3)
 #: the bf16 experimental convolutions' times before their redesign (ms,
 #: PERF.md rows 7 and 8: this script on an H100 80GB HBM3 at 700 W), printed
 #: beside this run's
@@ -2016,6 +2042,190 @@ def _check_unflow_warp_is_one_kernel(engine):
                 f"UnFlow's backward warp must be one kernel, got {names}")
 
 
+def phase_ffpp_slice(frames):
+    """The FlowFormer++ path at full width: TernausNetMulti-Basic with
+    add_optflow_inputs at 480x640, bf16, incremental, device decode, the
+    frozen FFPP provider at its default widths (12 iterations) on the
+    half-resolution frames (2 pairs of 30x40 tokens a frame), a
+    split-encoder provider: the engine's ring holds its features and the
+    newest frame's context features. No hand kernel in the provider; the
+    head's warp and the decode's kernels. Returns (engine, launches of the
+    main-path run, number of fused frames)."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+    from mfcnet_tpu_torch.models.flowformerpp import (
+        FlowFormerPP,
+        init_ffpp_weights,
+    )
+    from mfcnet_tpu_torch.ops.resize import resize_nearest
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True, generator=gen)
+    flow_model = init_ffpp_weights(FlowFormerPP(iters=FLOW_ITERS), gen,
+                                   flow_gain=FFPP_FLOW_GAIN)
+    n_flow = sum(p.numel() for p in flow_model.parameters())
+    log(f"FFPP path: TernausNetMulti-Basic + frozen FlowFormer++ (default "
+        f"'things' widths, {n_flow} parameters, iters={FLOW_ITERS}, flow "
+        f"head x{FFPP_FLOW_GAIN}), T={T} {H}x{W} bf16, seed {SEED}")
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True)
+    # no device argument: the entry points run on the card by default
+    engine = InferenceEngine(model, cfg, flow_model=flow_model)
+    fm = engine.flow_model
+    if engine.device.type != "cuda" or not engine.flow_split:
+        raise AssertionError("the engine must default to the card and keep "
+                             "a feature ring for FFPP")
+    if (fm.compute_dtype != torch.bfloat16
+            or fm.memory_decoder.update_block.gru.convz1.weight.dtype
+            != torch.float32):
+        raise AssertionError("a bf16 FFPP keeps float32 where JAX does")
+    n = FFPP_FRAMES
+    fused = n - (T - 1)
+    with tempfile.TemporaryDirectory() as d:
+        _reset_all_launches()
+        _, fps = track_on_frames(frames[:n], None, cfg, d, name="ffpp",
+                                 engine=engine)
+        launches = _all_launches()
+        csv = np.loadtxt(Path(d) / "ffpp_tracked.csv", delimiter=",")
+    _check_rows(csv, n)
+    feat, ctx, ph = engine.flow_state
+    log(f"FFPP path, incremental: {n} frames -> CSV {csv.shape} (first run, "
+        f"includes warm-up: {fps:.2f} frames/s); ring: features "
+        f"{tuple(feat.shape)} {feat.dtype}, context {tuple(ctx.shape)}, "
+        f"placeholder {tuple(ph.shape)}")
+    log(f"kernel launches on the FFPP path: {json.dumps(launches)}")
+    _require_launches("ffpp", launches)
+    others = [k for k in ("raft_update", "correlation", "backward_warp",
+                          "warp_abs", "flow_warp_bwd") if launches[k]]
+    if launches["flow_warp"] != fused or others:
+        raise AssertionError(
+            f"expected 1 flow_warp per fused frame ({fused} frames) and no "
+            f"other flow kernel, got {launches}")
+
+    with tempfile.TemporaryDirectory() as d:
+        track_on_frames(frames[:6], model,
+                        dataclasses.replace(cfg, mode="full"), d, name="full",
+                        flow_model=flow_model, device="cuda")
+        _check_rows(np.loadtxt(Path(d) / "full_tracked.csv", delimiter=","),
+                    6)
+    log("FFPP path, full mode: 6 frames -> CSV (6, 12)")
+
+    _compare_with_plain_kernels(
+        "FFPP", engine, InferenceEngine(model, cfg, flow_model=flow_model),
+        frames, _plain_flow_kernels,
+        lambda e: out.flow_from_feature_ring(*e.flow_state, (H, W),
+                                             e.flow_model),
+        prob_tol=FFPP_PROB_TOL)
+
+    window = torch.from_numpy(np.stack(frames[2::-1]))  # newest first
+    with parity_mode():
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        engines = {
+            m: InferenceEngine(model, dataclasses.replace(c32, mode=m),
+                               flow_model=flow_model, device="cuda")
+            for m in ("incremental", "full")
+        }
+        _parity_incremental_full("FFPP path", engines, frames)
+        # the f32 provider on the card (TF32 off) against the same model on
+        # the CPU at the engine's shape: the window's 2 pairs at 240x320
+        x = engines["full"]._normalize(window)
+        half = resize_nearest(x, H // 2, W // 2).permute(0, 2, 3, 1)
+        a, b = half[:1].expand(T - 1, -1, -1, -1), half[1:]
+        with torch.no_grad():
+            got = engines["full"].flow_model(a, b).cpu()
+            t0 = time.perf_counter()
+            want = copy.deepcopy(flow_model).float().eval()(
+                a.cpu().float(), b.cpu().float())
+            cpu_s = time.perf_counter() - t0
+            b16 = engine.flow_model(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    err = (got - want).abs()
+    excess = (err - FFPP_F32_TOL[1] * want.abs()).max().item()
+    d16 = (b16.cpu() - want).abs()
+    log(f"FFPP f32 provider on the card (TF32 off) vs the CPU, {T - 1} pairs "
+        f"at {H // 2}x{W // 2}, {FLOW_ITERS} iterations: max |flow| "
+        f"{want.abs().max().item():.4g} px (mean {want.abs().mean().item():.4g}"
+        f"), max |diff| {err.max().item():.4g} px, largest excess over "
+        f"rtol {FFPP_F32_TOL[1]:g}: {excess:.4g} px (atol {FFPP_F32_TOL[0]:g};"
+        f" CPU forward {cpu_s:.1f} s); the bf16 provider vs the CPU's f32: "
+        f"max |diff| {d16.max().item():.4g} px, mean {d16.mean().item():.4g}")
+    if excess > FFPP_F32_TOL[0] or not want.abs().max().item() > 0.5:
+        raise AssertionError("FFPP: the card's f32 provider differs from the "
+                             "CPU's")
+    torch.cuda.synchronize()
+    return engine, launches, fused
+
+
+def phase_ffpp_timings(engine, frames, smi):
+    """The FFPP path's tracker frames/s at 1 and 4 streams, the provider's
+    ms and share of the step, and the decode's ms/frame on its windows."""
+    import torch
+
+    from mfcnet_tpu_torch.track import decode_device as dd
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import track_on_frames
+
+    n = FFPP_FRAMES
+    with tempfile.TemporaryDirectory() as d:
+        _, fps = track_on_frames(frames[:n], None, engine.cfg, d, name="warm",
+                                 engine=engine)
+    log(f"[{smi}] tracker, FFPP path (x{FLOW_ITERS}, warp), incremental bf16 "
+        f"device decode, warm, {n} host frames: {fps:.2f} frames/s")
+    fm = engine.flow_model
+    x = engine._normalize(frames[n - 1][None])
+
+    def flow_part():
+        with torch.no_grad():
+            f_new, c, p = out.flow_ingest(x, fm)
+            return out.flow_from_feature_ring(
+                torch.cat([f_new[:, None], engine.flow_state[0][:, :T - 1]],
+                          1), c, p, (H, W), fm)
+
+    it = iter(range(10 ** 9))
+    for run in range(3):
+        step_ms = _host_ms(lambda: engine.step_async(frames[next(it) % n]),
+                           16)
+        flow_ms = _host_ms(flow_part, 16)
+        log(f"[{smi}] FFPP path step {step_ms:.3f} ms/frame (synchronized), "
+            f"of which the flow provider {flow_ms:.3f} ms = "
+            f"{flow_ms / step_ms:.1%} of the frame (run {run + 1} of 3)")
+    flow_dev = _event_ms(flow_part, 10)
+    _, events, whole, wall = _profiled(flow_part)
+    busy = sum(us for _, us in events) / 1e3
+    top = {}
+    for name, us in events:
+        short = re.sub(r"<.*", "", name.replace("void ", ""))[:60]
+        top[short] = top.get(short, 0.0) + us / 1e3
+    log(f"[{smi}] FFPP provider a frame: {flow_dev:.3f} ms between CUDA "
+        f"events; one profiled call: {len(events)} device operations, busy "
+        f"{busy:.2f} ms of {wall:.2f} ms wall (idle share "
+        f"{1 - busy / wall:.1%}, under the profiler{'' if whole else '; trace not whole'}); "
+        f"largest: " + json.dumps({k: round(v, 3) for k, v in sorted(
+            top.items(), key=lambda kv: -kv[1])[:6]}))
+    _keep_probs(engine)
+    engine.step_async(frames[n - 1])
+    probs = engine.kept_probs
+    del engine._outputs, engine.kept_probs
+    dec = _host_ms(lambda: dd.decode_keypoints_device(probs, 100), 10)
+    log(f"[{smi}] decode ms/frame on the FFPP engine's window: {dec:.3f}")
+    streams = _stream_frames([TIMED_STREAM_FRAMES] * 4, seed=SEED + 10)
+    by_b = _fps_by_streams("FFPP path", engine.model, engine.cfg, fm,
+                           streams, smi, bs=(1, 4))
+    log(json.dumps({"ffpp_frames_per_s_by_streams": by_b,
+                    "ffpp_provider_share_of_step": flow_ms / step_ms}))
+
+
 def phase_offline(frames, smi):
     """The offline flow CLI's path: its ``build_provider`` and its batched
     forward on uint8 frame pairs at 512x640, RAFT and UnFlow, float32 on
@@ -2624,17 +2834,18 @@ def phase_flow_timings(engine, frames, smi):
     return times, bounds, library
 
 
-def _fps_by_streams(what, model, cfg, flow_model, streams_all, smi):
+def _fps_by_streams(what, model, cfg, flow_model, streams_all, smi,
+                    bs=TIMED_STREAMS):
     """Aggregate and per-stream frames/s of ``track_on_frame_streams`` at
-    each B of TIMED_STREAMS (an engine each, a warm-up run, then the timed
-    run on B host streams of TIMED_STREAM_FRAMES frames)."""
+    each B of ``bs`` (an engine each, a warm-up run, then the timed run on
+    B host streams of TIMED_STREAM_FRAMES frames)."""
     from mfcnet_tpu_torch.track.tracker import (
         InferenceEngine,
         track_on_frame_streams,
     )
 
     by_b = {}
-    for B in TIMED_STREAMS:
+    for B in bs:
         engine = InferenceEngine(model, cfg, flow_model=flow_model,
                                  num_streams=B)
         streams = streams_all[:B]
@@ -3729,6 +3940,41 @@ def phase_train(smi):
                 f"{json.dumps(launches_b)}")
             summary["B"] = (recs_b, peak_b)
 
+            # ---- run F: run A with FlowFormer++ as the frozen provider --
+            records.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            state_f = cli.main(_train_args(
+                pack, d, "F", *a_extra, "--optflow_model",
+                "FlowFormerPlusPlus"))
+            torch.cuda.synchronize()
+            launches_f = _all_launches()
+            wall_f = time.perf_counter() - t0
+            peak_f = torch.cuda.max_memory_allocated()
+            recs_f = list(records)
+            _require_launches("train_ffpp", launches_f)
+            if len(recs_f) != 6 or state_f.updates != 3:
+                raise AssertionError(f"run F: 6 micro-steps and 3 updates "
+                                     f"expected, got {len(recs_f)}, "
+                                     f"{state_f.updates}")
+            for i, r in enumerate(recs_f):
+                lc = r["launches"]
+                if not all(np.isfinite(v) for v in r["parts"].values()) or (
+                        lc["flow_warp_bwd"], lc["raft_update"],
+                        lc["flow_warp"]) != (1, 0, 1):
+                    raise AssertionError(
+                        f"run F micro-step {i}: finite losses, 1 "
+                        f"flow_warp_bwd, 0 raft_update and 1 flow_warp "
+                        f"expected, got {r['parts']}, {lc}")
+            log(f"train run F (run A with --optflow_model FlowFormerPlusPlus:"
+                f" 8 pairs of 60x80 = 4,800 tokens a micro-step through "
+                f"FFPP, bf16): {len(recs_f)} micro-steps, {state_f.updates} "
+                f"updates, {wall_f:.1f} s with validation and checkpoint; "
+                f"losses finite; per micro-step 1 flow_warp_bwd, 1 flow_warp, "
+                f"0 raft_update; launches {json.dumps(launches_f)}")
+            summary["F"] = (recs_f, peak_f)
+
             # ---- the learning check ------------------------------------
             lpack = make_synthetic_pack(d / "learn_pack", videos=(
                 ("train", 2, 12), ("val", 2, 12)), height=LEARN_HW,
@@ -3776,7 +4022,7 @@ def phase_train(smi):
     if len(traced) != 1:
         raise AssertionError("run A: one traced micro-step expected")
     _step_breakdown(traced[0]["events"], traced[0]["traced_wall"], smi)
-    for run, dt in (("A", "bf16"), ("B", "f32")):
+    for run, dt in (("A", "bf16"), ("B", "f32"), ("F", "bf16, FFPP")):
         recs, peak = summary[run]
         warm = [(i + 1, r["ms"]) for i, r in enumerate(recs)
                 if i >= min(2, len(recs) - 1) and not r["events"]]
@@ -3786,7 +4032,8 @@ def phase_train(smi):
             f"{[round(r['ms'], 1) for r in recs]}; the traced one under the "
             f"profiler), {TRAIN_B / med * 1e3:.2f} samples/s, peak memory "
             f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
-    return launches, n_a, times, bounds, library, err
+    return (launches, n_a, times, bounds, library, err,
+            (launches_f, len(summary["F"][0])))
 
 
 def main():
@@ -3803,6 +4050,7 @@ def main():
         phase_large_slice(frames)
     streams_engine, launches_streams, steps_streams = phase_streams_slice()
     unflow_engine, launches_unflow, fused_unflow = phase_unflow_slice(uframes)
+    ffpp_engine, launches_ffpp, fused_ffpp = phase_ffpp_slice(frames)
     phase_offline(uframes, smi)
     _, times, bounds, library = phase_timings(engine, frames, smi)
     for t, b, lib in (phase_flow_timings(flow_engine, frames, smi),
@@ -3813,8 +4061,9 @@ def main():
         times.update(t)
         bounds.update(b)
         library.update(lib)
-    (launches_train, n_micro, t, b, lib,
-     errs["flow_warp_bwd"]) = phase_train(smi)
+    phase_ffpp_timings(ffpp_engine, frames, smi)
+    (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
+     (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
     times.update(t)
     bounds.update(b)
     library.update(lib)
@@ -3829,12 +4078,14 @@ def main():
              "streams": (launches_streams,
                          steps_streams * len(STREAM_LENGTHS)),
              "unflow": (launches_unflow, fused_unflow),
-             "train": (launches_train, n_micro)}
+             "ffpp": (launches_ffpp, fused_ffpp),
+             "train": (launches_train, n_micro),
+             "train_ffpp": (launches_train_ffpp, n_micro_ffpp)}
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
-         # over the six main-path runs, each counted from 0
+         # over the eight main-path runs, each counted from 0
          "launches": sum(c[name] for c, _ in paths.values()),
          "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
          "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},

@@ -7,7 +7,8 @@ scripts/train_multiframe_detection.py).
 
 TernausNetMulti-Basic or -Large (weights drawn from ``--seed`` as the JAX
 trainer draws them, ``models.init_weights_lecun``), with the frozen flow
-provider (RAFT, or UnFlow) inside the step and depth inputs as the flags
+provider (RAFT, FlowFormer++ or UnFlow: ``--optflow_model``) inside the
+step and depth inputs as the flags
 say: Basic warps the earlier maps by flow(frame_i -> frame_0), Large
 takes flow(frame_0 -> frame_i) raw into its head; the base frozen (the
 default) or trained (``--train_base_model True``); float32 or bfloat16
@@ -66,16 +67,29 @@ def build_flow_fn(optflow_model: str, input_hw, weights_path=None,
     """The frozen provider of the train step: frames (B, T, H, W, 3)
     -> (B, T-1, H, W, 2) float32 flow at the input resolution
     (``track/outputs.py::flow_for_training``; ``basic`` False gives the
-    Large variant's direction), under ``no_grad`` in the step. The provider runs in the step's compute dtype: a bfloat16 RAFT
-    runs its update iterations through the fused update kernel. Without
-    ``weights_path`` its weights are random from ``seed``."""
+    Large variant's direction), under ``no_grad`` in the step. The
+    provider runs in the step's compute dtype: a bfloat16 RAFT runs its
+    update iterations through the fused update kernel, a bfloat16
+    FlowFormer++ keeps float32 where the JAX package's does. FlowFormer++
+    sees its frames scaled by 0.225/0.5 (``models/flowformerpp.py::
+    make_ffpp_flow_fn``, the reference's input-range hack). Without
+    ``weights_path`` the weights are random from ``seed``; with it, the
+    reference checkpoint (torchvision ``raft_large``, UnFlow's, or
+    FlowFormer++'s ``ffpp_things.pth``) loads by name."""
     from mfcnet_tpu_torch.models import init_weights
     from mfcnet_tpu_torch.track.outputs import flow_for_training
 
-    if optflow_model == "FlowFormerPlusPlus":
-        raise NotImplementedError(
-            "FlowFormerPlusPlus is not ported yet: ROADMAP.md Queue 1 item 9")
     gen = torch.Generator().manual_seed(seed)
+    dt = resolve_dtype(compute_dtype) or torch.float32
+    if optflow_model == "FlowFormerPlusPlus":
+        from mfcnet_tpu_torch.models import flowformerpp as ffpp
+
+        model = ffpp.init_ffpp_weights(ffpp.FlowFormerPP(iters=12), gen)
+        if weights_path:
+            ffpp.load_reference_state_dict(
+                model, load_state_dict_file(weights_path))
+        model = model.to(device, dt).eval().requires_grad_(False)
+        return ffpp.make_ffpp_flow_fn(model, basic=basic)
     if optflow_model == "RAFT":
         from mfcnet_tpu_torch.models.raft import RAFT
 
@@ -88,7 +102,6 @@ def build_flow_fn(optflow_model: str, input_hw, weights_path=None,
         raise ValueError(f"unknown optflow model {optflow_model}")
     if weights_path:
         model.load_state_dict(load_state_dict_file(weights_path))
-    dt = resolve_dtype(compute_dtype) or torch.float32
     model = model.to(device, dt).eval().requires_grad_(False)
     if hasattr(model, "fused_update"):
         model.fused_update = dt == torch.bfloat16
@@ -104,9 +117,6 @@ def main(argv=None):
     args = multiframe_train_parser().parse_args(argv)
     check_ported(args)
     device = resolve_device(args.device)
-    if args.add_optflow_inputs and args.optflow_model == "FlowFormerPlusPlus":
-        raise SystemExit("--optflow_model FlowFormerPlusPlus is not ported "
-                         "yet: ROADMAP.md Queue 1 item 9")
     writer, logger, expt_dir = init_logging(args.expt_savedir,
                                             args.expt_name, args.debug)
     logger.info(f"args: {vars(args)}")

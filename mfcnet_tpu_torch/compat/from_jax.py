@@ -21,7 +21,10 @@ A flax ``.msgpack`` checkpoint is read with the JAX package (flax's
 inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
 key names; :func:`unflow_state_dict_from_jax` for UnFlow: the inverse of
 ``torch_convert.convert_unflow``, into the reference checkpoint's key
-names.
+names; :func:`ffpp_state_dict_from_jax` for FlowFormer++: the inverse of
+``torch_convert.convert_flowformerpp``, into the reference checkpoint's
+key names (dense kernel (in, out) -> linear weight (out, in); LayerNorm
+scale -> weight).
 """
 
 from __future__ import annotations
@@ -211,4 +214,111 @@ def unflow_state_dict_from_jax(variables: Dict):
             _conv(sd, f"{pre}.{tname}", net[jname])
         for jname, tname, put in _UNFLOW_UPCONV:
             put(sd, f"{pre}.moduleUpconv.{tname}", net["upconv"][jname])
+    return sd
+
+
+def _linear(sd, key, p):
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _ln(sd, key, p):
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _ffpp_twins(sd, prefix, p):
+    """flax TwinsSVTEncoder -> timm twins keys under ``prefix`` (…svt)."""
+    si = 0
+    while f"embed{si}" in p:
+        _conv(sd, f"{prefix}.patch_embeds.{si}.proj", p[f"embed{si}"])
+        _ln(sd, f"{prefix}.patch_embeds.{si}.norm", p[f"embed_norm{si}"])
+        _conv(sd, f"{prefix}.pos_block.{si}.proj.0", p[f"pos{si}"]["conv"])
+        bi = 0
+        while f"s{si}_b{bi}" in p:
+            bp, tp = p[f"s{si}_b{bi}"], f"{prefix}.blocks.{si}.{bi}"
+            _ln(sd, f"{tp}.norm1", bp["norm1"])
+            _ln(sd, f"{tp}.norm2", bp["norm2"])
+            for name in ("fc1", "fc2"):
+                _linear(sd, f"{tp}.mlp.{name}", bp["mlp"][name])
+            for name, q in bp["attn"].items():
+                if name == "sr":
+                    _conv(sd, f"{tp}.attn.sr", q)
+                elif name == "norm":
+                    _ln(sd, f"{tp}.attn.norm", q)
+                else:
+                    _linear(sd, f"{tp}.attn.{name}", q)
+            bi += 1
+        si += 1
+
+
+def _ffpp_attn_layer(sd, prefix, p):
+    """norm1/norm2, q/k/v/proj, ffn0/ffn1 -> the reference's ``ffn.0`` and
+    ``ffn.3``."""
+    for name in ("norm1", "norm2"):
+        _ln(sd, f"{prefix}.{name}", p[name])
+    for name in ("q", "k", "v", "proj"):
+        _linear(sd, f"{prefix}.{name}", p[name])
+    _linear(sd, f"{prefix}.ffn.0", p["ffn0"])
+    _linear(sd, f"{prefix}.ffn.3", p["ffn1"])
+
+
+def ffpp_state_dict_from_jax(variables: Dict):
+    """JAX ``{'params'}`` of ``mfcnet_tpu.models.flowformerpp.FlowFormerPP``
+    -> a ``state_dict`` for :class:`mfcnet_tpu_torch.models.flowformerpp.
+    FlowFormerPP` (the reference checkpoint's key names, without the GMA
+    ``pos_emb`` tables that neither forward reads)."""
+    params = variables["params"]
+    sd = {}
+    _ffpp_twins(sd, "memory_encoder.feat_encoder.svt", params["feat_encoder"])
+    _ffpp_twins(sd, "context_encoder.svt", params["context_encoder"])
+    cpe = "memory_encoder.cost_perceiver_encoder"
+    per = params["cost_perceiver"]
+    pe = per["patch_embed"]
+    for jname, tname in (("proj0", "proj.0"), ("proj1", "proj.2"),
+                         ("proj2", "proj.4"), ("ffn0", "ffn_with_coord.0"),
+                         ("ffn1", "ffn_with_coord.2")):
+        _conv(sd, f"{cpe}.patch_embed.{tname}", pe[jname])
+    _ln(sd, f"{cpe}.patch_embed.norm", pe["norm"])
+    sd[f"{cpe}.latent_tokens"] = _t(per["latent_tokens"])
+    _ffpp_attn_layer(sd, f"{cpe}.input_layer", per["input_layer"])
+    i = 0
+    while f"self{i}" in per:
+        _ffpp_attn_layer(sd, f"{cpe}.encoder_layers.{i}", per[f"self{i}"])
+        for kind in ("local", "global"):
+            bp = per[f"vert{i}_{kind}"]
+            tp = f"{cpe}.vertical_encoder_layers.{i}.{kind}_block"
+            _ln(sd, f"{tp}.norm1", bp["norm1"])
+            _ln(sd, f"{tp}.norm2", bp["norm2"])
+            for name in ("fc1", "fc2"):
+                _linear(sd, f"{tp}.mlp.{name}", bp["mlp"][name])
+            for name, q in bp["attn"].items():
+                if name in ("sr_key", "sr_value"):
+                    _conv(sd, f"{tp}.attn.{name}", q)
+                elif name == "norm":
+                    _ln(sd, f"{tp}.attn.norm", q)
+                else:
+                    _linear(sd, f"{tp}.attn.{name}", q)
+        i += 1
+
+    dec = "memory_decoder"
+    _conv(sd, f"{dec}.proj", params["proj"])
+    _conv(sd, f"{dec}.flow_token_encoder.0", params["ft_enc0"])
+    _conv(sd, f"{dec}.flow_token_encoder.2", params["ft_enc1"])
+    _ffpp_attn_layer(sd, f"{dec}.decoder_layer.cross_attend",
+                     params["decoder_cross"])
+    _conv(sd, f"{dec}.att.to_qk", params["att"]["to_qk"])
+    ub, tb = params["update_block"], f"{dec}.update_block"
+    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        _conv(sd, f"{tb}.encoder.{name}", ub[name])
+    _conv(sd, f"{tb}.aggregator.to_v", ub["to_v"])
+    sd[f"{tb}.aggregator.gamma"] = _t(ub["gamma"])
+    for d, i in (("h", 1), ("v", 2)):
+        for g in "zrq":
+            _conv(sd, f"{tb}.gru.conv{g}{i}", ub["gru"][f"conv{g}_{d}"])
+    _conv(sd, f"{tb}.flow_head.conv1", ub["flow1"])
+    _conv(sd, f"{tb}.flow_head.conv2", ub["flow2"])
+    _conv(sd, f"{tb}.mask.0", ub["mask1"])
+    _conv(sd, f"{tb}.mask.2", ub["mask2"])
     return sd

@@ -59,8 +59,9 @@ def _nhwc(x):
 def flow_for_window(frames_norm, flow_model):
     """(B, T, 3, H, W) normalized frames, newest first -> (B, T-1, 2, H, W)
     float32 flow. All B*(T-1) pairs (newest, earlier) run as one batched
-    solve. A provider with split encoders (``flow_from_features``: RAFT)
-    runs the newest frame's encoders once per window, not once per pair;
+    solve. A provider with split encoders (``flow_from_features``: RAFT,
+    FlowFormer++) runs the newest frame's encoders once per window, not
+    once per pair;
     any other provider (UnFlow) is called on the pairs as they are."""
     from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
     from mfcnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
@@ -91,8 +92,10 @@ def flow_for_training(frames_norm, flow_model, basic: bool = True):
     variant's flow(frame_i -> frame_0) (image1 = frame_i, image2 =
     frame_0); otherwise the Large variant's flow(frame_0 -> frame_i)
     (image1 = frame_0, its context encoder once). All T-1 pairs are one
-    batched solve; with split encoders (RAFT) the newest frame's features
-    are computed once."""
+    batched solve; with split encoders (RAFT, FlowFormer++) the newest
+    frame's features are computed once. The frames go in as given: the
+    FlowFormer++ provider of the trainer scales them first
+    (``models/flowformerpp.py::make_ffpp_flow_fn``)."""
     from mfcnet_tpu_torch.ops.pairs import repeat_for_pairs
 
     B, T, H, W, _ = frames_norm.shape
@@ -122,8 +125,10 @@ def flow_for_training(frames_norm, flow_model, basic: bool = True):
 def flow_ingest(frame_norm, flow_model):
     """One frame's cacheable provider state: (B, 3, H, W) normalized
     frame -> ``(features, net, inp)``, the 0.5x-resolution feature
-    encoder output (B, h, w, 256) and the context encoder's GRU initial
-    state and feed (B, h, w, 128) each. The flows pair the newest frame
+    encoder output (B, h, w, 256) and ``context``'s two outputs: RAFT's
+    GRU initial state and feed (B, h, w, 128) each, FlowFormer++'s context
+    features (B, h, w, 256) and a (B, 1, 1, 1) placeholder. The frames are
+    not scaled (the tracker's convention). The flows pair the newest frame
     with each earlier one and cannot be kept, but the per-image encoders
     can: the incremental engine calls this once per new frame."""
     from mfcnet_tpu_torch.ops.resize import resize_nearest

@@ -8,12 +8,13 @@ Incremental mode (default) runs one base forward per new frame and keeps
 the previous frames' class maps in a ring buffer on the device; full mode
 recomputes all T base forwards per frame (the reference's pattern). Both
 give the same rows. With ``add_optflow_inputs`` a frozen flow provider
-(RAFT, UnFlow) gives the flow from the newest frame to each earlier one,
-by which the fusion head warps the earlier maps; incremental mode keeps a
-ring of the provider's per-frame features where the provider has split
-encoders (RAFT) and a ring of normalized frames where it has none
-(UnFlow). With ``add_depth_inputs`` a depth map per frame joins the
-head's input. The Large variant's head takes the same flow raw.
+(RAFT, FlowFormer++, UnFlow) gives the flow from the newest frame to each
+earlier one, by which the fusion head warps the earlier maps; incremental
+mode keeps a ring of the provider's per-frame features where the provider
+has split encoders (RAFT, FlowFormer++) and a ring of normalized frames
+where it has none (UnFlow). With ``add_depth_inputs`` a depth map per
+frame joins the head's input. The Large variant's head takes the same
+flow raw.
 
 ``InferenceEngine(num_streams=B)`` and :func:`track_on_frame_streams`
 track B videos in lockstep, one batched step per frame; each stream's
@@ -352,12 +353,15 @@ class InferenceEngine:
 
     ``flow_model``: the frozen flow provider used with
     ``cfg.add_optflow_inputs``, a module that maps two (B, h, w, 3) frames
-    to a (B, h, w, 2) flow (``models.raft.RAFT``, ``models.unflow.UnFlow``).
-    For a provider with split encoders (``flow_from_features``: RAFT),
-    incremental mode keeps a newest-first ring of its per-frame features
-    and the newest frame's context state, so the encoders run once per
-    new frame; for any other provider (UnFlow) it keeps a newest-first
-    ring of normalized frames and runs the stateless
+    to a (B, h, w, 2) flow (``models.raft.RAFT``,
+    ``models.flowformerpp.FlowFormerPP``, ``models.unflow.UnFlow``).
+    For a provider with split encoders (``flow_from_features``: RAFT,
+    FlowFormer++), incremental mode keeps a newest-first ring of its
+    per-frame features and the newest frame's context state (RAFT's GRU
+    state (net, inp); FlowFormer++'s (B, h, w, 256) context features and a
+    placeholder), so the encoders run once per new frame; for any other
+    provider (UnFlow) it keeps a newest-first ring of normalized frames
+    and runs the stateless
     ``outputs.flow_for_window`` per frame. Full mode recomputes everything
     per window (``track/outputs.py``). A provider that names a
     ``size_multiple`` (UnFlow: 64) needs half-resolution frames of such a
@@ -383,7 +387,9 @@ class InferenceEngine:
     built the models, and the CPU only when asked (``device="cpu"``);
     without a card the default raises. A bfloat16 engine runs a RAFT
     provider's update iterations through the fused update step, a float32
-    engine through its plain convolutions."""
+    engine through its plain convolutions; a bfloat16 FlowFormer++ keeps
+    float32 where the JAX package's bfloat16 one does (its cost volume,
+    perceiver and decoder: ``models/flowformerpp.py``)."""
 
     def __init__(self, model, cfg: TrackerConfig, flow_model=None,
                  device="cuda", num_streams: int = 1,
@@ -408,7 +414,8 @@ class InferenceEngine:
             if flow_model is None:
                 raise ValueError(
                     "cfg.add_optflow_inputs needs a flow_model: a flow "
-                    "provider such as mfcnet_tpu_torch.models.raft.RAFT or "
+                    "provider such as mfcnet_tpu_torch.models.raft.RAFT, "
+                    "mfcnet_tpu_torch.models.flowformerpp.FlowFormerPP or "
                     "mfcnet_tpu_torch.models.unflow.UnFlow")
             mult = getattr(flow_model, "size_multiple", 1)
             h2, w2 = cfg.input_height // 2, cfg.input_width // 2
@@ -443,7 +450,8 @@ class InferenceEngine:
             torch.zeros(B, T, H, W, dtype=self.dtype, device=self.device)
             if cfg.add_depth_inputs else None
         )
-        # split encoders: (feat_buf (B, T, h, w, 256), net, inp); otherwise
+        # split encoders: (feat_buf (B, T, h, w, 256), net, inp) (for
+        # FlowFormer++ its context features and a placeholder); otherwise
         # the (B, T, 3, H, W) ring of normalized frames. Filled by the
         # first T ingests, before the first fuse reads it
         self.flow_state = None
