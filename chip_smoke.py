@@ -11,8 +11,9 @@ at 512x640 with the frozen UnFlow provider (its only widths), at 480x640
 with the frozen FlowFormer++ provider (default widths, 12 iterations), the
 offline flow CLI's batched forward, and the training CLI (the same model
 with frozen RAFT, and again with FlowFormer++, and depth in the step) --
-through its hand-written CUDA kernels
-(``mfcnet_tpu_torch/csrc``), in five phases; a failing phase raises and the
+and the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
+and in training -- through its hand-written CUDA kernels
+(``mfcnet_tpu_torch/csrc``), in six phases; a failing phase raises and the
 script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
@@ -76,7 +77,21 @@ script exits non-zero:
    backward (B1, both entry points) against its plain version on
    ``_warp_flows``' cases, integer coordinates and run A's own tensors,
    and its time, bound and ``grid_sampler_2d_backward`` yardstick; step
-   times, samples/s and peak memory of runs A, B and F.
+   times, samples/s and peak memory of runs A, B and F;
+6. the zoo (``phase_zoo_slice``, run before phase 5):
+   ``{DeepLab,FCN,HRNet,SegFormer}Multi-Basic`` at full width with RAFT
+   x12 (seeded weights, each base's BN statistics calibrated on the frames
+   and its last convolution scaled to logits of std 3), 12 frames
+   incremental (their launches counted: the update step, the warp, the
+   decode's union tier) and 5 full; HRNetMulti-Basic through the kernels
+   against the plain versions, f32 incremental against full, and its f32
+   forward on the card against the CPU (``ZOO_F32_TOL``);
+   SegFormerMulti-Large with RAFT and depth (0 warps); frames/s without
+   flow and each base's and the head's ms (CUDA-graph replay and eager,
+   TernausNet16's too); run Z, DeepLabMulti-Basic through the training
+   CLI (bf16, base trained, RAFT + depth, batch 4, 4 micro-steps), its
+   checkpoint tracked, and the single-frame CLI training SegFormer for 2
+   steps with drop-path on.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -122,6 +137,8 @@ KERNELS = (
     ("flow_warp_bwd", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:147"),
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
+#: the decode's union tier
+ZOO_CC = ("union_flood_cc_cid", "onehot_stats")
 #: the kernels each main path must launch (the two experimental convolutions
 #: are on no path, in this package as in the JAX one; warp_abs, the warp by
 #: absolute coordinates, has had no caller on a path since UnFlow's backward
@@ -137,6 +154,15 @@ PATH_KERNELS = {
     # FlowFormer++: no hand kernel in the provider; the head's warp
     "ffpp": CC_KERNELS + ("flow_warp",),
     "train_ffpp": ("flow_warp", "flow_warp_bwd"),
+    # the zoo slice: each family's Basic model on the RAFT path, SegFormer's
+    # Large (no warp) with RAFT and depth, run Z (DeepLabMulti-Basic
+    # trained). Their calibrated bases give clean class maps, which the
+    # decode's union tier takes (union_flood_cc_cid + onehot_stats): the
+    # other two cc.cu kernels run on the tiers of speckled maps only
+    **{f"zoo_{f.lower()}": ZOO_CC + ("flow_warp", "raft_update")
+       for f in ("DeepLab", "FCN", "HRNet", "SegFormer")},
+    "zoo_large": ZOO_CC + ("raft_update",),
+    "train_zoo": ("flow_warp", "raft_update", "flow_warp_bwd"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -1223,14 +1249,16 @@ def _window_probs(engine, frames, i):
     return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)[0]
 
 
-def _check_rows(rows, n, hw=(H, W)):
+def _check_rows(rows, n, hw=(H, W), detect=True):
+    """An N x 12 CSV of ``n`` frames: NaN warm-up rows, keypoints inside
+    the frame, and (``detect``) at least one detection."""
     H, W = hw
     if rows.shape != (n, 12):
         raise AssertionError(f"CSV shape {rows.shape} != {(n, 12)}")
     if not np.isnan(rows[:T - 1]).all():
         raise AssertionError("warmup rows must be NaN")
     vals = rows[~np.isnan(rows)]
-    if vals.size == 0:
+    if detect and vals.size == 0:
         raise AssertionError("no keypoint detected in any frame")
     xs, ys = rows[:, 0::2], rows[:, 1::2]
     ok = lambda a, hi: np.all(np.isnan(a) | ((a >= 0) & (a < hi)))  # noqa: E731
@@ -4036,6 +4064,430 @@ def phase_train(smi):
             (launches_f, len(summary["F"][0])))
 
 
+#: the zoo slice: the four families' Basic models at full width on the RAFT
+#: path, incremental over ZOO_FRAMES and full over ZOO_FULL; SegFormer's
+#: Large over ZOO_LARGE_FRAMES; frames/s without flow over
+#: ZOO_TIMED_FRAMES, two calls; run Z's micro-steps
+ZOO_FAMILIES = ("DeepLab", "FCN", "HRNet", "SegFormer")
+ZOO_FRAMES, ZOO_FULL, ZOO_LARGE_FRAMES, ZOO_TIMED_FRAMES = 12, 5, 8, 24
+ZOO_STEPS = 4
+#: forwards that set a random base's running statistics near its batch
+#: statistics on the synthetic frames (each moves them 0.1 of the way):
+#: with the PyTorch defaults (mean 0, var 1) the random models' BN layers
+#: would pass activations unnormalized and the class maps would carry
+#: little of the frames
+ZOO_BN_PASSES = 20
+#: the std of a calibrated random base's logits on the synthetic frames,
+#: set by scaling its last convolution (the gain is printed: unscaled, a
+#: random base's logits spread over hundredths and its map is nearly one
+#: class, which leaves the fusion head and the decode almost nothing; a
+#: trained model's spread over several units)
+ZOO_LOGIT_STD = 3.0
+#: HRNetMulti-Basic's float32 forward on the card (TF32 off) against the
+#: same model on the CPU, one window of three 480x640 frames: max |logit
+#: difference| <= ZOO_F32_TOL * max |logit| (float32 sums in other orders
+#: through ~300 BN'd convolutions; set before the first run)
+ZOO_F32_TOL = 1e-4
+
+
+def _calibrate_bn(base, x):
+    """``ZOO_BN_PASSES`` forwards of ``base`` on the normalized NCHW frames
+    ``x`` with only its BN layers in train mode, under ``no_grad``; eval
+    mode after."""
+    import torch
+
+    base.eval()
+    for m in base.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.train()
+    with torch.no_grad():
+        for _ in range(ZOO_BN_PASSES):
+            base(x)
+    base.eval()
+
+
+def _zoo_model(model_type, gen, x, **kw):
+    """A full-width zoo model from the registry (seeded PyTorch-default
+    weights) on the card: its base's running statistics calibrated on the
+    normalized frames ``x``, its last convolution scaled to give logits
+    of std ``ZOO_LOGIT_STD`` there."""
+    import torch
+
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+
+    model = get_multiframe_segmentation_model(model_type, C, T, generator=gen,
+                                              **kw).cuda()
+    base = model.base_model
+    _calibrate_bn(base, x)
+    last = [m for m in base.modules() if isinstance(m, torch.nn.Conv2d)
+            and m.out_channels == C][-1]
+    seen = []
+    hook = last.register_forward_hook(lambda m, i, o: seen.append(o))
+    with torch.no_grad():
+        base(x)
+        hook.remove()
+        gain = ZOO_LOGIT_STD / seen[0].std().item()
+        last.weight.mul_(gain)
+        if last.bias is not None:
+            last.bias.mul_(gain)
+    log(f"{model_type}: base BN statistics calibrated ({ZOO_BN_PASSES} "
+        f"passes), logits scaled by {gain:.4g} to std {ZOO_LOGIT_STD}")
+    return model
+
+
+def _time_aspp(model, smi):
+    """DeepLab's three ASPP convolutions at the base's shape (one frame:
+    2048 x 60 x 80, bf16): cuDNN's dilated convolution on a channels-last
+    input (the engine's layout: its frames are NHWC permuted to NCHW, and
+    cuDNN keeps that layout) and on a contiguous one, against
+    ``models/deeplab.py::atrous_conv2d`` (graph replay), and the largest
+    difference between the two."""
+    import torch
+    import torch.nn.functional as F
+
+    from mfcnet_tpu_torch.models.deeplab import atrous_conv2d
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(1, 2048, H // 8, W // 8, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    for conv in model.base_model.classifier[0].convs[1:4]:
+        w, r = conv[0].weight.detach().bfloat16(), conv[0].dilation[0]
+        with torch.no_grad():
+            diff = (F.conv2d(x, w, padding=r, dilation=r).float()
+                    - atrous_conv2d(xl, w, r).float()).abs().max().item()
+            ms = [_graph_ms(lambda f=f: f(), reps=2, rounds=2) for f in (
+                lambda: F.conv2d(xl, w, padding=r, dilation=r),
+                lambda: F.conv2d(x, w, padding=r, dilation=r),
+                lambda: atrous_conv2d(xl, w, r))]
+        log(f"[{smi}] DeepLab ASPP rate {r}, bf16 2048x60x80 -> 256: cuDNN "
+            f"dilated {ms[0]:.3f} ms channels-last (the engine's layout), "
+            f"{ms[1]:.3f} ms contiguous; phase sub-grids {ms[2]:.3f} ms "
+            f"(device time); max |diff| {diff:.4g}")
+
+
+def _run_z(smi):
+    """Run Z: DeepLabMulti-Basic through the training CLI at full width,
+    480x640, batch 4, bf16, the base trained, frozen RAFT (bf16 fused
+    update) and depth in the step, grad_accum 2, ``ZOO_STEPS``
+    micro-steps; its checkpoint tracks frames through the tracker CLI's
+    loader and the registry's ``--model_type DeepLabMulti-Basic`` (the
+    card has no OpenCV for the CLI's video reader). Then the single-frame
+    CLI trains SegFormer for 2 steps at batch 4, drop-path on. Returns
+    (run Z's launches, its micro-steps)."""
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli import test_multiframe_segmentation_on_videos
+    from mfcnet_tpu_torch.cli import train_multiframe_detection as cli
+    from mfcnet_tpu_torch.cli import train_toolpose_segmentation as sf_cli
+    from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+    )
+    from mfcnet_tpu_torch.models.common import DropPath
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.track.tracker import TrackerConfig, track_on_frames
+
+    recs = []
+    real = cli.make_multiframe_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(state, batch):
+            c0 = _all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = step(state, batch)
+            torch.cuda.synchronize()
+            recs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "parts": {k: float(v) for k, v in parts.items()},
+                         "launches": {k: v - c0[k] for k, v in
+                                      _all_launches().items()}})
+            return parts
+
+        return timed
+
+    cli.make_multiframe_train_step = make
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            d = Path(d)
+            pack = make_synthetic_pack(d / "pack", videos=(
+                ("train", 2, 8), ("val", 1, 4)), height=H, width=W,
+                seed=SEED)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            state = cli.main(_train_args(
+                pack, d, "Z", "--model_type", "DeepLabMulti-Basic",
+                "--train_base_model", "True", "--compute_dtype", "bfloat16",
+                "--grad_accum", str(TRAIN_ACCUM)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _all_launches()
+            peak = torch.cuda.max_memory_allocated()
+            _require_launches("train_zoo", launches)
+            if len(recs) != ZOO_STEPS or state.updates != ZOO_STEPS // 2:
+                raise AssertionError(f"run Z: {ZOO_STEPS} micro-steps and "
+                                     f"{ZOO_STEPS // 2} updates expected, got "
+                                     f"{len(recs)}, {state.updates}")
+            for i, r in enumerate(recs):
+                lc = r["launches"]
+                if not all(np.isfinite(v) for v in r["parts"].values()) or (
+                        lc["flow_warp_bwd"], lc["raft_update"],
+                        lc["flow_warp"]) != (1, FLOW_ITERS, 1):
+                    raise AssertionError(f"run Z micro-step {i}: {r}")
+            warm = [r["ms"] for r in recs[1:]]
+            log(f"[{smi}] train run Z (DeepLabMulti-Basic, bf16, base "
+                f"trained, RAFT + depth, batch {TRAIN_B}, accum "
+                f"{TRAIN_ACCUM}): {len(recs)} micro-steps "
+                f"{[round(r['ms'], 2) for r in recs]} ms (median of 2-"
+                f"{len(recs)}: {float(np.median(warm)):.2f} ms, "
+                f"{TRAIN_B / float(np.median(warm)) * 1e3:.2f} samples/s), "
+                f"peak memory {peak / 2 ** 30:.2f} GiB, {wall:.1f} s with "
+                f"validation and checkpoint; per micro-step 1 flow_warp_bwd, "
+                f"{FLOW_ITERS} raft_update, 1 flow_warp; losses "
+                + json.dumps([{k: round(v, 4) for k, v in r["parts"].items()}
+                              for r in recs]))
+
+            ck = d / "Z" / "ckpts" / "model_000.pth"
+            model = get_multiframe_segmentation_model(
+                "DeepLabMulti-Basic", C, T, add_optflow_inputs=True,
+                add_depth_inputs=True)
+            model.load_state_dict(test_multiframe_segmentation_on_videos
+                                  .load_reference_state_dict(ck))
+            frames = synthetic_frames(6)
+            flow_model = init_weights(RAFT(iters=FLOW_ITERS),
+                                      torch.Generator().manual_seed(SEED))
+            cfg = TrackerConfig(dtype="bfloat16", decode="device",
+                                overlay=False, decode_tie_fallback=False,
+                                add_optflow_inputs=True,
+                                add_depth_inputs=True)
+            track_on_frames(frames, model, cfg, d, name="z",
+                            depth_frames=_depth_frames(frames),
+                            flow_model=flow_model)
+            _check_rows(np.loadtxt(d / "z_tracked.csv", delimiter=","),
+                        len(frames), detect=False)
+            log(f"run Z's checkpoint ({ck.stat().st_size} B) tracks "
+                f"{len(frames)} frames as DeepLabMulti-Basic")
+
+            spack = make_synthetic_pack(d / "spack", videos=(
+                ("train", 1, 8), ("val", 1, 4)), height=H, width=W,
+                seed=SEED)
+            sf = sf_cli.main([
+                "--dataset", "JIGSAWS", "--packed_dir", str(spack),
+                "--expt_savedir", str(d), "--expt_name", "S",
+                "--model_type", "SegFormer", "--batch_size", str(TRAIN_B),
+                "--num_workers", "4", "--num_epochs", "0", "--print_freq",
+                "100", "--input_height", str(H), "--input_width", str(W),
+                "--compute_dtype", "bfloat16", "--seed", str(SEED)])
+            dp = [m for m in sf.model.modules() if isinstance(m, DropPath)]
+            if sf.step != 2 or not any(m.rate > 0 for m in dp) or not all(
+                    torch.isfinite(p).all() for p in sf.model.parameters()):
+                raise AssertionError(f"single-frame SegFormer: {sf.step} "
+                                     "steps, finite weights and drop-path "
+                                     "expected")
+            log(f"single-frame CLI: SegFormer (MiT-B3, {len(dp)} blocks with "
+                f"drop-path up to {max(m.rate for m in dp):.2f}) trained "
+                f"{sf.step} steps at batch {TRAIN_B}, bf16, {H}x{W}")
+    finally:
+        cli.make_multiframe_train_step = real
+    return launches, len(recs)
+
+
+def phase_zoo_slice(noflow_engine, frames, smi):
+    """The zoo slice at full width, 480x640, T=3, C=5, bf16, device decode,
+    seeded weights (each base's running statistics calibrated on the
+    frames, ``_calibrate_bn``), RAFT x12 with the fused update step: each
+    family's Basic model incremental over ``ZOO_FRAMES`` (its launches
+    counted) and full over ``ZOO_FULL``; for HRNetMulti-Basic the kernels
+    against their plain versions, f32 incremental == full, and its f32
+    forward on the card against the CPU; SegFormerMulti-Large with RAFT
+    and depth (no warp); frames/s without flow; the base forward's and
+    the head's device ms (and TernausNet16's, from ``noflow_engine``);
+    run Z and the single-frame SegFormer run. Returns ({path: (launches,
+    fused frames or micro-steps)})."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import init_weights
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.ops import raft_update as ru
+    from mfcnet_tpu_torch.track import decode_device as dd
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    flow_model = init_weights(RAFT(iters=FLOW_ITERS), gen)
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True)
+    ncfg = dataclasses.replace(cfg, add_optflow_inputs=False)
+    xcal = noflow_engine._normalize(frames[:4]).float()
+    paths, device_ms = {}, {}
+
+    def device_times(name, engine):
+        """ms of one bf16 base forward of a 480x640 frame and of one head
+        call on the ring: device time (CUDA-graph replay) and eager (CUDA
+        events around 10 calls: the host's enqueue time shows where it
+        exceeds the device's)."""
+        x1 = engine._normalize(frames[:1])
+        seg = torch.zeros(1, T * C, H, W, dtype=engine.dtype, device="cuda")
+
+        def base():
+            engine.model.base_nchw(x1)
+
+        def head():
+            engine.model.fuse_nchw(seg)
+
+        with torch.no_grad():
+            device_ms[name] = [(_graph_ms(f, reps=2, rounds=5),
+                                _event_ms(f, 10)) for f in (base, head)]
+        (bg, be), (hg, he) = device_ms[name]
+        log(f"[{smi}] {name}, bf16, one 480x640 frame: base forward {bg:.3f} "
+            f"ms device (graph replay), {be:.3f} ms eager ({be / bg:.2f}x); "
+            f"head {hg:.3f} ms device, {he:.3f} ms eager")
+
+    device_times("TernausNet16", noflow_engine)
+    with tempfile.TemporaryDirectory() as d:
+        for fam in ZOO_FAMILIES:
+            mt = f"{fam}Multi-Basic"
+            t0 = time.perf_counter()
+            model = _zoo_model(mt, gen, xcal, add_optflow_inputs=True)
+            n_params = sum(p.numel() for p in model.parameters())
+            n_bn = sum(isinstance(m, torch.nn.BatchNorm2d)
+                       for m in model.base_model.modules())
+            engine = InferenceEngine(model, cfg, flow_model=flow_model)
+            n, fused = ZOO_FRAMES, ZOO_FRAMES - (T - 1)
+            dd.reset_tier_counts()
+            _reset_all_launches()
+            _, fps = track_on_frames(frames[:n], None, cfg, d, name=fam,
+                                     engine=engine)
+            launches = _all_launches()
+            tiers = dict(dd.TIER_COUNTS)
+            rows = np.loadtxt(Path(d) / f"{fam}_tracked.csv", delimiter=",")
+            # random weights need not detect a tool: rows are checked for
+            # shape, warm-up and range, and their detections counted
+            _check_rows(rows, n, detect=False)
+            path = f"zoo_{fam.lower()}"
+            _require_launches(path, launches)
+            if launches["raft_update"] != FLOW_ITERS * fused \
+                    or launches["flow_warp"] != fused \
+                    or ru.COUNTS["hx_fills"] != fused:
+                raise AssertionError(
+                    f"{mt}: expected {FLOW_ITERS} update steps, 1 fill of hx "
+                    f"and 1 warp per fused frame ({fused} frames), got "
+                    f"{launches}, {ru.COUNTS}")
+            paths[path] = (launches, fused)
+            track_on_frames(frames[:ZOO_FULL], model,
+                            dataclasses.replace(cfg, mode="full"), d,
+                            name=f"{fam}_full", flow_model=flow_model,
+                            device="cuda")
+            _check_rows(np.loadtxt(Path(d) / f"{fam}_full_tracked.csv",
+                                   delimiter=","), ZOO_FULL, detect=False)
+            detected = int(np.isfinite(rows).any(axis=1).sum())
+            log(f"{mt}: full width, {n_params} parameters, {n_bn} BN layers "
+                f"in the base, + RAFT x{FLOW_ITERS}: {n} frames incremental "
+                f"(first run, with warm-up: {fps:.2f} frames/s), "
+                f"{ZOO_FULL} full -> CSVs ({detected} rows with a "
+                f"detection); decode tiers {json.dumps(tiers)}; "
+                f"launches {json.dumps(launches)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+
+            if fam == "HRNet":
+                # the head resamples raw logits of std ZOO_LOGIT_STD by the
+                # flow, not TernausNet's probabilities in [0, 1]: a flipped
+                # bf16 rounding in the update step moves them as the Large
+                # head's raw flow channels move its output
+                _compare_with_plain_kernels(
+                    mt, engine, InferenceEngine(model, cfg,
+                                                flow_model=flow_model),
+                    frames, _plain_flow_kernels,
+                    lambda e: out.flow_from_feature_ring(
+                        *e.flow_state, (H, W), e.flow_model),
+                    prob_tol=LARGE_PROB_TOL)
+                with parity_mode():
+                    c32 = dataclasses.replace(cfg, dtype="float32")
+                    engines = {m: InferenceEngine(
+                        model, dataclasses.replace(c32, mode=m),
+                        flow_model=flow_model, device="cuda")
+                        for m in ("incremental", "full")}
+                    _parity_incremental_full(mt, engines, frames)
+                    rows = {m: track_on_frames(frames[:ZOO_FRAMES], None,
+                                               e.cfg, d, name=f"p{m}",
+                                               engine=e)[0]
+                            for m, e in engines.items()}
+                    rmse, nan_rows = _tip_rmse(rows["incremental"],
+                                               rows["full"])
+                    log(f"{mt}, f32 parity mode, incremental vs full, "
+                        f"{ZOO_FRAMES}-frame rows: tip RMSE {rmse:.4g} px, "
+                        f"{nan_rows} rows whose detections differ")
+                    if rmse > 0.5:
+                        raise AssertionError(f"{mt}: tip RMSE {rmse} px")
+                    x = xcal[:T].permute(0, 2, 3, 1)[None].contiguous()
+                    with torch.no_grad():
+                        got = model(x).float().cpu()
+                        n_threads = torch.get_num_threads()
+                        torch.set_num_threads(8)
+                        want = copy.deepcopy(model).cpu()(x.cpu())
+                        torch.set_num_threads(n_threads)
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    log(f"{mt} f32 forward (TF32 off), card vs CPU, one "
+                        f"window of {T} frames: max |logit diff| {err:.4g} "
+                        f"of max |logit| {scale:.4g} (limit {ZOO_F32_TOL} "
+                        "of it)")
+                    if not err <= ZOO_F32_TOL * scale:
+                        raise AssertionError(f"{mt}: card and CPU disagree")
+
+            # frames/s at B=1 without flow, two calls; device ms alone
+            nf = InferenceEngine(model, ncfg)
+            rates = [track_on_frames(frames[:ZOO_TIMED_FRAMES], None, ncfg,
+                                     d, name=f"{fam}_t{i}", engine=nf)[1]
+                     for i in range(2)]
+            log(f"[{smi}] {mt} without flow, incremental bf16, device "
+                f"decode, B=1: {rates[0]:.2f}, {rates[1]:.2f} frames/s "
+                f"({ZOO_TIMED_FRAMES} frames a call)")
+            device_times(fam, nf)
+            if fam == "DeepLab":
+                _time_aspp(model, smi)
+            del model, engine, nf
+            torch.cuda.empty_cache()
+
+        # SegFormerMulti-Large with RAFT and depth: no warp
+        lcfg = dataclasses.replace(cfg, add_depth_inputs=True)
+        model = _zoo_model("SegFormerMulti-Large", gen, xcal,
+                           add_optflow_inputs=True, add_depth_inputs=True)
+        n = ZOO_LARGE_FRAMES
+        _reset_all_launches()
+        track_on_frames(frames[:n], model, lcfg, d, name="segl",
+                        depth_frames=_depth_frames(frames[:n]),
+                        flow_model=flow_model, device="cuda")
+        launches = _all_launches()
+        _check_rows(np.loadtxt(Path(d) / "segl_tracked.csv", delimiter=","),
+                    n, detect=False)
+        _require_launches("zoo_large", launches)
+        if launches["flow_warp"] != 0:
+            raise AssertionError("SegFormerMulti-Large warps nothing: "
+                                 f"{launches['flow_warp']} flow_warp")
+        paths["zoo_large"] = (launches, n - (T - 1))
+        log(f"SegFormerMulti-Large + RAFT + depth: {n} frames incremental, "
+            f"0 flow_warp; launches {json.dumps(launches)}")
+        del model
+        torch.cuda.empty_cache()
+    paths["train_zoo"] = _run_z(smi)
+    return paths
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -4062,6 +4514,7 @@ def main():
         bounds.update(b)
         library.update(lib)
     phase_ffpp_timings(ffpp_engine, frames, smi)
+    zoo_paths = phase_zoo_slice(engine, frames, smi)
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
      (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
     times.update(t)
@@ -4080,12 +4533,13 @@ def main():
              "unflow": (launches_unflow, fused_unflow),
              "ffpp": (launches_ffpp, fused_ffpp),
              "train": (launches_train, n_micro),
-             "train_ffpp": (launches_train_ffpp, n_micro_ffpp)}
+             "train_ffpp": (launches_train_ffpp, n_micro_ffpp),
+             **zoo_paths}
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
-         # over the eight main-path runs, each counted from 0
+         # over the main-path runs, each counted from 0
          "launches": sum(c[name] for c, _ in paths.values()),
          "launches_by_path": {p: c[name] for p, (c, _) in paths.items()},
          "launches_per_frame": {p: c[name] / n for p, (c, n) in paths.items()},

@@ -13,12 +13,14 @@ port's trainer; ``--use_ema True`` loads that checkpoint's EMA weights.
 torchvision ``raft_large`` ``.pth`` (its key names load directly), and
 without it the provider keeps its seeded random weights.
 ``--add_depth_inputs True`` reads one depth video per RGB video from
-``--depth_videos_dir``. ``--model_type`` TernausNetMulti-Basic warps the
-earlier maps by the flow; TernausNetMulti-Large takes the flow raw into
-its head. ``--parallel_videos P`` tracks the videos in groups of up to P
-at once, through one engine with ``num_streams`` = the group's size (one
-engine kept per group size): each group's frames are read into memory
-first, and the CSVs are those of the sequential run. The tracker runs on
+``--depth_videos_dir``. ``--model_type`` takes the
+``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-{Basic,Large}`` types: a
+Basic model warps the earlier maps by the flow, a Large one takes the flow
+raw into its head; ``UNetMulti-*`` and ``ResUNetMulti-*`` raise and name
+ROADMAP item 10b. ``--parallel_videos P`` tracks the videos in groups of
+up to P at once, through one engine with ``num_streams`` = the group's
+size (one engine kept per group size): each group's frames are read into
+memory first, and the CSVs are those of the sequential run. The tracker runs on
 the card; ``--device cpu`` asks for the CPU, and without a card the
 default is an error. Flags of later slices are accepted and raise an
 error that names their ROADMAP item.

@@ -5,13 +5,16 @@ scripts/train_multiframe_detection.py).
     python -m mfcnet_tpu_torch.cli.train_multiframe_detection \
         --dataset JIGSAWS --packed_dir PACKS --add_optflow_inputs True ...
 
-TernausNetMulti-Basic or -Large (weights drawn from ``--seed`` as the JAX
-trainer draws them, ``models.init_weights_lecun``), with the frozen flow
+``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-{Basic,Large}`` (weights
+drawn from ``--seed`` as the JAX trainer draws them,
+``models.init_weights_lecun``; ``--load_wts_base_model`` loads the
+family's base from a single-frame checkpoint by name), with the frozen flow
 provider (RAFT, FlowFormer++ or UnFlow: ``--optflow_model``) inside the
 step and depth inputs as the flags
 say: Basic warps the earlier maps by flow(frame_i -> frame_0), Large
 takes flow(frame_0 -> frame_i) raw into its head; the base frozen (the
-default) or trained (``--train_base_model True``); float32 or bfloat16
+default, in eval mode: running statistics, no dropout) or trained
+(``--train_base_model True``); float32 or bfloat16
 (``--compute_dtype``, by cast, see ``train/steps.py``); gradient
 accumulation and EMA. Reads packs (``--packed_dir``: no OpenCV, the way
 to train on the card) or the image tree, validates with IoU/Dice after

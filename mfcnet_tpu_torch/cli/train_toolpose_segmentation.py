@@ -1,8 +1,9 @@
-"""Train the single-frame TernausNet16 (counterpart of
+"""Train a single-frame model (counterpart of
 ``mfcnet_tpu/cli/train_toolpose_segmentation.py``; reference
-scripts/train_toolpose_segmentation.py), the first stage of the
-reference's recipe: its checkpoint's ``model`` is what the multi-frame
-trainer's ``--load_wts_base_model`` loads.
+scripts/train_toolpose_segmentation.py): TernausNet16, DeepLab_v3, FCN,
+HRNet or SegFormer, the first stage of the reference's recipe: its
+checkpoint's ``model`` is what the multi-frame trainer's
+``--load_wts_base_model`` loads into the Multi family of that base.
 
     python -m mfcnet_tpu_torch.cli.train_toolpose_segmentation \
         --dataset JIGSAWS --packed_dir PACKS ...
@@ -10,7 +11,11 @@ trainer's ``--load_wts_base_model`` loads.
 Samples are the multi-frame datasets' with one frame (a pack or the image
 tree), through the same augmentation; plain Adam at ``--lr``, the same
 schedule, accumulation, EMA, checkpoints and interrupt snapshot as the
-multi-frame trainer. Other model types raise and name ROADMAP item 10.
+multi-frame trainer. The step reads TernausNet16's and SegFormer's
+output as log-probabilities and the others' as logits (``models.
+OUTPUT_MODES``); FCN's dropout and SegFormer's drop-path draw from the
+train state's generator. TernausNet11, TAPNet, UNet and ResUNet raise and
+name ROADMAP item 10b.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from mfcnet_tpu_torch.data.transforms import (
     preprocess_eval_batch,
 )
 from mfcnet_tpu_torch.models import (
+    OUTPUT_MODES,
     get_tooltip_segmentation_model,
     init_weights_lecun,
 )
@@ -78,12 +84,15 @@ def main(argv=None):
         start_epoch, resume_skip = resume(state, expt_dir / "ckpts",
                                           args.load_wts_model,
                                           args.starting_epoch, logger)
+    mode = OUTPUT_MODES[args.model_type]
     train_step = make_singleframe_train_step(
         args.loss_fns, args.loss_wts, args.num_classes,
-        class_weights=args.class_weights, compute_dtype=args.compute_dtype)
+        class_weights=args.class_weights, compute_dtype=args.compute_dtype,
+        output_mode=mode)
     eval_step = make_singleframe_eval_step(
         args.loss_fns, args.loss_wts, args.metric_fns, args.num_classes,
-        class_weights=args.class_weights, compute_dtype=args.compute_dtype)
+        class_weights=args.class_weights, compute_dtype=args.compute_dtype,
+        output_mode=mode)
     tcfg = TransformConfig(out_height=args.input_height,
                            out_width=args.input_width,
                            prediction_task=args.prediction_task)

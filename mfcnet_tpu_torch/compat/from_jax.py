@@ -17,6 +17,14 @@ A flax ``.msgpack`` checkpoint is read with the JAX package (flax's
 ``serialization``); convert its variables here and save the result with
 ``torch.save`` to get a ``.pth`` the port loads.
 
+:func:`state_dict_from_jax` takes every base the port builds, alone or
+inside a Multi wrapper: TernausNet16, DeepLabV3 and FCN (the inverses of
+``torch_convert.convert_{deeplabv3,fcn}_resnet101``, torchvision's key
+names), HRNet (of ``convert_hrnet``, the reference's names, flax's
+auto-named ``Conv_i`` / ``BatchNorm_i`` inside its blocks) and SegFormer
+(of ``convert_segformer``, smp's names; dense kernel (in, out) -> linear
+weight (out, in), LayerNorm scale -> weight).
+
 :func:`raft_state_dict_from_jax` does the same for the flow provider: the
 inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
 key names; :func:`unflow_state_dict_from_jax` for UnFlow: the inverse of
@@ -60,46 +68,209 @@ def _bn(sd, key, p, st):
     sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _ternausnet_pairs(base, params):
+    """TernausNet16: the encoder's flax ``Conv_j`` at the torchvision
+    layer indices ``base`` fixes, then the decoder blocks."""
+    enc_idx = [i for i, m in enumerate(base.encoder)
+               if isinstance(m, torch.nn.Conv2d)]
+    if len(params["encoder"]) != len(enc_idx):
+        raise ValueError(
+            f"encoder has {len(params['encoder'])} convs in the JAX params, "
+            f"{len(enc_idx)} in the model")
+    out = [(f"encoder.{idx}", ("encoder", f"Conv_{j}"), _conv)
+           for j, idx in enumerate(enc_idx)]
+    for name in ("center", "dec5", "dec4", "dec3", "dec2"):
+        out += [(f"{name}.block.0.conv", (name, "ConvReLU_0", "Conv_0"),
+                 _conv),
+                (f"{name}.block.1", (name, "TorchConvTranspose_0"),
+                 _deconv)]
+    return out + [("dec1.conv", ("dec1", "Conv_0"), _conv),
+                  ("final", ("final",), _conv)]
+
+
+def _resnet_pairs(backbone):
+    out = [("backbone.conv1", ("backbone", "conv1"), _conv),
+           ("backbone.bn1", ("backbone", "bn1"), _bn)]
+    for li in range(1, 5):
+        for bi, blk in enumerate(getattr(backbone, f"layer{li}")):
+            tp, jp = f"backbone.layer{li}.{bi}", ("backbone",
+                                                  f"layer{li}_block{bi}")
+            for i in (1, 2, 3):
+                out += [(f"{tp}.conv{i}", jp + (f"conv{i}",), _conv),
+                        (f"{tp}.bn{i}", jp + (f"bn{i}",), _bn)]
+            if blk.downsample is not None:
+                out += [(f"{tp}.downsample.0", jp + ("down_conv",), _conv),
+                        (f"{tp}.downsample.1", jp + ("down_bn",), _bn)]
+    return out
+
+
+def _deeplab_pairs(base, params):
+    a, ja = "classifier.0", ("classifier", "aspp")
+    out = _resnet_pairs(base.backbone) + [
+        (f"{a}.convs.0.0", ja + ("conv1x1",), _conv),
+        (f"{a}.convs.0.1", ja + ("bn1x1",), _bn)]
+    for i in range(3):
+        out += [(f"{a}.convs.{i + 1}.0", ja + (f"aspp_conv{i}", "conv"),
+                 _conv),
+                (f"{a}.convs.{i + 1}.1", ja + (f"aspp_conv{i}", "bn"), _bn)]
+    return out + [
+        (f"{a}.convs.4.1", ja + ("pool_conv",), _conv),
+        (f"{a}.convs.4.2", ja + ("pool_bn",), _bn),
+        (f"{a}.project.0", ja + ("project",), _conv),
+        (f"{a}.project.1", ja + ("project_bn",), _bn),
+        ("classifier.1", ("classifier", "conv"), _conv),
+        ("classifier.2", ("classifier", "bn"), _bn),
+        ("classifier.4", ("classifier", "final"), _conv)]
+
+
+def _fcn_pairs(base, params):
+    return _resnet_pairs(base.backbone) + [
+        ("classifier.0", ("classifier", "conv"), _conv),
+        ("classifier.1", ("classifier", "bn"), _bn),
+        ("classifier.4", ("classifier", "final"), _conv)]
+
+
+def _auto_named(tp, jp, n_convs):
+    """A block whose flax convs and batch norms are auto-named: torch
+    ``conv{i}`` / ``bn{i}`` -> ``Conv_{i-1}`` / ``BatchNorm_{i-1}``."""
+    out = []
+    for i in range(n_convs):
+        out += [(f"{tp}.conv{i + 1}", jp + (f"Conv_{i}",), _conv),
+                (f"{tp}.bn{i + 1}", jp + (f"BatchNorm_{i}",), _bn)]
+    return out
+
+
+def _hrnet_pairs(base, params):
+    out = [("conv1", ("stem1",), _conv), ("bn1", ("stem1_bn",), _bn),
+           ("conv2", ("stem2",), _conv), ("bn2", ("stem2_bn",), _bn)]
+    for b, blk in enumerate(base.layer1):
+        out += _auto_named(f"layer1.{b}", (f"layer1_{b}",), 3)
+        if blk.downsample is not None:
+            out += [(f"layer1.{b}.downsample.0", (f"layer1_{b}", "Conv_3"),
+                     _conv),
+                    (f"layer1.{b}.downsample.1",
+                     (f"layer1_{b}", "BatchNorm_3"), _bn)]
+    out += [("transition1.0.0", ("t1_0",), _conv),
+            ("transition1.0.1", ("t1_0_bn",), _bn),
+            ("transition1.1.0.0", ("t1_1",), _conv),
+            ("transition1.1.0.1", ("t1_1_bn",), _bn),
+            ("transition2.2.0.0", ("t2",), _conv),
+            ("transition2.2.0.1", ("t2_bn",), _bn),
+            ("transition3.3.0.0", ("t3",), _conv),
+            ("transition3.3.0.1", ("t3_bn",), _bn)]
+    for s in (2, 3, 4):
+        for m, mod in enumerate(getattr(base, f"stage{s}")):
+            tp, jp = f"stage{s}.{m}", (f"stage{s}_m{m}",)
+            for br, seq in enumerate(mod.branches):
+                for b in range(len(seq)):
+                    out += _auto_named(f"{tp}.branches.{br}.{b}",
+                                       jp + (f"branch{br}_block{b}",), 2)
+            for i, row in enumerate(mod.fuse_layers):
+                for j, path in enumerate(row):
+                    fp = f"{tp}.fuse_layers.{i}.{j}"
+                    if j > i:
+                        out += [(f"{fp}.0", jp + (f"fuse{i}_{j}_conv",),
+                                 _conv),
+                                (f"{fp}.1", jp + (f"fuse{i}_{j}_bn",), _bn)]
+                    for k in range(i - j):
+                        d = f"fuse{i}_{j}_down{k}"
+                        out += [(f"{fp}.{k}.0", jp + (d,), _conv),
+                                (f"{fp}.{k}.1", jp + (f"{d}_bn",), _bn)]
+    return out + [("last_layer.0", ("head1",), _conv),
+                  ("last_layer.1", ("head_bn",), _bn),
+                  ("last_layer.3", ("head2",), _conv)]
+
+
+def _segformer_pairs(base, params):
+    out = []
+    for s in range(1, 5):
+        e = ("encoder", f"embed{s}")
+        out += [(f"encoder.patch_embed{s}.proj", e + ("Conv_0",), _conv),
+                (f"encoder.patch_embed{s}.norm", e + ("LayerNorm_0",), _ln)]
+        for b, blk in enumerate(getattr(base.encoder, f"block{s}")):
+            tp, jp = f"encoder.block{s}.{b}", ("encoder", f"stage{s}_block{b}")
+            at = jp + ("EfficientAttention_0",)
+            out += [(f"{tp}.norm1", jp + ("LayerNorm_0",), _ln),
+                    (f"{tp}.attn.q", at + ("q",), _linear),
+                    (f"{tp}.attn.kv", at + ("kv",), _linear),
+                    (f"{tp}.attn.proj", at + ("proj",), _linear),
+                    (f"{tp}.norm2", jp + ("LayerNorm_1",), _ln),
+                    (f"{tp}.mlp.fc1", jp + ("MixFFN_0", "fc1"), _linear),
+                    (f"{tp}.mlp.dwconv.dwconv", jp + ("MixFFN_0", "dwconv"),
+                     _conv),
+                    (f"{tp}.mlp.fc2", jp + ("MixFFN_0", "fc2"), _linear)]
+            if blk.attn.sr_ratio > 1:
+                out += [(f"{tp}.attn.sr", at + ("sr",), _conv),
+                        (f"{tp}.attn.norm", at + ("sr_norm",), _ln)]
+        out.append((f"encoder.norm{s}", ("encoder", f"norm{s}"), _ln))
+    return out + [(f"decoder.mlp_stage.{i}.linear", (f"linear_c{4 - i}",),
+                   _linear) for i in range(4)] + [
+        ("decoder.fuse_stage.0", ("fuse",), _conv),
+        ("decoder.fuse_stage.1", ("fuse_bn",), _bn),
+        ("segmentation_head.0", ("pred",), _conv)]
+
+
+def _base_pairs(base, params):
+    """(torch key prefix, flax path, layout change) of every parameterized
+    module of a base model."""
+    from mfcnet_tpu_torch.models.deeplab import DeepLabV3ResNet101
+    from mfcnet_tpu_torch.models.fcn import FCNResNet101
+    from mfcnet_tpu_torch.models.hrnet import HRNetW48
+    from mfcnet_tpu_torch.models.segformer import SegFormerMiTB3
+    from mfcnet_tpu_torch.models.ternausnet import TernausNet16
+
+    for cls, pairs in ((TernausNet16, _ternausnet_pairs),
+                       (DeepLabV3ResNet101, _deeplab_pairs),
+                       (FCNResNet101, _fcn_pairs), (HRNetW48, _hrnet_pairs),
+                       (SegFormerMiTB3, _segformer_pairs)):
+        if isinstance(base, cls):
+            return pairs(base, params)
+    raise TypeError(f"no JAX layout for {type(base).__name__}")
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _fill(sd, prefix, pairs, params, stats):
+    for key, path, put in pairs:
+        if put is _bn:
+            put(sd, prefix + key, _at(params, path), _at(stats, path))
+        else:
+            put(sd, prefix + key, _at(params, path))
+
+
 def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
-    """JAX ``{'params', 'batch_stats'}`` of a TernausNetMulti-Basic or
-    -Large MultiFrameSegmenter -> a complete ``state_dict`` for ``model``
-    (the port's module of the same widths and variant; it fixes the
-    encoder's layer indices and the ``conv1``..``conv5`` aliases). Both
-    variants keep the head under ``multiframe_net.multiframe_net``, as
-    ``torch_convert.convert_multiframe_ternausnet`` reads it; the head's
-    first conv takes as many input channels as the JAX kernel has (T more
-    with depth inputs, and for Large 2(T-1) more with flow inputs)."""
+    """JAX ``{'params', 'batch_stats'}`` -> a complete ``state_dict`` for
+    ``model``: a Multi wrapper (:class:`MultiFrameSegmenter`, Basic or
+    Large, of any base the port builds) or a single-frame base alone.
+    ``model`` is the port's module of the same widths; it fixes the
+    TernausNet encoder's layer indices and its ``conv1``..``conv5``
+    aliases. Both variants keep the head under
+    ``multiframe_net.multiframe_net``, as ``torch_convert`` reads it; the
+    head's first conv takes as many input channels as the JAX kernel has
+    (T more with depth inputs, and for Large 2(T-1) more with flow
+    inputs). A key of ``model`` with no JAX counterpart raises."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    base = params["base"]
     sd = {}
-    enc_idx = [i for i, m in enumerate(model.base_model.encoder)
-               if isinstance(m, torch.nn.Conv2d)]
-    enc = base["encoder"]
-    if len(enc) != len(enc_idx):
-        raise ValueError(
-            f"encoder has {len(enc)} convs in the JAX params, "
-            f"{len(enc_idx)} in the model"
-        )
-    for j, idx in enumerate(enc_idx):
-        _conv(sd, f"base_model.encoder.{idx}", enc[f"Conv_{j}"])
-    for name in ("center", "dec5", "dec4", "dec3", "dec2"):
-        blk = base[name]
-        _conv(sd, f"base_model.{name}.block.0.conv",
-              blk["ConvReLU_0"]["Conv_0"])
-        _deconv(sd, f"base_model.{name}.block.1",
-                blk["TorchConvTranspose_0"])
-    _conv(sd, "base_model.dec1.conv", base["dec1"]["Conv_0"])
-    _conv(sd, "base_model.final", base["final"])
-
-    head = params["multiframe_net"]["head"]
-    head_stats = stats["multiframe_net"]["head"]
-    pre = "multiframe_net.multiframe_net"
-    for i, tidx in enumerate((0, 3, 6, 9)):
-        _conv(sd, f"{pre}.{tidx}", head[f"Conv_{i}"])
-    for i, tidx in enumerate((1, 4, 7)):
-        _bn(sd, f"{pre}.{tidx}", head[f"BatchNorm_{i}"],
-            head_stats[f"BatchNorm_{i}"])
+    multi = hasattr(model, "base_model")
+    if multi:
+        base = model.base_model
+        _fill(sd, "base_model.", _base_pairs(base, params["base"]),
+              params["base"], stats.get("base", {}))
+        head = params["multiframe_net"]["head"]
+        head_stats = stats["multiframe_net"]["head"]
+        pre = "multiframe_net.multiframe_net"
+        for i, tidx in enumerate((0, 3, 6, 9)):
+            _conv(sd, f"{pre}.{tidx}", head[f"Conv_{i}"])
+        for i, tidx in enumerate((1, 4, 7)):
+            _bn(sd, f"{pre}.{tidx}", head[f"BatchNorm_{i}"],
+                head_stats[f"BatchNorm_{i}"])
+    else:
+        _fill(sd, "", _base_pairs(model, params), params, stats)
 
     # the conv1..conv5 stage views share the encoder's modules: fill
     # their keys from the canonical ones

@@ -124,7 +124,9 @@ def _add_train_flags(p, multiframe: bool):
                        choices=MULTIFRAME_MODELS)
         g.add_argument("--train_base_model", type=str2bool, default=False)
         g.add_argument("--load_wts_base_model", type=str, default=None,
-                       help="TernausNet16 .pth (state_dict or {model: ...})")
+                       help="the base's single-frame .pth (state_dict or "
+                            "{model: ...}), e.g. a checkpoint of "
+                            "train_toolpose_segmentation")
     else:
         g.add_argument("--model_type", type=str, default="TernausNet16",
                        choices=SINGLEFRAME_MODELS)

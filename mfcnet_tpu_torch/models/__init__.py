@@ -1,9 +1,11 @@
 """Model registry (counterpart of ``mfcnet_tpu/models/__init__.py``).
 
-Builds ``TernausNetMulti-Basic`` and ``TernausNetMulti-Large`` (with or
-without flow and depth inputs) and the single-frame ``TernausNet16``;
-every other model type the JAX package knows raises an error that names
-its ROADMAP item.
+Builds the multi-frame ``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-
+{Basic,Large}`` (with or without flow and depth inputs) and the
+single-frame ``TernausNet16``, ``DeepLab_v3`` (alias ``DeepLab``),
+``FCN``, ``HRNet`` and ``SegFormer``, at the JAX registry's widths for
+any ``scale``; every other model type the JAX package knows raises an
+error that names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,18 +20,79 @@ from mfcnet_tpu_torch.models.mfcnet import (
 )
 from mfcnet_tpu_torch.models.ternausnet import TernausNet16
 
-_VARIANTS = {"TernausNetMulti-Basic": "basic",
-             "TernausNetMulti-Large": "large"}
-_ZOO = "ROADMAP.md Queue 1 item 10 (rest of the model zoo)"
-_KNOWN_FAMILIES = ("TernausNetMulti", "DeepLabMulti", "FCNMulti",
-                   "SegFormerMulti", "HRNetMulti", "UNetMulti",
-                   "ResUNetMulti")
+#: multi-frame family -> its base's single-frame model type
+_MULTI_BASES = {
+    "TernausNetMulti": "TernausNet16",
+    "DeepLabMulti": "DeepLab_v3",
+    "FCNMulti": "FCN",
+    "HRNetMulti": "HRNet",
+    "SegFormerMulti": "SegFormer",
+}
+#: model types (and Multi families) of the JAX registries that the port
+#: does not build yet
+_LATER = ("UNetMulti", "ResUNetMulti", "TernausNet11", "TAPNet11",
+          "TAPNet16", "UNet", "ResUNet")
+_ZOO_10B = "ROADMAP.md Queue 1 item 10b (TernausNet11, TAPNet, UNet, ResUNet)"
+#: the single-frame types, with how the single-frame step reads the
+#: model's output (``train/steps.py``): log-probabilities as they are, or
+#: logits through a float32 log-softmax (mfcnet_tpu/cli/
+#: train_toolpose_segmentation.py:45-56)
+OUTPUT_MODES = {
+    "TernausNet16": "log_probs",
+    "SegFormer": "log_probs",
+    "HRNet": "logits",
+    "DeepLab_v3": "logits",
+    "DeepLab": "logits",
+    "FCN": "logits",
+}
 
 
 def _scaled_vgg(stages, scale: float):
     return tuple(
         tuple(max(4, int(c * scale)) for c in stage) for stage in stages
     )
+
+
+def _build_base(kind: str, num_classes: int, scale: float = 1.0):
+    """(single-frame model, base_output) by model type, with the JAX
+    registry's rules for ``scale`` < 1 (``mfcnet_tpu/models/__init__.py::
+    _build_base``)."""
+    if kind == "TernausNet16":
+        return TernausNet16(
+            num_classes=num_classes,
+            num_filters=max(4, int(64 * scale)),
+            stage_convs=_scaled_vgg(VGG16_STAGES, scale),
+        ), "exp"
+    if kind in ("DeepLab_v3", "DeepLab", "FCN"):
+        from mfcnet_tpu_torch.models.deeplab import DeepLabV3ResNet101
+        from mfcnet_tpu_torch.models.fcn import FCNResNet101
+
+        cls = FCNResNet101 if kind == "FCN" else DeepLabV3ResNet101
+        layers = (3, 4, 23, 3) if scale >= 1.0 else (1, 1, 1, 1)
+        return cls(num_classes, layers=layers,
+                   width=max(4, int(64 * scale))), "identity"
+    if kind == "HRNet":
+        from mfcnet_tpu_torch.models.hrnet import HRNET_W48, HRNetW48
+
+        if scale >= 1.0:
+            return HRNetW48(num_classes), "identity"
+        return HRNetW48(
+            num_classes,
+            channels=tuple(max(4, int(c * scale)) for c in HRNET_W48),
+            stage_modules=(1, 1, 1), num_blocks=1,
+            stage1_width=max(4, int(64 * scale))), "identity"
+    if kind == "SegFormer":
+        from mfcnet_tpu_torch.models.segformer import MIT_B3, SegFormerMiTB3
+
+        if scale >= 1.0:
+            return SegFormerMiTB3(num_classes), "identity"
+        return SegFormerMiTB3(
+            num_classes, decoder_dim=max(8, int(256 * scale)),
+            dims=tuple(max(8, int(d * scale)) for d in MIT_B3["dims"]),
+            depths=(1, 1, 1, 1), heads=(1, 1, 1, 1)), "identity"
+    if kind in _LATER:
+        raise NotImplementedError(f"{kind}: {_ZOO_10B}")
+    raise ValueError(f"Model type {kind} not recognized")
 
 
 def get_multiframe_segmentation_model(
@@ -46,21 +109,20 @@ def get_multiframe_segmentation_model(
     ``add_optflow_inputs`` changes no parameter of the Basic variant
     (the flow only warps) and widens the Large head's first conv by
     2(T-1) channels (the raw flows); ``add_depth_inputs`` widens the
-    head's first conv by T channels. ``scale`` < 1 shrinks the channel widths as in the JAX registry;
-    ``generator`` seeds the random initialization (PyTorch's default
-    init schemes, drawn from this generator)."""
-    if model_type not in _VARIANTS:
-        family = model_type.rsplit("-", 1)[0]
-        if family in _KNOWN_FAMILIES:
-            raise NotImplementedError(f"{model_type}: {_ZOO}")
+    head's first conv by T channels. ``scale`` < 1 shrinks the base as
+    the JAX registry does; ``generator`` seeds the random initialization
+    (PyTorch's default init schemes, drawn from this generator)."""
+    family, _, variant = model_type.rpartition("-")
+    if family in _LATER:
+        raise NotImplementedError(f"{model_type}: {_ZOO_10B}")
+    variant = variant.lower()
+    if family not in _MULTI_BASES or variant not in ("basic", "large"):
         raise ValueError(f"Model type {model_type} not recognized")
-    base = TernausNet16(
-        num_classes=num_classes,
-        num_filters=max(4, int(64 * scale)),
-        stage_convs=_scaled_vgg(VGG16_STAGES, scale),
-    )
+    base, base_output = _build_base(_MULTI_BASES[family], num_classes,
+                                    scale)
     model = MultiFrameSegmenter(base, num_classes, num_input_frames,
-                                variant=_VARIANTS[model_type],
+                                variant=variant,
+                                base_output=base_output,
                                 add_depth_inputs=add_depth_inputs,
                                 add_optflow_inputs=add_optflow_inputs)
     if generator is not None:
@@ -71,30 +133,35 @@ def get_multiframe_segmentation_model(
 def get_tooltip_segmentation_model(model_type: str, num_classes: int,
                                    scale: float = 1.0,
                                    generator: torch.Generator | None = None
-                                   ) -> TernausNet16:
-    """A single-frame model by the reference's model-type string:
-    TernausNet16 (the base of TernausNetMulti, trained first and loaded
-    with ``--load_wts_base_model``); every other type raises."""
-    if model_type != "TernausNet16":
-        raise NotImplementedError(f"{model_type}: {_ZOO}")
-    model = TernausNet16(num_classes=num_classes,
-                         num_filters=max(4, int(64 * scale)),
-                         stage_convs=_scaled_vgg(VGG16_STAGES, scale))
+                                   ) -> torch.nn.Module:
+    """A single-frame model by the reference's model-type string: the
+    bases of the multi-frame families (trained first and loaded with
+    ``--load_wts_base_model``); the types of ROADMAP item 10b raise."""
+    model, _ = _build_base(model_type, num_classes, scale)
     if generator is not None:
         init_weights(model, generator)
     return model.eval()
 
 
+def _norm_defaults(mod):
+    if isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
+        torch.nn.init.ones_(mod.weight)
+        torch.nn.init.zeros_(mod.bias)
+
+
 def init_weights(model: torch.nn.Module, generator: torch.Generator):
-    """Re-draw every conv weight and bias from ``generator`` with
-    PyTorch's default schemes (kaiming-uniform(a=sqrt(5)) weights,
-    fan-in uniform biases; BatchNorm keeps weight 1, bias 0), so a seed
+    """Re-draw every conv, deconv and linear weight and bias from
+    ``generator`` with PyTorch's default schemes (kaiming-uniform(a=sqrt(5))
+    weights, fan-in uniform biases; fan-in = input channels per group x
+    kernel taps); LayerNorm and BatchNorm get weight 1, bias 0. A seed
     fixes the whole model."""
     import math
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            _norm_defaults(mod)
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                torch.nn.Linear)):
                 torch.nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5),
                                                generator=generator)
                 if mod.bias is not None:
@@ -112,10 +179,11 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def init_weights_lecun(model: torch.nn.Module, generator: torch.Generator):
-    """Re-draw every conv and deconv weight as the JAX package's flax
-    modules initialize theirs (``lecun_normal``: a normal truncated at two
-    standard deviations with variance 1 / fan-in, fan-in = input channels
-    x kernel taps) and zero every bias; BatchNorm keeps weight 1, bias 0.
+    """Re-draw every conv, deconv and linear weight as the JAX package's
+    flax ``Conv`` and ``Dense`` initialize theirs (``lecun_normal``: a
+    normal truncated at two standard deviations with variance 1 / fan-in,
+    fan-in = input channels per group x kernel taps) and zero every bias;
+    LayerNorm and BatchNorm get weight 1, bias 0.
     The training CLIs start from it, as the JAX trainer does: under
     PyTorch's default scheme (a third of the variance per layer) the
     randomly initialized VGG16 encoder passes a much weaker signal and
@@ -124,11 +192,14 @@ def init_weights_lecun(model: torch.nn.Module, generator: torch.Generator):
 
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            _norm_defaults(mod)
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d,
+                                torch.nn.Linear)):
                 w = mod.weight
-                cin = w.shape[1] if isinstance(mod, torch.nn.Conv2d) \
-                    else w.shape[0]
-                std = math.sqrt(1.0 / (cin * w[0, 0].numel())) / _TRUNC_STD
+                cin = w.shape[0] if isinstance(
+                    mod, torch.nn.ConvTranspose2d) else w.shape[1]
+                taps = w[0, 0].numel()
+                std = math.sqrt(1.0 / (cin * taps)) / _TRUNC_STD
                 torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                             generator=generator)
                 if mod.bias is not None:
@@ -141,6 +212,7 @@ __all__ = [
     "MultiFrameHead",
     "MultiFrameNet",
     "MultiFrameSegmenter",
+    "OUTPUT_MODES",
     "get_multiframe_segmentation_model",
     "get_tooltip_segmentation_model",
     "init_weights",

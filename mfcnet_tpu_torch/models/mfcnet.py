@@ -30,7 +30,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mfcnet_tpu_torch.models.common import nchw_to_nhwc, nhwc_to_nchw
+from mfcnet_tpu_torch.models.common import (
+    BatchNorm2d,
+    nchw_to_nhwc,
+    nhwc_to_nchw,
+)
 from mfcnet_tpu_torch.ops.warp import flow_warp
 
 # The reference builds its warp mesh grid at a fixed 576x720 and crops it
@@ -38,64 +42,26 @@ from mfcnet_tpu_torch.ops.warp import flow_warp
 REFERENCE_GRID_HW = (576, 720)
 
 
-BN_EPS = 1e-5
-#: the JAX head's running-statistics update: running = 0.9 * running + 0.1
-#: * batch
-BN_MOMENTUM = 0.1
-
-
-def batch_norm_train(y, bn: nn.BatchNorm2d):
-    """Train-mode batch norm of the JAX head (``mfcnet_tpu/models/
-    mfcnet.py:116-147``), not ``nn.BatchNorm2d``'s: float32 batch mean and
-    the biased variance E[y^2] - E[y]^2 (clamped at 0) over (N, H, W); the
-    running statistics become 0.9 * running + 0.1 * batch, with the biased
-    variance (PyTorch's BatchNorm stores the unbiased one, which gives
-    another eval model after the first step); y normalized in the
-    promoted type of y and the BN parameters (bf16 under a bf16 step)."""
-    yf = y.float()
-    mean = yf.mean(dim=(0, 2, 3))
-    var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        keep = 1.0 - BN_MOMENTUM
-        bn.running_mean.copy_(keep * bn.running_mean + BN_MOMENTUM * mean)
-        bn.running_var.copy_(keep * bn.running_var + BN_MOMENTUM * var)
-    dt = torch.promote_types(y.dtype, bn.weight.dtype)
-
-    def ch(v):
-        return v.to(dt).view(1, -1, 1, 1)
-
-    return ((y.to(dt) - ch(mean)) * torch.rsqrt(ch(var) + BN_EPS)
-            * ch(bn.weight) + ch(bn.bias))
-
-
 class MultiFrameHead(nn.Sequential):
     """Conv11x11(-> T*C, no bias) + BN + ReLU, 2 x [Conv3x3 + BN + ReLU],
     Conv1x1(-> C, no bias) (reference models/multiframe_model.py:62-73).
     In eval mode BN uses its running statistics; in train mode the JAX
-    head's batch statistics (:func:`batch_norm_train`)."""
+    head's batch statistics (``models/common.py::BatchNorm2d``)."""
 
     def __init__(self, in_ch: int, num_classes: int, num_frames: int):
         tc = num_frames * num_classes
         super().__init__(
             nn.Conv2d(in_ch, tc, 11, padding=5, bias=False),
-            nn.BatchNorm2d(tc),
+            BatchNorm2d(tc),
             nn.ReLU(),
             nn.Conv2d(tc, tc, 3, padding=1, bias=False),
-            nn.BatchNorm2d(tc),
+            BatchNorm2d(tc),
             nn.ReLU(),
             nn.Conv2d(tc, tc, 3, padding=1, bias=False),
-            nn.BatchNorm2d(tc),
+            BatchNorm2d(tc),
             nn.ReLU(),
             nn.Conv2d(tc, num_classes, 1, bias=False),
         )
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        for mod in self:
-            x = (batch_norm_train(x, mod) if isinstance(mod, nn.BatchNorm2d)
-                 else mod(x))
-        return x
 
 
 class MultiFrameNet(nn.Module):
@@ -178,19 +144,20 @@ class MultiFrameNet(nn.Module):
 
 class MultiFrameSegmenter(nn.Module):
     """Per-frame base model + MFCNet fusion (reference wrappers,
-    models/multiframe_model.py:207-238). ``base_output='exp'`` turns the
-    base's log-probabilities into probabilities (TernausNet)."""
+    models/multiframe_model.py:207-540). ``base_output`` is how the base's
+    output becomes the fusion input: 'exp' turns log-probabilities into
+    probabilities (TernausNet, :227); 'identity' takes the output as it is
+    (the raw logits of DeepLab and FCN, :294, and HRNet, :427; SegFormer's
+    log-probabilities, :361)."""
 
     def __init__(self, base: nn.Module, num_classes: int, num_frames: int,
                  variant: str = "basic", base_output: str = "exp",
                  add_depth_inputs: bool = False, parity_grid: bool = True,
                  add_optflow_inputs: bool = False):
         super().__init__()
-        if base_output != "exp":
-            raise NotImplementedError(
-                f"base_output {base_output!r}: only TernausNet bases are "
-                "ported (ROADMAP.md Queue 1 item 10)"
-            )
+        if base_output not in ("exp", "identity"):
+            raise ValueError(f"unknown base_output: {base_output!r}")
+        self.base_output = base_output
         self.base_model = base
         self.multiframe_net = MultiFrameNet(
             num_classes, num_frames, variant,
@@ -200,8 +167,10 @@ class MultiFrameSegmenter(nn.Module):
         self.num_frames = num_frames
 
     def base_nchw(self, x):
-        """(N, 3, H, W) normalized frames -> (N, C, H, W) probabilities."""
-        return torch.exp(self.base_model(x))
+        """(N, 3, H, W) normalized frames -> (N, C, H, W) per-frame maps
+        (probabilities, logits or log-probabilities: ``base_output``)."""
+        y = self.base_model(x)
+        return torch.exp(y) if self.base_output == "exp" else y
 
     def fuse_nchw(self, seg, optflow=None, depth=None):
         """(B, T*C, H, W) per-frame maps, newest first (and optional
@@ -227,7 +196,7 @@ class MultiFrameSegmenter(nn.Module):
             y.reshape(B, T * y.shape[1], H, W), optflow, depth))
 
     def base_forward(self, frames):
-        """(B, H, W, 3) -> (B, H, W, C) per-frame probabilities."""
+        """(B, H, W, 3) -> (B, H, W, C) per-frame maps."""
         return nchw_to_nhwc(self.base_nchw(nhwc_to_nchw(frames)))
 
     def fuse_precomputed(self, seg, optflow=None, depth=None):

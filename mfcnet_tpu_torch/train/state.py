@@ -15,7 +15,11 @@ scripts/train_multiframe_detection.py:128-151):
   micro-batches are averaged and one update follows; the schedule counts
   updates, not micro-batches;
 * the EMA of the parameters blends only on real updates: e = e * d + p *
-  (1 - d).
+  (1 - d);
+* dropout and drop-path draw, in each micro-step, from a generator seeded
+  by the micro-step (:meth:`TrainState.step_generator`), as the JAX step
+  folds the step into its fixed key: a resumed run draws what the
+  uninterrupted one drew, and a run repeats bit for bit.
 
 The model's parameters are the float32 master copy; the step may compute
 in bfloat16 from a cast of them (``train/steps.py``).
@@ -44,8 +48,12 @@ class TrainState:
                  ema_decay: float = 0.0, split_base: bool = True):
         """``split_base``: the multi-frame recipe (head and base groups);
         False puts every parameter in one Adam at lr (single-frame
-        training)."""
+        training). ``train_base_model`` False also keeps the base in eval
+        mode in the step (running statistics, no dropout), as the JAX
+        step runs it with ``train=False``."""
         self.model = model
+        self.train_base_model = bool(train_base_model) or not split_base
+        self._generator = None
         self.schedule = lr_schedule
         self.grad_accum = max(1, int(grad_accum))
         base_scale = (1.0 / (100.0 * num_frames) if base_pretrained_loaded
@@ -75,6 +83,15 @@ class TrainState:
         self.ema: Optional[Dict[str, torch.Tensor]] = (
             {n: p.detach().clone() for n, p in named}
             if self.ema_decay > 0 else None)
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of this micro-step's dropout and drop-path draws,
+        on the model's device, seeded by ``step`` (the JAX step's key is
+        ``fold_in(PRNGKey(17), step)``)."""
+        dev = next(self.model.parameters()).device
+        if self._generator is None or self._generator.device != dev:
+            self._generator = torch.Generator(device=dev)
+        return self._generator.manual_seed(17 * 1_000_003 + self.step)
 
     def apply_gradients(self) -> bool:
         """Call after the backward of one micro-batch: counts it and, with

@@ -10,9 +10,15 @@ parameters stay float32 (the master copy the optimizer updates); a
 bfloat16 step runs the model on bfloat16 casts of them
 (:func:`_cast_tensors`), with frames, depth and flow cast to bfloat16 too,
 so that the gradients reach the float32 leaves through the casts. The
-head's batch statistics are taken in float32 (``models/mfcnet.py``), and
-the logits are cast to float32 before ``log_softmax``. Autocast would pick
-its own set of operations to cast.
+running statistics stay float32, in train and in eval steps, as the JAX
+steps keep ``batch_stats``; batch statistics are taken in float32
+(``models/common.py::BatchNorm2d``), and the logits are cast to float32
+before ``log_softmax``. Autocast would pick its own set of operations to
+cast.
+
+A train step runs the base in train mode only when the base trains (the
+JAX step's ``train_base``), and hands the micro-step's generator
+(``TrainState.step_generator``) to the model's dropout and drop-path.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from mfcnet_tpu_torch.models.common import use_generator
 from mfcnet_tpu_torch.train.loss import compute_losses
 from mfcnet_tpu_torch.train.metrics import compute_metrics
 
@@ -41,20 +48,19 @@ def _cast(t, cdt):
 
 
 @contextlib.contextmanager
-def _cast_tensors(model, cdt, buffers: bool):
+def _cast_tensors(model, cdt):
     """Within the block every module holds ``cdt`` casts of its floating
-    parameters (and buffers, with ``buffers``); the float32 tensors are
-    put back after. Each module is visited once, so the TernausNet's
-    ``conv1``..``conv5`` views of its encoder (``torch.func.
-    functional_call`` restores such shared modules wrongly) see the same
-    casts; the gradients flow through the casts to the float32 leaves."""
+    parameters; the float32 tensors are put back after. Each module is
+    visited once, so the TernausNet's ``conv1``..``conv5`` views of its
+    encoder (``torch.func.functional_call`` restores such shared modules
+    wrongly) see the same casts; the gradients flow through the casts to
+    the float32 leaves."""
     saved = []
     for mod in model.modules():
-        stores = [mod._parameters] + ([mod._buffers] if buffers else [])
-        for store in stores:
-            for name, t in store.items():
-                if t is not None and t.is_floating_point():
-                    saved.append((store, name, t))
+        store = mod._parameters
+        for name, t in store.items():
+            if t is not None and t.is_floating_point():
+                saved.append((store, name, t))
     try:
         for store, name, t in saved:
             store[name] = t.to(cdt)
@@ -66,15 +72,24 @@ def _cast_tensors(model, cdt, buffers: bool):
 
 def _apply(model, cdt, *args, **kwargs):
     """model(*args, **kwargs), on bfloat16 casts of the parameters and
-    floating inputs when ``cdt`` is set; in eval mode the floating buffers
-    (the head's running statistics) are cast too, as the tracker's bf16
-    engine casts them, while train mode updates the float32 ones."""
+    floating inputs when ``cdt`` is set; the running statistics stay
+    float32."""
     if cdt is None:
         return model(*args, **kwargs)
     args = tuple(_cast(a, cdt) for a in args)
     kwargs = {k: _cast(v, cdt) for k, v in kwargs.items()}
-    with _cast_tensors(model, cdt, buffers=not model.training):
+    with _cast_tensors(model, cdt):
         return model(*args, **kwargs)
+
+
+def _train_mode(state):
+    """The state's model in train mode, its base in eval mode unless the
+    base trains; dropout and drop-path on the micro-step's generator."""
+    model = state.model.train()
+    if not state.train_base_model and hasattr(model, "base_model"):
+        model.base_model.eval()
+    use_generator(model, state.step_generator())
+    return model
 
 
 def _losses(logits, batch, loss_fns, loss_wts, num_classes, class_weights):
@@ -99,7 +114,7 @@ def make_multiframe_train_step(loss_fns: Sequence[str],
     cdt = resolve_dtype(compute_dtype)
 
     def train_step(state, batch):
-        model = state.model.train()
+        model = _train_mode(state)
         frames = batch["frames"]
         optflow = None
         if flow_fn is not None:
@@ -144,25 +159,34 @@ def make_multiframe_eval_step(loss_fns: Sequence[str],
     return eval_step
 
 
-def _singleframe_log_probs(model, cdt, image):
-    """(B, H, W, 3) -> (B, H, W, C) float32 log-probabilities of a
-    TernausNet16 (which emits them, NCHW)."""
-    out = _apply(model, cdt, image.permute(0, 3, 1, 2))
-    return out.float().permute(0, 2, 3, 1)
+def _singleframe_log_probs(model, cdt, image, output_mode):
+    """(B, H, W, 3) -> (B, H, W, C) float32 log-probabilities: the model's
+    NCHW output in float32, through ``log_softmax`` when it gives logits
+    (``output_mode`` 'logits': HRNet, DeepLab, FCN; 'log_probs':
+    TernausNet16, SegFormer; ``models.OUTPUT_MODES``)."""
+    if output_mode not in ("log_probs", "logits"):
+        raise ValueError(f"unknown output_mode: {output_mode!r}")
+    out = _apply(model, cdt, image.permute(0, 3, 1, 2)).float()
+    if output_mode == "logits":
+        out = F.log_softmax(out, dim=1)
+    return out.permute(0, 2, 3, 1)
 
 
 def make_singleframe_train_step(loss_fns: Sequence[str],
                                 loss_wts: Sequence[float], num_classes: int,
-                                class_weights=None, compute_dtype=None):
-    """Single-frame step of TernausNet16 (reference
+                                class_weights=None, compute_dtype=None,
+                                output_mode: str = "log_probs"):
+    """Single-frame step (reference
     scripts/train_toolpose_segmentation.py:142-192): batch 'image'
-    (B, H, W, 3), 'mask' (B, H, W)."""
+    (B, H, W, 3), 'mask' (B, H, W); ``output_mode`` as
+    :func:`_singleframe_log_probs` reads it."""
     cdt = resolve_dtype(compute_dtype)
 
     def train_step(state, batch):
-        model = state.model.train()
+        model = _train_mode(state)
         with state.micro_step():
-            log_probs = _singleframe_log_probs(model, cdt, batch["image"])
+            log_probs = _singleframe_log_probs(model, cdt, batch["image"],
+                                               output_mode)
             total, parts = compute_losses(log_probs, batch["mask"], loss_fns,
                                           loss_wts, num_classes,
                                           class_weights)
@@ -176,13 +200,15 @@ def make_singleframe_train_step(loss_fns: Sequence[str],
 def make_singleframe_eval_step(loss_fns: Sequence[str],
                                loss_wts: Sequence[float],
                                metric_fns: Sequence[str], num_classes: int,
-                               class_weights=None, compute_dtype=None):
+                               class_weights=None, compute_dtype=None,
+                               output_mode: str = "log_probs"):
     cdt = resolve_dtype(compute_dtype)
 
     @torch.no_grad()
     def eval_step(state, batch):
         model = state.model.eval()
-        log_probs = _singleframe_log_probs(model, cdt, batch["image"])
+        log_probs = _singleframe_log_probs(model, cdt, batch["image"],
+                                           output_mode)
         _, parts = compute_losses(log_probs, batch["mask"], loss_fns,
                                   loss_wts, num_classes, class_weights)
         parts.update(compute_metrics(log_probs, batch["mask"], metric_fns,

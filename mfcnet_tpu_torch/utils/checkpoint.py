@@ -15,6 +15,7 @@ weights.
 from __future__ import annotations
 
 import json
+import logging
 import os
 from pathlib import Path
 from typing import Optional, Tuple
@@ -53,10 +54,19 @@ def load_checkpoint(path) -> Tuple[dict, int]:
     return payload, int(payload.get("epoch", 0))
 
 
+#: torchvision's auxiliary FCN head of a ``pretrained=True`` DeepLabV3 or
+#: FCN, which the reference carries in its checkpoints and loads with
+#: ``strict=False`` (reference utils/model_utils.py:14-39); no forward
+#: reads it
+AUX_PREFIXES = ("aux_classifier.", "base_model.aux_classifier.")
+
+
 def load_state_dict_file(path, use_ema: bool = False) -> dict:
     """A model ``state_dict`` from a ``.pth``: a checkpoint dict (its
     ``model``, or its ``ema`` with ``use_ema``) or a bare state_dict;
-    DataParallel ``module.`` prefixes removed."""
+    DataParallel ``module.`` prefixes removed, and the ``aux_classifier.*``
+    keys of a reference DeepLab or FCN (alone or as a Multi wrapper's
+    base), whose count is logged; every other key stays."""
     blob = torch.load(path, map_location="cpu", weights_only=False)
     if use_ema:
         if not isinstance(blob, dict) or blob.get("ema") is None:
@@ -66,8 +76,14 @@ def load_state_dict_file(path, use_ema: bool = False) -> dict:
     else:
         sd = (blob["model"] if isinstance(blob, dict) and "model" in blob
               else blob)
-    return {k[len("module."):] if k.startswith("module.") else k: v
-            for k, v in sd.items()}
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    aux = {k for k in sd if k.startswith(AUX_PREFIXES)}
+    if aux:
+        logging.getLogger(__name__).info(
+            f"{path}: dropped {len(aux)} aux_classifier keys (the "
+            "reference's unused auxiliary head)")
+    return {k: v for k, v in sd.items() if k not in aux}
 
 
 def latest_checkpoint(ckpt_dir) -> Optional[Path]:

@@ -154,8 +154,8 @@ def test_reference_state_dict_keys_load(pair):
 
 
 @pytest.mark.parametrize("model_type,err", [
-    ("DeepLabMulti-Large", "Queue 1 item 10"),
-    ("HRNetMulti-Basic", "Queue 1 item 10"),
+    ("UNetMulti-Large", "Queue 1 item 10b"),
+    ("ResUNetMulti-Basic", "Queue 1 item 10b"),
     ("NoSuchNet-Basic", "not recognized"),
 ])
 def test_registry_names_roadmap_item(model_type, err):

@@ -167,9 +167,9 @@ def test_single_frame_stage_feeds_the_base_and_converts_to_jax(pack,
     head, base = mf.optimizer.param_groups
     assert base["scale"] == pytest.approx(1 / 300)
     assert base["lr"] == pytest.approx(head["lr"] / 300)
-    with pytest.raises(SystemExit, match="item 10"):
+    with pytest.raises(SystemExit, match="item 10b"):
         sf_main(_common(pack, tmp_path, "sf2") + [
-            "--model_type", "HRNet", "--device", "cpu"])
+            "--model_type", "TAPNet16", "--device", "cpu"])
 
     sd, epoch = load_torch_state_dict(tmp_path / "mf" / "ckpts"
                                       / "model_000.pth")
