@@ -11,10 +11,10 @@ at 512x640 with the frozen UnFlow provider (its only widths), at 480x640
 with the frozen FlowFormer++ provider (default widths, 12 iterations), the
 offline flow CLI's batched forward, and the training CLI (the same model
 with frozen RAFT, and again with FlowFormer++, and depth in the step) --
-and the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
-and in training -- through its hand-written CUDA kernels
-(``mfcnet_tpu_torch/csrc``), in six phases; a failing phase raises and the
-script exits non-zero:
+the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
+and in training, and the rest of the zoo (UNet, ResUNet, TAPNet16) --
+through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in seven
+phases; a failing phase raises and the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -91,7 +91,19 @@ script exits non-zero:
    TernausNet16's too); run Z, DeepLabMulti-Basic through the training
    CLI (bf16, base trained, RAFT + depth, batch 4, 4 micro-steps), its
    checkpoint tracked, and the single-frame CLI training SegFormer for 2
-   steps with drop-path on.
+   steps with drop-path on;
+7. the rest of the zoo (``phase_zoo10b_slice``, after phase 6):
+   ``UNetMulti-Basic`` and ``ResUNetMulti-Basic`` at full width with RAFT x12
+   (calibrated as in phase 6), 12 frames incremental (12 update steps and 1
+   warp a frame counted) and 5 full, each through the kernels against the
+   plain versions and f32 incremental against full, frames/s without flow,
+   base and head ms and parameter counts; ResUNetMulti-Large with RAFT and
+   depth (0 warps); TAPNet's attention map on a 480x640 RAFT flow
+   (``cal_attmap_scatter`` on the card equal to ``cal_attmap_np``, the
+   batched form through ``flow_warp`` against its plain route); TAPNet16's
+   ``tapnet`` train step at batch 4 and its f32 forward against the CPU's;
+   run U, UNetMulti-Basic through the training CLI (bf16, base trained,
+   RAFT + depth, batch 4, 2 micro-steps, B1 once a micro-step).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -163,6 +175,14 @@ PATH_KERNELS = {
        for f in ("DeepLab", "FCN", "HRNet", "SegFormer")},
     "zoo_large": ZOO_CC + ("raft_update",),
     "train_zoo": ("flow_warp", "raft_update", "flow_warp_bwd"),
+    # the rest of the zoo (ROADMAP item 10b): UNetMulti-Basic and
+    # ResUNetMulti-Basic on the RAFT path, ResUNetMulti-Large (no warp),
+    # run U (UNetMulti-Basic trained) and TAPNet's attention map
+    "zoo_unet": ZOO_CC + ("flow_warp", "raft_update"),
+    "zoo_resunet": ZOO_CC + ("flow_warp", "raft_update"),
+    "zoo_resunet_large": ZOO_CC + ("raft_update",),
+    "train_unet": ("flow_warp", "raft_update", "flow_warp_bwd"),
+    "attmap": ("flow_warp",),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -4135,6 +4155,30 @@ def _zoo_model(model_type, gen, x, **kw):
     return model
 
 
+def _base_head_ms(name, engine, frames, smi):
+    """ms of one bf16 base forward of a 480x640 frame and of one head call
+    on the ring: device time (CUDA-graph replay) and eager (CUDA events
+    around 10 calls: the host's enqueue time shows where it exceeds the
+    device's)."""
+    import torch
+
+    x1 = engine._normalize(frames[:1])
+    seg = torch.zeros(1, T * C, H, W, dtype=engine.dtype, device="cuda")
+
+    def base():
+        engine.model.base_nchw(x1)
+
+    def head():
+        engine.model.fuse_nchw(seg)
+
+    with torch.no_grad():
+        (bg, be), (hg, he) = [(_graph_ms(f, reps=2, rounds=5),
+                               _event_ms(f, 10)) for f in (base, head)]
+    log(f"[{smi}] {name}, bf16, one 480x640 frame: base forward {bg:.3f} "
+        f"ms device (graph replay), {be:.3f} ms eager ({be / bg:.2f}x); "
+        f"head {hg:.3f} ms device, {he:.3f} ms eager")
+
+
 def _time_aspp(model, smi):
     """DeepLab's three ASPP convolutions at the base's shape (one frame:
     2048 x 60 x 80, bf16): cuDNN's dilated convolution on a channels-last
@@ -4166,6 +4210,40 @@ def _time_aspp(model, smi):
             f"(device time); max |diff| {diff:.4g}")
 
 
+@contextlib.contextmanager
+def _timed_train_steps(cli):
+    """Within the block the training CLI module ``cli`` builds train steps
+    that record each micro-step's host ms (synchronized), loss parts and
+    kernel launches into the list yielded."""
+    import torch
+
+    recs = []
+    real = cli.make_multiframe_train_step
+
+    def make(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(state, batch):
+            c0 = _all_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts = step(state, batch)
+            torch.cuda.synchronize()
+            recs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "parts": {k: float(v) for k, v in parts.items()},
+                         "launches": {k: v - c0[k] for k, v in
+                                      _all_launches().items()}})
+            return parts
+
+        return timed
+
+    cli.make_multiframe_train_step = make
+    try:
+        yield recs
+    finally:
+        cli.make_multiframe_train_step = real
+
+
 def _run_z(smi):
     """Run Z: DeepLabMulti-Basic through the training CLI at full width,
     480x640, batch 4, bf16, the base trained, frozen RAFT (bf16 fused
@@ -4191,110 +4269,87 @@ def _run_z(smi):
     from mfcnet_tpu_torch.models.raft import RAFT
     from mfcnet_tpu_torch.track.tracker import TrackerConfig, track_on_frames
 
-    recs = []
-    real = cli.make_multiframe_train_step
+    with _timed_train_steps(cli) as recs, \
+            tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        pack = make_synthetic_pack(d / "pack", videos=(
+            ("train", 2, 8), ("val", 1, 4)), height=H, width=W,
+            seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        state = cli.main(_train_args(
+            pack, d, "Z", "--model_type", "DeepLabMulti-Basic",
+            "--train_base_model", "True", "--compute_dtype", "bfloat16",
+            "--grad_accum", str(TRAIN_ACCUM)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        _require_launches("train_zoo", launches)
+        if len(recs) != ZOO_STEPS or state.updates != ZOO_STEPS // 2:
+            raise AssertionError(f"run Z: {ZOO_STEPS} micro-steps and "
+                                 f"{ZOO_STEPS // 2} updates expected, got "
+                                 f"{len(recs)}, {state.updates}")
+        for i, r in enumerate(recs):
+            lc = r["launches"]
+            if not all(np.isfinite(v) for v in r["parts"].values()) or (
+                    lc["flow_warp_bwd"], lc["raft_update"],
+                    lc["flow_warp"]) != (1, FLOW_ITERS, 1):
+                raise AssertionError(f"run Z micro-step {i}: {r}")
+        warm = [r["ms"] for r in recs[1:]]
+        log(f"[{smi}] train run Z (DeepLabMulti-Basic, bf16, base "
+            f"trained, RAFT + depth, batch {TRAIN_B}, accum "
+            f"{TRAIN_ACCUM}): {len(recs)} micro-steps "
+            f"{[round(r['ms'], 2) for r in recs]} ms (median of 2-"
+            f"{len(recs)}: {float(np.median(warm)):.2f} ms, "
+            f"{TRAIN_B / float(np.median(warm)) * 1e3:.2f} samples/s), "
+            f"peak memory {peak / 2 ** 30:.2f} GiB, {wall:.1f} s with "
+            f"validation and checkpoint; per micro-step 1 flow_warp_bwd, "
+            f"{FLOW_ITERS} raft_update, 1 flow_warp; losses "
+            + json.dumps([{k: round(v, 4) for k, v in r["parts"].items()}
+                          for r in recs]))
 
-    def make(*a, **kw):
-        step = real(*a, **kw)
+        ck = d / "Z" / "ckpts" / "model_000.pth"
+        model = get_multiframe_segmentation_model(
+            "DeepLabMulti-Basic", C, T, add_optflow_inputs=True,
+            add_depth_inputs=True)
+        model.load_state_dict(test_multiframe_segmentation_on_videos
+                              .load_reference_state_dict(ck))
+        frames = synthetic_frames(6)
+        flow_model = init_weights(RAFT(iters=FLOW_ITERS),
+                                  torch.Generator().manual_seed(SEED))
+        cfg = TrackerConfig(dtype="bfloat16", decode="device",
+                            overlay=False, decode_tie_fallback=False,
+                            add_optflow_inputs=True,
+                            add_depth_inputs=True)
+        track_on_frames(frames, model, cfg, d, name="z",
+                        depth_frames=_depth_frames(frames),
+                        flow_model=flow_model)
+        _check_rows(np.loadtxt(d / "z_tracked.csv", delimiter=","),
+                    len(frames), detect=False)
+        log(f"run Z's checkpoint ({ck.stat().st_size} B) tracks "
+            f"{len(frames)} frames as DeepLabMulti-Basic")
 
-        def timed(state, batch):
-            c0 = _all_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            parts = step(state, batch)
-            torch.cuda.synchronize()
-            recs.append({"ms": (time.perf_counter() - t0) * 1e3,
-                         "parts": {k: float(v) for k, v in parts.items()},
-                         "launches": {k: v - c0[k] for k, v in
-                                      _all_launches().items()}})
-            return parts
-
-        return timed
-
-    cli.make_multiframe_train_step = make
-    try:
-        with tempfile.TemporaryDirectory() as d:
-            d = Path(d)
-            pack = make_synthetic_pack(d / "pack", videos=(
-                ("train", 2, 8), ("val", 1, 4)), height=H, width=W,
-                seed=SEED)
-            torch.cuda.reset_peak_memory_stats()
-            _reset_all_launches()
-            t0 = time.perf_counter()
-            state = cli.main(_train_args(
-                pack, d, "Z", "--model_type", "DeepLabMulti-Basic",
-                "--train_base_model", "True", "--compute_dtype", "bfloat16",
-                "--grad_accum", str(TRAIN_ACCUM)))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = _all_launches()
-            peak = torch.cuda.max_memory_allocated()
-            _require_launches("train_zoo", launches)
-            if len(recs) != ZOO_STEPS or state.updates != ZOO_STEPS // 2:
-                raise AssertionError(f"run Z: {ZOO_STEPS} micro-steps and "
-                                     f"{ZOO_STEPS // 2} updates expected, got "
-                                     f"{len(recs)}, {state.updates}")
-            for i, r in enumerate(recs):
-                lc = r["launches"]
-                if not all(np.isfinite(v) for v in r["parts"].values()) or (
-                        lc["flow_warp_bwd"], lc["raft_update"],
-                        lc["flow_warp"]) != (1, FLOW_ITERS, 1):
-                    raise AssertionError(f"run Z micro-step {i}: {r}")
-            warm = [r["ms"] for r in recs[1:]]
-            log(f"[{smi}] train run Z (DeepLabMulti-Basic, bf16, base "
-                f"trained, RAFT + depth, batch {TRAIN_B}, accum "
-                f"{TRAIN_ACCUM}): {len(recs)} micro-steps "
-                f"{[round(r['ms'], 2) for r in recs]} ms (median of 2-"
-                f"{len(recs)}: {float(np.median(warm)):.2f} ms, "
-                f"{TRAIN_B / float(np.median(warm)) * 1e3:.2f} samples/s), "
-                f"peak memory {peak / 2 ** 30:.2f} GiB, {wall:.1f} s with "
-                f"validation and checkpoint; per micro-step 1 flow_warp_bwd, "
-                f"{FLOW_ITERS} raft_update, 1 flow_warp; losses "
-                + json.dumps([{k: round(v, 4) for k, v in r["parts"].items()}
-                              for r in recs]))
-
-            ck = d / "Z" / "ckpts" / "model_000.pth"
-            model = get_multiframe_segmentation_model(
-                "DeepLabMulti-Basic", C, T, add_optflow_inputs=True,
-                add_depth_inputs=True)
-            model.load_state_dict(test_multiframe_segmentation_on_videos
-                                  .load_reference_state_dict(ck))
-            frames = synthetic_frames(6)
-            flow_model = init_weights(RAFT(iters=FLOW_ITERS),
-                                      torch.Generator().manual_seed(SEED))
-            cfg = TrackerConfig(dtype="bfloat16", decode="device",
-                                overlay=False, decode_tie_fallback=False,
-                                add_optflow_inputs=True,
-                                add_depth_inputs=True)
-            track_on_frames(frames, model, cfg, d, name="z",
-                            depth_frames=_depth_frames(frames),
-                            flow_model=flow_model)
-            _check_rows(np.loadtxt(d / "z_tracked.csv", delimiter=","),
-                        len(frames), detect=False)
-            log(f"run Z's checkpoint ({ck.stat().st_size} B) tracks "
-                f"{len(frames)} frames as DeepLabMulti-Basic")
-
-            spack = make_synthetic_pack(d / "spack", videos=(
-                ("train", 1, 8), ("val", 1, 4)), height=H, width=W,
-                seed=SEED)
-            sf = sf_cli.main([
-                "--dataset", "JIGSAWS", "--packed_dir", str(spack),
-                "--expt_savedir", str(d), "--expt_name", "S",
-                "--model_type", "SegFormer", "--batch_size", str(TRAIN_B),
-                "--num_workers", "4", "--num_epochs", "0", "--print_freq",
-                "100", "--input_height", str(H), "--input_width", str(W),
-                "--compute_dtype", "bfloat16", "--seed", str(SEED)])
-            dp = [m for m in sf.model.modules() if isinstance(m, DropPath)]
-            if sf.step != 2 or not any(m.rate > 0 for m in dp) or not all(
-                    torch.isfinite(p).all() for p in sf.model.parameters()):
-                raise AssertionError(f"single-frame SegFormer: {sf.step} "
-                                     "steps, finite weights and drop-path "
-                                     "expected")
-            log(f"single-frame CLI: SegFormer (MiT-B3, {len(dp)} blocks with "
-                f"drop-path up to {max(m.rate for m in dp):.2f}) trained "
-                f"{sf.step} steps at batch {TRAIN_B}, bf16, {H}x{W}")
-    finally:
-        cli.make_multiframe_train_step = real
+        spack = make_synthetic_pack(d / "spack", videos=(
+            ("train", 1, 8), ("val", 1, 4)), height=H, width=W,
+            seed=SEED)
+        sf = sf_cli.main([
+            "--dataset", "JIGSAWS", "--packed_dir", str(spack),
+            "--expt_savedir", str(d), "--expt_name", "S",
+            "--model_type", "SegFormer", "--batch_size", str(TRAIN_B),
+            "--num_workers", "4", "--num_epochs", "0", "--print_freq",
+            "100", "--input_height", str(H), "--input_width", str(W),
+            "--compute_dtype", "bfloat16", "--seed", str(SEED)])
+        dp = [m for m in sf.model.modules() if isinstance(m, DropPath)]
+        if sf.step != 2 or not any(m.rate > 0 for m in dp) or not all(
+                torch.isfinite(p).all() for p in sf.model.parameters()):
+            raise AssertionError(f"single-frame SegFormer: {sf.step} "
+                                 "steps, finite weights and drop-path "
+                                 "expected")
+        log(f"single-frame CLI: SegFormer (MiT-B3, {len(dp)} blocks with "
+            f"drop-path up to {max(m.rate for m in dp):.2f}) trained "
+            f"{sf.step} steps at batch {TRAIN_B}, bf16, {H}x{W}")
     return launches, len(recs)
 
 
@@ -4333,31 +4388,9 @@ def phase_zoo_slice(noflow_engine, frames, smi):
                         decode_tie_fallback=False, add_optflow_inputs=True)
     ncfg = dataclasses.replace(cfg, add_optflow_inputs=False)
     xcal = noflow_engine._normalize(frames[:4]).float()
-    paths, device_ms = {}, {}
+    paths = {}
 
-    def device_times(name, engine):
-        """ms of one bf16 base forward of a 480x640 frame and of one head
-        call on the ring: device time (CUDA-graph replay) and eager (CUDA
-        events around 10 calls: the host's enqueue time shows where it
-        exceeds the device's)."""
-        x1 = engine._normalize(frames[:1])
-        seg = torch.zeros(1, T * C, H, W, dtype=engine.dtype, device="cuda")
-
-        def base():
-            engine.model.base_nchw(x1)
-
-        def head():
-            engine.model.fuse_nchw(seg)
-
-        with torch.no_grad():
-            device_ms[name] = [(_graph_ms(f, reps=2, rounds=5),
-                                _event_ms(f, 10)) for f in (base, head)]
-        (bg, be), (hg, he) = device_ms[name]
-        log(f"[{smi}] {name}, bf16, one 480x640 frame: base forward {bg:.3f} "
-            f"ms device (graph replay), {be:.3f} ms eager ({be / bg:.2f}x); "
-            f"head {hg:.3f} ms device, {he:.3f} ms eager")
-
-    device_times("TernausNet16", noflow_engine)
+    _base_head_ms("TernausNet16", noflow_engine, frames, smi)
     with tempfile.TemporaryDirectory() as d:
         for fam in ZOO_FAMILIES:
             mt = f"{fam}Multi-Basic"
@@ -4457,7 +4490,7 @@ def phase_zoo_slice(noflow_engine, frames, smi):
             log(f"[{smi}] {mt} without flow, incremental bf16, device "
                 f"decode, B=1: {rates[0]:.2f}, {rates[1]:.2f} frames/s "
                 f"({ZOO_TIMED_FRAMES} frames a call)")
-            device_times(fam, nf)
+            _base_head_ms(fam, nf, frames, smi)
             if fam == "DeepLab":
                 _time_aspp(model, smi)
             del model, engine, nf
@@ -4488,6 +4521,321 @@ def phase_zoo_slice(noflow_engine, frames, smi):
     return paths
 
 
+#: the rest of the zoo (ROADMAP item 10b): UNetMulti-Basic and
+#: ResUNetMulti-Basic at full width on the RAFT path (as ``phase_zoo_slice``
+#: runs the families of item 10a), ResUNetMulti-Large over ZOO_LARGE_FRAMES,
+#: TAPNet16's ``tapnet`` step TAP_STEPS times, run U's micro-steps; the
+#: card's float32 TAPNet16 forward is held to the CPU's on one TAP_CPU_HW
+#: frame (the CPU forward at 480x640 takes seconds; TAPNet's sizes are
+#: multiples of 32)
+ZOO10B_FAMILIES = ("UNet", "ResUNet")
+TAP_STEPS, TAP_CPU_HW = 3, (256, 320)
+#: cal_attmap_batched through the flow warp against its plain route: the
+#: float32 warp is bit-equal (WARP_ATOL), the max filter exact
+ATTMAP_TOL = WARP_ATOL["float32"]
+
+
+def _attmap_checks(flow, att, smi):
+    """TAPNet's attention map on the card at 480x640: ``cal_attmap_scatter``
+    against the numpy reference ``cal_attmap_np`` bit for bit, and
+    ``cal_attmap_batched`` (one ``flow_warp`` launch) against its plain
+    route. ``flow`` (H, W, 2) float32 on the card (a RAFT flow), ``att``
+    (H, W) float32 in [0, 1]. Returns the batched form's launches."""
+    import torch
+
+    from mfcnet_tpu_torch.data.attmap import (
+        cal_attmap_batched,
+        cal_attmap_np,
+        cal_attmap_scatter,
+        max_filter_10,
+    )
+    from mfcnet_tpu_torch.ops import warp
+
+    a, f = torch.from_numpy(att)[None].cuda(), flow[None].float()
+    got = cal_attmap_scatter(a, f)[0].cpu().numpy()
+    want = cal_attmap_np(att, f[0].cpu().numpy())
+    if not np.array_equal(got, want):
+        raise AssertionError("cal_attmap_scatter on the card != cal_attmap_np "
+                             f"at {int((got != want).sum())} pixels")
+    _reset_all_launches()
+    approx = cal_attmap_batched(a, f)
+    launches = _all_launches()
+    plain = max_filter_10(warp.flow_warp_plain(
+        a[:, None], -f.permute(0, 3, 1, 2))[:, 0])
+    err = (approx - plain).abs().max().item()
+    gap = np.abs(approx[0].cpu().numpy() - want)
+    scatter_ms = _event_ms(lambda: cal_attmap_scatter(a, f), 5)
+    batched_ms = _event_ms(lambda: cal_attmap_batched(a, f), 5)
+    log(f"[{smi}] attention map, {H}x{W}, a RAFT flow of max "
+        f"{f.abs().max().item():.4g} px: cal_attmap_scatter on the card "
+        f"equals cal_attmap_np bit for bit ({scatter_ms:.3f} ms eager); "
+        f"cal_attmap_batched {batched_ms:.3f} ms eager ({launches['flow_warp']}"
+        f" flow_warp), max |diff| to its plain route {err:.3g} (limit "
+        f"{ATTMAP_TOL}); against the exact map max {gap.max():.4g}, mean "
+        f"{gap.mean():.4g} (the approximation, as in the JAX package)")
+    if launches["flow_warp"] != 1 or not err <= ATTMAP_TOL:
+        raise AssertionError("cal_attmap_batched: kernel and plain route "
+                             "disagree")
+    return launches
+
+
+def _tapnet_checks(frames, smi):
+    """TAPNet16 at full width: ``TAP_STEPS`` bf16 ``tapnet`` train steps
+    at batch ``TRAIN_B``, 480x640 (the image and an attention map; ms and
+    peak memory), and its float32 forward on the card (TF32 off) against
+    the CPU's on one ``TAP_CPU_HW`` frame, within ``ZOO_F32_TOL`` of the
+    largest |log-probability|."""
+    import torch
+
+    from mfcnet_tpu_torch.models import (
+        get_tooltip_segmentation_model,
+        init_weights_lecun,
+    )
+    from mfcnet_tpu_torch.ops.resize import resize_bilinear
+    from mfcnet_tpu_torch.train.state import TrainState
+    from mfcnet_tpu_torch.train.steps import make_singleframe_train_step
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    model = init_weights_lecun(get_tooltip_segmentation_model("TAPNet16", C),
+                               torch.Generator().manual_seed(SEED)).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.from_numpy(frames[:TRAIN_B]).cuda().float() / 255.0
+    att = x.mean(-1, keepdim=True)
+    image = torch.cat([(x - 0.45) / 0.225, att], -1)
+    mask = (x[..., 0] * (C - 1)).round().long()
+    state = TrainState(model, lambda i: 1e-4, split_base=False)
+    step = make_singleframe_train_step(
+        ["nll", "soft_jaccard"], [0.7, 0.3], C, class_weights=[1] + [50] * 4,
+        compute_dtype="bfloat16", output_mode="tapnet")
+    torch.cuda.reset_peak_memory_stats()
+    ms, parts = [], []
+    for _ in range(TAP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, {"image": image, "mask": mask})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(float(out["loss_total"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(parts)) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"TAPNet16 train steps: {parts}")
+    log(f"[{smi}] TAPNet16 ({n_params} parameters) tapnet train step, bf16, "
+        f"batch {TRAIN_B}, {H}x{W}: {[round(m, 2) for m in ms]} ms "
+        f"(first with warm-up), {TRAIN_B / ms[-1] * 1e3:.2f} samples/s, "
+        f"peak memory {peak:.2f} GiB; losses {[round(v, 4) for v in parts]}")
+
+    h, w = TAP_CPU_HW
+    xi = resize_bilinear(image[:1].permute(0, 3, 1, 2), h, w)
+    with parity_mode(), torch.no_grad():
+        model.eval()
+        got = model(xi[:, :3], xi[:, 3:]).float().cpu()
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(8)
+        xc = xi.cpu()
+        want = copy.deepcopy(model).cpu()(xc[:, :3], xc[:, 3:])
+        torch.set_num_threads(n_threads)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"TAPNet16 f32 forward (TF32 off), card vs CPU, one {h}x{w} frame: "
+        f"max |log-probability diff| {err:.4g} of max {scale:.4g} (limit "
+        f"{ZOO_F32_TOL} of it)")
+    if not err <= ZOO_F32_TOL * scale:
+        raise AssertionError("TAPNet16: card and CPU disagree")
+    return float(np.median(ms[1:])), peak
+
+
+def _run_u(smi):
+    """Run U: UNetMulti-Basic through the training CLI at full width,
+    480x640, batch 4, bf16, the base trained, frozen RAFT (bf16 fused
+    update) and depth in the step, grad_accum 2, 2 micro-steps (one
+    update); B1 must launch once a micro-step. Returns (launches,
+    micro-steps, median ms, peak GiB)."""
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli import train_multiframe_detection as cli
+    from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+
+    n = TRAIN_B * TRAIN_ACCUM
+    with _timed_train_steps(cli) as recs, \
+            tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        pack = make_synthetic_pack(d / "pack", videos=(
+            ("train", 1, n), ("val", 1, 2)), height=H, width=W, seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        state = cli.main(_train_args(
+            pack, d, "U", "--model_type", "UNetMulti-Basic",
+            "--train_base_model", "True", "--compute_dtype", "bfloat16",
+            "--grad_accum", str(TRAIN_ACCUM)))
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _require_launches("train_unet", launches)
+    if len(recs) != TRAIN_ACCUM or state.updates != 1:
+        raise AssertionError(f"run U: {TRAIN_ACCUM} micro-steps and one "
+                             f"update expected, got {len(recs)}, "
+                             f"{state.updates}")
+    for i, r in enumerate(recs):
+        lc = r["launches"]
+        if not all(np.isfinite(v) for v in r["parts"].values()) or (
+                lc["flow_warp_bwd"], lc["raft_update"],
+                lc["flow_warp"]) != (1, FLOW_ITERS, 1):
+            raise AssertionError(f"run U micro-step {i}: {r}")
+    ms = [r["ms"] for r in recs]
+    log(f"[{smi}] train run U (UNetMulti-Basic, bf16, base trained, RAFT + "
+        f"depth, batch {TRAIN_B}, accum {TRAIN_ACCUM}): micro-steps "
+        f"{[round(m, 2) for m in ms]} ms (the first with warm-up), peak "
+        f"memory {peak:.2f} GiB; per micro-step 1 flow_warp_bwd, "
+        f"{FLOW_ITERS} raft_update, 1 flow_warp; losses "
+        + json.dumps([{k: round(v, 4) for k, v in r["parts"].items()}
+                      for r in recs]))
+    return launches, len(recs), ms[-1], peak
+
+
+def phase_zoo10b_slice(noflow_engine, frames, smi):
+    """The rest of the zoo (ROADMAP item 10b) at full width, 480x640, T=3,
+    C=5, bf16, device decode, seeded weights (BN statistics calibrated and
+    the last convolution scaled, ``_zoo_model``), RAFT x12 with the fused
+    update step: UNetMulti-Basic and ResUNetMulti-Basic incremental over
+    ``ZOO_FRAMES`` (launches counted: 12 update steps, 1 warp a frame) and
+    full over ``ZOO_FULL``, each through the kernels against the plain
+    versions and f32 incremental against full; frames/s without flow at
+    B=1; the base forward's and the head's device ms; ResUNetMulti-Large
+    with RAFT and depth (no warp); TAPNet's attention map on a RAFT flow
+    (``_attmap_checks``); TAPNet16's train step and f32 forward
+    (``_tapnet_checks``); run U (``_run_u``). Returns ({path: (launches,
+    fused frames or micro-steps)})."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.models import init_weights
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.ops import raft_update as ru
+    from mfcnet_tpu_torch.track import decode_device as dd
+    from mfcnet_tpu_torch.track import outputs as out
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    flow_model = init_weights(RAFT(iters=FLOW_ITERS), gen)
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False, add_optflow_inputs=True)
+    ncfg = dataclasses.replace(cfg, add_optflow_inputs=False)
+    paths = {}
+
+    def window_flow(e):
+        return out.flow_from_feature_ring(*e.flow_state, (H, W),
+                                          e.flow_model)
+
+    xcal = noflow_engine._normalize(frames[:4]).float()
+    with tempfile.TemporaryDirectory() as d:
+        for fam in ZOO10B_FAMILIES:
+            mt = f"{fam}Multi-Basic"
+            t0 = time.perf_counter()
+            model = _zoo_model(mt, gen, xcal, add_optflow_inputs=True)
+            n_params = sum(p.numel() for p in model.parameters())
+            engine = InferenceEngine(model, cfg, flow_model=flow_model)
+            n, fused = ZOO_FRAMES, ZOO_FRAMES - (T - 1)
+            dd.reset_tier_counts()
+            _reset_all_launches()
+            _, fps = track_on_frames(frames[:n], None, cfg, d, name=fam,
+                                     engine=engine)
+            launches = _all_launches()
+            tiers = dict(dd.TIER_COUNTS)
+            rows = np.loadtxt(Path(d) / f"{fam}_tracked.csv", delimiter=",")
+            _check_rows(rows, n, detect=False)
+            path = f"zoo_{fam.lower()}"
+            _require_launches(path, launches)
+            if launches["raft_update"] != FLOW_ITERS * fused \
+                    or launches["flow_warp"] != fused \
+                    or ru.COUNTS["hx_fills"] != fused:
+                raise AssertionError(
+                    f"{mt}: expected {FLOW_ITERS} update steps, 1 fill of hx "
+                    f"and 1 warp per fused frame ({fused} frames), got "
+                    f"{launches}, {ru.COUNTS}")
+            paths[path] = (launches, fused)
+            track_on_frames(frames[:ZOO_FULL], model,
+                            dataclasses.replace(cfg, mode="full"), d,
+                            name=f"{fam}_full", flow_model=flow_model,
+                            device="cuda")
+            _check_rows(np.loadtxt(Path(d) / f"{fam}_full_tracked.csv",
+                                   delimiter=","), ZOO_FULL, detect=False)
+            detected = int(np.isfinite(rows).any(axis=1).sum())
+            log(f"{mt}: full width, {n_params} parameters, + RAFT "
+                f"x{FLOW_ITERS}: {n} frames incremental (first run, with "
+                f"warm-up: {fps:.2f} frames/s), {ZOO_FULL} full -> CSVs "
+                f"({detected} rows with a detection); decode tiers "
+                f"{json.dumps(tiers)}; launches {json.dumps(launches)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            # raw logits of std ZOO_LOGIT_STD resampled by the flow: the
+            # limit of HRNet's and the Large head's (phase_zoo_slice)
+            _compare_with_plain_kernels(
+                mt, engine, InferenceEngine(model, cfg,
+                                            flow_model=flow_model),
+                frames, _plain_flow_kernels, window_flow,
+                prob_tol=LARGE_PROB_TOL)
+            if fam == "UNet":
+                att = frames[T - 1].mean(-1).astype(np.float32) / 255.0
+                with torch.no_grad():
+                    flow = window_flow(engine)[0, 0].permute(1, 2, 0)
+                paths["attmap"] = (_attmap_checks(
+                    flow.float().contiguous(), att, smi), 1)
+            with parity_mode():
+                c32 = dataclasses.replace(cfg, dtype="float32")
+                _parity_incremental_full(mt, {m: InferenceEngine(
+                    model, dataclasses.replace(c32, mode=m),
+                    flow_model=flow_model, device="cuda")
+                    for m in ("incremental", "full")}, frames)
+            nf = InferenceEngine(model, ncfg)
+            rates = [track_on_frames(frames[:ZOO_TIMED_FRAMES], None, ncfg,
+                                     d, name=f"{fam}_t{i}", engine=nf)[1]
+                     for i in range(2)]
+            log(f"[{smi}] {mt} without flow, incremental bf16, device "
+                f"decode, B=1: {rates[0]:.2f}, {rates[1]:.2f} frames/s "
+                f"({ZOO_TIMED_FRAMES} frames a call)")
+            _base_head_ms(fam, nf, frames, smi)
+            del model, engine, nf
+            torch.cuda.empty_cache()
+
+        # ResUNetMulti-Large with RAFT and depth: no warp
+        lcfg = dataclasses.replace(cfg, add_depth_inputs=True)
+        model = _zoo_model("ResUNetMulti-Large", gen, xcal,
+                           add_optflow_inputs=True, add_depth_inputs=True)
+        n = ZOO_LARGE_FRAMES
+        _reset_all_launches()
+        track_on_frames(frames[:n], model, lcfg, d, name="resl",
+                        depth_frames=_depth_frames(frames[:n]),
+                        flow_model=flow_model, device="cuda")
+        launches = _all_launches()
+        _check_rows(np.loadtxt(Path(d) / "resl_tracked.csv", delimiter=","),
+                    n, detect=False)
+        _require_launches("zoo_resunet_large", launches)
+        if launches["flow_warp"] != 0:
+            raise AssertionError("ResUNetMulti-Large warps nothing: "
+                                 f"{launches['flow_warp']} flow_warp")
+        paths["zoo_resunet_large"] = (launches, n - (T - 1))
+        log(f"ResUNetMulti-Large + RAFT + depth: {n} frames incremental, "
+            f"0 flow_warp; launches {json.dumps(launches)}")
+        del model
+        torch.cuda.empty_cache()
+    _tapnet_checks(frames, smi)
+    torch.cuda.empty_cache()
+    launches, n_micro, _, _ = _run_u(smi)
+    paths["train_unet"] = (launches, n_micro)
+    log(f"phase_zoo10b_slice: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -4515,6 +4863,7 @@ def main():
         library.update(lib)
     phase_ffpp_timings(ffpp_engine, frames, smi)
     zoo_paths = phase_zoo_slice(engine, frames, smi)
+    zoo_paths.update(phase_zoo10b_slice(engine, frames, smi))
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
      (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
     times.update(t)

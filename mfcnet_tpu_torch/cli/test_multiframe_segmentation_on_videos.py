@@ -14,10 +14,9 @@ torchvision ``raft_large`` ``.pth`` (its key names load directly), and
 without it the provider keeps its seeded random weights.
 ``--add_depth_inputs True`` reads one depth video per RGB video from
 ``--depth_videos_dir``. ``--model_type`` takes the
-``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-{Basic,Large}`` types: a
-Basic model warps the earlier maps by the flow, a Large one takes the flow
-raw into its head; ``UNetMulti-*`` and ``ResUNetMulti-*`` raise and name
-ROADMAP item 10b. ``--parallel_videos P`` tracks the videos in groups of
+``{TernausNet,DeepLab,FCN,HRNet,SegFormer,UNet,ResUNet}Multi-{Basic,Large}``
+types: a Basic model warps the earlier maps by the flow, a Large one takes
+the flow raw into its head. ``--parallel_videos P`` tracks the videos in groups of
 up to P at once, through one engine with ``num_streams`` = the group's
 size (one engine kept per group size): each group's frames are read into
 memory first, and the CSVs are those of the sequential run. The tracker runs on
@@ -157,14 +156,11 @@ def main(argv=None):
 
     num_classes = 5
     T, H, W = args.num_input_frames, args.input_height, args.input_width
-    try:
-        model = get_multiframe_segmentation_model(
-            args.model_type, num_classes=num_classes, num_input_frames=T,
-            add_optflow_inputs=args.add_optflow_inputs,
-            add_depth_inputs=args.add_depth_inputs, scale=args.model_scale,
-        )
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    model = get_multiframe_segmentation_model(
+        args.model_type, num_classes=num_classes, num_input_frames=T,
+        add_optflow_inputs=args.add_optflow_inputs,
+        add_depth_inputs=args.add_depth_inputs, scale=args.model_scale,
+    )
     model.load_state_dict(load_reference_state_dict(args.load_wts_model,
                                                     args.use_ema))
     logger.info(f"Loaded model weights from {args.load_wts_model}"

@@ -5,7 +5,8 @@ scripts/train_multiframe_detection.py).
     python -m mfcnet_tpu_torch.cli.train_multiframe_detection \
         --dataset JIGSAWS --packed_dir PACKS --add_optflow_inputs True ...
 
-``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-{Basic,Large}`` (weights
+``{TernausNet,DeepLab,FCN,HRNet,SegFormer,UNet,ResUNet}Multi-{Basic,
+Large}`` (weights
 drawn from ``--seed`` as the JAX trainer draws them,
 ``models.init_weights_lecun``; ``--load_wts_base_model`` loads the
 family's base from a single-frame checkpoint by name), with the frozen flow
@@ -131,13 +132,10 @@ def main(argv=None):
         args.batch_size, num_workers=args.num_workers,
         fold_index=args.fold_index, add_depth_inputs=args.add_depth_inputs,
         seed=args.seed, packed_dir=args.packed_dir)
-    try:
-        model = get_multiframe_segmentation_model(
-            args.model_type, num_classes=args.num_classes,
-            num_input_frames=T, add_optflow_inputs=args.add_optflow_inputs,
-            add_depth_inputs=args.add_depth_inputs, scale=args.model_scale)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    model = get_multiframe_segmentation_model(
+        args.model_type, num_classes=args.num_classes,
+        num_input_frames=T, add_optflow_inputs=args.add_optflow_inputs,
+        add_depth_inputs=args.add_depth_inputs, scale=args.model_scale)
     init_weights_lecun(model, torch.Generator().manual_seed(args.seed))
     model.multiframe_net.parity_grid = args.parity_grid
     base_loaded = False

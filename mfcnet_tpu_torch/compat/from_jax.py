@@ -18,12 +18,17 @@ A flax ``.msgpack`` checkpoint is read with the JAX package (flax's
 ``torch.save`` to get a ``.pth`` the port loads.
 
 :func:`state_dict_from_jax` takes every base the port builds, alone or
-inside a Multi wrapper: TernausNet16, DeepLabV3 and FCN (the inverses of
+inside a Multi wrapper: TernausNet11/16, DeepLabV3 and FCN (the inverses of
 ``torch_convert.convert_{deeplabv3,fcn}_resnet101``, torchvision's key
 names), HRNet (of ``convert_hrnet``, the reference's names, flax's
-auto-named ``Conv_i`` / ``BatchNorm_i`` inside its blocks) and SegFormer
+auto-named ``Conv_i`` / ``BatchNorm_i`` inside its blocks), SegFormer
 (of ``convert_segformer``, smp's names; dense kernel (in, out) -> linear
-weight (out, in), LayerNorm scale -> weight).
+weight (out, in), LayerNorm scale -> weight), ResUNet (of
+``convert_resunet``: flax's auto-named ``ResBlock_i`` / ``Conv_i`` in
+creation order; GroupNorm scale -> weight), TAPNet11/16 (of
+``convert_tapnet``, under the JAX module's ``body`` scope), the generic
+TAPNet (flax's auto names in creation order) and UNet (whose port
+carries the JAX module tree's names).
 
 :func:`raft_state_dict_from_jax` does the same for the flow provider: the
 inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
@@ -69,7 +74,7 @@ def _bn(sd, key, p, st):
 
 
 def _ternausnet_pairs(base, params):
-    """TernausNet16: the encoder's flax ``Conv_j`` at the torchvision
+    """TernausNet11/16: the encoder's flax ``Conv_j`` at the torchvision
     layer indices ``base`` fixes, then the decoder blocks."""
     enc_idx = [i for i, m in enumerate(base.encoder)
                if isinstance(m, torch.nn.Conv2d)]
@@ -86,6 +91,93 @@ def _ternausnet_pairs(base, params):
                  _deconv)]
     return out + [("dec1.conv", ("dec1", "Conv_0"), _conv),
                   ("final", ("final",), _conv)]
+
+
+def _tree_pairs(base, params):
+    """A module whose torch names are the JAX tree's (the UNet): every
+    conv and batch norm at its own dotted path."""
+    out = []
+    for name, mod in base.named_modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            out.append((name, tuple(name.split(".")), _conv))
+        elif isinstance(mod, torch.nn.BatchNorm2d):
+            out.append((name, tuple(name.split(".")), _bn))
+    return out
+
+
+def _resblock_pairs(tp, jp, blk):
+    out = []
+    for i in (1, 2):
+        out += [(f"{tp}.block{i}.proj", jp + (f"WSConv_{i - 1}",), _conv),
+                (f"{tp}.block{i}.norm", jp + (f"GroupNorm_{i - 1}",), _ln)]
+    if isinstance(blk.res_conv, torch.nn.Conv2d):
+        out.append((f"{tp}.res_conv", jp + ("Conv_0",), _conv))
+    return out
+
+
+def _resunet_pairs(base, params):
+    """The inverse of ``convert_resunet``: down stage i is ``ResBlock_i``
+    and ``Conv_i``, the middle ``ResBlock_n``, up stage i
+    ``ResBlock_{n+1+i}`` and ``Conv_{n+i}``, the last ``ResBlock_{2n+1}``
+    (flax's creation order)."""
+    n = len(base.downs)
+    out = [("init_conv", ("init_conv",), _conv),
+           ("output_layer", ("output_layer",), _conv)]
+    for i, (blk, down) in enumerate(base.downs):
+        out += _resblock_pairs(f"downs.{i}.0", (f"ResBlock_{i}",), blk)
+        key = f"downs.{i}.1" + (".1" if i < n - 1 else "")
+        out.append((key, (f"Conv_{i}",), _conv))
+    out += _resblock_pairs("mid_block", (f"ResBlock_{n}",), base.mid_block)
+    for i, (blk, up) in enumerate(base.ups):
+        out += _resblock_pairs(f"ups.{i}.0", (f"ResBlock_{n + 1 + i}",), blk)
+        key = f"ups.{i}.1" + (".1" if i < n - 1 else "")
+        out.append((key, (f"Conv_{n + i}",), _conv))
+    return out + _resblock_pairs("final_res_block", (f"ResBlock_{2 * n + 1}",),
+                                 base.final_res_block)
+
+
+def _tapnet_pairs(base, params):
+    """The inverse of ``convert_tapnet``: the VGG encoder's ``Conv_j`` at
+    torchvision's layer indices, decoders, attention modules, ``dec1`` and
+    ``final``, all under ``body``."""
+    enc = getattr(base, base.vgg_key)
+    b = ("body",)
+    out = [(f"{base.vgg_key}.{idx}", b + ("encoder", f"Conv_{j}"), _conv)
+           for j, idx in enumerate(i for i, m in enumerate(enc)
+                                   if isinstance(m, torch.nn.Conv2d))]
+    for name in ("center", "dec5", "dec4", "dec3", "dec2"):
+        if hasattr(getattr(base, name).l, "deconv"):
+            out += [(f"{name}.l.conv.l.conv",
+                     b + (name, "ConvReLU_0", "Conv_0"), _conv),
+                    (f"{name}.l.deconv",
+                     b + (name, "TorchConvTranspose_0"), _deconv)]
+        else:
+            out += [(f"{name}.l.conv{i + 1}.l.conv",
+                     b + (name, f"ConvReLU_{i}", "Conv_0"), _conv)
+                    for i in range(2)]
+    for name in ("att5", "att4", "att3", "att2", "att1"):
+        out += _attention_pairs(name, b + (name,))
+    return out + [("dec1.l.conv", b + ("dec1", "Conv_0"), _conv),
+                  ("final", b + ("final",), _conv)]
+
+
+def _attention_pairs(tp, jp):
+    return [(f"{tp}.firstconv.l.conv", jp + ("ConvReLU_0", "Conv_0"), _conv),
+            (f"{tp}.learnable_attmap.0.l.conv", jp + ("att_conv",), _conv)]
+
+
+def _generic_tapnet_pairs(base, params):
+    """The generic TAPNet: its ``UNetModule``s are flax's ``UNetModule_i``
+    in creation order (conv1..conv4, center, up4..up1)."""
+    out = []
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4", "center",
+                              "up4", "up3", "up2", "up1")):
+        out += [(f"{name}.l.conv{j + 1}.l.conv",
+                 (f"UNetModule_{i}", f"ConvReLU_{j}", "Conv_0"), _conv)
+                for j in range(2)]
+    for name in ("att4", "att3", "att2", "att1"):
+        out += _attention_pairs(name, (name,))
+    return out + [("final", ("final",), _conv)]
 
 
 def _resnet_pairs(backbone):
@@ -216,13 +308,19 @@ def _base_pairs(base, params):
     from mfcnet_tpu_torch.models.deeplab import DeepLabV3ResNet101
     from mfcnet_tpu_torch.models.fcn import FCNResNet101
     from mfcnet_tpu_torch.models.hrnet import HRNetW48
+    from mfcnet_tpu_torch.models.resunet import ResUNetVB
     from mfcnet_tpu_torch.models.segformer import SegFormerMiTB3
-    from mfcnet_tpu_torch.models.ternausnet import TernausNet16
+    from mfcnet_tpu_torch.models.tapnet import TAPNet, _TAPNetVGG
+    from mfcnet_tpu_torch.models.ternausnet import _TernausNet
+    from mfcnet_tpu_torch.models.unet import UNet
 
-    for cls, pairs in ((TernausNet16, _ternausnet_pairs),
+    for cls, pairs in ((_TernausNet, _ternausnet_pairs),
                        (DeepLabV3ResNet101, _deeplab_pairs),
                        (FCNResNet101, _fcn_pairs), (HRNetW48, _hrnet_pairs),
-                       (SegFormerMiTB3, _segformer_pairs)):
+                       (SegFormerMiTB3, _segformer_pairs),
+                       (UNet, _tree_pairs), (ResUNetVB, _resunet_pairs),
+                       (_TAPNetVGG, _tapnet_pairs),
+                       (TAPNet, _generic_tapnet_pairs)):
         if isinstance(base, cls):
             return pairs(base, params)
     raise TypeError(f"no JAX layout for {type(base).__name__}")
@@ -272,8 +370,9 @@ def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
     else:
         _fill(sd, "", _base_pairs(model, params), params, stats)
 
-    # the conv1..conv5 stage views share the encoder's modules: fill
-    # their keys from the canonical ones
+    # the VGG encoders' views (TernausNet16's and TAPNet's conv1..conv5
+    # stages, TernausNet11's conv1..conv5 aliases) share the encoder's
+    # modules: fill their keys from the canonical ones
     live = model.state_dict(keep_vars=True)
     canon = {id(v): k for k, v in live.items() if k in sd}
     for k, v in live.items():

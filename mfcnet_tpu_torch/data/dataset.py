@@ -1,20 +1,28 @@
-"""Host-side multi-frame dataset over the image tree (counterpart of
-``mfcnet_tpu/data/dataset.py``): index -> raw uint8 sample dict.
+"""Host-side datasets over the image tree (counterpart of
+``mfcnet_tpu/data/dataset.py``): index -> raw sample dict.
 
-Sample ``idx`` holds frames [idx, idx-1, ..., idx-(T-1)] (newest first)
-wrapping mod N; where a candidate lies in another video directory the
-last in-video frame is reused (reference src/dataset_jigsaws.py:20-40).
-Augmentation runs later, on the batch (``data/transforms.py``).
+:class:`MultiFrameDataset`: sample ``idx`` holds frames [idx, idx-1, ...,
+idx-(T-1)] (newest first) wrapping mod N; where a candidate lies in
+another video directory the last in-video frame is reused (reference
+src/dataset_jigsaws.py:20-40). :class:`SingleFrameDataset`: one frame and
+its mask, and for TAPNet the attention map. Augmentation runs later, on
+the batch (``data/transforms.py``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
-from mfcnet_tpu_torch.data.masks import load_depthmap, load_image, load_mask
+from mfcnet_tpu_torch.data.masks import (
+    load_attmap,
+    load_depthmap,
+    load_image,
+    load_mask,
+    load_optflow_map,
+)
 
 
 def window_indices(idx: int, T: int, video_of) -> List[int]:
@@ -64,4 +72,43 @@ class MultiFrameDataset:
         if self.add_depth_inputs:
             sample["depth"] = np.stack([load_depthmap(self.file_names[j])
                                         for j in idxs])
+        return sample
+
+
+class SingleFrameDataset:
+    """A frame (uint8 (H, W, 3)) and its mask (reference
+    src/dataloader.py:78-96). ``with_attmap`` adds TAPNet's ``attmap``
+    (float32 (h, w)): the previous frame's map (``load_attmap``; zeros at
+    a video's first frame), and with ``optflow_dir`` that map carried
+    along the frame's precomputed flow and dilated (``data/attmap.py::
+    cal_attmap_np``; reference src/dataloader.py:20-76)."""
+
+    def __init__(self, file_names: Sequence[Path], prediction_task: str,
+                 with_attmap: bool = False, frames_per_video: int = 225,
+                 optflow_dir: Optional[str] = None,
+                 attmap_shape=(480, 640)):
+        self.file_names = [Path(f) for f in file_names]
+        self.prediction_task = prediction_task
+        self.with_attmap = with_attmap
+        self.frames_per_video = frames_per_video
+        self.optflow_dir = optflow_dir
+        self.attmap_shape = attmap_shape
+
+    def __len__(self):
+        return len(self.file_names)
+
+    def __getitem__(self, idx: int):
+        sample = {"image": load_image(self.file_names[idx]),
+                  "mask": load_mask(self.file_names[idx],
+                                    self.prediction_task)}
+        if self.with_attmap:
+            att = load_attmap(self.file_names, idx, self.frames_per_video,
+                              shape=self.attmap_shape)
+            if self.optflow_dir and idx % self.frames_per_video != 0:
+                from mfcnet_tpu_torch.data.attmap import cal_attmap_np
+
+                att = cal_attmap_np(att, load_optflow_map(
+                    self.file_names[idx], self.optflow_dir,
+                    shape=att.shape))
+            sample["attmap"] = att
         return sample

@@ -1,4 +1,4 @@
-"""Image, depth, mask and ``.flo`` file IO (counterpart of
+"""Image, depth, mask, attention-map and ``.flo`` file IO (counterpart of
 ``mfcnet_tpu/data/masks.py``; reference utils/dataloader_utils.py:8-85):
 the port's own copy, numpy only. OpenCV is imported inside the functions
 that decode files, so the pack path (and the card, which has no cv2)
@@ -95,6 +95,27 @@ def load_mask(path, prediction_task: str) -> np.ndarray:
               if prediction_task == "endovis15_segmentation" else "pose_maps")
     maskl, maskr = _read_pose_maps(path, folder)
     return compose_mask(maskl, maskr, prediction_task)
+
+
+def load_attmap(file_name_list, idx: int, frames_per_video: int,
+                shape=(480, 640)) -> np.ndarray:
+    """TAPNet's attention map of sample ``idx`` (utils/dataloader_utils.py:
+    15-22): zeros (float32 ``shape``) at each video's first frame, else the
+    previous frame's ``attmaps/*.png`` / 255 as float32."""
+    if idx % frames_per_video == 0:
+        return np.zeros(shape, np.float32)
+    p = str(file_name_list[idx - 1]).replace("images", "attmaps").replace(
+        "jpg", "png")
+    return _imread(p, 0).astype(np.float32) / 255.0
+
+
+def load_optflow_map(path, optflow_dir: str, shape=(480, 640)) -> np.ndarray:
+    """A frame's precomputed flow, raw float32 -> (H, W, 2)
+    (utils/dataloader_utils.py:8-13): the reference skips two floats of
+    header and reshapes to ``shape``, kept."""
+    p = str(path).replace("images", optflow_dir).replace("jpg", "flo")
+    flo = np.fromfile(p, dtype=np.float32)
+    return flo[2:].reshape((*shape, 2))
 
 
 def read_flo(path) -> np.ndarray:

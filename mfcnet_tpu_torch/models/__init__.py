@@ -1,24 +1,25 @@
 """Model registry (counterpart of ``mfcnet_tpu/models/__init__.py``).
 
-Builds the multi-frame ``{TernausNet,DeepLab,FCN,HRNet,SegFormer}Multi-
-{Basic,Large}`` (with or without flow and depth inputs) and the
-single-frame ``TernausNet16``, ``DeepLab_v3`` (alias ``DeepLab``),
-``FCN``, ``HRNet`` and ``SegFormer``, at the JAX registry's widths for
-any ``scale``; every other model type the JAX package knows raises an
-error that names its ROADMAP item.
+Builds every model type of the JAX package's two registries, at their
+widths for any ``scale``: the multi-frame ``{TernausNet,DeepLab,FCN,HRNet,
+SegFormer,UNet,ResUNet}Multi-{Basic,Large}`` (with or without flow and
+depth inputs) and the single-frame ``TernausNet11``, ``TernausNet16``,
+``DeepLab_v3`` (alias ``DeepLab``), ``FCN``, ``HRNet``, ``SegFormer``,
+``UNet``, ``ResUNet``, ``TAPNet11`` and ``TAPNet16`` (which take the
+image and an attention map).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mfcnet_tpu_torch.models.common import VGG16_STAGES
+from mfcnet_tpu_torch.models.common import VGG11_STAGES, VGG16_STAGES
 from mfcnet_tpu_torch.models.mfcnet import (
     MultiFrameHead,
     MultiFrameNet,
     MultiFrameSegmenter,
 )
-from mfcnet_tpu_torch.models.ternausnet import TernausNet16
+from mfcnet_tpu_torch.models.ternausnet import TernausNet11, TernausNet16
 
 #: multi-frame family -> its base's single-frame model type
 _MULTI_BASES = {
@@ -27,23 +28,26 @@ _MULTI_BASES = {
     "FCNMulti": "FCN",
     "HRNetMulti": "HRNet",
     "SegFormerMulti": "SegFormer",
+    "UNetMulti": "UNet",
+    "ResUNetMulti": "ResUNet",
 }
-#: model types (and Multi families) of the JAX registries that the port
-#: does not build yet
-_LATER = ("UNetMulti", "ResUNetMulti", "TernausNet11", "TAPNet11",
-          "TAPNet16", "UNet", "ResUNet")
-_ZOO_10B = "ROADMAP.md Queue 1 item 10b (TernausNet11, TAPNet, UNet, ResUNet)"
 #: the single-frame types, with how the single-frame step reads the
-#: model's output (``train/steps.py``): log-probabilities as they are, or
-#: logits through a float32 log-softmax (mfcnet_tpu/cli/
-#: train_toolpose_segmentation.py:45-56)
+#: model's output (``train/steps.py``): log-probabilities as they are,
+#: logits through a float32 log-softmax, or TAPNet's log-probabilities of
+#: the image and the attention map (mfcnet_tpu/cli/
+#: train_toolpose_segmentation.py:43-55)
 OUTPUT_MODES = {
+    "TernausNet11": "log_probs",
     "TernausNet16": "log_probs",
     "SegFormer": "log_probs",
     "HRNet": "logits",
     "DeepLab_v3": "logits",
     "DeepLab": "logits",
     "FCN": "logits",
+    "UNet": "logits",
+    "ResUNet": "logits",
+    "TAPNet11": "tapnet",
+    "TAPNet16": "tapnet",
 }
 
 
@@ -57,12 +61,29 @@ def _build_base(kind: str, num_classes: int, scale: float = 1.0):
     """(single-frame model, base_output) by model type, with the JAX
     registry's rules for ``scale`` < 1 (``mfcnet_tpu/models/__init__.py::
     _build_base``)."""
-    if kind == "TernausNet16":
-        return TernausNet16(
-            num_classes=num_classes,
-            num_filters=max(4, int(64 * scale)),
-            stage_convs=_scaled_vgg(VGG16_STAGES, scale),
-        ), "exp"
+    if kind in ("TernausNet11", "TernausNet16"):
+        cls, stages = ((TernausNet11, VGG11_STAGES) if kind == "TernausNet11"
+                       else (TernausNet16, VGG16_STAGES))
+        return cls(num_classes=num_classes,
+                   num_filters=max(4, int(64 * scale)),
+                   stage_convs=_scaled_vgg(stages, scale)), "exp"
+    if kind in ("TAPNet11", "TAPNet16"):
+        from mfcnet_tpu_torch.models.tapnet import TAPNet11, TAPNet16
+
+        cls, stages = ((TAPNet11, VGG11_STAGES) if kind == "TAPNet11"
+                       else (TAPNet16, VGG16_STAGES))
+        return cls(num_classes,
+                   stage_convs=_scaled_vgg(stages, scale)), "exp"
+    if kind == "UNet":
+        from mfcnet_tpu_torch.models.unet import UNET_DIMS, UNet
+
+        return UNet(num_classes, dims=tuple(
+            max(4, int(d * scale)) for d in UNET_DIMS)), "identity"
+    if kind == "ResUNet":
+        from mfcnet_tpu_torch.models.resunet import ResUNetVB
+
+        return ResUNetVB(num_classes, dim=max(8, int(16 * scale)),
+                         groups=8 if scale >= 0.5 else 4), "identity"
     if kind in ("DeepLab_v3", "DeepLab", "FCN"):
         from mfcnet_tpu_torch.models.deeplab import DeepLabV3ResNet101
         from mfcnet_tpu_torch.models.fcn import FCNResNet101
@@ -90,8 +111,6 @@ def _build_base(kind: str, num_classes: int, scale: float = 1.0):
             num_classes, decoder_dim=max(8, int(256 * scale)),
             dims=tuple(max(8, int(d * scale)) for d in MIT_B3["dims"]),
             depths=(1, 1, 1, 1), heads=(1, 1, 1, 1)), "identity"
-    if kind in _LATER:
-        raise NotImplementedError(f"{kind}: {_ZOO_10B}")
     raise ValueError(f"Model type {kind} not recognized")
 
 
@@ -113,8 +132,6 @@ def get_multiframe_segmentation_model(
     the JAX registry does; ``generator`` seeds the random initialization
     (PyTorch's default init schemes, drawn from this generator)."""
     family, _, variant = model_type.rpartition("-")
-    if family in _LATER:
-        raise NotImplementedError(f"{model_type}: {_ZOO_10B}")
     variant = variant.lower()
     if family not in _MULTI_BASES or variant not in ("basic", "large"):
         raise ValueError(f"Model type {model_type} not recognized")
@@ -136,7 +153,7 @@ def get_tooltip_segmentation_model(model_type: str, num_classes: int,
                                    ) -> torch.nn.Module:
     """A single-frame model by the reference's model-type string: the
     bases of the multi-frame families (trained first and loaded with
-    ``--load_wts_base_model``); the types of ROADMAP item 10b raise."""
+    ``--load_wts_base_model``), TernausNet11 and TAPNet11/16."""
     model, _ = _build_base(model_type, num_classes, scale)
     if generator is not None:
         init_weights(model, generator)
@@ -144,7 +161,8 @@ def get_tooltip_segmentation_model(model_type: str, num_classes: int,
 
 
 def _norm_defaults(mod):
-    if isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
+    if isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm2d,
+                        torch.nn.GroupNorm)):
         torch.nn.init.ones_(mod.weight)
         torch.nn.init.zeros_(mod.bias)
 
@@ -153,8 +171,8 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator):
     """Re-draw every conv, deconv and linear weight and bias from
     ``generator`` with PyTorch's default schemes (kaiming-uniform(a=sqrt(5))
     weights, fan-in uniform biases; fan-in = input channels per group x
-    kernel taps); LayerNorm and BatchNorm get weight 1, bias 0. A seed
-    fixes the whole model."""
+    kernel taps; a ``WSConv2d`` is a conv); LayerNorm, BatchNorm and
+    GroupNorm get weight 1, bias 0. A seed fixes the whole model."""
     import math
 
     with torch.no_grad():
@@ -182,8 +200,9 @@ def init_weights_lecun(model: torch.nn.Module, generator: torch.Generator):
     """Re-draw every conv, deconv and linear weight as the JAX package's
     flax ``Conv`` and ``Dense`` initialize theirs (``lecun_normal``: a
     normal truncated at two standard deviations with variance 1 / fan-in,
-    fan-in = input channels per group x kernel taps) and zero every bias;
-    LayerNorm and BatchNorm get weight 1, bias 0.
+    fan-in = input channels per group x kernel taps; ``WSConv2d`` too, as
+    flax's ``WSConv`` draws its raw kernel) and zero every bias;
+    LayerNorm, BatchNorm and GroupNorm get weight 1, bias 0.
     The training CLIs start from it, as the JAX trainer does: under
     PyTorch's default scheme (a third of the variance per layer) the
     randomly initialized VGG16 encoder passes a much weaker signal and
@@ -208,6 +227,7 @@ def init_weights_lecun(model: torch.nn.Module, generator: torch.Generator):
 
 
 __all__ = [
+    "TernausNet11",
     "TernausNet16",
     "MultiFrameHead",
     "MultiFrameNet",

@@ -6,7 +6,10 @@ reference ``.pth`` checkpoints load directly. The model-level entry
 points convert from and to the JAX package's NHWC layout.
 
 :class:`BatchNorm2d` is the batch norm of every model of the port: flax's
-``BatchNorm`` rules under PyTorch's module and key names. :class:`Dropout`
+``BatchNorm`` rules under PyTorch's module and key names;
+:class:`GroupNorm` is flax's ``GroupNorm`` in the same way, and
+:class:`WSConv2d` the JAX ResUNet's weight-standardized convolution.
+:class:`Dropout`
 and :class:`DropPath` are flax's ``Dropout`` and the JAX SegFormer's
 stochastic depth, drawing from a generator that the train step hands them
 (:func:`use_generator`).
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+VGG11_STAGES = ((64,), (128,), (256, 256), (512, 512), (512, 512))
 VGG16_STAGES = (
     (64, 64),
     (128, 128),
@@ -148,6 +152,49 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(
             x.to(dt), self.running_mean.to(pt), self.running_var.to(pt),
             self.weight.to(pt), self.bias.to(pt), False, 0.0, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (its key names, eps 1e-5) under flax's
+    ``GroupNorm`` rules: the mean and variance E[y^2] - E[y]^2 (clamped at
+    0) of each sample's group over (channels of the group, H, W) in float32
+    (float64 for float64 inputs), (y - mean) * (rsqrt(var + eps) * weight)
+    + bias in that type, rounded once to the promoted type of y and the
+    parameters."""
+
+    def forward(self, x):
+        dt = torch.promote_types(
+            torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
+        acc = torch.promote_types(dt, torch.float32)
+        B, Cn, Hh, Ww = x.shape
+        G = self.num_groups
+        g = x.to(acc).reshape(B, G, -1)
+        mean = g.mean(dim=2, keepdim=True)
+        var = ((g * g).mean(dim=2, keepdim=True) - mean * mean).clamp_min(0)
+        mul = torch.rsqrt(var + self.eps).expand(B, G, Cn // G).reshape(
+            B, Cn, 1, 1) * self.weight.to(acc).view(1, Cn, 1, 1)
+        y = (g - mean).reshape(B, Cn, Hh, Ww) * mul
+        return (y + self.bias.to(acc).view(1, Cn, 1, 1)).to(dt)
+
+
+class WSConv2d(nn.Conv2d):
+    """Weight-standardized ``Conv2d`` (the JAX ResUNet's ``WSConv``,
+    reference models/resunet.py:51-64): each output channel's weight
+    minus its mean, over the biased standard deviation across (in, kh,
+    kw), computed in float32 (float64 for a float64 weight) and cast to
+    the input's type. The JAX module's eps follows the input's type: 1e-5
+    for float32, 1e-3 for any other (bfloat16, and float64 too), kept."""
+
+    def forward(self, x):
+        eps = 1e-5 if x.dtype == torch.float32 else 1e-3
+        w = self.weight.to(torch.promote_types(self.weight.dtype,
+                                               torch.float32))
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        var = w.var(dim=(1, 2, 3), unbiased=False, keepdim=True)
+        w = ((w - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, w, bias, self.stride, self.padding,
+                        self.dilation, self.groups)
 
 
 class Dropout(nn.Module):

@@ -23,11 +23,30 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(src, 0, in_size - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _repeat_factor(in_size: int, out_size: int) -> int:
+    """k where every output position's source is dst // k (an integer
+    upscale whose float64 index is exact), else 0."""
+    k = out_size // in_size
+    if k < 1 or k * in_size != out_size:
+        return 0
+    exact = np.array_equal(_nearest_index(in_size, out_size),
+                           np.arange(out_size) // k)
+    return k if exact else 0
+
+
 def resize_nearest(img, out_h: int, out_w: int):
-    """Nearest-neighbour resize of (..., H, W)."""
+    """Nearest-neighbour resize of (..., H, W). An integer upscale (the
+    UNets' 2x) repeats each pixel k x l times on the device, with no
+    index to copy from the host, so it captures into a CUDA graph."""
     in_h, in_w = img.shape[-2:]
     if (in_h, in_w) == (out_h, out_w):
         return img
+    k, l = _repeat_factor(in_h, out_h), _repeat_factor(in_w, out_w)
+    if k and l:
+        lead = img.shape[:-2]
+        return img[..., :, None, :, None].expand(
+            *lead, in_h, k, in_w, l).reshape(*lead, out_h, out_w)
     rows = torch.from_numpy(_nearest_index(in_h, out_h)).to(img.device)
     cols = torch.from_numpy(_nearest_index(in_w, out_w)).to(img.device)
     return img.index_select(-2, rows).index_select(-1, cols)

@@ -152,10 +152,12 @@ def resume(state, ckpt_dir, path, starting_epoch: int, logger):
 
 
 def fit(args, state, loaders, steps, transforms, logger, writer, ckpt_dir,
-        start_epoch: int, resume_skip: int = 0):
+        start_epoch: int, resume_skip: int = 0,
+        epoch_end: Optional[Callable[[int], None]] = None):
     """The CLIs' epoch loop (reference scripts/train_multiframe_detection.py
     :160-183): for each epoch up to ``args.num_epochs`` train (``loaders``,
-    ``steps``, ``transforms`` = (train, val) pairs), validate, save every
+    ``steps``, ``transforms`` = (train, val) pairs), validate, call
+    ``epoch_end(epoch)`` if given, save every
     ``args.save_freq`` epochs and at the last; an interrupt saves the
     snapshot ``model_999`` with its position (inside an epoch: the batches
     done; elsewhere the last completed epoch) and re-raises."""
@@ -173,6 +175,8 @@ def fit(args, state, loaders, steps, transforms, logger, writer, ckpt_dir,
             validate(val_loader, state, eval_step, prep, logger, writer,
                      epoch, args.print_freq, args.loss_fns, args.metric_fns,
                      args.num_classes)
+            if epoch_end is not None:
+                epoch_end(epoch)
             if epoch % args.save_freq == 0 or epoch == args.num_epochs:
                 p = save_checkpoint(ckpt_dir, epoch, state)
                 logger.info(f"Saved checkpoint {p}")

@@ -162,11 +162,15 @@ def make_multiframe_eval_step(loss_fns: Sequence[str],
 def _singleframe_log_probs(model, cdt, image, output_mode):
     """(B, H, W, 3) -> (B, H, W, C) float32 log-probabilities: the model's
     NCHW output in float32, through ``log_softmax`` when it gives logits
-    (``output_mode`` 'logits': HRNet, DeepLab, FCN; 'log_probs':
-    TernausNet16, SegFormer; ``models.OUTPUT_MODES``)."""
-    if output_mode not in ("log_probs", "logits"):
+    (``output_mode`` 'logits': HRNet, DeepLab, FCN, UNet, ResUNet;
+    'log_probs': TernausNet11/16, SegFormer; ``models.OUTPUT_MODES``).
+    'tapnet': the image is (B, H, W, 4), RGB and the attention map, which
+    TAPNet takes as two inputs and answers with log-probabilities."""
+    if output_mode not in ("log_probs", "logits", "tapnet"):
         raise ValueError(f"unknown output_mode: {output_mode!r}")
-    out = _apply(model, cdt, image.permute(0, 3, 1, 2)).float()
+    x = image.permute(0, 3, 1, 2)
+    args = (x[:, :3], x[:, 3:]) if output_mode == "tapnet" else (x,)
+    out = _apply(model, cdt, *args).float()
     if output_mode == "logits":
         out = F.log_softmax(out, dim=1)
     return out.permute(0, 2, 3, 1)
@@ -178,8 +182,9 @@ def make_singleframe_train_step(loss_fns: Sequence[str],
                                 output_mode: str = "log_probs"):
     """Single-frame step (reference
     scripts/train_toolpose_segmentation.py:142-192): batch 'image'
-    (B, H, W, 3), 'mask' (B, H, W); ``output_mode`` as
-    :func:`_singleframe_log_probs` reads it."""
+    (B, H, W, 3), or (B, H, W, 4) with TAPNet's attention map, 'mask'
+    (B, H, W); ``output_mode`` as :func:`_singleframe_log_probs` reads
+    it."""
     cdt = resolve_dtype(compute_dtype)
 
     def train_step(state, batch):

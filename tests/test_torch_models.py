@@ -154,15 +154,25 @@ def test_reference_state_dict_keys_load(pair):
 
 
 @pytest.mark.parametrize("model_type,err", [
-    ("UNetMulti-Large", "Queue 1 item 10b"),
-    ("ResUNetMulti-Basic", "Queue 1 item 10b"),
+    ("UNetMulti-Large", None),
+    ("ResUNetMulti-Basic", None),
     ("NoSuchNet-Basic", "not recognized"),
 ])
 def test_registry_names_roadmap_item(model_type, err):
+    """The Multi families the registry once refused (ROADMAP item 10b)
+    build and fuse one 64x64 window; an unknown type raises."""
     from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
 
-    with pytest.raises((NotImplementedError, ValueError), match=err):
-        get_multiframe_segmentation_model(model_type, C, T)
+    if err is not None:
+        with pytest.raises(ValueError, match=err):
+            get_multiframe_segmentation_model(model_type, C, T)
+        return
+    model = get_multiframe_segmentation_model(
+        model_type, C, T, scale=0.0625,
+        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model(torch.randn(1, T, 64, 64, 3))
+    assert out.shape == (1, 64, 64, C) and torch.isfinite(out).all()
 
 
 def test_registry_seeded_init_is_reproducible():

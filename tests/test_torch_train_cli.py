@@ -167,7 +167,9 @@ def test_single_frame_stage_feeds_the_base_and_converts_to_jax(pack,
     head, base = mf.optimizer.param_groups
     assert base["scale"] == pytest.approx(1 / 300)
     assert base["lr"] == pytest.approx(head["lr"] / 300)
-    with pytest.raises(SystemExit, match="item 10b"):
+    # TAPNet trains from the image tree only (its attention maps);
+    # tests/test_torch_zoo10b_paths.py trains it there
+    with pytest.raises(SystemExit, match="no attention maps"):
         sf_main(_common(pack, tmp_path, "sf2") + [
             "--model_type", "TAPNet16", "--device", "cpu"])
 

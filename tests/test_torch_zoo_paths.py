@@ -4,8 +4,8 @@ full, float32, host decode) against the JAX engine on the same variables
 and frames; the multi-frame train step (DeepLab and HRNet with the base
 trained, FCN and SegFormer with it frozen: their dropout and drop-path
 draw other numbers than JAX's) and the single-frame train step (DeepLab,
-HRNet) against JAX's; the three CLIs with the new types on the CPU and
-their refusals of the types of ROADMAP item 10b; and, on a card, one
+HRNet) against JAX's; the three CLIs with the new types on the CPU, and
+with the types of ROADMAP item 10b that they once refused; and, on a card, one
 family's engine through the kernels against its plain versions.
 
 Weights: JAX variables filled from numpy over ``jax.eval_shape``'s tree
@@ -362,24 +362,44 @@ def test_zoo_clis_take_the_new_types(tmp_path):
      ["--model_type", "ResUNetMulti-Basic", "--load_wts_model", "x.pth",
       "--videos_dir", "."]),
 ])
-def test_zoo_clis_refuse_later_types(tmp_path, cli, argv):
-    """TernausNet11, UNet, ResUNet and their Multi families (and TAPNet,
-    ``tests/test_torch_train_cli.py``) still refuse, naming item 10b."""
+def test_zoo_clis_refuse_later_types(tmp_path, monkeypatch, cli, argv):
+    """TernausNet11, UNet, ResUNet and their Multi families, which the CLIs
+    refused until ROADMAP item 10b was ported, now run at 64x64 and scale
+    1/16 on the CPU: one train step of each trainer on a pack of one
+    sample (TAPNet, which reads the image tree, in
+    ``tests/test_torch_zoo10b_paths.py``), and the tracking CLI over a
+    4-frame video with a checkpoint of the registry's model."""
     import importlib
 
     from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
 
     main = importlib.import_module(f"mfcnet_tpu_torch.cli.{cli}").main
+    monkeypatch.chdir(tmp_path)
     common = ["--expt_savedir", str(tmp_path), "--expt_name", "x",
-              "--device", "cpu"]
+              "--device", "cpu", "--model_scale", "0.0625",
+              "--input_height", "64", "--input_width", "64"]
     if cli.startswith("train"):
         pack = make_synthetic_pack(tmp_path / "pack",
                                    videos=(("train", 1, 1), ("val", 1, 1)),
                                    height=64, width=64, seed=0)
         common += ["--dataset", "JIGSAWS", "--packed_dir", str(pack),
-                   "--num_workers", "1"]
-    with pytest.raises(SystemExit, match="item 10b"):
-        main(common + argv)
+                   "--num_workers", "1", "--num_epochs", "0"]
+        state = main(common + argv)
+        assert state.step == 1
+        assert all(torch.isfinite(p).all() for p in state.model.parameters())
+        return
+    from mfcnet_tpu.data.synthetic import make_synthetic_video
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+
+    torch.save(get_multiframe_segmentation_model(
+        argv[1], C, T, scale=0.0625,
+        generator=torch.Generator().manual_seed(0)).state_dict(), "x.pth")
+    make_synthetic_video(tmp_path / "v.mp4", num_frames=4, height=64,
+                         width=64, seed=0)
+    main(common + argv + ["--compute_dtype", "float32"])
+    rows = np.loadtxt(tmp_path / "x" / "video_tracking_results"
+                      / "v_tracked.csv", delimiter=",")
+    assert rows.shape == (4, 12)
 
 
 @contextlib.contextmanager
