@@ -13,8 +13,10 @@ offline flow CLI's batched forward, and the training CLI (the same model
 with frozen RAFT, and again with FlowFormer++, and depth in the step) --
 the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
 and in training, and the rest of the zoo (UNet, ResUNet, TAPNet16) --
-through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), in seven
-phases; a failing phase raises and the script exits non-zero:
+through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), and the
+evaluation layer (the single-frame video tracker and the infer CLIs'
+device half), in eight phases; a failing phase raises and the script exits
+non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -103,7 +105,22 @@ phases; a failing phase raises and the script exits non-zero:
    batched form through ``flow_warp`` against its plain route); TAPNet16's
    ``tapnet`` train step at batch 4 and its f32 forward against the CPU's;
    run U, UNetMulti-Basic through the training CLI (bf16, base trained,
-   RAFT + depth, batch 4, 2 micro-steps, B1 once a micro-step).
+   RAFT + depth, batch 4, 2 micro-steps, B1 once a micro-step);
+8. the evaluation slice (``phase_eval_slice``, after phase 7): the
+   single-frame video CLI's tracker (``SingleFrameEngine``,
+   ``track_singleframe_frames``) with TernausNet16 at full width over the
+   64 frames, bf16, device decode (its ``cc.cu`` launches counted), its
+   rows through the kernels equal to those through the plain versions,
+   its float32 heats and rows on the card held to the CPU's (the north
+   star's gates), frames/s; DeepLab_v3 calibrated as in phase 6 (logits
+   through ``log_softmax``, the union tier) with its launches counted, and
+   once with ``score_detection_threshold`` 0.5; and the infer CLIs' device
+   half (``track/infer_eval.py::device_half``) on a 480x640 test pack:
+   ``infer_multiframe_endovis15``'s float32 eval step with
+   TernausNetMulti-Basic and RAFT x12 (``flow_warp`` counted, no fused
+   update step) and ``infer_toolpose_segmentation``'s with TernausNet16,
+   each held to the CPU's log-probabilities and IoU/Dice, ms/sample in
+   parity mode and in PyTorch's default settings.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -183,6 +200,13 @@ PATH_KERNELS = {
     "zoo_resunet_large": ZOO_CC + ("raft_update",),
     "train_unet": ("flow_warp", "raft_update", "flow_warp_bwd"),
     "attmap": ("flow_warp",),
+    # the evaluation slice (ROADMAP item 10c): the single-frame tracker with
+    # TernausNet16 (random maps: every tier) and with a calibrated DeepLab_v3
+    # (clean maps: the union tier), and the multi-frame evaluator's float32
+    # eval step with RAFT (plain update block; the Basic head's warp)
+    "singleframe": CC_KERNELS,
+    "singleframe_zoo": ZOO_CC,
+    "infer_raft": ("flow_warp",),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -1269,13 +1293,13 @@ def _window_probs(engine, frames, i):
     return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)[0]
 
 
-def _check_rows(rows, n, hw=(H, W), detect=True):
-    """An N x 12 CSV of ``n`` frames: NaN warm-up rows, keypoints inside
+def _check_rows(rows, n, hw=(H, W), detect=True, warmup=T - 1):
+    """An N x 12 CSV of ``n`` frames: ``warmup`` NaN rows, keypoints inside
     the frame, and (``detect``) at least one detection."""
     H, W = hw
     if rows.shape != (n, 12):
         raise AssertionError(f"CSV shape {rows.shape} != {(n, 12)}")
-    if not np.isnan(rows[:T - 1]).all():
+    if not np.isnan(rows[:warmup]).all():
         raise AssertionError("warmup rows must be NaN")
     vals = rows[~np.isnan(rows)]
     if detect and vals.size == 0:
@@ -4137,7 +4161,16 @@ def _zoo_model(model_type, gen, x, **kw):
 
     model = get_multiframe_segmentation_model(model_type, C, T, generator=gen,
                                               **kw).cuda()
-    base = model.base_model
+    _calibrate_logits(model_type, model.base_model, x)
+    return model
+
+
+def _calibrate_logits(name, base, x):
+    """A random zoo base's running statistics calibrated on the normalized
+    frames ``x`` (``_calibrate_bn``), its last convolution scaled to give
+    logits of std ``ZOO_LOGIT_STD`` there."""
+    import torch
+
     _calibrate_bn(base, x)
     last = [m for m in base.modules() if isinstance(m, torch.nn.Conv2d)
             and m.out_channels == C][-1]
@@ -4150,9 +4183,8 @@ def _zoo_model(model_type, gen, x, **kw):
         last.weight.mul_(gain)
         if last.bias is not None:
             last.bias.mul_(gain)
-    log(f"{model_type}: base BN statistics calibrated ({ZOO_BN_PASSES} "
+    log(f"{name}: base BN statistics calibrated ({ZOO_BN_PASSES} "
         f"passes), logits scaled by {gain:.4g} to std {ZOO_LOGIT_STD}")
-    return model
 
 
 def _base_head_ms(name, engine, frames, smi):
@@ -4836,6 +4868,329 @@ def phase_zoo10b_slice(noflow_engine, frames, smi):
     return paths
 
 
+#: the evaluation slice (ROADMAP item 10c): DeepLab_v3's frames on the
+#: single-frame tracker, the frames of each timed call, the frames held f32
+#: card against CPU (a CPU forward of the full-width base takes ~1 s), the
+#: evaluators' samples (one test video of a pack) and those held against
+#: the CPU
+SF_ZOO_FRAMES, SF_TIMED_FRAMES, SF_CPU_FRAMES = 16, 24, 6
+EVAL_SAMPLES, EVAL_CPU_SAMPLES = 4, 1
+#: the north star's gates (BASELINE.json): heats (max |diff|), tip RMSE (px)
+HEAT_GATE, TIP_GATE = 1e-3, 0.5
+#: the evaluators' device half in float32 (TF32 off) on the card against the
+#: same half on the CPU: max |log-probability diff| (float32 sums in other
+#: orders through the base, RAFT x12 and the head) and max |IoU or Dice
+#: diff| (a near-tie pixel whose argmax flips moves a class's IoU by about
+#: 1 / its pixel count); set before the first run
+EVAL_LP_TOL, EVAL_IOU_TOL = 1e-3, 1e-3
+
+
+def _normalized(frames):
+    """(n, H, W, 3) uint8 frames -> (n, 3, H, W) float32 normalized, on
+    the card."""
+    import torch
+
+    x = torch.as_tensor(frames).cuda().permute(0, 3, 1, 2).float() / 255.0
+    mean = torch.tensor([0.485, 0.456, 0.406], device="cuda").view(1, 3, 1, 1)
+    std = torch.tensor([0.229, 0.224, 0.225], device="cuda").view(1, 3, 1, 1)
+    return (x - mean) / std
+
+
+def _sf_card_vs_cpu(model, cfg, frames, d):
+    """The single-frame engine in float32 on the card (parity mode) against
+    the same model on the CPU: (max |heat diff|, tip RMSE, rows whose
+    detections differ) over ``frames``."""
+    import dataclasses
+
+    import torch
+
+    from mfcnet_tpu_torch.cli.test_toolpose_segmentation_on_videos import (
+        SingleFrameEngine,
+        track_singleframe_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    rows, heats = [], []
+    try:
+        with parity_mode():
+            for dev in ("cuda", "cpu"):
+                engine = SingleFrameEngine(model, c32, "log_probs",
+                                           device=dev)
+                kept = []
+                step = engine.step_async
+
+                def keep(frame, depth=None, step=step, kept=kept):
+                    out = step(frame, depth)
+                    kept.append(out[-1].cpu())  # the float32 tip heats
+                    return out
+
+                engine.step_async = keep
+                rows.append(track_singleframe_frames(frames, engine, d,
+                                                     name=dev)[0])
+                heats.append(torch.stack(kept))
+    finally:
+        torch.set_num_threads(n_threads)
+    heat = (heats[0] - heats[1]).abs().max().item()
+    rmse, nan_rows = _tip_rmse(*rows)
+    return heat, rmse, nan_rows
+
+
+def _eval_halves(smi):
+    """The infer CLIs' device half on the card: ``infer_multiframe_endovis15``'s
+    eval step (TernausNetMulti-Basic at full width, RAFT x12 inside the
+    step, float32 as that CLI evaluates) and ``infer_toolpose_segmentation``'s
+    (TernausNet16) over a test pack of EVAL_SAMPLES 480x640 samples, through
+    ``track/infer_eval.py::device_half``, in parity mode; each held to the
+    same half on the CPU over EVAL_CPU_SAMPLES; ms/sample (``_eval_ms``).
+    Returns {"infer_raft": (launches, samples)}."""
+    import copy
+    import types
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli.train_multiframe_detection import build_flow_fn
+    from mfcnet_tpu_torch.data.loader import get_data_loader
+    from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+    from mfcnet_tpu_torch.data.transforms import (
+        TransformConfig,
+        preprocess_eval_batch,
+    )
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        get_tooltip_segmentation_model,
+    )
+    from mfcnet_tpu_torch.track.infer_eval import device_half
+    from mfcnet_tpu_torch.train.steps import (
+        make_multiframe_eval_step,
+        make_singleframe_eval_step,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    with tempfile.TemporaryDirectory() as d:
+        pack = make_synthetic_pack(Path(d) / "pack",
+                                   videos=(("test", 1, EVAL_SAMPLES),),
+                                   add_depth=False, mode="testing")
+        _, loader = get_data_loader("JIGSAWS", d, "testing",
+                                    "toolpose_segmentation", T, 1,
+                                    num_workers=2, packed_dir=pack)
+        raw = list(loader)
+    tcfg = TransformConfig(out_height=H, out_width=W)
+    gen = torch.Generator().manual_seed(SEED)
+    mf = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True, generator=gen)
+    sf = get_tooltip_segmentation_model("TernausNet16", C, generator=gen)
+
+    def single(batch):
+        return {"image": batch["frames"][:, 0], "mask": batch["mask"]}
+
+    halves = {
+        "infer_multiframe_endovis15 (TernausNetMulti-Basic + RAFT x12)": (
+            mf, lambda dev: make_multiframe_eval_step(
+                ["nll"], [1.0], ["iou", "dice"], C,
+                flow_fn=build_flow_fn("RAFT", (H, W), device=dev)),
+            lambda b: b),
+        "infer_toolpose_segmentation (TernausNet16)": (
+            sf, lambda dev: make_singleframe_eval_step(
+                ["nll"], [1.0], ["iou", "dice"], C), single),
+    }
+    paths = {}
+    n_threads = torch.get_num_threads()
+    with parity_mode():
+        for what, (model, make_step, adapt) in halves.items():
+            state = types.SimpleNamespace(model=model.cuda())
+            step = make_step("cuda")
+            batches = [adapt(preprocess_eval_batch(b, tcfg, "cuda"))
+                       for b in raw]
+            _reset_all_launches()
+            outs = [device_half(state, step, b) for b in batches]
+            launches = _all_launches()
+            ms = _eval_ms(state, step, batches)
+            torch.set_num_threads(8)
+            try:
+                cpu_state = types.SimpleNamespace(
+                    model=copy.deepcopy(model).cpu())
+                cpu_step = make_step("cpu")
+                lp_err = iou_err = 0.0
+                for b, (lp, iou, dice) in zip(raw[:EVAL_CPU_SAMPLES], outs):
+                    c_lp, c_iou, c_dice = device_half(
+                        cpu_state, cpu_step,
+                        adapt(preprocess_eval_batch(b, tcfg, "cpu")))
+                    lp_err = max(lp_err, float(np.abs(lp - c_lp).max()))
+                    iou_err = max(iou_err, float(np.abs(iou - c_iou).max()),
+                                  float(np.abs(dice - c_dice).max()))
+            finally:
+                torch.set_num_threads(n_threads)
+            log(f"[{smi}] {what}: device half (eval step, log-probabilities "
+                f"and IoU/Dice to the host), f32, {len(batches)} samples of "
+                f"{H}x{W}: {ms[0]:.3f} ms/sample in parity mode (TF32 off), "
+                f"{ms[1]:.3f} in the CLI's settings (PyTorch's defaults; "
+                f"second pass each); card "
+                f"vs CPU over {EVAL_CPU_SAMPLES}: max |log-probability diff| "
+                f"{lp_err:.4g} (limit {EVAL_LP_TOL}), max |IoU or Dice diff| "
+                f"{iou_err:.4g} (limit {EVAL_IOU_TOL}); mean IoU per class "
+                f"{np.round(np.mean([o[1] for o in outs], axis=0), 4)}; "
+                f"launches {json.dumps(launches)}")
+            if not (lp_err <= EVAL_LP_TOL and iou_err <= EVAL_IOU_TOL):
+                raise AssertionError(f"{what}: card and CPU disagree")
+            if model is mf:
+                _require_launches("infer_raft", launches)
+                if launches["raft_update"] != 0:
+                    raise AssertionError("the f32 eval step ran the fused "
+                                         "update step")
+                paths["infer_raft"] = (launches, len(batches))
+            del state, step
+            model.cpu()
+            torch.cuda.empty_cache()
+    return paths
+
+
+def _eval_ms(state, step, batches):
+    """ms/sample of ``device_half`` over ``batches``, the second of two
+    passes: (in parity mode, in PyTorch's default settings, which the
+    infer CLIs run in). Called in parity mode."""
+    import torch
+
+    from mfcnet_tpu_torch.track.infer_eval import device_half
+
+    def timed():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for b in batches:
+                device_half(state, step, b)
+        return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    parity = timed()
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = True, False, False
+    try:
+        return parity, timed()
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark = prev
+
+
+def phase_eval_slice(frames, smi):
+    """The evaluation slice (ROADMAP item 10c) at full width: the
+    single-frame video CLI's tracker (``cli/test_toolpose_segmentation_on_
+    videos.py``: ``SingleFrameEngine`` and ``track_singleframe_frames``)
+    with TernausNet16 (seeded weights) at 480x640, bf16, device decode, no
+    tie fallback, over the 64 frames (its launches counted); again in
+    parity mode through the kernels and through their plain versions
+    (rows equal); in float32 on the card against the CPU (the north star's
+    gates); frames/s; DeepLab_v3 calibrated as ``phase_zoo_slice``
+    calibrates its bases (the logits branch; clean maps, the union tier)
+    with its launches counted, and once with ``score_detection_threshold``
+    0.5; and the evaluators' device half (``_eval_halves``). Returns {path:
+    (launches, frames or samples)}."""
+    import dataclasses
+
+    import torch
+
+    from mfcnet_tpu_torch.cli.test_toolpose_segmentation_on_videos import (
+        SingleFrameEngine,
+        track_singleframe_frames,
+    )
+    from mfcnet_tpu_torch.models import get_tooltip_segmentation_model
+    from mfcnet_tpu_torch.track import decode_device as dd
+    from mfcnet_tpu_torch.track.tracker import TrackerConfig
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_tooltip_segmentation_model("TernausNet16", C, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg = TrackerConfig(num_input_frames=1, dtype="bfloat16", decode="device",
+                        overlay=False, decode_tie_fallback=False)
+    engine = SingleFrameEngine(model, cfg, "log_probs")
+    paths = {}
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as d:
+        _reset_all_launches()
+        dd.reset_tier_counts()
+        rows, fps = track_singleframe_frames(frames, engine, d, name="sf")
+        launches = _all_launches()
+        tiers = dict(dd.TIER_COUNTS)
+        _check_rows(rows, n, warmup=0)
+        _require_launches("singleframe", launches)
+        paths["singleframe"] = (launches, n)
+        log(f"single-frame tracker, TernausNet16 full width ({n_params} "
+            f"parameters), {H}x{W} bf16, device decode: {n} frames -> rows "
+            f"{rows.shape}, {int(np.isfinite(rows[:, 10]).sum())} frames with "
+            f"a right base (first run: {fps:.2f} frames/s); decode tiers "
+            f"{json.dumps(tiers)}; launches {json.dumps(launches)}")
+
+        with parity_mode():
+            r_k, _ = track_singleframe_frames(frames, engine, d, name="k")
+            with _plain_kernels():
+                r_p, _ = track_singleframe_frames(frames, engine, d, name="p")
+        if not np.array_equal(r_k, r_p, equal_nan=True):
+            raise AssertionError("single-frame tracker: rows through the "
+                                 "kernels != through the plain versions")
+        log(f"single-frame tracker, bf16 in parity mode: rows through the "
+            f"kernels == through the plain versions ({n} frames)")
+
+        sub = frames[:SF_ZOO_FRAMES]
+        heat, rmse, nan_rows = _sf_card_vs_cpu(model, cfg,
+                                               frames[:SF_CPU_FRAMES], d)
+        log(f"single-frame tracker, f32 on the card (parity mode) vs the "
+            f"CPU, {SF_CPU_FRAMES} frames: max |heat diff| {heat:.4g} (gate "
+            f"{HEAT_GATE}), tip RMSE {rmse:.4g} px (gate {TIP_GATE}), "
+            f"{nan_rows} rows whose detections differ")
+        if not (heat <= HEAT_GATE and rmse <= TIP_GATE):
+            raise AssertionError("single-frame tracker: f32 card and CPU "
+                                 "disagree")
+
+        rates = [track_singleframe_frames(frames[:SF_TIMED_FRAMES], engine,
+                                          d, name=f"t{i}")[1]
+                 for i in range(2)]
+        log(f"[{smi}] single-frame tracker TernausNet16, bf16, device "
+            f"decode: {rates[0]:.2f}, {rates[1]:.2f} frames/s "
+            f"({SF_TIMED_FRAMES} frames a call)")
+        del engine
+
+        dl = get_tooltip_segmentation_model("DeepLab_v3", C, generator=gen)
+        dl = dl.cuda()
+        _calibrate_logits("DeepLab_v3 (single-frame)", dl,
+                          _normalized(frames[:4]))
+        e_dl = SingleFrameEngine(dl, cfg, "logits")
+        _reset_all_launches()
+        dd.reset_tier_counts()
+        r_dl, _ = track_singleframe_frames(sub, e_dl, d, name="dl")
+        launches = _all_launches()
+        tiers = dict(dd.TIER_COUNTS)
+        _check_rows(r_dl, len(sub), warmup=0, detect=False)
+        _require_launches("singleframe_zoo", launches)
+        paths["singleframe_zoo"] = (launches, len(sub))
+        rates = [track_singleframe_frames(frames[:SF_TIMED_FRAMES], e_dl, d,
+                                          name=f"dt{i}")[1]
+                 for i in range(2)]
+        log(f"[{smi}] single-frame tracker DeepLab_v3 (calibrated, logits "
+            f"through log_softmax), bf16, device decode: {len(sub)} "
+            f"frames ({int(np.isfinite(r_dl).any(axis=1).sum())} with a "
+            f"detection), decode tiers {json.dumps(tiers)}, launches "
+            f"{json.dumps(launches)}; {rates[0]:.2f}, {rates[1]:.2f} frames/s "
+            f"({SF_TIMED_FRAMES} frames a call)")
+        # the threshold loop (a later class overwrites) on the calibrated
+        # base, whose probabilities pass 0.5 (the random TernausNet16's
+        # stay near 1/C)
+        thr = SingleFrameEngine(dl, dataclasses.replace(
+            cfg, score_detection_threshold=0.5), "logits")
+        r_t, _ = track_singleframe_frames(sub, thr, d, name="thr")
+        _check_rows(r_t, len(sub), warmup=0)
+        log(f"single-frame tracker DeepLab_v3, --score_detection_threshold "
+            f"0.5: {len(sub)} frames -> rows {r_t.shape}, "
+            f"{int(np.isfinite(r_t).any(axis=1).sum())} with a detection")
+        del e_dl, dl, thr
+        torch.cuda.empty_cache()
+    paths.update(_eval_halves(smi))
+    log(f"evaluation slice: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -4864,6 +5219,7 @@ def main():
     phase_ffpp_timings(ffpp_engine, frames, smi)
     zoo_paths = phase_zoo_slice(engine, frames, smi)
     zoo_paths.update(phase_zoo10b_slice(engine, frames, smi))
+    zoo_paths.update(phase_eval_slice(frames, smi))
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
      (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
     times.update(t)

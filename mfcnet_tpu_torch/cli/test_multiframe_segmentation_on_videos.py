@@ -54,11 +54,18 @@ _MODELS = [
     "ResUNetMulti-Basic", "ResUNetMulti-Large",
 ]
 
-#: flag -> (value that means "not used", ROADMAP item that ports it)
-_LATER_FLAGS = {
-    "artifact": (None, "Queue 1 item 11 (serving and scale)"),
-    "spatial_shards": (1, "Queue 1 item 11 (serving and scale)"),
+#: flag -> (value that means "not used", ROADMAP item that ports it); the
+#: single-frame video CLI refuses the same flags
+LATER_FLAGS = {
+    "artifact": (None, "Queue 1 item 11c (exported artifacts)"),
+    "spatial_shards": (1, "Queue 1 item 11d (spatial sharding; one card)"),
 }
+
+DEVICE_DECODE_WARNING = (
+    "--decode device: base centroids use the on-device polygon-moment "
+    "approximation; any ambiguous decision falls back to the exact host "
+    "decode for that side. Use --decode host for bit-exact reference "
+    "parity.")
 
 
 def _bool(v):
@@ -108,6 +115,14 @@ def build_parser():
     return p
 
 
+def refuse_later_flags(args):
+    """SystemExit naming the ROADMAP item of a flag in ``LATER_FLAGS``
+    that is set."""
+    for flag, (unused, item) in LATER_FLAGS.items():
+        if getattr(args, flag) != unused:
+            raise SystemExit(f"--{flag} is not ported yet: ROADMAP.md {item}")
+
+
 def list_video_files(directory):
     out = []
     for root, _, files in os.walk(directory):
@@ -137,9 +152,7 @@ def load_reference_state_dict(path, use_ema: bool = False):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, (unused, item) in _LATER_FLAGS.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag} is not ported yet: ROADMAP.md {item}")
+    refuse_later_flags(args)
     if args.model_type is None or args.load_wts_model is None:
         raise SystemExit("--model_type and --load_wts_model are required")
     if args.add_depth_inputs and args.depth_videos_dir is None:
@@ -178,12 +191,7 @@ def main(argv=None):
         fetch_batch=args.fetch_batch,
     )
     if args.decode == "device":
-        logger.warning(
-            "--decode device: base centroids use the on-device polygon-"
-            "moment approximation; any ambiguous decision falls back to "
-            "the exact host decode for that side. Use --decode host for "
-            "bit-exact reference parity."
-        )
+        logger.warning(DEVICE_DECODE_WARNING)
     if args.device != "cpu" and not torch.cuda.is_available():
         raise SystemExit(
             f"--device {args.device}: no CUDA device is available; pass "

@@ -1,17 +1,23 @@
-"""Training parsers (counterpart of the training half of
+"""Training and testing parsers (counterpart of
 ``mfcnet_tpu/configs/parsers.py``; reference configs/config_multiframe.py
 and configs/config_toolposeseg.py): the JAX package's flag names and
 defaults, plus ``--device``. Boolean flags take true/false/1/0/yes/no;
-``-c FILE`` reads ``key = value`` lines (command-line flags win).
+``-c FILE`` reads ``key = value`` lines (command-line flags win). The
+testing parsers (the infer CLIs') default to mode ``testing`` and 75
+frames a video and add ``--save_output_freq`` and ``--use_ema`` in place
+of the training flags.
 
 Flags that have no counterpart on one card (``--spatial_shards`` > 1,
 ``--multihost``, ``--ckpt_backend orbax``, ``--remat``) are accepted and
-raise in the CLI, naming their ROADMAP item.
+raise in the CLI, naming their ROADMAP item. ``--pretrained True`` logs
+the JAX package's warning and runs on the model's own initialization:
+neither package downloads weights.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
 from pathlib import Path
 
@@ -60,7 +66,7 @@ class _ConfigFileParser(argparse.ArgumentParser):
         return super().parse_args(args=args, namespace=namespace)
 
 
-def _add_train_flags(p, multiframe: bool):
+def _add_flags(p, multiframe: bool, train: bool = True):
     g = p.add_argument_group("dataset")
     g.add_argument("--data_dir", type=str, default="./data")
     g.add_argument("--dataset", type=str, default="MICCAI2017",
@@ -71,26 +77,35 @@ def _add_train_flags(p, multiframe: bool):
                    default="toolpose_segmentation",
                    choices=["tooltip_segmentation", "toolpose_segmentation",
                             "endovis15_segmentation", "binary"])
-    g.add_argument("--mode", type=str, default="training",
+    g.add_argument("--mode", type=str,
+                   default="training" if train else "testing",
                    choices=["training", "testing"])
-    g.add_argument("--num_frames_per_video", type=int, default=225)
+    g.add_argument("--num_frames_per_video", type=int,
+                   default=225 if train else 75)
     if multiframe:
         g.add_argument("--num_input_frames", type=int, default=3)
-    g.add_argument("--packed_dir", type=str, default=None,
-                   help="read packs (data/packed.py: train/ and val/) "
-                        "instead of decoding the --data_dir image tree")
+    if train or multiframe:
+        g.add_argument("--packed_dir", type=str, default=None,
+                       help="read packs (data/packed.py: train/ and val/, "
+                            "or test/) instead of decoding the --data_dir "
+                            "image tree")
 
     g = p.add_argument_group("io")
     g.add_argument("--expt_savedir", type=str, default="./")
     g.add_argument("--expt_name", type=str, default="expt")
     g.add_argument("--print_freq", type=int, default=10)
-    g.add_argument("--save_freq", type=int, default=10)
-    g.add_argument("--multihost", type=str2bool, default=False)
-    g.add_argument("--ckpt_backend", type=str, default="msgpack",
-                   choices=["msgpack", "orbax"],
-                   help="the port writes .pth checkpoints whatever the "
-                        "value; orbax raises")
-    g.add_argument("--debug", type=str2bool, default=False)
+    if train:
+        g.add_argument("--save_freq", type=int, default=10)
+        g.add_argument("--multihost", type=str2bool, default=False)
+        g.add_argument("--ckpt_backend", type=str, default="msgpack",
+                       choices=["msgpack", "orbax"],
+                       help="the port writes .pth checkpoints whatever the "
+                            "value; orbax raises")
+        g.add_argument("--debug", type=str2bool, default=False)
+    else:
+        g.add_argument("--save_output_freq", type=int, default=10,
+                       help="write an overlay PNG of every N-th sample "
+                            "(0: none)")
 
     g = p.add_argument_group("optimizer")
     g.add_argument("--batch_size", type=int, default=8 if multiframe else 4)
@@ -98,24 +113,27 @@ def _add_train_flags(p, multiframe: bool):
     g.add_argument("--num_classes", type=int, default=5)
     g.add_argument("--metric_fns", type=str, nargs="+",
                    default=["iou", "dice"], choices=["iou", "dice"])
-    g.add_argument("--loss_fns", type=str, nargs="+", default=["nll"],
-                   choices=["mse", "nll", "soft_jaccard"])
-    g.add_argument("--loss_wts", type=float, nargs="+", default=[1.0])
-    g.add_argument("--lr", type=float, default=1e-4 if multiframe else 3e-5)
-    g.add_argument("--scheduler", type=str, default="StepDecay",
-                   choices=["StepDecay", "Constant"])
-    g.add_argument("--num_epochs", type=int, default=10)
-    g.add_argument("--class_weights", type=float, nargs="+",
-                   default=[1, 100, 100, 100, 100])
-    g.add_argument("--grad_accum", type=int, default=1,
-                   help="average the gradients of N micro-batches per "
-                        "optimizer update; the schedule counts updates")
-    g.add_argument("--ema_decay", type=float, default=0.0,
-                   help="keep an EMA of the parameters (e.g. 0.999), saved "
-                        "as the checkpoint's 'ema'; 0 disables")
+    if train:
+        g.add_argument("--loss_fns", type=str, nargs="+", default=["nll"],
+                       choices=["mse", "nll", "soft_jaccard"])
+        g.add_argument("--loss_wts", type=float, nargs="+", default=[1.0])
+        g.add_argument("--lr", type=float,
+                       default=1e-4 if multiframe else 3e-5)
+        g.add_argument("--scheduler", type=str, default="StepDecay",
+                       choices=["StepDecay", "Constant"])
+        g.add_argument("--num_epochs", type=int, default=10)
+        g.add_argument("--class_weights", type=float, nargs="+",
+                       default=[1, 100, 100, 100, 100])
+        g.add_argument("--grad_accum", type=int, default=1,
+                       help="average the gradients of N micro-batches per "
+                            "optimizer update; the schedule counts updates")
+        g.add_argument("--ema_decay", type=float, default=0.0,
+                       help="keep an EMA of the parameters (e.g. 0.999), "
+                            "saved as the checkpoint's 'ema'; 0 disables")
     g.add_argument("--seed", type=int, default=42)
     g.add_argument("--resume", type=str2bool, default=False)
-    g.add_argument("--starting_epoch", type=int, default=0)
+    if train:
+        g.add_argument("--starting_epoch", type=int, default=0)
 
     g = p.add_argument_group("model")
     if multiframe:
@@ -130,8 +148,16 @@ def _add_train_flags(p, multiframe: bool):
     else:
         g.add_argument("--model_type", type=str, default="TernausNet16",
                        choices=SINGLEFRAME_MODELS)
-    g.add_argument("--pretrained", type=str2bool, default=False)
+    g.add_argument("--pretrained", type=str2bool, default=False,
+                   help="accepted for the reference's command lines: logs "
+                        "a warning and runs on the model's own "
+                        "initialization (no download; load converted "
+                        "weights with --load_wts_model)")
     g.add_argument("--load_wts_model", type=str, default=None)
+    if not train:
+        g.add_argument("--use_ema", type=str2bool, default=False,
+                       help="evaluate the checkpoint's EMA weights "
+                            "(written by training with --ema_decay)")
     g.add_argument("--input_height", type=int, default=480)
     g.add_argument("--input_width", type=int, default=640)
     if multiframe:
@@ -149,18 +175,27 @@ def _add_train_flags(p, multiframe: bool):
     g.add_argument("--spatial_shards", type=int, default=1)
     g.add_argument("--model_scale", type=float, default=1.0,
                    help="uniform channel-width scale (< 1 for smoke tests)")
-    g.add_argument("--remat", type=str2bool, default=False)
+    if train:
+        g.add_argument("--remat", type=str2bool, default=False)
     g.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
 
 
 def multiframe_train_parser() -> argparse.ArgumentParser:
-    return _add_train_flags(_ConfigFileParser(), multiframe=True)
+    return _add_flags(_ConfigFileParser(), multiframe=True)
+
+
+def multiframe_test_parser() -> argparse.ArgumentParser:
+    return _add_flags(_ConfigFileParser(), multiframe=True, train=False)
 
 
 def toolposeseg_train_parser() -> argparse.ArgumentParser:
-    return _add_train_flags(_ConfigFileParser(), multiframe=False)
+    return _add_flags(_ConfigFileParser(), multiframe=False)
+
+
+def toolposeseg_test_parser() -> argparse.ArgumentParser:
+    return _add_flags(_ConfigFileParser(), multiframe=False, train=False)
 
 
 #: flag -> (value that means "not used", ROADMAP item that ports it)
@@ -169,16 +204,22 @@ LATER_FLAGS = {
     "multihost": (False, "Queue 1 item 11d (multi-host training)"),
     "ckpt_backend": ("msgpack", "Queue 1 item 12 (orbax checkpoints)"),
     "remat": (False, "Queue 1 item 8c (--remat: torch.utils.checkpoint)"),
-    "pretrained": (False, "Queue 1 item 10 (pretrained backbones need "
-                          "weights from the network; pass "
-                          "--load_wts_base_model)"),
 }
 
 
 def check_ported(args):
     """Raise SystemExit naming the ROADMAP item of a flag with no
-    counterpart yet."""
+    counterpart yet (a flag the parser does not have is not used); log
+    the JAX package's warning for ``--pretrained``
+    (``mfcnet_tpu/models/__init__.py:52-57``)."""
     for flag, (unused, item) in LATER_FLAGS.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag} {getattr(args, flag)} is not ported "
-                             f"yet: ROADMAP.md {item}")
+        value = getattr(args, flag, unused)
+        if value != unused:
+            raise SystemExit(f"--{flag} {value} is not ported yet: "
+                             f"ROADMAP.md {item}")
+    if args.pretrained:
+        logging.getLogger(__name__).warning(
+            "pretrained=True: supply converted weights via "
+            "mfcnet_tpu_torch.compat or --load_wts_model (no network "
+            "egress; the flag does not download torchvision/timm "
+            "checkpoints)")

@@ -12,8 +12,10 @@ composed from them by ``data/masks.py::compose_mask``; depth is a
 vertical ramp with the instruments nearer.
 
 :func:`make_synthetic_pack` writes packs (``data/packed.py``) directly --
-the card has no OpenCV; :func:`make_jigsaws_like_dataset` writes the
-JIGSAWS image tree and needs OpenCV.
+the card has no OpenCV; :func:`make_synthetic_frames` gives the frames of
+one video in memory (numpy only); :func:`make_jigsaws_like_dataset`
+writes the JIGSAWS image tree and :func:`make_synthetic_video` an MP4,
+both with OpenCV.
 """
 
 from __future__ import annotations
@@ -36,21 +38,26 @@ def _segment_dist(yy, xx, y0, x0, y1, x1):
     return np.hypot(yy - (y0 + t * dy), xx - (x0 + t * dx))
 
 
-def _instrument(H, W, cx, cy, angle):
-    """Boolean (H, W) shaft, tip1 and tip2 masks of one instrument."""
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+def _keypoints(H, W, cx, cy, angle):
+    """(base end (x, y), tip1 (x, y), tip2 (x, y)) of one instrument, in
+    whole pixels inside a 5 px border."""
 
     def clip(v, hi):
         return int(np.clip(v, 5, hi - 6))
 
-    bx, by = clip(cx - 30 * np.cos(angle), W), clip(cy - 30 * np.sin(angle), H)
+    base = (clip(cx - 30 * np.cos(angle), W), clip(cy - 30 * np.sin(angle), H))
+    tips = tuple((clip(cx + 8 * np.cos(angle + da), W),
+                  clip(cy + 8 * np.sin(angle + da), H)) for da in (0.4, -0.4))
+    return (base,) + tips
+
+
+def _instrument(H, W, cx, cy, angle):
+    """Boolean (H, W) shaft, tip1 and tip2 masks of one instrument."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    (bx, by), *tips = _keypoints(H, W, cx, cy, angle)
     shaft = _segment_dist(yy, xx, by, bx, int(cy), int(cx)) <= 2.5
-    tips = []
-    for da in (0.4, -0.4):
-        tx = clip(cx + 8 * np.cos(angle + da), W)
-        ty = clip(cy + 8 * np.sin(angle + da), H)
-        tips.append(np.hypot(yy - ty, xx - tx) <= 3.0)
-    return shaft, tips[0], tips[1]
+    tip1, tip2 = (np.hypot(yy - ty, xx - tx) <= 3.0 for tx, ty in tips)
+    return shaft, tip1, tip2
 
 
 def render_frame(rng, H, W, left, right):
@@ -100,11 +107,13 @@ def make_synthetic_pack(out_dir, videos=(("train", 3, 8), ("val", 1, 4)),
                         height: int = 480, width: int = 640, seed: int = 0,
                         add_depth: bool = True,
                         prediction_task: str = "toolpose_segmentation",
-                        dataset: str = "JIGSAWS") -> Path:
+                        dataset: str = "JIGSAWS",
+                        mode: str = "training") -> Path:
     """Write one pack per split: ``videos`` = (split, number of videos,
-    frames per video). The index carries the provenance the training CLI
-    checks (``dataset``, ``mode`` training, ``fold_index`` -1). Returns
-    ``out_dir``."""
+    frames per video). The index carries the provenance the loaders check
+    (``dataset``, ``mode``: ``training`` for ``train/`` and ``val/``,
+    ``testing`` for the infer CLIs' ``test/``, ``fold_index`` -1).
+    Returns ``out_dir``."""
     out_dir = Path(out_dir)
     rng = np.random.default_rng(seed)
     for split, nv, nf in videos:
@@ -117,7 +126,7 @@ def make_synthetic_pack(out_dir, videos=(("train", 3, 8), ("val", 1, 4)),
                 vids.append(v)
         write_pack(out_dir / split, frames, masks, vids, prediction_task,
                    depth=depths if add_depth else None,
-                   extra={"dataset": dataset, "mode": "training",
+                   extra={"dataset": dataset, "mode": mode,
                           "fold_index": -1})
     return out_dir
 
@@ -154,3 +163,61 @@ def make_jigsaws_like_dataset(root, num_videos: int = 2,
                     cv2.imwrite(str(vdir / "depth_maps_depthanythingv2"
                                     / f"{name}.png"), depth)
     return root
+
+
+def make_synthetic_frames(num_frames: int = 20, height: int = 96,
+                          width: int = 128, seed: int = 0,
+                          return_keypoints: bool = False):
+    """RGB frames (N, H, W, 3) uint8 of one video of the scene, the JAX
+    generator's walk: the left instrument from (0.3 W, 0.5 H) at angle
+    0.5, the right one from (0.7 W, 0.5 H) at 3.5, each moved by
+    uniform(-3, 3) px and uniform(-0.2, 0.2) rad a frame. With
+    ``return_keypoints`` also the ground truth (N, 12) in the tracker
+    CSV's column layout [ltip1, ltip2, rtip1, rtip2, lbase, rbase] (x, y
+    each); a base is the midpoint of its shaft."""
+    rng = np.random.default_rng(seed)
+    H, W = height, width
+    frames = np.zeros((num_frames, H, W, 3), np.uint8)
+    gt = np.zeros((num_frames, 12), np.float64)
+    left = [0.3 * W, 0.5 * H, 0.5]
+    right = [0.7 * W, 0.5 * H, 3.5]
+    for f in range(num_frames):
+        frames[f] = render_frame(rng, H, W, tuple(left), tuple(right))[0]
+        row = []
+        for cx, cy, angle in (left, right):
+            (bx, by), t1, t2 = _keypoints(H, W, cx, cy, angle)
+            row.append((t1, t2, ((bx + int(cx)) / 2.0, (by + int(cy)) / 2.0)))
+        (lt1, lt2, lb), (rt1, rt2, rb) = row
+        gt[f] = [*lt1, *lt2, *rt1, *rt2, *lb, *rb]
+        for inst in (left, right):
+            inst[0] += rng.uniform(-3, 3)
+            inst[1] += rng.uniform(-3, 3)
+        for inst in (left, right):
+            inst[2] += rng.uniform(-0.2, 0.2)
+    if return_keypoints:
+        return frames, gt
+    return frames
+
+
+def make_synthetic_video(path, num_frames: int = 20, height: int = 96,
+                         width: int = 128, fps: int = 30, seed: int = 0,
+                         return_keypoints: bool = False):
+    """Write :func:`make_synthetic_frames`' video as an MP4 (mp4v) at
+    ``path``; returns the path, and with ``return_keypoints`` also the
+    ground-truth (N, 12) keypoints. Needs OpenCV."""
+    import cv2
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    frames, gt = make_synthetic_frames(num_frames, height, width, seed,
+                                       return_keypoints=True)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (width, height))
+    try:
+        for img in frames:
+            writer.write(img[..., ::-1].copy())
+    finally:
+        writer.release()
+    if return_keypoints:
+        return path, gt
+    return path

@@ -21,15 +21,18 @@ from __future__ import annotations
 import torch
 
 
-def outputs_from_probs(probs, cfg):
+def outputs_from_probs(probs, cfg, heat_dtype=torch.float16):
     """(..., H, W, C) float32 class probabilities -> ``(mask, aux...)``.
 
     ``mask``: (..., H, W) uint8 class ids. With ``cfg.decode == 'device'``
     returns ``(mask, kps, heats)`` -- kps (..., 2, 3, 3) keypoint rows of
     :func:`~mfcnet_tpu_torch.track.decode_device.decode_keypoints_device`
-    and the f16 tip heats the tracker fetches only for a flagged side;
-    otherwise ``(mask, heats)`` with heats (..., H, W, 2) f16 (classes 2
-    and 4)."""
+    and the tip heats the tracker fetches only for a flagged side;
+    otherwise ``(mask, heats)`` with heats (..., H, W, 2) (classes 2 and
+    4). The heats are ``heat_dtype``: float16 on the multi-frame engine
+    (the JAX package's ``track/outputs.py:43-45``), float32 on the
+    single-frame one (its ``cli/test_toolpose_segmentation_on_videos.py:
+    244-248``), where the host decode's rows depend on it."""
     thr = float(cfg.score_detection_threshold)
     if thr > 0:
         mask = torch.zeros(probs.shape[:-1], dtype=torch.uint8,
@@ -39,7 +42,7 @@ def outputs_from_probs(probs, cfg):
                                torch.full_like(mask, cls), mask)
     else:
         mask = torch.argmax(probs, dim=-1).to(torch.uint8)
-    heats = torch.stack([probs[..., 2], probs[..., 4]], dim=-1).half()
+    heats = torch.stack([probs[..., 2], probs[..., 4]], dim=-1).to(heat_dtype)
     if cfg.decode == "device":
         from mfcnet_tpu_torch.track.decode_device import (
             decode_keypoints_device,

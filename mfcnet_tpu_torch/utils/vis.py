@@ -1,11 +1,23 @@
 """Overlay rendering and flow coloring (counterpart of
 ``mfcnet_tpu/utils/vis.py``; reference utils/vis_utils.py). ``cv2`` is
-imported inside the function that needs it; the flow coloring is numpy
+imported inside the functions that need it; the flow coloring is numpy
 only."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def draw_plus(image, center, color=(0, 255, 0), size=5, thickness=1):
+    """NaN-safe keypoint cross (utils/vis_utils.py:22-42)."""
+    if np.isnan(center).any():
+        return image
+    import cv2
+
+    cx, cy = int(center[0]), int(center[1])
+    cv2.line(image, (cx, cy - size), (cx, cy + size), color, thickness)
+    cv2.line(image, (cx - size, cy), (cx + size, cy), color, thickness)
+    return image
 
 
 def mask_overlay(image, mask, color=(0, 255, 0), wt=0.5):

@@ -183,7 +183,7 @@ def test_cli_tracks_a_tiny_video(tmp_path):
 _FORBIDDEN = ("mfcnet_tpu", "jax", "jaxlib", "flax")
 
 _IMPORT_CHECK = """
-    import importlib, pkgutil, sys, tempfile
+    import importlib, pkgutil, sys, tempfile, types
     import numpy as np, torch
     import mfcnet_tpu_torch
     for m in pkgutil.walk_packages(mfcnet_tpu_torch.__path__,
@@ -217,6 +217,29 @@ _IMPORT_CHECK = """
         rows, _ = track_on_frames(frames, model, cfg, d,
                                   flow_model=flow_model, device="cpu")
     assert rows.shape == (5, 12)
+    # the single-frame tracker on in-memory frames and the evaluators'
+    # device half (the eval step, log-probabilities and IoU/Dice fetched)
+    from mfcnet_tpu_torch.cli.test_toolpose_segmentation_on_videos import (
+        SingleFrameEngine, track_singleframe_frames)
+    from mfcnet_tpu_torch.models import get_tooltip_segmentation_model
+    from mfcnet_tpu_torch.track.infer_eval import device_half
+    from mfcnet_tpu_torch.train.steps import make_singleframe_eval_step
+    sf = get_tooltip_segmentation_model("TernausNet16", 5, scale=0.0625)
+    sf_cfg = TrackerConfig(num_input_frames=1, input_height=S,
+                           input_width=S, dtype="float32",
+                           **{k: v for k, v in CFG.items()
+                              if k != "add_optflow_inputs"})
+    with tempfile.TemporaryDirectory() as d:
+        rows, _ = track_singleframe_frames(
+            frames, SingleFrameEngine(sf, sf_cfg, "log_probs", device="cpu"),
+            d)
+    assert rows.shape == (5, 12)
+    lp, iou, dice = device_half(
+        types.SimpleNamespace(model=sf),
+        make_singleframe_eval_step(["nll"], [1.0], ["iou", "dice"], 5),
+        {"image": torch.zeros(1, S, S, 3),
+         "mask": torch.zeros(1, S, S, dtype=torch.int64)})
+    assert lp.shape == (S, S, 5) and iou.shape == dice.shape == (4,)
     if TRAIN:
         from mfcnet_tpu_torch.cli.train_multiframe_detection import main
         from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
@@ -255,9 +278,11 @@ def _run_import_check(cfg_kwargs, forbidden, provider="RAFT", train=False):
 
 def test_port_imports_no_jax_flax_or_cv2():
     """A fresh interpreter: importing every module of the port (the
-    training modules included), tracking with decode='device', no overlay
-    and the flow provider, and two training steps of the training CLI on
-    a pack of the port's synthetic generator (RAFT in the step, depth,
+    training modules, the evaluation layer and the infer and single-frame
+    video CLIs included), tracking with decode='device', no overlay and
+    the flow provider, the single-frame tracker on in-memory frames, the
+    evaluators' device half, and two training steps of the training CLI
+    on a pack of the port's synthetic generator (RAFT in the step, depth,
     the base trained) load nothing of jax, jaxlib, flax or the JAX
     package, and no cv2."""
     _run_import_check(
