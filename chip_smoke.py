@@ -13,10 +13,11 @@ offline flow CLI's batched forward, and the training CLI (the same model
 with frozen RAFT, and again with FlowFormer++, and depth in the step) --
 the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
 and in training, and the rest of the zoo (UNet, ResUNet, TAPNet16) --
-through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), and the
+through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), the
 evaluation layer (the single-frame video tracker and the infer CLIs'
-device half), in eight phases; a failing phase raises and the script exits
-non-zero:
+device half) and the serving layer (exported artifacts and the engine that
+tracks from them), in nine phases; a failing phase raises and the script
+exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -120,7 +121,22 @@ non-zero:
    TernausNetMulti-Basic and RAFT x12 (``flow_warp`` counted, no fused
    update step) and ``infer_toolpose_segmentation``'s with TernausNet16,
    each held to the CPU's log-probabilities and IoU/Dice, ms/sample in
-   parity mode and in PyTorch's default settings.
+   parity mode and in PyTorch's default settings;
+9. the serving slice (``phase_artifact_slice``, after phase 8): three
+   ``torch.export`` artifacts exported on the card and saved under
+   ``build/artifacts`` -- the no-flow model's incremental step (symbolic
+   batch), the full window of a TernausNetMulti-Basic with RAFT x12 (the
+   fused update step) and depth, whose graph must name 12
+   ``mfcnet.raft_update`` and 1 ``mfcnet.flow_warp``, and the single-frame
+   TernausNet16 -- each tracked through ``ArtifactEngine`` (or the
+   single-frame CLI's artifact engine) with the rows of the live engine of
+   the same weights and mode; the RAFT artifact's run is the path's
+   main-path run (12 update steps, 1 warp and 1 fill of hx a frame, the
+   live engine's ``cc.cu`` launches) and is held against the live engine
+   through the plain versions (0 launches inside); four streams through
+   the incremental artifact against single-stream runs; export, save and
+   load seconds, artifact MB, frames/s of artifact and live, the
+   operators' dispatch cost and the update step's hx fill.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -207,6 +223,10 @@ PATH_KERNELS = {
     "singleframe": CC_KERNELS,
     "singleframe_zoo": ZOO_CC,
     "infer_raft": ("flow_warp",),
+    # the serving slice (ROADMAP item 11c): a bf16 full-window artifact
+    # with RAFT and depth, whose graph runs the update step and the warp as
+    # registered operators; the decode after it
+    "artifact": CC_KERNELS + ("flow_warp", "raft_update"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -914,18 +934,22 @@ def _check_raft_update_kernel():
                 f"(atol {atol}, rtol {rtol}; {share:.3f} of the tolerance); "
                 f"configuration '{plan.config}', {plan.rows}x{plan.cols}-"
                 f"token tiles, clusters {plan.clusters}")
-        # three iterations through one workspace (hx filled once, outputs
-        # taking turns) against a new workspace per call: the same kernels
-        # on the same values, so bit for bit
+        # three iterations through one workspace (hx filled by the first
+        # only), then three with [net | inp] written every call: the same
+        # kernels on the same values, so bit for bit
         B, H8, W8 = 2, H // 16, W // 16
         c1, f1, inp, net, flow, packed = _raft_update_inputs(
             ub, dt, B, H8, W8, gen)[:6]
         ru.reset_launches()
         ws = ru.UpdateWorkspace(B, H8, W8, packed, "cuda")
-        n_ws, n_each, kept = net, net, net.clone()
+        n_ws, kept, solve = net, net.clone(), []
         for i in range(3):
             n_ws, d_ws = ru.raft_update(c1, f1, inp, n_ws, flow, packed, H8,
                                         W8, ws)
+            solve.append((n_ws, d_ws))
+        fills = ru.COUNTS["hx_fills"]
+        n_each = net
+        for i, (n_ws, d_ws) in enumerate(solve):
             n_each, d_each = ru.raft_update(c1, f1, inp, n_each, flow, packed,
                                             H8, W8)
             torch.cuda.synchronize()
@@ -934,7 +958,8 @@ def _check_raft_update_kernel():
             _equal(f"raft_update[{dt}] through a workspace, call {i}: delta",
                    d_ws, d_each)
         _equal("raft_update: the caller's net", net, kept)
-        if ru.COUNTS["hx_fills"] != 1 + 3 or ru.LAUNCHES["raft_update"] != 6:
+        if fills != 1 or ru.COUNTS["hx_fills"] != 1 + 3 \
+                or ru.LAUNCHES["raft_update"] != 6:
             raise AssertionError(
                 f"raft_update: hx must be filled once per workspace "
                 f"({ru.COUNTS}, {ru.LAUNCHES})")
@@ -4917,7 +4942,7 @@ def _sf_card_vs_cpu(model, cfg, frames, d):
     try:
         with parity_mode():
             for dev in ("cuda", "cpu"):
-                engine = SingleFrameEngine(model, c32, "log_probs",
+                engine = SingleFrameEngine.from_model(model, c32, "log_probs",
                                            device=dev)
                 kept = []
                 step = engine.step_async
@@ -5105,7 +5130,7 @@ def phase_eval_slice(frames, smi):
     n_params = sum(p.numel() for p in model.parameters())
     cfg = TrackerConfig(num_input_frames=1, dtype="bfloat16", decode="device",
                         overlay=False, decode_tie_fallback=False)
-    engine = SingleFrameEngine(model, cfg, "log_probs")
+    engine = SingleFrameEngine.from_model(model, cfg, "log_probs")
     paths = {}
     n = len(frames)
     with tempfile.TemporaryDirectory() as d:
@@ -5156,7 +5181,7 @@ def phase_eval_slice(frames, smi):
         dl = dl.cuda()
         _calibrate_logits("DeepLab_v3 (single-frame)", dl,
                           _normalized(frames[:4]))
-        e_dl = SingleFrameEngine(dl, cfg, "logits")
+        e_dl = SingleFrameEngine.from_model(dl, cfg, "logits")
         _reset_all_launches()
         dd.reset_tier_counts()
         r_dl, _ = track_singleframe_frames(sub, e_dl, d, name="dl")
@@ -5177,7 +5202,7 @@ def phase_eval_slice(frames, smi):
         # the threshold loop (a later class overwrites) on the calibrated
         # base, whose probabilities pass 0.5 (the random TernausNet16's
         # stay near 1/C)
-        thr = SingleFrameEngine(dl, dataclasses.replace(
+        thr = SingleFrameEngine.from_model(dl, dataclasses.replace(
             cfg, score_detection_threshold=0.5), "logits")
         r_t, _ = track_singleframe_frames(sub, thr, d, name="thr")
         _check_rows(r_t, len(sub), warmup=0)
@@ -5191,12 +5216,434 @@ def phase_eval_slice(frames, smi):
     return paths
 
 
+
+# ------------------------------------------------------- serving artifacts
+#: the artifact slice: frames tracked through each artifact and through its
+#: live engine, windows held against the plain versions, the lockstep
+#: streams and their length, frames a timed call
+ART_FRAMES, ART_PLAIN_WINDOWS, ART_STREAMS, ART_STREAM_FRAMES = 12, 4, 4, 8
+ART_TIMED_FRAMES = 12
+
+
+@contextlib.contextmanager
+def _kept_probs(art, live):
+    """Within: an ``ArtifactEngine`` ``art`` keeps the float32
+    probabilities of its newest call, (B, H, W, C), and a live engine
+    ``live`` those of its newest window (``_keep_probs``), each as
+    ``kept_probs``; both engines are reset first and restored after."""
+    art.reset()
+    live.reset()
+    call = art._loaded
+
+    def kept(*args):
+        out = call(*args)
+        art.kept_probs = out[-1] if isinstance(out, (tuple, list)) else out
+        return out
+
+    art._loaded = kept
+    _keep_probs(live)
+    try:
+        yield
+    finally:
+        art._loaded = call
+        del live._outputs
+        for e in (art, live):
+            e.__dict__.pop("kept_probs", None)
+
+
+def _graph_targets(exported):
+    """Operator names of an ExportedProgram's graph, with their counts."""
+    counts = {}
+    for n in exported.graph.nodes:
+        if n.op == "call_function":
+            counts[str(n.target)] = counts.get(str(n.target), 0) + 1
+    return counts
+
+
+def _same_rows(what, a, b):
+    if not np.array_equal(a, b, equal_nan=True):
+        rmse, differ = _tip_rmse(a, b)
+        raise AssertionError(f"{what}: rows differ (tip RMSE {rmse:.4g} px, "
+                             f"{differ} rows whose detections differ)")
+
+
+def _artifact_vs_plain(art, live, frames, depth):
+    """The flow artifact (its kernels) against the live engine of the same
+    weights under ``_plain_flow_kernels()`` and ``_plain_kernels()``, window
+    by window: (max |probability diff|, class-mask share that differs,
+    pixels that differ outside the tie band, windows, kernel launches inside
+    the plain context)."""
+    import torch
+
+    worst, flipped, unexplained, compared, inside = 0.0, 0.0, 0, 0, 0
+    with _kept_probs(art, live):
+        for i in range(T - 1 + ART_PLAIN_WINDOWS):
+            got = art.step_async(frames[i], depth[i])
+            _reset_all_launches()
+            with _plain_flow_kernels(), _plain_kernels():
+                want = live.step_async(frames[i], depth[i])
+            inside += sum(_all_launches().values())
+            if got is None:
+                continue
+            p_got, p_want = art.kept_probs[0], live.kept_probs
+            worst = max(worst, (p_got - p_want).abs().max().item())
+            top2 = p_got.topk(2, dim=-1).values
+            differ = got[0] != want[0]
+            clear = (top2[..., 0] - top2[..., 1]) > 2 * FLOW_PROB_TOL
+            flipped = max(flipped, differ.float().mean().item())
+            unexplained += int((differ & clear).sum().item())
+            compared += 1
+    torch.cuda.synchronize()
+    return worst, flipped, unexplained, compared, inside
+
+
+def _dispatch_us(smi):
+    """Host µs a call of each registered operator against its CUDA kernel
+    function called directly (the same launch without the dispatcher), at
+    the tracker's shapes."""
+    import torch
+
+    from mfcnet_tpu_torch.models import init_weights
+    from mfcnet_tpu_torch.models.raft import UpdateBlock
+    from mfcnet_tpu_torch.ops import raft_update as ru
+    from mfcnet_tpu_torch.ops import warp
+    from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
+
+    gen = torch.Generator().manual_seed(SEED)
+    maps = torch.rand(2, C, H, W, generator=gen).cuda().bfloat16()
+    flow = (4 * torch.randn(2, 2, H, W, generator=gen)).cuda()
+    ub = init_weights(UpdateBlock(), gen).cuda().eval()
+    c1, f1, inp, net, fl, packed, H8, W8 = _raft_update_inputs(
+        ub, torch.bfloat16, 2, H // 16, W // 16, gen)
+    weights = [packed[k] for k in ru._KMAJOR_NAMES[torch.bfloat16]]
+    args = (c1, f1, inp, net, fl, weights, H8, W8, True)
+    calls = {
+        "flow_warp": (
+            lambda: torch.ops.mfcnet.flow_warp(maps, flow, 576, 720, True),
+            lambda: warp._flow_warp_cuda(maps, flow, 576, 720, True)),
+        "raft_update": (lambda: torch.ops.mfcnet.raft_update(*args),
+                        lambda: ru._raft_update_cuda(*args)),
+    }
+    def enqueue_us(fn, reps=40):
+        """Host µs a call to enqueue ``fn``'s launches (the device catches
+        up after the timed loop: a device-bound call does not hide the
+        host's part)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e6 / reps
+
+    out = {}
+    for name, (op, direct) in calls.items():
+        t = [enqueue_us(f) for f in (op, direct, direct, op)]
+        out[name] = (min(t[0], t[3]), min(t[1], t[2]))
+        log(f"[{smi}] mfcnet::{name} through the dispatcher: "
+            f"{out[name][0]:.2f} µs a call to enqueue (host), its CUDA "
+            f"function called directly {out[name][1]:.2f} µs: "
+            f"{out[name][0] - out[name][1]:.2f} µs of dispatch (turns op, "
+            f"direct, direct, op: {', '.join(f'{v:.2f}' for v in t)})")
+
+    # what writing [net | inp] into hx costs a call: the kernel with and
+    # without its fill launch, on one plan, in turns
+    plan = ru._plan_in({}, c1, H8, W8, weights)
+    n_out, d_out = torch.empty_like(net), torch.empty_like(fl)
+
+    def launch(fill):
+        rc = kernel_lib().mfc_raft_update_tma(
+            plan.buf, ru._ptrs((c1, f1, inp, net, fl)), n_out.data_ptr(),
+            d_out.data_ptr(), fill, stream_of(c1))
+        if rc != 0:
+            raise RuntimeError(f"raft_update failed: error {rc}")
+
+    t = [_graph_ms(lambda f=f: launch(f)) for f in (1, 0, 0, 1)]
+    plan.held = None  # hx no longer holds a returned state
+    fill_ms = (min(t[0], t[3]), min(t[1], t[2]))
+    log(f"[{smi}] raft_update at {2 * H8 * W8} tokens (the full window's "
+        f"solve), device time in CUDA-graph replays: with the [net | inp] "
+        f"fill {fill_ms[0]:.4f} ms, without {fill_ms[1]:.4f} ms (turns "
+        f"{', '.join(f'{v:.4f}' for v in t)})")
+    return out, fill_ms
+
+
+def phase_artifact_slice(noflow_engine, flow_engine, frames, smi):
+    """The serving slice (ROADMAP item 11c) at full width, 480x640, bf16,
+    device decode, no tie fallback: three artifacts exported on the card
+    and saved under build/artifacts (``serve.export_*``, ``save_exported``):
+    (a) the incremental step of the no-flow engine's TernausNetMulti-Basic
+    (symbolic batch), (b) the full window of a TernausNetMulti-Basic with
+    RAFT x12 (fused update step: the provider of the flow path's engine) and
+    depth, (c) the single-frame TernausNet16 (the no-flow model's base).
+    Held: (b)'s graph names mfcnet.raft_update (12) and mfcnet.flow_warp (1);
+    each ``ArtifactEngine`` gives the rows of the live engine of the same
+    weights and mode (probabilities compared); the launches of (b)'s run
+    (the main path's, counted from 0): 12 raft_update, 1 flow_warp and 1
+    hx fill a fused frame and the cc.cu launches of the live engine's run;
+    (b) against the live engine through the plain versions within
+    FLOW_PROB_TOL, with 0 kernel launches inside that context; four
+    streams in lockstep through (a), each against its own single-stream
+    run. Prints export s, artifact MB, frames/s of artifact and live (two
+    calls each) and the operators' dispatch µs. Returns {"artifact":
+    (launches, fused frames)}."""
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli.test_toolpose_segmentation_on_videos import (
+        SingleFrameEngine,
+        track_singleframe_frames,
+    )
+    from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
+    from mfcnet_tpu_torch.ops import raft_update as ru
+    from mfcnet_tpu_torch.serve import (
+        ArtifactEngine,
+        export_incremental,
+        export_serving,
+        export_singleframe,
+        load_exported,
+        save_exported,
+    )
+    from mfcnet_tpu_torch.track.tracker import (
+        InferenceEngine,
+        TrackerConfig,
+        track_on_frame_streams,
+        track_on_frames,
+    )
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    t_phase = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "artifacts"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = TrackerConfig(dtype="bfloat16", decode="device", overlay=False,
+                        decode_tie_fallback=False)
+    shape = dict(height=H, width=W)
+    base_meta = {"num_classes": C, "num_input_frames": T, "input_height": H,
+                 "input_width": W, "compute_dtype": "bfloat16",
+                 "add_depth_inputs": False, "add_optflow_inputs": False}
+    gen = torch.Generator().manual_seed(SEED)
+    fmodel = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+        add_depth_inputs=True, generator=gen)
+    raft = flow_engine.flow_model
+    readings = {}
+
+    def export(name, fn, meta):
+        t0 = time.perf_counter()
+        ep = fn()
+        t1 = time.perf_counter()
+        path = out_dir / f"{name}.pt2"
+        save_exported(path, ep, meta)
+        t2 = time.perf_counter()
+        loaded = load_exported(path, device="cuda")
+        readings[name] = (t1 - t0, t2 - t1, time.perf_counter() - t2,
+                          path.stat().st_size / 1e6)
+        log(f"artifact {name}: exported in {t1 - t0:.2f} s, saved in "
+            f"{t2 - t1:.2f} s, loaded in {readings[name][2]:.2f} s, "
+            f"{readings[name][3]:.2f} MB, {json.dumps(loaded.meta['in_specs'])}"
+            f" -> {json.dumps(loaded.meta['out_specs'])}")
+        return ep, loaded
+
+    def make_inc():
+        ep, spec = export_incremental(noflow_engine.model, num_frames=T,
+                                      num_classes=C, dtype="bfloat16",
+                                      **shape)
+        base_meta_inc["state"] = {k: [list(s), d] for k, (s, d) in
+                                  spec.items()}
+        return ep
+
+    base_meta_inc = {**base_meta, "serving_mode": "incremental"}
+    _, art_inc = export("incremental", make_inc, base_meta_inc)
+    ep_flow, art_flow = export(
+        "raft_depth_full",
+        lambda: export_serving(fmodel, num_frames=T, dtype="bfloat16",
+                               add_depth_inputs=True, flow_model=raft,
+                               **shape),
+        {**base_meta, "serving_mode": "full", "add_depth_inputs": True,
+         "add_optflow_inputs": True})
+    _, art_sf = export(
+        "singleframe",
+        lambda: export_singleframe(noflow_engine.model.base_model,
+                                   output_mode="log_probs",
+                                   dtype="bfloat16", **shape),
+        {**base_meta, "task": "singleframe", "num_input_frames": 1,
+         "output_mode": "log_probs"})
+    ops = {k: v for k, v in _graph_targets(ep_flow).items()
+           if k.startswith("mfcnet.")}
+    log(f"artifact raft_depth_full: operators of this package in its graph "
+        f"{json.dumps(ops)}")
+    if ops != {"mfcnet.raft_update.default": FLOW_ITERS,
+               "mfcnet.flow_warp.default": 1}:
+        raise AssertionError(f"the RAFT artifact's graph must name "
+                             f"{FLOW_ITERS} raft_update and 1 flow_warp")
+    del ep_flow
+
+    n = ART_FRAMES
+    fused = n - (T - 1)
+    depth = _depth_frames(frames[:n])
+    fcfg = dataclasses.replace(cfg, mode="full", add_depth_inputs=True,
+                               add_optflow_inputs=True)
+    art_engine = ArtifactEngine(art_flow, fcfg)
+    live_flow = InferenceEngine(fmodel, fcfg, flow_model=raft)
+    with tempfile.TemporaryDirectory() as d:
+        # the main path: the flow artifact's run, every count from 0
+        _reset_all_launches()
+        rows_art, _ = track_on_frames(frames[:n], None, fcfg, d, name="a",
+                                      depth_frames=depth, engine=art_engine)
+        launches = _all_launches()
+        counts = dict(ru.COUNTS)
+        _reset_all_launches()
+        rows_live, _ = track_on_frames(frames[:n], None, fcfg, d, name="l",
+                                       depth_frames=depth, engine=live_flow)
+        live_launches = _all_launches()
+    _check_rows(rows_art, n)
+    log(f"artifact path (RAFT x{FLOW_ITERS}, depth, full window): {n} frames "
+        f"-> rows {rows_art.shape}; launches {json.dumps(launches)}, "
+        f"raft_update counts {json.dumps(counts)}; the live engine's "
+        f"launches {json.dumps(live_launches)}")
+    _require_launches("artifact", launches)
+    if launches["raft_update"] != FLOW_ITERS * fused \
+            or launches["flow_warp"] != fused \
+            or counts["hx_fills"] != fused:
+        raise AssertionError(
+            f"expected {FLOW_ITERS} update steps, 1 warp and 1 fill of hx "
+            f"per fused frame ({fused} frames), got {launches}, {counts}")
+    cc_art = {k: launches[k] for k in CC_KERNELS}
+    if cc_art != {k: live_launches[k] for k in CC_KERNELS}:
+        raise AssertionError("the artifact's decode launches differ from "
+                             "the live engine's")
+    _same_rows("artifact RAFT + depth vs live engine", rows_art, rows_live)
+
+    # the same windows' probabilities, artifact against live
+    def prob_diffs(art, live, inputs):
+        worst = 0.0
+        with _kept_probs(art, live):
+            for x in inputs:
+                got = art.step_async(*x)
+                live.step_async(*x)
+                if got is not None:
+                    worst = max(worst, (art.kept_probs[0] - live.kept_probs)
+                                .abs().max().item())
+        return worst
+
+    p_flow = prob_diffs(art_engine, live_flow,
+                        [(frames[i], depth[i]) for i in range(T + 1)])
+    inc_engine = ArtifactEngine(art_inc, cfg)
+    p_inc = prob_diffs(inc_engine, noflow_engine,
+                       [(frames[i],) for i in range(T + 1)])
+    with tempfile.TemporaryDirectory() as d:
+        noflow_engine.reset()
+        r_art, _ = track_on_frames(frames[:n], None, cfg, d, name="a",
+                                   engine=inc_engine)
+        r_live, _ = track_on_frames(frames[:n], None, cfg, d, name="l",
+                                    engine=noflow_engine)
+        _same_rows("incremental artifact vs live engine", r_art, r_live)
+        sf_cfg = dataclasses.replace(cfg, num_input_frames=1)
+        sf_live = SingleFrameEngine.from_model(noflow_engine.model.base_model, sf_cfg,
+                                    "log_probs")
+        sf_art = SingleFrameEngine.from_artifact(art_sf, sf_cfg)
+        s_art, _ = track_singleframe_frames(frames[:n], sf_art, d, name="sa")
+        s_live, _ = track_singleframe_frames(frames[:n], sf_live, d,
+                                             name="sl")
+        _same_rows("single-frame artifact vs live engine", s_art, s_live)
+        p_sf = max((sf_art.probs(frames[i]) - sf_live.probs(frames[i]))
+                   .abs().max().item() for i in range(2))
+    log(f"artifact rows == live engine rows over {n} frames: incremental "
+        f"(no flow), full window with RAFT + depth, single-frame; max "
+        f"|probability diff| {p_inc:.4g}, {p_flow:.4g}, {p_sf:.4g} (bound "
+        f"{FLOW_PROB_TOL:.4g}, the bf16 engine comparisons')")
+    if max(p_inc, p_flow, p_sf) > FLOW_PROB_TOL:
+        raise AssertionError("an artifact departs from its live engine")
+
+    worst, flipped, unexplained, compared, inside = _artifact_vs_plain(
+        art_engine, live_flow, frames, depth)
+    log(f"RAFT artifact (kernels) vs the live engine through the plain "
+        f"versions, bf16, {compared} windows: max |probability diff| "
+        f"{worst:.4g} (limit {FLOW_PROB_TOL:.4g}); class-mask pixels that "
+        f"differ {flipped:.4%} at most per window, {unexplained} outside "
+        f"the tie band (must be 0); kernel launches inside the plain "
+        f"context: {inside} (must be 0)")
+    if worst > FLOW_PROB_TOL or unexplained or inside:
+        raise AssertionError("RAFT artifact: kernels and plain versions "
+                             "disagree")
+
+    # four streams in lockstep through the one incremental artifact: equal
+    # to the live 4-stream engine's rows, and each against its own
+    # single-stream run (parity mode: deterministic cuDNN; bf16 convolutions
+    # at batch 4 and at batch 1 may round differently)
+    streams = _stream_frames((ART_STREAM_FRAMES,) * ART_STREAMS)
+    names = [f"s{b}" for b in range(ART_STREAMS)]
+    with parity_mode(), tempfile.TemporaryDirectory() as d:
+        multi = ArtifactEngine(art_inc, cfg, num_streams=ART_STREAMS)
+        multi_rows, _ = track_on_frame_streams(streams, None, cfg, d,
+                                               names=names, engine=multi)
+        live_rows, _ = track_on_frame_streams(
+            streams, None, cfg, d, names=names,
+            engine=InferenceEngine(noflow_engine.model, cfg,
+                                   num_streams=ART_STREAMS))
+        single_rows = [track_on_frames(s, None, cfg, d, name=f"r{b}",
+                                       engine=inc_engine)[0]
+                       for b, s in enumerate(streams)]
+    for b, (a, l_) in enumerate(zip(multi_rows, live_rows)):
+        _same_rows(f"artifact stream {b} of {ART_STREAMS} vs the live "
+                   f"{ART_STREAMS}-stream engine", a, l_)
+    stats = [_tip_rmse(a, b) for a, b in zip(multi_rows, single_rows)]
+    both = [np.isfinite(a) & np.isfinite(b)
+            for a, b in zip(multi_rows, single_rows)]
+    row_diff = max((np.abs(a[m] - b[m]).max() if m.any() else 0.0)
+                   for a, b, m in zip(multi_rows, single_rows, both))
+    equal = sum(int(np.array_equal(x, y, equal_nan=True))
+                for a, b in zip(multi_rows, single_rows) for x, y in zip(a, b))
+    log(f"artifact, {ART_STREAMS} streams through one artifact: rows == the "
+        f"live {ART_STREAMS}-stream engine's; against single-stream runs "
+        f"(bf16, parity mode): tip RMSE per stream "
+        f"{[round(r, 6) for r, _ in stats]} px (limit {TIP_GATE}), rows "
+        f"whose detections differ {[m for _, m in stats]}, max |row diff| "
+        f"{row_diff:.4g} px; rows byte-equal: {equal} of "
+        f"{ART_STREAMS * ART_STREAM_FRAMES}")
+    if max(r for r, _ in stats) > TIP_GATE or any(m for _, m in stats):
+        raise AssertionError("artifact streams: a stream departs from its "
+                             "single-stream run")
+
+    with tempfile.TemporaryDirectory() as d:
+        rates = {}
+        for what, engine, kw in (
+                ("incremental artifact", inc_engine, {}),
+                ("live incremental engine", noflow_engine, {}),
+                ("RAFT + depth artifact", art_engine, {"depth_frames": depth}),
+                ("live RAFT + depth engine (full)", live_flow,
+                 {"depth_frames": depth})):
+            rates[what] = [track_on_frames(frames[:ART_TIMED_FRAMES], None,
+                                           engine.cfg, d, name=f"t{i}",
+                                           engine=engine, **kw)[1]
+                           for i in range(2)]
+    log(f"[{smi}] frames/s, {ART_TIMED_FRAMES} frames a call, two calls "
+        f"each: " + "; ".join(f"{k} {v[0]:.2f}, {v[1]:.2f}"
+                              for k, v in rates.items()))
+    _dispatch_us(smi)
+    del art_engine, live_flow, inc_engine, multi, fmodel
+    torch.cuda.empty_cache()
+    log(f"artifact slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"artifact": (launches, fused)}
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
 
+    t_start = time.perf_counter()
+
+    def done(what):
+        """When each phase ended: where the script's time limit goes."""
+        log(f"chip_smoke: {what} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     errs = phase_kernels()
+    done("phases 1-2")
     frames = synthetic_frames(64)
     uframes = synthetic_frames(UNFLOW_FRAMES, hw=(UH, UW))
     engine, launches_noflow, _ = phase_slice(frames)
@@ -5204,9 +5651,11 @@ def main():
     large_engine, large_depth, launches_large, fused_large = \
         phase_large_slice(frames)
     streams_engine, launches_streams, steps_streams = phase_streams_slice()
+    done("phase 3: no flow, RAFT, Large, streams")
     unflow_engine, launches_unflow, fused_unflow = phase_unflow_slice(uframes)
     ffpp_engine, launches_ffpp, fused_ffpp = phase_ffpp_slice(frames)
     phase_offline(uframes, smi)
+    done("phase 3: UnFlow, FFPP, offline")
     _, times, bounds, library = phase_timings(engine, frames, smi)
     for t, b, lib in (phase_flow_timings(flow_engine, frames, smi),
                       phase_unflow_timings(unflow_engine, uframes, smi),
@@ -5217,11 +5666,18 @@ def main():
         bounds.update(b)
         library.update(lib)
     phase_ffpp_timings(ffpp_engine, frames, smi)
+    done("phase 4")
     zoo_paths = phase_zoo_slice(engine, frames, smi)
+    done("phase 6")
     zoo_paths.update(phase_zoo10b_slice(engine, frames, smi))
+    done("phase 7")
     zoo_paths.update(phase_eval_slice(frames, smi))
+    done("phase 8")
+    zoo_paths.update(phase_artifact_slice(engine, flow_engine, frames, smi))
+    done("phase 9")
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
      (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
+    done("phase 5")
     times.update(t)
     bounds.update(b)
     library.update(lib)

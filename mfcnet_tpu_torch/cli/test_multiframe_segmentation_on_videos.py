@@ -19,10 +19,14 @@ types: a Basic model warps the earlier maps by the flow, a Large one takes
 the flow raw into its head. ``--parallel_videos P`` tracks the videos in groups of
 up to P at once, through one engine with ``num_streams`` = the group's
 size (one engine kept per group size): each group's frames are read into
-memory first, and the CSVs are those of the sequential run. The tracker runs on
-the card; ``--device cpu`` asks for the CPU, and without a card the
-default is an error. Flags of later slices are accepted and raise an
-error that names their ROADMAP item.
+memory first, and the CSVs are those of the sequential run. ``--artifact``
+tracks from a serving artifact of ``cli/export_model.py`` in place of
+``--model_type`` and ``--load_wts_model`` (``serve.ArtifactEngine``): its
+header gives the frame size, the window, the mode and the input flags, and
+``--parallel_videos`` runs its groups through the one artifact. The tracker
+runs on the card; ``--device cpu`` asks for the CPU (a CPU artifact), and
+without a card the default is an error. Flags of later slices are
+accepted and raise an error that names their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,7 +61,6 @@ _MODELS = [
 #: flag -> (value that means "not used", ROADMAP item that ports it); the
 #: single-frame video CLI refuses the same flags
 LATER_FLAGS = {
-    "artifact": (None, "Queue 1 item 11c (exported artifacts)"),
     "spatial_shards": (1, "Queue 1 item 11d (spatial sharding; one card)"),
 }
 
@@ -84,7 +87,9 @@ def build_parser():
     p.add_argument("--num_input_frames", type=int, default=3)
     p.add_argument("--load_wts_model", type=str, default=None,
                    help="reference .pth checkpoint")
-    p.add_argument("--artifact", type=str, default=None)
+    p.add_argument("--artifact", type=str, default=None,
+                   help="a serving artifact of cli/export_model.py, in "
+                        "place of --model_type and --load_wts_model")
     p.add_argument("--use_ema", type=_bool, default=False)
     p.add_argument("--num_videos", type=int, default=-1)
     p.add_argument("--input_width", type=int, default=640)
@@ -150,22 +155,55 @@ def load_reference_state_dict(path, use_ema: bool = False):
         raise SystemExit(str(e))
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    refuse_later_flags(args)
-    if args.model_type is None or args.load_wts_model is None:
-        raise SystemExit("--model_type and --load_wts_model are required")
-    if args.add_depth_inputs and args.depth_videos_dir is None:
-        raise SystemExit("--add_depth_inputs needs --depth_videos_dir")
-    out_dir = Path(args.expt_savedir) / args.expt_name / (
-        "video_tracking_results"
-    )
-    out_dir.mkdir(parents=True, exist_ok=True)
-    logger = logging.getLogger("video_tracking_torch")
+def _logger(name, out_dir):
+    logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
     logger.addHandler(logging.FileHandler(out_dir / "log.log"))
     logger.addHandler(logging.StreamHandler(sys.stdout))
+    return logger
+
+
+def check_device(device):
+    """SystemExit naming ``--device cpu`` when ``device`` needs a card and
+    there is none."""
+    if device != "cpu" and not torch.cuda.is_available():
+        raise SystemExit(
+            f"--device {device}: no CUDA device is available; pass "
+            "--device cpu to run on the CPU")
+
+
+def load_artifact(path, device):
+    """``serve.load_exported`` for a CLI: a file that is no artifact, or
+    one for another device type, exits with the loader's message."""
+    from mfcnet_tpu_torch.serve import load_exported
+
+    try:
+        return load_exported(path, device=device)
+    except (OSError, ValueError, RuntimeError) as e:
+        raise SystemExit(f"--artifact: {e}")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    refuse_later_flags(args)
+    if args.artifact is None and (args.model_type is None
+                                  or args.load_wts_model is None):
+        raise SystemExit("give --artifact, or --model_type and "
+                         "--load_wts_model")
+    out_dir = Path(args.expt_savedir) / args.expt_name / (
+        "video_tracking_results"
+    )
+    if args.artifact is not None:
+        check_device(args.device)
+        loaded = load_artifact(args.artifact, args.device)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        return _main_artifact(args, loaded, out_dir,
+                              _logger("video_tracking_torch", out_dir))
+    if args.add_depth_inputs and args.depth_videos_dir is None:
+        raise SystemExit("--add_depth_inputs needs --depth_videos_dir")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logger = _logger("video_tracking_torch", out_dir)
 
     num_classes = 5
     T, H, W = args.num_input_frames, args.input_height, args.input_width
@@ -192,10 +230,7 @@ def main(argv=None):
     )
     if args.decode == "device":
         logger.warning(DEVICE_DECODE_WARNING)
-    if args.device != "cpu" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"--device {args.device}: no CUDA device is available; pass "
-            "--device cpu to run on the CPU")
+    check_device(args.device)
     flow_model = None
     if args.add_optflow_inputs:
         # frozen RAFT provider (the reference loads torchvision raft_large);
@@ -209,11 +244,59 @@ def main(argv=None):
                 load_reference_state_dict(args.load_wts_flow_model))
             logger.info(
                 f"Loaded flow model weights from {args.load_wts_flow_model}")
+    return _track_videos(args, cfg, out_dir, logger, lambda streams:
+                         InferenceEngine(model, cfg, flow_model=flow_model,
+                                         device=args.device,
+                                         num_streams=streams))
+
+
+def _main_artifact(args, loaded, out_dir, logger):
+    """Track from a serving artifact: no model code, no checkpoint. The
+    shapes, the window, the mode and the input flags come from the
+    artifact's header; both decodes work (the device decode is no model
+    code)."""
+    from mfcnet_tpu_torch.serve import ArtifactEngine
+
+    meta = loaded.meta
+    if meta.get("task", "multiframe") != "multiframe":
+        raise SystemExit(f"{args.artifact} is a {meta['task']} artifact; "
+                         "this is the multi-frame video CLI")
+    T, H, W = (meta["num_input_frames"], meta["input_height"],
+               meta["input_width"])
+    add_depth = meta["add_depth_inputs"]
+    if add_depth and args.depth_videos_dir is None:
+        raise SystemExit("this artifact takes depth: give --depth_videos_dir")
+    cfg = TrackerConfig(
+        num_input_frames=T, num_classes=meta["num_classes"], input_height=H,
+        input_width=W,
+        score_detection_threshold=args.score_detection_threshold,
+        area_threshold=args.area_threshold,
+        dist_threshold=args.dist_threshold,
+        mode=meta.get("serving_mode", "full"), decode=args.decode,
+        dtype=meta["compute_dtype"], add_depth_inputs=add_depth,
+        add_optflow_inputs=meta["add_optflow_inputs"],
+        fetch_batch=args.fetch_batch,
+    )
+    logger.info(f"artifact serving: {args.artifact} (mode={cfg.mode}, "
+                f"{H}x{W}, T={T}{', +depth' if add_depth else ''}"
+                f"{', +flow' if cfg.add_optflow_inputs else ''}, "
+                f"{loaded.meta['device']})")
+    if args.decode == "device":
+        logger.warning(DEVICE_DECODE_WARNING)
+    return _track_videos(args, cfg, out_dir, logger, lambda streams:
+                         ArtifactEngine(loaded, cfg, num_streams=streams))
+
+
+def _track_videos(args, cfg, out_dir, logger, make_engine):
+    """Track ``--videos_dir`` one video at a time, or in groups of up to
+    ``--parallel_videos`` through one engine per group size
+    (``make_engine(streams)``). Returns the frames/s of each call."""
+    H, W = cfg.input_height, cfg.input_width
     videos = list_video_files(args.videos_dir)
     if args.num_videos > 0:
         videos = videos[: args.num_videos]
     logger.info(f"Processing {len(videos)} video files from {args.videos_dir}")
-    if args.add_depth_inputs:
+    if cfg.add_depth_inputs:
         depth_videos = list_video_files(args.depth_videos_dir)
         if args.num_videos > 0:
             depth_videos = depth_videos[: args.num_videos]
@@ -226,9 +309,7 @@ def main(argv=None):
 
     def engine_for(streams):
         if streams not in engines:
-            engines[streams] = InferenceEngine(
-                model, cfg, flow_model=flow_model, device=args.device,
-                num_streams=streams)
+            engines[streams] = make_engine(streams)
         return engines[streams]
 
     fps_all = []
@@ -239,7 +320,7 @@ def main(argv=None):
             group = items[i:i + P]
             streams = [read_all_frames(v, W, H) for v, _ in group]
             dstreams = None
-            if args.add_depth_inputs:
+            if cfg.add_depth_inputs:
                 dstreams = [read_all_frames(d, W, H, gray=True)
                             for _, d in group]
                 for (v, d), fs, ds in zip(group, streams, dstreams):

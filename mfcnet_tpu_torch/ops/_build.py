@@ -200,6 +200,17 @@ def route(*tensors) -> str:
     return dev.type
 
 
+def traced(*tensors) -> bool:
+    """Whether a wrapper is being traced (``torch.export``,
+    ``torch.compile``) rather than run: a traced call goes through its
+    registered operator, so that the graph names it; a call that runs
+    launches its kernel (or its plain version) directly."""
+    import torch
+
+    return torch.compiler.is_compiling() or any(
+        type(t) not in (torch.Tensor, torch.nn.Parameter) for t in tensors)
+
+
 def stream_of(t) -> int:
     """PyTorch's current stream on ``t``'s device, as the C side takes it."""
     import torch

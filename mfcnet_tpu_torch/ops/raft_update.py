@@ -8,7 +8,16 @@ token-major (B, N = H8*W8, C) tensors. On CUDA tensors it launches the
 hand-written kernel of ``csrc/raft_update.cu``; on CPU tensors it runs
 :func:`raft_update_plain`, the same function with the same rounding
 points in plain PyTorch. There is no fallback between the two. Each
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`. Both routes are the registered
+operator ``mfcnet::raft_update`` (``torch.library.custom_op``: CPU kernel
+the plain version, CUDA kernel the launch), which takes the packed
+weights as tensor inputs and returns new tensors, so that a
+``torch.export`` graph (``serve/export.py``) names it and launches the
+kernel on the card; a call that is not traced calls the two directly.
+The kernel's tile plan, TMA tensor maps and scratch (:class:`_Plan`)
+belong to a solve's :class:`UpdateWorkspace` in a live solve, and to the
+packed weights' tensor in a traced graph (:data:`_PLANS`): either way they
+live as long as their owner.
 
 Every convolution is a sum over its taps of ``shifted(x, dy, dx) @
 w[tap]`` with a 2-D bounds mask and float32 accumulation; the operands
@@ -29,11 +38,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of, traced
 
 #: kernel launches since the last :func:`reset_launches` (one per call of
 #: :func:`raft_update` on CUDA tensors)
@@ -163,10 +175,34 @@ def _tap_conv(x, w, bias, taps, H8, W8):
     return acc
 
 
+def compute_dtype_of(packed):
+    """The compute dtype of packed update weights (:func:`pack_update_weights`
+    or only their K-major part, :data:`_KMAJOR_NAMES`)."""
+    for k in ("w_c2", "wt_c2", "wtb_c2"):
+        if k in packed:
+            return packed[k].dtype
+    raise KeyError("not packed update weights: no w_c2, wt_c2 or wtb_c2")
+
+
+def _row_major(packed):
+    """``packed`` with its (taps, rows, columns) weights ``w_*``, rebuilt
+    from the K-major ones where only those are held (float32: big + small
+    is the weight exactly)."""
+    if "w_c2" in packed:
+        return packed
+    out = dict(packed)
+    for c in _CONVS:
+        wt = (packed[f"wt_{c}"] if f"wt_{c}" in packed
+              else packed[f"wtb_{c}"] + packed[f"wts_{c}"])
+        out[f"w_{c}"] = wt.transpose(1, 2)
+    return out
+
+
 def raft_update_plain(c1, f1, inp, net, flow, packed, H8: int, W8: int,
                       workspace=None):
     """Plain version of :func:`raft_update` (same contract, any device; it
     keeps nothing between calls, so a ``workspace`` is not used)."""
+    packed = _row_major(packed)
     cdt = packed["w_c2"].dtype
     c1, f1, inp = c1.to(cdt), f1.to(cdt), inp.to(cdt)
     net = net.float()
@@ -297,62 +333,83 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-class UpdateWorkspace:
-    """What one recurrent solve keeps between its calls of
-    :func:`raft_update`: the scratch tensors, two (net', delta) output pairs
-    used in turns -- a call never writes the pair it returned last, nor the
-    caller's own ``net`` -- and the tile plan and its TMA tensor maps.
-    ``hx = [net | inp | y | flow]`` lives across the calls: the kernel
-    leaves ``net'`` in ``hx[:, 0:128]`` and ``inp`` does not change during
-    a solve, so ``[net | inp]`` is written on the first call only
-    (:meth:`holds` decides, by identity of the tensors).
+class _Plan:
+    """One solve shape's kernel state on the card: the C plan (the tile
+    plan and the TMA tensor maps of the weights and of the scratch), the
+    scratch tensors, and what the last call left in ``hx``. The scratch
+    holds B*H8*W8 tokens x 2,560 bytes in bfloat16 (4,608 in float32):
+    6.1 MB at the tracker's 2,400 tokens, 98 MB at the trainer's 38,400."""
 
-    On CPU tensors the plain version computes and the workspace only keeps
-    the output buffers and the same bookkeeping."""
-
-    def __init__(self, B: int, H8: int, W8: int, packed, device):
-        self.shape = (B, H8, W8)
-        self.cdt = packed["w_c2"].dtype
-        self.device = torch.device(device)
-        self.plan = tile_plan(B, H8, W8)
+    def __init__(self, B, H8, W8, cdt, weights, device):
         M = B * H8 * W8
-        self.design = _DESIGNS[self.cdt]
 
-        def buf(*shape, dtype=torch.float32):
-            return torch.empty(*shape, dtype=dtype, device=self.device)
+        def buf(*shape, dtype=cdt):
+            return torch.empty(*shape, dtype=dtype, device=device)
 
-        self.outputs = [(buf(B, H8 * W8, 128), buf(B, H8 * W8, 2))
-                        for _ in range(2)]
-        self.turn = 0
-        self._held = None
-        self.scratch = None
-        self._plan_buf = None
-        if self.device.type == "cuda":
-            # cf = [c2 | f2], hx = [net | inp | y | flow], r*net, the flow
-            # head's hidden layer, z
-            self.scratch = [buf(M, 256, dtype=self.cdt),
-                            buf(M, 384, dtype=self.cdt),
-                            buf(M, 128, dtype=self.cdt),
-                            buf(M, 256, dtype=self.cdt), buf(M, 128)]
-            self._init_plan(packed)
-
-    def _init_plan(self, packed):
+        # cf = [c2 | f2], hx = [net | inp | y | flow], r*net, the flow
+        # head's hidden layer, z
+        self.scratch = [buf(M, 256), buf(M, 384), buf(M, 128), buf(M, 256),
+                        buf(M, 128, dtype=torch.float32)]
         lib = kernel_lib()
-        self._plan_buf = ctypes.create_string_buffer(lib.mfc_raft_plan_bytes())
-        p = self.plan
+        self.buf = ctypes.create_string_buffer(lib.mfc_raft_plan_bytes())
+        p = tile_plan(B, H8, W8)
         tile = (ctypes.c_int * 18)(p.rows, p.cols, *p.column_widths,
                                    *p.clusters)
-        # kept alive
-        self._weights = [packed[k] for k in _KMAJOR_NAMES[self.cdt]]
-        rc = lib.mfc_raft_plan_init(
-            self._plan_buf, _ptrs(self._weights), _ptrs(self.scratch),
-            *self.shape, _DTYPES[self.cdt], tile)
+        rc = lib.mfc_raft_plan_init(self.buf, _ptrs(weights),
+                                    _ptrs(self.scratch), B, H8, W8,
+                                    _DTYPES[cdt], tile)
         if rc != 0:
             raise RuntimeError(f"raft_update: the tile plan {p} was refused "
                                f"(error {rc}: 10000 + CUresult of a tensor "
                                f"map, 20001 cuTensorMapEncodeTiled not found "
                                f"in libcuda, 20002 a plan other than "
                                f"tile_plan's)")
+        #: (net', inp) data pointers of the last call: hx holds [net' | inp]
+        self.held = None
+
+
+def _plan_in(plans: dict, c1, H8, W8, weights):
+    """The plan of a call from its owner's ``plans``, made on first use.
+    Its key is the solve shape, the dtype, the device, the stream and the
+    weights' addresses, which its tensor maps hold: a plan runs only the
+    weights at those addresses, on one stream."""
+    key = (tuple(c1.shape[:1]) + (H8, W8), weights[0].dtype, c1.device,
+           stream_of(c1), tuple(w.data_ptr() for w in weights))
+    plan = plans.get(key)
+    if plan is None:
+        plan = plans[key] = _Plan(c1.shape[0], H8, W8, weights[0].dtype,
+                                  weights, c1.device)
+    return plan
+
+
+class UpdateWorkspace:
+    """What one recurrent solve keeps between its calls of
+    :func:`raft_update`: which state it returned last and, on the card, the
+    kernel's plans (:class:`_Plan`: scratch, tile plan and TMA tensor maps),
+    made by its first call and freed with it. ``hx = [net | inp | y |
+    flow]`` lives across the calls in the plan's scratch: the kernel leaves
+    ``net'`` in ``hx[:, 0:128]`` and ``inp`` does not change during a
+    solve, so ``[net | inp]`` is written on the first call only
+    (:meth:`holds` decides, by identity of the tensors, which also holds
+    while ``torch.export`` traces a solve: the graph then asks for the fill
+    on its first call only). Each call returns new tensors; ``net`` is
+    never written.
+
+    ``plan`` is the kernel's tile plan of the solve (:func:`tile_plan`),
+    computed when asked for: a traced solve with a symbolic batch never
+    asks."""
+
+    def __init__(self, B: int, H8: int, W8: int, packed, device):
+        self.shape = (B, H8, W8)
+        self.cdt = compute_dtype_of(packed)
+        self.device = torch.device(device)
+        self.design = _DESIGNS[self.cdt]
+        self.plans = {}
+        self._held = None
+
+    @functools.cached_property
+    def plan(self) -> "TilePlan":
+        return tile_plan(*self.shape)
 
     def holds(self, net, inp) -> bool:
         """Whether ``hx[:, 0:256]`` already is ``[net | inp]``: ``net`` is
@@ -363,16 +420,6 @@ class UpdateWorkspace:
         h_net, v_net, h_inp, v_inp = self._held
         return (net is h_net and net._version == v_net
                 and inp is h_inp and inp._version == v_inp)
-
-    def next_outputs(self, net):
-        """The output pair of this call: not the one returned last, and
-        never ``net`` itself."""
-        self.turn ^= 1
-        out = self.outputs[self.turn]
-        if out[0] is net:  # the caller kept an older state
-            self.turn ^= 1
-            out = self.outputs[self.turn]
-        return out
 
     def returned(self, net_out, inp):
         self._held = (net_out, net_out._version, inp, inp._version)
@@ -389,15 +436,19 @@ def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int,
 
     c1 (B, N, 256) = relu(convcorr1(correlation lookup)), f1 (B, N, 128) =
     relu(convflow1(flow)) and inp (B, N, 128) in the compute dtype of
-    ``packed`` (:func:`pack_update_weights`); net (B, N, 128) and flow
-    (B, N, 2) float32; N = H8*W8 tokens in raster order. Returns
-    (net', delta flow), float32, shaped like (net, flow).
+    ``packed`` (:func:`pack_update_weights`, or its K-major part alone);
+    net (B, N, 128) and flow (B, N, 2) float32; N = H8*W8 tokens in raster
+    order. Returns new tensors (net', delta flow), float32, shaped like
+    (net, flow); ``net`` is never written.
 
-    ``workspace``: the :class:`UpdateWorkspace` of a recurrent solve. The
-    results are then two of its buffers, valid until the call after the
-    next; without one, a workspace is made for this call alone. ``net`` is
-    never written."""
-    cdt = packed["w_c2"].dtype
+    ``workspace``: the :class:`UpdateWorkspace` of a recurrent solve, which
+    lets every call but the first skip writing ``[net | inp]`` into the
+    kernel's scratch and keeps the kernel's plan across the calls; without
+    one, each call writes it, on a plan of its own. A traced call (see
+    ``ops/_build.py::traced``) goes through the registered operator
+    ``mfcnet::raft_update``, with the K-major weights as its tensor
+    inputs."""
+    cdt = compute_dtype_of(packed)
     B, N = c1.shape[:2]
     if N != H8 * W8:
         raise ValueError(f"{N} tokens for an {H8}x{W8} grid")
@@ -410,34 +461,97 @@ def raft_update(c1, f1, inp, net, flow, packed, H8: int, W8: int,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"an input requires a gradient, but {_TRAINING}")
-    weights = [packed[k] for k in _WEIGHT_NAMES]
+    weights = [packed[k] for k in _KMAJOR_NAMES[cdt]]
     where = route(*tensors, *weights)
     ws = workspace
-    if ws is None:
-        ws = UpdateWorkspace(B, H8, W8, packed, c1.device)
-    elif (ws.shape != (B, H8, W8) or ws.cdt != cdt
-          or ws.outputs[0][0].device != c1.device):
+    if ws is not None and (
+            ws.shape != (B, H8, W8) or ws.cdt != cdt
+            or ws.device.type != c1.device.type
+            or ws.device.index not in (None, c1.device.index)):
         raise ValueError(
-            f"workspace for {ws.shape} {ws.cdt} on "
-            f"{ws.outputs[0][0].device}, call at {(B, H8, W8)} {cdt} on "
-            f"{c1.device}")
-    fill = not ws.holds(net, inp)
-    net_out, delta = ws.next_outputs(net)
-    if where == "cpu":
-        got = raft_update_plain(c1, f1, inp, net, flow, packed, H8, W8)
-        net_out.copy_(got[0])
-        delta.copy_(got[1])
+            f"workspace for {ws.shape} {ws.cdt} on {ws.device}, call at "
+            f"{(B, H8, W8)} {cdt} on {c1.device}")
+    fill = ws is None or not ws.holds(net, inp)
+    if traced(*tensors):
+        net_out, delta = torch.ops.mfcnet.raft_update(
+            *tensors, weights, H8, W8, fill)
+    elif where == "cpu":
+        net_out, delta = _raft_update_cpu(*tensors, weights, H8, W8, fill)
     else:
-        rc = kernel_lib().mfc_raft_update_tma(
-            ws._plan_buf, _ptrs(tensors), net_out.data_ptr(),
-            delta.data_ptr(), int(fill), stream_of(c1))
-        if rc != 0:
-            raise RuntimeError(
-                f"CUDA kernel raft_update ({ws.design}) failed: error {rc}")
-        LAUNCHES["raft_update"] += 1
-        COUNTS["wgmma"] += 1
+        plan = _plan_in({} if ws is None else ws.plans, c1, H8, W8, weights)
+        net_out, delta = _launch(plan, *tensors, fill)
+    if ws is not None:
+        ws.returned(net_out, inp)
+    return net_out, delta
+
+
+def _raft_update_cpu(c1: torch.Tensor, f1: torch.Tensor, inp: torch.Tensor,
+                     net: torch.Tensor, flow: torch.Tensor,
+                     weights: List[torch.Tensor], H8: int, W8: int,
+                     fill: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    packed = dict(zip(_KMAJOR_NAMES[weights[0].dtype], weights))
+    net_out, delta = raft_update_plain(c1, f1, inp, net, flow, packed, H8,
+                                       W8)
     COUNTS["hx_fills"] += int(fill)
-    ws.returned(net_out, inp)
+    return net_out.contiguous(), delta.contiguous()
+
+
+# ``mfcnet::raft_update``: the update iteration as a registered operator, so
+# that an exported graph names it and launches the kernel on the card. Its
+# CPU kernel is the plain version, its CUDA kernel the launch; no other
+# device has one. ``weights`` are the K-major tensors of
+# ``_KMAJOR_NAMES[dtype]``; ``fill`` asks for ``[net | inp]`` to be written
+# into the scratch first (the CUDA kernel writes it anyway unless ``net`` is
+# what the same plan returned last and ``inp`` what it was filled from).
+_raft_update_op = torch.library.custom_op(
+    "mfcnet::raft_update", _raft_update_cpu, mutates_args=(),
+    device_types="cpu")
+
+
+@_raft_update_op.register_fake
+def _raft_update_fake(c1, f1, inp, net, flow, weights, H8, W8, fill):
+    return (torch.empty_like(net, memory_format=torch.contiguous_format),
+            torch.empty_like(flow, memory_format=torch.contiguous_format))
+
+
+#: the operator's kernel plans (:class:`_Plan`), by the tensor that holds
+#: the first packed weight: an exported program's constant, or a serving
+#: module's buffer. The plans of a set of weights live as long as it does,
+#: so a CUDA graph that captured a call replays into live scratch while its
+#: weights live; each stream has plans of its own
+_PLANS = WeakIdKeyDictionary()
+
+
+@_raft_update_op.register_kernel("cuda")
+def _raft_update_cuda(c1, f1, inp, net, flow, weights, H8, W8, fill):
+    for t, name in ((c1, "c1"), (f1, "f1"), (inp, "inp"), (net, "net"),
+                    (flow, "flow")):
+        if not t.is_contiguous():
+            raise ValueError(f"raft_update: {name} must be contiguous")
+    plans = _PLANS.get(weights[0])
+    if plans is None:
+        plans = _PLANS[weights[0]] = {}
+    return _launch(_plan_in(plans, c1, H8, W8, weights), c1, f1, inp, net,
+                   flow, fill)
+
+
+def _launch(plan, c1, f1, inp, net, flow, fill):
+    """One launch of the kernel on ``plan``: new (net', delta)."""
+    B, N = c1.shape[:2]
+    fill = fill or plan.held != (net.data_ptr(), inp.data_ptr())
+    net_out = torch.empty(B, N, 128, dtype=torch.float32, device=c1.device)
+    delta = torch.empty(B, N, 2, dtype=torch.float32, device=c1.device)
+    plan.held = None
+    rc = kernel_lib().mfc_raft_update_tma(
+        plan.buf, _ptrs((c1, f1, inp, net, flow)), net_out.data_ptr(),
+        delta.data_ptr(), int(fill), stream_of(c1))
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel raft_update "
+                           f"({_DESIGNS[c1.dtype]}) failed: error {rc}")
+    plan.held = (net_out.data_ptr(), inp.data_ptr())
+    LAUNCHES["raft_update"] += 1
+    COUNTS["wgmma"] += 1
+    COUNTS["hx_fills"] += int(fill)
     return net_out, delta
 
 
@@ -454,7 +568,7 @@ def fused_update_step(update_block, packed, corr, inp, net, flow, H8: int,
     corr (B, N, L*81) float32, inp (B, N, 128) in the compute dtype, net
     (B, N, 128) and flow (B, N, 2) float32 -> (net', delta flow).
     ``workspace``: as for :func:`raft_update`."""
-    cdt = packed["w_c2"].dtype
+    cdt = compute_dtype_of(packed)
     enc = update_block.motion_encoder
     B, N, _ = corr.shape
     wc1 = enc.convcorr1[0]
@@ -469,9 +583,32 @@ def fused_update_step(update_block, packed, corr, inp, net, flow, H8: int,
                        packed, H8, W8, workspace)
 
 
+class PackedUpdateWeights(torch.nn.Module):
+    """The K-major packed weights of an update block
+    (:func:`pack_update_weights`, :data:`_KMAJOR_NAMES`) as buffers. A
+    serving module holds them as its RAFT's ``packed_update``, packed once
+    when it is built: the weights' addresses, by which the live solve keeps
+    its pack (:func:`_packed_for`), do not exist while ``torch.export``
+    traces, and an exported graph reads buffers as its constants."""
+
+    def __init__(self, update_block, compute_dtype=torch.bfloat16):
+        super().__init__()
+        packed = pack_update_weights(update_block, compute_dtype)
+        self.names = _KMAJOR_NAMES[compute_dtype]
+        for k in self.names:
+            self.register_buffer(k, packed[k])
+
+    def packed(self) -> dict:
+        return {k: getattr(self, k) for k in self.names}
+
+
 def _packed_for(model, compute_dtype):
-    """Packed weights of ``model.update_block``, kept on the model until
-    its parameters move or change."""
+    """Packed weights of ``model.update_block``: those ``model`` holds as
+    ``packed_update`` (:class:`PackedUpdateWeights`) in that dtype, or else
+    a pack kept on the model until its parameters move or change."""
+    held = getattr(model, "packed_update", None)
+    if held is not None and compute_dtype_of(held.packed()) == compute_dtype:
+        return held.packed()
     params = list(model.update_block.parameters())
     key = (compute_dtype, params[0].device, params[0].dtype,
            tuple((p.data_ptr(), p._version) for p in params))
@@ -507,8 +644,8 @@ def fused_flow_from_features(model, f1, f2, net, inp, iters: int = 12,
     net = net.float().reshape(B, N, 128).contiguous()
     inp = inp.to(compute_dtype).reshape(B, N, 128).contiguous()
     flow = torch.zeros(B, N, 2, dtype=torch.float32, device=f1.device)
-    # one workspace for the solve: scratch, outputs and tensor maps are made
-    # once, and [net | inp] is written into hx by the first call only
+    # one workspace for the solve: [net | inp] is written into hx by the
+    # first call only
     workspace = UpdateWorkspace(B, H8, W8, packed, f1.device)
     for _ in range(iters):
         corr = pyramid.lookup(coords0 + flow.view(B, H8, W8, 2))

@@ -21,6 +21,13 @@ coordinates itself and reads image and flow in place by their strides
 (NCHW or ``channels_last``, float32 or bfloat16 flow), one launch and no
 copy. Each launch adds one to :data:`LAUNCHES`.
 
+:func:`flow_warp`'s forward is the registered operator
+``mfcnet::flow_warp`` (``torch.library.custom_op``): its CPU kernel is
+:func:`flow_warp_plain`, its CUDA kernel the launch, so that a
+``torch.export`` graph (``serve/export.py``) names it and launches the
+kernel on the card. A call that is not traced calls the two directly,
+without the dispatcher.
+
 Layout: maps are (B, C, H, W) and flow (B, 2, H, W) -- the layout of the
 tracker's ring buffers; the JAX functions take (B, H, W, C) and
 (B, H, W, 2). The TPU tiers that exist because TPU gathers are slow (the
@@ -66,7 +73,13 @@ from typing import NamedTuple
 
 import torch
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, sm_count, stream_of
+from mfcnet_tpu_torch.ops._build import (
+    kernel_lib,
+    route,
+    sm_count,
+    stream_of,
+    traced,
+)
 
 #: kernel launches per entry point since the last :func:`reset_launches`
 LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
@@ -486,18 +499,47 @@ def flow_warp(maps, flow, grid_hw=None, align_corners: bool = True):
 
 
 def _flow_warp_forward(maps, flow, grid_hw, align_corners):
-    if route(maps, flow) == "cpu":
-        return flow_warp_plain(maps, flow, grid_hw, align_corners)
+    where = route(maps, flow)
+    gh, gw = maps.shape[-2:] if grid_hw is None else grid_hw
+    if traced(maps, flow):
+        return torch.ops.mfcnet.flow_warp(maps, flow, gh, gw, align_corners)
+    impl = _flow_warp_cpu if where == "cpu" else _flow_warp_cuda
+    return impl(maps, flow, gh, gw, align_corners)
+
+
+def _flow_warp_cpu(maps: torch.Tensor, flow: torch.Tensor, grid_h: int,
+                   grid_w: int, align_corners: bool) -> torch.Tensor:
+    return flow_warp_plain(maps, flow, (grid_h, grid_w),
+                           align_corners).contiguous()
+
+
+# ``mfcnet::flow_warp``: the forward as a registered operator, so that an
+# exported graph (``serve/export.py``) names it and launches the kernel on
+# the card. Its CPU kernel is the plain version, its CUDA kernel the launch;
+# no other device has one. A call that is not traced skips the dispatcher
+# and calls the two functions directly (``_flow_warp_forward``).
+_flow_warp_op = torch.library.custom_op(
+    "mfcnet::flow_warp", _flow_warp_cpu, mutates_args=(), device_types="cpu")
+
+
+@_flow_warp_op.register_kernel("cuda")
+def _flow_warp_cuda(maps, flow, grid_h, grid_w, align_corners):
+    _check_maps(maps)
     B, C, H, W = maps.shape
-    gh, gw = (H, W) if grid_hw is None else grid_hw
     maps = maps.contiguous()
     flow = flow.float().contiguous()
     out = torch.empty_like(maps)
     rc = kernel_lib().mfc_flow_warp(
         maps.data_ptr(), flow.data_ptr(), out.data_ptr(), B, C, H, W,
-        gh, gw, int(align_corners), _DTYPES[maps.dtype], stream_of(maps))
+        grid_h, grid_w, int(align_corners), _DTYPES[maps.dtype],
+        stream_of(maps))
     _launch("flow_warp", rc)
     return out
+
+
+@_flow_warp_op.register_fake
+def _flow_warp_fake(maps, flow, grid_h, grid_w, align_corners):
+    return torch.empty_like(maps, memory_format=torch.contiguous_format)
 
 
 def flow_warp_bwd_maps(g, flow, grid_hw=None, align_corners: bool = True):

@@ -21,6 +21,12 @@ from __future__ import annotations
 import torch
 
 
+def probs_nhwc(logits):
+    """(B, C, H, W) logits of the fusion head -> (B, H, W, C) float32
+    softmax probabilities."""
+    return torch.softmax(logits.float(), dim=1).permute(0, 2, 3, 1)
+
+
 def outputs_from_probs(probs, cfg, heat_dtype=torch.float16):
     """(..., H, W, C) float32 class probabilities -> ``(mask, aux...)``.
 

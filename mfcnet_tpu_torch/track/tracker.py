@@ -32,11 +32,9 @@ CSV layout (N x 12, NaN = missing):
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import time
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
@@ -342,7 +340,87 @@ def render_overlay(frame_rgb, mask_array):
     return disp
 
 
-class InferenceEngine:
+class TrackingEngine:
+    """The frame loop that :class:`InferenceEngine` and the serving
+    artifacts' ``serve/engine.py::ArtifactEngine`` share: frames (and depth
+    maps) onto the device with the stream axis, the warm-up, the
+    newest-first window of full mode, and the decode of what the step gives
+    (``track/outputs.py::outputs_from_probs``), (B, ...) for B streams and
+    unbatched for one.
+
+    A subclass sets ``cfg``, ``device``, ``num_streams`` and ``mode``
+    ('incremental' or 'full') and defines ``_reset_state()``,
+    ``_incremental(frame, depth, ready)`` -- one (B, H, W, 3) uint8 frame
+    and (B, H, W) uint8 depth or None into its rings; what ``_outputs``
+    takes, or None before the T-th frame (``ready`` False) -- and
+    ``_window(frames, depth)`` -- the (B, T, H, W, 3) window, newest first,
+    and its (B, T, H, W) depth or None -> what ``_outputs`` takes."""
+
+    def reset(self):
+        """Fresh stream(s): empty window and warm-up, zero rings."""
+        self._count = 0
+        self._frame_q = []
+        self._depth_q = []
+        self._reset_state()
+
+    def _streams(self, x):
+        """A step's input on the device with the stream axis: (B, ...) as
+        given when B > 1, with a new leading axis when B == 1."""
+        x = torch.as_tensor(x).to(self.device)
+        return x if self.num_streams > 1 else x[None]
+
+    def _depth_u8(self, depth_u8):
+        """(B, H, W) uint8 depth of a step (None: zeros) on the device."""
+        if depth_u8 is not None:
+            return self._streams(depth_u8)
+        return torch.zeros(self.num_streams, self.cfg.input_height,
+                           self.cfg.input_width, dtype=torch.uint8,
+                           device=self.device)
+
+    def _outputs(self, probs):
+        """(B, H, W, C) float32 probabilities -> the decode's outputs."""
+        from mfcnet_tpu_torch.track.outputs import outputs_from_probs
+
+        out = outputs_from_probs(probs, self.cfg)
+        return out if self.num_streams > 1 else tuple(v[0] for v in out)
+
+    @torch.no_grad()
+    def step_async(self, frame_u8, depth_u8=None):
+        """Dispatch one step: an (H, W, 3) uint8 frame (and its (H, W)
+        uint8 depth map with ``cfg.add_depth_inputs``), or with B streams
+        a (B, H, W, 3) stack (and (B, H, W) depth). Returns device tensors
+        (mask, aux...), (B, ...) with B streams, or None during warmup."""
+        cfg = self.cfg
+        T = cfg.num_input_frames
+        frame = self._streams(frame_u8)
+        depth = self._depth_u8(depth_u8) if cfg.add_depth_inputs else None
+        self._count += 1
+        if self.mode == "incremental":
+            scores = self._incremental(frame, depth, self._count >= T)
+        else:
+            # full mode: newest-first window of raw frames (reference :251)
+            self._frame_q.append(frame)
+            self._depth_q.append(depth)
+            if len(self._frame_q) > T:
+                self._frame_q.pop(0)
+                self._depth_q.pop(0)
+            if len(self._frame_q) < T:
+                return None
+            scores = self._window(
+                torch.stack(self._frame_q[::-1], dim=1),
+                None if depth is None else torch.stack(self._depth_q[::-1],
+                                                       dim=1))
+        return None if scores is None else self._outputs(scores)
+
+    def step(self, frame_u8, depth_u8=None):
+        """Synchronous step: numpy outputs, or None in warmup."""
+        out = self.step_async(frame_u8, depth_u8)
+        if out is None:
+            return None
+        return tuple(v.cpu().numpy() for v in out)
+
+
+class InferenceEngine(TrackingEngine):
     """Per-frame inference on one device, for one stream or for B streams
     in lockstep (``num_streams``).
 
@@ -389,17 +467,29 @@ class InferenceEngine:
     provider's update iterations through the fused update step, a float32
     engine through its plain convolutions; a bfloat16 FlowFormer++ keeps
     float32 where the JAX package's bfloat16 one does (its cost volume,
-    perceiver and decoder: ``models/flowformerpp.py``)."""
+    perceiver and decoder: ``models/flowformerpp.py``).
+
+    What a frame goes through is the serving modules' (``serve/export.py``:
+    ``IncrementalStep``'s ingest and fusion in incremental mode,
+    ``WindowServing`` in full mode), run here on the engine's own copies;
+    only the flow provider's ring of incremental mode is the engine's
+    own."""
 
     def __init__(self, model, cfg: TrackerConfig, flow_model=None,
                  device="cuda", num_streams: int = 1,
                  stream_shards: int = 1):
+        from mfcnet_tpu_torch.serve.export import (
+            IncrementalStep,
+            WindowServing,
+        )
+
         cfg.check_ported()
         if int(stream_shards) > 1:
             raise NotImplementedError(
                 f"InferenceEngine(stream_shards={stream_shards}): "
                 "ROADMAP.md Queue 1 item 11d (not ported: one card)")
         self.cfg = cfg
+        self.mode = cfg.mode
         self.num_streams = max(1, int(num_streams))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -408,15 +498,15 @@ class InferenceEngine:
                 'available; pass device="cpu" to run on the CPU')
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
-        self.model = copy.deepcopy(model).to(self.device, self.dtype).eval()
-        self.flow_model = None
-        if cfg.add_optflow_inputs:
-            if flow_model is None:
-                raise ValueError(
-                    "cfg.add_optflow_inputs needs a flow_model: a flow "
-                    "provider such as mfcnet_tpu_torch.models.raft.RAFT, "
-                    "mfcnet_tpu_torch.models.flowformerpp.FlowFormerPP or "
-                    "mfcnet_tpu_torch.models.unflow.UnFlow")
+        if not cfg.add_optflow_inputs:
+            flow_model = None
+        elif flow_model is None:
+            raise ValueError(
+                "cfg.add_optflow_inputs needs a flow_model: a flow "
+                "provider such as mfcnet_tpu_torch.models.raft.RAFT, "
+                "mfcnet_tpu_torch.models.flowformerpp.FlowFormerPP or "
+                "mfcnet_tpu_torch.models.unflow.UnFlow")
+        else:
             mult = getattr(flow_model, "size_multiple", 1)
             h2, w2 = cfg.input_height // 2, cfg.input_width // 2
             if h2 % mult or w2 % mult:
@@ -425,22 +515,23 @@ class InferenceEngine:
                     f"and needs {h2}x{w2} to be multiples of {mult}: frames "
                     f"of {cfg.input_height}x{cfg.input_width} cannot use it "
                     f"(multiples of {2 * mult} can, e.g. 512x640)")
-            self.flow_model = copy.deepcopy(flow_model).to(
-                self.device, self.dtype).eval()
-            if hasattr(self.flow_model, "fused_update"):
-                self.flow_model.fused_update = self.dtype == torch.bfloat16
-                self.flow_model.fused_dtype = "bfloat16"
+        if self.mode == "incremental":
+            self.serving = IncrementalStep(
+                model, cfg.dtype, cfg.num_input_frames, cfg.num_classes,
+                self.device, flow_model)
+        else:
+            self.serving = WindowServing(model, cfg.dtype,
+                                         cfg.add_depth_inputs, flow_model,
+                                         self.device)
+        self.model = self.serving.model
+        self.flow_model = self.serving.flow_model
         #: split encoders: keep a feature ring; otherwise a frame ring
         self.flow_split = hasattr(self.flow_model, "flow_from_features")
-        self._mean = torch.tensor([0.485, 0.456, 0.406], dtype=self.dtype,
-                                  device=self.device).view(1, 3, 1, 1)
-        self._std = torch.tensor([0.229, 0.224, 0.225], dtype=self.dtype,
-                                 device=self.device).view(1, 3, 1, 1)
         self.reset()
 
-    def reset(self):
-        """Zero the ring buffers and the warmup queues (start of a video,
-        or of a group of B videos)."""
+    def _reset_state(self):
+        """Zero the ring buffers (start of a video, or of a group of B
+        videos)."""
         cfg = self.cfg
         B, T, C = self.num_streams, cfg.num_input_frames, cfg.num_classes
         H, W = cfg.input_height, cfg.input_width
@@ -455,118 +546,52 @@ class InferenceEngine:
         # the (B, T, 3, H, W) ring of normalized frames. Filled by the
         # first T ingests, before the first fuse reads it
         self.flow_state = None
-        self._frame_q = []
-        self._depth_q = []
-
-    def _streams(self, x):
-        """A step's input with the stream axis: (B, ...) as given when
-        B > 1, the one stream's array with a new leading axis when B == 1."""
-        x = torch.as_tensor(x)
-        return x if self.num_streams > 1 else x[None]
 
     def _normalize(self, frames_u8):
         """(N, H, W, 3) uint8 -> (N, 3, H, W) normalized, engine dtype."""
-        x = torch.as_tensor(frames_u8).to(self.device)
-        x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0
-        return (x - self._mean) / self._std
-
-    def _depth(self, depth_u8):
-        """(B, H, W) uint8 depth of a step (None: zeros) -> engine dtype in
-        [0, 1]."""
-        cfg = self.cfg
-        if depth_u8 is None:
-            return torch.zeros(self.num_streams, cfg.input_height,
-                               cfg.input_width, dtype=self.dtype,
-                               device=self.device)
-        d = self._streams(depth_u8).to(self.device)
-        return d.to(self.dtype) / 255.0
+        return self.serving.normalize(torch.as_tensor(frames_u8)
+                                      .to(self.device))
 
     def _outputs(self, logits):
-        """(B, C, H, W) logits -> the decode's outputs, (B, ...) for B
-        streams and unbatched for one."""
-        from mfcnet_tpu_torch.track.outputs import outputs_from_probs
+        """(B, C, H, W) logits -> the decode's outputs."""
+        from mfcnet_tpu_torch.track.outputs import probs_nhwc
 
-        probs = torch.softmax(logits.float(), dim=1)
-        out = outputs_from_probs(probs.permute(0, 2, 3, 1), self.cfg)
-        return out if self.num_streams > 1 else tuple(v[0] for v in out)
+        return super()._outputs(probs_nhwc(logits))
 
-    @torch.no_grad()
-    def step_async(self, frame_u8, depth_u8=None):
-        """Dispatch one step: an (H, W, 3) uint8 frame (and its (H, W)
-        uint8 depth map with ``cfg.add_depth_inputs``), or with B streams
-        a (B, H, W, 3) stack (and (B, H, W) depth). Returns device tensors
-        (mask, aux...), (B, ...) with B streams, or None during warmup."""
+    def _window(self, frames, depth):
+        return self.serving.logits(frames, depth)
+
+    def _incremental(self, frame, depth, ready):
         from mfcnet_tpu_torch.track import outputs as out
 
         cfg = self.cfg
-        B, T, C = self.num_streams, cfg.num_input_frames, cfg.num_classes
-        H, W = cfg.input_height, cfg.input_width
-        if cfg.mode == "incremental":
-            x = self._normalize(self._streams(frame_u8))
-            seg_new = self.model.base_nchw(x)
-            self.seg_buf = torch.cat(
-                [seg_new, self.seg_buf[:, : (T - 1) * C]], dim=1
-            )
-            if cfg.add_depth_inputs:
-                self.depth_buf = torch.cat(
-                    [self._depth(depth_u8)[:, None],
-                     self.depth_buf[:, : T - 1]], dim=1
-                )
-            if cfg.add_optflow_inputs and self.flow_split:
-                f_new, net, inp = out.flow_ingest(x, self.flow_model)
-                if self.flow_state is None:
-                    feat_buf = f_new[:, None].repeat(1, T, 1, 1, 1)
-                else:
-                    feat_buf = torch.cat(
-                        [f_new[:, None], self.flow_state[0][:, : T - 1]],
-                        dim=1)
-                self.flow_state = (feat_buf, net, inp)
-            elif cfg.add_optflow_inputs:
-                if self.flow_state is None:
-                    self.flow_state = x[:, None].repeat(1, T, 1, 1, 1)
-                else:
-                    self.flow_state = torch.cat(
-                        [x[:, None], self.flow_state[:, : T - 1]], dim=1)
-            self._frame_q.append(True)
-            if len(self._frame_q) < T:
-                return None
-            optflow = None
-            if cfg.add_optflow_inputs and self.flow_split:
-                optflow = out.flow_from_feature_ring(
-                    *self.flow_state, (H, W), self.flow_model)
-            elif cfg.add_optflow_inputs:
-                optflow = out.flow_for_window(self.flow_state,
-                                              self.flow_model)
-            return self._outputs(self.model.fuse_nchw(
-                self.seg_buf, optflow=optflow, depth=self.depth_buf))
-        # full mode: newest-first window of raw frames (reference :251)
-        self._frame_q.append(self._streams(frame_u8))
-        self._depth_q.append(depth_u8)
-        if len(self._frame_q) > T:
-            self._frame_q.pop(0)
-            self._depth_q.pop(0)
-        if len(self._frame_q) < T:
+        T = cfg.num_input_frames
+        x, self.seg_buf, self.depth_buf = self.serving.ingest(
+            self.seg_buf, self.depth_buf, frame, depth)
+        if cfg.add_optflow_inputs and self.flow_split:
+            f_new, net, inp = out.flow_ingest(x, self.flow_model)
+            if self.flow_state is None:
+                feat_buf = f_new[:, None].repeat(1, T, 1, 1, 1)
+            else:
+                feat_buf = torch.cat(
+                    [f_new[:, None], self.flow_state[0][:, : T - 1]], dim=1)
+            self.flow_state = (feat_buf, net, inp)
+        elif cfg.add_optflow_inputs:
+            if self.flow_state is None:
+                self.flow_state = x[:, None].repeat(1, T, 1, 1, 1)
+            else:
+                self.flow_state = torch.cat(
+                    [x[:, None], self.flow_state[:, : T - 1]], dim=1)
+        if not ready:
             return None
-        # (B, T, H, W, 3) -> B*T frames, stream-major, newest first
-        window = torch.stack(self._frame_q[::-1], dim=1)
-        x = self._normalize(window.reshape(B * T, H, W, 3))
-        y = self.model.base_nchw(x)
-        depth = (torch.stack([self._depth(d) for d in self._depth_q[::-1]],
-                             dim=1)
-                 if cfg.add_depth_inputs else None)
-        optflow = (out.flow_for_window(x.reshape(B, T, 3, H, W),
-                                       self.flow_model)
-                   if cfg.add_optflow_inputs else None)
-        return self._outputs(self.model.fuse_nchw(
-            y.reshape(B, T * C, H, W), optflow=optflow, depth=depth
-        ))
-
-    def step(self, frame_u8, depth_u8=None):
-        """Synchronous step: numpy outputs, or None in warmup."""
-        out = self.step_async(frame_u8, depth_u8)
-        if out is None:
-            return None
-        return tuple(v.cpu().numpy() for v in out)
+        optflow = None
+        if cfg.add_optflow_inputs and self.flow_split:
+            optflow = out.flow_from_feature_ring(
+                *self.flow_state, (cfg.input_height, cfg.input_width),
+                self.flow_model)
+        elif cfg.add_optflow_inputs:
+            optflow = out.flow_for_window(self.flow_state, self.flow_model)
+        return self.serving.fuse(self.seg_buf, self.depth_buf, optflow)
 
 
 def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
@@ -628,8 +653,8 @@ def _host_array(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def _track_streams(steps, lengths, names, engine: InferenceEngine,
-                   cfg: TrackerConfig, output_dir, logger=None):
+def _track_streams(steps, lengths, names, engine, cfg: TrackerConfig,
+                   output_dir, logger=None):
     """Lockstep steps -> engine -> keypoint decode -> one tracker per
     stream -> a CSV (+ MP4) each. ``steps`` yields (frames, depth, active):
     the engine's input for one step (an (H, W, 3) frame and (H, W) depth
@@ -745,14 +770,16 @@ def _track_streams(steps, lengths, names, engine: InferenceEngine,
 def track_on_frames(frames, model, cfg: TrackerConfig, output_dir,
                     name: str = "frames", depth_frames=None, logger=None,
                     flow_model=None,
-                    engine: Optional[InferenceEngine] = None, device="cuda"):
+                    engine=None, device="cuda"):
     """Track a sequence of decoded (H, W, 3) uint8 RGB frames (numpy
     arrays or tensors, host or device) at (cfg.input_height,
     cfg.input_width); writes ``{name}_tracked.csv``. ``depth_frames``:
     (H, W) uint8 depth maps, one per frame, with ``cfg.add_depth_inputs``.
     ``device``: where the engine is built, the card unless the caller
     passes ``"cpu"``. ``engine``: reuse a built engine
-    (``model``/``flow_model``/``device`` are then ignored)."""
+    (``model``/``flow_model``/``device`` are then ignored): an
+    :class:`InferenceEngine`, or one with its contract such as
+    ``serve.ArtifactEngine`` (a serving artifact in place of the model)."""
     if engine is None:
         engine = InferenceEngine(model, cfg, flow_model=flow_model,
                                  device=device)
@@ -770,8 +797,8 @@ def track_on_frames(frames, model, cfg: TrackerConfig, output_dir,
 def track_on_frame_streams(streams, model, cfg: TrackerConfig, output_dir,
                            names=None, depth_streams=None, logger=None,
                            flow_model=None,
-                           engine: Optional[InferenceEngine] = None,
-                           prestacked: bool = False, device="cuda"):
+                           engine=None, prestacked: bool = False,
+                           device="cuda"):
     """Track B videos at once through one engine with ``num_streams=B``
     (counterpart of the JAX package's ``track_on_frame_streams``): all B
     streams advance in lockstep, one batched step per frame, and each
@@ -785,7 +812,8 @@ def track_on_frame_streams(streams, model, cfg: TrackerConfig, output_dir,
     lockstep (B, H, W, 3) batches (host arrays or tensors) instead, of
     one length. ``depth_streams`` follows the same layout ((H, W) items,
     or (B, H, W) batches). B == 1 runs :func:`track_on_frames`.
-    ``engine``: a built engine with ``num_streams=B`` (``model``,
+    ``engine``: a built engine with ``num_streams=B`` (an
+    :class:`InferenceEngine` or a ``serve.ArtifactEngine``; ``model``,
     ``flow_model`` and ``device`` are then ignored); otherwise one is built
     on ``device``, the card unless the caller passes ``"cpu"``. The host
     decode (``cfg.decode='host'``) of the B streams of a step runs on a
@@ -853,7 +881,7 @@ def track_on_frame_streams(streams, model, cfg: TrackerConfig, output_dir,
 
 def track_on_video(video_path, model, cfg: TrackerConfig, output_dir,
                    depth_video_path=None, logger=None, flow_model=None,
-                   engine: Optional[InferenceEngine] = None, device="cuda"):
+                   engine=None, device="cuda"):
     """Track one video file end to end; writes ``{name}_tracked.csv``
     (and the overlay MP4 with ``cfg.overlay``). ``depth_video_path``: the
     depth video read frame by frame beside it with

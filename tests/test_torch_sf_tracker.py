@@ -11,8 +11,9 @@ star's gate of the JAX CLI's device-decode rows (the same detections, tip
 RMSE <= 0.5 px) and the engine's probabilities within 1e-3 of the JAX
 model's; ``--score_detection_threshold 0.3`` with a logits base (ResUNet), its
 rows equal; ``--use_ema`` on a checkpoint of the port's single-frame
-trainer; the refusals (TAPNet, ``--artifact``, ``--spatial_shards``, each
-naming its ROADMAP item); ``--device`` defaulting to the card; and the
+trainer; the refusals (TAPNet; ``--spatial_shards``, naming its ROADMAP
+item; ``--artifact`` on a file that is no artifact, with the loader's
+message); ``--device`` defaulting to the card; and the
 annotation-frame CLI writing the JAX CLI's file names and pixels."""
 
 import numpy as np
@@ -137,7 +138,7 @@ def test_device_decode_within_the_gate_of_jax(video, tmp_path, weights):
     frames = np.stack(frames)
     pm = get_tooltip_segmentation_model("TernausNet16", C, scale=SCALE)
     pm.load_state_dict(torch.load(pth)["model"])
-    eng = SingleFrameEngine(pm, TrackerConfig(
+    eng = SingleFrameEngine.from_model(pm, TrackerConfig(
         num_input_frames=1, input_height=HW, input_width=HW,
         dtype="float32", decode="device"), "log_probs", device="cpu")
     with torch.no_grad():
@@ -196,7 +197,7 @@ def test_use_ema_tracks_with_the_trainers_ema_weights(video, tmp_path):
         model = get_tooltip_segmentation_model("TernausNet16", C,
                                                scale=SCALE)
         model.load_state_dict(load_state_dict_file(ck, use_ema=ema == "true"))
-        eng = sf.SingleFrameEngine(model, TrackerConfig(
+        eng = sf.SingleFrameEngine.from_model(model, TrackerConfig(
             num_input_frames=1, input_height=HW, input_width=HW,
             dtype="float32"), "log_probs", device="cpu")
         want, _ = sf.track_singleframe_video(video / "b.mp4", eng,
@@ -209,7 +210,7 @@ def test_use_ema_tracks_with_the_trainers_ema_weights(video, tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (("--model_type", "TAPNet16"), "TAPNet video tracking"),
-    (("--artifact", "a.pt"), "Queue 1 item 11c"),
+    (("--artifact", "junk.pt2"), "not an mfcnet_tpu_torch serving artifact"),
     (("--spatial_shards", "2"), "Queue 1 item 11d"),
     (("--device", "cuda"), "--device cpu"),
 ])
@@ -225,6 +226,10 @@ def test_refusals(video, tmp_path, weights, extra, match):
     if extra[0] == "--model_type":
         args[args.index("--model_type") + 1] = extra[1]
         extra = ()
+    if extra and extra[0] == "--artifact":  # a file that is no artifact
+        junk = tmp_path / extra[1]
+        junk.write_bytes(b"not a serving artifact")
+        extra = ("--artifact", str(junk), "--device", "cpu")
     with pytest.raises(SystemExit, match=match):
         main(args + list(extra))
 
@@ -239,15 +244,15 @@ def test_singleframe_engine_defaults_to_the_card(weights):
     assert sf.build_parser().parse_args(
         ["--videos_dir", "v", "--expt_savedir", "o",
          "--expt_name", "n"]).device == "cuda"
-    params = inspect.signature(sf.SingleFrameEngine.__init__).parameters
+    params = inspect.signature(sf.SingleFrameEngine.from_model).parameters
     assert params["device"].default == "cuda"
     if torch.cuda.is_available():
         return
     model = get_tooltip_segmentation_model("TernausNet16", C, scale=SCALE)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        sf.SingleFrameEngine(model, TrackerConfig(), "log_probs")
+        sf.SingleFrameEngine.from_model(model, TrackerConfig(), "log_probs")
     with pytest.raises(ValueError, match="TAPNet"):
-        sf.SingleFrameEngine(model, TrackerConfig(), "tapnet", device="cpu")
+        sf.SingleFrameEngine.from_model(model, TrackerConfig(), "tapnet", device="cpu")
 
 
 def test_annotation_frames_equal_jax(tmp_path):

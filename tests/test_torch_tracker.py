@@ -231,7 +231,7 @@ _IMPORT_CHECK = """
                               if k != "add_optflow_inputs"})
     with tempfile.TemporaryDirectory() as d:
         rows, _ = track_singleframe_frames(
-            frames, SingleFrameEngine(sf, sf_cfg, "log_probs", device="cpu"),
+            frames, SingleFrameEngine.from_model(sf, sf_cfg, "log_probs", device="cpu"),
             d)
     assert rows.shape == (5, 12)
     lp, iou, dice = device_half(
