@@ -15,9 +15,10 @@ the zoo's DeepLab, FCN, HRNet and SegFormer families on the RAFT path
 and in training, and the rest of the zoo (UNet, ResUNet, TAPNet16) --
 through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), the
 evaluation layer (the single-frame video tracker and the infer CLIs'
-device half) and the serving layer (exported artifacts and the engine that
-tracks from them), in nine phases; a failing phase raises and the script
-exits non-zero:
+device half), the serving layer (exported artifacts and the engine that
+tracks from them) and the backward slice (UnFlow's gradient through the
+backward kernels, ``--remat``), in ten phases; a failing phase raises and
+the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -136,7 +137,21 @@ exits non-zero:
    through the plain versions (0 launches inside); four streams through
    the incremental artifact against single-stream runs; export, save and
    load seconds, artifact MB, frames/s of artifact and live, the
-   operators' dispatch cost and the update step's hx fill.
+   operators' dispatch cost and the update step's hx fill;
+10. the backward slice (``phase_unflow_grad_slice``, after phase 9): the
+   correlation's backward (B2, ``mfc_correlation_bwd``) against its plain
+   version at the tracker's and the offline CLI's conv3 shapes in both
+   types, the sampler's backward (B3, ``mfc_sample_bwd_img`` and
+   ``mfc_sample_bwd_coords``) at 4x3x512x640 on flows past every edge and at
+   integer coordinates (both padding modes, both layouts, both types; the
+   border clamp's limits at half the gradient), their times, bounds and
+   library calls; UnFlow's loss gradient at 4 pairs of 512x640, float32 and
+   bfloat16 models, through the kernels (the path's main-path run: 1
+   correlation, 1 B2, 2 backward warps, 2 of each B3 entry) against the
+   plain backward on the same forward and against the plain forward and
+   backward (``UNFLOW_GRAD_TOL``, every parameter and both frames); run A's
+   micro-step with and without ``--remat``: parameters equal bit for bit in
+   parity mode, the peak memory lower, both ms/step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -180,6 +195,10 @@ KERNELS = (
     ("conv3x3", CSRC + "conv3x3.cu",
      "mfcnet_tpu/experimental/conv3x3_pallas.py:54"),
     ("flow_warp_bwd", CSRC + "warp.cu", "mfcnet_tpu/ops/warp_pallas.py:147"),
+    ("correlation_bwd", CSRC + "correlation.cu",
+     "mfcnet_tpu/ops/correlation_pallas.py:100"),
+    ("sample_bwd_img", CSRC + "warp.cu", "mfcnet_tpu/ops/warp.py:17"),
+    ("sample_bwd_coords", CSRC + "warp.cu", "mfcnet_tpu/ops/warp.py:17"),
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
 #: the decode's union tier
@@ -227,6 +246,11 @@ PATH_KERNELS = {
     # with RAFT and depth, whose graph runs the update step and the warp as
     # registered operators; the decode after it
     "artifact": CC_KERNELS + ("flow_warp", "raft_update"),
+    # the backward slice (ROADMAP items 8b-8d): UnFlow's loss gradient at 4
+    # pairs of 512x640 through the correlation, the backward warp and their
+    # backward kernels (B2; B3's two entry points)
+    "unflow_grad": ("correlation", "backward_warp", "correlation_bwd",
+                    "sample_bwd_img", "sample_bwd_coords"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -1267,19 +1291,19 @@ def _check_conv_kernels():
 
 def _plain_unflow_kernels():
     """Context in which the UnFlow path runs the plain versions of the
-    correlation, of the backward warp and of the head's flow warp (on the
-    same CUDA tensors)."""
-    import contextlib
+    correlation, of the backward warp, of their backward (B2, B3) and of
+    the head's flow warp (on the same CUDA tensors): the wrappers and their
+    autograd Functions stay, the routes inside them are swapped."""
     from unittest import mock
 
-    from mfcnet_tpu_torch.models import mfcnet, unflow
+    from mfcnet_tpu_torch.models import mfcnet
     from mfcnet_tpu_torch.ops import correlation as co
     from mfcnet_tpu_torch.ops import warp
 
-    stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(unflow, "correlation_cost_volume",
+    stack = _plain_backward_kernels()
+    stack.enter_context(mock.patch.object(co, "_correlation_forward",
                                           co.correlation_plain))
-    stack.enter_context(mock.patch.object(unflow, "warp_by_flow",
+    stack.enter_context(mock.patch.object(warp, "_backward_warp_forward",
                                           warp.backward_warp_plain))
     stack.enter_context(mock.patch.object(mfcnet, "flow_warp",
                                           warp.flow_warp_plain))
@@ -5630,6 +5654,443 @@ def phase_artifact_slice(noflow_engine, flow_engine, frames, smi):
     return {"artifact": (launches, fused)}
 
 
+# ------------------------------------------------- phase 10: the backward
+#: B2 (the correlation's backward) and B3 (the sampler's backward) against
+#: their plain versions: max |diff| over the plain result's largest
+#: magnitude. float32: B2 sums 441 products a channel in dy-major order with
+#: fused multiply-adds (the plain version rounds each product and sums the
+#: displacements one at a time), B3's image gradient adds with float32
+#: atomics in a run-dependent order (a tap that n samples reach: ~sqrt(n)
+#: roundings of its partial sums), its coordinate gradient sums the
+#: channels in another order than torch's sum: a few float32 roundings of a
+#: sum, far below 1e-5 of the largest. bfloat16 inputs: the float32 result
+#: rounded once to bfloat16, which another summation order can flip by one
+#: step (2^-8 of a value's binade) on top of that.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8 + 1e-5}
+#: UnFlow's gradients (every parameter, both frames) through the kernels
+#: against through the plain versions, per tensor max |diff| over its
+#: largest magnitude, in parity mode. "held": both runs take the kernels'
+#: forward, so only the backward kernels differ (the roundings above),
+#: carried linearly through ~75 convolutions' backward: 1e-4. "whole": the
+#: plain forward too. Its correlation is 1e-5 from the kernel's, so the
+#: flows differ by ~1e-5 of their size, and a sample whose coordinate lies
+#: that close to an integer takes the neighbouring pair of taps for its
+#: coordinate gradient (the bilinear sample's derivative jumps there): a few
+#: pixels' flow gradients differ by O(1) of their size, which the deep layers'
+#: few-pixel sums carry to a few percent of a tensor's largest entry. The
+#: limit is 0.1: it holds a wrong sign, a dropped term or a missing
+#: gradient (each >= 0.5 of a tensor's largest), not those jumps. The
+#: bfloat16 model's frames get their gradient through the rounding of the
+#: input to bfloat16, which one float32 rounding apart can flip: one
+#: bfloat16 step (2^-8) more for them.
+UNFLOW_GRAD_TOL = {"held": 1e-4, "whole": 0.1}
+#: the pairs of UnFlow's gradient run: the offline flow CLI's batch of 4 at
+#: 512x640 (frames 3 and 7 of ``synthetic_frames`` are noise: left out)
+UNFLOW_GRAD_PAIRS = ((0, 1), (1, 2), (4, 5), (5, 6))
+
+
+def _rel(got, want):
+    import torch
+
+    w = want.float()
+    return float((got.float() - w).abs().max()
+                 / w.abs().max().clamp_min(torch.finfo(torch.float32).tiny))
+
+
+def _plain_backward_kernels():
+    """Context in which the correlation's and the sampler's backward run
+    their plain versions (on the same CUDA tensors), the forward kernels
+    still launching."""
+    import contextlib
+    from unittest import mock
+
+    from mfcnet_tpu_torch.ops import correlation as co
+    from mfcnet_tpu_torch.ops import warp
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(co, "correlation_backward",
+                                          co.correlation_backward_plain))
+    stack.enter_context(mock.patch.object(warp, "sample_backward",
+                                          warp.sample_backward_plain))
+    return stack
+
+
+def _hold_b2(gen, smi, times, bounds, library):
+    """B2 against its plain version at the tracker's and the offline CLI's
+    conv3 shapes, both types; one launch a call; times (graph replay), the
+    bound and the ``torch.bmm`` yardstick. Returns the worst max |diff|."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import correlation as co
+
+    worst = 0.0
+    for shape, where in (((2, 32, 40, K), "tracker"),
+                         ((4, 64, 80, K), "offline")):
+        B, h, w, c = shape
+        g = torch.randn(B, h, w, 441, generator=gen).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            f1 = torch.randn(shape, generator=gen).cuda().to(dt)
+            f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+            co.reset_launches()
+            k1, k2 = co.correlation_backward(g, f1, f2, 20, 2)
+            torch.cuda.synchronize()
+            if co.LAUNCHES["correlation_bwd"] != 1:
+                raise AssertionError(f"B2: launches {co.LAUNCHES}")
+            p1, p2 = co.correlation_backward_plain(g, f1, f2, 20, 2)
+            rels = (_rel(k1, p1), _rel(k2, p2))
+            if k1.dtype != dt or max(rels) > BWD_TOL[name]:
+                raise AssertionError(f"B2 {where} {name}: {rels}, {k1.dtype}")
+            worst = max(worst, float((k1.float() - p1.float()).abs().max()),
+                        float((k2.float() - p2.float()).abs().max()))
+            one = co.correlation_backward(g, f1, f2, 20, 2, (True, False))
+            if not torch.equal(one[0], k1) or one[1] is not None:
+                raise AssertionError("B2: grad_f1 alone differs")
+            key = "correlation_bwd" + ("" if (where, name) == (
+                "tracker", "float32") else f"@{where} {name}")
+            times[key] = _in_turns(
+                key, lambda: co.correlation_backward(g, f1, f2, 20, 2),
+                lambda: co.correlation_backward_plain(g, f1, f2, 20, 2), smi,
+                f"{shape} {name}, both gradients", kreps=20, preps=1,
+                timer=_graph_ms, ptimer=_event_ms)
+            flop = 2 * 2 * B * h * w * 441 * c
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32 / 3
+            nb = _nbytes(g, f1, f2, k1, k2)
+            b_ms, o_ms = nb / PEAK_BYTES * 1e3, flop / peak * 1e3
+            bounds[key] = max((b_ms, "bytes"), (o_ms, "operations"))
+            # the dense yardstick: per residue sub-grid, a (P, P) gradient
+            # of the full Gram matrix times each operand (float32, TF32 off)
+            a1, a2 = _residue_grams(f1.float(), f2.float(), 2)
+            gram = torch.randn(a1.shape[0], a1.shape[1], a1.shape[1],
+                               generator=gen).cuda()
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                library[key] = _graph_ms(lambda: (
+                    torch.bmm(gram, a2), torch.bmm(gram.transpose(1, 2), a1)),
+                    20)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+            log(f"[{smi}] B2 {where} {shape} {name}: max |diff| / max "
+                f"{rels[0]:.3g} (grad_f1), {rels[1]:.3g} (grad_f2), limit "
+                f"{BWD_TOL[name]:.3g}; 1 launch; kernel "
+                f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, bound "
+                f"{bounds[key][0]:.5f} ms ({bounds[key][1]}: {nb} B at 3.35 "
+                f"TB/s -> {b_ms:.5f}; {flop / 1e9:.3f} GFLOP at "
+                f"{peak / 1e12:.0f} TFLOP/s -> {o_ms:.5f}), torch.bmm of "
+                f"the residue sub-grids' dense (P, P) gradients with both "
+                f"operands {library[key]:.4f} ms")
+    return worst
+
+
+def _b3_cases(gen, B, Ch, h, w):
+    """(name, fx, fy) absolute coordinates of B3's standalone checks:
+    backward_warp's own coordinates from a flow that pushes each image's
+    samples past another edge (left, right, top, bottom) and beyond the
+    corners, and integer coordinates from -3 to size + 2 with the clamp
+    limits 0 and size - 1 among them."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32),
+                            indexing="ij")
+    flow = torch.randn(B, 2, h, w, generator=gen) * 6
+    push = 0.75
+    flow[0, 0] -= push * w
+    flow[1, 0] += push * w
+    flow[2, 1] -= push * h
+    flow[3, 1] += push * h
+    flow[:, :, :8, :8] -= 2 * w  # past a corner
+    gx, gy = warp._warp_grid(flow.cuda())
+    fx, fy = warp._abs_coords(gx, gy, h, w, False, "zeros")
+    ix = (xx + torch.randint(-4, 5, (B, h, w), generator=gen)).clamp(-3, w + 2)
+    iy = (yy + torch.randint(-4, 5, (B, h, w), generator=gen)).clamp(-3, h + 2)
+    return (("edges", fx, fy), ("integers", ix.cuda(), iy.cuda()))
+
+
+def _hold_b3(gen, smi, times, bounds, library):
+    """B3 (both entry points) against its plain version at 4x3x512x640,
+    border (and zeros) padding, NCHW and channels_last, float32 and
+    bfloat16; times (graph replay) at the UnFlow training shape, bounds and
+    ``aten::grid_sampler_2d_backward``. Returns the worst max |diff|."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import warp
+
+    B, Ch, h, w = 4, 3, UH, UW
+    worst = 0.0
+    cases = _b3_cases(gen, B, Ch, h, w)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            img = torch.rand(B, Ch, h, w, generator=gen).cuda().to(
+                dt).contiguous(memory_format=fmt)
+            g = torch.randn(B, Ch, h, w, generator=gen).cuda().to(
+                dt).contiguous(memory_format=fmt)
+            for case, fx, fy in cases:
+                for pm in ("border", "zeros"):
+                    warp.reset_launches()
+                    ki, kx, ky = warp.sample_backward(g, img, fx, fy, pm)
+                    torch.cuda.synchronize()
+                    if (warp.LAUNCHES["sample_bwd_img"],
+                            warp.LAUNCHES["sample_bwd_coords"]) != (1, 1):
+                        raise AssertionError(f"B3: launches {warp.LAUNCHES}")
+                    pi, px, py = warp.sample_backward_plain(g, img, fx, fy,
+                                                            pm)
+                    rels = (_rel(ki, pi), _rel(kx, px), _rel(ky, py))
+                    if (max(rels) > BWD_TOL[name] or ki.dtype != dt
+                            or not ki.is_contiguous(memory_format=fmt)):
+                        raise AssertionError(
+                            f"B3 {case} {pm} {name} {fmt}: {rels}")
+                    worst = max(worst, *(float((a.float() - b.float()).abs(
+                    ).max()) for a, b in ((ki, pi), (kx, px), (ky, py))))
+            log(f"B3 {name} {fmt}: edges and integers, border and zeros: "
+                f"max |diff| / max within {BWD_TOL[name]:.3g} (worst max "
+                f"|diff| so far {worst:.3g}); the image gradient in the "
+                "image's type and memory format; 1 launch each entry point")
+    # at a clamp limit the coordinate gradient is half the inner one
+    # (XLA's tie of maximum and minimum), 0 beyond it: one pixel each
+    img = torch.rand(1, 1, 4, 5, generator=gen).cuda()
+    g1 = torch.ones(1, 1, 1, 3, device="cuda")
+    lim = torch.tensor([[[0.0, 4.0, -1.0]]], device="cuda")
+    mid = torch.tensor([[[1.0, 1.0, 1.0]]], device="cuda")
+    _, kx, _ = warp.sample_backward(g1, img, lim, mid, "border")
+    row = img[0, 0, 1]
+    want = torch.stack([0.5 * (row[1] - row[0]), 0.5 * (0 - row[4]),
+                        torch.zeros((), device="cuda")])
+    if not torch.allclose(kx[0, 0], want, rtol=0, atol=1e-7):
+        raise AssertionError(f"B3 at the clamp limits: {kx} vs {want}")
+    log("B3 at the clamp limits (border): the x gradient at x = 0 and x = W "
+        "- 1 is half the one-sided difference, 0 beyond (jax.grad's)")
+    # times at the UnFlow training shape, channels_last float32, border: on
+    # a smooth flow of ~6 px (the random provider's size) and on the edges
+    # case, where most samples clamp onto an edge and its pixels take the
+    # atomics of whole rows
+    img = torch.rand(B, Ch, h, w, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    g = torch.randn(B, Ch, h, w, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    smooth = torch.nn.functional.interpolate(
+        torch.randn(B, 2, h // 32, w // 32, generator=gen) * 6, size=(h, w),
+        mode="bilinear", align_corners=False).cuda()
+    for where, (fx, fy) in (("", warp._abs_coords(
+            *warp._warp_grid(smooth), h, w, False, "zeros")),
+            ("@edges", cases[0][1:])):
+        grid = torch.stack([fx * (2.0 / w) + (1.0 / w - 1.0),
+                            fy * (2.0 / h) + (1.0 / h - 1.0)], -1)
+        outs = warp.sample_backward(g, img, fx, fy, "border")
+        for name, needs, mask, out in (
+                ("sample_bwd_img", (True, False), [True, False], outs[:1]),
+                ("sample_bwd_coords", (False, True), [False, True],
+                 outs[1:])):
+            key = name + where
+            times[key] = _in_turns(
+                key, lambda: warp.sample_backward(g, img, fx, fy, "border",
+                                                  needs),
+                lambda: warp.sample_backward_plain(g, img, fx, fy, "border",
+                                                   needs), smi,
+                f"{B}x{Ch}x{h}x{w} float32 channels_last, border, "
+                f"{'the edges case' if where else 'a smooth ~6 px flow'}",
+                kreps=20, preps=2, timer=_graph_ms, ptimer=_event_ms)
+            reads = (g, fx, fy) if needs[0] else (g, img, fx, fy)
+            nb = _nbytes(*reads, *out)
+            bounds[key] = (nb / PEAK_BYTES * 1e3, "bytes")
+            library[key] = _graph_ms(
+                lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    g, img, grid, 0, 1, False, mask), 20)
+            log(f"[{smi}] {key}: kernel {times[key][0]:.4f} ms (the wrapper "
+                f"call{', zeroed float32 buffer included' if needs[0] else ''}"
+                f"), plain {times[key][1]:.4f} ms, bound "
+                f"{bounds[key][0]:.5f} ms (bytes: {nb} B at 3.35 TB/s), "
+                f"aten::grid_sampler_2d_backward (output mask {mask}) "
+                f"{library[key]:.4f} ms")
+    return worst
+
+
+def _unflow_grads(model, a, b, R):
+    """Flow and the gradients of ``mean(flow * R)`` for every parameter and
+    both frames, and the host ms of forward and backward (synchronized)."""
+    import torch
+
+    model.zero_grad(set_to_none=True)
+    a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow = model(a, b)
+    (flow * R).mean().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    grads.update(first=a.grad, second=b.grad)
+    return flow.detach(), grads, ms
+
+
+def _remat_run_a(smi):
+    """Run A's micro-step (full width, batch 4, bf16, base trained, frozen
+    RAFT and depth in the step) with ``remat`` and without, from the same
+    weights and batch, in parity mode: parameters after one step equal bit
+    for bit, the remat peak lower; then ms/step (median of 3 more)."""
+    import torch
+
+    from mfcnet_tpu_torch.cli.train_multiframe_detection import build_flow_fn
+    from mfcnet_tpu_torch.data.transforms import (
+        TransformConfig,
+        augment_train_batch,
+    )
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights_lecun,
+    )
+    from mfcnet_tpu_torch.train.schedule import make_schedule
+    from mfcnet_tpu_torch.train.state import TrainState
+    from mfcnet_tpu_torch.train.steps import make_multiframe_train_step
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    rng = np.random.default_rng(SEED)
+    batch = augment_train_batch({
+        "frames": rng.integers(0, 256, (TRAIN_B, T, H, W, 3), dtype=np.uint8),
+        "mask": rng.integers(0, C, (TRAIN_B, H, W), dtype=np.uint8),
+        "depth": rng.integers(0, 256, (TRAIN_B, T, H, W), dtype=np.uint8)},
+        torch.Generator().manual_seed(SEED), TransformConfig(
+            out_height=H, out_width=W), "cuda")
+    flow_fn = build_flow_fn("RAFT", (H, W), None, "bfloat16", "cuda")
+    step = make_multiframe_train_step(
+        ["nll", "soft_jaccard"], [0.7, 0.3], C, flow_fn=flow_fn,
+        compute_dtype="bfloat16")
+    out = {}
+    with parity_mode():
+        for remat in (False, True):
+            model = init_weights_lecun(get_multiframe_segmentation_model(
+                "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+                add_depth_inputs=True, remat=remat),
+                torch.Generator().manual_seed(SEED)).cuda()
+            st = TrainState(model, make_schedule("Constant", STEP_LR, 1, 1),
+                            T)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(st, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step(st, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[remat] = (sd, peak, float(np.median(ms)), ms)
+            del model, st
+            torch.cuda.empty_cache()
+    (sd0, peak0, ms0, all0), (sd1, peak1, ms1, all1) = out[False], out[True]
+    differ = [k for k in sd0 if not torch.equal(sd0[k], sd1[k])]
+    if differ:
+        raise AssertionError(f"--remat: parameters after one step differ: "
+                             f"{differ[:5]} ({len(differ)} tensors)")
+    if not peak1 < peak0:
+        raise AssertionError(f"--remat: peak {peak1} not below {peak0}")
+    log(f"[{smi}] run A's micro-step (TernausNetMulti-Basic {H}x{W}, batch "
+        f"{TRAIN_B}, bf16, base trained, RAFT x{FLOW_ITERS} + depth; parity "
+        f"mode): with --remat the {len(sd0)} parameter and buffer tensors "
+        f"after one step equal those without, bit for bit; peak "
+        f"max_memory_allocated {peak1 / 2 ** 30:.3f} GiB with --remat, "
+        f"{peak0 / 2 ** 30:.3f} GiB without ({peak1 / peak0:.1%}); ms/step "
+        f"{ms1:.2f} with, {ms0:.2f} without (medians of "
+        f"{[round(x, 2) for x in all1]} / {[round(x, 2) for x in all0]})")
+
+
+def phase_unflow_grad_slice(smi):
+    """The backward slice: B2 and B3 against their plain versions, alone and
+    through UnFlow's gradient at 4 pairs of 512x640 (float32 and bfloat16
+    models; the main-path run is the float32 model's through the kernels);
+    run A's micro-step with and without ``--remat``. Returns (the main-path
+    run's launches, its backward passes, times, bounds, library, max
+    |diff| by kernel)."""
+    import torch
+
+    from mfcnet_tpu_torch.models.unflow import UnFlow, he_init_weights
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    times, bounds, library = {}, {}, {}
+    errs = {"correlation_bwd": _hold_b2(gen, smi, times, bounds, library)}
+    errs["sample_bwd_img"] = errs["sample_bwd_coords"] = _hold_b3(
+        gen, smi, times, bounds, library)
+
+    # frames in [0, 1] with one uint8 step of continuous noise: in a flat
+    # region first - warp(second) is a few roundings of zero, and |.|'s kink
+    # there would let the two runs' last-bit differences flip the frames'
+    # gradients pixel by pixel
+    frames = torch.from_numpy(synthetic_frames(8, hw=(UH, UW))).float()
+    frames = (frames + torch.rand(frames.shape, generator=gen)) / 256.0
+    a = frames[[p for p, _ in UNFLOW_GRAD_PAIRS]].cuda()
+    b = frames[[q for _, q in UNFLOW_GRAD_PAIRS]].cuda()
+    R = torch.randn(len(UNFLOW_GRAD_PAIRS), UH, UW, 2, generator=gen).cuda()
+    launches = None
+    with parity_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            model = he_init_weights(UnFlow(), torch.Generator().manual_seed(
+                SEED)).to("cuda", dt)
+            _unflow_grads(model, a, b, R)  # warm-up
+            _reset_all_launches()
+            flow_k, gk, ms_k = _unflow_grads(model, a, b, R)
+            run = _all_launches()
+            if dt == torch.float32:
+                launches = run
+            want = {"correlation": 1, "correlation_bwd": 1,
+                    "backward_warp": 2, "sample_bwd_img": 2,
+                    "sample_bwd_coords": 2}
+            if any(run[k] != n for k, n in want.items()):
+                raise AssertionError(f"UnFlow gradient: launches {run}")
+            _require_launches("unflow_grad", run)
+            with _plain_backward_kernels():
+                _, gh, ms_h = _unflow_grads(model, a, b, R)
+            with _plain_unflow_kernels():
+                _reset_all_launches()
+                flow_p, gp, ms_p = _unflow_grads(model, a, b, R)
+                if any(_all_launches().values()):
+                    raise AssertionError("the plain run launched kernels")
+            rel_h = {k: _rel(gk[k], gh[k]) for k in gk}
+            rel_p = {k: _rel(gk[k], gp[k]) for k in gk}
+            rounded = dt == torch.bfloat16
+            for what, rel in (("held", rel_h), ("whole", rel_p)):
+                bad = {k: v for k, v in rel.items()
+                       if not v <= UNFLOW_GRAD_TOL[what] + (
+                           2.0 ** -8 if rounded and k in ("first", "second")
+                           else 0.0)}
+                if bad:
+                    raise AssertionError(f"UnFlow {dt} gradients ({what}): "
+                                         f"{bad}")
+            if not all(torch.isfinite(t).all() for t in gk.values()):
+                raise AssertionError("UnFlow gradient: not finite")
+            name = str(dt).split(".")[1]
+
+            def worst(rel):
+                return (max(v for k, v in rel.items()
+                            if k not in ("first", "second")),
+                        rel["first"], rel["second"])
+
+            top = sorted(rel_p.items(), key=lambda kv: -kv[1])[:3]
+            log(f"[{smi}] UnFlow gradient, {name} model (its convolutions "
+                f"float32), {len(UNFLOW_GRAD_PAIRS)} pairs at {UH}x{UW}, loss "
+                f"mean(flow * R), parity mode, {len(gk) - 2} parameters and "
+                f"both frames, max |diff| / max (worst parameter; first, "
+                f"second frame): kernels vs plain backward on the kernels' "
+                f"forward {worst(rel_h)} (limit {UNFLOW_GRAD_TOL['held']}"
+                f"{' + 2^-8 on the frames' if rounded else ''}); vs the "
+                f"plain forward and backward {worst(rel_p)} (limit "
+                f"{UNFLOW_GRAD_TOL['whole']}; largest {top}); flows "
+                f"{_rel(flow_k, flow_p):.3g} apart (max |flow| "
+                f"{float(flow_p.abs().max()):.4g} px); forward + backward "
+                f"{ms_k:.1f} ms through the kernels, {ms_h:.1f} with the "
+                f"plain backward, {ms_p:.1f} plain; launches "
+                f"{json.dumps({k: v for k, v in run.items() if v})}")
+            del model
+    _remat_run_a(smi)
+    return launches, 1, times, bounds, library, errs
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -5675,6 +6136,10 @@ def main():
     done("phase 8")
     zoo_paths.update(phase_artifact_slice(engine, flow_engine, frames, smi))
     done("phase 9")
+    launches_grad, n_grad, t, b, lib, e = phase_unflow_grad_slice(smi)
+    done("phase 10")
+    for d, new in ((times, t), (bounds, b), (library, lib), (errs, e)):
+        d.update(new)
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
      (launches_train_ffpp, n_micro_ffpp)) = phase_train(smi)
     done("phase 5")
@@ -5695,6 +6160,7 @@ def main():
              "ffpp": (launches_ffpp, fused_ffpp),
              "train": (launches_train, n_micro),
              "train_ffpp": (launches_train_ffpp, n_micro_ffpp),
+             "unflow_grad": (launches_grad, n_grad),
              **zoo_paths}
     log(smi)
     log(json.dumps({"kernels": [

@@ -135,7 +135,8 @@ def main(argv=None):
     model = get_multiframe_segmentation_model(
         args.model_type, num_classes=args.num_classes,
         num_input_frames=T, add_optflow_inputs=args.add_optflow_inputs,
-        add_depth_inputs=args.add_depth_inputs, scale=args.model_scale)
+        add_depth_inputs=args.add_depth_inputs, scale=args.model_scale,
+        remat=args.remat)
     init_weights_lecun(model, torch.Generator().manual_seed(args.seed))
     model.multiframe_net.parity_grid = args.parity_grid
     base_loaded = False

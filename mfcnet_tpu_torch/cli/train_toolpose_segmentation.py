@@ -149,7 +149,8 @@ def main(argv=None):
             fold_index=args.fold_index, seed=args.seed,
             packed_dir=args.packed_dir)
     model = get_tooltip_segmentation_model(
-        args.model_type, args.num_classes, scale=args.model_scale)
+        args.model_type, args.num_classes, scale=args.model_scale,
+        remat=args.remat)
     init_weights_lecun(model, torch.Generator().manual_seed(args.seed))
     model.to(device)
     accum = max(1, args.grad_accum)

@@ -8,8 +8,9 @@ frames a video and add ``--save_output_freq`` and ``--use_ema`` in place
 of the training flags.
 
 Flags that have no counterpart on one card (``--spatial_shards`` > 1,
-``--multihost``, ``--ckpt_backend orbax``, ``--remat``) are accepted and
-raise in the CLI, naming their ROADMAP item. ``--pretrained True`` logs
+``--multihost``, ``--ckpt_backend orbax``) are accepted and raise in the
+CLI, naming their ROADMAP item. ``--remat True`` rematerializes a TernausNet
+or TAPNet base's segments in training (``torch.utils.checkpoint``). ``--pretrained True`` logs
 the JAX package's warning and runs on the model's own initialization:
 neither package downloads weights.
 """
@@ -203,7 +204,6 @@ LATER_FLAGS = {
     "spatial_shards": (1, "Queue 1 item 11d (spatial sharding)"),
     "multihost": (False, "Queue 1 item 11d (multi-host training)"),
     "ckpt_backend": ("msgpack", "Queue 1 item 12 (orbax checkpoints)"),
-    "remat": (False, "Queue 1 item 8c (--remat: torch.utils.checkpoint)"),
 }
 
 

@@ -78,10 +78,40 @@
 // outputs in registers (4 pixels s apart, 8 consecutive dx_i: 15 float4
 // reads feed 128 multiply-adds); eight lanes share one tile and split C
 // between them, and add their partial sums with shuffles.
+//
+// The backward (B2, mfc_correlation_bwd). Replaces the VJP that
+// correlation_pallas attaches with jax.custom_vjp (_bwd: jax.vjp of
+// correlation_shifts). With g the (B, H, W, D * D) float32 upstream
+// gradient:
+//   grad_f1[p, c] = (1 / C) sum_d g[p, d] f2[p + off(d), c]
+//   grad_f2[q, c] = (1 / C) sum_d g[q - off(d), d] f1[q - off(d), c]
+// over in-image pixels only. Both are gathers, and on a residue sub-grid
+// both have the forward's shape: a windowed product of radius R at stride
+// 1, grad_f1 of the window of f2 with weights g[p, d], grad_f2 of the
+// window of f1 with weights g[q + off(d'), d'^] read from the neighbour at
+// the mirrored displacement (d' = (i', j') -> d'^ = (2R - i', 2R - j')).
+// One kernel computes either, each block owning a tile of BTY x BTX
+// sub-grid pixels and BCC channels of one gradient, so no output is written
+// twice, there are no atomics, and the result is the same from run to run;
+// a launch carries the blocks of both gradients (or of the one asked for).
+// A block walks the operand rows z that its tile's windows reach: it stages
+// row z (BTX + 2R pixels of BCC channels, widened to float32) and the
+// weights of the tile's pixels for the displacement row z selects, then a
+// thread (one tile row, 4 adjacent pixels, 4 channels) sums D products a
+// pixel and channel with float32 multiply-adds, sliding a window of 4
+// operand columns along dx. What bounds it: operations. Each gradient is
+// the forward's 2 B H W D^2 C operations (1.16 GFLOP both at the tracker's
+// 2 x 32 x 40 x 256), against ~15 MB of operands, gradients and g moved:
+// 7.0 us at the 3xTF32 tensor-core rate the forward's route uses, 17 us
+// at the 67 TFLOP/s float32 FMA rate this first design has. float32 sums
+// (in dy-major order for grad_f1, the plain version's); bfloat16 inputs
+// read widened, each gradient returned in its input's type.
 
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+
+#include <cuda_bf16.h>
 
 #include "shared_memory.cuh"
 
@@ -597,6 +627,148 @@ int run_tc(const TcArgs& a, const Plan& p, cudaStream_t st) {
   return ERR_PLAN;
 }
 
+
+// ------------------------------------------------------------- backward
+constexpr int BW_THREADS = 256;
+constexpr int BTY = 8, BTX = 8;  // a block's tile of sub-grid pixels
+constexpr int BCC = 64;          // ... and of channels
+static_assert(BTY * (BTX / 4) * (BCC / 4) == BW_THREADS, "one thread a "
+              "tile row, 4 pixels and 4 channels");
+
+__device__ __forceinline__ void store1(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store1(float v, bf16_raw* p) {
+  p->bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+struct BwdArgs {
+  const float* g;  // (B, H, W, D * D)
+  const void* f1;
+  const void* f2;
+  void* gf1;  // (B, H, W, C) or null
+  void* gf2;
+  int H, W, C, s, R;
+  int NTY, NTX, NCC;  // tiles along sub-grid rows and columns, channels
+  int blocks1;        // blocks of grad_f1 (0 when it is not wanted)
+  float inv_c;
+};
+
+// One block: (b, ry, rx, tile (ty, tx), channel chunk cc) of grad_f1 (the
+// first blocks1 blocks) or grad_f2 (the rest).
+template <typename T>
+__global__ void __launch_bounds__(BW_THREADS)
+corr_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float bsm[];
+  const int s = a.s, R = a.R, D = 2 * R + 1, DD = D * D, XW = BTX + 2 * R;
+  float* xs = bsm;             // operand row z: XW pixels x BCC channels
+  float* gz = bsm + XW * BCC;  // weights [tile row][dx_i][tile column]
+  int id = blockIdx.x;
+  const bool second = id >= a.blocks1;
+  if (second) id -= a.blocks1;
+  const int cc = id % a.NCC;
+  id /= a.NCC;
+  const int tx = id % a.NTX;
+  id /= a.NTX;
+  const int ty = id % a.NTY;
+  id /= a.NTY;
+  const int rx = id % s;
+  id /= s;
+  const int ry = id % s;
+  const int b = id / s;
+  const int Hs = (a.H - ry + s - 1) / s, Ws = (a.W - rx + s - 1) / s;
+  const int y0 = ty * BTY, x0 = tx * BTX, c0 = cc * BCC;
+  if (y0 >= Hs || x0 >= Ws) return;
+  const T* X = (const T*)(second ? a.f1 : a.f2);
+  T* out = (T*)(second ? a.gf2 : a.gf1);
+  auto pixel = [&](int ys, int xsub) {
+    return ((size_t)b * a.H + (size_t)(s * ys + ry)) * a.W + s * xsub + rx;
+  };
+  const int tid = threadIdx.x, cq = tid % 16, xq = (tid / 16) % 2,
+            r = tid / 32;
+  float acc[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[k][e] = 0.0f;
+
+  const int zlo = max(0, y0 - R), zhi = min(Hs, y0 + BTY + R);
+  for (int z = zlo; z < zhi; ++z) {
+    __syncthreads();  // the previous row's products have read xs and gz
+    for (int idx = tid; idx < XW * BCC; idx += BW_THREADS) {
+      const int col = idx / BCC, c = idx - col * BCC, xsub = x0 - R + col;
+      xs[idx] = xsub >= 0 && xsub < Ws && c0 + c < a.C
+                    ? load1(X + pixel(z, xsub) * a.C + c0 + c)
+                    : 0.0f;
+    }
+    // the weights of displacement row i = z - ys + R of tile row r2;
+    // dx_i fastest, so that grad_f1's reads run along a pixel's g
+    for (int idx = tid; idx < BTY * BTX * D; idx += BW_THREADS) {
+      const int j = idx % D, x = (idx / D) % BTX, r2 = idx / (D * BTX);
+      const int ys = y0 + r2, xsub = x0 + x, i = z - ys + R;
+      float v = 0.0f;
+      if (ys < Hs && xsub < Ws && i >= 0 && i < D) {
+        if (!second) {
+          v = a.g[pixel(ys, xsub) * DD + i * D + j];
+        } else {  // from the source pixel (z, xsub + j - R), mirrored
+          const int xsrc = xsub + j - R;
+          if (xsrc >= 0 && xsrc < Ws)
+            v = a.g[pixel(z, xsrc) * DD + (2 * R - i) * D + (2 * R - j)];
+        }
+      }
+      gz[(r2 * D + j) * BTX + x] = v;
+    }
+    __syncthreads();
+    const int i = z - (y0 + r) + R;
+    if (i < 0 || i >= D) continue;  // no displacement row of this tile row
+    // pixel k of the thread reads operand column 4 xq + k + j at dx_i j
+    const float* xr = xs + 4 * xq * BCC + 4 * cq;
+    const float* gr = gz + r * D * BTX + 4 * xq;
+    float4 w0 = *reinterpret_cast<const float4*>(xr);
+    float4 w1 = *reinterpret_cast<const float4*>(xr + BCC);
+    float4 w2 = *reinterpret_cast<const float4*>(xr + 2 * BCC);
+    for (int j = 0; j < D; ++j) {
+      const float4 w3 = *reinterpret_cast<const float4*>(xr + (j + 3) * BCC);
+      const float4 gv = *reinterpret_cast<const float4*>(gr + j * BTX);
+      const float gk[4] = {gv.x, gv.y, gv.z, gv.w};
+      const float4 wk[4] = {w0, w1, w2, w3};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[k][0] = fmaf(gk[k], wk[k].x, acc[k][0]);
+        acc[k][1] = fmaf(gk[k], wk[k].y, acc[k][1]);
+        acc[k][2] = fmaf(gk[k], wk[k].z, acc[k][2]);
+        acc[k][3] = fmaf(gk[k], wk[k].w, acc[k][3]);
+      }
+      w0 = w1;
+      w1 = w2;
+      w2 = w3;
+    }
+  }
+  const int ys = y0 + r;
+  if (ys >= Hs) return;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int xsub = x0 + 4 * xq + k;
+    if (xsub >= Ws) break;
+    T* o = out + pixel(ys, xsub) * a.C + c0 + 4 * cq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + 4 * cq + e < a.C) store1(acc[k][e] * a.inv_c, o + e);
+  }
+}
+
+template <typename T>
+int run_bwd(const BwdArgs& a, int blocks, cudaStream_t stream) {
+  int limit = 0;
+  const int rc = mfc::allow_shared_memory<corr_bwd_kernel<T>>(&limit);
+  if (rc != 0) return rc;
+  const int D = 2 * a.R + 1;
+  // a staged row: XW pixels (the last tile column reads its last one at
+  // dx_i = D - 1); the weights of the tile's rows for one dy row
+  const size_t bytes = ((size_t)(BTX + 2 * a.R) * BCC + BTY * D * BTX) * 4;
+  if (bytes > (size_t)limit) return -1;
+  corr_bwd_kernel<T><<<blocks, BW_THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // f1, f2 (B, H, W, C) float32 (dtype 0) or bfloat16 (dtype 1), contiguous,
@@ -628,4 +800,33 @@ extern "C" int mfc_correlation(const void* f1, const void* f2, void* out,
     return p.v[6] == 4 ? run_tc<float, 4>(a, p, st) : run_tc<float, 3>(a, p, st);
   return p.v[6] == 4 ? run_tc<bf16_raw, 4>(a, p, st)
                      : run_tc<bf16_raw, 3>(a, p, st);
+}
+
+
+// The correlation's backward: g (B, H, W, D * D) float32, contiguous; f1,
+// f2 (B, H, W, C) float32 (dtype 0) or bfloat16 (dtype 1), contiguous;
+// gf1, gf2 (B, H, W, C) in the inputs' type, each null where that gradient
+// is not wanted (both null: nothing is launched). One launch. Returns
+// cudaGetLastError(), or -1 when the window needs more shared memory than a
+// block may have.
+extern "C" int mfc_correlation_bwd(const void* g, const void* f1,
+                                   const void* f2, void* gf1, void* gf2,
+                                   int B, int H, int W, int C, int md, int s,
+                                   int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || md < 0 || s < 1 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (gf1 == nullptr && gf2 == nullptr) return 0;
+  const int Hs = (H + s - 1) / s, Ws = (W + s - 1) / s;
+  const int NTY = (Hs + BTY - 1) / BTY, NTX = (Ws + BTX - 1) / BTX,
+            NCC = (C + BCC - 1) / BCC;
+  const long long per = (long long)B * s * s * NTY * NTX * NCC;
+  const long long blocks = per * ((gf1 != nullptr) + (gf2 != nullptr));
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const BwdArgs a = {(const float*)g, f1, f2, gf1, gf2, H, W, C, s, md / s,
+                     NTY, NTX, NCC, gf1 != nullptr ? (int)per : 0,
+                     1.0f / (float)C};
+  if (dtype == 0) return run_bwd<float>(a, (int)blocks, st);
+  return run_bwd<bf16_raw>(a, (int)blocks, st);
 }

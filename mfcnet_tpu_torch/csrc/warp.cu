@@ -19,6 +19,10 @@
 //                     (_banded_warp_bwd, XLA autodiff of
 //                     _banded_warp_reference): the gradients of flow_warp
 //                     for its maps and for its flow
+//   mfc_sample_bwd_img, mfc_sample_bwd_coords <- XLA's autodiff of
+//                     mfcnet_tpu/ops/warp.py::grid_sample_bilinear (B3): the
+//                     gradients of grid_sample_bilinear and backward_warp
+//                     for the image and for the absolute coordinates
 //
 // What bounds them on this card: bytes, and the gather. flow_warp reads two
 // flow values and four taps of each of C channels per output pixel and
@@ -1230,6 +1234,143 @@ int launch_flow_warp_bwd_flow(const void* g, const void* maps,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B3: the backward of grid_sample_bilinear and backward_warp, on absolute,
+// unclamped coordinates fx, fy (B, Ho, Wo) float32, which both wrappers form
+// in PyTorch with the forward's operations; border padding clips them here
+// and takes the clip's derivative as XLA does for the JAX package's
+// jnp.clip: 1 inside, 0 outside, 0.5 exactly on a limit. Both kernels read g
+// and the image by their element strides (NCHW or channels_last), one
+// thread an output pixel, every channel.
+//
+// mfc_sample_bwd_img scatters g to the four taps with the forward's float32
+// weights (products rounded as the plain version's) by float32 atomicAdd into
+// a float32 buffer the wrapper zeroes, in the image's memory format, and
+// casts after: the order of the additions at a tap changes from run to run.
+// Its bound is bytes (g, the coordinates and the buffer once); the atomics
+// and their scattered addresses set its time. mfc_sample_bwd_coords gathers
+// the derivative of the sample along x and y, summed over channels with g,
+// in JAX's floor form (the difference of the taps at floor + 1 and floor,
+// at integer coordinates too): a gather like the forward, bound by bytes.
+// The chain to the normalized grid and to the flow stays in PyTorch, the
+// same operations on both routes.
+// ---------------------------------------------------------------------------
+
+// XLA's derivative of minimum(maximum(v, 0), hi)
+__device__ __forceinline__ float clip_grad(float v, float hi) {
+  const float m = fmaxf(v, 0.0f);
+  const float lo = v > 0.0f ? 1.0f : (v == 0.0f ? 0.5f : 0.0f);
+  return lo * (m < hi ? 1.0f : (m == hi ? 0.5f : 0.0f));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TPB)
+sample_bwd_img_kernel(const T* __restrict__ g, Strides sg,
+                      const float* __restrict__ fxs,
+                      const float* __restrict__ fys, float* __restrict__ gimg,
+                      Strides si, int B, int C, int H, int W, int Ho, int Wo,
+                      int border) {
+  const size_t n = (size_t)Ho * Wo;
+  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
+  if (i >= (size_t)B * n) return;
+  const int b = (int)(i / n);
+  const int r = (int)(i - (size_t)b * n);
+  const int y = r / Wo, x = r - y * Wo;
+  float fx = fxs[i], fy = fys[i];
+  if (border) {
+    fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+    fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+  }
+  const Taps q = taps_of(fx, fy, H, W);
+  const float w00 = __fmul_rn(q.ux, q.uy), w01 = __fmul_rn(q.tx, q.uy);
+  const float w10 = __fmul_rn(q.ux, q.ty), w11 = __fmul_rn(q.tx, q.ty);
+  const T* gp = g + (ptrdiff_t)b * sg.b + (ptrdiff_t)y * sg.h +
+                (ptrdiff_t)x * sg.w;
+  float* p = gimg + (ptrdiff_t)b * si.b + (ptrdiff_t)q.y0 * si.h +
+             (ptrdiff_t)q.x0 * si.w;
+  for (int c = 0; c < C; ++c) {
+    const float gv = to_f32(gp[(ptrdiff_t)c * sg.c]);
+    float* pc = p + (ptrdiff_t)c * si.c;
+    if (q.v00) atomicAdd(pc, __fmul_rn(gv, w00));
+    if (q.v01) atomicAdd(pc + si.w, __fmul_rn(gv, w01));
+    if (q.v10) atomicAdd(pc + si.h, __fmul_rn(gv, w10));
+    if (q.v11) atomicAdd(pc + si.h + si.w, __fmul_rn(gv, w11));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TPB)
+sample_bwd_coords_kernel(const T* __restrict__ g, Strides sg,
+                         const T* __restrict__ img, Strides si,
+                         const float* __restrict__ fxs,
+                         const float* __restrict__ fys,
+                         float* __restrict__ gfx, float* __restrict__ gfy,
+                         int B, int C, int H, int W, int Ho, int Wo,
+                         int border) {
+  const size_t n = (size_t)Ho * Wo;
+  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
+  if (i >= (size_t)B * n) return;
+  const int b = (int)(i / n);
+  const int r = (int)(i - (size_t)b * n);
+  const int y = r / Wo, x = r - y * Wo;
+  float fx = fxs[i], fy = fys[i], cx = 1.0f, cy = 1.0f;
+  if (border) {
+    cx = clip_grad(fx, (float)(W - 1));
+    cy = clip_grad(fy, (float)(H - 1));
+    fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+    fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+  }
+  const Taps q = taps_of(fx, fy, H, W);
+  const T* gp = g + (ptrdiff_t)b * sg.b + (ptrdiff_t)y * sg.h +
+                (ptrdiff_t)x * sg.w;
+  const T* p = img + (ptrdiff_t)b * si.b + (ptrdiff_t)q.y0 * si.h +
+               (ptrdiff_t)q.x0 * si.w;
+  float sx = 0.0f, sy = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const T* pc = p + (ptrdiff_t)c * si.c;
+    const float v00 = q.v00 ? to_f32(pc[0]) : 0.0f;
+    const float v01 = q.v01 ? to_f32(pc[si.w]) : 0.0f;
+    const float v10 = q.v10 ? to_f32(pc[si.h]) : 0.0f;
+    const float v11 = q.v11 ? to_f32(pc[si.h + si.w]) : 0.0f;
+    const float dx = __fadd_rn(__fmul_rn(q.uy, __fsub_rn(v01, v00)),
+                               __fmul_rn(q.ty, __fsub_rn(v11, v10)));
+    const float dy = __fadd_rn(__fmul_rn(q.ux, __fsub_rn(v10, v00)),
+                               __fmul_rn(q.tx, __fsub_rn(v11, v01)));
+    const float gv = to_f32(gp[(ptrdiff_t)c * sg.c]);
+    sx = __fadd_rn(sx, __fmul_rn(gv, dx));
+    sy = __fadd_rn(sy, __fmul_rn(gv, dy));
+  }
+  gfx[i] = __fmul_rn(sx, cx);
+  gfy[i] = __fmul_rn(sy, cy);
+}
+
+template <typename T>
+int launch_sample_bwd_img(const void* g, const void* fx, const void* fy,
+                          void* gimg, const int* st, int B, int C, int H,
+                          int W, int Ho, int Wo, int border, cudaStream_t s) {
+  const Strides sg = {st[0], st[1], st[2], st[3]};
+  const Strides si = {st[4], st[5], st[6], st[7]};
+  sample_bwd_img_kernel<T><<<blocks_for((size_t)B * Ho * Wo), TPB, 0, s>>>(
+      (const T*)g, sg, (const float*)fx, (const float*)fy, (float*)gimg, si,
+      B, C, H, W, Ho, Wo, border);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sample_bwd_coords(const void* g, const void* img, const void* fx,
+                             const void* fy, void* gfx, void* gfy,
+                             const int* st, int B, int C, int H, int W,
+                             int Ho, int Wo, int border, cudaStream_t s) {
+  const Strides sg = {st[0], st[1], st[2], st[3]};
+  const Strides si = {st[4], st[5], st[6], st[7]};
+  sample_bwd_coords_kernel<T>
+      <<<blocks_for((size_t)B * Ho * Wo), TPB, 0, s>>>(
+          (const T*)g, sg, (const T*)img, si, (const float*)fx,
+          (const float*)fy, (float*)gfx, (float*)gfy, B, C, H, W, Ho, Wo,
+          border);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // maps (B, C, H, W) float32 (dtype 0) or bfloat16 (dtype 1); flow
@@ -1334,5 +1475,47 @@ extern "C" int mfc_flow_warp_bwd_flow(const void* g, const void* maps,
   if (dtype == 1)
     return launch_flow_warp_bwd_flow<__nv_bfloat16>(
         g, maps, flow, gflow, B, C, H, W, gh, gw, align_corners, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// B3's image gradient: g (B, C, Ho, Wo) float32 (dtype 0) or bfloat16
+// (dtype 1), the upstream gradient; fx, fy (B, Ho, Wo) float32, contiguous,
+// the absolute unclamped coordinates; gimg (B, C, H, W) float32, zeroed by
+// the caller; strides: 8 ints, the element strides (batch, channel, row,
+// column) of g and gimg. border: 0 zeros padding, 1 border padding.
+extern "C" int mfc_sample_bwd_img(const void* g, const void* fx,
+                                  const void* fy, void* gimg,
+                                  const int* strides, int B, int C, int H,
+                                  int W, int Ho, int Wo, int border,
+                                  int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((size_t)B * Ho * Wo == 0 || C == 0) return 0;
+  if (dtype == 0)
+    return launch_sample_bwd_img<float>(g, fx, fy, gimg, strides, B, C, H, W,
+                                        Ho, Wo, border, s);
+  if (dtype == 1)
+    return launch_sample_bwd_img<__nv_bfloat16>(g, fx, fy, gimg, strides, B,
+                                                C, H, W, Ho, Wo, border, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3's coordinate gradient: g (B, C, Ho, Wo) and img (B, C, H, W) float32
+// (dtype 0) or bfloat16 (dtype 1); fx, fy as above; gfx, gfy (B, Ho, Wo)
+// float32, contiguous; strides: 8 ints, those of g and img.
+extern "C" int mfc_sample_bwd_coords(const void* g, const void* img,
+                                     const void* fx, const void* fy,
+                                     void* gfx, void* gfy, const int* strides,
+                                     int B, int C, int H, int W, int Ho,
+                                     int Wo, int border, int dtype,
+                                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((size_t)B * Ho * Wo == 0) return 0;
+  if (dtype == 0)
+    return launch_sample_bwd_coords<float>(g, img, fx, fy, gfx, gfy, strides,
+                                           B, C, H, W, Ho, Wo, border, s);
+  if (dtype == 1)
+    return launch_sample_bwd_coords<__nv_bfloat16>(
+        g, img, fx, fy, gfx, gfy, strides, B, C, H, W, Ho, Wo, border, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -57,23 +57,26 @@ def _scaled_vgg(stages, scale: float):
     )
 
 
-def _build_base(kind: str, num_classes: int, scale: float = 1.0):
+def _build_base(kind: str, num_classes: int, scale: float = 1.0,
+                remat: bool = False):
     """(single-frame model, base_output) by model type, with the JAX
     registry's rules for ``scale`` < 1 (``mfcnet_tpu/models/__init__.py::
-    _build_base``)."""
+    _build_base``); ``remat`` reaches the TernausNet and TAPNet types
+    only, as there."""
     if kind in ("TernausNet11", "TernausNet16"):
         cls, stages = ((TernausNet11, VGG11_STAGES) if kind == "TernausNet11"
                        else (TernausNet16, VGG16_STAGES))
         return cls(num_classes=num_classes,
                    num_filters=max(4, int(64 * scale)),
-                   stage_convs=_scaled_vgg(stages, scale)), "exp"
+                   stage_convs=_scaled_vgg(stages, scale),
+                   remat=remat), "exp"
     if kind in ("TAPNet11", "TAPNet16"):
         from mfcnet_tpu_torch.models.tapnet import TAPNet11, TAPNet16
 
         cls, stages = ((TAPNet11, VGG11_STAGES) if kind == "TAPNet11"
                        else (TAPNet16, VGG16_STAGES))
-        return cls(num_classes,
-                   stage_convs=_scaled_vgg(stages, scale)), "exp"
+        return cls(num_classes, stage_convs=_scaled_vgg(stages, scale),
+                   remat=remat), "exp"
     if kind == "UNet":
         from mfcnet_tpu_torch.models.unet import UNET_DIMS, UNet
 
@@ -122,6 +125,7 @@ def get_multiframe_segmentation_model(
     add_depth_inputs: bool = False,
     scale: float = 1.0,
     generator: torch.Generator | None = None,
+    remat: bool = False,
 ) -> MultiFrameSegmenter:
     """Build a multi-frame model by the reference's model-type string.
 
@@ -130,13 +134,15 @@ def get_multiframe_segmentation_model(
     2(T-1) channels (the raw flows); ``add_depth_inputs`` widens the
     head's first conv by T channels. ``scale`` < 1 shrinks the base as
     the JAX registry does; ``generator`` seeds the random initialization
-    (PyTorch's default init schemes, drawn from this generator)."""
+    (PyTorch's default init schemes, drawn from this generator);
+    ``remat`` rematerializes a TernausNet base's segments in training
+    (``--remat``)."""
     family, _, variant = model_type.rpartition("-")
     variant = variant.lower()
     if family not in _MULTI_BASES or variant not in ("basic", "large"):
         raise ValueError(f"Model type {model_type} not recognized")
     base, base_output = _build_base(_MULTI_BASES[family], num_classes,
-                                    scale)
+                                    scale, remat)
     model = MultiFrameSegmenter(base, num_classes, num_input_frames,
                                 variant=variant,
                                 base_output=base_output,
@@ -149,12 +155,14 @@ def get_multiframe_segmentation_model(
 
 def get_tooltip_segmentation_model(model_type: str, num_classes: int,
                                    scale: float = 1.0,
-                                   generator: torch.Generator | None = None
-                                   ) -> torch.nn.Module:
+                                   generator: torch.Generator | None = None,
+                                   remat: bool = False) -> torch.nn.Module:
     """A single-frame model by the reference's model-type string: the
     bases of the multi-frame families (trained first and loaded with
-    ``--load_wts_base_model``), TernausNet11 and TAPNet11/16."""
-    model, _ = _build_base(model_type, num_classes, scale)
+    ``--load_wts_base_model``), TernausNet11 and TAPNet11/16. ``remat``:
+    as in :func:`get_multiframe_segmentation_model` (TernausNet and TAPNet
+    types)."""
+    model, _ = _build_base(model_type, num_classes, scale, remat)
     if generator is not None:
         init_weights(model, generator)
     return model.eval()

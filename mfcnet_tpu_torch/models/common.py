@@ -22,6 +22,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 VGG11_STAGES = ((64,), (128,), (256, 256), (512, 512), (512, 512))
 VGG16_STAGES = (
@@ -31,6 +32,18 @@ VGG16_STAGES = (
     (512, 512, 512),
     (512, 512, 512),
 )
+
+
+def run_segment(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, while gradients are enabled, as one
+    rematerialized segment (the JAX package's ``nn.remat``):
+    ``torch.utils.checkpoint`` without reentry keeps only the segment's
+    inputs and recomputes its activations in the backward pass, restoring
+    the random state first. Parameter names and forward values do not
+    change."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class ConvReLU(nn.Module):

@@ -34,6 +34,7 @@ from mfcnet_tpu_torch.models.common import (
     VGG11_STAGES,
     VGG16_STAGES,
     log_softmax_channels,
+    run_segment,
     vgg_features,
 )
 from mfcnet_tpu_torch.ops.resize import resize_bilinear
@@ -110,9 +111,10 @@ class _TAPNetVGG(nn.Module):
     encoder, five decoder stages behind five attention modules."""
 
     def __init__(self, num_classes, stage_convs, upsample, vgg_key,
-                 width_mult=1.0):
+                 width_mult=1.0, remat=False):
         super().__init__()
         self.num_classes = num_classes
+        self.remat = remat
         self.vgg_key = vgg_key
         enc = vgg_features(stage_convs)
         self.add_module(vgg_key, enc)
@@ -143,20 +145,30 @@ class _TAPNetVGG(nn.Module):
         self.att1 = AttentionModule(c(32) + s1, c(32) + c(64))
         self.final = nn.Conv2d(c(32), num_classes, 1)
 
-    def forward(self, x, attmap):
+    def encode(self, x):
         p = self.maxpool
         conv1 = self.conv1(x)
         conv2 = self.conv2(p(conv1))
         conv3 = self.conv3(p(conv2))
         conv4 = self.conv4(p(conv3))
         conv5 = self.conv5(p(conv4))
-        center = self.center(p(conv5))
-        att, a = self.att5(torch.cat([center, conv5], 1), attmap)
+        return conv1, conv2, conv3, conv4, conv5
+
+    def forward(self, x, attmap):
+        # with ``remat`` the encoder, each decoder module and each attention
+        # module are rematerialized segments (the JAX package's nn.remat)
+        def seg(fn, *args):
+            return run_segment(self.remat, fn, *args)
+
+        conv1, conv2, conv3, conv4, conv5 = seg(self.encode, x)
+        center = seg(self.center, self.maxpool(conv5))
+        att, a = seg(self.att5, torch.cat([center, conv5], 1), attmap)
         for dec, skip, nxt in ((self.dec5, conv4, self.att4),
                                (self.dec4, conv3, self.att3),
                                (self.dec3, conv2, self.att2),
                                (self.dec2, conv1, self.att1)):
-            att, a = nxt(torch.cat([dec(att), skip], 1), upsample_2x(a))
+            att, a = seg(nxt, torch.cat([seg(dec, att), skip], 1),
+                         upsample_2x(a))
         out = self.final(self.dec1(att))
         if self.num_classes > 1:
             out = log_softmax_channels(out)
@@ -167,18 +179,18 @@ class TAPNet11(_TAPNetVGG):
     """VGG11 encoder, deconv decoder (reference tap_model.py:173-234)."""
 
     def __init__(self, num_classes: int, stage_convs=VGG11_STAGES,
-                 width_mult: float = 1.0):
+                 width_mult: float = 1.0, remat: bool = False):
         super().__init__(num_classes, stage_convs, False, "vgg11",
-                         width_mult)
+                         width_mult, remat)
 
 
 class TAPNet16(_TAPNetVGG):
     """VGG16 encoder, bilinear decoder (reference tap_model.py:237-298)."""
 
     def __init__(self, num_classes: int, stage_convs=VGG16_STAGES,
-                 width_mult: float = 1.0):
+                 width_mult: float = 1.0, remat: bool = False):
         super().__init__(num_classes, stage_convs, True, "vgg16",
-                         width_mult)
+                         width_mult, remat)
 
 
 class UNetModule(nn.Module):

@@ -9,7 +9,10 @@ with views over it (TernausNet16: the ``conv1``..``conv5`` stage
 sequences; TernausNet11: the reference's single-conv aliases ``conv1``,
 ``conv2``, ``conv3s``, ``conv3``, ..., ``conv5``), ``center``,
 ``dec5``..``dec2`` deconv blocks, ``dec1``, ``final``. Input H, W must be
-divisible by 32.
+divisible by 32. ``remat``: while training, the encoder is one
+rematerialized segment and each of ``center``, ``dec5``..``dec2`` another
+(``models/common.py::run_segment``), as the JAX package's ``nn.remat``
+wraps them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from mfcnet_tpu_torch.models.common import (
     ConvReLU,
     DecoderBlockDeconv,
     log_softmax_channels,
+    run_segment,
     vgg_features,
 )
 
@@ -33,9 +37,11 @@ class _TernausNet(nn.Module):
     overrides the encoder widths (tests use tiny stacks); ``num_filters``
     is the decoder's base width."""
 
-    def __init__(self, num_classes, num_filters, stage_convs, dec4_out):
+    def __init__(self, num_classes, num_filters, stage_convs, dec4_out,
+                 remat=False):
         super().__init__()
         self.num_classes = num_classes
+        self.remat = remat
         nf = num_filters
         self.pool = nn.MaxPool2d(2, 2)
         self.encoder = vgg_features(stage_convs)
@@ -54,12 +60,22 @@ class _TernausNet(nn.Module):
         decoder, in the reference's module order)."""
         raise NotImplementedError
 
+    def encode(self, x):
+        """The encoder's five stage outputs."""
+        raise NotImplementedError
+
+    def forward(self, x):
+        return self.decode(*run_segment(self.remat, self.encode, x))
+
     def decode(self, conv1, conv2, conv3, conv4, conv5):
-        center = self.center(self.pool(conv5))
-        dec5 = self.dec5(torch.cat([center, conv5], 1))
-        dec4 = self.dec4(torch.cat([dec5, conv4], 1))
-        dec3 = self.dec3(torch.cat([dec4, conv3], 1))
-        dec2 = self.dec2(torch.cat([dec3, conv2], 1))
+        def seg(block, x):
+            return run_segment(self.remat, block, x)
+
+        center = seg(self.center, self.pool(conv5))
+        dec5 = seg(self.dec5, torch.cat([center, conv5], 1))
+        dec4 = seg(self.dec4, torch.cat([dec5, conv4], 1))
+        dec3 = seg(self.dec3, torch.cat([dec4, conv3], 1))
+        dec2 = seg(self.dec2, torch.cat([dec3, conv2], 1))
         dec1 = self.dec1(torch.cat([dec2, conv1], 1))
         out = self.final(dec1)
         if self.num_classes > 1:
@@ -71,9 +87,9 @@ class TernausNet16(_TernausNet):
     """VGG16 encoder (reference models/ternausnet.py:98-150)."""
 
     def __init__(self, num_classes: int = 1, num_filters: int = 32,
-                 stage_convs=VGG16_STAGES):
+                 stage_convs=VGG16_STAGES, remat: bool = False):
         super().__init__(num_classes, num_filters, stage_convs,
-                         num_filters * 8)
+                         num_filters * 8, remat)
 
     def add_views(self, stage_convs):
         self.relu = nn.ReLU(inplace=True)
@@ -86,13 +102,13 @@ class TernausNet16(_TernausNet):
             idx += 1  # the stage's max-pool
             setattr(self, f"conv{si + 1}", nn.Sequential(*mods))
 
-    def forward(self, x):
+    def encode(self, x):
         conv1 = self.conv1(x)
         conv2 = self.conv2(self.pool(conv1))
         conv3 = self.conv3(self.pool(conv2))
         conv4 = self.conv4(self.pool(conv3))
         conv5 = self.conv5(self.pool(conv4))
-        return self.decode(conv1, conv2, conv3, conv4, conv5)
+        return conv1, conv2, conv3, conv4, conv5
 
 
 #: TernausNet11's aliases of its VGG11 encoder's convolutions, at
@@ -109,23 +125,23 @@ class TernausNet11(_TernausNet):
     takes the encoder's last width here, as the JAX module infers it."""
 
     def __init__(self, num_classes: int = 1, num_filters: int = 32,
-                 stage_convs=VGG11_STAGES):
+                 stage_convs=VGG11_STAGES, remat: bool = False):
         if tuple(map(len, stage_convs)) != (1, 1, 2, 2, 2):
             raise ValueError("TernausNet11 takes VGG11's stages of 1, 1, 2, "
                              f"2, 2 convolutions, got {stage_convs}")
         super().__init__(num_classes, num_filters, stage_convs,
-                         num_filters * 4)
+                         num_filters * 4, remat)
 
     def add_views(self, stage_convs):
         self.relu = self.encoder[1]
         for name, idx in VGG11_ALIASES:
             setattr(self, name, self.encoder[idx])
 
-    def forward(self, x):
+    def encode(self, x):
         r, p = self.relu, self.pool
         conv1 = r(self.conv1(x))
         conv2 = r(self.conv2(p(conv1)))
         conv3 = r(self.conv3(r(self.conv3s(p(conv2)))))
         conv4 = r(self.conv4(r(self.conv4s(p(conv3)))))
         conv5 = r(self.conv5(r(self.conv5s(p(conv4)))))
-        return self.decode(conv1, conv2, conv3, conv4, conv5)
+        return conv1, conv2, conv3, conv4, conv5

@@ -39,7 +39,17 @@ bfloat16 (or float16), as a bfloat16 engine makes of its provider, rounds
 the parameters to that type once and keeps them in float32, and the input
 is rounded to that type before the float32 means are subtracted; the cost
 volume, the flows and the backward warp are float32. Cast after loading
-weights: a later load stores them unrounded. The result is float32.
+weights: a later load stores them unrounded. The result is float32; a
+float64 model (the CPU tests' reference) computes in float64 throughout.
+
+Gradients: ``UnFlow(first, second)`` is differentiable in its parameters
+and both frames. The correlation and the backward warp are autograd
+Functions whose backward on CUDA tensors is a kernel each (B2:
+``mfc_correlation_bwd``; B3: ``mfc_sample_bwd_img`` and
+``mfc_sample_bwd_coords``), so that gradients reach UnFlow as ``jax.grad``
+reaches the JAX package's; a 16-bit cast keeps its float32 convolutions in
+the backward too, the frames' gradients passing back through the rounding
+of the input.
 """
 
 from __future__ import annotations
@@ -232,12 +242,19 @@ class UnFlow(nn.Module):
             self.input_dtype = dtype
             super()._apply(
                 lambda t: t.float() if t.is_floating_point() else t, recurse)
+        elif dtype == torch.float64 or self.input_dtype == torch.float64:
+            # a float64 model, or one cast back from float64 (a move to
+            # another device keeps a 16-bit input type)
+            self.input_dtype = dtype
         return self
 
     def _prep(self, image):
         """(B, H, W, 3) RGB -> NCHW BGR minus the means, channels_last,
-        float32, from the input rounded to :attr:`input_dtype`."""
-        x = image.permute(0, 3, 1, 2).flip(1).to(self.input_dtype).float()
+        float32 (float64 in a float64 model), from the input rounded to
+        :attr:`input_dtype`."""
+        x = image.permute(0, 3, 1, 2).flip(1).to(self.input_dtype)
+        if x.dtype != torch.float64:
+            x = x.float()
         return (x - self.means_bgr).contiguous(
             memory_format=torch.channels_last)
 

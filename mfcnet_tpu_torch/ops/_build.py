@@ -75,6 +75,17 @@ _SIGNATURES = {
         "mfc_flow_warp_bwd_flow": (
             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
+        # g, fx, fy, grad_img, strides[8], B, C, H, W, Ho, Wo, border,
+        # dtype, stream
+        "mfc_sample_bwd_img": (
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+        ),
+        # g, img, fx, fy, grad_fx, grad_fy, strides[8], B, C, H, W, Ho, Wo,
+        # border, dtype, stream
+        "mfc_sample_bwd_coords": (
+            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+            _I,
+        ),
     },
     "raft_update.cu": {
         "mfc_raft_plan_bytes": ((), _I),
@@ -89,6 +100,11 @@ _SIGNATURES = {
         # plan[9], stream
         "mfc_correlation": (
             (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
+        ),
+        # g, f1, f2, grad_f1, grad_f2, B, H, W, C, max_displacement,
+        # stride, dtype, stream
+        "mfc_correlation_bwd": (
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
         ),
     },
     "conv3x3.cu": {

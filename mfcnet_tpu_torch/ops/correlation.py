@@ -49,8 +49,27 @@ output. ``(1 / C)`` is a product with the rounded reciprocal, as in the TPU
 kernel (``correlation_shifts`` takes a mean: one rounding apart). The sum
 over C runs in another order in the kernel than in the plain version, so
 the two agree to atol 1e-5, rtol 1e-5 (the JAX package's own limit for its
-kernel) on both routes and both types, not bit for bit. Forward only: the
-backward kernel comes with the training slice.
+kernel) on both routes and both types, not bit for bit.
+
+The backward (B2; the JAX package attaches ``jax.vjp`` of
+``correlation_shifts`` to its kernel with ``jax.custom_vjp``): for the
+upstream gradient ``g`` (B, H, W, D*D),
+
+    grad_f1[b, y, x, c] = (1 / C) sum_d g[b, y, x, d] f2[b, y + dy, x + dx, c]
+    grad_f2[b, y', x', c] = (1 / C) sum_d g[b, y' - dy, x' - dx, d]
+                                          f1[b, y' - dy, x' - dx, c]
+
+over in-image sources only. :func:`correlation_cost_volume` is a
+``torch.autograd.Function`` where an input requires a gradient; its
+backward is :func:`correlation_backward`, which launches ``csrc/
+correlation.cu::mfc_correlation_bwd`` on CUDA tensors (both gradients as
+gathers, a block owning its outputs: no atomics, the same result from run
+to run; one launch for both, adding one to ``LAUNCHES["correlation_bwd"]``)
+and runs :func:`correlation_backward_plain`, the formula above written
+out (not autograd of :func:`correlation_plain`), on CPU tensors. Each
+gradient is computed only where its input requires one, summed in
+float32 and returned in its input's type; float64 inputs (the CPU route
+only: ``gradcheck``) run in float64 throughout.
 """
 
 from __future__ import annotations
@@ -65,12 +84,9 @@ import torch.nn.functional as F
 from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"correlation": 0}
+LAUNCHES = {"correlation": 0, "correlation_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING = ("the correlation has no backward kernel (B2; the flow "
-             "providers train frozen): ROADMAP.md Queue 1 item 8b (training a "
-             "flow provider: B2 and the update step's backward)")
 
 
 #: the tensor-core route's block: MROWS f1 pixels (four m16 tiles), at
@@ -203,42 +219,147 @@ def _check(f1, f2):
     if f1.dim() != 4 or f1.shape != f2.shape:
         raise ValueError(f"f1, f2: expected two (B, H, W, C) tensors of one "
                          f"shape, got {tuple(f1.shape)} and {tuple(f2.shape)}")
-    if f1.dtype not in _DTYPES or f2.dtype != f1.dtype:
-        raise TypeError(f"f1, f2: expected both float32 or both bfloat16, "
-                        f"got {f1.dtype} and {f2.dtype}")
-    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
-        raise NotImplementedError(
-            f"an input requires a gradient, but {_TRAINING}")
+    cpu64 = f1.dtype == torch.float64 and f1.device.type == "cpu"
+    if (f1.dtype not in _DTYPES and not cpu64) or f2.dtype != f1.dtype:
+        raise TypeError(f"f1, f2: expected both float32 or both bfloat16 "
+                        f"(float64 on the CPU), got {f1.dtype} and {f2.dtype}")
+
+
+def _wf(t):
+    """The plain versions' working type: float32, or float64 for float64
+    inputs (the CPU route only: ``gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _windows(md: int, s: int):
+    """(channel, row offset, column offset) of each displacement in an
+    f2 padded by ``md`` on each side, channels in order."""
+    D = displacements(md, s)
+    return [(dyi * D + dxi, md + (dyi - md // s) * s, md + (dxi - md // s) * s)
+            for dyi in range(D) for dxi in range(D)]
 
 
 def correlation_plain(f1, f2, max_displacement: int = 20, stride: int = 2):
     """Plain version of :func:`correlation_cost_volume`: one shifted
     product and one sum over C per displacement, any device."""
     B, H, W, C = f1.shape
-    md, s = max_displacement, stride
-    D = displacements(md, s)
-    a = f1.float()
-    b = F.pad(f2.float(), (0, 0, md, md, md, md))
+    md = max_displacement
+    a = f1.to(_wf(f1))
+    b = F.pad(f2.to(_wf(f2)), (0, 0, md, md, md, md))
     inv_c = 1.0 / C
-    outs = []
-    for dyi in range(D):
-        y0 = md + (dyi - md // s) * s
-        for dxi in range(D):
-            x0 = md + (dxi - md // s) * s
-            win = b[:, y0:y0 + H, x0:x0 + W]
-            outs.append((a * win).sum(-1) * inv_c)
+    outs = [(a * b[:, y0:y0 + H, x0:x0 + W]).sum(-1) * inv_c
+            for _, y0, x0 in _windows(md, stride)]
     return torch.stack(outs, dim=-1)
+
+
+def correlation_backward_plain(g, f1, f2, max_displacement: int = 20,
+                               stride: int = 2, needs=(True, True)):
+    """Plain version of :func:`correlation_backward`: the module
+    docstring's two sums written out, one shifted product per displacement
+    (dy-major), in float32 (float64 for float64 inputs), times 1 / C;
+    ``(grad_f1, grad_f2)`` in the inputs' type, None where ``needs`` says
+    no."""
+    B, H, W, C = f1.shape
+    md = max_displacement
+    wt = _wf(f1)
+    gw = g.to(wt)
+    a = f1.to(wt)
+    b = F.pad(f2.to(wt), (0, 0, md, md, md, md))
+    g1 = torch.zeros_like(a) if needs[0] else None
+    g2 = torch.zeros_like(b) if needs[1] else None
+    for ch, y0, x0 in _windows(md, stride):
+        gd = gw[..., ch:ch + 1]
+        if g1 is not None:
+            g1 = g1 + gd * b[:, y0:y0 + H, x0:x0 + W]
+        if g2 is not None:
+            g2[:, y0:y0 + H, x0:x0 + W] += gd * a
+    inv_c = 1.0 / C
+    return ((g1 * inv_c).to(f1.dtype) if g1 is not None else None,
+            (g2[:, md:md + H, md:md + W] * inv_c).to(f2.dtype)
+            if g2 is not None else None)
+
+
+def correlation_backward(g, f1, f2, max_displacement: int = 20,
+                         stride: int = 2, needs=(True, True)):
+    """The gradients of :func:`correlation_cost_volume` for the upstream
+    gradient ``g`` (B, H, W, D*D): ``(grad_f1, grad_f2)`` in the inputs'
+    type, None where ``needs`` says no. On CUDA tensors one launch of
+    ``mfc_correlation_bwd`` (both gradients); on CPU tensors
+    :func:`correlation_backward_plain`."""
+    _check(f1, f2)
+    if route(g, f1, f2) == "cpu":
+        return correlation_backward_plain(g, f1, f2, max_displacement, stride,
+                                          needs)
+    B, H, W, C = f1.shape
+    D = displacements(max_displacement, stride)
+    if g.shape != (B, H, W, D * D):
+        raise ValueError(f"g: expected {(B, H, W, D * D)}, "
+                         f"got {tuple(g.shape)}")
+    if max(f1.numel(), g.numel()) >= 2 ** 31:
+        raise ValueError("correlation_backward: the kernel indexes pixels "
+                         "with 32 bits")
+    g = g.float().contiguous()
+    f1, f2 = f1.contiguous(), f2.contiguous()
+    outs = [torch.empty_like(f) if need else None
+            for f, need in zip((f1, f2), needs)]
+    if not any(needs) or f1.numel() == 0:
+        return tuple(o.zero_() if o is not None else None for o in outs)
+    rc = kernel_lib().mfc_correlation_bwd(
+        g.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        *(o.data_ptr() if o is not None else None for o in outs),
+        B, H, W, C, max_displacement, stride, _DTYPES[f1.dtype],
+        stream_of(f1))
+    if rc == -1:
+        raise ValueError(
+            f"correlation_backward: max_displacement={max_displacement} "
+            f"with stride={stride} needs more shared memory than a block has")
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA kernel correlation_bwd failed: cudaError {rc}")
+    LAUNCHES["correlation_bwd"] += 1
+    return tuple(outs)
+
+
+class _Correlation(torch.autograd.Function):
+    """:func:`correlation_cost_volume` with its backward
+    (:func:`correlation_backward`); each gradient only where its input
+    requires one."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride):
+        ctx.save_for_backward(f1, f2)
+        ctx.md, ctx.stride = max_displacement, stride
+        return _correlation_forward(f1, f2, max_displacement, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        g1, g2 = correlation_backward(g, f1, f2, ctx.md, ctx.stride,
+                                      tuple(ctx.needs_input_grad[:2]))
+        return g1, g2, None, None
 
 
 def correlation_cost_volume(f1, f2, max_displacement: int = 20,
                             stride: int = 2):
     """(B, H, W, C) x 2, float32 or bfloat16 -> (B, H, W, D*D) float32
-    cost volume, channel ``dy_i * D + dx_i`` (see the module docstring)."""
+    cost volume, channel ``dy_i * D + dx_i`` (see the module docstring).
+    Differentiable in both inputs."""
     _check(f1, f2)
-    D = displacements(max_displacement, stride)
+    displacements(max_displacement, stride)
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return _Correlation.apply(f1, f2, max_displacement, stride)
+    return _correlation_forward(f1, f2, max_displacement, stride)
+
+
+def _correlation_forward(f1, f2, max_displacement, stride):
     if route(f1, f2) == "cpu":
         return correlation_plain(f1, f2, max_displacement, stride)
+    return _correlation_cuda(f1, f2, max_displacement, stride)
+
+
+def _correlation_cuda(f1, f2, max_displacement, stride):
     B, H, W, C = f1.shape
+    D = displacements(max_displacement, stride)
     if max(f1.numel(), B * H * W * D * D) >= 2 ** 31:
         raise ValueError(
             "correlation: the kernel indexes with 32 bits; "

@@ -78,9 +78,10 @@ _CONV_COLS = (192, 64, 128, 256, 128, 256, 128, 256, 16)
 _CONV_STAGE = (0, 0, 1, 2, 3, 4, 5, 6, 7)
 #: the kernel indexes its widest buffer (384 columns) with 32 bits
 MAX_TOKENS = (2 ** 31 - 1) // 384
-_TRAINING = ("the update step has no backward kernel (the flow providers "
-             "train frozen): ROADMAP.md Queue 1 item 8b (training a flow "
-             "provider: B2 and the update step's backward)")
+_TRAINING = ("the fused update step has no backward, as the JAX kernel "
+             "has no VJP either (raft_update_pallas is a bare pallas_call: "
+             "mfcnet_tpu/ops/raft_update_pallas.py:295); a differentiated "
+             "RAFT runs the plain UpdateBlock (fused_update=False)")
 
 
 def reset_launches():

@@ -61,8 +61,32 @@ when the flow requires a gradient. Between taps the flow gradient is the
 difference of the two taps; at an exactly integer coordinate k it is the
 banded hat convention as XLA differentiates it, v[k] + (v[k+1] - v[k-1]) /
 2, not the floor form's v[k+1] - v[k] (the JAX package's gather tier, taken
-when the flow leaves the band, differentiates the floor form). The other
-warps (``grid_sample_bilinear``, ``backward_warp``) stay forward only.
+when the flow leaves the band, differentiates the floor form).
+
+:func:`grid_sample_bilinear` and :func:`backward_warp` are differentiable
+too (B3): their backward is XLA's autodiff of the JAX package's
+``grid_sample_bilinear`` (``mfcnet_tpu/ops/warp.py``), on the absolute
+coordinates that both share, unclamped (:func:`sample_backward`). On CUDA
+tensors two kernels: ``mfc_sample_bwd_img`` scatters each output's
+upstream gradient to its four taps with the forward's float32 weights by
+float32 ``atomicAdd`` into a zeroed float32 buffer in the image's memory
+format (the order of the additions changes from run to run: a tap that n
+samples reach differs from the plain version's sum by about sqrt(n)
+roundings of its partial sums), cast to the image's type after;
+``mfc_sample_bwd_coords`` gathers, per output pixel, the derivative of
+the sample along x and y summed over channels. On CPU tensors
+:func:`sample_backward_plain`. The derivative is JAX's floor form: between
+taps and at an integer coordinate alike it is the difference of the taps
+at floor(f) + 1 and floor(f). In ``'border'`` mode the coordinate is
+clipped to [0, size - 1] first, and the clip's derivative is XLA's of
+``minimum(maximum(f, 0), size - 1)``: 1 inside, 0 outside, and 0.5 exactly
+on either limit (the tie of maximum and minimum split evenly), not torch's
+``grid_sampler_2d_backward``, which gives 0 there. The coordinates' chain to
+the normalized grid, and on to the flow (W / (W - 1) for
+``align_corners=False``), is transposed in the JAX code's float32 order in
+PyTorch, the same on both routes. A ``channels_last`` image gets a
+``channels_last`` gradient; a bfloat16 flow or grid a float32 gradient cast
+back to its type.
 """
 
 from __future__ import annotations
@@ -83,12 +107,10 @@ from mfcnet_tpu_torch.ops._build import (
 
 #: kernel launches per entry point since the last :func:`reset_launches`
 LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
-            "flow_warp_bwd_maps": 0, "flow_warp_bwd_flow": 0}
+            "flow_warp_bwd_maps": 0, "flow_warp_bwd_flow": 0,
+            "sample_bwd_img": 0, "sample_bwd_coords": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING = ("this warp has no backward kernel (the flow providers train "
-             "frozen): ROADMAP.md Queue 1 item 8b (training a flow provider: "
-             "B2 and the update step's backward)")
 
 
 #: the maps gradient's kernel (``csrc/warp.cu`` has the same): destination
@@ -166,10 +188,15 @@ def _wf(t):
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
-def _no_grad_inputs(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"an input requires a gradient, but {_TRAINING}")
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _const(v, like):
+    """A 0-dim factor or divisor in ``like``'s type and device: a division
+    by a Python scalar becomes a product with its reciprocal on CUDA, which
+    rounds differently (see :func:`_flow_grid`)."""
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +279,15 @@ def _flow_grid(flow, grid_hw):
     gh, gw = (H, W) if grid_hw is None else grid_hw
     if gh < H or gw < W:
         raise ValueError(f"grid_hw {grid_hw} smaller than input {(H, W)}")
-    dev, dt = flow.device, _wf(flow)
+    flow = flow.to(_wf(flow))
 
     def c(v):
-        return torch.full((), float(v), dtype=dt, device=dev)
+        return _const(v, flow)
 
-    xs = 2.0 * torch.arange(W, dtype=dt, device=dev) / c(gw - 1) - 1.0
-    ys = 2.0 * torch.arange(H, dtype=dt, device=dev) / c(gh - 1) - 1.0
-    flow = flow.to(dt)
+    xs = 2.0 * torch.arange(W, dtype=flow.dtype, device=flow.device) \
+        / c(gw - 1) - 1.0
+    ys = 2.0 * torch.arange(H, dtype=flow.dtype, device=flow.device) \
+        / c(gh - 1) - 1.0
     gx = xs.view(1, 1, W) + flow[:, 0] / c((W - 1) / 2.0)
     gy = ys.view(1, H, 1) + flow[:, 1] / c((H - 1) / 2.0)
     return gx, gy
@@ -279,16 +307,35 @@ def _hat_diff(below, lo, hi, integer):
     return torch.where(integer, lo + 0.5 * (hi - below), hi - lo)
 
 
-def sample_abs_backward_plain(g, img, fx, fy):
+def _clip_grad(v, hi: float):
+    """XLA's derivative of ``minimum(maximum(v, 0), hi)`` (the JAX
+    package's ``jnp.clip``): 1 inside, 0 outside, 0.5 on either limit
+    (maximum's and minimum's ties split evenly)."""
+    def step(above, tie):
+        return torch.where(above, 1.0, torch.where(tie, 0.5, 0.0)).to(v.dtype)
+
+    m = v.clamp_min(0.0)
+    return step(v > 0, v == 0) * step(m < hi, m == hi)
+
+
+def sample_abs_backward_plain(g, img, fx, fy, padding_mode: str = "zeros",
+                              hat: bool = True):
     """VJP of the bilinear sample of ``img`` (B, C, H, W) at absolute
-    float32 coordinates ``fx``, ``fy`` (B, Ho, Wo), zeros padding, for the
-    upstream gradient ``g`` (B, C, Ho, Wo). Returns float32
-    ``(grad_img, grad_fx, grad_fy)``: each output's gradient added to its
-    four taps with the forward's weights (``index_add_``), and the
-    derivative of the sample along x and y summed over channels (see
-    :func:`_hat_diff` for integer coordinates)."""
+    float32 coordinates ``fx``, ``fy`` (B, Ho, Wo) for the upstream
+    gradient ``g`` (B, C, Ho, Wo). Returns float32 ``(grad_img, grad_fx,
+    grad_fy)``: each output's gradient added to its four taps with the
+    forward's weights (``index_add_``), and the derivative of the sample
+    along x and y summed over channels. At an exactly integer coordinate
+    that derivative is, with ``hat``, XLA's of the TPU kernel's hat weights
+    (see :func:`_hat_diff`; B1), else XLA's of the JAX gather's floor form,
+    the difference of the taps at floor + 1 and floor (B3). ``'border'``
+    padding clips the coordinates to the image first and multiplies their
+    gradients by the clip's derivative (:func:`_clip_grad`)."""
     B, C, H, W = img.shape
     Ho, Wo = fx.shape[-2:]
+    if padding_mode == "border":
+        cx, cy = _clip_grad(fx, W - 1), _clip_grad(fy, H - 1)
+        fx, fy = fx.clamp(0.0, W - 1), fy.clamp(0.0, H - 1)
     x0, y0 = torch.floor(fx), torch.floor(fy)
     tx, ty = fx - x0, fy - y0
     ux, uy = 1.0 - tx, 1.0 - ty
@@ -312,13 +359,20 @@ def sample_abs_backward_plain(g, img, fx, fy):
         return _tap_plain(flat, y0 + dy, x0 + dx, H, W)
 
     v00, v01, v10, v11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
-    ix, iy = (tx == 0).unsqueeze(1), (ty == 0).unsqueeze(1)
     tx, ty, ux, uy = (t.unsqueeze(1) for t in (tx, ty, ux, uy))
-    dxv = (uy * _hat_diff(tap(0, -1), v00, v01, ix)
-           + ty * _hat_diff(tap(1, -1), v10, v11, ix))
-    dyv = (ux * _hat_diff(tap(-1, 0), v00, v10, iy)
-           + tx * _hat_diff(tap(-1, 1), v01, v11, iy))
-    return grad_img, (gf * dxv).sum(1), (gf * dyv).sum(1)
+    if hat:
+        ix, iy = tx == 0, ty == 0
+        dxv = (uy * _hat_diff(tap(0, -1), v00, v01, ix)
+               + ty * _hat_diff(tap(1, -1), v10, v11, ix))
+        dyv = (ux * _hat_diff(tap(-1, 0), v00, v10, iy)
+               + tx * _hat_diff(tap(-1, 1), v01, v11, iy))
+    else:
+        dxv = uy * (v01 - v00) + ty * (v11 - v10)
+        dyv = ux * (v10 - v00) + tx * (v11 - v01)
+    grad_fx, grad_fy = (gf * dxv).sum(1), (gf * dyv).sum(1)
+    if padding_mode == "border":
+        grad_fx, grad_fy = grad_fx * cx, grad_fy * cy
+    return grad_img, grad_fx, grad_fy
 
 
 def flow_warp_backward_plain(g, maps, flow, grid_hw=None,
@@ -332,18 +386,7 @@ def flow_warp_backward_plain(g, maps, flow, grid_hw=None,
     gx, gy = _flow_grid(flow, grid_hw)
     fx, fy = _abs_coords(gx, gy, H, W, align_corners, "zeros")
     gi, gfx, gfy = sample_abs_backward_plain(g, maps, fx, fy)
-    dev, dt = maps.device, fx.dtype
-
-    def c(v):
-        return torch.full((), float(v), dtype=dt, device=dev)
-
-    if align_corners:
-        cx, cy = gfx * c(W - 1) * 0.5, gfy * c(H - 1) * 0.5
-    else:
-        cx, cy = gfx * 0.5 * c(W), gfy * 0.5 * c(H)
-    grad_flow = torch.stack([cx / c((W - 1) / 2.0), cy / c((H - 1) / 2.0)],
-                            dim=1)
-    return gi.to(maps.dtype), grad_flow
+    return gi.to(maps.dtype), _flow_chain(gfx, gfy, H, W, align_corners)
 
 
 def tap_tiles(flow, grid_hw=None, align_corners: bool = True,
@@ -396,25 +439,49 @@ def _channels_last(t) -> bool:
             and t.is_contiguous(memory_format=torch.channels_last))
 
 
+def _format(t):
+    return (torch.channels_last if _channels_last(t)
+            else torch.contiguous_format)
+
+
+def _warp_grid(flow):
+    """:func:`backward_warp`'s normalized grid: the ``linspace`` base
+    grid plus the flow over (size - 1) / 2, in float32 (float64 for a
+    float64 flow) with 0-dim divisors."""
+    _, _, H, W = flow.shape
+    flow = flow.to(_wf(flow))
+    xs = _base_grid(W, flow.device).to(flow.dtype)
+    ys = _base_grid(H, flow.device).to(flow.dtype)
+    return (xs.view(1, 1, W) + flow[:, 0] / _const((W - 1) / 2.0, flow),
+            ys.view(1, H, 1) + flow[:, 1] / _const((H - 1) / 2.0, flow))
+
+
+def _grid_chain(gf, size: int, align_corners: bool):
+    """The gradient of an absolute coordinate carried back to its
+    normalized grid value: :func:`_unnormalize` transposed in the JAX
+    code's float32 order."""
+    if align_corners:
+        return gf * _const(size - 1, gf) * 0.5
+    return gf * 0.5 * _const(size, gf)
+
+
+def _flow_chain(gfx, gfy, H: int, W: int, align_corners: bool):
+    """The coordinates' gradients carried back to a flow in pixels
+    (base + flow / ((size - 1) / 2)): (B, 2, H, W)."""
+    return torch.stack(
+        [_grid_chain(gfx, W, align_corners) / _const((W - 1) / 2.0, gfx),
+         _grid_chain(gfy, H, align_corners) / _const((H - 1) / 2.0, gfy)],
+        dim=1)
+
+
 def backward_warp_plain(img, flow, align_corners: bool = False,
                         padding_mode: str = "border"):
-    """Plain version of :func:`backward_warp`: the grid in float32 with
-    0-dim divisors (see :func:`_flow_grid`), then
-    :func:`grid_sample_bilinear_plain`; the result in ``img``'s memory
-    format."""
-    B, _, H, W = img.shape
-    dev = img.device
-
-    def c(v):
-        return torch.full((), float(v), dtype=torch.float32, device=dev)
-
-    flow = flow.float()
-    gx = _base_grid(W, dev).view(1, 1, W) + flow[:, 0] / c((W - 1) / 2.0)
-    gy = _base_grid(H, dev).view(1, H, 1) + flow[:, 1] / c((H - 1) / 2.0)
+    """Plain version of :func:`backward_warp`: the grid of
+    :func:`_warp_grid`, then :func:`grid_sample_bilinear_plain`; the result
+    in ``img``'s memory format."""
+    gx, gy = _warp_grid(flow)
     out = grid_sample_bilinear_plain(img, gx, gy, align_corners, padding_mode)
-    if _channels_last(img):
-        out = out.contiguous(memory_format=torch.channels_last)
-    return out
+    return out.contiguous(memory_format=_format(img))
 
 
 # ---------------------------------------------------------------------------
@@ -446,14 +513,22 @@ def grid_sample_bilinear(img, grid_x, grid_y, align_corners: bool = True,
     'border' (coordinates clamped to the edge). Returns (B, C, Ho, Wo).
     On CUDA tensors one launch of ``mfc_warp_abs``, which unnormalizes and
     clamps the grid itself (float32 or bfloat16 grids; a float32 grid and
-    an NCHW image are read in place)."""
+    an NCHW image are read in place). Differentiable in all three inputs
+    (see the module docstring)."""
     _check_maps(img)
-    _no_grad_inputs(img, grid_x, grid_y)
     if grid_x.shape != grid_y.shape or grid_x.dim() != 3 \
             or grid_x.shape[0] != img.shape[0]:
         raise ValueError("grid_x, grid_y: expected two (B, Ho, Wo) tensors")
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    if _wants_grad(img, grid_x, grid_y):
+        return _GridSample.apply(img, grid_x, grid_y, align_corners,
+                                 padding_mode)
+    return _grid_sample_forward(img, grid_x, grid_y, align_corners,
+                                padding_mode)
+
+
+def _grid_sample_forward(img, grid_x, grid_y, align_corners, padding_mode):
     if route(img, grid_x, grid_y) == "cpu":
         return grid_sample_bilinear_plain(img, grid_x, grid_y, align_corners,
                                           padding_mode)
@@ -636,17 +711,25 @@ def backward_warp(img, flow, align_corners: bool = False,
     img: float32 or bfloat16, NCHW or ``channels_last``; flow (B, 2, H, W)
     in pixels, channel 0 = x, float32 or bfloat16, any strides. One kernel
     launch on CUDA tensors: no copy of either input, the flow converted on
-    load. Returns (B, C, H, W) in ``img``'s type and memory format."""
+    load. Returns (B, C, H, W) in ``img``'s type and memory format.
+    Differentiable in ``img`` and ``flow`` (see the module docstring)."""
     _check_maps(img)
-    _no_grad_inputs(img, flow)
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     B, C, H, W = img.shape
     if flow.shape != (B, 2, H, W):
         raise ValueError(f"flow: expected {(B, 2, H, W)}, "
                          f"got {tuple(flow.shape)}")
-    if flow.dtype not in _DTYPES:
+    if flow.dtype not in _DTYPES and not (flow.dtype == torch.float64
+                                          and flow.device.type == "cpu"):
         raise TypeError(f"flow: expected float32 or bfloat16, got {flow.dtype}")
+    if _wants_grad(img, flow):
+        return _BackwardWarp.apply(img, flow, align_corners, padding_mode)
+    return _backward_warp_forward(img, flow, align_corners, padding_mode)
+
+
+def _backward_warp_forward(img, flow, align_corners, padding_mode):
+    B, C, H, W = img.shape
     if route(img, flow) == "cpu":
         return backward_warp_plain(img, flow, align_corners, padding_mode)
     if not _dense(img):
@@ -666,3 +749,114 @@ def backward_warp(img, flow, align_corners: bool = False,
         _DTYPES[img.dtype], _DTYPES[flow.dtype], stream_of(img))
     _launch("backward_warp", rc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# B3: the backward of grid_sample_bilinear and backward_warp
+# ---------------------------------------------------------------------------
+def sample_backward_plain(g, img, fx, fy, padding_mode: str = "zeros",
+                          needs=(True, True)):
+    """Plain version of :func:`sample_backward`:
+    :func:`sample_abs_backward_plain` in JAX's floor form."""
+    gi, gfx, gfy = sample_abs_backward_plain(g, img, fx, fy, padding_mode,
+                                             hat=False)
+    gi = (gi.to(img.dtype).contiguous(memory_format=_format(img))
+          if needs[0] else None)
+    return (gi,) + ((gfx, gfy) if needs[1] else (None, None))
+
+
+def sample_backward(g, img, fx, fy, padding_mode: str = "zeros",
+                    needs=(True, True)):
+    """The VJP of the bilinear sample of ``img`` (B, C, H, W) at the
+    absolute, unclamped coordinates ``fx``, ``fy`` (B, Ho, Wo) in
+    ``padding_mode``, for the upstream gradient ``g`` (B, C, Ho, Wo):
+    ``(grad_img, grad_fx, grad_fy)``, the image's gradient in its type and
+    memory format where ``needs[0]``, the coordinates' float32 gradients
+    where ``needs[1]`` (None otherwise). On CUDA tensors one launch of
+    ``mfc_sample_bwd_img`` (float32 atomics into a zeroed float32 buffer)
+    and one of ``mfc_sample_bwd_coords``, each only where its gradient is
+    wanted; on CPU tensors :func:`sample_backward_plain`."""
+    if route(g, img, fx, fy) == "cpu":
+        return sample_backward_plain(g, img, fx, fy, padding_mode, needs)
+    B, C, H, W = img.shape
+    Ho, Wo = fx.shape[-2:]
+    g = g.to(img.dtype)
+    g, img = (t if _dense(t) else t.contiguous() for t in (g, img))
+    fx, fy = fx.float().contiguous(), fy.float().contiguous()
+    if max(g.numel(), img.numel()) >= 2 ** 31:
+        raise ValueError("sample_backward: the kernels index with 32 bits")
+    border = int(padding_mode == "border")
+    lib, stream = kernel_lib(), stream_of(img)
+    gi = gfx = gfy = None
+    if needs[0]:
+        acc = torch.zeros_like(img, dtype=torch.float32,
+                               memory_format=_format(img))
+        rc = lib.mfc_sample_bwd_img(
+            g.data_ptr(), fx.data_ptr(), fy.data_ptr(), acc.data_ptr(),
+            (ctypes.c_int * 8)(*g.stride(), *acc.stride()), B, C, H, W, Ho,
+            Wo, border, _DTYPES[img.dtype], stream)
+        _launch("sample_bwd_img", rc)
+        gi = acc.to(img.dtype)
+    if needs[1]:
+        gfx, gfy = (torch.empty(B, Ho, Wo, dtype=torch.float32,
+                                device=img.device) for _ in range(2))
+        rc = lib.mfc_sample_bwd_coords(
+            g.data_ptr(), img.data_ptr(), fx.data_ptr(), fy.data_ptr(),
+            gfx.data_ptr(), gfy.data_ptr(),
+            (ctypes.c_int * 8)(*g.stride(), *img.stride()), B, C, H, W, Ho,
+            Wo, border, _DTYPES[img.dtype], stream)
+        _launch("sample_bwd_coords", rc)
+    return gi, gfx, gfy
+
+
+class _GridSample(torch.autograd.Function):
+    """:func:`grid_sample_bilinear` with its backward
+    (:func:`sample_backward`, the chain to the grid in PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, img, grid_x, grid_y, align_corners, padding_mode):
+        ctx.save_for_backward(img, grid_x, grid_y)
+        ctx.align_corners, ctx.padding_mode = align_corners, padding_mode
+        return _grid_sample_forward(img, grid_x, grid_y, align_corners,
+                                    padding_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, grid_x, grid_y = ctx.saved_tensors
+        want_img, want_x, want_y = ctx.needs_input_grad[:3]
+        H, W = img.shape[-2:]
+        fx, fy = _abs_coords(grid_x, grid_y, H, W, ctx.align_corners,
+                             "zeros")
+        gi, gfx, gfy = sample_backward(g, img, fx, fy, ctx.padding_mode,
+                                       (want_img, want_x or want_y))
+        gx = (_grid_chain(gfx, W, ctx.align_corners).to(grid_x.dtype)
+              if want_x else None)
+        gy = (_grid_chain(gfy, H, ctx.align_corners).to(grid_y.dtype)
+              if want_y else None)
+        return gi, gx, gy, None, None
+
+
+class _BackwardWarp(torch.autograd.Function):
+    """:func:`backward_warp` with its backward (:func:`sample_backward`, the
+    chain to the flow in PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, img, flow, align_corners, padding_mode):
+        ctx.save_for_backward(img, flow)
+        ctx.align_corners, ctx.padding_mode = align_corners, padding_mode
+        return _backward_warp_forward(img, flow, align_corners, padding_mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        img, flow = ctx.saved_tensors
+        want_img, want_flow = ctx.needs_input_grad[:2]
+        H, W = img.shape[-2:]
+        gx, gy = _warp_grid(flow)
+        fx, fy = _abs_coords(gx, gy, H, W, ctx.align_corners, "zeros")
+        gi, gfx, gfy = sample_backward(g, img, fx, fy, ctx.padding_mode,
+                                       (want_img, want_flow))
+        if not want_flow:
+            return gi, None, None, None
+        gflow = _flow_chain(gfx, gfy, H, W, ctx.align_corners)
+        return (gi, gflow.to(flow.dtype).contiguous(
+            memory_format=_format(flow)), None, None)

@@ -54,7 +54,13 @@ def _cast_tensors(model, cdt):
     visited once, so the TernausNet's ``conv1``..``conv5`` views of its
     encoder (``torch.func.functional_call`` restores such shared modules
     wrongly) see the same casts; the gradients flow through the casts to
-    the float32 leaves."""
+    the float32 leaves. A train step holds the block through its backward,
+    so that a rematerialized segment (``--remat``) recomputes on the same
+    casts; nested, the inner block keeps the outer casts. No-op without
+    ``cdt``."""
+    if cdt is None:
+        yield
+        return
     saved = []
     for mod in model.modules():
         store = mod._parameters
@@ -121,11 +127,12 @@ def make_multiframe_train_step(loss_fns: Sequence[str],
             with torch.no_grad():
                 optflow = flow_fn(frames)
         with state.micro_step():
-            logits = _apply(model, cdt, frames, optflow=optflow,
-                            depth=batch.get("depth"))
-            _, total, parts = _losses(logits, batch, loss_fns, loss_wts,
-                                      num_classes, class_weights)
-            total.backward()
+            with _cast_tensors(model, cdt):
+                logits = _apply(model, cdt, frames, optflow=optflow,
+                                depth=batch.get("depth"))
+                _, total, parts = _losses(logits, batch, loss_fns, loss_wts,
+                                          num_classes, class_weights)
+                total.backward()
             state.apply_gradients()
         return {k: v.detach() for k, v in parts.items()}
 
@@ -190,12 +197,13 @@ def make_singleframe_train_step(loss_fns: Sequence[str],
     def train_step(state, batch):
         model = _train_mode(state)
         with state.micro_step():
-            log_probs = _singleframe_log_probs(model, cdt, batch["image"],
-                                               output_mode)
-            total, parts = compute_losses(log_probs, batch["mask"], loss_fns,
-                                          loss_wts, num_classes,
-                                          class_weights)
-            total.backward()
+            with _cast_tensors(model, cdt):
+                log_probs = _singleframe_log_probs(model, cdt, batch["image"],
+                                                   output_mode)
+                total, parts = compute_losses(log_probs, batch["mask"],
+                                              loss_fns, loss_wts, num_classes,
+                                              class_weights)
+                total.backward()
             state.apply_gradients()
         return {k: v.detach() for k, v in parts.items()}
 

@@ -81,13 +81,19 @@ def test_bfloat16_inputs_are_widened_exactly():
 
 
 def test_correlation_rejects_gradients_and_bad_inputs():
+    """An input that requires a gradient gets one (B2's backward, checked
+    against JAX in tests/test_torch_corr_bwd.py), only that input; bad
+    shapes and types raise."""
     from mfcnet_tpu_torch.ops.correlation import correlation_cost_volume
 
     f = torch.rand(1, 4, 4, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        correlation_cost_volume(f.clone().requires_grad_(), f)
+    a = f.clone().requires_grad_()
+    correlation_cost_volume(a, f).sum().backward()
+    assert a.grad is not None and a.grad.shape == f.shape
+    assert float(a.grad.abs().sum()) > 0
     with torch.no_grad():
-        correlation_cost_volume(f.clone().requires_grad_(), f, 2, 2)
+        assert not correlation_cost_volume(f.clone().requires_grad_(), f, 2,
+                                           2).requires_grad
     with pytest.raises(ValueError, match="one shape"):
         correlation_cost_volume(f, torch.rand(1, 4, 5, 8))
     with pytest.raises(TypeError, match="float32 or both bfloat16"):

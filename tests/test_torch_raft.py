@@ -383,7 +383,7 @@ def test_raft_update_rejects_gradients_and_bad_inputs(pair):
     c1, f1, inp = (torch.zeros(B, N, c) for c in (256, 128, 128))
     net, flow = torch.zeros(B, N, 128), torch.zeros(B, N, 2)
     raft_update(c1, f1, inp, net, flow, packed, H8, W8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="fused_update=False"):
         raft_update(c1, f1, inp, net.clone().requires_grad_(), flow, packed,
                     H8, W8)
     with pytest.raises(ValueError, match="tokens"):

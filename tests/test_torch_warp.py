@@ -160,7 +160,8 @@ def test_flow_warp_bf16_envelope(warp_case):
 
 def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
     """flow_warp is differentiable (its gradient flows to maps and flow);
-    grid_sample_bilinear still refuses a gradient; bad shapes and types
+    so is grid_sample_bilinear (B3: its grid gets a gradient, checked
+    against JAX in tests/test_torch_sample_bwd.py); bad shapes and types
     raise."""
     from mfcnet_tpu_torch.ops.warp import flow_warp, grid_sample_bilinear
 
@@ -172,9 +173,9 @@ def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
     assert m.grad is not None and m.grad.shape == maps.shape
     assert f.grad is not None and f.grad.shape == flow.shape
     assert float(m.grad.abs().sum()) > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        grid_sample_bilinear(maps, flow[:, 0].clone().requires_grad_(),
-                             flow[:, 1])
+    gx = flow[:, 0].clone().requires_grad_()
+    grid_sample_bilinear(maps, gx, flow[:, 1]).sum().backward()
+    assert gx.grad is not None and gx.grad.shape == gx.shape
     with torch.no_grad():  # inference over parameters that require grad
         assert not flow_warp(maps.clone().requires_grad_(), flow).requires_grad
     with pytest.raises(ValueError, match="flow"):
@@ -316,11 +317,15 @@ def test_backward_warp_equals_plain_composition(channels_last, flow_dtype,
 
 
 def test_backward_warp_rejects_gradients_and_bad_inputs():
+    """The image and the flow get gradients (B3, checked against JAX in
+    tests/test_torch_sample_bwd.py); bad inputs raise."""
     from mfcnet_tpu_torch.ops.warp import backward_warp
 
     img, flow = _backward_warp_inputs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        backward_warp(img.clone().requires_grad_(), flow)
+    im, fl = img.clone().requires_grad_(), flow.clone().requires_grad_()
+    backward_warp(im, fl).sum().backward()
+    assert im.grad.shape == img.shape and fl.grad.shape == flow.shape
+    assert float(im.grad.abs().sum()) > 0 and float(fl.grad.abs().sum()) > 0
     with pytest.raises(ValueError, match="flow: expected"):
         backward_warp(img, flow[:, :1])
     with pytest.raises(ValueError, match="padding_mode"):
