@@ -5657,15 +5657,21 @@ def phase_artifact_slice(noflow_engine, flow_engine, frames, smi):
 # ------------------------------------------------- phase 10: the backward
 #: B2 (the correlation's backward) and B3 (the sampler's backward) against
 #: their plain versions: max |diff| over the plain result's largest
-#: magnitude. float32: B2 sums 441 products a channel in dy-major order with
-#: fused multiply-adds (the plain version rounds each product and sums the
-#: displacements one at a time), B3's image gradient adds with float32
-#: atomics in a run-dependent order (a tap that n samples reach: ~sqrt(n)
-#: roundings of its partial sums), its coordinate gradient sums the
-#: channels in another order than torch's sum: a few float32 roundings of a
-#: sum, far below 1e-5 of the largest. bfloat16 inputs: the float32 result
-#: rounded once to bfloat16, which another summation order can flip by one
-#: step (2^-8 of a value's binade) on top of that.
+#: magnitude. float32: B2 sums its products on the tensor cores in 3xTF32
+#: (a few 2^-21 of each product; tests/test_torch_corr_bwd_plan.py models
+#: it at 3e-7 of the largest) or, on the fma route, with fused
+#: multiply-adds, in another order than the plain version's one
+#: displacement at a time; bfloat16 inputs take g as three bfloat16 terms
+#: (exactly), and an output whose float32 sum lies near a bf16 rounding
+#: midpoint in the top binade is summed again in the plain version's order
+#: (csrc/correlation.cu); B3's image gradient adds tile sums and
+#: single contributions with float32 atomics in a run-dependent order (a
+#: tap that n samples reach: ~sqrt(n) roundings of its partial sums), its
+#: coordinate gradient sums the channels in another order than torch's sum:
+#: a few float32 roundings of a sum, far below 1e-5 of the largest.
+#: bfloat16 inputs: the float32 result rounded once to bfloat16, which
+#: another summation order can flip by one step (2^-8 of a value's binade)
+#: on top of that.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8 + 1e-5}
 #: UnFlow's gradients (every parameter, both frames) through the kernels
 #: against through the plain versions, per tensor max |diff| over its
@@ -5715,15 +5721,67 @@ def _plain_backward_kernels():
     return stack
 
 
+#: B2's checked shapes beyond the timed ones: (shape, md, s), a tensor-core
+#: shape whose last channel chunk holds 8 channels and whose rows take
+#: several tiles, and the fma route's (C % 8 != 0) at UnFlow's window
+B2_MORE = (((1, 5, 70, 136), 6, 2), ((2, 32, 40, 60), 20, 2))
+
+
+def _check_b2(co, g, f1, f2, md, s, what):
+    """One B2 call against its plain version, both gradients together and
+    each alone, one launch a call, two calls bit-equal (no atomics).
+    Returns the relative errors and the max |diff|."""
+    import torch
+
+    name = str(f1.dtype).split(".")[1]
+    co.reset_launches()
+    k1, k2 = co.correlation_backward(g, f1, f2, md, s)
+    torch.cuda.synchronize()
+    if co.LAUNCHES["correlation_bwd"] != 1:
+        raise AssertionError(f"B2 {what}: launches {co.LAUNCHES}")
+    p1, p2 = co.correlation_backward_plain(g, f1, f2, md, s)
+    rels = (_rel(k1, p1), _rel(k2, p2))
+    if k1.dtype != f1.dtype or max(rels) > BWD_TOL[name]:
+        raise AssertionError(f"B2 {what} {name}: {rels}, {k1.dtype}")
+    again = co.correlation_backward(g, f1, f2, md, s)
+    if not (torch.equal(again[0], k1) and torch.equal(again[1], k2)):
+        raise AssertionError(f"B2 {what} {name}: two calls differ")
+    one = co.correlation_backward(g, f1, f2, md, s, (True, False))
+    two = co.correlation_backward(g, f1, f2, md, s, (False, True))
+    if not (torch.equal(one[0], k1) and one[1] is None
+            and torch.equal(two[1], k2) and two[0] is None):
+        raise AssertionError(f"B2 {what} {name}: a gradient alone differs")
+    if co.LAUNCHES["correlation_bwd"] != 4:
+        raise AssertionError(f"B2 {what}: launches {co.LAUNCHES}")
+    return rels, max(float((k1.float() - p1.float()).abs().max()),
+                     float((k2.float() - p2.float()).abs().max()))
+
+
 def _hold_b2(gen, smi, times, bounds, library):
-    """B2 against its plain version at the tracker's and the offline CLI's
-    conv3 shapes, both types; one launch a call; times (graph replay), the
-    bound and the ``torch.bmm`` yardstick. Returns the worst max |diff|."""
+    """B2 against its plain version on both routes: the tracker's and the
+    offline CLI's conv3 shapes (tensor cores) and ``B2_MORE``, both types,
+    both gradients together and each alone; one launch a call, two calls
+    bit-equal; times (graph replay) at the two UnFlow shapes, the bound and
+    the ``torch.bmm`` yardstick. Returns the worst max |diff|."""
     import torch
 
     from mfcnet_tpu_torch.ops import correlation as co
 
     worst = 0.0
+    for shape, md, s in B2_MORE:
+        D = co.displacements(md, s)
+        g = torch.randn(*shape[:3], D * D, generator=gen).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            f1 = torch.randn(shape, generator=gen).cuda().to(dt)
+            f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+            plan = co.corr_bwd_plan(*shape, md, s, name)
+            rels, err = _check_b2(co, g, f1, f2, md, s, str(shape))
+            worst = max(worst, err)
+            log(f"[{smi}] B2 {shape} md={md} s={s} {name}, route "
+                f"{plan.route}: max |diff| / max {rels[0]:.3g} (grad_f1), "
+                f"{rels[1]:.3g} (grad_f2), limit {BWD_TOL[name]:.3g}; each "
+                f"alone equal, two calls bit-equal, 1 launch a call")
     for shape, where in (((2, 32, 40, K), "tracker"),
                          ((4, 64, 80, K), "offline")):
         B, h, w, c = shape
@@ -5732,20 +5790,11 @@ def _hold_b2(gen, smi, times, bounds, library):
             name = str(dt).split(".")[1]
             f1 = torch.randn(shape, generator=gen).cuda().to(dt)
             f2 = torch.randn(shape, generator=gen).cuda().to(dt)
-            co.reset_launches()
-            k1, k2 = co.correlation_backward(g, f1, f2, 20, 2)
-            torch.cuda.synchronize()
-            if co.LAUNCHES["correlation_bwd"] != 1:
-                raise AssertionError(f"B2: launches {co.LAUNCHES}")
-            p1, p2 = co.correlation_backward_plain(g, f1, f2, 20, 2)
-            rels = (_rel(k1, p1), _rel(k2, p2))
-            if k1.dtype != dt or max(rels) > BWD_TOL[name]:
-                raise AssertionError(f"B2 {where} {name}: {rels}, {k1.dtype}")
-            worst = max(worst, float((k1.float() - p1.float()).abs().max()),
-                        float((k2.float() - p2.float()).abs().max()))
-            one = co.correlation_backward(g, f1, f2, 20, 2, (True, False))
-            if not torch.equal(one[0], k1) or one[1] is not None:
-                raise AssertionError("B2: grad_f1 alone differs")
+            plan = co.corr_bwd_plan(*shape, 20, 2, name)
+            if plan.route != "tc":
+                raise AssertionError(f"B2 {where}: plan {plan}")
+            rels, err = _check_b2(co, g, f1, f2, 20, 2, where)
+            worst = max(worst, err)
             key = "correlation_bwd" + ("" if (where, name) == (
                 "tracker", "float32") else f"@{where} {name}")
             times[key] = _in_turns(
@@ -5755,7 +5804,7 @@ def _hold_b2(gen, smi, times, bounds, library):
                 timer=_graph_ms, ptimer=_event_ms)
             flop = 2 * 2 * B * h * w * 441 * c
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32 / 3
-            nb = _nbytes(g, f1, f2, k1, k2)
+            nb = _nbytes(g, f1, f2, f1, f2)  # the gradients: f1's, f2's
             b_ms, o_ms = nb / PEAK_BYTES * 1e3, flop / peak * 1e3
             bounds[key] = max((b_ms, "bytes"), (o_ms, "operations"))
             # the dense yardstick: per residue sub-grid, a (P, P) gradient
@@ -5771,9 +5820,10 @@ def _hold_b2(gen, smi, times, bounds, library):
                     20)
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = prev
-            log(f"[{smi}] B2 {where} {shape} {name}: max |diff| / max "
-                f"{rels[0]:.3g} (grad_f1), {rels[1]:.3g} (grad_f2), limit "
-                f"{BWD_TOL[name]:.3g}; 1 launch; kernel "
+            log(f"[{smi}] B2 {where} {shape} {name} (route tc, plan "
+                f"{tuple(plan)}): max |diff| / max {rels[0]:.3g} (grad_f1), "
+                f"{rels[1]:.3g} (grad_f2), limit {BWD_TOL[name]:.3g}; each "
+                f"alone equal, two calls bit-equal, 1 launch a call; kernel "
                 f"{times[key][0]:.4f} ms, plain {times[key][1]:.4f} ms, bound "
                 f"{bounds[key][0]:.5f} ms ({bounds[key][1]}: {nb} B at 3.35 "
                 f"TB/s -> {b_ms:.5f}; {flop / 1e9:.3f} GFLOP at "
@@ -5787,8 +5837,11 @@ def _b3_cases(gen, B, Ch, h, w):
     """(name, fx, fy) absolute coordinates of B3's standalone checks:
     backward_warp's own coordinates from a flow that pushes each image's
     samples past another edge (left, right, top, bottom) and beyond the
-    corners, and integer coordinates from -3 to size + 2 with the clamp
-    limits 0 and size - 1 among them."""
+    corners ("edges", 6 px of noise a pixel), integer coordinates from -3
+    to size + 2 with the clamp limits 0 and size - 1 among them
+    ("integers"), a smooth flow of ~6 px, the random provider's size
+    ("smooth"), and 40 px of noise a pixel ("noise", whose tiles' tap boxes
+    exceed the image entry's shared-memory box: its direct route)."""
     import torch
 
     from mfcnet_tpu_torch.ops import warp
@@ -5807,14 +5860,25 @@ def _b3_cases(gen, B, Ch, h, w):
     fx, fy = warp._abs_coords(gx, gy, h, w, False, "zeros")
     ix = (xx + torch.randint(-4, 5, (B, h, w), generator=gen)).clamp(-3, w + 2)
     iy = (yy + torch.randint(-4, 5, (B, h, w), generator=gen)).clamp(-3, h + 2)
-    return (("edges", fx, fy), ("integers", ix.cuda(), iy.cuda()))
+    smooth = torch.nn.functional.interpolate(
+        torch.randn(B, 2, h // 32, w // 32, generator=gen) * 6, size=(h, w),
+        mode="bilinear", align_corners=False).cuda()
+    noise = (torch.randn(B, 2, h, w, generator=gen) * 40).cuda()
+    return (("edges", fx, fy), ("integers", ix.cuda(), iy.cuda()),
+            ("smooth", *warp._abs_coords(*warp._warp_grid(smooth), h, w,
+                                         False, "zeros")),
+            ("noise", *warp._abs_coords(*warp._warp_grid(noise), h, w,
+                                        False, "zeros")))
 
 
 def _hold_b3(gen, smi, times, bounds, library):
-    """B3 (both entry points) against its plain version at 4x3x512x640,
-    border (and zeros) padding, NCHW and channels_last, float32 and
-    bfloat16; times (graph replay) at the UnFlow training shape, bounds and
-    ``aten::grid_sampler_2d_backward``. Returns the worst max |diff|."""
+    """B3 (both entry points) against its plain version at 4x3x512x640 on
+    the four ``_b3_cases``, border and zeros padding, NCHW and
+    channels_last, float32 and bfloat16; the image entry's routes (tiles on
+    the shared and the direct route, ``warp.sample_bwd_tiles``); times
+    (graph replay) at the UnFlow training shape on the smooth, edges and
+    noise cases, bounds and ``aten::grid_sampler_2d_backward``. Returns the
+    worst max |diff|."""
     import torch
 
     from mfcnet_tpu_torch.ops import warp
@@ -5822,6 +5886,13 @@ def _hold_b3(gen, smi, times, bounds, library):
     B, Ch, h, w = 4, 3, UH, UW
     worst = 0.0
     cases = _b3_cases(gen, B, Ch, h, w)
+    for case, fx, fy in cases:
+        for pm in ("border", "zeros"):
+            ext, local = warp.sample_bwd_tiles(fx, fy, h, w, Ch, pm)
+            direct = int(((ext[..., 0] <= ext[..., 1]) & ~local).sum())
+            log(f"B3 {case} {pm}: image entry tiles {int(local.sum())} on "
+                f"the shared route, {direct} direct, "
+                f"{local.numel() - int(local.sum()) - direct} empty")
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[1]
         for fmt in (torch.contiguous_format, torch.channels_last):
@@ -5846,10 +5917,11 @@ def _hold_b3(gen, smi, times, bounds, library):
                             f"B3 {case} {pm} {name} {fmt}: {rels}")
                     worst = max(worst, *(float((a.float() - b.float()).abs(
                     ).max()) for a, b in ((ki, pi), (kx, px), (ky, py))))
-            log(f"B3 {name} {fmt}: edges and integers, border and zeros: "
-                f"max |diff| / max within {BWD_TOL[name]:.3g} (worst max "
-                f"|diff| so far {worst:.3g}); the image gradient in the "
-                "image's type and memory format; 1 launch each entry point")
+            log(f"B3 {name} {fmt}: edges, integers, smooth and noise, border "
+                f"and zeros: max |diff| / max within {BWD_TOL[name]:.3g} "
+                f"(worst max |diff| so far {worst:.3g}); the image gradient "
+                "in the image's type and memory format; 1 launch each entry "
+                "point")
     # at a clamp limit the coordinate gradient is half the inner one
     # (XLA's tie of maximum and minimum), 0 beyond it: one pixel each
     img = torch.rand(1, 1, 4, 5, generator=gen).cuda()
@@ -5865,19 +5937,18 @@ def _hold_b3(gen, smi, times, bounds, library):
     log("B3 at the clamp limits (border): the x gradient at x = 0 and x = W "
         "- 1 is half the one-sided difference, 0 beyond (jax.grad's)")
     # times at the UnFlow training shape, channels_last float32, border: on
-    # a smooth flow of ~6 px (the random provider's size) and on the edges
-    # case, where most samples clamp onto an edge and its pixels take the
-    # atomics of whole rows
+    # a smooth flow of ~6 px (the random provider's size), on the edges
+    # case, where most samples clamp onto an edge (the first design's
+    # atomics of whole rows on its pixels), and on the 40 px noise (the
+    # image entry's direct route)
     img = torch.rand(B, Ch, h, w, generator=gen).cuda().contiguous(
         memory_format=torch.channels_last)
     g = torch.randn(B, Ch, h, w, generator=gen).cuda().contiguous(
         memory_format=torch.channels_last)
-    smooth = torch.nn.functional.interpolate(
-        torch.randn(B, 2, h // 32, w // 32, generator=gen) * 6, size=(h, w),
-        mode="bilinear", align_corners=False).cuda()
-    for where, (fx, fy) in (("", warp._abs_coords(
-            *warp._warp_grid(smooth), h, w, False, "zeros")),
-            ("@edges", cases[0][1:])):
+    by_name = {case: (fx, fy) for case, fx, fy in cases}
+    for where, case in (("", "smooth"), ("@edges", "edges"),
+                        ("@noise", "noise")):
+        fx, fy = by_name[case]
         grid = torch.stack([fx * (2.0 / w) + (1.0 / w - 1.0),
                             fy * (2.0 / h) + (1.0 / h - 1.0)], -1)
         outs = warp.sample_backward(g, img, fx, fy, "border")
@@ -5891,8 +5962,7 @@ def _hold_b3(gen, smi, times, bounds, library):
                                                   needs),
                 lambda: warp.sample_backward_plain(g, img, fx, fy, "border",
                                                    needs), smi,
-                f"{B}x{Ch}x{h}x{w} float32 channels_last, border, "
-                f"{'the edges case' if where else 'a smooth ~6 px flow'}",
+                f"{B}x{Ch}x{h}x{w} float32 channels_last, border, {case}",
                 kreps=20, preps=2, timer=_graph_ms, ptimer=_event_ms)
             reads = (g, fx, fy) if needs[0] else (g, img, fx, fy)
             nb = _nbytes(*reads, *out)

@@ -76,6 +76,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "shared_memory.cuh"
@@ -1244,14 +1245,39 @@ int launch_flow_warp_bwd_flow(const void* g, const void* maps,
 // thread an output pixel, every channel.
 //
 // mfc_sample_bwd_img scatters g to the four taps with the forward's float32
-// weights (products rounded as the plain version's) by float32 atomicAdd into
-// a float32 buffer the wrapper zeroes, in the image's memory format, and
-// casts after: the order of the additions at a tap changes from run to run.
-// Its bound is bytes (g, the coordinates and the buffer once); the atomics
-// and their scattered addresses set its time. mfc_sample_bwd_coords gathers
-// the derivative of the sample along x and y, summed over channels with g,
-// in JAX's floor form (the difference of the taps at floor + 1 and floor,
-// at integer coordinates too): a gather like the forward, bound by bytes.
+// weights (products rounded as the plain version's) into a float32 buffer
+// the wrapper zeroes, in the image's memory format, and casts after. Its
+// bound is bytes (g, the coordinates and the buffer once). The first design
+// (a thread a sample, C x 4 float32 atomicAdds into global memory each) was
+// set by its ~59 M scattered atomics at the training shape, and where
+// samples clamp onto an edge whole rows of them hit the same few addresses
+// (its time doubled). This one sums tile by tile: a block owns a 64 x 8
+// tile of output samples (flow_warp's layout, two adjacent x a thread,
+// three blocks an SM) and first reduces its samples' tap box (the min and
+// max of the clamped x0, y0) in shared memory, with g of the first
+// channels already in flight. Where the box times C fits SB_CAP floats (the
+// "shared" route: a smooth flow of a few pixels, or samples clamped onto an
+// edge, whose box is a thin strip along it), the block adds every
+// contribution into a zeroed float32 image of the box with shared-memory
+// atomics (compare-and-swap loops on this card), then flushes the box row
+// by row (contiguous rows of the global buffer: a channels_last row holds
+// every channel) with red.global adds, four floats at once where 16-byte
+// aligned, skipping all-zero quads. Where it does not fit (noise flows,
+// samples far past a corner: the "direct" route) it adds into the global
+// buffer itself; runs of equal addresses in consecutive lanes (samples
+// clamped onto one pixel) are summed by shuffles first and added once
+// (run_add; aggregating by __match_any_sync cost more than it saved on a
+// noise flow). Before any atomic, a thread merges its second sample's taps
+// that fall on its first sample's pixels, and the next lane's first-sample
+// left column that falls on its second sample's right column: on a smooth
+// flow half the adds. Both routes skip exact zeros (a contribution of
+// weight 0, as of a tap the border clamp's fraction leaves out). The order
+// of the additions at a pixel still changes from run to run: a few float32
+// roundings of its partial sums, as before.
+// mfc_sample_bwd_coords gathers the derivative of the sample along x and y,
+// summed over channels with g, in JAX's floor form (the difference of the
+// taps at floor + 1 and floor, at integer coordinates too): a gather like
+// the forward, bound by bytes.
 // The chain to the normalized grid and to the flow stays in PyTorch, the
 // same operations on both routes.
 // ---------------------------------------------------------------------------
@@ -1263,38 +1289,225 @@ __device__ __forceinline__ float clip_grad(float v, float hi) {
   return lo * (m < hi ? 1.0f : (m == hi ? 0.5f : 0.0f));
 }
 
+// B3's image gradient, tile-local: a block owns SB_TW x SB_TH output samples
+// (flow_warp's layout: a thread two adjacent x of a row, a warp a row); its
+// box image holds at most SB_CAP floats (64 KB of shared memory, three
+// blocks an SM)
+constexpr int SB_TW = FW_TW, SB_TH = FW_TH;
+constexpr int SB_CAP = 16384;
+constexpr int SB_PRE = 4;  // channels of g loaded before the box is known
+constexpr unsigned FULL = 0xffffffffu;
+
+// base[key] += v for the lanes with key >= 0, runs of equal keys in
+// consecutive lanes (samples clamped onto one pixel) summed first by a
+// segmented shuffle reduction and added once by the run's first lane; a
+// warp without such runs adds lane by lane. Every lane of the warp calls it.
+__device__ __forceinline__ void run_add(float* base, int key, float v) {
+  const int lane = threadIdx.x % 32;
+  const int prev = __shfl_up_sync(FULL, key, 1);
+  const bool head = lane == 0 || prev != key;
+  if (!__any_sync(FULL, !head && key >= 0)) {
+    if (key >= 0) atomicAdd(base + key, v);
+    return;
+  }
+  const unsigned heads = __ballot_sync(FULL, head);
+  const int seg = __popc(heads & (FULL >> (31 - lane)));
+  float sum = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_down_sync(FULL, sum, d);
+    const int os = __shfl_down_sync(FULL, seg, d);
+    if (lane + d < 32 && os == seg) sum = __fadd_rn(sum, o);
+  }
+  if (head && key >= 0) atomicAdd(base + key, sum);
+}
+
+// cl: the buffer (and the box image) is channels_last, else NCHW
 template <typename T>
-__global__ void __launch_bounds__(TPB)
+__global__ void __launch_bounds__(TPB, 3)
 sample_bwd_img_kernel(const T* __restrict__ g, Strides sg,
                       const float* __restrict__ fxs,
                       const float* __restrict__ fys, float* __restrict__ gimg,
-                      Strides si, int B, int C, int H, int W, int Ho, int Wo,
-                      int border) {
-  const size_t n = (size_t)Ho * Wo;
-  const size_t i = (size_t)blockIdx.x * TPB + threadIdx.x;
-  if (i >= (size_t)B * n) return;
-  const int b = (int)(i / n);
-  const int r = (int)(i - (size_t)b * n);
-  const int y = r / Wo, x = r - y * Wo;
-  float fx = fxs[i], fy = fys[i];
-  if (border) {
-    fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
-    fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+                      Strides si, int C, int H, int W, int Ho, int Wo,
+                      int border, int cl) {
+  extern __shared__ __align__(16) float box[];  // SB_CAP floats
+  __shared__ int ext[4][TPB / 32];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int x = blockIdx.x * SB_TW + (tid % (SB_TW / 2)) * 2;
+  const int y = blockIdx.y * SB_TH + tid / (SB_TW / 2), b = blockIdx.z;
+
+  // the two samples' taps (none for a sample outside the output), and the
+  // extent of the valid ones
+  Taps q[2];
+  int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const bool in = y < Ho && x + k < Wo;
+    float fx = 0.0f, fy = 0.0f;
+    if (in) {
+      const size_t i = ((size_t)b * Ho + y) * Wo + x + k;
+      fx = fxs[i];
+      fy = fys[i];
+    }
+    if (border) {
+      fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+      fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+    }
+    q[k] = taps_of(fx, fy, H, W);
+    if (!in) q[k].v00 = q[k].v01 = q[k].v10 = q[k].v11 = false;
+    if (q[k].v00 || q[k].v01 || q[k].v10 || q[k].v11) {
+      xlo = min(xlo, max(q[k].x0, 0));
+      xhi = max(xhi, min(q[k].x0 + 1, W - 1));
+      ylo = min(ylo, max(q[k].y0, 0));
+      yhi = max(yhi, min(q[k].y0 + 1, H - 1));
+    }
   }
-  const Taps q = taps_of(fx, fy, H, W);
-  const float w00 = __fmul_rn(q.ux, q.uy), w01 = __fmul_rn(q.tx, q.uy);
-  const float w10 = __fmul_rn(q.ux, q.ty), w11 = __fmul_rn(q.tx, q.ty);
-  const T* gp = g + (ptrdiff_t)b * sg.b + (ptrdiff_t)y * sg.h +
-                (ptrdiff_t)x * sg.w;
-  float* p = gimg + (ptrdiff_t)b * si.b + (ptrdiff_t)q.y0 * si.h +
-             (ptrdiff_t)q.x0 * si.w;
-  for (int c = 0; c < C; ++c) {
-    const float gv = to_f32(gp[(ptrdiff_t)c * sg.c]);
-    float* pc = p + (ptrdiff_t)c * si.c;
-    if (q.v00) atomicAdd(pc, __fmul_rn(gv, w00));
-    if (q.v01) atomicAdd(pc + si.w, __fmul_rn(gv, w01));
-    if (q.v10) atomicAdd(pc + si.h, __fmul_rn(gv, w10));
-    if (q.v11) atomicAdd(pc + si.h + si.w, __fmul_rn(gv, w11));
+  // g of the first channels, in flight while the box is reduced
+  const T* gp = g + (ptrdiff_t)b * sg.b + (ptrdiff_t)min(y, Ho - 1) * sg.h;
+  auto g_of = [&](int k, int c) {
+    const Taps& t = q[k];
+    return t.v00 || t.v01 || t.v10 || t.v11
+               ? to_f32(gp[(ptrdiff_t)c * sg.c + (ptrdiff_t)(x + k) * sg.w])
+               : 0.0f;
+  };
+  float gpre[2][SB_PRE];
+#pragma unroll
+  for (int j = 0; j < SB_PRE; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) gpre[k][j] = j < C ? g_of(k, j) : 0.0f;
+  xlo = __reduce_min_sync(FULL, xlo);
+  xhi = __reduce_max_sync(FULL, xhi);
+  ylo = __reduce_min_sync(FULL, ylo);
+  yhi = __reduce_max_sync(FULL, yhi);
+  if (lane == 0) {
+    ext[0][warp] = xlo;
+    ext[1][warp] = xhi;
+    ext[2][warp] = ylo;
+    ext[3][warp] = yhi;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < TPB / 32; ++w) {
+    xlo = min(xlo, ext[0][w]);
+    xhi = max(xhi, ext[1][w]);
+    ylo = min(ylo, ext[2][w]);
+    yhi = max(yhi, ext[3][w]);
+  }
+  if (xlo > xhi) return;  // no tap in the image: the same for the block
+  const int bw = xhi - xlo + 1, bh = yhi - ylo + 1;
+  const bool local = (long long)bw * bh * C <= SB_CAP;  // the same too
+  if (local) {
+    const int n = bw * bh * C;
+    for (int i = tid; i < n; i += TPB) box[i] = 0.0f;
+    __syncthreads();
+  }
+  // Merges before any atomic (each value still added once, at its pixel):
+  // a tap of the second sample on a pixel of the first's goes into the
+  // first's (bit e1 * 4 + e0 of own: tap e1 of sample 1 on tap e0 of
+  // sample 0); the next lane's first-sample left taps (rows dy = 0, 1) on
+  // this lane's second-sample right column go into it (take: bit dy for
+  // tap (dy', 1), dy' = dy + their y0 - our y0), and the lane that gave
+  // them drops them (gave: bit dy). On a smooth flow that halves the adds.
+  unsigned own = 0u;
+  const int dyo = q[1].y0 - q[0].y0, dxo = q[1].x0 - q[0].x0;
+#pragma unroll
+  for (int e1 = 0; e1 < 4; ++e1)
+#pragma unroll
+    for (int e0 = 0; e0 < 4; ++e0)
+      if (e0 / 2 == e1 / 2 + dyo && e0 % 2 == e1 % 2 + dxo)
+        own |= 1u << (e1 * 4 + e0);
+  const int nx0 = __shfl_down_sync(FULL, q[0].x0, 1);
+  const int ny0 = __shfl_down_sync(FULL, q[0].y0, 1);
+  const int px0 = __shfl_up_sync(FULL, q[1].x0, 1);
+  const int py0 = __shfl_up_sync(FULL, q[1].y0, 1);
+  // this lane takes from lane + 1: their rows ny0 + dy onto our rows
+  // q[1].y0 + dy', column q[1].x0 + 1 == nx0
+  const int tdy = ny0 - q[1].y0;  // dy' = dy + tdy
+  const bool tcol = lane < 31 && nx0 == q[1].x0 + 1;
+  // ... and gives to lane - 1 by the same rule, seen from the other side
+  const int gdy = q[0].y0 - py0;
+  const bool gcol = lane > 0 && q[0].x0 == px0 + 1;
+  float* ip = gimg + (ptrdiff_t)b * si.b;
+  auto channel = [&](int c, float g0, float g1) {
+    float v[2][4];
+    const float gv[2] = {g0, g1};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const Taps& t = q[k];
+      v[k][0] = t.v00 ? __fmul_rn(gv[k], __fmul_rn(t.ux, t.uy)) : 0.0f;
+      v[k][1] = t.v01 ? __fmul_rn(gv[k], __fmul_rn(t.tx, t.uy)) : 0.0f;
+      v[k][2] = t.v10 ? __fmul_rn(gv[k], __fmul_rn(t.ux, t.ty)) : 0.0f;
+      v[k][3] = t.v11 ? __fmul_rn(gv[k], __fmul_rn(t.tx, t.ty)) : 0.0f;
+    }
+    if (own != 0u) {
+#pragma unroll
+      for (int e1 = 0; e1 < 4; ++e1)
+#pragma unroll
+        for (int e0 = 0; e0 < 4; ++e0)
+          if (own & (1u << (e1 * 4 + e0))) {
+            v[0][e0] = __fadd_rn(v[0][e0], v[1][e1]);
+            v[1][e1] = 0.0f;
+          }
+    }
+    // the next lane's left column (its v[0][0], v[0][2])
+    const float n0 = __shfl_down_sync(FULL, v[0][0], 1);
+    const float n1 = __shfl_down_sync(FULL, v[0][2], 1);
+    if (tcol) {
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float nv = dy == 0 ? n0 : n1;
+        if (dy + tdy == 0) v[1][1] = __fadd_rn(v[1][1], nv);
+        if (dy + tdy == 1) v[1][3] = __fadd_rn(v[1][3], nv);
+      }
+    }
+    if (gcol) {
+      if (gdy >= 0 && gdy <= 1) v[0][0] = 0.0f;           // dy = 0 given
+      if (1 + gdy >= 0 && 1 + gdy <= 1) v[0][2] = 0.0f;   // dy = 1 given
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ty = q[k].y0 + e / 2, tx = q[k].x0 + e % 2;
+        const bool add = v[k][e] != 0.0f;  // invalid taps hold 0 too
+        if (local) {
+          if (add)
+            atomicAdd(box + (cl ? ((ty - ylo) * bw + tx - xlo) * C + c
+                                : (c * bh + ty - ylo) * bw + tx - xlo),
+                      v[k][e]);
+        } else {
+          run_add(ip, add ? c * si.c + ty * si.h + tx * si.w : -1, v[k][e]);
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < SB_PRE; ++j)
+    if (j < C) channel(j, gpre[0][j], gpre[1][j]);
+  for (int c = SB_PRE; c < C; ++c) channel(c, g_of(0, c), g_of(1, c));
+  if (!local) return;
+  __syncthreads();
+  // the flush: a warp a contiguous row of the buffer (channels_last: a box
+  // row with every channel; NCHW: a box row of one channel plane)
+  const int len = cl ? bw * C : bw, rows = cl ? bh : C * bh;
+  for (int r = warp; r < rows; r += TPB / 32) {
+    const int yy = ylo + (cl ? r : r % bh), c = cl ? 0 : r / bh;
+    float* dst = ip + (ptrdiff_t)c * si.c + (ptrdiff_t)yy * si.h +
+                 (ptrdiff_t)xlo * si.w;
+    const float* src = box + r * len;
+    // scalars up to 16-byte alignment, then quads, then the tail
+    const int head =
+        min(len, (int)((4 - ((uintptr_t)dst / sizeof(float)) % 4) % 4));
+    const int quads = (len - head) / 4;
+    if (lane < head && src[lane] != 0.0f) atomicAdd(dst + lane, src[lane]);
+    for (int i = lane; i < quads; i += 32) {
+      const float* s4 = src + head + 4 * i;
+      const float4 v4 = make_float4(s4[0], s4[1], s4[2], s4[3]);
+      if (v4.x != 0.0f || v4.y != 0.0f || v4.z != 0.0f || v4.w != 0.0f)
+        atomicAdd(reinterpret_cast<float4*>(dst + head + 4 * i), v4);
+    }
+    for (int i = head + 4 * quads + lane; i < len; i += 32)
+      if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
   }
 }
 
@@ -1350,9 +1563,20 @@ int launch_sample_bwd_img(const void* g, const void* fx, const void* fy,
                           int W, int Ho, int Wo, int border, cudaStream_t s) {
   const Strides sg = {st[0], st[1], st[2], st[3]};
   const Strides si = {st[4], st[5], st[6], st[7]};
-  sample_bwd_img_kernel<T><<<blocks_for((size_t)B * Ho * Wo), TPB, 0, s>>>(
+  // the buffer's layout: NCHW rows (w stride 1) or channels_last rows
+  const int cl = si.w == 1 ? 0 : 1;
+  if (cl && !(si.c == 1 && si.w == C)) return (int)cudaErrorInvalidValue;
+  if (B > 65535 || (Ho + SB_TH - 1) / SB_TH > 65535)
+    return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  const int rc = mfc::allow_shared_memory<sample_bwd_img_kernel<T>>(&limit);
+  if (rc != 0) return rc;
+  const int bytes = SB_CAP * (int)sizeof(float);
+  if (bytes > limit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((Wo + SB_TW - 1) / SB_TW, (Ho + SB_TH - 1) / SB_TH, B);
+  sample_bwd_img_kernel<T><<<grid, TPB, bytes, s>>>(
       (const T*)g, sg, (const float*)fx, (const float*)fy, (float*)gimg, si,
-      B, C, H, W, Ho, Wo, border);
+      C, H, W, Ho, Wo, border, cl);
   return (int)cudaGetLastError();
 }
 

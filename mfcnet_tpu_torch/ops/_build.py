@@ -102,9 +102,9 @@ _SIGNATURES = {
             (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
         # g, f1, f2, grad_f1, grad_f2, B, H, W, C, max_displacement,
-        # stride, dtype, stream
+        # stride, dtype, plan[7], stream
         "mfc_correlation_bwd": (
-            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I,
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
     "conv3x3.cu": {

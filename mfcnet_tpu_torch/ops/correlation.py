@@ -62,14 +62,38 @@ upstream gradient ``g`` (B, H, W, D*D),
 over in-image sources only. :func:`correlation_cost_volume` is a
 ``torch.autograd.Function`` where an input requires a gradient; its
 backward is :func:`correlation_backward`, which launches ``csrc/
-correlation.cu::mfc_correlation_bwd`` on CUDA tensors (both gradients as
-gathers, a block owning its outputs: no atomics, the same result from run
-to run; one launch for both, adding one to ``LAUNCHES["correlation_bwd"]``)
-and runs :func:`correlation_backward_plain`, the formula above written
-out (not autograd of :func:`correlation_plain`), on CPU tensors. Each
-gradient is computed only where its input requires one, summed in
-float32 and returned in its input's type; float64 inputs (the CPU route
-only: ``gradcheck``) run in float64 throughout.
+correlation.cu::mfc_correlation_bwd`` on CUDA tensors (one launch for both
+gradients, adding one to ``LAUNCHES["correlation_bwd"]``) and runs
+:func:`correlation_backward_plain`, the formula above written out (not
+autograd of :func:`correlation_plain`), on CPU tensors. :func:`corr_bwd_plan`
+chooses the kernel's route by shape, and the C side refuses any other plan:
+
+* ``"tc"`` (C a multiple of 8): the tensor cores. On a residue sub-grid
+  each gradient is a dense product over a tile: a block owns a tile P of
+  up to 64 output pixels and 128 channels of one gradient, and walks the
+  in-image operand pixels Q that the tile's windows reach (f2's for
+  grad_f1, f1's for grad_f2) in chunks of 32: ``grad[P, c] += G[P, Q]
+  X[Q, c]``, where ``G`` holds the weights ``g`` scattered into a P x Q
+  matrix in shared memory (zeros outside each pixel's window; for grad_f2
+  read from the source pixel at the mirrored displacement), by
+  ``mma.sync``. float32 inputs: 3xTF32 on both operands, as in the
+  forward. bfloat16 inputs: the operand exactly in bf16, ``g`` split into
+  three bf16 terms ``hi + mid + lo`` (its 24 bits exactly), three bf16
+  products. The tensor core's float32 sums truncate: each chunk's products
+  are summed there from zero and added to the running sums by float32 adds
+  that round to nearest. A bfloat16 output of the block's top binade whose
+  float32 sum lies within a few float32 steps of a bf16 rounding midpoint
+  is summed again in this module's plain order and arithmetic, so that it
+  rounds as :func:`correlation_backward_plain` rounds it (another order
+  would flip some of them by one bf16 step).
+* ``"fma"`` (any other C): the first design, a block owning a tile of
+  sub-grid pixels and 64 channels of one gradient and summing a row of
+  operand pixels at a time with float32 multiply-adds.
+
+On both routes every output has one owner block: no atomics, and the same
+result from run to run. Each gradient is computed only where its input
+requires one, summed in float32 and returned in its input's type; float64
+inputs (the CPU route only: ``gradcheck``) run in float64 throughout.
 """
 
 from __future__ import annotations
@@ -96,6 +120,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: may have (H100). ``csrc/correlation.cu`` has the same.
 MROWS, NT_MAX, KW, LDW, SMALL_GRID, SMEM_MAX = 64, 12, 32, 36, 1024, 232448
 ROUTES = ("fma", "tc")
+#: the backward's tensor-core route: blocks of BMROWS output pixels and
+#: BTC_CC channels, operand pixels in chunks of BKC through a ring of BSTAGES
+#: (float32: the weights too; bfloat16: two buffers of weights);
+#: operand rows of BLDX values (BTC_CC + 8), weights in rows of GLD1 / GLD2
+#: words (float32: grad_f1 [m][k], grad_f2 [k][m]) or GLH1 / GLH2 bfloat16
+#: values. ``csrc/correlation.cu`` has the same.
+BMROWS, BKC, BTC_CC, BSTAGES = 64, 32, 128, 3
+BLDX = BTC_CC + 8
+#: bfloat16 inputs: g as BWD_TERMS bfloat16 terms (24 bits: exact)
+BWD_TERMS = 3
+GLD1, GLD2, GLH1, GLH2 = BKC + 4, BMROWS + 8, BKC + 8, BMROWS + 8
 
 
 class CorrPlan(NamedTuple):
@@ -170,6 +205,58 @@ def corr_plan(B: int, H: int, W: int, C: int, max_displacement: int,
     return CorrPlan("tc", ty, l, tz, nq, nt, stages, grid, shared)
 
 
+class CorrBwdPlan(NamedTuple):
+    """The backward kernel's launch plan (see :func:`corr_bwd_plan`); its
+    ints are what the C entry point takes, in this order."""
+    route: str         # "tc" or "fma"
+    ty: int            # rows of the output tile in a residue sub-grid
+    l: int             # ... and its columns
+    cc: int            # channels a block
+    stages: int        # cp.async ring stages of operand chunks
+    grid: int          # blocks of one gradient
+    shared_bytes: int  # dynamic shared memory a block
+
+    def ints(self):
+        return (ROUTES.index(self.route),) + tuple(self)[1:]
+
+
+@functools.lru_cache(maxsize=None)
+def corr_bwd_plan(B: int, H: int, W: int, C: int, max_displacement: int,
+                  stride: int, dtype: str) -> CorrBwdPlan:
+    """Launch plan of ``mfc_correlation_bwd`` for (B, H, W, C) inputs of
+    ``dtype`` ("float32" or "bfloat16").
+
+    Route "tc" where C is a multiple of 8 (16-byte operand pieces in both
+    types), else "fma" (all other fields 0). On the "tc" route a block owns
+    a tile of ``ty`` x ``l`` output pixels of one residue sub-grid (the
+    forward's tile: ``l`` near Ws / ceil(Ws / 24), ``ty`` as many rows as
+    BMROWS pixels allow) and ``cc`` channels of one gradient; ``grid``
+    counts the blocks of one gradient (a launch of both has twice as many).
+    The C side computes the same plan and refuses any other."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"corr_bwd_plan: dtype must be float32 or bfloat16, "
+                         f"got {dtype!r}")
+    if min(B, H, W, C) < 1:
+        raise ValueError(f"corr_bwd_plan: empty input {(B, H, W, C)}")
+    s = stride
+    displacements(max_displacement, s)
+    fma = CorrBwdPlan("fma", 0, 0, 0, 0, 0, 0)
+    if C % 8:
+        return fma
+    hs, ws = -(-H // s), -(-W // s)
+    l = -(-ws // -(-ws // 24))
+    ty = min(max(1, BMROWS // l), hs)
+    grid = B * s * s * -(-hs // ty) * -(-ws // l) * -(-C // BTC_CC)
+    if 2 * grid > 2 ** 31 - 1:
+        return fma
+    if dtype == "float32":  # the weights in a ring beside the operand's
+        shared = BSTAGES * BKC * BLDX * 4 + BSTAGES * BMROWS * GLD1 * 4
+    else:
+        terms = BWD_TERMS * (max(BMROWS * GLH1, BKC * GLH2) // 2)
+        shared = BSTAGES * BKC * BLDX * 2 + 2 * terms * 4
+    return CorrBwdPlan("tc", ty, l, BTC_CC, BSTAGES, grid, shared)
+
+
 def staged_rows(plan: CorrPlan, B: int, H: int, W: int, max_displacement: int,
                 stride: int) -> int:
     """Pixel rows (C channels each) that the blocks of a "tc" plan copy out
@@ -198,7 +285,7 @@ def staged_rows(plan: CorrPlan, B: int, H: int, W: int, max_displacement: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_ints(plan: CorrPlan):
+def _plan_ints(plan):
     return (ctypes.c_int * len(plan))(*plan.ints())
 
 
@@ -284,8 +371,8 @@ def correlation_backward(g, f1, f2, max_displacement: int = 20,
     """The gradients of :func:`correlation_cost_volume` for the upstream
     gradient ``g`` (B, H, W, D*D): ``(grad_f1, grad_f2)`` in the inputs'
     type, None where ``needs`` says no. On CUDA tensors one launch of
-    ``mfc_correlation_bwd`` (both gradients); on CPU tensors
-    :func:`correlation_backward_plain`."""
+    ``mfc_correlation_bwd`` (both gradients) on :func:`corr_bwd_plan`'s
+    route; on CPU tensors :func:`correlation_backward_plain`."""
     _check(f1, f2)
     if route(g, f1, f2) == "cpu":
         return correlation_backward_plain(g, f1, f2, max_displacement, stride,
@@ -299,20 +386,27 @@ def correlation_backward(g, f1, f2, max_displacement: int = 20,
         raise ValueError("correlation_backward: the kernel indexes pixels "
                          "with 32 bits")
     g = g.float().contiguous()
-    f1, f2 = f1.contiguous(), f2.contiguous()
+    # the tensor-core route copies 16-byte pieces of the operands
+    f1, f2 = (t if t.data_ptr() % 16 == 0 else t.clone()
+              for t in (f1.contiguous(), f2.contiguous()))
     outs = [torch.empty_like(f) if need else None
             for f, need in zip((f1, f2), needs)]
     if not any(needs) or f1.numel() == 0:
         return tuple(o.zero_() if o is not None else None for o in outs)
+    plan = corr_bwd_plan(B, H, W, C, max_displacement, stride,
+                         str(f1.dtype).split(".")[1])
     rc = kernel_lib().mfc_correlation_bwd(
         g.data_ptr(), f1.data_ptr(), f2.data_ptr(),
         *(o.data_ptr() if o is not None else None for o in outs),
         B, H, W, C, max_displacement, stride, _DTYPES[f1.dtype],
-        stream_of(f1))
+        _plan_ints(plan), stream_of(f1))
     if rc == -1:
         raise ValueError(
             f"correlation_backward: max_displacement={max_displacement} "
             f"with stride={stride} needs more shared memory than a block has")
+    if rc == 20003:
+        raise RuntimeError(
+            f"correlation_backward: the kernel refused the plan {plan}")
     if rc != 0:
         raise RuntimeError(
             f"CUDA kernel correlation_bwd failed: cudaError {rc}")

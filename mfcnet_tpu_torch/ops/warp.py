@@ -68,12 +68,18 @@ too (B3): their backward is XLA's autodiff of the JAX package's
 ``grid_sample_bilinear`` (``mfcnet_tpu/ops/warp.py``), on the absolute
 coordinates that both share, unclamped (:func:`sample_backward`). On CUDA
 tensors two kernels: ``mfc_sample_bwd_img`` scatters each output's
-upstream gradient to its four taps with the forward's float32 weights by
-float32 ``atomicAdd`` into a zeroed float32 buffer in the image's memory
-format (the order of the additions changes from run to run: a tap that n
-samples reach differs from the plain version's sum by about sqrt(n)
-roundings of its partial sums), cast to the image's type after;
-``mfc_sample_bwd_coords`` gathers, per output pixel, the derivative of
+upstream gradient to its four taps with the forward's float32 weights into
+a zeroed float32 buffer in the image's memory format, cast to the image's
+type after. A block owns a 64 x 8 tile of output samples and reduces their
+tap box first (:func:`sample_bwd_tiles` computes the same boxes in torch);
+where the box times C fits ``SAMPLE_BWD_CAP`` floats it sums the tile's
+contributions in a shared-memory image of the box and adds the box to the
+buffer row by row (four floats an atomic where aligned), else it adds
+them to the buffer directly (runs of equal addresses in consecutive lanes
+summed first, one atomic each). The
+order of the additions changes from run to run: a pixel's value differs
+from the plain version's sum by a few float32 roundings of its partial
+sums. ``mfc_sample_bwd_coords`` gathers, per output pixel, the derivative of
 the sample along x and y summed over channels. On CPU tensors
 :func:`sample_backward_plain`. The derivative is JAX's floor form: between
 taps and at an integer coordinate alike it is the difference of the taps
@@ -121,6 +127,10 @@ BWD_TILE_H, BWD_TILE_W, BWD_MAX_GROUP_C = 8, 64, 6
 BWD_BLOCKS_PER_SM, BWD_THREADS, BWD_CAP, PLAN_REFUSED = 3, 256, 1024, 20004
 #: tap-box corners (top-left taps) whose boxes reach a tile
 BWD_CORNERS = (BWD_TILE_H + 1) * (BWD_TILE_W + 1)
+#: B3's image entry (``csrc/warp.cu`` has the same): tiles of
+#: SAMPLE_BWD_TILE_H x SAMPLE_BWD_TILE_W output samples; a tile whose tap box
+#: times C holds at most SAMPLE_BWD_CAP floats sums in shared memory
+SAMPLE_BWD_TILE_H, SAMPLE_BWD_TILE_W, SAMPLE_BWD_CAP = 8, 64, 16384
 
 
 def reset_launches():
@@ -754,6 +764,46 @@ def _backward_warp_forward(img, flow, align_corners, padding_mode):
 # ---------------------------------------------------------------------------
 # B3: the backward of grid_sample_bilinear and backward_warp
 # ---------------------------------------------------------------------------
+def sample_bwd_tiles(fx, fy, H: int, W: int, C: int,
+                     padding_mode: str = "zeros"):
+    """The image entry's tiling of ``mfc_sample_bwd_img`` in torch, for
+    absolute coordinates ``fx``, ``fy`` (B, Ho, Wo) on an (H, W) image of C
+    channels: for each tile of SAMPLE_BWD_TILE_H x SAMPLE_BWD_TILE_W
+    samples the box of its valid taps (columns ``x_lo..x_hi``, rows
+    ``y_lo..y_hi``; empty where ``x_lo > x_hi``) and whether the box times C
+    fits SAMPLE_BWD_CAP floats (the shared-memory route; the others add
+    directly). Returns ``(ext, local)``: (B, nty, ntx, 4) int64 (x_lo,
+    x_hi, y_lo, y_hi) and (B, nty, ntx) bool."""
+    B, Ho, Wo = fx.shape
+    fx, fy = fx.float(), fy.float()
+    if padding_mode == "border":
+        fx, fy = fx.clamp(0.0, W - 1), fy.clamp(0.0, H - 1)
+    x0f, y0f = torch.floor(fx), torch.floor(fy)
+    valid = (((x0f >= 0) & (x0f <= W - 1)) | ((x0f >= -1) & (x0f <= W - 2))) \
+        & (((y0f >= 0) & (y0f <= H - 1)) | ((y0f >= -1) & (y0f <= H - 2)))
+    big = 2 ** 40
+    x0 = torch.where(valid, x0f.clamp(-1, W - 1), 0).long()
+    y0 = torch.where(valid, y0f.clamp(-1, H - 1), 0).long()
+    th, tw = SAMPLE_BWD_TILE_H, SAMPLE_BWD_TILE_W
+    nty, ntx = -(-Ho // th), -(-Wo // tw)
+
+    def tiles(t, fill):
+        t = torch.where(valid, t, fill)
+        t = torch.nn.functional.pad(t, (0, ntx * tw - Wo, 0, nty * th - Ho),
+                                    value=fill)
+        return t.view(B, nty, th, ntx, tw)
+
+    ext = torch.stack([
+        tiles(x0.clamp(min=0), big).amin((2, 4)),
+        tiles((x0 + 1).clamp(max=W - 1), -big).amax((2, 4)),
+        tiles(y0.clamp(min=0), big).amin((2, 4)),
+        tiles((y0 + 1).clamp(max=H - 1), -big).amax((2, 4))], -1)
+    size = ((ext[..., 1] - ext[..., 0] + 1) * (ext[..., 3] - ext[..., 2] + 1)
+            * C)
+    local = (ext[..., 0] <= ext[..., 1]) & (size <= SAMPLE_BWD_CAP)
+    return ext, local
+
+
 def sample_backward_plain(g, img, fx, fy, padding_mode: str = "zeros",
                           needs=(True, True)):
     """Plain version of :func:`sample_backward`:
@@ -773,8 +823,8 @@ def sample_backward(g, img, fx, fy, padding_mode: str = "zeros",
     ``(grad_img, grad_fx, grad_fy)``, the image's gradient in its type and
     memory format where ``needs[0]``, the coordinates' float32 gradients
     where ``needs[1]`` (None otherwise). On CUDA tensors one launch of
-    ``mfc_sample_bwd_img`` (float32 atomics into a zeroed float32 buffer)
-    and one of ``mfc_sample_bwd_coords``, each only where its gradient is
+    ``mfc_sample_bwd_img`` (tile-local sums added into a zeroed float32
+    buffer) and one of ``mfc_sample_bwd_coords``, each only where its gradient is
     wanted; on CPU tensors :func:`sample_backward_plain`."""
     if route(g, img, fx, fy) == "cpu":
         return sample_backward_plain(g, img, fx, fy, padding_mode, needs)

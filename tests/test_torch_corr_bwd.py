@@ -127,21 +127,28 @@ def test_correlation_backward_only_where_asked_and_in_the_inputs_type():
 
 @pytest.mark.cuda
 def test_cuda_correlation_backward_matches_plain_version():
-    """B2's kernel against its plain version at UnFlow's tracker and offline
-    conv3 shapes and at an odd shape, both types, one launch a call, each
-    gradient alone equal to both together (run with ``python -m pytest
-    tests/test_torch_corr_bwd.py -m cuda --noconftest`` on a GPU)."""
+    """B2's kernel against its plain version on both routes: the tensor
+    cores at UnFlow's tracker and offline conv3 shapes and at a shape of
+    several tiles a row whose last channel chunk holds 8 channels, the fma
+    route where C % 8 != 0; both types, one launch a call, each gradient
+    alone equal to both together, two calls bit-equal (run with ``python
+    -m pytest tests/test_torch_corr_bwd.py -m cuda --noconftest`` on a
+    GPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     from mfcnet_tpu_torch.ops import correlation as co
 
     gen = torch.Generator().manual_seed(0)
-    for shape, md, s in (((2, 32, 40, 256), 20, 2), ((4, 64, 80, 256), 20, 2),
-                         ((1, 9, 45, 7), 5, 3), ((2, 11, 13, 70), 4, 1)):
+    for shape, md, s, route in (((2, 32, 40, 256), 20, 2, "tc"),
+                                ((4, 64, 80, 256), 20, 2, "tc"),
+                                ((1, 5, 70, 136), 6, 2, "tc"),
+                                ((1, 9, 45, 7), 5, 3, "fma"),
+                                ((2, 11, 13, 70), 4, 1, "fma")):
         D = co.displacements(md, s)
         g = torch.randn(*shape[:3], D * D, generator=gen).cuda()
         for dt, tol in ((torch.float32, 1e-5),
                         (torch.bfloat16, 2.0 ** -8 + 1e-5)):
+            assert co.corr_bwd_plan(*shape, md, s, str(dt)[6:]).route == route
             f1 = torch.randn(shape, generator=gen).cuda().to(dt)
             f2 = torch.randn(shape, generator=gen).cuda().to(dt)
             co.reset_launches()
@@ -152,6 +159,8 @@ def test_cuda_correlation_backward_matches_plain_version():
                 assert k.dtype == dt
                 err = (k.float() - p.float()).abs().max()
                 assert float(err) <= tol * float(p.float().abs().max())
+            again = co.correlation_backward(g, f1, f2, md, s)
+            assert torch.equal(again[0], k1) and torch.equal(again[1], k2)
             only1 = co.correlation_backward(g, f1, f2, md, s, (True, False))
             only2 = co.correlation_backward(g, f1, f2, md, s, (False, True))
             assert torch.equal(only1[0], k1) and only1[1] is None

@@ -206,9 +206,11 @@ def test_sampler_gradcheck_float64(align_corners, padding_mode):
 
 @pytest.mark.cuda
 def test_cuda_sampler_backward_matches_plain_version():
-    """Both B3 kernels against their plain versions: flows past every edge
-    and integer coordinates with the clamp limits, both padding modes,
-    NCHW and channels_last, float32 and bfloat16; one launch each; the
+    """Both B3 kernels against their plain versions: flows past every edge,
+    integer coordinates with the clamp limits, and a 40 px noise flow
+    (whose tiles take the image entry's direct route at 4x3x64x96 with
+    border padding), both padding modes, NCHW and channels_last, float32
+    and bfloat16; one launch each; the
     image gradient in the image's type and memory format; the wrappers'
     gradients through the kernels (run with ``python -m pytest
     tests/test_torch_sample_bwd.py -m cuda --noconftest`` on a GPU)."""
@@ -222,6 +224,12 @@ def test_cuda_sampler_backward_matches_plain_version():
         flow = torch.from_numpy(np.moveaxis(_flows(B, H, W, rng), -1, 1)
                                 ).contiguous().cuda()
         fx, fy = warp._abs_coords(*warp._warp_grid(flow), H, W, False, "zeros")
+        nx, ny = warp._abs_coords(*warp._warp_grid(
+            (torch.randn(B, 2, H, W, generator=gen) * 40).cuda()), H, W,
+            False, "zeros")
+        if C * H * W > warp.SAMPLE_BWD_CAP:  # no noise tile's box fits
+            assert not bool(warp.sample_bwd_tiles(nx, ny, H, W, C,
+                                                  "border")[1].any())
         ix = (torch.arange(W).view(1, 1, W) + torch.randint(
             -4, 5, (B, H, W), generator=gen)).clamp(-3, W + 2).float().cuda()
         iy = (torch.arange(H).view(1, H, 1) + torch.randint(
@@ -232,7 +240,7 @@ def test_cuda_sampler_backward_matches_plain_version():
                 img = torch.rand(B, C, H, W, generator=gen).cuda().to(
                     dt).contiguous(memory_format=fmt)
                 g = torch.randn(B, C, H, W, generator=gen).cuda().to(dt)
-                for cx, cy in ((fx, fy), (ix, iy)):
+                for cx, cy in ((fx, fy), (ix, iy), (nx, ny)):
                     for pm in ("zeros", "border"):
                         warp.reset_launches()
                         got = warp.sample_backward(g, img, cx, cy, pm)

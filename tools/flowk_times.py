@@ -4,7 +4,7 @@ entry point alone, for the package of this checkout, or of this checkout and
 another tree in turns on one card in one call:
 
     python3 tools/flowk_times.py [--breakdown] [--variants] [--raft-f32]
-        [--phases] [--tree DIR]
+        [--phases] [--backward] [--tree DIR]
 
 Inputs, seeded: the correlation at UnFlow's tracker shape (f32 and bf16
 2x32x40x256: the conv3 features of 2 pairs at 256x320) and at the offline
@@ -27,6 +27,15 @@ on the smooth flow, the noise flow and a convergent flow (every pixel
 within 2 px of one point), each held to the plain backward and timed
 beside ``grid_sampler_2d_backward`` (maps gradient only, grid gradient
 only); its byte bound and, by design, the bytes each moves.
+B2, the correlation's backward (both gradients in one call), at the
+tracker's and the offline CLI's shapes in both types, beside the dense
+``torch.bmm`` yardstick of ``chip_smoke.py`` (each residue sub-grid's (P, P)
+gradient times both operands, f32, TF32 off), and B3's image entry (the
+whole ``sample_backward`` call for the image gradient, its zeroed buffer
+included) at UnFlow's training shape, 4x3x512x640 f32 ``channels_last``,
+border, on ``chip_smoke.py::_b3_cases``'s smooth, edges and noise inputs,
+beside ``aten::grid_sampler_2d_backward`` (image gradient only); each held
+to its plain version first. ``--backward`` times B2 and B3 alone.
 ``--breakdown`` lists the device operations of one call with their device
 times (``torch.profiler``). For the correlation the line also holds
 ``corr_plan``'s plan and the operand rows its blocks stage (MB). ``--variants`` also builds
@@ -172,6 +181,76 @@ def b1_calls(gen, out):
                     torch.ops.aten.grid_sampler_2d_backward(
                         g, maps, grid, 0, 0, True, mask))
     return calls, kept
+
+
+def b2b3_calls(gen, out):
+    """B2 at UnFlow's two shapes in both types and B3's image entry on the
+    smooth, edges and noise inputs, each checked against its plain version
+    first: {label: (kernel call, library call)}; bounds into ``out``."""
+    import torch
+
+    from chip_smoke import BWD_TOL, PEAK_BF16, PEAK_BYTES, PEAK_TF32, \
+        _b3_cases, _nbytes, _rel, _residue_grams
+    from mfcnet_tpu_torch.ops import correlation as co
+    from mfcnet_tpu_torch.ops import warp
+
+    calls = {}
+    for where, shape in (("tracker", (2, 32, 40, 256)),
+                         ("offline", (4, 64, 80, 256))):
+        B, h, w, c = shape
+        g = torch.randn(B, h, w, 441, generator=gen).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[1]
+            f1 = torch.randn(shape, generator=gen).cuda().to(dt)
+            f2 = torch.randn(shape, generator=gen).cuda().to(dt)
+            got = co.correlation_backward(g, f1, f2, MD, STRIDE)
+            want = co.correlation_backward_plain(g, f1, f2, MD, STRIDE)
+            rels = [_rel(k, p) for k, p in zip(got, want)]
+            if max(rels) > BWD_TOL[name]:
+                raise AssertionError(f"B2 {where} {name}: {rels}")
+            label = f"B2 {where} {name}"
+            flop = 2 * 2 * B * h * w * 441 * c
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_TF32 / 3
+            out[f"{label} bound ms"] = max(
+                _nbytes(g, f1, f2, f1, f2) / PEAK_BYTES, flop / peak) * 1e3
+            out[f"{label} max |diff| / max"] = max(rels)
+            a1, a2 = _residue_grams(f1.float(), f2.float(), STRIDE)
+            gram = torch.randn(a1.shape[0], a1.shape[1], a1.shape[1],
+                               generator=gen).cuda()
+            calls[label] = (
+                lambda g=g, f1=f1, f2=f2: co.correlation_backward(
+                    g, f1, f2, MD, STRIDE),
+                lambda gram=gram, a1=a1, a2=a2: (
+                    torch.bmm(gram, a2), torch.bmm(gram.transpose(1, 2), a1)))
+    B, C, H, W = 4, 3, 512, 640
+    cases = {case: (fx, fy) for case, fx, fy in _b3_cases(gen, B, C, H, W)}
+    img = torch.rand(B, C, H, W, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    g = torch.randn(B, C, H, W, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    for case in ("smooth", "edges", "noise"):
+        fx, fy = cases[case]
+        got = warp.sample_backward(g, img, fx, fy, "border", (True, False))[0]
+        want = warp.sample_backward_plain(g, img, fx, fy, "border",
+                                          (True, False))[0]
+        if _rel(got, want) > BWD_TOL["float32"]:
+            raise AssertionError(f"B3 image {case}: {_rel(got, want)}")
+        label = f"B3 image {case}"
+        out[f"{label} bound ms"] = \
+            _nbytes(g, fx, fy, got) / PEAK_BYTES * 1e3
+        if hasattr(warp, "sample_bwd_tiles"):
+            ext, local = warp.sample_bwd_tiles(fx, fy, H, W, C, "border")
+            out[f"{label} tiles shared, direct"] = [
+                int(local.sum()),
+                int(((ext[..., 0] <= ext[..., 1]) & ~local).sum())]
+        grid = torch.stack([fx * (2.0 / W) + (1.0 / W - 1.0),
+                            fy * (2.0 / H) + (1.0 / H - 1.0)], -1)
+        calls[label] = (
+            lambda fx=fx, fy=fy: warp.sample_backward(
+                g, img, fx, fy, "border", (True, False)),
+            lambda grid=grid: torch.ops.aten.grid_sampler_2d_backward(
+                g, img, grid, 0, 1, False, [True, False]))
+    return calls
 
 
 def b1_variants(vlib, g, flows, out):
@@ -409,12 +488,13 @@ def _update_block_tail(ub, c1, f1, inp, net, flow, B, H8, W8):
 
 
 def readings(breakdown: bool, variants: bool, tree: Path,
-             raft_f32: bool = False, phases: bool = False):
+             raft_f32: bool = False, phases: bool = False,
+             backward: bool = False):
     import torch
     import torch.nn.functional as F
 
     from chip_smoke import CORR_TOL, PEAK_BYTES, WARP_ATOL, _abs_coords, \
-        _device_events, _event_ms, _graph_ms, _nbytes, _residue_grams
+        _graph_ms, _nbytes, _residue_grams
     from mfcnet_tpu_torch.ops import correlation as co
     from mfcnet_tpu_torch.ops import warp
     from mfcnet_tpu_torch.ops._build import kernel_lib, stream_of
@@ -422,6 +502,10 @@ def readings(breakdown: bool, variants: bool, tree: Path,
     gen = torch.Generator().manual_seed(0)
     out = {"tree": str(tree), "package": co.__file__}
     calls = {}  # label -> (kernel call, library call or None)
+    if backward:  # B2 and B3 alone
+        calls = b2b3_calls(gen, out)
+        _time_calls(calls, out, breakdown)
+        return out
     atol, rtol = CORR_TOL
     for label, shape, dt in CORR_CALLS:
         f1 = torch.randn(shape, generator=gen).cuda().to(getattr(torch, dt))
@@ -506,26 +590,8 @@ def readings(breakdown: bool, variants: bool, tree: Path,
     out["warp_abs bound ms"] = _nbytes(img, gx, gy, res) / PEAK_BYTES * 1e3
     b1, b1_inputs = b1_calls(gen, out)
     calls.update(b1)
-    if breakdown:
-        for label, (kern, _) in calls.items():
-            ops = _device_events(kern)
-            out[f"{label} ops"] = {
-                "count": len(ops), "device_us": sum(t for _, t in ops),
-                "ops": [[n[:60], round(t, 3)] for n, t in ops]}
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in f32
-    try:
-        for label, (kern, library) in calls.items():
-            # a convergent flow takes milliseconds a call: fewer replays
-            slow = "convergent" in label
-            reps = (5, 2) if slow else (20, 10)
-            out[f"{label} graph ms, kernel"] = _graph_ms(kern, *reps)
-            if not label.startswith("warp_abs"):
-                out[f"{label} eager ms, kernel"] = _event_ms(
-                    kern, 5 if slow else 50)
-            out[f"{label} graph ms, library"] = _graph_ms(library, *reps)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    calls.update(b2b3_calls(gen, out))
+    _time_calls(calls, out, breakdown)
     if variants:
         vlib = build_variants()
         for label, fl in flows.items():
@@ -556,14 +622,45 @@ def readings(breakdown: bool, variants: bool, tree: Path,
     return out
 
 
-def in_turns(tree: Path, breakdown: bool, raft_f32: bool):
+def _time_calls(calls, out, breakdown):
+    """Each call's device operations (with ``breakdown``) and its ms by
+    graph replay (and eager), beside its library call's, into ``out``."""
+    import torch
+
+    from chip_smoke import _device_events, _event_ms, _graph_ms
+
+    if breakdown:
+        for label, (kern, _) in calls.items():
+            ops = _device_events(kern)
+            out[f"{label} ops"] = {
+                "count": len(ops), "device_us": sum(t for _, t in ops),
+                "ops": [[n[:60], round(t, 3)] for n, t in ops]}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in f32
+    try:
+        for label, (kern, library) in calls.items():
+            # a convergent flow takes milliseconds a call: fewer replays
+            slow = "convergent" in label
+            reps = (5, 2) if slow else (20, 10)
+            out[f"{label} graph ms, kernel"] = _graph_ms(kern, *reps)
+            if not label.startswith("warp_abs"):
+                out[f"{label} eager ms, kernel"] = _event_ms(
+                    kern, 5 if slow else 50)
+            out[f"{label} graph ms, library"] = _graph_ms(library, *reps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def in_turns(tree: Path, breakdown: bool, raft_f32: bool,
+             backward: bool = False):
     """A (``tree``) B (this checkout) B A, a process each; the best reading
     of each tree per timed key."""
     turns = []
     for t in (tree, ROOT, ROOT, tree):
         cmd = [sys.executable, str(Path(__file__).resolve()), "--time-tree",
                str(t)] + (["--breakdown"] if breakdown else []) + (
-                   ["--raft-f32"] if raft_f32 else [])
+                   ["--raft-f32"] if raft_f32 else []) + (
+                   ["--backward"] if backward else [])
         line = subprocess.run(cmd, capture_output=True, text=True,
                               check=True).stdout.strip().splitlines()[-1]
         print(line, flush=True)
@@ -589,11 +686,13 @@ def main():
                     help="time raft_update's float32 route")
     ap.add_argument("--phases", action="store_true",
                     help="split B1's maps kernel into its phases")
+    ap.add_argument("--backward", action="store_true",
+                    help="time B2 and B3's image entry alone")
     args = ap.parse_args()
     if args.tree is not None:
         print(card(), flush=True)
         print(json.dumps(in_turns(args.tree.resolve(), args.breakdown,
-                                  args.raft_f32)), flush=True)
+                                  args.raft_f32, args.backward)), flush=True)
         extra = [f for f, on in (("--variants", args.variants),
                                  ("--phases", args.phases)) if on]
         if extra:
@@ -612,7 +711,8 @@ def main():
     if args.time_tree is None:
         print(card(), flush=True)
     print(json.dumps(readings(args.breakdown, args.variants, tree,
-                              args.raft_f32, args.phases)), flush=True)
+                              args.raft_f32, args.phases, args.backward)),
+          flush=True)
 
 
 if __name__ == "__main__":
