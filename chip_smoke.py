@@ -16,8 +16,10 @@ and in training, and the rest of the zoo (UNet, ResUNet, TAPNet16) --
 through its hand-written CUDA kernels (``mfcnet_tpu_torch/csrc``), the
 evaluation layer (the single-frame video tracker and the infer CLIs'
 device half), the serving layer (exported artifacts and the engine that
-tracks from them) and the backward slice (UnFlow's gradient through the
-backward kernels, ``--remat``), in ten phases; a failing phase raises and
+tracks from them), the backward slice (UnFlow's gradient through the
+backward kernels, ``--remat``) and the data-parallel slice (run A on two
+ranks through ``DistributedDataParallel``, the stream axis over two
+engines, the legacy models), in eleven phases; a failing phase raises and
 the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
@@ -151,7 +153,26 @@ the script exits non-zero:
    plain backward on the same forward and against the plain forward and
    backward (``UNFLOW_GRAD_TOL``, every parameter and both frames); run A's
    micro-step with and without ``--remat``: parameters equal bit for bit in
-   parity mode, the peak memory lower, both ms/step.
+   parity mode, the peak memory lower, both ms/step;
+11. the data-parallel slice (``phase_ddp_slice``, after phase 10): run A
+   (480x640, RAFT x12 and depth in the step, the base trained, grad_accum
+   2, EMA) through the training CLI with ``--multihost true`` on two ranks
+   (``python3 chip_smoke.py --ddp-rank``, spawned; both on cuda:0 over
+   ``gloo``), 2 samples a rank, global batch 4: in float32 parity mode its
+   parameters, BN statistics and EMA after 3 updates equal across the
+   ranks bit for bit, and against one process at batch 4 (the first
+   update's gradients too) within rtol 1e-4 / atol 1e-5 or no further than
+   the same one-process run with its rows reordered, float32's rounding
+   floor (``DDP_TOL``), and two control runs with a fault planted
+   (rank-local losses; rank-local BN statistics) must fail that gate; in
+   bf16 its ms per optimizer step and peak
+   memory a rank beside one process's, and per micro-step and rank 12
+   ``raft_update``, 1 ``flow_warp`` and 1 B1 (the ``train_ddp`` path's
+   main-path run); a failed rank fails the phase; a 1-rank ``nccl`` group's
+   all-reduce and run A's micro-step through DDP there, equal to the
+   groupless step bit for bit; ``stream_shards=2`` (both shards on cuda:0)
+   against the one-device 4-stream engine (f32, RAFT x12); and the legacy
+   models and ABN, f32 at 480x640, against the CPU (``LEGACY_TOL``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -251,6 +272,9 @@ PATH_KERNELS = {
     # backward kernels (B2; B3's two entry points)
     "unflow_grad": ("correlation", "backward_warp", "correlation_bwd",
                     "sample_bwd_img", "sample_bwd_coords"),
+    # the data-parallel slice (ROADMAP item 11d): run A's bf16 micro-steps
+    # on 2 ranks through DDP
+    "train_ddp": ("flow_warp", "raft_update", "flow_warp_bwd"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -6004,38 +6028,15 @@ def _remat_run_a(smi):
     for bit, the remat peak lower; then ms/step (median of 3 more)."""
     import torch
 
-    from mfcnet_tpu_torch.cli.train_multiframe_detection import build_flow_fn
-    from mfcnet_tpu_torch.data.transforms import (
-        TransformConfig,
-        augment_train_batch,
-    )
-    from mfcnet_tpu_torch.models import (
-        get_multiframe_segmentation_model,
-        init_weights_lecun,
-    )
     from mfcnet_tpu_torch.train.schedule import make_schedule
     from mfcnet_tpu_torch.train.state import TrainState
-    from mfcnet_tpu_torch.train.steps import make_multiframe_train_step
     from mfcnet_tpu_torch.utils.profiling import parity_mode
 
-    rng = np.random.default_rng(SEED)
-    batch = augment_train_batch({
-        "frames": rng.integers(0, 256, (TRAIN_B, T, H, W, 3), dtype=np.uint8),
-        "mask": rng.integers(0, C, (TRAIN_B, H, W), dtype=np.uint8),
-        "depth": rng.integers(0, 256, (TRAIN_B, T, H, W), dtype=np.uint8)},
-        torch.Generator().manual_seed(SEED), TransformConfig(
-            out_height=H, out_width=W), "cuda")
-    flow_fn = build_flow_fn("RAFT", (H, W), None, "bfloat16", "cuda")
-    step = make_multiframe_train_step(
-        ["nll", "soft_jaccard"], [0.7, 0.3], C, flow_fn=flow_fn,
-        compute_dtype="bfloat16")
+    batch, step = _run_a_inputs()
     out = {}
     with parity_mode():
         for remat in (False, True):
-            model = init_weights_lecun(get_multiframe_segmentation_model(
-                "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
-                add_depth_inputs=True, remat=remat),
-                torch.Generator().manual_seed(SEED)).cuda()
+            model = _run_a_model(remat=remat)
             st = TrainState(model, make_schedule("Constant", STEP_LR, 1, 1),
                             T)
             torch.cuda.synchronize()
@@ -6161,6 +6162,701 @@ def phase_unflow_grad_slice(smi):
     return launches, 1, times, bounds, library, errs
 
 
+# ---- phase 11: the data-parallel slice -------------------------------------
+
+#: ranks of phase 11's data-parallel run (both on cuda:0 over gloo: NCCL
+#: refuses two ranks on one card) and its global batch, at run A's lr.
+#: Parity of the float32 2-rank run with one process at the global batch:
+#: the JAX package's 2-process test holds it to rtol 1e-4 / atol 1e-5
+#: (tests/test_multihost_spawn.py, at 32x32), and so does this package's
+#: CPU test (tests/test_torch_ddp.py). At 480x640 float32 rounding alone
+#: moves more than that: a gradient element sums 1.2 M positions of both
+#: signs, and a sum in another order differs by up to ~3e-3 of a tensor's
+#: largest gradient, which Adam, whose step is ~lr whatever a gradient's
+#: size, carries into the parameters. So the card holds the 2-rank run to
+#: the rounding floor of one process: the same one-process run with the
+#: global batch's rows in another order (rank 1's first; the batch norms
+#: and the losses are sums, the same function of the rows in any order).
+#: Found on the card: 7,271,266 of 221.8 M elements (gradients,
+#: parameters, statistics, EMA) beyond the tolerance for the 2-rank run,
+#: 7,086,283 for the reordered one; the largest parameter difference
+#: 1.893e-4 against 1.891e-4; per tensor at most 2.45 times the reordered
+#: run's largest difference. Each tensor must lie within the tolerance or
+#: within DDP_FLOOR times the reordered run's largest difference, and the
+#: elements beyond the tolerance number at most DDP_FLOOR_COUNT times the
+#: reordered run's. Two controls, 2-rank runs with a planted fault
+#: (``DDP_CONTROLS``), must fail the same gate, so the gate is shown to
+#: refuse a wrong data-parallel run.
+DDP_RANKS, DDP_GLOBAL_B, DDP_LR = 2, 4, 1e-4
+DDP_TOL, DDP_FLOOR, DDP_FLOOR_COUNT = (1e-4, 1e-5), 4.0, 1.5
+#: streams of the stream_shards check; legacy models' card-vs-CPU limit,
+#: a share of each output's largest value on the CPU
+SHARD_STREAM_FRAMES, LEGACY_TOL = 8, 1e-4
+
+
+#: the faults planted in phase 11's control runs: each makes one thing of
+#: the global batch rank-local again (the losses' partial sums, or the
+#: batch norms' statistics and their backward sums)
+DDP_CONTROLS = ("rank-local losses", "rank-local BN statistics")
+
+
+@contextlib.contextmanager
+def _ddp_control(name):
+    """Within the block the fault ``name`` of ``DDP_CONTROLS`` is planted
+    in this process."""
+    from mfcnet_tpu_torch.models import common
+    from mfcnet_tpu_torch.train import loss
+
+    module, attr, fake = {
+        "rank-local losses": (loss, "all_sum", lambda x: x),
+        "rank-local BN statistics": (common, "group_world", lambda: 1),
+    }[name]
+    real = getattr(module, attr)
+    setattr(module, attr, fake)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def _ddp_args(pack, out, dtype, batch, *extra):
+    """Run A's flags (the base trained, RAFT x12 + depth in the step,
+    grad_accum 2, EMA) in ``dtype`` at ``batch`` a process."""
+    args = _train_args(pack, out, "ddp", "--train_base_model", "True",
+                       "--compute_dtype", dtype, "--grad_accum",
+                       str(TRAIN_ACCUM), "--ema_decay", "0.999", "--lr",
+                       str(DDP_LR), *extra)
+    args[args.index("--batch_size") + 1] = str(batch)
+    return args
+
+
+def _final_state(state):
+    return {"model": {k: v.cpu() for k, v in state.model.state_dict().items()},
+            "ema": {k: v.cpu() for k, v in state.ema.items()},
+            "step": state.step, "updates": state.updates}
+
+
+def _timed_run(cli, args):
+    """The CLI in this process; (state, its micro-steps' records, peak
+    bytes, launches over the run)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    with _timed_train_steps(cli) as recs:
+        state = cli.main(args)
+    torch.cuda.synchronize()
+    return state, list(recs), torch.cuda.max_memory_allocated(), \
+        _all_launches()
+
+
+def ddp_rank(out, pack):
+    """One rank of phase 11's 2-rank run (``python3 chip_smoke.py
+    --ddp-rank OUT PACK``; ``RANK``, ``WORLD_SIZE`` and the address from
+    the parent): run A's configuration at 480x640, ``--multihost true`` at
+    half the global batch a rank, on ``cuda:0`` over ``gloo``; first in
+    float32 in parity mode (its final state), then so with each fault of
+    ``DDP_CONTROLS`` planted, then in bf16 (its micro-steps' ms, peak
+    memory and launches). Writes ``OUT/rank{r}.pt``."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from mfcnet_tpu_torch.cli import train_multiframe_detection as cli
+    from mfcnet_tpu_torch.parallel import init_distributed
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    rank, world = init_distributed(auto=True, device="cuda:0",
+                                   backend="gloo", timeout_s=300)
+    out = Path(out)
+    mine = ("--device", "cuda:0", "--multihost", "true")
+    b = DDP_GLOBAL_B // world
+    with parity_mode(), _first_update_grads() as grads:
+        state = cli.main(_ddp_args(pack, out / f"f32_{rank}", "float32", b,
+                                   *mine))
+    res = {"f32": {**_final_state(state), "grads": grads}}
+    del state
+    for name in DDP_CONTROLS:
+        with parity_mode(), _first_update_grads() as grads, \
+                _ddp_control(name):
+            state = cli.main(_ddp_args(pack, out / f"{name}_{rank}",
+                                       "float32", b, *mine))
+        res[name] = {**_final_state(state), "grads": grads}
+        del state
+    state, recs, peak, launches = _timed_run(
+        cli, _ddp_args(pack, out / f"bf16_{rank}", "bfloat16", b, *mine))
+    res["bf16"] = {"recs": recs, "peak": peak, "launches": launches,
+                   "micro": state.step}
+    torch.save(res, out / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ddp_ranks(out, pack, timeout=600):
+    """Run the ranks of ``ddp_rank``; a rank that fails, or a run longer
+    than ``timeout`` s, kills the others and raises with the rank's
+    output."""
+    import os
+    from pathlib import Path
+
+    port = str(_free_port())
+    root = str(Path(__file__).resolve().parent)
+    procs, logs = [], []
+    for r in range(DDP_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(DDP_RANKS), MASTER_ADDR="localhost",
+                   MASTER_PORT=port)
+        logs.append(open(Path(out) / f"rank{r}.log", "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+             str(out), str(pack)], env=env, cwd=root, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                r = bad[0] if bad else 0
+                logs[r].seek(0)
+                raise AssertionError(
+                    f"data-parallel rank {r} "
+                    + ("failed" if bad else f"ran past {timeout} s")
+                    + ":\n" + logs[r].read()[-4000:])
+            time.sleep(0.5)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                logs[r].seek(0)
+                raise AssertionError(f"data-parallel rank {r} failed:\n"
+                                     + logs[r].read()[-4000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _global_batches(cli, world):
+    """Within the block the CLI's loader yields the global batches of a
+    ``world``-rank run: its ranks' batches, rank 0's rows first, as the
+    ranks hold them."""
+    real = cli.get_data_loader
+
+    def loaders(*a, shard=None, **kw):
+        a = list(a)
+        a[5] //= world
+        parts = [real(*a, shard=(r, world), **kw) for r in range(world)]
+        ranks = [tr for tr, _ in parts]
+        for tr in ranks:
+            tr.drop_last = True
+
+        class Global:
+            def __len__(self):
+                return len(ranks[0])
+
+            def set_epoch(self, epoch, skip_batches=0):
+                for tr in ranks:
+                    tr.set_epoch(epoch, skip_batches)
+
+            def __iter__(self):
+                for bs in zip(*ranks):
+                    yield {k: np.concatenate([b[k] for b in bs])
+                           for k in bs[0]}
+
+        return Global(), parts[0][1]
+
+    cli.get_data_loader = loaders
+    try:
+        yield
+    finally:
+        cli.get_data_loader = real
+
+
+def _per_update_ms(recs):
+    """Host ms of each optimizer step: its micro-steps' synchronized ms."""
+    return [sum(r["ms"] for r in recs[i:i + TRAIN_ACCUM])
+            for i in range(0, len(recs), TRAIN_ACCUM)]
+
+
+def _deviation(got, want, scale=None):
+    """(max |diff|, elements beyond ``DDP_TOL``) of two tensors; ``scale``
+    (a gradient's largest element) takes the place of each element's own
+    size in the tolerance."""
+    rtol, atol = DDP_TOL
+    d = (got.double() - want.double()).abs()
+    size = want.double().abs() if scale is None else scale
+    return float(d.max()), int((d > atol * (1 if scale is None else scale)
+                                + rtol * size).sum())
+
+
+def _ddp_parity(ranks, ref, floor):
+    """Rank 0 equal to rank 1 bit for bit; against the one-process run
+    ``ref``, each gradient of the first update (in its tensor's scale) and
+    each floating tensor of the parameters, BN statistics and EMA no further
+    than the one-process run ``floor`` of the rows in another order is (see
+    ``DDP_TOL``). Returns a summary of both deviations, with ``bad``, what
+    failed the gate (empty when the run passes)."""
+    import torch
+
+    out = dict(tensors=0, elements=0, beyond=0, floor_beyond=0,
+               worst=0.0, floor_worst=0.0, grad=0.0, floor_grad=0.0,
+               ranks_differ=0)
+    out["bad"] = bad = []
+
+    def hold(what, got, want, alt, scale=None):
+        err, n = _deviation(got, want, scale)
+        ferr, fn = _deviation(alt, want, scale)
+        out["tensors"] += 1
+        out["elements"] += got.numel()
+        out["beyond"] += n
+        out["floor_beyond"] += fn
+        key = ("grad", "floor_grad") if scale is not None else (
+            "worst", "floor_worst")
+        div = scale if scale else 1.0
+        out[key[0]] = max(out[key[0]], err / div)
+        out[key[1]] = max(out[key[1]], ferr / div)
+        if n and err > DDP_FLOOR * ferr:
+            bad.append(f"{what}: max |diff| {err:.3g} (reordered "
+                       f"{ferr:.3g}), {n} elements beyond the tolerance "
+                       f"({fn})")
+
+    g0, g1 = ranks[0]["grads"], ranks[1]["grads"]
+    if len(g0) != len(ref["grads"]) or len(g1) != len(g0):
+        raise AssertionError("data-parallel: the first update holds "
+                             "another number of gradients")
+    if not all(torch.equal(a, b) for a, b in zip(g0, g1)):
+        bad.append("the ranks' first-update gradients differ")
+    for i, (a, b, c) in enumerate(zip(g0, ref["grads"], floor["grads"])):
+        hold(f"gradient {i} {tuple(b.shape)}", a, b, c,
+             scale=float(b.abs().max()))
+    for part in ("model", "ema"):
+        r0, r1, want = ranks[0][part], ranks[1][part], ref[part]
+        if r0.keys() != want.keys() or any(k.startswith("module.")
+                                           for k in r0):
+            raise AssertionError(f"data-parallel {part}: keys differ from "
+                                 "the one-process run's")
+        for k, v in r0.items():
+            if not torch.equal(v, r1[k]):
+                out["ranks_differ"] += 1
+                bad.append(f"ranks differ in {part} {k}")
+            if v.is_floating_point():
+                hold(f"{part} {k}", v, want[k], floor[part][k])
+    if out["beyond"] > DDP_FLOOR_COUNT * out["floor_beyond"]:
+        bad.append(f"{out['beyond']} elements beyond the tolerance, the "
+                   f"reordered run {out['floor_beyond']}")
+    return out
+
+
+@contextlib.contextmanager
+def _reordered_rows(cli, order):
+    """Within the block the CLI's train batches come out of augmentation
+    with their rows in ``order``."""
+    import torch
+
+    real = cli.augment_train_batch
+    idx = torch.tensor(order)
+
+    def aug(*a, **kw):
+        out = real(*a, **kw)
+        return {k: v[idx.to(v.device)] for k, v in out.items()}
+
+    cli.augment_train_batch = aug
+    try:
+        yield
+    finally:
+        cli.augment_train_batch = real
+
+
+@contextlib.contextmanager
+def _first_update_grads():
+    """Within the block the first Adam step records the gradients it is
+    handed (float32, on the CPU, in its parameter groups' order) into the
+    list yielded."""
+    import torch
+
+    grads, real = [], torch.optim.Adam.step
+
+    def step(self, *a, **kw):
+        if not grads:
+            grads.extend(p.grad.detach().float().cpu().clone()
+                         for g in self.param_groups for p in g["params"]
+                         if p.grad is not None)
+        return real(self, *a, **kw)
+
+    torch.optim.Adam.step = step
+    try:
+        yield grads
+    finally:
+        torch.optim.Adam.step = real
+
+
+def _run_a_inputs():
+    """Run A's batch (4 samples, seeded) on the card and its bf16 train
+    step with the frozen RAFT."""
+    import torch
+
+    from mfcnet_tpu_torch.cli.train_multiframe_detection import build_flow_fn
+    from mfcnet_tpu_torch.data.transforms import (
+        TransformConfig,
+        augment_train_batch,
+    )
+    from mfcnet_tpu_torch.train.steps import make_multiframe_train_step
+
+    rng = np.random.default_rng(SEED)
+    batch = augment_train_batch({
+        "frames": rng.integers(0, 256, (TRAIN_B, T, H, W, 3), dtype=np.uint8),
+        "mask": rng.integers(0, C, (TRAIN_B, H, W), dtype=np.uint8),
+        "depth": rng.integers(0, 256, (TRAIN_B, T, H, W), dtype=np.uint8)},
+        torch.Generator().manual_seed(SEED), TransformConfig(
+            out_height=H, out_width=W), "cuda")
+    flow_fn = build_flow_fn("RAFT", (H, W), None, "bfloat16", "cuda")
+    step = make_multiframe_train_step(
+        ["nll", "soft_jaccard"], [0.7, 0.3], C, flow_fn=flow_fn,
+        compute_dtype="bfloat16")
+    return batch, step
+
+
+def _run_a_model(**kw):
+    import torch
+
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights_lecun,
+    )
+
+    return init_weights_lecun(get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True,
+        add_depth_inputs=True, **kw),
+        torch.Generator().manual_seed(SEED)).cuda()
+
+
+def _nccl_one_rank_step():
+    """Run A's bf16 micro-step in a 1-rank ``nccl`` group through DDP
+    against the same step with no group (parity mode): parameters and
+    statistics equal bit for bit; an all-reduce over the group sums."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from mfcnet_tpu_torch.parallel import init_distributed
+    from mfcnet_tpu_torch.train.schedule import make_schedule
+    from mfcnet_tpu_torch.train.state import TrainState
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    batch, step = _run_a_inputs()
+    env = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    sds = []
+    try:
+        with parity_mode():
+            for grouped in (False, True):
+                st = TrainState(_run_a_model(),
+                                make_schedule("Constant", STEP_LR, 1, 1), T)
+                if grouped:
+                    if init_distributed(auto=True, device="cuda:0") != (0, 1):
+                        raise AssertionError("1-rank group: rank/world")
+                    if dist.get_backend() != "nccl":
+                        raise AssertionError(dist.get_backend())
+                    t = torch.full((4,), 3.0, device="cuda")
+                    dist.all_reduce(t)
+                    if t.tolist() != [3.0] * 4:
+                        raise AssertionError(f"nccl all-reduce: {t}")
+                    st.distribute()
+                    if st.ddp is None:
+                        raise AssertionError("no DDP under the group")
+                step(st, batch)
+                torch.cuda.synchronize()
+                sds.append({k: v.clone() for k, v in
+                            st.model.state_dict().items()})
+                del st
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    differ = [k for k in sds[0] if not torch.equal(sds[0][k], sds[1][k])]
+    if differ:
+        raise AssertionError(f"1-rank nccl step differs from the groupless "
+                             f"step: {differ[:5]}")
+    return len(sds[0])
+
+
+def _stream_shards_check(smi):
+    """``stream_shards=2`` with both shards on cuda:0: TernausNetMulti-Basic
+    + RAFT x12 at full width, float32 in parity mode, device decode, 4
+    streams of SHARD_STREAM_FRAMES frames against the one-device 4-stream
+    engine: per step the heats within 1e-3 and the rows' tip RMSE within
+    0.5 px (BASELINE.json's gates), byte-equal rows counted."""
+    import torch
+
+    from mfcnet_tpu_torch.models import (
+        get_multiframe_segmentation_model,
+        init_weights,
+    )
+    from mfcnet_tpu_torch.models.raft import RAFT
+    from mfcnet_tpu_torch.track import tracker as tr
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = get_multiframe_segmentation_model(
+        "TernausNetMulti-Basic", C, T, add_optflow_inputs=True, generator=gen)
+    flow = init_weights(RAFT(iters=FLOW_ITERS), gen)
+    cfg = tr.TrackerConfig(input_height=H, input_width=W, dtype="float32",
+                           decode="device", overlay=False,
+                           decode_tie_fallback=False, add_optflow_inputs=True)
+    streams = _stream_frames((SHARD_STREAM_FRAMES,) * 4)
+    stacked = [np.stack([s[i] for s in streams])
+               for i in range(SHARD_STREAM_FRAMES)]
+    names = [f"s{b}" for b in range(4)]
+    rows, heat, outs = {}, 0.0, {}
+    with parity_mode():
+        for shards in (1, 2):
+            eng = tr.InferenceEngine(model, cfg, flow_model=flow,
+                                     device="cuda:0", num_streams=4,
+                                     stream_shards=shards,
+                                     devices=("cuda:0",) * shards)
+            outs[shards] = [eng.step_async(f) for f in stacked]
+            with tempfile.TemporaryDirectory() as d:
+                rows[shards], _ = tr._track_streams(
+                    ((f, None, range(4)) for f in stacked),
+                    [SHARD_STREAM_FRAMES] * 4, names, eng, cfg, d)
+            del eng
+    for a, b in zip(outs[1], outs[2]):
+        if (a is None) != (b is None):
+            raise AssertionError("stream_shards: warm-up differs")
+        if a is not None:
+            heat = max(heat, (a[2].float() - b[2].float()).abs().max().item())
+    stats = [_tip_rmse(a, b) for a, b in zip(rows[1], rows[2])]
+    equal = sum(int(np.array_equal(x, y, equal_nan=True))
+                for a, b in zip(rows[1], rows[2]) for x, y in zip(a, b))
+    log(f"[{smi}] stream_shards=2 (both on cuda:0) against the one-device "
+        f"4-stream engine, RAFT x{FLOW_ITERS}, f32 parity mode, "
+        f"{SHARD_STREAM_FRAMES} frames a stream: max |heat diff| {heat:.4g} "
+        f"(limit 1e-3); tip RMSE per stream {[round(r, 6) for r, _ in stats]}"
+        f" px (limit 0.5), rows whose detections differ "
+        f"{[m for _, m in stats]}; rows byte-equal: {equal} of "
+        f"{4 * SHARD_STREAM_FRAMES}")
+    if heat > 1e-3 or max(r for r, _ in stats) > 0.5:
+        raise AssertionError("stream_shards: rows depart from the "
+                             "unsharded engine's")
+
+
+def _tie_fallback_check(smi):
+    """The device decode's re-decode of a tied side, with the tracker's
+    default ``decode_tie_fallback``, on this machine: four 480x640 frames of
+    seeded class maps and f16 heats whose both sides are flagged as tied go
+    through the host decode's scipy twin, which needs no OpenCV (the CPU
+    test holds its rows equal to the OpenCV decode's). Every frame must find
+    both bases."""
+    import importlib.util
+
+    from mfcnet_tpu_torch.track.tracker import KeypointTracker, TrackerConfig
+
+    rng = np.random.default_rng(SEED)
+    tracker = KeypointTracker(4, TrackerConfig(decode="device"))
+    t0 = time.perf_counter()
+    for _ in range(4):
+        pred = np.zeros((H, W), np.int64)
+        for cls in (1, 2, 3, 4):
+            y, x = rng.integers(0, H - 80), rng.integers(0, W - 80)
+            pred[y:y + rng.integers(20, 80), x:x + rng.integers(20, 80)] = cls
+        heat = rng.random((H, W, 2)).astype(np.float16)
+        kps = np.zeros((2, 3, 3))
+        kps[:, 2] = (1.0, 1.0, 2.0)  # both bases flagged as tied
+        tracker.update_device(kps, mask_provider=lambda p=pred: p,
+                              heat_provider=lambda h=heat: h)
+    ms = (time.perf_counter() - t0) * 1e3 / 8
+    if np.isnan(tracker.rows[:, 8:]).any():
+        raise AssertionError(f"tie re-decode lost a base: {tracker.rows}")
+    log(f"[{smi}] tie re-decode (decode_tie_fallback on) at {H}x{W}: 8 "
+        f"sides, {ms:.2f} ms a side on the host; OpenCV importable here: "
+        f"{importlib.util.find_spec('cv2') is not None}")
+
+
+def _legacy_checks(smi):
+    """The legacy models and ABN at full width, seeded weights, f32 forwards
+    at 480x640 on the card (parity mode) against the same modules on the
+    CPU: every output within LEGACY_TOL of its largest value."""
+    import copy as copy_mod
+
+    import torch
+
+    from mfcnet_tpu_torch.models import init_weights_lecun
+    from mfcnet_tpu_torch.models import legacy
+    from mfcnet_tpu_torch.models.abn import ABN
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(1, 3, H, W, generator=gen)
+    models = {
+        "PAFDetectionModel": legacy.PAFDetectionModel(5, 4),
+        "ResNet50CSL": legacy.ResNet50CSL(5, 4),
+        "KurmannEtAl2017Net": legacy.KurmannEtAl2017Net(5, 2,
+                                                        input_hw=(H, W)),
+    }
+    worst = {}
+    with parity_mode(), torch.no_grad():
+        for name, m in models.items():
+            m = init_weights_lecun(m, gen).eval()
+            t0 = time.perf_counter()
+            want = m(x)
+            cpu_s = time.perf_counter() - t0
+            got = copy_mod.deepcopy(m).cuda()(x.cuda())
+            worst[name] = (max(
+                float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                for g, w in zip(got, want)), round(cpu_s, 2))
+        for act in ("leaky_relu", "elu", "none"):
+            a = ABN(64, activation=act)
+            y = torch.randn(2, 64, H // 4, W // 4, generator=gen) * 2 + 0.5
+            for mode in ("train", "eval"):
+                getattr(a, mode)()
+                ac = copy_mod.deepcopy(a).cuda()
+                want, got = a(y), ac(y.cuda()).cpu()
+                if mode == "train":  # the running statistics updated too
+                    stat = max(float((ac.running_var.cpu() - a.running_var
+                                      ).abs().max()), float(
+                        (ac.running_mean.cpu() - a.running_mean).abs().max()))
+                    if stat > LEGACY_TOL:
+                        raise AssertionError(f"ABN {act}: statistics {stat}")
+                worst[f"ABN {act} {mode}"] = (float(
+                    (got - want).abs().max()) / float(want.abs().max()), 0)
+    log(f"[{smi}] legacy models and ABN, f32 at {H}x{W} on the card against "
+        f"the CPU (max |diff| / max |CPU output|, CPU s): {json.dumps(worst)}")
+    bad = {k: v for k, v in worst.items() if v[0] > LEGACY_TOL}
+    if bad:
+        raise AssertionError(f"legacy models: beyond {LEGACY_TOL}: {bad}")
+
+
+def phase_ddp_slice(smi):
+    """The data-parallel slice (ROADMAP items 11d and 10d). Returns (the
+    2-rank bf16 run's launches summed over the ranks, micro-steps times
+    ranks)."""
+    from pathlib import Path
+
+    import torch
+
+    from mfcnet_tpu_torch.cli import train_multiframe_detection as cli
+    from mfcnet_tpu_torch.data.synthetic import make_synthetic_pack
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        pack = make_synthetic_pack(d / "pack", videos=(
+            ("train", 3, 8), ("val", 1, 2)), height=H, width=W, seed=SEED)
+        wall = _spawn_ddp_ranks(d, pack)
+        ranks = [torch.load(d / f"rank{r}.pt", weights_only=False)
+                 for r in range(DDP_RANKS)]
+        t0 = time.perf_counter()
+        refs = []
+        for order in (None, (2, 3, 0, 1)):
+            with parity_mode(), _global_batches(cli, DDP_RANKS), \
+                    _first_update_grads() as grads, (
+                        _reordered_rows(cli, order) if order
+                        else contextlib.nullcontext()):
+                refs.append({**_final_state(cli.main(_ddp_args(
+                    pack, d / f"one{len(refs)}", "float32",
+                    DDP_GLOBAL_B))), "grads": grads})
+        ref, floor = refs
+        one, recs1, peak1, _ = _timed_run(cli, _ddp_args(
+            pack, d / "one_bf16", "bfloat16", DDP_GLOBAL_B))
+        del one
+        wall1 = time.perf_counter() - t0
+    if not (ranks[0]["f32"]["step"] == ref["step"] == 6
+            and ranks[0]["f32"]["updates"] == ref["updates"] == 3):
+        raise AssertionError(f"data-parallel: steps {ranks[0]['f32']['step']}"
+                             f" / one process {ref['step']}")
+    par = _ddp_parity([r["f32"] for r in ranks], ref, floor)
+    if par["bad"]:
+        raise AssertionError(f"data-parallel run further from one process "
+                             f"than the rounding floor: {par['bad'][:8]} "
+                             f"({len(par['bad'])} failures; {par})")
+    log(f"[{smi}] data-parallel run A ({DDP_RANKS} ranks on cuda:0 over "
+        f"gloo, {DDP_GLOBAL_B // DDP_RANKS} samples a rank, global batch "
+        f"{DDP_GLOBAL_B}, f32 parity mode, lr {DDP_LR}, 3 updates of 2 "
+        f"micro-steps): the first update's gradients, parameters, BN "
+        f"statistics and EMA equal across ranks bit for bit; against one "
+        f"process at batch {DDP_GLOBAL_B}, {par['tensors']} tensors of "
+        f"{par['elements']} elements: gradients within {par['grad']:.3g} of "
+        f"each tensor's largest (the same run with its rows reordered: "
+        f"{par['floor_grad']:.3g}), parameters, statistics and EMA within "
+        f"{par['worst']:.3g} ({par['floor_worst']:.3g}); elements beyond "
+        f"rtol {DDP_TOL[0]} / atol {DDP_TOL[1]}: {par['beyond']} "
+        f"({par['floor_beyond']}; limit {DDP_FLOOR_COUNT}x), every tensor "
+        f"within {DDP_FLOOR}x the reordered run's largest difference; the "
+        f"ranks' runs took {wall:.1f} s, the one-process runs {wall1:.1f} s")
+    for name in DDP_CONTROLS:
+        ctl = _ddp_parity([r[name] for r in ranks], ref, floor)
+        if not ctl["bad"]:
+            raise AssertionError(f"the parity gate passed a 2-rank run with "
+                                 f"{name}: {ctl}")
+        log(f"[{smi}] control, the 2-rank run with {name} (it must fail "
+            f"the gate, and does): gradients within {ctl['grad']:.3g} of "
+            f"each tensor's largest, parameters, statistics and EMA within "
+            f"{ctl['worst']:.3g}; elements beyond the tolerance "
+            f"{ctl['beyond']}; tensors that differ between the ranks "
+            f"{ctl['ranks_differ']}; {len(ctl['bad'])} failures, the first "
+            f"{ctl['bad'][:3]}")
+    # the micro-steps' launches (the run's total adds validation's)
+    recs = [rec for rk in ranks for rec in rk["bf16"]["recs"]]
+    launches = {k: sum(rec["launches"][k] for rec in recs)
+                for k in recs[0]["launches"]}
+    n_micro = len(recs)
+    total = {k: sum(rk["bf16"]["launches"][k] for rk in ranks)
+             for k in ("raft_update", "flow_warp", "flow_warp_bwd")}
+    _require_launches("train_ddp", launches)
+    for r, rk in enumerate(ranks):
+        for i, rec in enumerate(rk["bf16"]["recs"]):
+            lc = rec["launches"]
+            if (lc["flow_warp_bwd"], lc["raft_update"],
+                    lc["flow_warp"]) != (1, FLOW_ITERS, 1):
+                raise AssertionError(f"rank {r} micro-step {i}: {lc}")
+    upd = [_per_update_ms(rk["bf16"]["recs"]) for rk in ranks]
+    upd1 = _per_update_ms(recs1)
+    log(f"[{smi}] data-parallel run A, bf16, ms per optimizer step (2 "
+        f"micro-steps; the first includes warm-up): rank 0 "
+        f"{[round(x, 2) for x in upd[0]]}, rank 1 "
+        f"{[round(x, 2) for x in upd[1]]}; one process at batch "
+        f"{DDP_GLOBAL_B}: {[round(x, 2) for x in upd1]}; peak "
+        f"max_memory_allocated "
+        f"{[round(rk['bf16']['peak'] / 2 ** 30, 3) for rk in ranks]} GiB a "
+        f"rank, {peak1 / 2 ** 30:.3f} GiB one process; per micro-step and "
+        f"rank 1 flow_warp_bwd, {FLOW_ITERS} raft_update, 1 flow_warp "
+        f"({n_micro} rank micro-steps; with validation the runs launched "
+        f"{json.dumps(total)})")
+    t0 = time.perf_counter()
+    n_sd = _nccl_one_rank_step()
+    log(f"[{smi}] 1-rank nccl group: an all-reduce sums, and run A's bf16 "
+        f"micro-step through DDP equals the groupless step bit for bit "
+        f"({n_sd} tensors; {time.perf_counter() - t0:.1f} s)")
+    for check in (_stream_shards_check, _tie_fallback_check,
+                  _legacy_checks):
+        t0 = time.perf_counter()
+        check(smi)
+        log(f"{check.__name__}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return launches, n_micro
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -6208,6 +6904,8 @@ def main():
     done("phase 9")
     launches_grad, n_grad, t, b, lib, e = phase_unflow_grad_slice(smi)
     done("phase 10")
+    launches_ddp, n_ddp = phase_ddp_slice(smi)
+    done("phase 11")
     for d, new in ((times, t), (bounds, b), (library, lib), (errs, e)):
         d.update(new)
     (launches_train, n_micro, t, b, lib, errs["flow_warp_bwd"],
@@ -6231,6 +6929,8 @@ def main():
              "train": (launches_train, n_micro),
              "train_ffpp": (launches_train_ffpp, n_micro_ffpp),
              "unflow_grad": (launches_grad, n_grad),
+             # per micro-step and rank
+             "train_ddp": (launches_ddp, n_ddp),
              **zoo_paths}
     log(smi)
     log(json.dumps({"kernels": [
@@ -6256,4 +6956,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank(*sys.argv[2:4])
+    else:
+        main()

@@ -40,6 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mfcnet_tpu_torch.configs.parsers import SPATIAL_SHARDS_LEFT_OUT
 from mfcnet_tpu_torch.models import get_multiframe_segmentation_model
 from mfcnet_tpu_torch.track.tracker import (
     InferenceEngine,
@@ -58,10 +59,10 @@ _MODELS = [
     "ResUNetMulti-Basic", "ResUNetMulti-Large",
 ]
 
-#: flag -> (value that means "not used", ROADMAP item that ports it); the
-#: single-frame video CLI refuses the same flags
-LATER_FLAGS = {
-    "spatial_shards": (1, "Queue 1 item 11d (spatial sharding; one card)"),
+#: flag -> (value that means "not used", why the port has no counterpart);
+#: the single-frame video CLI refuses the same flags
+LEFT_OUT_FLAGS = {
+    "spatial_shards": (1, SPATIAL_SHARDS_LEFT_OUT),
 }
 
 DEVICE_DECODE_WARNING = (
@@ -120,12 +121,12 @@ def build_parser():
     return p
 
 
-def refuse_later_flags(args):
-    """SystemExit naming the ROADMAP item of a flag in ``LATER_FLAGS``
+def refuse_left_out_flags(args):
+    """SystemExit naming the ROADMAP item of a flag in ``LEFT_OUT_FLAGS``
     that is set."""
-    for flag, (unused, item) in LATER_FLAGS.items():
+    for flag, (unused, why) in LEFT_OUT_FLAGS.items():
         if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag} is not ported yet: ROADMAP.md {item}")
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: {why}")
 
 
 def list_video_files(directory):
@@ -186,7 +187,7 @@ def load_artifact(path, device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_later_flags(args)
+    refuse_left_out_flags(args)
     if args.artifact is None and (args.model_type is None
                                   or args.load_wts_model is None):
         raise SystemExit("give --artifact, or --model_type and "

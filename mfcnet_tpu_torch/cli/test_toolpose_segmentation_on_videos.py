@@ -26,8 +26,8 @@ TAPNet is refused, as in the JAX CLI and the reference: its attention
 maps come from the offline dataset pipeline. ``--artifact`` tracks from a
 single-frame serving artifact of ``cli/export_model.py`` in place of
 ``--model_type`` and ``--load_wts_model`` (``SingleFrameEngine.from_artifact``;
-a multi-frame artifact is refused). ``--spatial_shards`` raises, naming its
-ROADMAP item. The tracker runs on the card; ``--device cpu`` asks for the
+a multi-frame artifact is refused). ``--spatial_shards`` raises, naming
+ROADMAP item 12, which leaves it out. The tracker runs on the card; ``--device cpu`` asks for the
 CPU.
 """
 
@@ -47,7 +47,7 @@ from mfcnet_tpu_torch.cli.test_multiframe_segmentation_on_videos import (
     list_video_files,
     load_artifact,
     load_reference_state_dict,
-    refuse_later_flags,
+    refuse_left_out_flags,
 )
 from mfcnet_tpu_torch.models import (
     OUTPUT_MODES,
@@ -212,7 +212,7 @@ def _artifact_engine(args, logger):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_later_flags(args)
+    refuse_left_out_flags(args)
     if args.artifact is None and (args.model_type is None
                                   or args.load_wts_model is None):
         raise SystemExit("give --artifact, or --model_type and "

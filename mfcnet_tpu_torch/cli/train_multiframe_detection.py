@@ -22,8 +22,22 @@ to train on the card) or the image tree, validates with IoU/Dice after
 every epoch and writes ``ckpts/model_{epoch:03d}.pth`` every
 ``--save_freq`` epochs and at the last; an interrupt writes the snapshot
 ``model_999.pth`` that ``--resume True`` continues from at the batch it
-stopped. Runs on the card; ``--device cpu`` asks for the CPU. Flags with
-no counterpart on one card raise and name their ROADMAP item.
+stopped. Runs on the card; ``--device cpu`` asks for the CPU. Flags that
+the port leaves out raise and name their ROADMAP item.
+
+Data-parallel training runs one process per card under ``torchrun``::
+
+    torchrun --nproc_per_node N -m \
+        mfcnet_tpu_torch.cli.train_multiframe_detection --multihost true \
+        --batch_size B ...
+
+``--batch_size`` is then per process and the global batch is B x N (the
+JAX CLI's ``--multihost``). Each rank reads its strided share of the
+training samples (``data/loader.py``, ``shard``), augments its rows of the
+global batch, and trains through ``DistributedDataParallel`` with the
+global batch's batch-norm statistics and losses (``parallel/dist.py``);
+rank 0 writes the checkpoints, every rank logs to its own files.
+``--device cuda`` means ``cuda:LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from mfcnet_tpu_torch.models import (
     get_multiframe_segmentation_model,
     init_weights_lecun,
 )
+from mfcnet_tpu_torch.parallel.dist import init_distributed, local_device
 from mfcnet_tpu_torch.train.engine import fit, resume
 from mfcnet_tpu_torch.train.schedule import make_schedule
 from mfcnet_tpu_torch.train.state import TrainState
@@ -58,7 +73,7 @@ from mfcnet_tpu_torch.utils.logging import init_logging
 
 
 def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
+    dev = local_device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available; "
                          "pass --device cpu to run on the CPU")
@@ -119,19 +134,34 @@ def build_flow_fn(optflow_model: str, input_hw, weights_path=None,
 
 def main(argv=None):
     args = multiframe_train_parser().parse_args(argv)
+    if args.multihost and args.spatial_shards > 1:
+        raise SystemExit("--spatial_shards > 1 with --multihost is not "
+                         "supported: per-host batch assembly shards axis 0 "
+                         "only")
     check_ported(args)
+    # the process group first (a no-op for one process), so that each rank
+    # logs to its own files
+    rank, world = init_distributed(auto=args.multihost, device=args.device)
     device = resolve_device(args.device)
-    writer, logger, expt_dir = init_logging(args.expt_savedir,
-                                            args.expt_name, args.debug)
+    writer, logger, expt_dir = init_logging(
+        args.expt_savedir, args.expt_name, args.debug, rank=rank)
     logger.info(f"args: {vars(args)}")
     np.random.seed(args.seed)
     T, H, W = args.num_input_frames, args.input_height, args.input_width
+    if world > 1:
+        logger.info(f"data-parallel: process {rank} of {world} on {device}, "
+                    f"global batch {args.batch_size * world} (--batch_size "
+                    f"{args.batch_size} per process)")
 
     train_loader, val_loader = get_data_loader(
         args.dataset, args.data_dir, args.mode, args.prediction_task, T,
         args.batch_size, num_workers=args.num_workers,
         fold_index=args.fold_index, add_depth_inputs=args.add_depth_inputs,
-        seed=args.seed, packed_dir=args.packed_dir)
+        seed=args.seed, shard=(rank, world) if world > 1 else None,
+        packed_dir=args.packed_dir)
+    if world > 1:
+        # every global batch whole: each rank's rows of it
+        train_loader.drop_last = True
     model = get_multiframe_segmentation_model(
         args.model_type, num_classes=args.num_classes,
         num_input_frames=T, add_optflow_inputs=args.add_optflow_inputs,
@@ -167,6 +197,7 @@ def main(argv=None):
     elif args.load_wts_model:
         model.load_state_dict(load_state_dict_file(args.load_wts_model))
         logger.info(f"Loaded model weights from {args.load_wts_model}")
+    state.distribute()
 
     flow_fn = None
     if args.add_optflow_inputs:
@@ -189,7 +220,8 @@ def main(argv=None):
                            prediction_task=args.prediction_task)
 
     def aug(batch, gen):
-        return augment_train_batch(batch, gen, tcfg, device)
+        return augment_train_batch(batch, gen, tcfg, device,
+                                   rows=(rank, world))
 
     def prep(batch):
         return preprocess_eval_batch(batch, tcfg, device)
@@ -204,4 +236,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

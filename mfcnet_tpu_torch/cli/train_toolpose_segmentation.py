@@ -15,7 +15,8 @@ schedule, accumulation, EMA, checkpoints and interrupt snapshot as the
 multi-frame trainer. The step reads TernausNet's and SegFormer's output as
 log-probabilities and the others' as logits (``models.OUTPUT_MODES``);
 FCN's dropout and SegFormer's drop-path draw from the train state's
-generator.
+generator. ``--multihost`` is accepted and, as in the JAX CLI, changes
+nothing: the single-frame stage trains in one process.
 
 TAPNet reads the image tree only (``data/dataset.py::SingleFrameDataset``
 with its attention maps; packs hold none, and ``--packed_dir`` exits). As
@@ -139,6 +140,9 @@ def main(argv=None):
     writer, logger, expt_dir = init_logging(args.expt_savedir,
                                             args.expt_name, args.debug)
     logger.info(f"args: {vars(args)}")
+    if args.multihost:
+        logger.warning("--multihost: the single-frame trainer trains in "
+                       "this process alone, as the JAX CLI does")
     np.random.seed(args.seed)
     if mode == "tapnet":
         train_ds, train_loader, val_loader = tapnet_loaders(args)

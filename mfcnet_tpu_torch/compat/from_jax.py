@@ -27,8 +27,13 @@ weight (out, in), LayerNorm scale -> weight), ResUNet (of
 ``convert_resunet``: flax's auto-named ``ResBlock_i`` / ``Conv_i`` in
 creation order; GroupNorm scale -> weight), TAPNet11/16 (of
 ``convert_tapnet``, under the JAX module's ``body`` scope), the generic
-TAPNet (flax's auto names in creation order) and UNet (whose port
-carries the JAX module tree's names).
+TAPNet (flax's auto names in creation order), UNet and the legacy models
+(``models/legacy.py``: PAFDetectionModel, ResNet50CSL,
+KurmannEtAl2017Net), whose port carries the JAX module tree's names
+(ResNet50CSL's bottlenecks torchvision's ``downsample.0`` / ``.1`` for
+flax's ``down_conv`` / ``down_bn``; dense kernel (in, out) -> linear
+weight (out, in)), and ``models/abn.py::ABN`` alone (scale/bias/mean/var
+-> weight/bias/running_mean/running_var).
 
 :func:`raft_state_dict_from_jax` does the same for the flow provider: the
 inverse of ``torch_convert.convert_raft``, into torchvision ``raft_large``
@@ -93,15 +98,29 @@ def _ternausnet_pairs(base, params):
                   ("final", ("final",), _conv)]
 
 
+#: torch module names that differ from the JAX tree's: torchvision's
+#: bottleneck shortcut (``models/resnet.py``) in the legacy ResNet50CSL
+_TREE_RENAMES = {"downsample.0": "down_conv", "downsample.1": "down_bn"}
+
+
 def _tree_pairs(base, params):
-    """A module whose torch names are the JAX tree's (the UNet): every
-    conv and batch norm at its own dotted path."""
+    """A module whose torch names are the JAX tree's (the UNet, the legacy
+    models): every conv, deconv, dense layer and batch norm at its own
+    dotted path."""
     out = []
     for name, mod in base.named_modules():
+        path = name
+        for old, new in _TREE_RENAMES.items():
+            path = path.replace(old, new)
+        path = tuple(path.split("."))
         if isinstance(mod, torch.nn.Conv2d):
-            out.append((name, tuple(name.split(".")), _conv))
+            out.append((name, path, _conv))
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            out.append((name, path, _deconv))
+        elif isinstance(mod, torch.nn.Linear):
+            out.append((name, path, _linear))
         elif isinstance(mod, torch.nn.BatchNorm2d):
-            out.append((name, tuple(name.split(".")), _bn))
+            out.append((name, path, _bn))
     return out
 
 
@@ -308,6 +327,11 @@ def _base_pairs(base, params):
     from mfcnet_tpu_torch.models.deeplab import DeepLabV3ResNet101
     from mfcnet_tpu_torch.models.fcn import FCNResNet101
     from mfcnet_tpu_torch.models.hrnet import HRNetW48
+    from mfcnet_tpu_torch.models.legacy import (
+        KurmannEtAl2017Net,
+        PAFDetectionModel,
+        ResNet50CSL,
+    )
     from mfcnet_tpu_torch.models.resunet import ResUNetVB
     from mfcnet_tpu_torch.models.segformer import SegFormerMiTB3
     from mfcnet_tpu_torch.models.tapnet import TAPNet, _TAPNetVGG
@@ -320,7 +344,10 @@ def _base_pairs(base, params):
                        (SegFormerMiTB3, _segformer_pairs),
                        (UNet, _tree_pairs), (ResUNetVB, _resunet_pairs),
                        (_TAPNetVGG, _tapnet_pairs),
-                       (TAPNet, _generic_tapnet_pairs)):
+                       (TAPNet, _generic_tapnet_pairs),
+                       (PAFDetectionModel, _tree_pairs),
+                       (ResNet50CSL, _tree_pairs),
+                       (KurmannEtAl2017Net, _tree_pairs)):
         if isinstance(base, cls):
             return pairs(base, params)
     raise TypeError(f"no JAX layout for {type(base).__name__}")
@@ -343,7 +370,8 @@ def _fill(sd, prefix, pairs, params, stats):
 def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
     """JAX ``{'params', 'batch_stats'}`` -> a complete ``state_dict`` for
     ``model``: a Multi wrapper (:class:`MultiFrameSegmenter`, Basic or
-    Large, of any base the port builds) or a single-frame base alone.
+    Large, of any base the port builds), a single-frame base alone, a
+    legacy model or an ABN.
     ``model`` is the port's module of the same widths; it fixes the
     TernausNet encoder's layer indices and its ``conv1``..``conv5``
     aliases. Both variants keep the head under
@@ -351,8 +379,14 @@ def state_dict_from_jax(variables: Dict, model: torch.nn.Module):
     head's first conv takes as many input channels as the JAX kernel has
     (T more with depth inputs, and for Large 2(T-1) more with flow
     inputs). A key of ``model`` with no JAX counterpart raises."""
+    from mfcnet_tpu_torch.models.abn import ABN
+
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    if isinstance(model, ABN):
+        return {"weight": _t(params["scale"]), "bias": _t(params["bias"]),
+                "running_mean": _t(stats["mean"]),
+                "running_var": _t(stats["var"])}
     sd = {}
     multi = hasattr(model, "base_model")
     if multi:

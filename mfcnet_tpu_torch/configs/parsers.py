@@ -7,9 +7,11 @@ testing parsers (the infer CLIs') default to mode ``testing`` and 75
 frames a video and add ``--save_output_freq`` and ``--use_ema`` in place
 of the training flags.
 
-Flags that have no counterpart on one card (``--spatial_shards`` > 1,
-``--multihost``, ``--ckpt_backend orbax``) are accepted and raise in the
-CLI, naming their ROADMAP item. ``--remat True`` rematerializes a TernausNet
+``--multihost true`` trains data-parallel over ``torch.distributed``
+(``parallel/dist.py``; one process per card under ``torchrun``, with
+``--batch_size`` per process). Flags that the port leaves out
+(``--spatial_shards`` > 1, ``--ckpt_backend orbax``) are accepted and
+raise in the CLI, naming ROADMAP item 12 and the reason. ``--remat True`` rematerializes a TernausNet
 or TAPNet base's segments in training (``torch.utils.checkpoint``). ``--pretrained True`` logs
 the JAX package's warning and runs on the model's own initialization:
 neither package downloads weights.
@@ -199,24 +201,32 @@ def toolposeseg_test_parser() -> argparse.ArgumentParser:
     return _add_flags(_ConfigFileParser(), multiframe=False, train=False)
 
 
-#: flag -> (value that means "not used", ROADMAP item that ports it)
-LATER_FLAGS = {
-    "spatial_shards": (1, "Queue 1 item 11d (spatial sharding)"),
-    "multihost": (False, "Queue 1 item 11d (multi-host training)"),
-    "ckpt_backend": ("msgpack", "Queue 1 item 12 (orbax checkpoints)"),
+#: why ``--spatial_shards`` > 1 has no counterpart: the training, infer and
+#: tracking CLIs raise with it
+SPATIAL_SHARDS_LEFT_OUT = (
+    "ROADMAP.md Queue 1 item 12: the JAX package's GSPMD split of the image "
+    "height over several devices is left out of the port (one card runs a "
+    "whole frame; data parallelism and the tracker's stream_shards scale "
+    "over cards)")
+
+#: flag -> (value that means "not used", why the port has no counterpart)
+LEFT_OUT_FLAGS = {
+    "spatial_shards": (1, SPATIAL_SHARDS_LEFT_OUT),
+    "ckpt_backend": ("msgpack", "ROADMAP.md Queue 1 item 12 (orbax "
+                                "checkpoints: the port writes the "
+                                "reference's .pth)"),
 }
 
 
 def check_ported(args):
-    """Raise SystemExit naming the ROADMAP item of a flag with no
-    counterpart yet (a flag the parser does not have is not used); log
-    the JAX package's warning for ``--pretrained``
+    """Raise SystemExit for a flag that the port leaves out, naming its
+    ROADMAP item (a flag the parser does not have is not used); log the JAX
+    package's warning for ``--pretrained``
     (``mfcnet_tpu/models/__init__.py:52-57``)."""
-    for flag, (unused, item) in LATER_FLAGS.items():
+    for flag, (unused, why) in LEFT_OUT_FLAGS.items():
         value = getattr(args, flag, unused)
         if value != unused:
-            raise SystemExit(f"--{flag} {value} is not ported yet: "
-                             f"ROADMAP.md {item}")
+            raise SystemExit(f"--{flag} {value}: {why}")
     if args.pretrained:
         logging.getLogger(__name__).warning(
             "pretrained=True: supply converted weights via "

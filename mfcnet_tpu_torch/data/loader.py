@@ -5,6 +5,8 @@ two batches ahead. Under the same seed it gives the JAX loader's sample
 order: after ``set_epoch(epoch)`` the permutation is
 ``np.random.default_rng([seed, epoch])``'s, and ``skip_batches`` drops
 the epoch's first batches (a resumed epoch continues where it stopped).
+``shard=(rank, count)`` gives rank ``rank`` of ``count`` processes its
+strided share of that permutation, as the JAX loader does.
 :class:`Prefetcher` runs the device transform (upload + augmentation) one
 batch ahead on a background thread.
 """
@@ -29,7 +31,12 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 4, seed: int = 0,
-                 drop_last: bool = False):
+                 drop_last: bool = False, shard: Optional[tuple] = None):
+        """``shard=(rank, count)``: every process shuffles the same
+        permutation, truncates it to a multiple of ``count`` and takes
+        ``idxs[rank::count]``; every rank then holds ``len(dataset) //
+        count`` samples and runs the same number of steps (a rank with one
+        batch more would wait for the others at a collective forever)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -37,6 +44,7 @@ class DataLoader:
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
+        self.shard = shard
         self._epoch = None
         self._skip_batches = 0
 
@@ -49,6 +57,8 @@ class DataLoader:
 
     def __len__(self):
         n = len(self.dataset)
+        if self.shard is not None:
+            n //= self.shard[1]
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -62,6 +72,9 @@ class DataLoader:
                 np.random.default_rng([self.seed, self._epoch]).shuffle(idxs)
             else:
                 self.rng.shuffle(idxs)
+        if self.shard is not None:
+            rank, count = self.shard
+            idxs = idxs[: (len(idxs) // count) * count][rank::count]
         if self.drop_last:
             idxs = idxs[: len(self) * self.batch_size]
         if self._skip_batches:
@@ -129,16 +142,19 @@ def get_data_loader(dataset_name: str, data_dir, mode: str,
                     prediction_task: str, num_input_frames: int,
                     batch_size: int, num_workers: int = 4,
                     fold_index: int = -1, add_depth_inputs: bool = False,
-                    seed: int = 0, packed_dir=None):
+                    seed: int = 0, shard: Optional[tuple] = None,
+                    packed_dir=None):
     """Multi-frame loaders (reference src/dataloader_multiframe.py:225-317):
     training mode returns (train loader shuffled at ``batch_size``, val
-    loader at batch 1), testing mode (None, test loader). ``packed_dir``
+    loader at batch 1), testing mode (None, test loader). ``shard=(rank,
+    count)`` splits the training samples over processes (see
+    :class:`DataLoader`); validation stays whole on every rank. ``packed_dir``
     reads packs (``train/`` + ``val/`` or ``test/``) instead of decoding
     the image tree; a pack made for another task, dataset or fold
     raises."""
     def loaders(train_ds, val_ds):
         return (DataLoader(train_ds, batch_size, shuffle=True,
-                           num_workers=num_workers, seed=seed),
+                           num_workers=num_workers, seed=seed, shard=shard),
                 DataLoader(val_ds, 1, shuffle=False,
                            num_workers=num_workers))
 

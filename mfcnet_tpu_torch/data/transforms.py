@@ -35,6 +35,7 @@ from mfcnet_tpu_torch.ops.color import (
 )
 from mfcnet_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from mfcnet_tpu_torch.ops.rotate import rotate_nearest
+from mfcnet_tpu_torch.parallel.dist import rank_rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -165,11 +166,19 @@ def apply_augmentation(batch, draws: dict, cfg: TransformConfig,
 
 
 def augment_train_batch(batch, generator: torch.Generator,
-                        cfg: TransformConfig, device=None) -> dict:
-    """Draw from ``generator`` and augment (see :func:`apply_augmentation`)."""
+                        cfg: TransformConfig, device=None,
+                        rows=(0, 1)) -> dict:
+    """Draw from ``generator`` and augment (see :func:`apply_augmentation`).
+    ``rows`` (rank, world): the batch is rank's rows of a global batch of
+    world times its size (data parallelism), and the draws are the global
+    batch's, of which it takes its rows, as the JAX package augments the
+    assembled global batch with one key."""
     B, T = np.shape(batch["frames"])[:2]
-    return apply_augmentation(
-        batch, draw_augmentation(generator, B, T, cfg), cfg, device)
+    rank, world = rows
+    mine = rank_rows(B * world, rank, world)
+    draws = draw_augmentation(generator, B * world, T, cfg)
+    return apply_augmentation(batch, {k: v[mine] for k, v in draws.items()},
+                              cfg, device)
 
 
 def preprocess_eval_batch(batch, cfg: TransformConfig, device=None) -> dict:

@@ -20,9 +20,12 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from mfcnet_tpu_torch.parallel.dist import group_world, rank_rows
 
 VGG11_STAGES = ((64,), (128,), (256, 256), (512, 512), (512, 512))
 VGG16_STAGES = (
@@ -95,6 +98,28 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+def _batch_stats(yf):
+    """Per-channel (mean, biased variance clamped at 0, count) of ``yf`` over
+    (N, H, W): of this process's batch, or under a process group of world
+    > 1 of the global batch, from the float Σy and Σy² summed over the
+    group (``parallel/dist.py``; the JAX package's batch reductions are
+    global under a sharded ``jit``). Every rank holds a batch of the same
+    shape (the sharded loader and ``rank_rows`` split the global batch
+    evenly), so the global count is the local one times the world."""
+    world = group_world()
+    count = yf.numel() // yf.shape[1]
+    if world == 1:
+        mean = yf.mean(dim=(0, 2, 3))
+        var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        return mean, var, count
+    count *= world
+    sums = torch.stack([yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))])
+    dist.all_reduce(sums)
+    mean = sums[0] / count
+    var = (sums[1] / count - mean * mean).clamp_min(0.0)
+    return mean, var, count
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """flax's train-mode normalization (``flax/linen/normalization.py::
     _normalize``): the batch mean and biased variance E[y^2] - E[y]^2
@@ -102,45 +127,67 @@ class _BatchNormTrain(torch.autograd.Function):
     (y - mean) * (rsqrt(var + eps) * scale) + bias in that type, rounded
     once to y's type. The backward is PyTorch's batch-norm backward on the
     saved input and statistics, so the graph keeps y and two vectors, not
-    float32 copies of y."""
+    float32 copies of y. Under a process group of world > 1 the statistics
+    are the global batch's (:func:`_batch_stats`) and the backward sums its
+    two per-channel gradient sums over the group as well; the parameters'
+    gradients stay this rank's, which ``DistributedDataParallel`` then
+    reduces. Returns (out, mean, var, count), count the (global) positions
+    per channel."""
 
     @staticmethod
     def forward(ctx, y, weight, bias, eps):
         acc = torch.promote_types(y.dtype, torch.float32)
         yf = y.to(acc)
-        mean = yf.mean(dim=(0, 2, 3))
-        var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mean, var, count = _batch_stats(yf)
         invstd = torch.rsqrt(var + eps)
         out = ((yf - mean.view(1, -1, 1, 1))
                * (invstd * weight.to(acc)).view(1, -1, 1, 1)
                + bias.to(acc).view(1, -1, 1, 1)).to(y.dtype)
         ctx.save_for_backward(y, weight, mean, invstd)
-        ctx.eps = eps
+        ctx.eps, ctx.count = eps, count
         ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
+        return out, mean, var, count
 
     @staticmethod
-    def backward(ctx, g, _gm, _gv):
+    def backward(ctx, g, _gm, _gv, _gn):
         y, weight, mean, invstd = ctx.saved_tensors
-        gy, gw, gb = torch.ops.aten.native_batch_norm_backward(
-            g.contiguous(), y, weight.to(mean.dtype), None, None, mean,
-            invstd, True, ctx.eps, [True, True, True])
-        return gy, gw.to(weight.dtype), gb.to(weight.dtype), None
+        if group_world() == 1:
+            gy, gw, gb = torch.ops.aten.native_batch_norm_backward(
+                g.contiguous(), y, weight.to(mean.dtype), None, None, mean,
+                invstd, True, ctx.eps, [True, True, True])
+            return gy, gw.to(weight.dtype), gb.to(weight.dtype), None
+        gf = g.to(mean.dtype)
+        xmu = y.to(mean.dtype) - mean.view(1, -1, 1, 1)
+        local = torch.stack([gf.sum(dim=(0, 2, 3)),
+                             (gf * xmu).sum(dim=(0, 2, 3))])
+        gb, gw = local[0].clone(), local[1] * invstd
+        dist.all_reduce(local)
+        mean_dy, mean_dy_xmu = local / ctx.count
+        c = lambda v: v.view(1, -1, 1, 1)  # noqa: E731
+        gy = (gf - c(mean_dy) - xmu * c(invstd * invstd * mean_dy_xmu)) \
+            * c(invstd * weight.to(mean.dtype))
+        return (gy.to(y.dtype), gw.to(weight.dtype), gb.to(weight.dtype),
+                None)
 
 
-def batch_norm_train(y, bn: nn.BatchNorm2d):
+def batch_norm_train(y, bn: nn.BatchNorm2d, unbiased: bool = False):
     """Train-mode batch norm of the JAX package's flax modules, not
     ``nn.BatchNorm2d``'s: statistics in float32, normalization in float32
     (float64 for float64 inputs) rounded once to the promoted type of y
     and the BN parameters (bf16 under a bf16 step), as flax computes it;
     the running statistics become 0.9 * running + 0.1 * batch with the
     biased variance (PyTorch stores the unbiased one, which gives another
-    eval model after the first step). A batch of one position per channel
-    gives variance 0 (``nn.BatchNorm2d`` raises there)."""
+    eval model after the first step; ``unbiased`` stores it, times count /
+    (count - 1), as the JAX package's ABN does). A batch of one position
+    per channel gives variance 0 (``nn.BatchNorm2d`` raises there). Under
+    a process group of world > 1 the statistics are the global batch's,
+    and so are the running statistics, on every rank alike."""
     dt = torch.promote_types(y.dtype, bn.weight.dtype)
     dt = torch.promote_types(dt, bn.bias.dtype)
-    out, mean, var = _BatchNormTrain.apply(y.to(dt), bn.weight, bn.bias,
-                                           bn.eps)
+    out, mean, var, count = _BatchNormTrain.apply(y.to(dt), bn.weight,
+                                                  bn.bias, bn.eps)
+    if unbiased and count > 1:
+        var = var * (count / (count - 1))
     with torch.no_grad():
         keep = 1.0 - BN_MOMENTUM
         bn.running_mean.copy_(keep * bn.running_mean + BN_MOMENTUM * mean)
@@ -213,19 +260,28 @@ class WSConv2d(nn.Conv2d):
 class Dropout(nn.Module):
     """flax ``nn.Dropout``: in train mode each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate); the draws come from
-    ``generator`` (set by the train step, :func:`use_generator`)."""
+    ``generator`` (set by the train step, :func:`use_generator`). With
+    ``rows`` (rank, world), world > 1, the draws are those of the global
+    batch of world times this batch, of which this rank takes its rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator = None
+        self.rows = (0, 1)
+
+    def _uniform(self, shape, device):
+        rank, world = self.rows
+        n = shape[0] * world
+        u = torch.rand((n,) + tuple(shape[1:]), generator=self.generator,
+                       device=device)
+        return u[rank_rows(n, rank, world)]
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = self._uniform(x.shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -240,17 +296,18 @@ class DropPath(Dropout):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = self._uniform(shape, x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def use_generator(model: nn.Module, generator):
+def use_generator(model: nn.Module, generator, rows=(0, 1)):
     """Let every :class:`Dropout` and :class:`DropPath` of ``model`` draw
-    from ``generator``; returns how many there are."""
+    from ``generator``, at ``rows`` (rank, world) of the global batch;
+    returns how many there are."""
     mods = [m for m in model.modules() if isinstance(m, Dropout)]
     for m in mods:
         m.generator = generator
+        m.rows = tuple(rows)
     return len(mods)
 
 

@@ -39,8 +39,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from mfcnet_tpu_torch.configs.parsers import SPATIAL_SHARDS_LEFT_OUT
+
 _ROADMAP = {
-    "spatial_shards": "ROADMAP.md Queue 1 item 11 (not ported: one card)",
+    "spatial_shards": SPATIAL_SHARDS_LEFT_OUT,
     "fused_dispatch": "ROADMAP.md Queue 1 item 11a (the step as a CUDA graph)",
 }
 
@@ -60,7 +62,7 @@ class TrackerConfig:
     mode: str = "incremental"  # 'incremental' | 'full'
     decode: str = "host"  # 'host' (exact parity) | 'device'
     #: device decode: re-decode a tie-flagged side with the exact host
-    #: path (fetches that frame's mask and heats)
+    #: decode on scipy (fetches that frame's mask and heats; no OpenCV)
     decode_tie_fallback: bool = True
     #: frames per device->host result fetch; rows are identical for any
     fetch_batch: int = 8
@@ -108,11 +110,12 @@ def compute_distance(x1, y1, x2, y2) -> float:
 
 
 def decode_side_keypoints(side, mask_array, tip_heatmap, state, cfg, row,
-                          disp_image=None):
+                          disp_image=None, opencv=True):
     """Exact host decode of one instrument's base + up to 2 tips into
     ``row`` (reference compute_centroids_and_store,
     test_multiframe_segmentation_on_videos_v3.py:95-194), on the OpenCV
-    decode of ``track/decode.py``. Returns the updated side state."""
+    decode of ``track/decode.py`` or, with ``opencv=False``, its scipy
+    twin. Returns the updated side state."""
     from mfcnet_tpu_torch.track.decode import (
         calc_base_centroid,
         create_circular_mask,
@@ -134,15 +137,15 @@ def decode_side_keypoints(side, mask_array, tip_heatmap, state, cfg, row,
     heat[tip_mask == 0] = 0
 
     fmask = create_circular_mask(10, 10).astype(np.float64)
-    bx, by = calc_base_centroid(base_mask, cfg.area_threshold)
+    bx, by = calc_base_centroid(base_mask, cfg.area_threshold, opencv)
     if len(bx) == 0:
         state.detected_tips = 0
         return state
     row[bcol] = bx[0]
     row[bcol + 1] = by[0]
-    tip_mask = refine_tip_segmentation(tip_mask, cfg.area_threshold)
+    tip_mask = refine_tip_segmentation(tip_mask, cfg.area_threshold, opencv)
     cx, cy = determine_local_maxima_and_estimate_centroids(
-        heat, tip_mask > 0, fmask
+        heat, tip_mask > 0, fmask, opencv
     )
     if len(cx) == 0:
         state.detected_tips = 0
@@ -240,7 +243,8 @@ class KeypointTracker:
         approximation-sensitive side, which is re-decoded exactly on the
         host from the class mask (``mask_array`` or ``mask_provider()``)
         and the f16 tip heats (``heat_provider()``); without heats only
-        the base is recomputed."""
+        the base is recomputed. The re-decode is the host decode's scipy
+        twin, so the device decode needs no OpenCV."""
         row = self._next_row()
         for side, state, arr in (
             ("left", self.left, kps[0]),
@@ -262,14 +266,14 @@ class KeypointTracker:
                     heat = (h[..., 1] if side == "left"
                             else h[..., 0]).astype(np.float32)
                     decode_side_keypoints(side, m, heat, state, self.cfg,
-                                          row, disp_image)
+                                          row, disp_image, opencv=False)
                     continue
                 if m is not None:
                     from mfcnet_tpu_torch.track.decode import calc_base_centroid
 
                     hx, hy = calc_base_centroid(
                         255 * (m == info["base_cls"]).astype(np.uint8),
-                        self.cfg.area_threshold,
+                        self.cfg.area_threshold, opencv=False,
                     )
                     if not hx:
                         state.detected_tips = 0
@@ -457,8 +461,10 @@ class InferenceEngine(TrackingEngine):
     mode), one head call, one provider solve over the B*(T-1) pairs and
     one decode with one host read. Each stream's outputs are those of its
     own single-stream engine. With B == 1 the engine takes one (H, W, 3)
-    frame and returns unbatched outputs. ``stream_shards`` > 1 (the JAX
-    package's stream axis over a device mesh) raises.
+    frame and returns unbatched outputs.
+
+    ``stream_shards`` S > 1 builds a :class:`ShardedEngine` in its place,
+    the B streams over S devices (``devices``).
 
     The engine runs copies of ``model`` and ``flow_model`` cast to
     ``cfg.dtype`` on ``device``: the card by default, wherever the caller
@@ -475,19 +481,22 @@ class InferenceEngine(TrackingEngine):
     only the flow provider's ring of incremental mode is the engine's
     own."""
 
+    def __new__(cls, model, cfg, flow_model=None, device="cuda",
+                num_streams=1, stream_shards=1, devices=None):
+        if int(stream_shards) > 1:
+            return ShardedEngine(model, cfg, flow_model, device, num_streams,
+                                 stream_shards, devices)
+        return super().__new__(cls)
+
     def __init__(self, model, cfg: TrackerConfig, flow_model=None,
                  device="cuda", num_streams: int = 1,
-                 stream_shards: int = 1):
+                 stream_shards: int = 1, devices=None):
         from mfcnet_tpu_torch.serve.export import (
             IncrementalStep,
             WindowServing,
         )
 
         cfg.check_ported()
-        if int(stream_shards) > 1:
-            raise NotImplementedError(
-                f"InferenceEngine(stream_shards={stream_shards}): "
-                "ROADMAP.md Queue 1 item 11d (not ported: one card)")
         self.cfg = cfg
         self.mode = cfg.mode
         self.num_streams = max(1, int(num_streams))
@@ -651,6 +660,68 @@ def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
 def _host_array(x):
     """A frame or a stack of frames as a host numpy array."""
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class ShardedEngine:
+    """B streams over S devices, the JAX package's stream axis over its
+    mesh (``InferenceEngine(..., stream_shards=S)`` builds one): stream
+    group g, streams g*B/S .. (g+1)*B/S - 1, runs on an
+    :class:`InferenceEngine` of its own on ``devices[g]`` (by default
+    ``cuda:0`` .. ``cuda:S-1``), and a step's outputs come back in stream
+    order on the first device, equal to the one-device engine's. It has
+    what the tracking loop uses: ``cfg``, ``mode``, ``device``,
+    ``num_streams``, ``reset``, ``step_async`` and ``step``."""
+
+    def __init__(self, model, cfg: TrackerConfig, flow_model=None,
+                 device="cuda", num_streams: int = 1, stream_shards: int = 2,
+                 devices=None):
+        S, B = int(stream_shards), max(1, int(num_streams))
+        if B % S:
+            raise ValueError(f"num_streams {B} must be divisible by "
+                             f"stream_shards {S}")
+        if devices is None:
+            if torch.device(device).type != "cuda":
+                devices = [device] * S
+            elif torch.cuda.device_count() < S:
+                raise RuntimeError(
+                    f"InferenceEngine(stream_shards={S}): "
+                    f"{torch.cuda.device_count()} CUDA devices; pass "
+                    "devices= to place the groups")
+            else:
+                devices = [f"cuda:{g}" for g in range(S)]
+        if len(devices) != S:
+            raise ValueError(f"stream_shards {S} needs {S} devices, got "
+                             f"{list(devices)}")
+        self.engines = [InferenceEngine(model, cfg, flow_model, device=d,
+                                        num_streams=B // S)
+                        for d in devices]
+        self.cfg, self.mode, self.num_streams = cfg, cfg.mode, B
+        self.device = self.engines[0].device
+
+    def reset(self):
+        for eng in self.engines:
+            eng.reset()
+
+    @torch.no_grad()
+    def step_async(self, frame_u8, depth_u8=None):
+        g = self.num_streams // len(self.engines)
+        outs = []
+        for i, eng in enumerate(self.engines):
+            rows = slice(i * g, (i + 1) * g)
+            depth = None if depth_u8 is None else depth_u8[rows]
+            if g == 1:  # a one-stream engine takes and gives no stream axis
+                out = eng.step_async(frame_u8[rows][0],
+                                     None if depth is None else depth[0])
+                out = None if out is None else tuple(v[None] for v in out)
+            else:
+                out = eng.step_async(frame_u8[rows], depth)
+            outs.append(out)
+        if outs[0] is None:  # every group warms up on the same frames
+            return None
+        return tuple(torch.cat([o[k].to(self.device) for o in outs])
+                     for k in range(len(outs[0])))
+
+    step = TrackingEngine.step
 
 
 def _track_streams(steps, lengths, names, engine, cfg: TrackerConfig,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from mfcnet_tpu_torch.data.loader import Prefetcher
+from mfcnet_tpu_torch.parallel.dist import group_rank
 from mfcnet_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
@@ -160,9 +161,12 @@ def fit(args, state, loaders, steps, transforms, logger, writer, ckpt_dir,
     ``epoch_end(epoch)`` if given, save every
     ``args.save_freq`` epochs and at the last; an interrupt saves the
     snapshot ``model_999`` with its position (inside an epoch: the batches
-    done; elsewhere the last completed epoch) and re-raises."""
+    done; elsewhere the last completed epoch) and re-raises. Under a
+    process group only rank 0 writes checkpoints (the state is the same on
+    every rank)."""
     (train_loader, val_loader), (train_step, eval_step) = loaders, steps
     aug, prep = transforms
+    writes = group_rank() == 0
     epoch = completed = start_epoch - 1
     try:
         for epoch in range(start_epoch, args.num_epochs + 1):
@@ -177,12 +181,14 @@ def fit(args, state, loaders, steps, transforms, logger, writer, ckpt_dir,
                      args.num_classes)
             if epoch_end is not None:
                 epoch_end(epoch)
-            if epoch % args.save_freq == 0 or epoch == args.num_epochs:
+            if writes and (epoch % args.save_freq == 0
+                           or epoch == args.num_epochs):
                 p = save_checkpoint(ckpt_dir, epoch, state)
                 logger.info(f"Saved checkpoint {p}")
     except KeyboardInterrupt as e:
         extra = ({"epoch": epoch, "batches_done": e.batches_done}
                  if isinstance(e, TrainInterrupted) else {"epoch": completed})
-        p = save_checkpoint(ckpt_dir, 999, state, extra=extra)
-        logger.info(f"Interrupted; snapshot saved to {p} ({extra})")
+        if writes:
+            p = save_checkpoint(ckpt_dir, 999, state, extra=extra)
+            logger.info(f"Interrupted; snapshot saved to {p} ({extra})")
         raise

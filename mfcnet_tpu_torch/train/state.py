@@ -23,6 +23,14 @@ scripts/train_multiframe_detection.py:128-151):
 
 The model's parameters are the float32 master copy; the step may compute
 in bfloat16 from a cast of them (``train/steps.py``).
+
+Under a process group (:meth:`TrainState.distribute`) the step runs the
+model through ``DistributedDataParallel``: one gradient all-reduce per
+update, after the last micro-batch of an accumulation (``no_sync`` on the
+others, and the accumulated gradient of the earlier micro-batches put back
+into ``.grad`` before the last backward, so that the all-reduce carries the
+update's whole gradient). The model, its ``state_dict`` key names and the
+EMA stay the plain module's.
 """
 
 from __future__ import annotations
@@ -83,6 +91,29 @@ class TrainState:
         self.ema: Optional[Dict[str, torch.Tensor]] = (
             {n: p.detach().clone() for n, p in named}
             if self.ema_decay > 0 else None)
+        #: ``DistributedDataParallel`` around the model, under a group
+        self.ddp = None
+
+    def distribute(self):
+        """Under a process group, run the model's train steps through
+        ``DistributedDataParallel`` (its buffers are not broadcast: the
+        batch norms' statistics are global and equal on every rank
+        already). A no-op without a group."""
+        import torch.distributed as dist
+        from torch.nn.parallel import DistributedDataParallel as DDP
+
+        if not dist.is_initialized():
+            return self
+        dev = next(self.model.parameters()).device
+        self.ddp = DDP(self.model,
+                       device_ids=[dev] if dev.type == "cuda" else None,
+                       broadcast_buffers=False)
+        return self
+
+    @property
+    def runner(self) -> torch.nn.Module:
+        """What a train step calls: the model, or its DDP wrapper."""
+        return self.ddp if self.ddp is not None else self.model
 
     def step_generator(self) -> torch.Generator:
         """The generator of this micro-step's dropout and drop-path draws,
@@ -103,15 +134,23 @@ class TrainState:
         self.step += 1
         self.micro += 1
         if self.grad_accum > 1:
-            for p, a in zip(self.trained, self._accum()):
-                if p.grad is not None:
-                    a.add_(p.grad)
-                    p.grad = None
-            if self.micro < self.grad_accum:
-                return False
-            for p, a in zip(self.trained, self.accum):
-                p.grad = a / self.grad_accum
-                a.zero_()
+            last = self.micro == self.grad_accum
+            if self.ddp is not None and last:
+                # .grad holds the whole update's sum (see micro_step)
+                for p, a in zip(self.trained, self.accum):
+                    if p.grad is not None:
+                        p.grad = p.grad / self.grad_accum
+                    a.zero_()
+            else:
+                for p, a in zip(self.trained, self._accum()):
+                    if p.grad is not None:
+                        a.add_(p.grad)
+                        p.grad = None
+                if not last:
+                    return False
+                for p, a in zip(self.trained, self.accum):
+                    p.grad = a / self.grad_accum
+                    a.zero_()
         self.micro = 0
         lr = self.schedule(self.updates)
         for g in self.optimizer.param_groups:
@@ -133,15 +172,28 @@ class TrainState:
         run inside: if they raise (an interrupt), the running statistics
         that the forward updated in place are put back, so that the state
         is the one after the last completed micro-batch (the JAX step
-        returns its statistics and commits them with the update)."""
+        returns its statistics and commits them with the update). Under
+        DDP with accumulation, a micro-batch before the last runs under
+        ``no_sync`` and the last one starts from the earlier ones' sum in
+        ``.grad``."""
         stats = [(b, b.detach().clone()) for b in self.model.buffers()
                  if b.is_floating_point()]
+        sync = contextlib.nullcontext()
+        if self.ddp is not None and self.grad_accum > 1:
+            if self.micro + 1 < self.grad_accum:
+                sync = self.ddp.no_sync()
+            elif self.accum is not None:
+                for p, a in zip(self.trained, self.accum):
+                    p.grad = a.clone()
         try:
-            yield
+            with sync:
+                yield
         except BaseException:
             with torch.no_grad():
                 for b, old in stats:
                     b.copy_(old)
+            for p in self.trained:
+                p.grad = None
             raise
 
     def _accum(self):

@@ -19,6 +19,13 @@ cast.
 A train step runs the base in train mode only when the base trains (the
 JAX step's ``train_base``), and hands the micro-step's generator
 (``TrainState.step_generator``) to the model's dropout and drop-path.
+
+Under a process group each rank's batch is its rows of the global batch:
+the train step runs the model through ``TrainState.runner`` (DDP), its
+batch norms take the global batch's statistics (``models/common.py``), its
+losses are the global batch's (``train/loss.py``, ``global_batch``) and
+its dropout masks are its rows of the global batch's masks. The eval steps
+see a batch that every rank holds whole and reduce nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from mfcnet_tpu_torch.models.common import use_generator
+from mfcnet_tpu_torch.parallel.dist import group_rank, group_world
 from mfcnet_tpu_torch.train.loss import compute_losses
 from mfcnet_tpu_torch.train.metrics import compute_metrics
 
@@ -90,18 +98,22 @@ def _apply(model, cdt, *args, **kwargs):
 
 def _train_mode(state):
     """The state's model in train mode, its base in eval mode unless the
-    base trains; dropout and drop-path on the micro-step's generator."""
+    base trains; dropout and drop-path on the micro-step's generator, at
+    this rank's rows."""
     model = state.model.train()
     if not state.train_base_model and hasattr(model, "base_model"):
         model.base_model.eval()
-    use_generator(model, state.step_generator())
+    use_generator(model, state.step_generator(),
+                  rows=(group_rank(), group_world()))
     return model
 
 
-def _losses(logits, batch, loss_fns, loss_wts, num_classes, class_weights):
+def _losses(logits, batch, loss_fns, loss_wts, num_classes, class_weights,
+            global_batch=False):
     log_probs = F.log_softmax(logits.float(), dim=-1)
     total, parts = compute_losses(log_probs, batch["mask"], loss_fns,
-                                  loss_wts, num_classes, class_weights)
+                                  loss_wts, num_classes, class_weights,
+                                  global_batch=global_batch)
     return log_probs, total, parts
 
 
@@ -128,10 +140,11 @@ def make_multiframe_train_step(loss_fns: Sequence[str],
                 optflow = flow_fn(frames)
         with state.micro_step():
             with _cast_tensors(model, cdt):
-                logits = _apply(model, cdt, frames, optflow=optflow,
+                logits = _apply(state.runner, cdt, frames, optflow=optflow,
                                 depth=batch.get("depth"))
                 _, total, parts = _losses(logits, batch, loss_fns, loss_wts,
-                                          num_classes, class_weights)
+                                          num_classes, class_weights,
+                                          global_batch=True)
                 total.backward()
             state.apply_gradients()
         return {k: v.detach() for k, v in parts.items()}
@@ -198,11 +211,12 @@ def make_singleframe_train_step(loss_fns: Sequence[str],
         model = _train_mode(state)
         with state.micro_step():
             with _cast_tensors(model, cdt):
-                log_probs = _singleframe_log_probs(model, cdt, batch["image"],
-                                                   output_mode)
+                log_probs = _singleframe_log_probs(
+                    state.runner, cdt, batch["image"], output_mode)
                 total, parts = compute_losses(log_probs, batch["mask"],
                                               loss_fns, loss_wts, num_classes,
-                                              class_weights)
+                                              class_weights,
+                                              global_batch=True)
                 total.backward()
             state.apply_gradients()
         return {k: v.detach() for k, v in parts.items()}

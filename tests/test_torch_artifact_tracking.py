@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.test_torch_tracker import golden_frames, golden_model  # noqa: F401
+from torch_threads import _two_torch_threads  # noqa: F401
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
 H, W, T, C = 64, 32, 3, 5
@@ -30,14 +31,6 @@ H, W, T, C = 64, 32, 3, 5
 #: ``input_hw``: a 4x4 grid, three pyramid levels)
 RS = 64
 SCALE = 0.1
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(hw=(H, W), **kw):

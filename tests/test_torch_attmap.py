@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W = 48, 56
 
 

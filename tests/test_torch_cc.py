@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W, K = 48, 64, 64
 
 

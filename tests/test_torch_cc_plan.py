@@ -27,6 +27,7 @@ import torch
 
 from mfcnet_tpu_torch.ops import cc
 from tests.test_torch_cc import _geometries
+from torch_threads import _two_torch_threads  # noqa: F401
 
 K = 64
 CC_CU = Path(cc.__file__).resolve().parents[1] / "csrc" / "cc.cu"

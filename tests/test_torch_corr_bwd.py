@@ -21,16 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while a test runs: the suite runs several
-    worker processes at once, and PyTorch's default of one thread per core
-    in each of them oversubscribes the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _two_torch_threads  # noqa: F401
 
 
 ATOL = RTOL = 1e-5

@@ -34,6 +34,8 @@ import torch
 
 from mfcnet_tpu_torch.ops import correlation as co
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 CORR_CU = (Path(co.__file__).resolve().parents[1] / "csrc"
            / "correlation.cu")
 

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 ATOL = RTOL = 1e-5
 
 

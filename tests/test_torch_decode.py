@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W = 48, 64
 
 
@@ -143,3 +145,60 @@ def test_peaks_match_jax():
     np.testing.assert_array_equal(
         tp.local_maxima(torch.tensor(sm_j)).numpy(),
         np.asarray(jp.local_maxima(jnp.asarray(sm_j))))
+
+
+def _contour_masks(rng, n):
+    """0/255 masks of 1..40 pixels a side: noise, smooth blobs, rings,
+    discs with holes and things in them, grids of thin lines."""
+    from scipy import ndimage
+
+    for _ in range(n):
+        h, w = rng.integers(1, 41, 2)
+        kind = rng.integers(0, 5)
+        if kind == 0:
+            m = rng.random((h, w)) < rng.random()
+        elif kind == 1:
+            m = ndimage.gaussian_filter(rng.random((h, w)),
+                                        rng.uniform(0.5, 3)) > 0.5
+        elif kind == 2:
+            m = ndimage.binary_dilation(rng.random((h, w)) < 0.05,
+                                        iterations=int(rng.integers(1, 4)))
+            m ^= rng.random((h, w)) < 0.1
+        elif kind == 3:
+            m = np.zeros((h, w), bool)
+            yy, xx = np.ogrid[:h, :w]
+            for _ in range(rng.integers(1, 5)):
+                d = (yy - rng.integers(0, h)) ** 2 + (xx - rng.integers(0, w)) ** 2
+                r = int(rng.integers(1, 8))
+                m ^= d <= r * r
+        else:
+            m = np.zeros((h, w), bool)
+            m[rng.integers(0, h, 3), :] = True
+            m[:, rng.integers(0, w, 2)] = True
+            m ^= rng.random((h, w)) < 0.2
+        yield (255 * m).astype(np.uint8)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_scipy_contours_equal_opencv_and_jax(seed):
+    """The host decode's contour functions, on OpenCV and on their scipy
+    twin (``opencv=False``, the tie re-decode's), against the JAX
+    package's on the same masks: equal centroids, first vertices of
+    degenerate contours, area gates and refined masks, ties in area
+    included."""
+    from mfcnet_tpu.track import decode as jd
+    from mfcnet_tpu_torch.track import decode as pd
+
+    rng = np.random.default_rng(seed)
+    for mask in _contour_masks(rng, 300):
+        thr = float(rng.choice([0.0, 0.5, 1.0, 3.0, 10.0]))
+        want = ([[int(v) for v in c] for c in jd.calc_centroids(mask)],
+                jd.calc_base_centroid(mask, thr),
+                jd.refine_tip_segmentation(mask.copy(), thr))
+        for opencv in (True, False):
+            got = ([[int(v) for v in c]
+                    for c in pd.calc_centroids(mask, opencv)],
+                   pd.calc_base_centroid(mask, thr, opencv),
+                   pd.refine_tip_segmentation(mask, thr, opencv))
+            assert got[:2] == want[:2], (opencv, mask.shape)
+            np.testing.assert_array_equal(got[2], want[2])

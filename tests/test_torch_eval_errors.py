@@ -18,6 +18,8 @@ import logging
 import numpy as np
 import pytest
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W = 48, 56
 CLASSES = (3, 5, 11)
 CASES = ("empty", "missed", "one_blob", "many_blobs", "tip_tie", "one_pixel",

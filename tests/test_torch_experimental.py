@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 ATOL, RTOL = 2e-5, 1e-5
 
 

@@ -25,18 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 HW = (48, 80)
 NARROW = dict(enc_dims=(16, 32), latent_dim=16, query_dim=8)
 ATOL = RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_variables(seed: int, flow_gain: float = 0.1, **kw):

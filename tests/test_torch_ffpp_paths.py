@@ -19,18 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 S, T, C = 64, 3, 5
 SCALE = 1 / 16
 NARROW = dict(enc_dims=(16, 32), latent_dim=16, query_dim=8)
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

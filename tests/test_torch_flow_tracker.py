@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H = W = 64
 T, C = 3, 5
 STAGES = ((4,), (8,), (8, 8), (16, 16), (16, 16))

@@ -26,19 +26,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 C, HW, SCALE = 5, 32, 0.1
 IOU_TOL = 1e-5
 ARGMAX_TIE = 1e-5
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while a test runs: the suite runs several
-    workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -16,19 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W, T, C = 64, 64, 3, 5
 SCALE = 1 / 16
 LOSSES = (["nll", "soft_jaccard"], [0.7, 0.3])
 CLASS_WEIGHTS = [1, 50, 50, 50, 50]
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _large(flow: bool, depth: bool, seed: int = 3, lecun: bool = True):

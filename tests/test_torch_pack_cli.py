@@ -11,6 +11,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 
 

@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 # jax is imported inside the tests that compare with it: the CUDA-marked
 # test runs on a machine that has none
 
@@ -393,7 +395,6 @@ def test_raft_update_rejects_gradients_and_bad_inputs(pair):
     with pytest.raises(ValueError, match="contiguous"):
         raft_update(c1, f1, inp, torch.zeros(B, N, 256)[..., :128], flow,
                     packed, H8, W8)
-
 
 
 def _solve(packed, c1s, f1s, inp, net, flow, H8, W8, workspace):

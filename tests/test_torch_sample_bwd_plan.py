@@ -28,6 +28,8 @@ import torch
 
 from mfcnet_tpu_torch.ops import warp
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 
 def _coords(case, B, H, W, seed):
     """(fx, fy) absolute coordinates of chip_smoke.py's B3 cases at (B, H,

@@ -25,17 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H = W = 32
 T, C, SCALE = 3, 5, 0.1
 PROB_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _filled(jmodel, seed, *args, **kw):

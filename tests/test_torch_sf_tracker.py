@@ -21,18 +21,11 @@ import pytest
 import torch
 
 from tests.test_torch_infer_cli import write_weights
+from torch_threads import _two_torch_threads  # noqa: F401
 
 C, HW, SCALE = 5, 32, 0.1
 #: the north star's gates (BASELINE.json): heats, tip RMSE in px
 HEAT_TOL, TIP_RMSE = 1e-3, 0.5
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -211,7 +204,7 @@ def test_use_ema_tracks_with_the_trainers_ema_weights(video, tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (("--model_type", "TAPNet16"), "TAPNet video tracking"),
     (("--artifact", "junk.pt2"), "not an mfcnet_tpu_torch serving artifact"),
-    (("--spatial_shards", "2"), "Queue 1 item 11d"),
+    (("--spatial_shards", "2"), "Queue 1 item 12"),
     (("--device", "cuda"), "--device cpu"),
 ])
 def test_refusals(video, tmp_path, weights, extra, match):

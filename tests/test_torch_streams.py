@@ -10,7 +10,11 @@ stream's rows); per-step outputs of the RAFT engine: class masks equal,
 float16 heats within 1e-3 (the heatmap gate of BASELINE.json). The
 CUDA-marked cases (a 4-stream engine, and a Large engine) hold the
 engine through the kernels against the engine through the plain versions
-on the card, each with its tolerance stated beside it."""
+on the card, each with its tolerance stated beside it. ``stream_shards``
+(the stream axis over devices): a 4-stream engine split over two devices
+gives the unsharded engine's outputs bit for bit on two CPU devices, and
+on ``cuda:0`` twice (the CUDA-marked case, float32 with TF32 off) within
+the north star's gates."""
 
 import contextlib
 from pathlib import Path
@@ -19,17 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 H, W, T, C = 64, 32, 3, 5
 SCALE = 1 / 16
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads: the suite runs several workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @contextlib.contextmanager
@@ -213,11 +210,99 @@ def test_streams_with_raft_equal_single_engines():
 
 
 def test_stream_shards_refused(model):
+    """What ``stream_shards`` still refuses: streams that do not split
+    evenly over the shards (the JAX package's error), a device list of
+    another length, and the card's default devices where there are fewer
+    cards than shards."""
     from mfcnet_tpu_torch.track.tracker import InferenceEngine
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11d"):
-        InferenceEngine(model, _cfg(), device="cpu", num_streams=2,
+    with pytest.raises(ValueError, match="divisible by stream_shards"):
+        InferenceEngine(model, _cfg(), device="cpu", num_streams=3,
                         stream_shards=2)
+    with pytest.raises(ValueError, match="needs 2 devices"):
+        InferenceEngine(model, _cfg(), device="cpu", num_streams=2,
+                        stream_shards=2, devices=("cpu",))
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            InferenceEngine(model, _cfg(), num_streams=2, stream_shards=2)
+
+
+def _sharded_against_unsharded(model, cfg, devices, frames, heat_tol=0.0):
+    """Each step of a 4-stream engine split into 2 shards on ``devices``
+    against the one-device 4-stream engine: the same outputs, in stream
+    order, bit for bit (``heat_tol`` 0) or with the heats within
+    ``heat_tol``. Returns (the one-device engine, the sharded one)."""
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine
+
+    whole = InferenceEngine(model, cfg, device=devices[0], num_streams=4)
+    split = InferenceEngine(model, cfg, device=devices[0], num_streams=4,
+                            stream_shards=2, devices=devices)
+    assert [e.num_streams for e in split.engines] == [2, 2]
+    for t, f in enumerate(frames):
+        want, got = whole.step(f), split.step(f)
+        assert (got is None) == (want is None) == (t < T - 1)
+        if want is None:
+            continue
+        if heat_tol:
+            np.testing.assert_allclose(got[-1].astype(np.float32),
+                                       want[-1].astype(np.float32), rtol=0,
+                                       atol=heat_tol)
+        else:
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+    return whole, split
+
+
+def _rows(engine, cfg, frames, out):
+    from mfcnet_tpu_torch.track import tracker
+
+    return tracker._track_streams(
+        ((f, None, range(4)) for f in frames), [len(frames)] * 4,
+        [f"s{b}" for b in range(4)], engine, cfg, out)[0]
+
+
+@pytest.mark.parametrize("mode,decode", [("incremental", "device"),
+                                         ("full", "host")])
+def test_stream_shards_rows_equal_unsharded(tmp_path, model, mode, decode):
+    """``stream_shards=2`` over two CPU devices: each step's outputs equal
+    the unsharded 4-stream engine's, and the tracker's rows through it
+    equal each stream's own run."""
+    cfg = _cfg(mode=mode, decode=decode)
+    streams = _streams((5, 5, 5, 5), seed=3)
+    frames = [np.stack([s[i] for s in streams]) for i in range(5)]
+    _, split = _sharded_against_unsharded(model, cfg, ("cpu", "cpu"),
+                                          frames)
+    rows = _rows(split, cfg, frames, tmp_path / "m")
+    for b, ref in enumerate(_singles(streams, model, cfg, tmp_path)):
+        np.testing.assert_array_equal(rows[b], ref, err_msg=f"stream {b}")
+
+
+@pytest.mark.cuda
+def test_cuda_stream_shards_equal_unsharded(model, tmp_path):
+    """The same on the card, both shards on ``cuda:0`` (one card), float32
+    with TF32 off and device decode: the kernels run on each shard's 2
+    streams. cuDNN may sum a batch of 2 in another order than a batch of
+    4, so the outputs are held to the north star's gates (BASELINE.json):
+    heats within 1e-3, and the tracker's rows the same detections within
+    0.5 px tip RMSE."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    cfg = _cfg(decode="device", decode_tie_fallback=False)
+    frames = np.random.default_rng(0).integers(0, 255, (5, 4, H, W, 3),
+                                               dtype=np.uint8)
+    with parity_mode():
+        engines = _sharded_against_unsharded(
+            model, cfg, ("cuda:0", "cuda:0"), frames, heat_tol=1e-3)
+        whole, split = (_rows(e, cfg, frames, tmp_path / str(i))
+                        for i, e in enumerate(engines))
+    for a, b in zip(whole, split):
+        assert (np.isnan(a) == np.isnan(b)).all()
+        both = np.isfinite(a[:, :8])
+        if both.any():
+            assert np.sqrt(np.mean((a[:, :8][both] - b[:, :8][both]) ** 2)
+                           ) <= 0.5
 
 
 def test_cli_parallel_videos_writes_the_sequential_csvs(tmp_path):

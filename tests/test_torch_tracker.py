@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 GOLDEN_DIR = Path(__file__).parent / "golden"
 N_FRAMES, H, W, T, C = 8, 64, 32, 3, 5
 STAGES = ((4,), (8,), (8, 8), (16, 16), (16, 16))
@@ -170,7 +172,7 @@ def test_cli_tracks_a_tiny_video(tmp_path):
     rows = np.loadtxt(out / "a_tracked.csv", delimiter=",")
     assert rows.shape == (6, 12)
     assert (out / "a_tracked.mp4").exists()
-    with pytest.raises(SystemExit, match="Queue 1 item 11"):
+    with pytest.raises(SystemExit, match="Queue 1 item 12"):
         main(args + ["--spatial_shards", "2"])
     with pytest.raises(SystemExit, match="depth_videos_dir"):
         main(args + ["--add_depth_inputs", "true"])
@@ -299,8 +301,62 @@ def test_unflow_run_and_flow_cli_import_no_jax_flax_or_cv2():
 
 
 def test_host_decode_and_overlay_import_nothing_of_the_jax_package():
-    """The host decode (which the tie fallback shares) and the overlay
-    use the port's own OpenCV helpers: no key of sys.modules is or starts
+    """The host decode (whose scipy twin the tie fallback runs) and the
+    overlay use the port's own OpenCV helpers: no key of sys.modules is or starts
     with mfcnet_tpu., jax, jaxlib or flax after a host-decode run with
     the overlay on."""
     _run_import_check(dict(decode="host", overlay=True), _FORBIDDEN)
+
+
+_TIE_CHECK = """
+    import json, sys
+    import numpy as np
+    from mfcnet_tpu_torch.track.tracker import KeypointTracker, TrackerConfig
+    data = np.load(INPUTS)
+    tracker = KeypointTracker(len(data["preds"]), TrackerConfig())
+    for pred, heat in zip(data["preds"], data["heats"]):
+        kps = np.zeros((2, 3, 3))
+        kps[:, 2] = (1.0, 1.0, 2.0)  # both bases flagged as tied
+        tracker.update_device(kps, mask_provider=lambda p=pred: p,
+                              heat_provider=lambda h=heat: h)
+    assert "cv2" not in sys.modules, "the tie re-decode loaded cv2"
+    print(json.dumps(np.nan_to_num(tracker.rows, nan=-1.0).tolist()))
+"""
+
+
+def test_tie_fallback_needs_no_cv2_and_equals_host_decode(tmp_path):
+    """With the default tie fallback, a side that the device decode flags
+    as tied is re-decoded exactly in a fresh interpreter that loads no
+    cv2 (a machine may have none), and its rows equal the OpenCV host decode
+    of the same class maps and f16 heats."""
+    import json
+
+    from mfcnet_tpu_torch.track.tracker import KeypointTracker, TrackerConfig
+
+    rng = np.random.default_rng(5)
+    preds, heats = [], []
+    for _ in range(4):
+        pred = np.zeros((48, 64), np.int64)
+        for cls in (1, 2, 3, 4):
+            for _ in range(rng.integers(1, 3)):
+                y, x = rng.integers(2, 36), rng.integers(2, 52)
+                pred[y:y + rng.integers(4, 12), x:x + rng.integers(4, 12)] = cls
+        preds.append(pred)
+        heats.append(rng.random((48, 64, 2)).astype(np.float16))
+    np.savez(tmp_path / "inputs.npz", preds=preds, heats=heats)
+    code = (f"INPUTS = {str(tmp_path / 'inputs.npz')!r}\n"
+            + textwrap.dedent(_TIE_CHECK))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=Path(__file__).resolve().parents[1], timeout=120,
+        env={**os.environ, "OMP_NUM_THREADS": "2"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    rows = np.asarray(json.loads(proc.stdout.strip().splitlines()[-1]))
+    host = KeypointTracker(len(preds), TrackerConfig())
+    for pred, heat in zip(preds, heats):
+        host.update(pred, heat[..., 1].astype(np.float32),
+                    heat[..., 0].astype(np.float32))
+    want = np.nan_to_num(host.rows, nan=-1.0)
+    assert (want[:, 8:] >= 0).all(), "every frame should find both bases"
+    np.testing.assert_array_equal(rows, want)

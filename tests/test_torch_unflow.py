@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 ATOL, RTOL = 5e-4, 1e-3
 #: of each network's last flow convolution: ~1 px of flow on 64x64 noise
 FLOW_GAIN = 1.0 / 20.0

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 ATOL_WARP = 2e-6
 
 
@@ -184,7 +186,6 @@ def test_flow_warp_rejects_gradients_and_bad_shapes(warp_case):
         flow_warp(maps, flow, grid_hw=(4, 4))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flow_warp(maps.half(), flow)
-
 
 
 @pytest.mark.parametrize("grid_hw", [None, (576, 720)])

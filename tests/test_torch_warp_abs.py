@@ -11,6 +11,8 @@ import pytest
 
 from mfcnet_tpu_torch.ops import warp
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 WARP_CU = Path(warp.__file__).resolve().parents[1] / "csrc" / "warp.cu"
 
 

@@ -32,6 +32,8 @@ import torch
 
 from mfcnet_tpu_torch.ops import warp
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 WARP_CU = Path(warp.__file__).resolve().parents[1] / "csrc" / "warp.cu"
 MAPS_ATOL = 1e-5
 ORDER_ROUNDINGS = 8

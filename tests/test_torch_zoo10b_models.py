@@ -28,19 +28,12 @@ import pytest
 import torch
 
 from tests.test_torch_zoo_models import fill_like
+from torch_threads import _two_torch_threads  # noqa: F401
 
 C = 5
 H = W = 64
 SCALE = 0.0625
 BASES = ("TernausNet11", "UNet", "ResUNet", "TAPNet11", "TAPNet16", "TAPNet")
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 #: TAPNet11/16's decoder width in the parity tests (the registry keeps it

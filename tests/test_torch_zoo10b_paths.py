@@ -1,4 +1,6 @@
 """The rest of the zoo on the port's main paths, against the JAX package on
+
+from torch_threads import _two_torch_threads  # noqa: F401
 the CPU: UNetMulti-Basic with the frozen RAFT provider through the engine
 (incremental and full) and ResUNetMulti-Large with depth, against one JAX
 engine each; TAPNet's single-frame train and eval steps
@@ -29,14 +31,6 @@ SCALE = 0.0625
 LOSSES = (["nll", "soft_jaccard"], [0.7, 0.3])
 CLASS_WEIGHTS = [1, 50, 50, 50, 50]
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _multi(model_type, depth, seed=3):

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 CASE = (4, 16, 16, 8)
 
 

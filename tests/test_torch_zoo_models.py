@@ -25,19 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 C = 5
 H, W = 64, 40  # stride-2 sizes 32x20, 16x10, 8x5, 4x3 (odd), 2x2
 SCALE = 0.125
 BASES = ("DeepLab_v3", "FCN", "HRNet", "SegFormer")
 _JAX = {}
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def fill_like(tree, seed):

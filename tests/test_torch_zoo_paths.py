@@ -39,20 +39,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import _two_torch_threads  # noqa: F401
+
 T, C = 3, 5
 SCALE = 0.125
 FAMILIES = ("DeepLab", "FCN", "HRNet", "SegFormer")
 LOSSES = (["nll", "soft_jaccard"], [0.7, 0.3])
 CLASS_WEIGHTS = [1, 50, 50, 50, 50]
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True)
-def _two_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _multi(family, variant, depth, hw, seed=3, flow=False):
