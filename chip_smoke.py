@@ -19,8 +19,9 @@ device half), the serving layer (exported artifacts and the engine that
 tracks from them), the backward slice (UnFlow's gradient through the
 backward kernels, ``--remat``) and the data-parallel slice (run A on two
 ranks through ``DistributedDataParallel``, the stream axis over two
-engines, the legacy models), in eleven phases; a failing phase raises and
-the script exits non-zero:
+engines, the legacy models) and each tracker path again with its step
+captured as one CUDA graph (``fused_dispatch``), in twelve phases; a
+failing phase raises and the script exits non-zero:
 
 1. device and build: requires a CUDA card, prints its name and power
    limit, builds the kernels into ``build/`` (one nvcc per source, in
@@ -172,7 +173,27 @@ the script exits non-zero:
    all-reduce and run A's micro-step through DDP there, equal to the
    groupless step bit for bit; ``stream_shards=2`` (both shards on cuda:0)
    against the one-device 4-stream engine (f32, RAFT x12); and the legacy
-   models and ABN, f32 at 480x640, against the CPU (``LEGACY_TOL``).
+   models and ABN, f32 at 480x640, against the CPU (``LEGACY_TOL``);
+12. the fused step (``phase_fused_slice``, after phase 4): each tracker
+   path with ``fused_dispatch`` against the same path unfused, on
+   device-resident frames, both built from the earlier phases' engines --
+   no flow (64 frames) and RAFT x12 (24), bf16 and f32 (parity mode), four
+   streams with RAFT (12 steps), TernausNetMulti-Large with RAFT and depth
+   (8), two streams over two stream shards on the one card (a graph each,
+   8 steps), UnFlow and FFPP (6 frames each): masks,
+   keypoint rows and heats byte-equal, one graph replay a frame after the
+   first fused frame, no host synchronization from the capture on (the
+   card's sync debug mode set to raise), the same decode tiers (chosen on
+   the card by the IF nodes of ``csrc/graph_cond.cu``) and the same kernel
+   launches (the fused paths' launches in the kernels line), the memory of
+   the graph's pools; frames/s, the device's busy ms a step and idle share
+   both ways (no flow, RAFT, four streams), and each hand kernel's device
+   kernels in the profiled replays' trace between what the replay
+   accounting counts outside the IF bodies and all it counts (the trace
+   loses kernels inside IF bodies; the shortfall is logged); the IF nodes (an if/else nested in an if/else)
+   against their host-read version, a replay's time, and a capture that
+   syncs raising; the decode captured alone, replayed on a 480x640 class
+   map of each tier (the union tier too).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX and nothing of
@@ -220,6 +241,10 @@ KERNELS = (
      "mfcnet_tpu/ops/correlation_pallas.py:100"),
     ("sample_bwd_img", CSRC + "warp.cu", "mfcnet_tpu/ops/warp.py:17"),
     ("sample_bwd_coords", CSRC + "warp.cu", "mfcnet_tpu/ops/warp.py:17"),
+    # no TPU kernel: the IF node that keeps the decode's choice of tier on
+    # the card in the fused step, the counterpart of its lax.cond
+    ("graph_if", CSRC + "graph_cond.cu",
+     "mfcnet_tpu/track/decode_device.py:434"),
 )
 CC_KERNELS = tuple(k[0] for k in KERNELS[:4])
 #: the decode's union tier
@@ -275,6 +300,16 @@ PATH_KERNELS = {
     # the data-parallel slice (ROADMAP item 11d): run A's bf16 micro-steps
     # on 2 ranks through DDP
     "train_ddp": ("flow_warp", "raft_update", "flow_warp_bwd"),
+    # fused_dispatch (phase 12): the same paths as one CUDA graph replay a
+    # frame, the decode's IF nodes in it (an if/else, an if/else nested in
+    # its per-blob branch)
+    "fused_no_flow": CC_KERNELS + ("graph_if",),
+    "fused_raft": CC_KERNELS + ("flow_warp", "raft_update", "graph_if"),
+    "fused_large": ZOO_CC + ("raft_update", "graph_if"),
+    "fused_streams": ZOO_CC + ("flow_warp", "raft_update", "graph_if"),
+    "fused_unflow": ZOO_CC + ("flow_warp", "backward_warp", "correlation",
+                              "graph_if"),
+    "fused_ffpp": ZOO_CC + ("flow_warp", "graph_if"),
 }
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 and TF32 tensor-core
 # and plain float32 operations/s (the bounds are stated against these peaks whatever
@@ -733,16 +768,23 @@ def _warp_abs_backward_warp(img, flow):
                                      padding_mode="border")
 
 
-#: marker kernels (a bitwise not, which no measured call runs) on each side
-#: of a profiled call, the seconds of host time after the opening and the
-#: closing ones, and the sessions tried before the trace is given up
+#: marker kernels (``torch.cuda._sleep``'s spin kernel of MARK_CYCLES clock
+#: cycles, which no measured call runs: the decode's own bitwise nots made
+#: every profiled tracker step look torn) on each side of a profiled call,
+#: the seconds of host time after the opening and the closing ones, and the
+#: sessions tried before the trace is given up
 MARKS, SETTLE_S, SESSIONS = 3, 0.02, 8
+MARK_CYCLES, MARK_NAME = 1000, "spin_kernel"
 
 
-def _profiled(fn):
+def _profiled(fn, spans=False, outside=False):
     """One ``torch.profiler`` session (CUDA activity) around one call of
     ``fn``: (its result, [(name, device us)] of the kernels and copies it
-    ran, whether the trace is whole, wall ms of the call). The card's trace
+    ran -- with ``spans`` [(name, device us, start us, end us)] --, whether
+    the trace is whole, wall ms of the call; with ``outside``, the names of
+    the session's other device events that are not markers: nothing else
+    runs in the session, so they are the call's too, recorded out of
+    order). The card's trace
     has dropped device events of a session, at its start and after its
     opening markers, so MARKS markers open the call and MARKS close it; the
     trace is whole when all of them were recorded, and the call's events
@@ -750,11 +792,10 @@ def _profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    marker = torch.zeros(1, dtype=torch.uint8, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(MARKS):
-            marker.bitwise_not_()
+            torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
         time.sleep(SETTLE_S)
         t0 = time.perf_counter()
@@ -762,22 +803,37 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         for _ in range(MARKS):
-            marker.bitwise_not_()
+            torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
         time.sleep(SETTLE_S)
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "bitwise_not" in e.name]
+    marks = [i for i, e in enumerate(events) if MARK_NAME in e.name]
     whole = (len(marks) == 2 * MARKS
              and marks[MARKS - 1] - marks[0] == MARKS - 1
              and marks[-1] - marks[MARKS] == MARKS - 1)
     if whole:
         inside = events[marks[MARKS - 1] + 1:marks[MARKS]]
     else:  # what the trace kept of the call
-        inside = [e for e in events if "bitwise_not" not in e.name]
-    return out, [(e.name, e.time_range.elapsed_us()) for e in inside], \
-        whole, wall
+        inside = [e for e in events if MARK_NAME not in e.name]
+    kept = {id(e) for e in inside}
+    rest = [e.name for e in events
+            if MARK_NAME not in e.name and id(e) not in kept]
+    return (out, [(e.name, e.time_range.elapsed_us())
+                  + ((e.time_range.start, e.time_range.end) if spans else ())
+                  for e in inside], whole, wall) + ((rest,) if outside else ())
+
+
+def _busy_ms(events):
+    """ms in which the device ran at least one of ``events`` (with spans):
+    the union of their intervals, since kernels may overlap (the update
+    step's programmatic dependent launches)."""
+    busy, end = 0.0, float("-inf")
+    for _, _, a, b in sorted(events, key=lambda e: e[2]):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
 
 
 def _device_events(fn):
@@ -1510,12 +1566,21 @@ def _keep_probs(engine):
 
 def _launch_modules():
     from mfcnet_tpu_torch.experimental import conv3x3, stage1
-    from mfcnet_tpu_torch.ops import cc, correlation, raft_update, warp
+    from mfcnet_tpu_torch.ops import (
+        cc,
+        correlation,
+        graph_cond,
+        raft_update,
+        warp,
+    )
 
-    return (cc, raft_update, warp, correlation, conv3x3, stage1)
+    return (cc, raft_update, warp, correlation, conv3x3, stage1, graph_cond)
 
 
 def _reset_all_launches():
+    from mfcnet_tpu_torch.ops import graph_cond
+
+    graph_cond.drain()  # a captured step's launches before the reset
     for mod in _launch_modules():
         mod.reset_launches()
 
@@ -6857,6 +6922,430 @@ def phase_ddp_slice(smi):
     return launches, n_micro
 
 
+#: phase 12's runs: frames of each (lockstep steps of the streams run), and
+#: the frames timed each way
+FUSED_FRAMES = {"no_flow": 64, "raft": FLOW_FRAMES, "streams": 12,
+                "large": 8, "shards": 8, "unflow": 6, "ffpp": 6}
+FUSED_TIMED = 24
+#: steps in the profiled window of each way
+FUSED_PROFILED = 4
+#: the device kernels a launch of each hand kernel runs, as the profiler's
+#: trace names them, and how many (the RAFT update step is a chain of 8
+#: launches, ``csrc/raft_update.cu``: N_STAGES); the correlation's routes
+TRACE_KERNELS = {
+    "connected_components": (r"\bk_cc_labels\b", 1),
+    "flood_cc_cid": (r"\bk_flood_cc_cid\b", 1),
+    "union_flood_cc_cid": (r"\bk_union_flood_cc_cid\b", 1),
+    "onehot_stats": (r"\bk_onehot_stats\b", 1),
+    "flow_warp": (r"\bflow_warp_kernel<", 1),
+    "backward_warp": (r"\bbackward_warp_kernel<", 1),
+    "correlation": (r"\b(fma|tc)_kernel<", 1),
+    "raft_update": (r"\btma_conv_kernel<", 8),
+    "graph_if": (r"\bset_condition_kernel\b", 1),
+}
+
+
+def _fused_pair(src, dtype, **kw):
+    """(unfused, fused) engines on the card with the weights of the engine
+    ``src`` (its copies of the model and provider) in ``dtype``; ``kw``
+    goes to ``InferenceEngine`` (``num_streams`` by default ``src``'s)."""
+    import dataclasses
+
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine
+
+    cfg = dataclasses.replace(src.cfg, dtype=dtype, overlay=False,
+                              decode="device", decode_tie_fallback=False)
+    kw.setdefault("num_streams", src.num_streams)
+    return tuple(InferenceEngine(
+        src.model, dataclasses.replace(cfg, fused_dispatch=f),
+        flow_model=src.flow_model, **kw)
+        for f in (False, True))
+
+
+def _step_graphs(engine):
+    """The captured steps of an engine: one, or one per stream shard."""
+    return [e.step_graph for e in getattr(engine, "engines", [engine])]
+
+
+def _graph_pool_mib(engine):
+    """MiB of the card's memory that the captured steps' pools (each
+    graph's and its IF bodies') hold."""
+    import torch
+
+    pools = {tuple(p) for g in _step_graphs(engine)
+             for p in (g.graph.pool(), *g.pools)}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools) / 2 ** 20
+
+
+def _fused_against_unfused(what, pair, frames_dev, smi, depth_dev=None):
+    """Both engines over ``frames_dev`` (device-resident frames, or
+    (B, H, W, 3) stacks; ``depth_dev`` their depth maps): every output
+    byte-equal, one replay a frame after the first fused one (in each
+    shard), no host synchronization from the capture on (the card's sync
+    debug mode set to raise), the same tiers and the same launches. Returns
+    the fused run's launches and fused frames."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import graph_cond
+    from mfcnet_tpu_torch.track import decode_device as dd
+
+    n = len(frames_dev)
+    outs, tiers, launches = {}, {}, {}
+    for name, e in zip(("unfused", "fused"), pair):
+        e.reset()
+        _reset_all_launches()
+        dd.reset_tier_counts()
+        got = []
+        try:
+            for i, f in enumerate(frames_dev):
+                if name == "fused" and i == T:  # captured at frame T-1
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                got.append(e.step_async(
+                    f, None if depth_dev is None else depth_dev[i]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        graph_cond.drain()  # the replays' tiers and IF-body launches
+        tiers[name] = dict(dd.TIER_COUNTS)
+        launches[name] = _all_launches()
+        outs[name] = got
+    fused = pair[1]
+    replays = [g.replays for g in _step_graphs(fused)]
+    differ = {}
+    for a, b in zip(outs["unfused"], outs["fused"]):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}: fused and unfused warm up apart")
+        for k, x, y in zip(("mask", "kps", "heats"), a or (), b or ()):
+            if not torch.equal(x, y):
+                differ[k] = max(differ.get(k, 0.0), (
+                    x.double() - y.double()).abs().max().item())
+    same_launches = {k: v for k, v in launches["fused"].items()
+                     if k != "graph_if"} == {
+        k: v for k, v in launches["unfused"].items() if k != "graph_if"}
+    log(f"[{smi}] fused step, {what}: {n} frames, {replays} replays (one a "
+        f"frame after the first fused frame, per graph), no host sync in "
+        f"them; masks, "
+        f"kps, heats byte-equal to the unfused engine's: "
+        f"{'yes' if not differ else json.dumps(differ)}; tiers fused "
+        f"{json.dumps(tiers['fused'])} unfused {json.dumps(tiers['unfused'])}; "
+        f"launches equal: {same_launches} (graph_if "
+        f"{launches['fused']['graph_if']}); graph pools "
+        f"{_graph_pool_mib(fused):.1f} MiB")
+    if differ:
+        raise AssertionError(f"{what}: fused != unfused {differ}")
+    if set(replays) != {n - T} or tiers["fused"] != tiers["unfused"] \
+            or not same_launches:
+        raise AssertionError(f"{what}: {replays} replays for {n} frames, "
+                             f"tiers {tiers}, launches {launches}")
+    return launches["fused"], n - (T - 1)
+
+
+def _fused_path(paths, key, *args):
+    """One path of phase 12 into ``paths``, its kernels required."""
+    paths[key] = _fused_against_unfused(*args)
+    _require_launches(key, paths[key][0])
+
+
+def _trace_kernel_counts(names, launches, outside_ifs):
+    """{hand kernel: (device kernels of it among the trace's event
+    ``names``, the number its counted ``launches`` make, the number the
+    launches outside IF bodies make)}, for every kernel of
+    :data:`TRACE_KERNELS` that either names."""
+    out = {}
+    for key, (pattern, per) in TRACE_KERNELS.items():
+        found = sum(1 for n in names if re.search(pattern, n))
+        if found or launches[key]:
+            out[key] = (found, launches[key] * per,
+                        outside_ifs.get(key, 0) * per)
+    return out
+
+
+def _outside_ifs(engine, replays):
+    """Launches by kernel name that ``replays`` replays of each captured
+    step of ``engine`` make outside their IF bodies (the replay
+    accounting's own record, ``StepGraph._main``)."""
+    out = {}
+    for g in _step_graphs(engine):
+        for (_, k), v in g._main.items():
+            out[k] = out.get(k, 0) + v * replays
+    return out
+
+
+def _fused_timing(what, pair, frames_dev, smi):
+    """Frames/s of both engines on device-resident frames (host clock, after
+    a warm-up that captures the fused step), and a profiled window of
+    FUSED_PROFILED steps each way (the first of up to 3 sessions whose
+    trace is whole and whose hand kernels agree with the launch counts):
+    the device's busy ms a step (the union of its kernels' spans), its idle
+    share (1 - busy over the window's wall time), and each hand kernel's
+    device kernels in the session's trace against what the launch counts
+    of the same steps make (the fused way's counts are the replay
+    accounting's, ``ops/graph_cond.py``). The fused way must give a whole
+    trace, in which each hand kernel must appear at least as often as the
+    launches outside the IF bodies make and at most as often as all counted
+    launches make: the card's trace loses kernels inside IF bodies (the
+    cooperative launches of ``cc.cu`` most, all of them at 4 streams; the
+    tiers and outputs that need them are checked elsewhere), which is
+    logged as each way's shortfall. Returns {way: {frames_per_s,
+    busy_ms_per_step, ops_per_step, idle_share, trace_short}}."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import graph_cond
+
+    out = {}
+    for name, e in zip(("unfused", "fused"), pair):
+        e.reset()
+        it = iter(range(10 ** 9))
+
+        def one():
+            return e.step_async(frames_dev[next(it) % len(frames_dev)])
+
+        for _ in range(T + 1):
+            one()
+        ms = _host_ms(one, FUSED_TIMED)
+        sessions = []
+        for _ in range(3):
+            _reset_all_launches()
+            _, events, whole, wall, rest = _profiled(
+                lambda: [one() for _ in range(FUSED_PROFILED)], spans=True,
+                outside=True)
+            graph_cond.drain()
+            launches = _all_launches()
+            counts = _trace_kernel_counts(
+                [ev[0] for ev in events] + rest, launches,
+                _outside_ifs(e, FUSED_PROFILED) if name == "fused"
+                else launches)
+            short = {k: v[:2] for k, v in counts.items() if v[0] != v[1]}
+            sessions.append("agree" if whole and not short
+                            else json.dumps(short) if whole else "not whole")
+            if whole and not short:
+                break
+        busy = _busy_ms(events)
+        out[name] = {"frames_per_s": e.num_streams * 1e3 / ms,
+                     "busy_ms_per_step": busy / FUSED_PROFILED,
+                     "ops_per_step": len(events) / FUSED_PROFILED,
+                     "idle_share": 1 - busy / wall if whole else None,
+                     "trace_short": short if whole else None}
+        log(f"[{smi}] {what}, {name}: {out[name]['frames_per_s']:.2f} "
+            f"frames/s in all ({ms:.3f} ms a step of {e.num_streams} "
+            f"frame(s), {FUSED_TIMED} device-resident steps after the "
+            f"warm-up); {FUSED_PROFILED} steps under the profiler: "
+            f"{len(events)} device operations, busy {busy:.2f} of "
+            f"{wall:.2f} ms wall"
+            + (f" (idle share {1 - busy / wall:.1%})" if whole
+               else " (trace not whole: no idle share)")
+            + f"; hand kernels in the trace against the launch counts: "
+            f"{json.dumps(counts)} ({len(rest)} events out of order); "
+            f"sessions {sessions}")
+        if name == "fused" and not whole:
+            raise AssertionError(f"{what}: no whole trace of the fused "
+                                 "steps in 3 sessions")
+        wrong = {k: v for k, v in counts.items() if not v[2] <= v[0] <= v[1]}
+        if whole and wrong:
+            raise AssertionError(
+                f"{what}, {name}: hand kernels in the trace outside [the "
+                f"launches outside IF bodies, all launches]: {wrong}")
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_graph_if(smi):
+    """The IF nodes against their plain version (the flags read on the
+    host): a graph whose step is ``run_if(a, body, orelse)`` with a
+    ``run_if(b, ...)`` nested in ``body`` (the decode's shape), replayed
+    with every pair of flags and counted on the card; a graph of one IF
+    node, its replay time beside the host read's; and no fallback: a step
+    that reads the card from the host fails its capture, and the card works
+    on after it. Returns (max |difference|, (ms, plain ms))."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import graph_cond
+
+    x = torch.zeros(1, device="cuda")
+    a, b = (torch.zeros((), dtype=torch.bool, device="cuda")
+            for _ in range(2))
+
+    def nested(t):
+        def body():
+            t.add_(1.0)
+            graph_cond.run_if(b, lambda: t.add_(10.0),
+                              lambda: t.add_(100.0))
+
+        graph_cond.run_if(a, body, lambda: t.add_(1000.0))
+        return (t,)
+
+    g = graph_cond.StepGraph("cuda")
+    g.capture(lambda: nested(x))
+    graph_cond.reset_launches()
+    err = 0.0
+    for fa, fb in ((False, False), (True, False), (True, True),
+                   (False, True), (True, True)):
+        a.fill_(fa)
+        b.fill_(fb)
+        want = x.clone()
+        nested(want)
+        g.replay()
+        err = max(err, (x - want).abs().max().item())
+    g.drain()
+    # 2 top-level condition kernels a replay, 2 nested in each of the 3
+    # replays with a set
+    if_launches = graph_cond.LAUNCHES["graph_if"]
+    if if_launches != 2 * 5 + 2 * 3:
+        raise AssertionError(f"graph_if: {if_launches} condition kernels "
+                             "counted for 16 run")
+    one = torch.zeros(1, device="cuda")
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    g1 = graph_cond.StepGraph("cuda")
+    g1.capture(lambda: graph_cond.run_if(flag, lambda: one.add_(1.0)))
+    ms = _event_ms(g1.replay, 200)
+    plain = _host_ms(lambda: graph_cond.run_if(flag, lambda: one.add_(1.0)),
+                     200)
+    g1.drain()
+
+    def syncing():
+        return (x + float(x.sum().item()),)
+
+    try:
+        graph_cond.StepGraph("cuda").capture(syncing)
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:120]
+    else:
+        raise AssertionError("a host read inside a captured step did not "
+                             "raise")
+    torch.cuda.synchronize()
+    if (torch.ones(4, device="cuda") * 2).sum().item() != 8.0:
+        raise AssertionError("the card is not usable after a failed capture")
+    log(f"[{smi}] graph_if: an IF node with its else and an if/else nested "
+        f"in it, 5 replays over the four pairs of flags, equal to the "
+        f"host-read version (max |diff| {err}), {if_launches} condition "
+        f"kernels counted; a graph of one IF node (flag off) "
+        f"{ms * 1e3:.2f} us a replay between CUDA events, the host read and "
+        f"skip {plain * 1e3:.2f} us; a syncing step's capture raised: "
+        f"{refused}")
+    if err:
+        raise AssertionError("graph_if != its plain version")
+    return err, (ms, plain)
+
+
+def _tier_class_maps():
+    """(tier, (H, W) class map) at 480x640 for each of the decode's tiers:
+    separate boxes of the four classes (union); a tip blob inside a hole of
+    a base blob's ring inside a hole of another, which the union image
+    cannot hold (per-blob); more than K specks of one class (exact)."""
+    clean = np.zeros((H, W), np.int32)
+    for cls, (y, x) in zip((1, 2, 3, 4), ((40, 60), (40, 400), (300, 60),
+                                          (300, 400))):
+        clean[y:y + 80, x:x + 120] = cls
+    conflict = np.zeros((H, W), np.int32)
+    conflict[80:320, 300:540] = 2
+    conflict[120:280, 340:500] = 0
+    conflict[140:260, 360:480] = 4
+    conflict[180:220, 400:440] = 0
+    conflict[360:460, 40:200] = 1
+    specks = np.zeros((H, W), np.int32)
+    specks[::3, ::3] = 4
+    specks[200:300, 100:400] = 3
+    specks[50:150, 450:600] = 1
+    return (("union", clean), ("per_blob", conflict), ("exact", specks))
+
+
+def _check_decode_tiers(smi):
+    """The device decode captured alone at 480x640, replayed on a class map
+    of each tier: rows equal to the decode run eagerly (its choices read on
+    the host), and ``TIER_COUNTS`` from the card's runs of the branches
+    naming the tier -- the union tier too, which the random models' maps
+    never take. Returns the replays' tiers."""
+    import torch
+
+    from mfcnet_tpu_torch.ops import graph_cond
+    from mfcnet_tpu_torch.track import decode_device as dd
+
+    maps = _tier_class_maps()
+    rng = np.random.default_rng(SEED)
+    probs = torch.from_numpy(rng.random((H, W, 5), np.float32)).cuda()
+    pred = torch.zeros((H, W), dtype=torch.int32, device="cuda")
+    pred.copy_(torch.from_numpy(maps[0][1]))
+    dd.decode_keypoints_device(probs, 100, pred=pred)  # eager first
+    g = graph_cond.StepGraph("cuda")
+    rows = g.capture(lambda: dd.decode_keypoints_device(probs, 100,
+                                                        pred=pred))
+    got = {}
+    for tier, m in maps:
+        pred.copy_(torch.from_numpy(m))
+        dd.reset_tier_counts()
+        want = dd.decode_keypoints_device(probs, 100, pred=pred)
+        eager = dict(dd.TIER_COUNTS)
+        dd.reset_tier_counts()
+        g.replay()
+        same = torch.equal(rows, want)
+        graph_cond.drain()
+        got[tier] = dict(dd.TIER_COUNTS)
+        if not same or got[tier] != eager or got[tier][tier] != 1:
+            raise AssertionError(
+                f"decode tier {tier}: replayed rows equal the eager ones: "
+                f"{same}; tiers replayed {got[tier]}, eager {eager}")
+    dd.reset_tier_counts()
+    log(f"[{smi}] the decode captured alone at {H}x{W}: one replay on a "
+        f"class map of each tier, rows equal to the eager decode's, tiers "
+        f"counted from the card: {json.dumps(got)}")
+    return got
+
+
+def phase_fused_slice(engine, flow_engine, large, streams_engine,
+                      unflow_engine, ffpp_engine, frames, uframes, smi):
+    """Phase 12, ``fused_dispatch``: each main tracker path with its step
+    captured as one CUDA graph against the same path unfused. Returns
+    ({path: (launches, fused frames)}, graph_if's error, its times)."""
+    import torch
+
+    from mfcnet_tpu_torch.utils.profiling import parity_mode
+
+    paths, timings = {}, {}
+    dev = torch.from_numpy(frames).cuda()
+    for what, src in (("no_flow", engine), ("raft", flow_engine)):
+        n = FUSED_FRAMES[what]
+        pair = _fused_pair(src, "bfloat16")
+        _fused_path(paths, f"fused_{what}", f"{what}, bf16", pair, dev[:n],
+                    smi)
+        timings[what] = _fused_timing(f"{what}, bf16", pair, dev[:n], smi)
+        del pair
+        with parity_mode():
+            _fused_against_unfused(f"{what}, f32 (parity mode)",
+                                   _fused_pair(src, "float32"), dev[:n], smi)
+    n = FUSED_FRAMES["streams"]
+    stacks = torch.stack([dev[(torch.arange(n) + 7 * b) % len(dev)]
+                          for b in range(streams_engine.num_streams)], 1)
+    what = f"{streams_engine.num_streams} streams, RAFT, bf16"
+    pair = _fused_pair(streams_engine, "bfloat16")
+    _fused_path(paths, "fused_streams", what, pair, stacks, smi)
+    timings["streams"] = _fused_timing(what, pair, stacks, smi)
+    del pair
+    n = FUSED_FRAMES["large"]
+    _fused_path(paths, "fused_large", "Large, RAFT and depth, bf16",
+                _fused_pair(large[0], "bfloat16"), dev[:n], smi,
+                torch.from_numpy(large[1][:n]).cuda())
+    # two stream shards on this one card: a graph each
+    n = FUSED_FRAMES["shards"]
+    _fused_against_unfused(
+        "2 streams over 2 stream shards (both on cuda:0), no flow, bf16",
+        _fused_pair(engine, "bfloat16", num_streams=2, stream_shards=2,
+                    devices=["cuda:0", "cuda:0"]),
+        torch.stack([dev[:n], dev[n:2 * n]], 1), smi)
+    udev = torch.from_numpy(uframes[:FUSED_FRAMES["unflow"]]).cuda()
+    _fused_path(paths, "fused_unflow", "UnFlow, bf16",
+                _fused_pair(unflow_engine, "bfloat16"), udev, smi)
+    _fused_path(paths, "fused_ffpp", "FFPP, bf16",
+                _fused_pair(ffpp_engine, "bfloat16"),
+                dev[:FUSED_FRAMES["ffpp"]], smi)
+    err, times = _check_graph_if(smi)
+    _check_decode_tiers(smi)
+    log(json.dumps({"fused_step_timings": timings}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return paths, err, times
+
+
 def main():
     # the port itself, from this checkout (fails in a bare directory)
     import mfcnet_tpu_torch  # noqa: F401
@@ -6894,6 +7383,13 @@ def main():
         library.update(lib)
     phase_ffpp_timings(ffpp_engine, frames, smi)
     done("phase 4")
+    fused_paths, errs["graph_if"], times["graph_if"] = phase_fused_slice(
+        engine, flow_engine, (large_engine, large_depth), streams_engine,
+        unflow_engine, ffpp_engine, frames, uframes, smi)
+    # one byte of flag read, the 8-byte run counter read and written
+    bounds["graph_if"] = (17 / PEAK_BYTES * 1e3, "bytes")
+    library["graph_if"] = None
+    done("phase 12")
     zoo_paths = phase_zoo_slice(engine, frames, smi)
     done("phase 6")
     zoo_paths.update(phase_zoo10b_slice(engine, frames, smi))
@@ -6931,6 +7427,7 @@ def main():
              "unflow_grad": (launches_grad, n_grad),
              # per micro-step and rank
              "train_ddp": (launches_ddp, n_ddp),
+             **fused_paths,
              **zoo_paths}
     log(smi)
     log(json.dumps({"kernels": [

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from mfcnet_tpu_torch.ops._build import (
+    counted,
     kernel_lib,
     route,
     sm_count,
@@ -33,7 +34,7 @@ from mfcnet_tpu_torch.ops._build import (
 )
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"conv3x3": 0}
+LAUNCHES = counted({"conv3x3": 0})
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -29,6 +29,7 @@ from mfcnet_tpu_torch.experimental.conv3x3 import (
     stage1_plan,
 )
 from mfcnet_tpu_torch.ops._build import (
+    counted,
     kernel_lib,
     route,
     sm_count,
@@ -36,7 +37,7 @@ from mfcnet_tpu_torch.ops._build import (
 )
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"vgg_stage1": 0}
+LAUNCHES = counted({"vgg_stage1": 0})
 
 
 def reset_launches():

@@ -105,9 +105,14 @@ def all_pairs_correlation(f1, f2):
     B, H, W, C = f1.shape
     a = f1.reshape(B, H * W, C).float()
     b = f2.reshape(B, H * W, C).float()
-    corr = torch.bmm(a, b.transpose(1, 2)) / torch.sqrt(
-        torch.tensor(float(C), device=a.device))
+    corr = torch.bmm(a, b.transpose(1, 2)) / _sqrt_channels(C, a.device)
     return corr.reshape(B, H * W, H, W)
+
+
+def _sqrt_channels(C: int, device) -> torch.Tensor:
+    """sqrt(C) as a float32 tensor made on ``device`` (a fill, no copy from
+    the host), so that a solve captures into a CUDA graph."""
+    return torch.full((), float(C), dtype=torch.float32, device=device).sqrt()
 
 
 def _avg_pool2(x):
@@ -135,6 +140,29 @@ def num_corr_levels(h8: int, w8: int, num_levels: int = 4) -> int:
     return n
 
 
+def _pyramid_index(sizes, K1: int, device):
+    """The index constants of a :class:`PackedPyramid` whose levels have
+    the (H, W) ``sizes``: each level's scale, flat start (``base``), padded
+    width (``wp``), largest window start (``hi``, (x, y)) and the (2r+2)^2
+    window offsets. Made on ``device`` by arithmetic on an arange, with
+    nothing copied from the host, so that a solve captures into a CUDA
+    graph: level l must be (H >> l, W >> l), as :func:`_avg_pool2` makes
+    it from level 0's (H, W)."""
+    H, W = sizes[0]
+    L = len(sizes)
+    lvl = torch.arange(L, device=device)
+    hl, wl = H // 2 ** lvl, W // 2 ** lvl
+    wp = wl + 2 * K1
+    area = (hl + 2 * K1) * wp
+    ar = torch.arange(K1, device=device)
+    offs = ar.view(1, K1, 1) * wp.view(L, 1, 1) + ar.view(1, 1, K1)
+    return ((0.5 ** lvl.float()).view(1, L, 1),
+            (area.cumsum(0) - area).view(1, L),
+            wp.view(1, L),
+            torch.stack([wl + K1, hl + K1], dim=-1).float().view(1, L, 2),
+            offs.view(1, L, K1 * K1))
+
+
 class PackedPyramid:
     """A correlation pyramid laid out for one gather per lookup.
 
@@ -153,28 +181,12 @@ class PackedPyramid:
         dev = pyramid[0].device
         B, N = pyramid[0].shape[:2]
         self.radius = radius
-        vols, base, wp, hi, offs = [], [], [], [], []
-        ar = torch.arange(K1, device=dev)
-        total = 0
-        for corr in pyramid:
-            Hl, Wl = corr.shape[-2:]
-            Hp, Wp = Hl + 2 * K1, Wl + 2 * K1
-            vols.append(F.pad(corr, (K1, K1, K1, K1)).reshape(B * N, Hp * Wp))
-            base.append(total)
-            wp.append(Wp)
-            hi.append((Wl + K1, Hl + K1))  # largest window start (x, y)
-            offs.append((ar.view(K1, 1) * Wp + ar.view(1, K1)).reshape(-1))
-            total += Hp * Wp
-        self.vol = torch.cat(vols, dim=1)
-        L = len(pyramid)
-        self.levels = L
-        self.scale = (0.5 ** torch.arange(L, device=dev,
-                                          dtype=torch.float32)).view(1, L, 1)
-        self.base = torch.tensor(base, device=dev).view(1, L)
-        self.wp = torch.tensor(wp, device=dev).view(1, L)
-        self.hi = torch.tensor(hi, device=dev, dtype=torch.float32).view(
-            1, L, 2)
-        self.offs = torch.stack(offs).view(1, L, K1 * K1)
+        self.vol = torch.cat(
+            [F.pad(corr, (K1, K1, K1, K1)).reshape(B * N, -1)
+             for corr in pyramid], dim=1)
+        self.levels = len(pyramid)
+        self.scale, self.base, self.wp, self.hi, self.offs = _pyramid_index(
+            [tuple(corr.shape[-2:]) for corr in pyramid], K1, dev)
 
     def lookup(self, coords):
         """coords (B, H, W, 2) -> (B, H, W, levels*(2r+1)^2), see

@@ -114,6 +114,12 @@ _SIGNATURES = {
             (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), _I,
         ),
     },
+    "graph_cond.cu": {
+        # flag, runs, negate, stream, body stream
+        "mfc_graph_if_begin": ((_P, _P, _I, _P, _P), _I),
+        # body stream
+        "mfc_graph_if_end": ((_P,), _I),
+    },
     "stage1.cu": {
         # x, k1, b1, k2, b2, out, B, H, W, cin, C1, dtype, plan[11], stream
         "mfc_vgg_stage1": (
@@ -214,6 +220,20 @@ def route(*tensors) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type
+
+
+#: every count of launches the port keeps (each wrapper's ``LAUNCHES``, the
+#: RAFT update step's ``COUNTS``, the device decode's ``TIER_COUNTS``), each
+#: registered by :func:`counted` where it is made. A captured step
+#: (``ops/graph_cond.py``) counts once at its capture what a replay does,
+#: so it reads them all
+COUNTERS = []
+
+
+def counted(counts: dict) -> dict:
+    """Register a dict of counts in :data:`COUNTERS` and return it."""
+    COUNTERS.append(counts)
+    return counts
 
 
 def traced(*tensors) -> bool:

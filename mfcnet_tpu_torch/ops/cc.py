@@ -38,6 +38,7 @@ import torch
 import ctypes
 
 from mfcnet_tpu_torch.ops._build import (
+    counted,
     kernel_lib as _lib,
     route as _route,
     sm_count as _sm_count,
@@ -45,12 +46,12 @@ from mfcnet_tpu_torch.ops._build import (
 )
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES = {
+LAUNCHES = counted({
     "connected_components": 0,
     "flood_cc_cid": 0,
     "union_flood_cc_cid": 0,
     "onehot_stats": 0,
-}
+})
 
 #: largest slot count the stats kernel's shared-memory sums hold (48 KB)
 MAX_K = 1024

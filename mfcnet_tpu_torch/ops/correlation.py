@@ -105,10 +105,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of
+from mfcnet_tpu_torch.ops._build import counted, kernel_lib, route, stream_of
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {"correlation": 0, "correlation_bwd": 0}
+LAUNCHES = counted({"correlation": 0, "correlation_bwd": 0})
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -45,16 +45,22 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from mfcnet_tpu_torch.ops._build import kernel_lib, route, stream_of, traced
+from mfcnet_tpu_torch.ops._build import (
+    counted,
+    kernel_lib,
+    route,
+    stream_of,
+    traced,
+)
 
 #: kernel launches since the last :func:`reset_launches` (one per call of
 #: :func:`raft_update` on CUDA tensors)
-LAUNCHES = {"raft_update": 0}
+LAUNCHES = counted({"raft_update": 0})
 #: how many of those calls also wrote ``hx[:, 0:256] = [net | inp]`` (once
 #: per solve with an :class:`UpdateWorkspace`), and how many ran the kernel
 #: on wgmma and TMA (every one: bfloat16 products, or float32 ones as three
 #: TF32 passes)
-COUNTS = {"hx_fills": 0, "wgmma": 0}
+COUNTS = counted({"hx_fills": 0, "wgmma": 0})
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _T3 = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))

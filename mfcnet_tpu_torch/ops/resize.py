@@ -37,8 +37,9 @@ def _repeat_factor(in_size: int, out_size: int) -> int:
 
 def resize_nearest(img, out_h: int, out_w: int):
     """Nearest-neighbour resize of (..., H, W). An integer upscale (the
-    UNets' 2x) repeats each pixel k x l times on the device, with no
-    index to copy from the host, so it captures into a CUDA graph."""
+    UNets' 2x) repeats each pixel k x l times on the device; any other size
+    gathers by an index computed there (:func:`_nearest_index_on`).
+    Neither copies from the host, so both capture into a CUDA graph."""
     in_h, in_w = img.shape[-2:]
     if (in_h, in_w) == (out_h, out_w):
         return img
@@ -47,9 +48,19 @@ def resize_nearest(img, out_h: int, out_w: int):
         lead = img.shape[:-2]
         return img[..., :, None, :, None].expand(
             *lead, in_h, k, in_w, l).reshape(*lead, out_h, out_w)
-    rows = torch.from_numpy(_nearest_index(in_h, out_h)).to(img.device)
-    cols = torch.from_numpy(_nearest_index(in_w, out_w)).to(img.device)
+    rows = _nearest_index_on(in_h, out_h, img.device)
+    cols = _nearest_index_on(in_w, out_w, img.device)
     return img.index_select(-2, rows).index_select(-1, cols)
+
+
+def _nearest_index_on(in_size: int, out_size: int, device) -> torch.Tensor:
+    """:func:`_nearest_index` computed on ``device``: the same float64
+    product and floor, so the same integers, with nothing copied from the
+    host, so that it captures into a CUDA graph (the tracker's
+    half-resolution downsample)."""
+    dst = torch.arange(out_size, dtype=torch.float64, device=device)
+    src = torch.floor(dst * (in_size / out_size)).to(torch.int64)
+    return src.clamp_(0, in_size - 1)
 
 
 def resize_bilinear(img, out_h: int, out_w: int, align_corners: bool = False):

@@ -104,6 +104,7 @@ from typing import NamedTuple
 import torch
 
 from mfcnet_tpu_torch.ops._build import (
+    counted,
     kernel_lib,
     route,
     sm_count,
@@ -112,9 +113,9 @@ from mfcnet_tpu_torch.ops._build import (
 )
 
 #: kernel launches per entry point since the last :func:`reset_launches`
-LAUNCHES = {"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
-            "flow_warp_bwd_maps": 0, "flow_warp_bwd_flow": 0,
-            "sample_bwd_img": 0, "sample_bwd_coords": 0}
+LAUNCHES = counted({"flow_warp": 0, "warp_abs": 0, "backward_warp": 0,
+                    "flow_warp_bwd_maps": 0, "flow_warp_bwd_flow": 0,
+                    "sample_bwd_img": 0, "sample_bwd_coords": 0})
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

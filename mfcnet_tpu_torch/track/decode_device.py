@@ -19,14 +19,21 @@ Component stats come from three tiers, each exact:
   3. the exact tier (:func:`_decode_keypoints_exact`) when a blob holds
      more than K components.
 
-The JAX package picks the tier on the device with ``lax.cond``; here the
-flags are read on the host once per call (one small sync) and the
-branch runs eagerly. A call with leading dimensions (the engine's B
-streams) decodes in lockstep, as the JAX package does: the one host read
-picks the tier for all of them, and any stream's conflict or overflow
+The JAX package picks the tier on the device with ``lax.cond``, a
+``lax.cond`` for the exact tier inside the per-blob branch. Here the same
+two choices are :func:`mfcnet_tpu_torch.ops.graph_cond.run_if`: where
+nothing is captured each reads its flag on the host (one small sync a
+call, two when the per-blob tier runs) and runs its branch eagerly; inside
+the tracker's captured step (``fused_dispatch``) they are IF nodes of the
+CUDA graph, whose flags the card reads, and each call runs the tail of
+its one tier. A call with leading dimensions (the
+engine's B streams) decodes in lockstep, as the JAX package does: one
+choice of tier for all of them, and any stream's conflict or overflow
 sends every stream to the per-blob tier. Every tier is exact, so no row
 depends on the tier. :data:`TIER_COUNTS` counts the calls (the engine's
-steps, not frames) each tier decoded.
+steps, not frames) each tier decoded; a captured step's tiers are counted
+from the card's runs of its branches when the tracker fetches results
+(:func:`mfcnet_tpu_torch.ops.graph_cond.drain`).
 
 Ties in every top-k resolve to the lowest index, as ``jax.lax.top_k``
 does: a stable descending sort, first k.
@@ -40,16 +47,19 @@ from __future__ import annotations
 
 import torch
 
+from mfcnet_tpu_torch.ops import graph_cond
+from mfcnet_tpu_torch.ops._build import counted
 from mfcnet_tpu_torch.ops.cc import base_stats, connected_components, union_stats
 from mfcnet_tpu_torch.ops.peaks import gaussian_blur, local_maxima
 
 #: decode calls (engine steps) of each tier since the last reset
-TIER_COUNTS = {"union": 0, "per_blob": 0, "exact": 0}
+TIER_COUNTS = counted({"union": 0, "per_blob": 0, "exact": 0})
 #: component slots of the union and per-blob tiers
 K_SLOTS = 256
 
 
 def reset_tier_counts():
+    graph_cond.drain()  # a captured step's calls before the reset
     for k in TIER_COUNTS:
         TIER_COUNTS[k] = 0
 
@@ -215,38 +225,21 @@ def _decode_keypoints_exact(masks4, heats, area_threshold,
     )
 
 
-def _decode_per_blob(masks4, heats, area_threshold):
-    """Per-blob tier, or the exact tier when a blob overflows K slots."""
-    stats, ncomp4, cid4 = base_stats(masks4, K=K_SLOTS, return_cid=True)
-    if bool((ncomp4 > K_SLOTS).any()):
-        TIER_COUNTS["exact"] += 1
-        return _decode_keypoints_exact(masks4, heats, area_threshold)
-    TIER_COUNTS["per_blob"] += 1
-    return _keypoints_from_stats(
-        masks4, heats, stats[..., 0, :], stats[..., 1, :],
-        stats[..., 2, :], stats[..., 3, :], stats[..., 4, :], cid4,
-        area_threshold,
-    )
-
-
-def _decode_keypoints_union(pred, masks4, heats, area_threshold):
-    """Three-tier decode. The four class blobs are disjoint, so one union
-    pass labels them all (class image 1=l-base, 2=r-base, 3=l-tip,
-    4=r-tip, the masks4 order); slot order stays raster within each
-    class, so every top-k tie-break matches the per-blob path."""
-    lead4 = masks4.shape[:-2]
-    H, W = masks4.shape[-2:]
+def _union_class_image(pred):
+    """The four disjoint class blobs as one class image in the masks4 order
+    (1=l-base, 2=r-base, 3=l-tip, 4=r-tip), int8."""
     zero = torch.zeros_like(pred)
-    ucls = torch.where(
+    return torch.where(
         pred == 3, 1,
         torch.where(pred == 1, 2,
                     torch.where(pred == 4, 3, torch.where(pred == 2, 4, zero))),
     ).to(torch.int8)
-    stats, ccls, ncomp, conflict, cid = union_stats(ucls, K=K_SLOTS)
-    # the frame's one host sync: which tier decodes it
-    if bool((conflict | (ncomp > K_SLOTS)).any()):
-        return _decode_per_blob(masks4, heats, area_threshold)
-    TIER_COUNTS["union"] += 1
+
+
+def _union_rows(masks4, heats, stats, ccls, cid, area_threshold):
+    """The union tier's rows from :func:`union_stats`' outputs."""
+    lead4 = masks4.shape[:-2]
+    H, W = masks4.shape[-2:]
     classes = torch.arange(1, 5, dtype=ccls.dtype, device=ccls.device)
     clsmask = ccls[..., None, :] == classes[:, None]  # (..., 4, K)
 
@@ -258,6 +251,47 @@ def _decode_keypoints_union(pred, masks4, heats, area_threshold):
         masks4, heats, per_cls(0), per_cls(1), per_cls(2), per_cls(3),
         per_cls(4), ids4, area_threshold,
     )
+
+
+def _decode_keypoints(pred, masks4, heats, area_threshold):
+    """Three-tier decode (``_decode_keypoints_union`` of the JAX package).
+    The four class blobs are disjoint, so one union pass labels them all
+    (:func:`_union_class_image`); slot order stays raster within each
+    class, so every top-k tie-break matches the per-blob path. The union
+    tier's rows when its image holds the frame, else the per-blob tier's
+    stats and, when no blob overflows its K slots, their rows, else the
+    exact tier's rows: each choice a
+    :func:`~mfcnet_tpu_torch.ops.graph_cond.run_if`."""
+    stats, ccls, ncomp, conflict, cid = union_stats(
+        _union_class_image(pred), K=K_SLOTS)
+    rows = torch.empty(masks4.shape[:-3] + (2, 3, 3), dtype=torch.float32,
+                       device=masks4.device)
+
+    def union():
+        TIER_COUNTS["union"] += 1
+        rows.copy_(_union_rows(masks4, heats, stats, ccls, cid,
+                               area_threshold))
+
+    def per_blob():
+        stats4, ncomp4, cid4 = base_stats(masks4, K=K_SLOTS, return_cid=True)
+
+        def blob_rows():
+            TIER_COUNTS["per_blob"] += 1
+            rows.copy_(_keypoints_from_stats(
+                masks4, heats, stats4[..., 0, :], stats4[..., 1, :],
+                stats4[..., 2, :], stats4[..., 3, :], stats4[..., 4, :],
+                cid4, area_threshold,
+            ))
+
+        def exact():
+            TIER_COUNTS["exact"] += 1
+            rows.copy_(_decode_keypoints_exact(masks4, heats,
+                                               area_threshold))
+
+        graph_cond.run_if((ncomp4 > K_SLOTS).any(), exact, blob_rows)
+
+    graph_cond.run_if((conflict | (ncomp > K_SLOTS)).any(), per_blob, union)
+    return rows
 
 
 def decode_keypoints_device(probs, area_threshold_x10: int = 100,
@@ -275,4 +309,4 @@ def decode_keypoints_device(probs, area_threshold_x10: int = 100,
     masks4 = torch.stack([pred == 3, pred == 1, pred == 4, pred == 2],
                          dim=-3)
     heats = torch.stack([probs[..., 4], probs[..., 2]], dim=-3)
-    return _decode_keypoints_union(pred, masks4, heats, area_threshold)
+    return _decode_keypoints(pred, masks4, heats, area_threshold)

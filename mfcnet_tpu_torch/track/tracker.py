@@ -40,11 +40,9 @@ import numpy as np
 import torch
 
 from mfcnet_tpu_torch.configs.parsers import SPATIAL_SHARDS_LEFT_OUT
+from mfcnet_tpu_torch.ops import graph_cond
 
-_ROADMAP = {
-    "spatial_shards": SPATIAL_SHARDS_LEFT_OUT,
-    "fused_dispatch": "ROADMAP.md Queue 1 item 11a (the step as a CUDA graph)",
-}
+_ROADMAP = {"spatial_shards": SPATIAL_SHARDS_LEFT_OUT}
 
 
 @dataclasses.dataclass
@@ -73,6 +71,11 @@ class TrackerConfig:
     output_fps: int = 30
     overlay: bool = True
     spatial_shards: int = 1
+    #: incremental mode: each frame after the warm-up runs ingest, fusion
+    #: and outputs as one CUDA graph replay on the card (the first such
+    #: frame runs eagerly, then the step is captured), with the device
+    #: decode's tier chosen on the card; eagerly on the CPU. Outputs are
+    #: identical. Full mode ignores it, as the JAX package's does
     fused_dispatch: bool = False
 
     def check_ported(self):
@@ -421,7 +424,9 @@ class TrackingEngine:
         out = self.step_async(frame_u8, depth_u8)
         if out is None:
             return None
-        return tuple(v.cpu().numpy() for v in out)
+        out = tuple(v.cpu().numpy() for v in out)
+        graph_cond.drain()
+        return out
 
 
 class InferenceEngine(TrackingEngine):
@@ -479,7 +484,19 @@ class InferenceEngine(TrackingEngine):
     ``IncrementalStep``'s ingest and fusion in incremental mode,
     ``WindowServing`` in full mode), run here on the engine's own copies;
     only the flow provider's ring of incremental mode is the engine's
-    own."""
+    own. Every ring is a tensor the engine keeps for its life: a step writes
+    it in place and :meth:`reset` zeroes it.
+
+    ``cfg.fused_dispatch`` (incremental mode): each frame after the warm-up
+    is copied into a static input tensor and runs ingest, fusion and
+    outputs as one step (:meth:`_fused_step`). On the card the first such
+    frame runs eagerly, the step is then captured as one CUDA graph
+    (``ops/graph_cond.py::StepGraph``; the decode's choices of tier are IF
+    nodes of it) and every later frame, of this video or of the next after
+    :meth:`reset`, is one replay whose outputs are copied out; a capture
+    that fails (a host synchronization or a copy from the host inside the
+    step) raises. On the CPU the step runs eagerly. The outputs are those
+    of the engine without it."""
 
     def __new__(cls, model, cfg, flow_model=None, device="cuda",
                 num_streams=1, stream_shards=1, devices=None):
@@ -536,25 +553,52 @@ class InferenceEngine(TrackingEngine):
         self.flow_model = self.serving.flow_model
         #: split encoders: keep a feature ring; otherwise a frame ring
         self.flow_split = hasattr(self.flow_model, "flow_from_features")
+        self._fused = bool(cfg.fused_dispatch) and self.mode == "incremental"
+        #: the captured step (``ops/graph_cond.py::StepGraph``) and the
+        #: tensors each of its replays writes
+        self.step_graph = None
+        self._graph_out = None
+        self.seg_buf = None
         self.reset()
 
     def _reset_state(self):
         """Zero the ring buffers (start of a video, or of a group of B
-        videos)."""
+        videos): made at the first reset, zeroed in place at the others, so
+        that a captured step keeps its tensors."""
+        if self.seg_buf is not None:
+            for t in self._state_tensors():
+                t.zero_()
+            return
         cfg = self.cfg
         B, T, C = self.num_streams, cfg.num_input_frames, cfg.num_classes
         H, W = cfg.input_height, cfg.input_width
-        self.seg_buf = torch.zeros(B, T * C, H, W, dtype=self.dtype,
-                                   device=self.device)
-        self.depth_buf = (
-            torch.zeros(B, T, H, W, dtype=self.dtype, device=self.device)
-            if cfg.add_depth_inputs else None
-        )
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros(*shape, dtype=dtype, device=self.device)
+
+        self.seg_buf = zeros(B, T * C, H, W)
+        self.depth_buf = zeros(B, T, H, W) if cfg.add_depth_inputs else None
         # split encoders: (feat_buf (B, T, h, w, 256), net, inp) (for
         # FlowFormer++ its context features and a placeholder); otherwise
-        # the (B, T, 3, H, W) ring of normalized frames. Filled by the
-        # first T ingests, before the first fuse reads it
+        # the (B, T, 3, H, W) ring of normalized frames. Made by the first
+        # ingest (its shapes are the provider's); the first T ingests fill
+        # it before the first fuse reads it
         self.flow_state = None
+        # the fused step's static inputs: a (B, H, W, 3) frame and its
+        # (B, H, W) depth
+        self._frame_in = self._depth_in = None
+        if self._fused:
+            self._frame_in = zeros(B, H, W, 3, dtype=torch.uint8)
+            if cfg.add_depth_inputs:
+                self._depth_in = zeros(B, H, W, dtype=torch.uint8)
+
+    def _state_tensors(self):
+        flow = self.flow_state
+        if torch.is_tensor(flow):
+            flow = (flow,)
+        return [t for t in (self.seg_buf, self.depth_buf, *(flow or ()),
+                            self._frame_in, self._depth_in)
+                if t is not None]
 
     def _normalize(self, frames_u8):
         """(N, H, W, 3) uint8 -> (N, 3, H, W) normalized, engine dtype."""
@@ -574,23 +618,15 @@ class InferenceEngine(TrackingEngine):
         from mfcnet_tpu_torch.track import outputs as out
 
         cfg = self.cfg
-        T = cfg.num_input_frames
-        x, self.seg_buf, self.depth_buf = self.serving.ingest(
+        x, seg_buf, depth_buf = self.serving.ingest(
             self.seg_buf, self.depth_buf, frame, depth)
+        self.seg_buf.copy_(seg_buf)
+        if depth_buf is not None:
+            self.depth_buf.copy_(depth_buf)
         if cfg.add_optflow_inputs and self.flow_split:
-            f_new, net, inp = out.flow_ingest(x, self.flow_model)
-            if self.flow_state is None:
-                feat_buf = f_new[:, None].repeat(1, T, 1, 1, 1)
-            else:
-                feat_buf = torch.cat(
-                    [f_new[:, None], self.flow_state[0][:, : T - 1]], dim=1)
-            self.flow_state = (feat_buf, net, inp)
+            self._push_flow_ring(out.flow_ingest(x, self.flow_model))
         elif cfg.add_optflow_inputs:
-            if self.flow_state is None:
-                self.flow_state = x[:, None].repeat(1, T, 1, 1, 1)
-            else:
-                self.flow_state = torch.cat(
-                    [x[:, None], self.flow_state[:, : T - 1]], dim=1)
+            self._push_flow_ring((x,))
         if not ready:
             return None
         optflow = None
@@ -601,6 +637,55 @@ class InferenceEngine(TrackingEngine):
         elif cfg.add_optflow_inputs:
             optflow = out.flow_for_window(self.flow_state, self.flow_model)
         return self.serving.fuse(self.seg_buf, self.depth_buf, optflow)
+
+    def _push_flow_ring(self, new):
+        """The provider's ring, newest first: ``new`` is (features, net,
+        inp) of the new frame with split encoders (its features go into the
+        ring, its context state replaces the last one), else (its
+        normalized frame,). Written in place."""
+        T = self.cfg.num_input_frames
+        if self.flow_state is None:
+            ring = torch.zeros((new[0].shape[0], T) + new[0].shape[1:],
+                               dtype=new[0].dtype, device=new[0].device)
+            self.flow_state = ((ring,) + tuple(torch.zeros_like(v)
+                                               for v in new[1:])
+                               if self.flow_split else ring)
+        state = self.flow_state if self.flow_split else (self.flow_state,)
+        ring = state[0]
+        ring.copy_(torch.cat([new[0][:, None], ring[:, : T - 1]], dim=1))
+        for kept, v in zip(state[1:], new[1:]):
+            kept.copy_(v)
+
+    def _fused_step(self):
+        """Ingest, fusion and outputs of a frame after the warm-up, from the
+        static inputs: what ``fused_dispatch`` captures."""
+        return self._outputs(self._incremental(self._frame_in, self._depth_in,
+                                               True))
+
+    @torch.no_grad()
+    def step_async(self, frame_u8, depth_u8=None):
+        """:meth:`TrackingEngine.step_async`; with ``fused_dispatch`` a
+        frame after the warm-up runs :meth:`_fused_step` (see the class)."""
+        if not self._fused or self._count + 1 < self.cfg.num_input_frames:
+            return super().step_async(frame_u8, depth_u8)
+        self._count += 1
+        self._frame_in.copy_(torch.as_tensor(frame_u8).reshape(
+            self._frame_in.shape))
+        if self._depth_in is not None:
+            if depth_u8 is None:
+                self._depth_in.zero_()
+            else:
+                self._depth_in.copy_(torch.as_tensor(depth_u8).reshape(
+                    self._depth_in.shape))
+        if self.step_graph is not None:
+            self.step_graph.replay()
+            return tuple(t.clone() for t in self._graph_out)
+        out = self._fused_step()
+        if self.device.type == "cuda":
+            graph = graph_cond.StepGraph(self.device)
+            self._graph_out = graph.capture(self._fused_step)
+            self.step_graph = graph
+        return out
 
 
 def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
@@ -636,6 +721,7 @@ def _staged_fetch_loop(dispatch_seq, on_skip, consume, need_mask, K):
         staged = None
         masks_np = masks.cpu().numpy() if masks is not None else None
         auxs_np = auxs.cpu().numpy()
+        graph_cond.drain()
         for k, payload in enumerate(payloads):
             consume(payload,
                     masks_np[k] if masks_np is not None else None,

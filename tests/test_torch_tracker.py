@@ -106,13 +106,28 @@ def test_incremental_equals_full_and_warmup(tmp_path, golden_model):
 def test_tracker_rejects_unported_options(golden_model):
     from mfcnet_tpu_torch.track.tracker import InferenceEngine
 
-    for kw in ({"spatial_shards": 2}, {"fused_dispatch": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(golden_model, _cfg(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InferenceEngine(golden_model, _cfg(spatial_shards=2), device="cpu")
     # the flow path is ported: it asks for its provider
     with pytest.raises(ValueError, match="flow_model"):
         InferenceEngine(golden_model, _cfg(add_optflow_inputs=True),
                         device="cpu")
+
+
+def test_tracker_accepts_fused_dispatch(golden_model, golden_frames):
+    """fused_dispatch is ported: the engine takes it and its first fused
+    frame gives the outputs of the engine without it."""
+    from mfcnet_tpu_torch.track.tracker import InferenceEngine
+
+    eng = InferenceEngine(golden_model, _cfg(fused_dispatch=True,
+                                             decode="device", overlay=False),
+                          device="cpu")
+    ref = InferenceEngine(golden_model, _cfg(decode="device", overlay=False),
+                          device="cpu")
+    for f in golden_frames[:T]:
+        got, want = eng.step(f), ref.step(f)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_entry_points_default_to_the_card(tmp_path, golden_model,
